@@ -1,0 +1,147 @@
+"""Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/*.cu`` source has a plain ``extern "C"`` launcher interface and
+compiles on its own into a shared library for ``sm_90a``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so csrc/<name>.cu
+
+No PyTorch headers are included (a source that includes them takes minutes
+to compile instead of seconds), and ``torch.utils.cpp_extension`` is not
+used. Libraries are built at first use into ``build/torch_kernels/`` at the
+root of the checkout, keyed by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one loads. All sources are compiled
+together, one ``nvcc`` process each, the first time any kernel is needed.
+
+Every launcher takes its pointers and the stream as ``void*`` and returns
+``cudaGetLastError()`` after the launch; ``KernelLibrary.launch`` turns a
+non-zero code into an exception. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Launcher name -> (source stem, argtypes). The stream is the last argument.
+LAUNCHERS = {
+    "bilstm_infer_fwd": ("bilstm_infer", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "attn_fwd": ("attn_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+}
+SOURCES = tuple(sorted({stem for stem, _ in LAUNCHERS.values()}))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (CUDA_HOME, /usr/local/cuda/bin, PATH): the CUDA "
+            "kernels of this package are compiled at first use"
+        )
+    return found
+
+
+def _lib_path(stem: str) -> Path:
+    src = (CSRC / f"{stem}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{stem}-{h}.so"
+
+
+class KernelLibrary:
+    """The loaded launchers of every source. ``build()`` compiles whatever
+    is missing in parallel and records the seconds it took."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._fns: dict | None = None
+        self._error_string = None
+        self.build_seconds = 0.0
+
+    def build(self) -> dict:
+        with self._lock:
+            if self._fns is None:
+                self._fns = self._build_and_load()
+            return self._fns
+
+    def _build_and_load(self) -> dict:
+        t0 = time.monotonic()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = {stem: _lib_path(stem) for stem in SOURCES}
+        procs = []
+        for stem, out in todo.items():
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+            procs.append((stem, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        errors = []
+        for stem, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {stem}.cu (rc {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        libs = {stem: ctypes.CDLL(str(path)) for stem, path in todo.items()}
+        fns = {}
+        for name, (stem, argtypes) in LAUNCHERS.items():
+            fn = getattr(libs[stem], name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        # cudaGetErrorString, exported by every source as <stem>_error_string.
+        err = getattr(libs[SOURCES[0]], f"{SOURCES[0]}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._error_string = err
+        self.build_seconds = time.monotonic() - t0
+        return fns
+
+    def launch(self, name: str, *args) -> None:
+        """Call launcher ``name``; raise if it reports a CUDA error (a
+        refused launch never runs, and a later synchronize would not say so)."""
+        code = self.build()[name](*args)
+        if code != 0:
+            msg = self._error_string(code).decode()
+            raise RuntimeError(f"{name}: CUDA error {code} ({msg}) at launch")
+
+
+LIBRARY = KernelLibrary()
+
+
+def check_cuda_tensors(name: str, *tensors) -> None:
+    """A launcher takes raw pointers: every tensor must be contiguous and
+    on one CUDA device, or ``name`` raises before anything is launched."""
+    dev = tensors[0].device
+    for x in tensors:
+        if x.device.type != "cuda" or x.device != dev:
+            raise RuntimeError(
+                f"{name}: every tensor must lie on one CUDA device, got {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

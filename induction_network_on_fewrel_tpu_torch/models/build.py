@@ -1,0 +1,99 @@
+"""Model factory: ExperimentConfig -> InductionNetwork on a device.
+
+Counterpart of ``induction_network_on_fewrel_tpu/models/build.py`` for
+``--model induction --encoder bilstm``; other models and encoders come with
+later slices and are refused by name.
+
+Device rule: ``device=None`` means "cuda". Without CUDA that raises, unless
+the caller asked for ``device="cpu"`` explicitly: there is no silent CPU
+fall back on the entry points.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+from induction_network_on_fewrel_tpu_torch.models.embedding import Embedding
+from induction_network_on_fewrel_tpu_torch.models.encoders import BiLSTMSelfAttnEncoder
+from induction_network_on_fewrel_tpu_torch.models.induction import InductionNetwork
+from induction_network_on_fewrel_tpu_torch.ops.core import resolve_backend
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device=None) -> torch.device:
+    """None -> cuda. A CUDA device without CUDA raises RuntimeError."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: this entry point runs on the GPU by "
+            "default; pass device='cpu' to run the plain PyTorch path on the CPU"
+        )
+    return dev
+
+
+def resolve_runtime_backends(cfg: ExperimentConfig, device) -> dict:
+    """ONE home for the encoder's kernel backend knobs (counterpart of the
+    JAX ``resolve_runtime_backends``). Each of ``lstm_backend`` and
+    ``attn_backend`` is ``auto | reference | cuda``:
+
+    =========  ==============================================================
+    auto       the hand-written CUDA kernel on a CUDA device (K1 for the
+               BiLSTM, K2 for the attention), the plain PyTorch version on
+               the CPU
+    reference  the plain PyTorch version on any device
+    cuda       the kernel; raises on a non-CUDA device
+    =========  ==============================================================
+
+    On the TPU the JAX package resolved ``attn_backend auto`` to its
+    two-pass XLA form from a TPU measurement; that says nothing about this
+    card, so here the attention kernel is on the path by default and
+    ``chip_smoke.py`` times it against the plain two-pass version.
+    None of these knobs change parameters or outputs beyond rounding."""
+    return {
+        "lstm_backend": resolve_backend(cfg.lstm_backend, device),
+        "attn_backend": resolve_backend(cfg.attn_backend, device),
+    }
+
+
+def build_model(
+    cfg: ExperimentConfig,
+    glove_init: np.ndarray | None = None,
+    device=None,
+) -> InductionNetwork:
+    """Fresh InductionNetwork with f32 parameters drawn from a
+    ``torch.Generator`` seeded with ``cfg.seed``; ``glove_init`` [vocab,
+    word_dim] replaces the word table's random init."""
+    if cfg.model != "induction":
+        raise ValueError(
+            f"model {cfg.model!r} is not ported yet: the torch package serves "
+            f"--model induction only"
+        )
+    if cfg.encoder != "bilstm":
+        raise ValueError(
+            f"encoder {cfg.encoder!r} is not ported yet: the torch package "
+            f"runs --encoder bilstm only"
+        )
+    dev = resolve_device(device)
+    backends = resolve_runtime_backends(cfg, dev)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    compute = DTYPES[cfg.compute_dtype]
+    embedding = Embedding(
+        cfg.vocab_size, cfg.word_dim, cfg.pos_dim, cfg.max_length,
+        glove_init=glove_init, compute_dtype=compute, device=dev, generator=gen,
+    )
+    encoder = BiLSTMSelfAttnEncoder(
+        embedding.output_dim, cfg.lstm_hidden, cfg.att_dim,
+        lstm_backend=backends["lstm_backend"],
+        attn_backend=backends["attn_backend"],
+        compute_dtype=compute, device=dev, generator=gen,
+    )
+    model = InductionNetwork(
+        embedding, encoder,
+        induction_dim=cfg.induction_dim, routing_iters=cfg.routing_iters,
+        ntn_slices=cfg.ntn_slices, nota=cfg.na_rate > 0, nota_head=cfg.nota_head,
+        head_dtype=DTYPES[cfg.head_dtype], device=dev, generator=gen,
+    )
+    return model.eval()

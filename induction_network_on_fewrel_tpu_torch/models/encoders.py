@@ -1,0 +1,85 @@
+"""Sentence encoder: BiLSTM + structured self-attention.
+
+Counterpart of ``induction_network_on_fewrel_tpu/models/encoders.py``
+(``BiLSTMSelfAttnEncoder``), with the same parameters and layouts:
+``w_ih [2, D, 4u]``, ``w_hh [2, u, 4u]``, ``bias [2, 4u]`` (leading axis =
+direction, 0 forward / 1 reverse, independent weights), ``att_w1 [2u, A]``
+and ``att_w2 [A, 1]``. The body runs time-major: embeddings [L, M, D] go
+through the fused BiLSTM (``ops.lstm.bilstm_encoder_tm``) to hidden states
+[L, M, 2u], then the structured self-attention
+(``ops.attn.masked_selfattn_tm``) gives the sentence vectors [M, 2u] in
+the compute dtype. Both ops take ``auto | reference | cuda`` backends,
+resolved by ``models/build.resolve_runtime_backends``.
+
+The attention always follows the kernel math (f32 inside, output in H's
+dtype); the JAX package's "xla" attention branch instead computes in the
+compute dtype, so the bf16 comparison runs against its kernel backends.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from induction_network_on_fewrel_tpu_torch.models.embedding import normal_param
+from induction_network_on_fewrel_tpu_torch.ops.attn import masked_selfattn_tm
+from induction_network_on_fewrel_tpu_torch.ops.lstm import bilstm_encoder_tm
+
+
+def _orthogonal_rows(gen: torch.Generator, rows: int, cols: int) -> torch.Tensor:
+    """[rows, cols] with orthonormal rows (rows <= cols), sign-fixed QR."""
+    q, r = torch.linalg.qr(torch.randn((cols, rows), generator=gen))
+    return (q * torch.sign(torch.diagonal(r))).T.contiguous()
+
+
+class BiLSTMSelfAttnEncoder(nn.Module):
+    def __init__(
+        self,
+        input_dim: int,
+        lstm_hidden: int = 128,
+        att_dim: int = 64,
+        lstm_backend: str = "auto",
+        attn_backend: str = "auto",
+        compute_dtype: torch.dtype = torch.float32,
+        *,
+        device,
+        generator: torch.Generator,
+    ):
+        super().__init__()
+        D, u = input_dim, lstm_hidden
+        self.lstm_hidden = u
+        self.lstm_backend = lstm_backend
+        self.attn_backend = attn_backend
+        self.compute_dtype = compute_dtype
+        # Initializers of the JAX encoder's families: lecun-normal input and
+        # attention projections, orthogonal recurrent weights per
+        # direction, forget-gate bias 1.
+        self.w_ih = normal_param(generator, (2, D, 4 * u), 1.0 / math.sqrt(D), device)
+        self.w_hh = nn.Parameter(torch.stack(
+            [_orthogonal_rows(generator, u, 4 * u) for _ in range(2)]
+        ).to(device))
+        bias = torch.zeros((2, 4 * u))
+        bias[:, u:2 * u] = 1.0
+        self.bias = nn.Parameter(bias.to(device))
+        self.att_w1 = normal_param(
+            generator, (2 * u, att_dim), 1.0 / math.sqrt(2 * u), device
+        )
+        self.att_w2 = normal_param(generator, (att_dim, 1), 1.0 / math.sqrt(att_dim), device)
+
+    def forward(self, emb_t: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """emb_t [L, M, D] time-major embeddings, mask [M, L] -> [M, 2u]."""
+        emb_t = emb_t.to(self.compute_dtype)
+        H = bilstm_encoder_tm(
+            emb_t, self.w_ih, self.bias[:, None, :], self.w_hh,
+            backend=self.lstm_backend,
+        )                                                     # [L, M, 2u]
+        H = H.to(self.compute_dtype)
+        return masked_selfattn_tm(
+            H, mask, self.att_w1, self.att_w2, backend=self.attn_backend
+        )
+
+    @property
+    def output_dim(self) -> int:
+        return 2 * self.lstm_hidden
