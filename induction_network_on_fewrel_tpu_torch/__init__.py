@@ -1,12 +1,18 @@
 """PyTorch/CUDA port of ``induction_network_on_fewrel_tpu`` (H100, sm_90a).
 
 A package of its own beside the JAX one, mirroring its module paths
-(``config``, ``data/``, ``ops/``, ``models/``, ``serving/``). It imports
-torch and numpy only — nothing of JAX and nothing of the JAX package, of
-which it keeps its own copies where it needs them. This slice ports the
-serving path: tokenizer, embedding, the BiLSTM + self-attention encoder on
-two hand-written CUDA kernels (``csrc/``), induction routing, the NTN
-scorer with its NOTA head, and the synchronous serving core.
+(``config``, ``data/``, ``ops/``, ``models/``, ``sampling/``, ``train/``,
+``utils/``, ``serving/``, ``cli``). It imports torch and numpy only —
+nothing of JAX and nothing of the JAX package, of which it keeps its own
+copies where it needs them. Two slices are ported: the serving path
+(tokenizer, embedding, the BiLSTM + self-attention encoder, induction
+routing, the NTN scorer with its NOTA head, the synchronous serving core)
+and the training path (episode sampler, the optax-equivalent optimizer
+chain, train/eval steps, checkpoints, ``FewShotTrainer``, the train/test
+CLI). The encoder runs on six hand-written CUDA kernels (``csrc/``): K1/K2
+forward-only for eval and serving, K7/K8 (windowed BiLSTM forward and
+backward) and K10/K11 (attention forward with stats and backward) for
+training.
 
 Kernels are compiled with ``nvcc`` at their first use on a CUDA tensor
 (``kernels/build.py``); importing the package needs neither ``nvcc`` nor a

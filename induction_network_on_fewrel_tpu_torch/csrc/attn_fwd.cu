@@ -1,7 +1,13 @@
 // One-pass online-softmax structured self-attention forward for Hopper (sm_90a).
 //
-// Replaces: induction_network_on_fewrel_tpu/ops/attn.py:_make_fwd_kernel
-// (with_stats=False, i.e. _fwd_kernel_infer, launched by _fwd_call):
+// K2 (attn_fwd) replaces induction_network_on_fewrel_tpu/ops/attn.py:
+// _make_fwd_kernel(with_stats=False), i.e. _fwd_kernel_infer, launched by
+// _fwd_call. K10 (attn_fwd_stats) replaces _make_fwd_kernel(with_stats=True),
+// the training forward of _attn_core: the SAME body with the compile-time
+// flag STATS, which also writes the row's final running max mx [M] and
+// normalizer dn [M] (f32), the only residuals the backward (K11) needs. As
+// on the TPU, one body serves both, so the no-grad and the training forward
+// share their numerics by construction:
 //
 //   s_t   = w2 . tanh(W1^T h_t)                (f32, whatever H's dtype)
 //   a     = masked_softmax_t(s)                (mask <= 0 -> excluded)
@@ -46,13 +52,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-template <typename T>
+template <typename T, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 attn_fwd_kernel(const T* __restrict__ H,         // [L, M, D]
                 const float* __restrict__ mask,  // [M, L]
                 const float* __restrict__ w1,    // [D, A]
                 const float* __restrict__ w2,    // [A]
                 T* __restrict__ out,             // [M, D]
+                float* __restrict__ mx,          // [M] (STATS only)
+                float* __restrict__ dn,          // [M] (STATS only)
                 int L, int M, int D, int A) {
   extern __shared__ float smem[];
   float* w1_s = smem;                 // [D, A]
@@ -118,20 +126,24 @@ attn_fwd_kernel(const T* __restrict__ H,         // [L, M, D]
     const int d = tid + q * THREADS;
     if (d < D) out[(size_t)m * D + d] = from_f32<T>(acc[q] * inv);
   }
+  if (STATS && tid == 0) {  // every thread carries the same run_max and den
+    mx[m] = run_max;
+    dn[m] = den;
+  }
 }
 
-template <typename T>
+template <typename T, bool STATS>
 int launch(const void* H, const void* mask, const void* w1, const void* w2, void* out,
-           int L, int M, int D, int A, cudaStream_t stream) {
+           void* mx, void* dn, int L, int M, int D, int A, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)D * A + A + TLC * D + TLC * A + TLC);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T, STATS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attn_fwd_kernel<T><<<M, THREADS, smem, stream>>>(
+  attn_fwd_kernel<T, STATS><<<M, THREADS, smem, stream>>>(
       static_cast<const T*>(H), static_cast<const float*>(mask),
       static_cast<const float*>(w1), static_cast<const float*>(w2),
-      static_cast<T*>(out), L, M, D, A);
+      static_cast<T*>(out), static_cast<float*>(mx), static_cast<float*>(dn), L, M, D, A);
   return (int)cudaGetLastError();
 }
 
@@ -145,8 +157,16 @@ extern "C" {
 int attn_fwd(const void* H, const void* mask, const void* w1, const void* w2, void* out,
              int L, int M, int D, int A, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(H, mask, w1, w2, out, L, M, D, A, s);
-  return launch<float>(H, mask, w1, w2, out, L, M, D, A, s);
+  if (bf16) return launch<__nv_bfloat16, false>(H, mask, w1, w2, out, nullptr, nullptr, L, M, D, A, s);
+  return launch<float, false>(H, mask, w1, w2, out, nullptr, nullptr, L, M, D, A, s);
+}
+
+// K10: as attn_fwd, plus mx, dn [M] f32 (the row's softmax max and normalizer).
+int attn_fwd_stats(const void* H, const void* mask, const void* w1, const void* w2, void* out,
+                   void* mx, void* dn, int L, int M, int D, int A, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) return launch<__nv_bfloat16, true>(H, mask, w1, w2, out, mx, dn, L, M, D, A, s);
+  return launch<float, true>(H, mask, w1, w2, out, mx, dn, L, M, D, A, s);
 }
 
 const char* attn_fwd_error_string(int code) {

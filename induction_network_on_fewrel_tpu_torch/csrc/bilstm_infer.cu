@@ -1,10 +1,22 @@
-// Fused BiLSTM inference forward for Hopper (sm_90a).
+// Fused BiLSTM forward for Hopper (sm_90a): one kernel body, two launchers.
 //
-// Replaces: induction_network_on_fewrel_tpu/ops/lstm.py:_fused_fwd_kernel_infer
+// K1 (bilstm_infer_fwd) replaces
+// induction_network_on_fewrel_tpu/ops/lstm.py:_fused_fwd_kernel_infer
 // (launched by _fused_fwd_call_infer, the no-grad primal of
 // _bilstm_fused_tm): the input projection emb_t @ W_ih + b and the
 // bidirectional LSTM recurrence in one kernel, writing only the hidden
 // states hs [L, M, 2u] (cols [0:u] forward, [u:2u] reverse, natural time).
+//
+// K7 (bilstm_win_fwd) replaces ops/lstm.py:_fused_win_fwd_kernel (launched
+// by _fused_win_fwd_call, the training forward at lstm_cs_window = W > 0):
+// the same body with the compile-time flag CKPT, which also writes one
+// (h, c) checkpoint pair per natural-time block [bW, min(bW+W, L)) into
+// ch, cc [ceil(L/W), M, 2u] in the residual dtype. Slot b holds the state
+// at the block's kernel-LAST step: natural min(bW+W, L)-1 for the forward
+// direction, natural bW for the reverse one (the TPU kernel gets the same
+// value from its block flush). h and c are written from the f32 values the
+// recurrence carries (c from its register), so with f32 residuals the
+// backward's window replay starts from exactly the forward's state.
 //
 // Numerics follow the TPU kernel: gate pre-activations
 // a = emb·W_ih + b + h·W_hh accumulate in f32 (emb and W_ih in the
@@ -56,14 +68,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-template <typename T>
+template <typename T, typename R, bool CKPT>
 __global__ void __launch_bounds__(MAX_THREADS)
-bilstm_infer_kernel(const T* __restrict__ emb,     // [L, M, D]
-                    const T* __restrict__ wih,     // [2, D, 4u]
-                    const float* __restrict__ b,   // [2, 1, 4u]
-                    const float* __restrict__ whh, // [2, u, 4u]
-                    T* __restrict__ hs,            // [L, M, 2u]
-                    int L, int M, int D, int u) {
+bilstm_fwd_kernel(const T* __restrict__ emb,     // [L, M, D]
+                  const T* __restrict__ wih,     // [2, D, 4u]
+                  const float* __restrict__ b,   // [2, 1, 4u]
+                  const float* __restrict__ whh, // [2, u, 4u]
+                  T* __restrict__ hs,            // [L, M, 2u]
+                  R* __restrict__ ch,            // [nB, M, 2u] (CKPT only)
+                  R* __restrict__ cc,            // [nB, M, 2u] (CKPT only)
+                  int L, int M, int D, int u, int W) {
   extern __shared__ float smem[];
   const int G = 4 * u;
   float* emb_s = smem;             // [TM, D]  this step's embedding tile
@@ -84,6 +98,8 @@ bilstm_infer_kernel(const T* __restrict__ emb,     // [L, M, D]
 
   for (int s = 0; s < L; ++s) {
     const int t = dir ? L - 1 - s : s;
+    // Kernel-last step of t's natural block: this step's state is its slot.
+    const bool ckpt_step = CKPT && (dir ? t % W == 0 : (t % W == W - 1 || t == L - 1));
     for (int idx = j; idx < TM * D; idx += G) {
       const int r = idx / D, k = idx - r * D;
       const int row = row0 + r;
@@ -121,26 +137,42 @@ bilstm_infer_kernel(const T* __restrict__ emb,     // [L, M, D]
       const float h = og * tanhf(c[q]);
       h_s[idx] = h;
       const int row = row0 + r;
-      if (row < M) hs[((size_t)t * M + row) * (2 * u) + dir * u + jj] = from_f32<T>(h);
+      if (row < M) {
+        hs[((size_t)t * M + row) * (2 * u) + dir * u + jj] = from_f32<T>(h);
+        if (ckpt_step) {
+          const size_t o = ((size_t)(t / W) * M + row) * (2 * u) + dir * u + jj;
+          ch[o] = from_f32<R>(h);
+          cc[o] = from_f32<R>(c[q]);
+        }
+      }
     }
     __syncthreads();  // h_s complete before the next step reads it
   }
 }
 
-template <typename T>
+template <typename T, typename R, bool CKPT>
 int launch(const void* emb, const void* wih, const void* b, const void* whh, void* hs,
-           int L, int M, int D, int u, cudaStream_t stream) {
+           void* ch, void* cc, int L, int M, int D, int u, int W, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)TM * (D + u + 4 * u);
-  cudaError_t err = cudaFuncSetAttribute(bilstm_infer_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(bilstm_fwd_kernel<T, R, CKPT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((M + TM - 1) / TM, 2);
-  bilstm_infer_kernel<T><<<grid, 4 * u, smem, stream>>>(
+  bilstm_fwd_kernel<T, R, CKPT><<<grid, 4 * u, smem, stream>>>(
       static_cast<const T*>(emb), static_cast<const T*>(wih),
       static_cast<const float*>(b), static_cast<const float*>(whh),
-      static_cast<T*>(hs), L, M, D, u);
+      static_cast<T*>(hs), static_cast<R*>(ch), static_cast<R*>(cc), L, M, D, u, W);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_win(const void* emb, const void* wih, const void* b, const void* whh, void* hs,
+               void* ch, void* cc, int L, int M, int D, int u, int W, int res_bf16,
+               cudaStream_t stream) {
+  if (res_bf16)
+    return launch<T, __nv_bfloat16, true>(emb, wih, b, whh, hs, ch, cc, L, M, D, u, W, stream);
+  return launch<T, float, true>(emb, wih, b, whh, hs, ch, cc, L, M, D, u, W, stream);
 }
 
 }  // namespace
@@ -153,8 +185,21 @@ extern "C" {
 int bilstm_infer_fwd(const void* emb, const void* wih, const void* b, const void* whh,
                      void* hs, int L, int M, int D, int u, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(emb, wih, b, whh, hs, L, M, D, u, s);
-  return launch<float>(emb, wih, b, whh, hs, L, M, D, u, s);
+  if (bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16, false>(emb, wih, b, whh, hs, nullptr, nullptr,
+                                                       L, M, D, u, 1, s);
+  return launch<float, float, false>(emb, wih, b, whh, hs, nullptr, nullptr, L, M, D, u, 1, s);
+}
+
+// K7: as bilstm_infer_fwd, plus ch, cc [ceil(L/W), M, 2u] in bf16 when
+// res_bf16 != 0, else f32. The caller guarantees 1 <= W <= L.
+int bilstm_win_fwd(const void* emb, const void* wih, const void* b, const void* whh,
+                   void* hs, void* ch, void* cc, int L, int M, int D, int u, int W,
+                   int bf16, int res_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_win<__nv_bfloat16>(emb, wih, b, whh, hs, ch, cc, L, M, D, u, W, res_bf16, s);
+  return launch_win<float>(emb, wih, b, whh, hs, ch, cc, L, M, D, u, W, res_bf16, s);
 }
 
 const char* bilstm_infer_error_string(int code) {

@@ -40,8 +40,12 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Launcher name -> (source stem, argtypes). The stream is the last argument.
 LAUNCHERS = {
-    "bilstm_infer_fwd": ("bilstm_infer", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "attn_fwd": ("attn_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "bilstm_infer_fwd": ("bilstm_infer", [_P] * 5 + [_I] * 5 + [_P]),
+    "bilstm_win_fwd": ("bilstm_infer", [_P] * 7 + [_I] * 7 + [_P]),
+    "bilstm_win_bwd": ("bilstm_win_bwd", [_P] * 11 + [_I] * 8 + [_P]),
+    "attn_fwd": ("attn_fwd", [_P] * 5 + [_I] * 5 + [_P]),
+    "attn_fwd_stats": ("attn_fwd", [_P] * 7 + [_I] * 5 + [_P]),
+    "attn_bwd": ("attn_bwd", [_P] * 11 + [_I] * 6 + [_P]),
 }
 SOURCES = tuple(sorted({stem for stem, _ in LAUNCHERS.values()}))
 

@@ -7,6 +7,10 @@ later slices and are refused by name.
 Device rule: ``device=None`` means "cuda". Without CUDA that raises, unless
 the caller asked for ``device="cpu"`` explicitly: there is no silent CPU
 fall back on the entry points.
+
+``batch_to_model_inputs`` is the counterpart of the JAX function of the
+same name for an ``EpisodeBatch``: numpy (support, query, label) with the
+same wire dtypes (int16 positions, int8 mask).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from induction_network_on_fewrel_tpu_torch.models.induction import InductionNetw
 from induction_network_on_fewrel_tpu_torch.ops.core import resolve_backend
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+RESIDUAL_DTYPES = {"auto": None, "f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,10 +56,30 @@ def resolve_runtime_backends(cfg: ExperimentConfig, device) -> dict:
     two-pass XLA form from a TPU measurement; that says nothing about this
     card, so here the attention kernel is on the path by default and
     ``chip_smoke.py`` times it against the plain two-pass version.
-    None of these knobs change parameters or outputs beyond rounding."""
+
+    ``lstm_cs_window`` (default 8) is the checkpoint window of the training
+    route (K7/K8 or their plain versions); negative values are refused, and
+    0, the JAX package's full-residual twin, is refused where a gradient is
+    taken. ``lstm_residuals`` ``auto | f32 | bf16`` is the checkpoints'
+    storage dtype; "auto" (None) follows the compute dtype. Unlike the JAX
+    resolution, the window also engages on the plain path: the plain
+    versions follow the kernels' algorithm. None of these knobs change
+    parameters or outputs beyond rounding."""
+    window = int(cfg.lstm_cs_window)
+    if window < 0:
+        raise ValueError(
+            f"lstm_cs_window must be >= 0, got {window} "
+            "(0 = full residual streams, W > 0 = windowed-cs remat)"
+        )
+    if cfg.lstm_residuals not in RESIDUAL_DTYPES:
+        raise ValueError(
+            f"unknown lstm_residuals {cfg.lstm_residuals!r} (auto | f32 | bf16)"
+        )
     return {
         "lstm_backend": resolve_backend(cfg.lstm_backend, device),
         "attn_backend": resolve_backend(cfg.attn_backend, device),
+        "lstm_cs_window": window,
+        "lstm_residual_dtype": RESIDUAL_DTYPES[cfg.lstm_residuals],
     }
 
 
@@ -88,7 +113,10 @@ def build_model(
         embedding.output_dim, cfg.lstm_hidden, cfg.att_dim,
         lstm_backend=backends["lstm_backend"],
         attn_backend=backends["attn_backend"],
-        compute_dtype=compute, device=dev, generator=gen,
+        compute_dtype=compute,
+        lstm_cs_window=backends["lstm_cs_window"],
+        lstm_residual_dtype=backends["lstm_residual_dtype"],
+        device=dev, generator=gen,
     )
     model = InductionNetwork(
         embedding, encoder,
@@ -96,4 +124,23 @@ def build_model(
         ntn_slices=cfg.ntn_slices, nota=cfg.na_rate > 0, nota_head=cfg.nota_head,
         head_dtype=DTYPES[cfg.head_dtype], device=dev, generator=gen,
     )
-    return model.eval()
+    return model
+
+
+def batch_to_model_inputs(batch) -> tuple[dict, dict, np.ndarray]:
+    """EpisodeBatch (numpy) -> (support dict, query dict, label). Positions
+    cross to the device as int16 and the mask as int8, as in the JAX
+    package; the model's gathers and ``> 0`` tests take any int dtype."""
+    support = {
+        "word": batch.support_word,
+        "pos1": batch.support_pos1.astype(np.int16),
+        "pos2": batch.support_pos2.astype(np.int16),
+        "mask": batch.support_mask.astype(np.int8),
+    }
+    query = {
+        "word": batch.query_word,
+        "pos1": batch.query_pos1.astype(np.int16),
+        "pos2": batch.query_pos2.astype(np.int16),
+        "mask": batch.query_mask.astype(np.int8),
+    }
+    return support, query, batch.label

@@ -9,7 +9,10 @@ through the fused BiLSTM (``ops.lstm.bilstm_encoder_tm``) to hidden states
 [L, M, 2u], then the structured self-attention
 (``ops.attn.masked_selfattn_tm``) gives the sentence vectors [M, 2u] in
 the compute dtype. Both ops take ``auto | reference | cuda`` backends,
-resolved by ``models/build.resolve_runtime_backends``.
+resolved by ``models/build.resolve_runtime_backends``, which also resolves
+the training route's ``lstm_cs_window`` and checkpoint dtype. With a
+gradient needed the ops go through their autograd Functions (K7/K8 and
+K10/K11 on the card); without, through the forward-only kernels K1/K2.
 
 The attention always follows the kernel math (f32 inside, output in H's
 dtype); the JAX package's "xla" attention branch instead computes in the
@@ -43,6 +46,8 @@ class BiLSTMSelfAttnEncoder(nn.Module):
         lstm_backend: str = "auto",
         attn_backend: str = "auto",
         compute_dtype: torch.dtype = torch.float32,
+        lstm_cs_window: int = 8,
+        lstm_residual_dtype: torch.dtype | None = None,
         *,
         device,
         generator: torch.Generator,
@@ -53,6 +58,8 @@ class BiLSTMSelfAttnEncoder(nn.Module):
         self.lstm_backend = lstm_backend
         self.attn_backend = attn_backend
         self.compute_dtype = compute_dtype
+        self.lstm_cs_window = lstm_cs_window
+        self.lstm_residual_dtype = lstm_residual_dtype
         # Initializers of the JAX encoder's families: lecun-normal input and
         # attention projections, orthogonal recurrent weights per
         # direction, forget-gate bias 1.
@@ -73,7 +80,8 @@ class BiLSTMSelfAttnEncoder(nn.Module):
         emb_t = emb_t.to(self.compute_dtype)
         H = bilstm_encoder_tm(
             emb_t, self.w_ih, self.bias[:, None, :], self.w_hh,
-            backend=self.lstm_backend,
+            backend=self.lstm_backend, cs_window=self.lstm_cs_window,
+            residual_dtype=self.lstm_residual_dtype,
         )                                                     # [L, M, 2u]
         H = H.to(self.compute_dtype)
         return masked_selfattn_tm(

@@ -11,6 +11,9 @@ because ``||x||^2`` underflows fast in bf16.
 ``resolve_backend`` is the one rule every kernel entry and
 ``models/build.resolve_runtime_backends`` share: "auto" is the CUDA kernel
 for CUDA tensors and the plain PyTorch version for CPU tensors.
+``needs_grad`` is the other half of an encoder op's route: with a gradient
+needed it goes through its autograd Function, otherwise through the
+residual-free forward.
 """
 
 from __future__ import annotations
@@ -19,6 +22,13 @@ import torch
 
 _NEG_INF = -1e30
 BACKENDS = ("auto", "reference", "cuda")
+# The dtypes the encoder kernels take for activations and residuals.
+ACTIVATION_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on ``tensors`` right now."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def resolve_backend(backend: str, device: torch.device | str) -> str:
