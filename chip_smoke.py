@@ -28,18 +28,42 @@ exits non-zero; no phase catches a failure of its own):
    backward) at L=40, D=60, u=128, A=64, M in {16, 200}, f32 and bf16,
    W=8, a ragged window (W=6), both residual dtypes, a fully masked
    attention row; kernel, plain and library times and the bound.
-7. Training main path: ``FewShotTrainer`` built by the CLI's wiring at the
+7. Full-residual kernels vs their plain versions: K4 (BiLSTM forward
+   writing c every step) and K6 (its backward over the saved hs/cs) at
+   L=40, D=60, u=128, M in {16, 200} plus a ragged M=100, f32 and bf16,
+   both residual dtypes; f32 K6 gradients vs f32 K8 (W=8) on the same
+   inputs; kernel, plain and library times and the bound.
+8. Split recurrence (kernels 2, 1, 3): the public ops API
+   ``lstm_recurrence_grouped`` (Gc=2) and ``bilstm_recurrence_tm`` at
+   L=40, u=128, M in {16, 200}, f32 and bf16, without grad (kernel 2) and
+   forward + backward under autograd (kernels 1 and 3), launch counts
+   zeroed just before and read just after; then each output vs the plain
+   versions, kernel 3 vs its plain version on the same residuals, the
+   time-major layout vs the grouped one fed the flipped input; times and
+   bounds; the library yardstick, an f32 cuDNN ``nn.LSTM`` whose identity
+   input weights make it compute ``bilstm_recurrence_tm``, held against
+   kernel 2 and timed.
+9. Training main path: ``FewShotTrainer`` built by the CLI's wiring at the
    flagship config (bf16 encoder, 400 002-row table, mse, W=8, bf16
    checkpoints, B=4 episodes = 200 encoder rows per step): step-0
    gradients of every parameter vs the plain backends (every encoder and
    embedding gradient finite and nonzero), 20 steps with a val pass and a
    best-checkpoint save with the training kernels' launch counts zeroed
-   just before and read just after (each must equal the step count), the
-   same 20 steps with the plain backends from the same weights (per-step
-   losses within a band), ms/step and episodes/s, then ``cli.test_main``
-   reloads the best checkpoint and evaluates. Then five more steps run
-   under torch.profiler: device time by kernel and the device's busy share.
-8. A ``{"kernels": [...]}`` line for all six kernels, then the last line
+   just before and read just after (each of K7/K8/K10/K11 must equal the
+   step count, K4/K6 zero), the same 20 steps with the plain backends
+   from the same weights (per-step losses within a band), ms/step and
+   episodes/s, then ``cli.test_main`` reloads the best checkpoint and
+   evaluates. Then five more steps run under torch.profiler: device time
+   by kernel and the device's busy share.
+10. Training at ``lstm_cs_window=0`` (the full-residual route; bf16
+   encoder, bf16 residuals, otherwise the flagship): step-0 gradients vs
+   the plain backends and their cosine to the W=8 kernel route from the
+   same weights on the same batch, 10 steps with the counts zeroed just
+   before and read just after (K4, K6, K10, K11 once per step, K7/K8
+   never), the same steps with the plain backends (per-step losses within
+   a band), ms/step and episodes/s beside the W=8 figure, and five more
+   steps under torch.profiler.
+11. A ``{"kernels": [...]}`` line for all eleven kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA, and when the port's
@@ -79,12 +103,24 @@ from induction_network_on_fewrel_tpu_torch.ops.attn import (
     attn_reference,
 )
 from induction_network_on_fewrel_tpu_torch.ops.lstm import (
+    bilstm_full_bwd,
+    bilstm_full_bwd_reference,
+    bilstm_full_fwd,
+    bilstm_full_fwd_reference,
     bilstm_infer_cuda,
+    bilstm_recurrence_tm,
     bilstm_reference,
     bilstm_win_bwd,
     bilstm_win_bwd_reference,
     bilstm_win_fwd,
     bilstm_win_fwd_reference,
+    lstm_recurrence_grouped,
+    lstm_split_bwd,
+    lstm_split_bwd_reference,
+    lstm_split_fwd,
+    lstm_split_fwd_reference,
+    lstm_split_infer_cuda,
+    lstm_split_infer_reference,
 )
 from induction_network_on_fewrel_tpu_torch.models.build import batch_to_model_inputs
 from induction_network_on_fewrel_tpu_torch.sampling.episodes import EpisodeSampler
@@ -246,6 +282,10 @@ def kernel_checks(gen: torch.Generator) -> dict:
 #         outputs (dW, stats) are held to the same bar, as their inputs
 #         (hs, out) are bf16 values that may differ by that ulp.
 TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# f32 K6 vs f32 K8 gradients on the same inputs, relative to each output's
+# max: the same arithmetic on the same f32 states, summed in other orders
+# (the JAX package holds the two at 1e-6 in interpret mode).
+K6_K8_TOL = 1e-5
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -321,7 +361,7 @@ def attn_bwd_bound(M: int, dt: torch.dtype):
     return bound(moved, ops / PEAK_FLOPS[torch.float32])
 
 
-def train_kernel_checks(gen: torch.Generator) -> dict:
+def train_kernel_checks(gen: torch.Generator, library: dict) -> dict:
     """K7, K8, K10 and K11 vs their plain versions at the flagship widths,
     M in {16, 200}, f32 and bf16; W = 8 with residuals in the activation
     dtype, plus a ragged window (W = 6: 40 = 6*6 + 4), the other residual
@@ -331,7 +371,6 @@ def train_kernel_checks(gen: torch.Generator) -> dict:
     cases = [(dt, M, 8, dt) for dt in (torch.float32, torch.bfloat16) for M in (16, 200)]
     cases += [(torch.bfloat16, 200, 6, torch.bfloat16), (torch.bfloat16, 16, 8, torch.float32),
               (torch.float32, 16, 8, torch.bfloat16)]
-    library = {}
     for dt, M, W, rdt in cases:
         name = f"{'bf16' if dt == torch.bfloat16 else 'f32'} M={M} W={W} " \
                f"res={'bf16' if rdt == torch.bfloat16 else 'f32'}"
@@ -407,6 +446,236 @@ def train_kernel_checks(gen: torch.Generator) -> dict:
     return rows
 
 
+def full_fwd_bound(M: int, dt: torch.dtype, rdt: torch.dtype):
+    """K4: K1's work plus c written at every step in the residual dtype."""
+    t_bytes, t_ops = lstm_bound_parts(M, dt)
+    return bound(t_bytes + L * M * H_DIM * (torch.finfo(rdt).bits // 8), t_ops)
+
+
+def full_bwd_bound(M: int, dt: torch.dtype, rdt: torch.dtype):
+    """K6: reads dhs, emb, hs, cs and the weights once, writes demb and the
+    weight gradients; the operations are K8's (gates once, four products)."""
+    es, rs, G = torch.finfo(dt).bits // 8, torch.finfo(rdt).bits // 8, 4 * U
+    moved = (2 * L * M * H_DIM * es + L * M * D * es + L * M * H_DIM * rs     # dhs, hs, emb, cs
+             + 2 * D * G * es + 2 * G * 4 + 2 * U * G * 4                     # weights
+             + 2 * L * M * D * es + (2 * D * G + 2 * G + 2 * U * G) * 4)       # demb, dW
+    ops_in = 2 * L * 2 * M * D * G
+    ops_f32 = 2 * L * (2 * M * U * G + 4 * M * G * (D + U))
+    return bound(moved, ops_in / PEAK_FLOPS[dt] + ops_f32 / PEAK_FLOPS[torch.float32])
+
+
+def full_kernel_checks(gen: torch.Generator, library: dict) -> dict:
+    """Phase 7: K4 and K6 vs their plain versions (K6's plain version on
+    the kernel's own hs/cs) at the flagship widths, M in {16, 200} and a
+    ragged M=100 (not a multiple of K4's 16-row or K6's 8-row tile), f32
+    and bf16 with both residual dtypes; f32 K6 vs f32 K8 (W=8) gradients."""
+    dev = torch.device("cuda")
+    rows = {}
+    err68 = 0.0
+    cases = [(dt, M, dt) for dt in (torch.float32, torch.bfloat16) for M in (16, 200)]
+    cases += [(torch.bfloat16, 100, torch.float32), (torch.float32, 100, torch.bfloat16)]
+    for dt, M, rdt in cases:
+        name = f"{'bf16' if dt == torch.bfloat16 else 'f32'} M={M} " \
+               f"res={'bf16' if rdt == torch.bfloat16 else 'f32'}"
+        tol = TRAIN_TOL[dt if rdt == dt else torch.bfloat16]
+        emb = (torch.randn((L, M, D), generator=gen) * 0.5).to(dev, dt)
+        wih = (torch.randn((2, D, 4 * U), generator=gen) / D ** 0.5).to(dev, dt)
+        b = (torch.randn((2, 1, 4 * U), generator=gen) * 0.1).to(dev)
+        whh = (torch.randn((2, U, 4 * U), generator=gen) / U ** 0.5).to(dev)
+        dhs = (torch.randn((L, M, H_DIM), generator=gen) * 0.1).to(dev, dt)
+        hs, cs = bilstm_full_fwd(emb, wih, b, whh, rdt)
+        torch.cuda.synchronize()
+        ref4 = bilstm_full_fwd_reference(emb, wih, b, whh, rdt)
+        err4 = check_outputs(f"K4 {name}", {"hs": (hs, ref4[0]), "cs": (cs, ref4[1])}, tol)
+        got6 = bilstm_full_bwd(dhs, emb, hs, cs, wih, b, whh)
+        torch.cuda.synchronize()
+        ref6 = bilstm_full_bwd_reference(dhs, emb, hs, cs, wih, b, whh)
+        err6 = check_outputs(f"K6 {name}", dict(zip(("demb", "dwih", "db", "dwhh"),
+                                                    zip(got6, ref6))), tol)
+        if dt == rdt == torch.float32:
+            # f32 residuals: K8's window replay is the forward's own f32
+            # arithmetic, so both backwards see the same states; they sum in
+            # other orders (per-step slabs vs replayed windows).
+            _, ch, cc = bilstm_win_fwd(emb, wih, b, whh, 8, rdt)
+            got8 = bilstm_win_bwd(dhs, emb, ch, cc, wih, b, whh, 8)
+            torch.cuda.synchronize()
+            err68 = max(err68, check_outputs(f"K6 vs K8 {name}", dict(zip(
+                ("demb", "dwih", "db", "dwhh"), zip(got6, got8))), K6_K8_TOL))
+        r = {}
+        r["K4"] = dict(err=err4, tol=tol, ms=cuda_ms(lambda: bilstm_full_fwd(emb, wih, b, whh, rdt), 10),
+                       plain_ms=cuda_ms(lambda: bilstm_full_fwd_reference(emb, wih, b, whh, rdt), 2))
+        r["K6"] = dict(err=err6, tol=tol,
+                       ms=cuda_ms(lambda: bilstm_full_bwd(dhs, emb, hs, cs, wih, b, whh), 10),
+                       plain_ms=cuda_ms(lambda: bilstm_full_bwd_reference(dhs, emb, hs, cs, wih,
+                                                                          b, whh), 1))
+        if M not in library:
+            library[M] = (cudnn_lstm_ms(M, False), cudnn_lstm_ms(M, True))
+        r["K4"]["library_ms"], r["K6"]["library_ms"] = library[M]
+        for k, (bd, by) in (("K4", full_fwd_bound(M, dt, rdt)), ("K6", full_bwd_bound(M, dt, rdt))):
+            r[k].update(bound_ms=bd, bound_by=by)
+            rows[(k, name)] = r[k]
+            print(f"[check] {k} {name}: max_abs_err={r[k]['err']:.3g} (rel tol {tol:g}) "
+                  f"ms={r[k]['ms']:.4f} plain_ms={r[k]['plain_ms']:.4f} "
+                  f"library_ms={r[k]['library_ms']} bound_ms={bd:.5f} ({by})", flush=True)
+    print(f"[check] K6 vs K8 (W=8) f32 gradients: max abs err {err68:.3g} (rel tol "
+          f"{K6_K8_TOL:g})", flush=True)
+    return rows
+
+
+def split_bound(key: str, M: int, dt: torch.dtype):
+    """Kernels 2, 1, 3 over 2 groups: xg (4u a row and group) streamed once,
+    hs (u) written (kernel 2), plus cs (kernel 1); kernel 3 reads dhs, xg,
+    hs, cs and writes dxg and dW_hh. f32 operations: the recurrent product
+    per step and group (kernel 3: the gates once, da W_hh^T and h^T da)."""
+    es, G = torch.finfo(dt).bits // 8, 4 * U
+    rows, w = L * M * 2, 2 * U * G * 4
+    if key == "split2":
+        moved, prods = rows * (G + U) * es + w, 1
+    elif key == "split1":
+        moved, prods = rows * (G + 2 * U) * es + w, 1
+    else:
+        moved, prods = rows * (2 * G + 3 * U) * es + 2 * w, 3
+    return bound(moved, prods * 2 * rows * U * G / PEAK_FLOPS[torch.float32])
+
+
+def split_library(M: int, gen: torch.Generator) -> dict:
+    """Kernels 2, 1 and 3's yardstick, timed here and used nowhere in the
+    port: one f32 torch.nn.LSTM(8u, u, bidirectional=True) call (cuDNN)
+    computes ``bilstm_recurrence_tm`` on [L, M, 8u] when its input weights
+    are the identity blocks [I_4u | 0] (forward) and [0 | I_4u] (reverse),
+    its biases zero and its recurrent weights W_hh[d]^T: the gate order is
+    [i, f, g, o] in both, and the reverse direction walks time reversed with
+    its output in natural time. The identity input product is exact in f32,
+    and is work the kernels do not do (printed as its time at the f32 peak).
+    Held against kernel 2 on the same input, then timed without grad
+    (kernel 2), as a train-mode forward (kernel 1), and forward + backward
+    (kernel 3)."""
+    dev = torch.device("cuda")
+    G = 4 * U
+    lstm = torch.nn.LSTM(2 * G, U, bidirectional=True).to(dev).train()
+    whh = (torch.randn((2, U, G), generator=gen) / U ** 0.5).to(dev)
+    eye, zero = torch.eye(G, device=dev), torch.zeros((G, G), device=dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.cat([eye, zero], 1))
+        lstm.weight_ih_l0_reverse.copy_(torch.cat([zero, eye], 1))
+        lstm.weight_hh_l0.copy_(whh[0].T)
+        lstm.weight_hh_l0_reverse.copy_(whh[1].T)
+        for bias in (lstm.bias_ih_l0, lstm.bias_hh_l0, lstm.bias_ih_l0_reverse,
+                     lstm.bias_hh_l0_reverse):
+            bias.zero_()
+    lstm.flatten_parameters()
+    xg = (torch.randn((L, M, 2 * G), generator=gen) * 0.5).to(dev)
+    g = (torch.randn((L, M, H_DIM), generator=gen) * 0.1).to(dev)
+    with torch.no_grad():
+        want = lstm_split_infer_cuda(xg, whh, True)
+        got = lstm(xg)[0]
+        torch.cuda.synchronize()
+        err = check_outputs(f"cuDNN identity-input LSTM vs kernel 2 f32 M={M}",
+                            {"hs": (got, want)}, TRAIN_TOL[torch.float32])
+        infer = cuda_ms(lambda: lstm(xg), 10)
+    x = xg.clone().requires_grad_()
+
+    def fwd_bwd():
+        torch.autograd.backward(lstm(x)[0], g)
+    out = {"split2": infer, "split1": cuda_ms(lambda: lstm(x), 10), "split3": cuda_ms(fwd_bwd, 10)}
+    eye_ms = 2 * 2 * L * M * 2 * G * G / PEAK_FLOPS[torch.float32] * 1e3
+    print(f"[split] library yardstick M={M}: cuDNN f32 LSTM(8u, u) with identity input weights "
+          f"equals kernel 2 (max abs err {err:.3g}); ms no-grad {out['split2']:.4f} forward "
+          f"{out['split1']:.4f} forward+backward {out['split3']:.4f}; its identity input "
+          f"product takes {eye_ms:.4f} ms of the forward at the f32 peak", flush=True)
+    return out
+
+
+def split_recurrence(gen: torch.Generator) -> dict:
+    """Phase 8: the split-recurrence ops API on the card. The path (public
+    calls, kernel backend, counts zeroed just before and read just after),
+    then its outputs vs the plain backend, kernel 3 vs its plain version on
+    the same residuals, and the time-major layout vs the grouped one fed
+    the flipped input."""
+    dev = torch.device("cuda")
+    G = 4 * U
+    cases = [(dt, M, tm) for dt in (torch.float32, torch.bfloat16) for M in (16, 200)
+             for tm in (False, True)]
+    inputs = {}
+    for dt, M, tm in cases:
+        shape = (L, M, 2 * G) if tm else (2, M, L, G)
+        xg = (torch.randn(shape, generator=gen) * 0.5).to(dev, dt)
+        whh = (torch.randn((2, U, G), generator=gen) / U ** 0.5).to(dev)
+        ct = (torch.randn((L, M, H_DIM) if tm else (2, M, L, U), generator=gen) * 0.1).to(dev, dt)
+        inputs[(dt, M, tm)] = (xg, whh, ct)
+
+    def api(tm):
+        return bilstm_recurrence_tm if tm else lstm_recurrence_grouped
+
+    def run(xg, whh, ct, tm, backend):
+        with torch.no_grad():
+            h_nog = api(tm)(xg, whh, backend=backend)
+        x, w = xg.clone().requires_grad_(), whh.clone().requires_grad_()
+        h = api(tm)(x, w, backend=backend)
+        torch.autograd.backward(h, ct)
+        return h_nog, h.detach(), x.grad, w.grad
+
+    torch.cuda.synchronize()
+    for fn in SPLIT_KERNELS.values():
+        fn.launches = 0
+    outs = {case: run(*inp, case[2], "cuda") for case, inp in inputs.items()}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in SPLIT_KERNELS.items()}
+    print(f"[split] {len(cases)} calls without grad and {len(cases)} with forward + backward "
+          f"through lstm_recurrence_grouped / bilstm_recurrence_tm: launches {launches}",
+          flush=True)
+    if any(n != len(cases) for n in launches.values()):
+        raise AssertionError(f"split kernels launched {launches}, expected {len(cases)} each")
+
+    rows, library = {}, {}
+    for (dt, M, tm), (xg, whh, ct) in inputs.items():
+        name = f"{'bf16' if dt == torch.bfloat16 else 'f32'} M={M} {'tm' if tm else 'grouped'}"
+        tol = TRAIN_TOL[dt]
+        h_nog, h, dx, dw = outs[(dt, M, tm)]
+        ref = run(xg, whh, ct, tm, "reference")
+        err2 = check_outputs(f"kernel 2 {name}", {"hs": (h_nog, ref[0])}, tol)
+        # The autograd path: hs of kernel 1; the gradients went through
+        # kernel 3 on kernel 1's residuals, the plain ones on the plain
+        # forward's, which may differ by one bf16 ulp (the training band).
+        err1 = check_outputs(f"kernel 1 {name}", {"hs": (h, ref[1])}, tol)
+        check_outputs(f"split grads {name}", {"dxg": (dx, ref[2]), "dwhh": (dw, ref[3])},
+                      tol if dt == torch.float32 else GRAD_REL_TOL)
+        hs, cs = lstm_split_fwd(xg, whh, tm)
+        got3 = lstm_split_bwd(ct, xg, hs, cs, whh, tm)
+        torch.cuda.synchronize()
+        ref1 = lstm_split_fwd_reference(xg, whh, tm)
+        err1 = max(err1, check_outputs(f"kernel 1 {name}", {"hs": (hs, ref1[0]),
+                                                             "cs": (cs, ref1[1])}, tol))
+        err3 = check_outputs(f"kernel 3 {name}", dict(zip(("dxg", "dwhh"), zip(
+            got3, lstm_split_bwd_reference(ct, xg, hs, cs, whh, tm)))), tol)
+        if tm:
+            flipped = torch.stack([xg[..., :G].transpose(0, 1),
+                                   xg[..., G:].flip(0).transpose(0, 1)]).contiguous()
+            with torch.no_grad():
+                hg = lstm_recurrence_grouped(flipped, whh, backend="cuda")
+            want = torch.cat([hg[0], hg[1].flip(1)], -1).transpose(0, 1)
+            check_outputs(f"tm vs grouped layout {name}", {"hs": (h_nog, want)}, tol)
+        r = {}
+        r["split2"] = dict(err=err2, ms=cuda_ms(lambda: lstm_split_infer_cuda(xg, whh, tm), 10),
+                           plain_ms=cuda_ms(lambda: lstm_split_infer_reference(xg, whh, tm), 2))
+        r["split1"] = dict(err=err1, ms=cuda_ms(lambda: lstm_split_fwd(xg, whh, tm), 10),
+                           plain_ms=cuda_ms(lambda: lstm_split_fwd_reference(xg, whh, tm), 2))
+        r["split3"] = dict(err=err3, ms=cuda_ms(lambda: lstm_split_bwd(ct, xg, hs, cs, whh, tm), 10),
+                           plain_ms=cuda_ms(lambda: lstm_split_bwd_reference(ct, xg, hs, cs, whh,
+                                                                             tm), 1))
+        if M not in library:
+            library[M] = split_library(M, gen)
+        for k in r:
+            bd, by = split_bound(k, M, dt)
+            r[k].update(tol=tol, library_ms=library[M][k], bound_ms=bd, bound_by=by)
+            rows[(k, name)] = r[k]
+            print(f"[check] {k} {name}: max_abs_err={r[k]['err']:.3g} (rel tol {tol:g}) "
+                  f"ms={r[k]['ms']:.4f} plain_ms={r[k]['plain_ms']:.4f} "
+                  f"library_ms={r[k]['library_ms']:.4f} bound_ms={bd:.5f} ({by})", flush=True)
+    print("[split] time-major layout equals the grouped one fed the flipped input", flush=True)
+    return {"rows": rows, "launches": launches}
+
+
 # Training main path, kernel route vs the plain ("reference") backends from
 # the same weights on the same batches. Both run the same bf16 encoder
 # arithmetic, except that a bf16 value written by a kernel (hs, demb, dH,
@@ -419,7 +688,14 @@ GRAD_REL_TOL = 5e-2
 LOSS_REL_TOL = 2e-2
 TRAIN_STEPS = 20
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
-TRAIN_KERNELS = {"K7": bilstm_win_fwd, "K8": bilstm_win_bwd, "K10": attn_fwd_stats, "K11": attn_bwd}
+TRAIN_KERNELS = {"K7": bilstm_win_fwd, "K8": bilstm_win_bwd, "K10": attn_fwd_stats, "K11": attn_bwd,
+                 "K4": bilstm_full_fwd, "K6": bilstm_full_bwd}
+SPLIT_KERNELS = {"split2": lstm_split_infer_cuda, "split1": lstm_split_fwd, "split3": lstm_split_bwd}
+# Training at lstm_cs_window=0 vs the W=8 kernel route from the same
+# weights on the same batch: bf16 residuals at every step against bf16
+# checkpoint seeds; the JAX band for bf16 residuals (tests/test_lstm.py:517).
+W0_COSINE_MIN = 0.999
+W0_STEPS = 10
 GRAD_PARAMS = ("embedding.word_embedding", "embedding.pos1_embedding", "embedding.pos2_embedding",
                "encoder.w_ih", "encoder.w_hh", "encoder.bias", "encoder.att_w1", "encoder.att_w2")
 
@@ -440,7 +716,7 @@ def train_records(path: Path) -> list[dict]:
     return [r for r in map(json.loads, path.read_text().splitlines()) if r["kind"] == "train"]
 
 
-def profile_train_steps(trainer, steps: int = 5) -> None:
+def profile_train_steps(trainer, steps: int = 5, tag: str = "profile") -> None:
     """torch.profiler over ``steps`` more training steps of
     the main path's trainer (after its checks): device time by kernel, and
     the device's busy share of the wall time (the sum of kernel times over
@@ -461,11 +737,26 @@ def profile_train_steps(trainer, steps: int = 5) -> None:
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"[profile] {steps} steps under the profiler: wall {wall_us / steps / 1e3:.2f} ms/step, "
+    print(f"[{tag}] {steps} steps under the profiler: wall {wall_us / steps / 1e3:.2f} ms/step, "
           f"{sum(r[2] for r in rows) // steps} kernel launches/step, device busy "
           f"{busy / steps / 1e3:.2f} ms/step ({busy / wall_us:.1%} of wall)", flush=True)
     for key, us, n in rows[:15]:
-        print(f"[profile]   {us / steps / 1e3:8.3f} ms/step {n // steps:4d}x  {key[:90]}", flush=True)
+        print(f"[{tag}]   {us / steps / 1e3:8.3f} ms/step {n // steps:4d}x  {key[:90]}", flush=True)
+
+
+def expect_launches(launches: dict, on: tuple, steps: int) -> None:
+    """Each kernel in ``on`` launched once per step, every other never."""
+    want = {k: steps if k in on else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"training kernels launched {launches}, expected {want}")
+
+
+def grad_cosine(ga: dict, gb: dict) -> float:
+    """Global cosine of two gradient sets (the JAX grad-probe reduction)."""
+    num = sum(float((ga[k].double() * gb[k].double()).sum()) for k in ga)
+    na = sum(float(ga[k].double().square().sum()) for k in ga) ** 0.5
+    nb = sum(float(gb[k].double().square().sum()) for k in gb) ** 0.5
+    return num / (na * nb + 1e-30)
 
 
 def train_main_path() -> dict:
@@ -521,8 +812,7 @@ def train_main_path() -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
-    if any(n != TRAIN_STEPS for n in launches.values()):
-        raise AssertionError(f"training kernels launched {launches}, expected {TRAIN_STEPS} each")
+    expect_launches(launches, ("K7", "K8", "K10", "K11"), TRAIN_STEPS)
     trainer.close()
     recs = train_records(ckpt / "metrics.jsonl")
     vals = [r for r in map(json.loads, (ckpt / "metrics.jsonl").read_text().splitlines())
@@ -568,6 +858,84 @@ def train_main_path() -> dict:
     profile_train_steps(trainer)
     return {"launches": launches, "step_ms": steady, "episodes_per_s": cfg.batch_size * 1e3 / steady,
             "grad_rel": worst, "loss_rel": loss_rel}
+
+
+def train_full_residual(w8: dict) -> dict:
+    """Phase 10: the training route at ``lstm_cs_window=0`` (K4/K6) at the
+    flagship config (bf16 encoder, residuals "auto" = bf16): step-0
+    gradients vs the plain backends at W=0 and their cosine to the W=8
+    kernel route from the same weights on the same batch, W0_STEPS steps of
+    ``FewShotTrainer`` with the counts zeroed just before and read just
+    after, the same steps with the plain backends, ms/step beside W=8's."""
+    argv = ["--synthetic", "--bf16", "--lstm_cs_window", "0"]
+    cfg = cli.config_from_args(cli.build_arg_parser(train=True).parse_args(argv))
+    ref_cfg = cfg.replace(lstm_backend="reference", attn_backend="reference")
+    w8_cfg = cfg.replace(lstm_cs_window=8)
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    tok = GloveTokenizer(vocab, max_length=cfg.max_length)
+    model = build_model(cfg, glove_init=vocab.vectors)
+    ref_model = build_model(ref_cfg, glove_init=vocab.vectors)
+    w8_model = build_model(w8_cfg, glove_init=vocab.vectors)
+    for m in (ref_model, w8_model):
+        m.load_state_dict(model.state_dict())
+
+    def sampler():
+        return EpisodeSampler(cli.load_data(cfg, "train"), tok, cfg.n, cfg.k, cfg.q,
+                              batch_size=cfg.batch_size, seed=cfg.seed)
+
+    first = sampler().sample_batch()
+    g = batch_grads(model, cfg, first)
+    g_ref = batch_grads(ref_model, ref_cfg, first)
+    g8 = batch_grads(w8_model, w8_cfg, first)
+    worst = 0.0
+    for name, gr in g_ref.items():
+        _, rel = rel_err(g[name], gr)
+        worst = max(worst, rel)
+        if rel > GRAD_REL_TOL:
+            raise AssertionError(f"W=0 step-0 gradient {name}: relative error {rel:.3g} > "
+                                 f"{GRAD_REL_TOL}")
+    cos = grad_cosine(g, g8)
+    print(f"[train W=0] step-0 gradients of {len(g)} parameters vs plain backends (W=0): worst "
+          f"relative error {worst:.3g} (tol {GRAD_REL_TOL}); cosine to the W=8 kernel route "
+          f"{cos:.9f} (min {W0_COSINE_MIN})", flush=True)
+    if not cos > W0_COSINE_MIN:
+        raise AssertionError(f"W=0 vs W=8 gradient cosine {cos} <= {W0_COSINE_MIN}")
+
+    def run(m, c, sub):
+        trainer = FewShotTrainer(m, c, sampler(), logger=MetricsLogger(WORK_DIR / sub, quiet=True),
+                                 metric_window=1)
+        trainer.train(W0_STEPS)
+        trainer.close()
+        return trainer, train_records(WORK_DIR / sub / "metrics.jsonl")
+
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    for fn in TRAIN_KERNELS.values():
+        fn.launches = 0
+    trainer, recs = run(model, cfg, "w0")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
+    expect_launches(launches, ("K4", "K6", "K10", "K11"), W0_STEPS)
+    _, ref_recs = run(ref_model, ref_cfg, "w0_reference")
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    losses = np.array([r["loss"] for r in recs])
+    ref_losses = np.array([r["loss"] for r in ref_recs])
+    if len(losses) != W0_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"W=0 losses: {losses}")
+    loss_rel = float(np.max(np.abs(losses - ref_losses) / ref_losses))
+    step_ms = [cfg.batch_size / r["episodes_per_s"] * 1e3 for r in recs]
+    steady = float(np.median(step_ms[2:]))
+    print(f"[train W=0] {W0_STEPS} steps: launches {launches}; losses "
+          f"{np.round(losses, 5).tolist()}; vs plain backends max per-step relative loss "
+          f"difference {loss_rel:.3g} (tol {LOSS_REL_TOL})", flush=True)
+    print(f"[train W=0] ms/step median of steps 3-{W0_STEPS} {steady:.2f} -> "
+          f"{cfg.batch_size * 1e3 / steady:.1f} episodes/s (W=8 in this run: "
+          f"{w8['step_ms']:.2f} ms/step, {w8['episodes_per_s']:.1f} episodes/s)", flush=True)
+    if loss_rel > LOSS_REL_TOL:
+        raise AssertionError(f"W=0 training losses disagree: {loss_rel} > {LOSS_REL_TOL}")
+    profile_train_steps(trainer, tag="profile W=0")
+    return {"launches": launches, "step_ms": steady, "episodes_per_s": cfg.batch_size * 1e3 / steady,
+            "grad_rel": worst, "cosine_w8": cos, "loss_rel": loss_rel}
 
 
 def tokenize_rows(tok, instances) -> dict[str, np.ndarray]:
@@ -689,13 +1057,23 @@ def main() -> int:
     if ep_err > LOGIT_REL_TOL * ep_scale:
         raise AssertionError(f"episode logits disagree: {ep_err} > {LOGIT_REL_TOL}*{ep_scale}")
 
-    # 6. Training kernels vs plain
-    train_rows = train_kernel_checks(gen)
+    # 6. Training kernels vs plain (cuDNN yardsticks by M, shared with phase 7)
+    library: dict = {}
+    train_rows = train_kernel_checks(gen, library)
 
-    # 7. Training main path
+    # 7. Full-residual kernels vs plain
+    full_rows = full_kernel_checks(gen, library)
+
+    # 8. Split recurrence: the ops API path, then the checks
+    split = split_recurrence(gen)
+
+    # 9. Training main path (W=8)
     tr = train_main_path()
 
-    # 8. Summary lines
+    # 10. Training at lstm_cs_window=0
+    tr0 = train_full_residual(tr)
+
+    # 11. Summary lines
     kernels = []
     for key, name, src, replaces in (
         ("K1", "bilstm_infer_fwd", "induction_network_on_fewrel_tpu_torch/csrc/bilstm_infer.cu",
@@ -734,6 +1112,38 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "L=40 M=200 bf16 W=8 (training step, B=4 episodes)",
             "ms_m16": train_rows[(key, "bf16 M=16 W=8 res=bf16")]["ms"],
+        })
+    for key, name, src, replaces in (
+        ("K4", "bilstm_full_fwd", "induction_network_on_fewrel_tpu_torch/csrc/bilstm_infer.cu",
+         "induction_network_on_fewrel_tpu/ops/lstm.py:706"),
+        ("K6", "bilstm_full_bwd", "induction_network_on_fewrel_tpu_torch/csrc/bilstm_full_bwd.cu",
+         "induction_network_on_fewrel_tpu/ops/lstm.py:751"),
+    ):
+        r = full_rows[(key, "bf16 M=200 res=bf16")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": tr0["launches"][key],
+            "max_abs_err": max(v["err"] for (k, _), v in full_rows.items() if k == key),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "at": "L=40 M=200 bf16 res=bf16 (training step at lstm_cs_window=0)",
+            "ms_m16": full_rows[(key, "bf16 M=16 res=bf16")]["ms"],
+        })
+    for key, name, replaces in (
+        ("split2", "lstm_split_fwd_infer", "induction_network_on_fewrel_tpu/ops/lstm.py:189"),
+        ("split1", "lstm_split_fwd", "induction_network_on_fewrel_tpu/ops/lstm.py:157"),
+        ("split3", "lstm_split_bwd", "induction_network_on_fewrel_tpu/ops/lstm.py:215"),
+    ):
+        r = split["rows"][(key, "bf16 M=200 tm")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "induction_network_on_fewrel_tpu_torch/csrc/lstm_split.cu",
+            "replaces": replaces, "launches": split["launches"][key],
+            "max_abs_err": max(v["err"] for (k, _), v in split["rows"].items() if k == key),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "at": "L=40 M=200 u=128 bf16, bilstm_recurrence_tm (2 groups)",
+            "ms_m16": split["rows"][(key, "bf16 M=16 tm")]["ms"],
         })
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

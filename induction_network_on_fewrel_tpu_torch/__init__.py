@@ -9,10 +9,12 @@ copies where it needs them. Two slices are ported: the serving path
 routing, the NTN scorer with its NOTA head, the synchronous serving core)
 and the training path (episode sampler, the optax-equivalent optimizer
 chain, train/eval steps, checkpoints, ``FewShotTrainer``, the train/test
-CLI). The encoder runs on six hand-written CUDA kernels (``csrc/``): K1/K2
-forward-only for eval and serving, K7/K8 (windowed BiLSTM forward and
-backward) and K10/K11 (attention forward with stats and backward) for
-training.
+CLI). Every Pallas kernel of the JAX package has a hand-written CUDA
+counterpart (``csrc/``): K1/K2 forward-only for eval and serving, K7/K8
+(windowed BiLSTM forward and backward) or, at ``lstm_cs_window=0``, K4/K6
+(the full-residual twin), and K10/K11 (attention forward with stats and
+backward) for training; kernels 1-3 run the split recurrence over
+pre-projected gates (``ops.lstm.lstm_recurrence*``).
 
 Kernels are compiled with ``nvcc`` at their first use on a CUDA tensor
 (``kernels/build.py``); importing the package needs neither ``nvcc`` nor a

@@ -46,9 +46,11 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p.add_argument("--induction_dim", type=int, default=100)
     p.add_argument("--ntn_slices", type=int, default=100)
     p.add_argument("--lstm_cs_window", type=int, default=8,
-                   help="BiLSTM checkpoint window of the training route (W > 0)")
+                   help="BiLSTM checkpoint window of the training route "
+                        "(0 = the full-residual twin)")
     p.add_argument("--lstm_residuals", default="auto", choices=["auto", "f32", "bf16"],
-                   help="checkpoint storage dtype (auto = the compute dtype)")
+                   help="storage dtype of the checkpoints or the cs stream "
+                        "(auto = the compute dtype)")
     p.add_argument("--bf16", action="store_true", help="bf16 embedding + encoder")
     p.add_argument("--loss", default="mse", choices=["mse", "ce"])
     p.add_argument("--lr", type=float, default=1e-3)

@@ -49,9 +49,10 @@ class ExperimentConfig:
     lstm_backend: str = "auto"
     attn_backend: str = "auto"
     # Training route of the BiLSTM (ops/lstm.py): one (h, c) checkpoint pair
-    # per W natural-time steps, each window replayed in the backward; 0 (the
-    # full-residual twin, kernels 4/6) is not ported. "auto" residuals
-    # follow compute_dtype; "f32"/"bf16" force the checkpoints' dtype.
+    # per W natural-time steps, each window replayed in the backward; 0 =
+    # the full-residual twin (hs and c saved at every step, kernels 4/6).
+    # "auto" residuals follow compute_dtype; "f32"/"bf16" force the storage
+    # dtype of the checkpoints or of the cs stream.
     lstm_cs_window: int = 8
     lstm_residuals: str = "auto"
 

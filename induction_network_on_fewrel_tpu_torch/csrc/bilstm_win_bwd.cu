@@ -37,8 +37,9 @@
 // gradient step each thread also updates its (D + u) partial entries in L2.
 // By bytes and operations the work is tiny next to the card's rates.
 //
-// Design (simple and right first): blockDim = 4u, thread j owns gate
-// column j for the gate recompute (weights read once per step from L2 and
+// Design (simple and right first; the gradient step is grad_step in
+// lstm_common.cuh, shared with K6 and kernel 3): blockDim = 4u, thread j
+// owns gate column j for the gate recompute (weights read once per step from L2 and
 // reused from a register for the TM rows) and for the weight-gradient
 // columns; the cell update gives each thread fixed (row, unit) cells whose
 // dc carries stay in registers; da W_ih^T and da W_hh^T run one warp per
@@ -46,28 +47,12 @@
 // TM is a template parameter in {8, 4, 2, 1} that the caller picks so the
 // window fits in shared memory (2 W TM u f32 values).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int MAX_THREADS = 512;  // 4u <= 512
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using lstm::BwdArgs;
+using lstm::View;
 
 size_t smem_bytes(int TM, int W, int D, int u) {
   return sizeof(float) * ((size_t)2 * W * TM * u + 3 * (size_t)TM * u + (size_t)TM * D +
@@ -75,23 +60,13 @@ size_t smem_bytes(int TM, int W, int D, int u) {
 }
 
 template <typename T, typename R, int TM>
-__global__ void __launch_bounds__(MAX_THREADS)
-bilstm_win_bwd_kernel(const T* __restrict__ dhs,     // [L, M, 2u]
-                      const T* __restrict__ emb,     // [L, M, D]
-                      const R* __restrict__ ch,      // [nB, M, 2u]
-                      const R* __restrict__ cc,      // [nB, M, 2u]
-                      const T* __restrict__ wih,     // [2, D, 4u]
-                      const float* __restrict__ b,   // [2, 1, 4u]
-                      const float* __restrict__ whh, // [2, u, 4u]
-                      T* __restrict__ demb,          // [2, L, M, D]
-                      float* __restrict__ dwih_p,    // [2, nT, D, 4u]
-                      float* __restrict__ db_p,      // [2, nT, 4u]
-                      float* __restrict__ dwhh_p,    // [2, nT, u, 4u]
-                      int L, int M, int D, int u, int W) {
-  constexpr int CPT = TM >= 4 ? TM / 4 : 1;  // cells per thread: TM * u <= CPT * 4u
+__global__ void __launch_bounds__(lstm::MAX_THREADS)
+bilstm_win_bwd_kernel(BwdArgs<T, R> a) {
+  constexpr int CPT = lstm::cells_per_thread(TM);
   extern __shared__ float smem[];
-  const int G = 4 * u;
-  const int TU = TM * u;
+  const lstm::Sweep<T, R, true> w(a, TM);
+  const int u = w.u, G = w.G, D = w.D, j = w.j, L = a.L, M = a.M, W = a.W, TU = TM * u;
+  const int dir = blockIdx.y;
   float* hwin = smem;               // [W, TM, u]  replayed h of the block
   float* cwin = hwin + W * TU;      // [W, TM, u]  replayed c of the block
   float* seed_h = cwin + W * TU;    // [TM, u]
@@ -100,52 +75,12 @@ bilstm_win_bwd_kernel(const T* __restrict__ dhs,     // [L, M, 2u]
   float* emb_s = dh_s + TU;         // [TM, D]     this step's embeddings
   float* a_s = emb_s + TM * D;      // [TM, 4u]    gates, then da
 
-  const int j = threadIdx.x;        // gate column; blockDim.x == G
-  const int lane = j & 31, warp = j >> 5, nwarps = G >> 5;
-  const int dir = blockIdx.y;
-  const int tile = blockIdx.x, nT = gridDim.x;
-  const int row0 = tile * TM;
-  const T* wih_d = wih + (size_t)dir * D * G;
-  const float* whh_d = whh + (size_t)dir * u * G;
-  const float bj = b[dir * G + j];
-  float* dwih_t = dwih_p + ((size_t)dir * nT + tile) * D * G;
-  float* dwhh_t = dwhh_p + ((size_t)dir * nT + tile) * u * G;
-  T* demb_d = demb + (size_t)dir * L * M * D;
-
-  for (int k = 0; k < D; ++k) dwih_t[(size_t)k * G + j] = 0.0f;
-  for (int k = 0; k < u; ++k) dwhh_t[(size_t)k * G + j] = 0.0f;
+  w.zero_slabs();
   float db_acc = 0.0f;
   float dc[CPT];
 #pragma unroll
   for (int q = 0; q < CPT; ++q) dc[q] = 0.0f;
   for (int idx = j; idx < TU; idx += G) dh_s[idx] = 0.0f;
-
-  // Stage emb[t] for the tile (f32; rows past M read zero).
-  auto stage_emb = [&](int t) {
-    for (int idx = j; idx < TM * D; idx += G) {
-      const int r = idx / D, k = idx - r * D;
-      const int row = row0 + r;
-      emb_s[idx] = row < M ? to_f32(emb[((size_t)t * M + row) * D + k]) : 0.0f;
-    }
-  };
-  // Gate pre-activations of column j for the TM rows, from emb_s and hp.
-  auto gates = [&](const float* hp) {
-    float acc[TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) acc[r] = bj;
-    for (int k = 0; k < D; ++k) {
-      const float w = to_f32(wih_d[(size_t)k * G + j]);
-#pragma unroll
-      for (int r = 0; r < TM; ++r) acc[r] = fmaf(emb_s[r * D + k], w, acc[r]);
-    }
-    for (int k = 0; k < u; ++k) {
-      const float w = whh_d[(size_t)k * G + j];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) acc[r] = fmaf(hp[r * u + k], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) a_s[r * G + j] = acc[r];
-  };
 
   const int nB = (L + W - 1) / W;
   for (int n = 0; n < nB; ++n) {
@@ -156,12 +91,12 @@ bilstm_win_bwd_kernel(const T* __restrict__ dhs,     // [L, M, 2u]
     const int sblk = dir ? blk + 1 : blk - 1;
     for (int idx = j; idx < TU; idx += G) {
       const int r = idx / u, jj = idx - r * u;
-      const int row = row0 + r;
+      const int row = w.row0 + r;
       float hv = 0.0f, cv = 0.0f;
       if (!first && row < M) {
         const size_t o = ((size_t)sblk * M + row) * (2 * u) + dir * u + jj;
-        hv = to_f32(ch[o]);
-        cv = to_f32(cc[o]);
+        hv = lstm::to_f32(a.c1[o]);
+        cv = lstm::to_f32(a.c2[o]);
       }
       seed_h[idx] = hv;
       seed_c[idx] = cv;
@@ -173,9 +108,10 @@ bilstm_win_bwd_kernel(const T* __restrict__ dhs,     // [L, M, 2u]
       const int prev = dir ? pos + 1 : pos - 1;
       const float* hp = js == 0 ? seed_h : hwin + prev * TU;
       const float* cp = js == 0 ? seed_c : cwin + prev * TU;
-      stage_emb(base + pos);
+      lstm::stage_rows(emb_s, a.x, a.xv, base + pos, w.row0, TM, M, D, j, G);
       __syncthreads();  // emb_s, seeds and the previous replay step visible
-      gates(hp);
+      lstm::gate_column<T, TM, true>(a_s, hp, emb_s, w.wih_d, w.bj, nullptr, 0, w.row0, M,
+                                     w.whh_d, D, u, j);
       __syncthreads();
 #pragma unroll
       for (int q = 0; q < CPT; ++q) {
@@ -183,10 +119,10 @@ bilstm_win_bwd_kernel(const T* __restrict__ dhs,     // [L, M, 2u]
         if (idx < TU) {
           const int r = idx / u, jj = idx - r * u;
           const float* ar = a_s + r * G;
-          const float ig = sigmoidf(ar[jj]);
-          const float fg = sigmoidf(ar[u + jj]);
+          const float ig = lstm::sigmoidf(ar[jj]);
+          const float fg = lstm::sigmoidf(ar[u + jj]);
           const float gg = tanhf(ar[2 * u + jj]);
-          const float og = sigmoidf(ar[3 * u + jj]);
+          const float og = lstm::sigmoidf(ar[3 * u + jj]);
           const float c = fg * cp[idx] + ig * gg;
           cwin[pos * TU + idx] = c;
           hwin[pos * TU + idx] = og * tanhf(c);
@@ -198,112 +134,28 @@ bilstm_win_bwd_kernel(const T* __restrict__ dhs,     // [L, M, 2u]
     // Gradient steps, descending in kernel time.
     for (int ks = 0; ks < Wb; ++ks) {
       const int o = dir ? ks : Wb - 1 - ks;
-      const int t = base + o;
       const bool at_seed = dir ? o == Wb - 1 : o == 0;
       const int op = dir ? o + 1 : o - 1;
       const float* hp = at_seed ? seed_h : hwin + op * TU;
       const float* cp = at_seed ? seed_c : cwin + op * TU;
-      stage_emb(t);
+      lstm::stage_rows(emb_s, a.x, a.xv, base + o, w.row0, TM, M, D, j, G);
       __syncthreads();
-      gates(hp);
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        const int idx = j + q * G;
-        if (idx < TU) {
-          const int r = idx / u, jj = idx - r * u;
-          const int row = row0 + r;
-          float* ar = a_s + r * G;
-          const float ig = sigmoidf(ar[jj]);
-          const float fg = sigmoidf(ar[u + jj]);
-          const float gg = tanhf(ar[2 * u + jj]);
-          const float og = sigmoidf(ar[3 * u + jj]);
-          const float tc = tanhf(cwin[o * TU + idx]);
-          const float dht =
-              (row < M ? to_f32(dhs[((size_t)t * M + row) * (2 * u) + dir * u + jj]) : 0.0f) +
-              dh_s[idx];
-          const float dct = dc[q] + dht * og * (1.0f - tc * tc);
-          ar[jj] = dct * gg * ig * (1.0f - ig);
-          ar[u + jj] = dct * cp[idx] * fg * (1.0f - fg);
-          ar[2 * u + jj] = dct * ig * (1.0f - gg * gg);
-          ar[3 * u + jj] = dht * tc * og * (1.0f - og);
-          dc[q] = dct * fg;
-        }
-      }
-      __syncthreads();  // a_s holds da; every read of dh_s is done
-
-      // demb_t = da W_ih^T and dh_carry = da W_hh^T: one warp per column k.
-      for (int k = warp; k < D + u; k += nwarps) {
-        float acc[TM];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) acc[r] = 0.0f;
-        if (k < D) {
-          for (int jj = lane; jj < G; jj += 32) {
-            const float w = to_f32(wih_d[(size_t)k * G + jj]);
-#pragma unroll
-            for (int r = 0; r < TM; ++r) acc[r] = fmaf(a_s[r * G + jj], w, acc[r]);
-          }
-        } else {
-          for (int jj = lane; jj < G; jj += 32) {
-            const float w = whh_d[(size_t)(k - D) * G + jj];
-#pragma unroll
-            for (int r = 0; r < TM; ++r) acc[r] = fmaf(a_s[r * G + jj], w, acc[r]);
-          }
-        }
-        float mine = 0.0f;
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float v = warp_sum(acc[r]);
-          if (lane == r) mine = v;
-        }
-        if (lane < TM) {
-          const int row = row0 + lane;
-          if (k < D) {
-            if (row < M) demb_d[((size_t)t * M + row) * D + k] = from_f32<T>(mine);
-          } else {
-            dh_s[lane * u + (k - D)] = mine;
-          }
-        }
-      }
-
-      // Weight gradients of column j (this thread's slab column).
-      float dsum = 0.0f;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) dsum += a_s[r * G + j];
-      db_acc += dsum;
-      for (int k = 0; k < D; ++k) {
-        float s = 0.0f;
-#pragma unroll
-        for (int r = 0; r < TM; ++r) s = fmaf(emb_s[r * D + k], a_s[r * G + j], s);
-        dwih_t[(size_t)k * G + j] += s;
-      }
-      for (int k = 0; k < u; ++k) {
-        float s = 0.0f;
-#pragma unroll
-        for (int r = 0; r < TM; ++r) s = fmaf(hp[r * u + k], a_s[r * G + j], s);
-        dwhh_t[(size_t)k * G + j] += s;
-      }
-      __syncthreads();  // a_s, emb_s, dh_s and the window are reused next step
+      lstm::grad_step<T, R, true, TM>(w, base + o, hp, cp, cwin + o * TU, emb_s, a_s, dh_s, dc,
+                                      db_acc);
     }
   }
-  db_p[((size_t)dir * nT + tile) * G + j] = db_acc;
+  a.db_p[((size_t)dir * gridDim.x + blockIdx.x) * G + j] = db_acc;
 }
 
 template <typename T, typename R, int TM>
-int launch(const void* dhs, const void* emb, const void* ch, const void* cc, const void* wih,
-           const void* b, const void* whh, void* demb, void* dwih_p, void* db_p, void* dwhh_p,
-           int L, int M, int D, int u, int W, cudaStream_t stream) {
-  const size_t smem = smem_bytes(TM, W, D, u);
+int launch(const BwdArgs<T, R>& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(TM, a.W, a.D, a.u);
   cudaError_t err = cudaFuncSetAttribute(bilstm_win_bwd_kernel<T, R, TM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + TM - 1) / TM, 2);
-  bilstm_win_bwd_kernel<T, R, TM><<<grid, 4 * u, smem, stream>>>(
-      static_cast<const T*>(dhs), static_cast<const T*>(emb), static_cast<const R*>(ch),
-      static_cast<const R*>(cc), static_cast<const T*>(wih), static_cast<const float*>(b),
-      static_cast<const float*>(whh), static_cast<T*>(demb), static_cast<float*>(dwih_p),
-      static_cast<float*>(db_p), static_cast<float*>(dwhh_p), L, M, D, u, W);
+  dim3 grid((a.M + TM - 1) / TM, 2);
+  bilstm_win_bwd_kernel<T, R, TM><<<grid, 4 * a.u, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -311,11 +163,26 @@ template <typename T, typename R>
 int launch_tm(int tm, const void* dhs, const void* emb, const void* ch, const void* cc,
               const void* wih, const void* b, const void* whh, void* demb, void* dwih_p,
               void* db_p, void* dwhh_p, int L, int M, int D, int u, int W, cudaStream_t s) {
+  BwdArgs<T, R> a{};
+  a.dhs = static_cast<const T*>(dhs);
+  a.x = static_cast<const T*>(emb);
+  a.c1 = static_cast<const R*>(ch);
+  a.c2 = static_cast<const R*>(cc);
+  a.wih = static_cast<const T*>(wih);
+  a.b = static_cast<const float*>(b);
+  a.whh = static_cast<const float*>(whh);
+  a.dx = static_cast<T*>(demb);
+  a.dwih_p = static_cast<float*>(dwih_p);
+  a.db_p = static_cast<float*>(db_p);
+  a.dwhh_p = static_cast<float*>(dwhh_p);
+  a.xv = View{0, D, (long long)M * D};
+  a.hv = View{u, 2LL * u, 2LL * M * u};
+  a.L = L; a.M = M; a.D = D; a.u = u; a.W = W; a.rev_group = 1;
   switch (tm) {
-    case 8: return launch<T, R, 8>(dhs, emb, ch, cc, wih, b, whh, demb, dwih_p, db_p, dwhh_p, L, M, D, u, W, s);
-    case 4: return launch<T, R, 4>(dhs, emb, ch, cc, wih, b, whh, demb, dwih_p, db_p, dwhh_p, L, M, D, u, W, s);
-    case 2: return launch<T, R, 2>(dhs, emb, ch, cc, wih, b, whh, demb, dwih_p, db_p, dwhh_p, L, M, D, u, W, s);
-    case 1: return launch<T, R, 1>(dhs, emb, ch, cc, wih, b, whh, demb, dwih_p, db_p, dwhh_p, L, M, D, u, W, s);
+    case 8: return launch<T, R, 8>(a, s);
+    case 4: return launch<T, R, 4>(a, s);
+    case 2: return launch<T, R, 2>(a, s);
+    case 1: return launch<T, R, 1>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,134 @@
+// LSTM recurrence over pre-projected gates for Hopper (sm_90a): kernels 1,
+// 2 and 3 of the split recurrence (ops API lstm_recurrence,
+// lstm_recurrence_grouped, bilstm_recurrence_tm).
+//
+// Replaces, in induction_network_on_fewrel_tpu/ops/lstm.py:
+//   kernel 2 (lstm_split_fwd_infer): _fwd_kernel_infer (launched by
+//     _fwd_call_infer and _fwd_call_tm_infer, the no-grad primal): hs only;
+//   kernel 1 (lstm_split_fwd): _fwd_kernel (_fwd_call, _fwd_call_tm, the
+//     training forward): hs and cs at every step, both in xg's dtype;
+//   kernel 3 (lstm_split_bwd): _bwd_kernel (_bwd_call, _bwd_call_tm):
+//     kernel-reverse walk over the saved hs/cs, gates recomputed from
+//     xg + h_prev W_hh, dxg written every step in xg's dtype, f32 dW_hh
+//     partial slabs per row tile, summed over tiles outside the kernel.
+// Per group g (a direction): a_t = xg_t + h_{t-1} W_hh[g], gate order
+// [i, f, g, o], h and c carried in f32; W_hh is f32.
+//
+// Layouts run in place: every tensor is passed as a (group, row, time)
+// view with unit column stride, so the grouped [Gc, M, L, 4u] input and the
+// time-major [L, M, Gc*4u] one (whose group 1 walks time reversed, as the
+// JAX index maps do) need no transpose, flip or pad copy (the JAX call
+// pads and transposes, ops/lstm.py:266-287).
+//
+// What bounds them on this card: as K1 and K6, the L-step sequential chain;
+// bytes (xg streamed once, 4u values per row and step) and operations are
+// far below the card's rates at these sizes.
+//
+// Design: kernels 1 and 2 are lstm_fwd_kernel (lstm_common.cuh, K1's body)
+// with xg read in place of the projection emb W_ih + b: thread j reads
+// column j of the TM rows' gates (coalesced across the block) and adds
+// h W_hh; TM = 16 rows per block. Kernel 3 is lstm_resid_bwd_kernel (K6's
+// body) without the projection: it writes dxg = da where K6 writes demb,
+// dW_ih and db; TM = 8, as K6.
+
+#include "lstm_common.cuh"
+
+namespace {
+
+using lstm::BwdArgs;
+using lstm::FwdArgs;
+using lstm::View;
+
+constexpr int TM_FWD = 16;
+constexpr int TM_BWD = 8;
+
+template <typename T, int MODE>
+int launch_fwd(const void* xg, const void* whh, void* hs, void* cs, int L, int M, int u, int Gc,
+               View xv, View hv, int rev_group, cudaStream_t stream) {
+  FwdArgs<T, T> a{};
+  a.x = static_cast<const T*>(xg);
+  a.whh = static_cast<const float*>(whh);
+  a.hs = static_cast<T*>(hs);
+  a.c1 = static_cast<T*>(cs);
+  a.xv = xv;
+  a.hv = hv;
+  a.L = L; a.M = M; a.D = 0; a.u = u; a.W = 1; a.rev_group = rev_group;
+  return lstm::launch_fwd<T, T, false, MODE, TM_FWD>(a, Gc, stream);
+}
+
+template <typename T>
+int launch_bwd(const void* dhs, const void* xg, const void* hs, const void* cs, const void* whh,
+               void* dxg, void* dwhh_p, int L, int M, int u, int Gc, View xv, View hv,
+               int rev_group, cudaStream_t stream) {
+  BwdArgs<T, T> a{};
+  a.dhs = static_cast<const T*>(dhs);
+  a.x = static_cast<const T*>(xg);
+  a.hs = static_cast<const T*>(hs);
+  a.c1 = static_cast<const T*>(cs);
+  a.whh = static_cast<const float*>(whh);
+  a.dx = static_cast<T*>(dxg);
+  a.dwhh_p = static_cast<float*>(dwhh_p);
+  a.xv = xv;
+  a.hv = hv;
+  a.L = L; a.M = M; a.D = 0; a.u = u; a.W = 0; a.rev_group = rev_group;
+  return lstm::launch_resid_bwd<T, T, false, TM_BWD>(a, Gc, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Common arguments: xg (group, row, time) element strides x_g, x_m, x_t
+// (unit column stride, 4u columns a group) in bf16 when bf16 != 0, else
+// f32; hs, cs and dhs share the strides h_g, h_m, h_t (u columns a group)
+// and xg's dtype; whh [Gc, u, 4u] f32 contiguous; rev_group is the group
+// that walks time reversed (-1: none). The caller guarantees 4u <= 512.
+
+// Kernel 2: hs only.
+int lstm_split_fwd_infer(const void* xg, const void* whh, void* hs, int L, int M, int u, int Gc,
+                         long long x_g, long long x_m, long long x_t, long long h_g,
+                         long long h_m, long long h_t, int rev_group, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const View xv{x_g, x_m, x_t}, hv{h_g, h_m, h_t};
+  if (bf16)
+    return launch_fwd<__nv_bfloat16, lstm::kNone>(xg, whh, hs, nullptr, L, M, u, Gc, xv, hv,
+                                                  rev_group, s);
+  return launch_fwd<float, lstm::kNone>(xg, whh, hs, nullptr, L, M, u, Gc, xv, hv, rev_group, s);
+}
+
+// Kernel 1: hs and cs.
+int lstm_split_fwd(const void* xg, const void* whh, void* hs, void* cs, int L, int M, int u,
+                   int Gc, long long x_g, long long x_m, long long x_t, long long h_g,
+                   long long h_m, long long h_t, int rev_group, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const View xv{x_g, x_m, x_t}, hv{h_g, h_m, h_t};
+  if (bf16)
+    return launch_fwd<__nv_bfloat16, lstm::kFull>(xg, whh, hs, cs, L, M, u, Gc, xv, hv,
+                                                  rev_group, s);
+  return launch_fwd<float, lstm::kFull>(xg, whh, hs, cs, L, M, u, Gc, xv, hv, rev_group, s);
+}
+
+// Kernel 3: dxg (xg's strides and dtype) and the f32 partials
+// dwhh_p [Gc, ceil(M/tm), u, 4u]. tm is the caller's row tile, which sizes
+// the partials: any other value than the compiled TM_BWD = 8 is refused with
+// cudaErrorInvalidValue before anything is launched. Also needs 4u a
+// multiple of 32.
+int lstm_split_bwd(const void* dhs, const void* xg, const void* hs, const void* cs,
+                   const void* whh, void* dxg, void* dwhh_p, int L, int M, int u, int Gc,
+                   long long x_g, long long x_m, long long x_t, long long h_g, long long h_m,
+                   long long h_t, int rev_group, int bf16, int tm, void* stream) {
+  if (tm != TM_BWD) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const View xv{x_g, x_m, x_t}, hv{h_g, h_m, h_t};
+  if (bf16)
+    return launch_bwd<__nv_bfloat16>(dhs, xg, hs, cs, whh, dxg, dwhh_p, L, M, u, Gc, xv, hv,
+                                     rev_group, s);
+  return launch_bwd<float>(dhs, xg, hs, cs, whh, dxg, dwhh_p, L, M, u, Gc, xv, hv, rev_group,
+                           s);
+}
+
+const char* lstm_split_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

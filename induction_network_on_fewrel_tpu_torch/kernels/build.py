@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/*.cu`` source has a plain ``extern "C"`` launcher interface and
-compiles on its own into a shared library for ``sm_90a``:
+compiles on its own into a shared library for ``sm_90a`` (the LSTM sources
+share device code through ``csrc/lstm_common.cuh``):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so csrc/<name>.cu
@@ -9,9 +10,10 @@ compiles on its own into a shared library for ``sm_90a``:
 No PyTorch headers are included (a source that includes them takes minutes
 to compile instead of seconds), and ``torch.utils.cpp_extension`` is not
 used. Libraries are built at first use into ``build/torch_kernels/`` at the
-root of the checkout, keyed by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads. All sources are compiled
-together, one ``nvcc`` process each, the first time any kernel is needed.
+root of the checkout, keyed by a hash of the source, the headers and the
+flags, so an edited source or header rebuilds and an unchanged one loads.
+All sources are compiled together, one ``nvcc`` process each, the first
+time any kernel is needed.
 
 Every launcher takes its pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` after the launch; ``KernelLibrary.launch`` turns a
@@ -37,12 +39,20 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The split recurrence's launchers: L, M, u, Gc, the (group, row, time)
+# strides of xg and of hs, the reversed group and the dtype flag.
+_SPLIT = [_I] * 4 + [_LL] * 6 + [_I] * 2 + [_P]
 # Launcher name -> (source stem, argtypes). The stream is the last argument.
 LAUNCHERS = {
     "bilstm_infer_fwd": ("bilstm_infer", [_P] * 5 + [_I] * 5 + [_P]),
     "bilstm_win_fwd": ("bilstm_infer", [_P] * 7 + [_I] * 7 + [_P]),
+    "bilstm_full_fwd": ("bilstm_infer", [_P] * 6 + [_I] * 6 + [_P]),
     "bilstm_win_bwd": ("bilstm_win_bwd", [_P] * 11 + [_I] * 8 + [_P]),
+    "bilstm_full_bwd": ("bilstm_full_bwd", [_P] * 11 + [_I] * 7 + [_P]),
+    "lstm_split_fwd_infer": ("lstm_split", [_P] * 3 + _SPLIT),
+    "lstm_split_fwd": ("lstm_split", [_P] * 4 + _SPLIT),
+    "lstm_split_bwd": ("lstm_split", [_P] * 7 + _SPLIT[:-1] + [_I, _P]),   # + the row tile
     "attn_fwd": ("attn_fwd", [_P] * 5 + [_I] * 5 + [_P]),
     "attn_fwd_stats": ("attn_fwd", [_P] * 7 + [_I] * 5 + [_P]),
     "attn_bwd": ("attn_bwd", [_P] * 11 + [_I] * 6 + [_P]),
@@ -68,7 +78,8 @@ def _nvcc() -> str:
 
 def _lib_path(stem: str) -> Path:
     src = (CSRC / f"{stem}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{stem}-{h}.so"
 
 

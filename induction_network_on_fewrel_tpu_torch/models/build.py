@@ -58,13 +58,14 @@ def resolve_runtime_backends(cfg: ExperimentConfig, device) -> dict:
     ``chip_smoke.py`` times it against the plain two-pass version.
 
     ``lstm_cs_window`` (default 8) is the checkpoint window of the training
-    route (K7/K8 or their plain versions); negative values are refused, and
-    0, the JAX package's full-residual twin, is refused where a gradient is
-    taken. ``lstm_residuals`` ``auto | f32 | bf16`` is the checkpoints'
-    storage dtype; "auto" (None) follows the compute dtype. Unlike the JAX
-    resolution, the window also engages on the plain path: the plain
-    versions follow the kernels' algorithm. None of these knobs change
-    parameters or outputs beyond rounding."""
+    route (K7/K8 or their plain versions); 0 is the JAX package's
+    full-residual twin (K4/K6: hs and c saved at every step); negative
+    values are refused. ``lstm_residuals`` ``auto | f32 | bf16`` is the
+    storage dtype of the checkpoints or of the cs stream; "auto" (None)
+    follows the compute dtype. Unlike the JAX resolution, the window also
+    engages on the plain path: the plain versions follow the kernels'
+    algorithm. None of these knobs change parameters or outputs beyond
+    rounding."""
     window = int(cfg.lstm_cs_window)
     if window < 0:
         raise ValueError(

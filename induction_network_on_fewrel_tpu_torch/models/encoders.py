@@ -10,9 +10,10 @@ through the fused BiLSTM (``ops.lstm.bilstm_encoder_tm``) to hidden states
 (``ops.attn.masked_selfattn_tm``) gives the sentence vectors [M, 2u] in
 the compute dtype. Both ops take ``auto | reference | cuda`` backends,
 resolved by ``models/build.resolve_runtime_backends``, which also resolves
-the training route's ``lstm_cs_window`` and checkpoint dtype. With a
-gradient needed the ops go through their autograd Functions (K7/K8 and
-K10/K11 on the card); without, through the forward-only kernels K1/K2.
+the training route's ``lstm_cs_window`` and residual dtype. With a
+gradient needed the ops go through their autograd Functions (K7/K8, or
+K4/K6 at ``lstm_cs_window=0``, and K10/K11 on the card); without, through
+the forward-only kernels K1/K2.
 
 The attention always follows the kernel math (f32 inside, output in H's
 dtype); the JAX package's "xla" attention branch instead computes in the

@@ -1,10 +1,11 @@
-"""Fused BiLSTM: plain PyTorch versions and the CUDA kernels K1, K7 and K8.
+"""LSTM recurrences: plain PyTorch versions and the CUDA kernels.
 
-``bilstm_encoder_tm`` is the counterpart of
-``induction_network_on_fewrel_tpu/ops/lstm.py:bilstm_encoder_tm`` on its
-kernel path (``_bilstm_fused_tm``): the input projection and the
-bidirectional recurrence in one pass, with the projected gates never
-stored. The public signature and layout are the JAX package's:
+Two public families, with the JAX package's signatures and layouts
+(``induction_network_on_fewrel_tpu/ops/lstm.py``):
+
+**The fused encoder op** ``bilstm_encoder_tm`` (the kernel path,
+``_bilstm_fused_tm``): the input projection and the bidirectional
+recurrence in one pass, with the projected gates never stored.
 
     emb_t [L, M, D], wih [2, D, 4u], b [2, 1, 4u], whh [2, u, 4u]
       -> hs [L, M, 2u]   (cols [0:u] forward, [u:2u] reverse, natural time)
@@ -13,34 +14,60 @@ Two routes, as in the JAX custom VJP:
 
 * no gradient needed (grad mode off, or no input requires grad): the
   residual-free forward, K1 (``csrc/bilstm_infer.cu``, replaces
-  ``_fused_fwd_kernel_infer``) or its plain version ``bilstm_reference``;
-* otherwise ``_BiLSTMFused``, a ``torch.autograd.Function`` whose forward
-  is K7 (``bilstm_win_fwd``, replaces ``_fused_win_fwd_kernel``): hs plus
-  one (h, c) checkpoint pair per W-step natural-time block, in the
-  residual dtype; and whose backward is K8 (``bilstm_win_bwd``, replaces
-  ``_fused_win_bwd_kernel``): each window replayed in f32 from its seed,
-  then the gradient sweep. W = min(cs_window, L) as in the JAX call.
+  ``_fused_fwd_kernel_infer``) or its plain version ``bilstm_reference``,
+  whatever the window;
+* otherwise ``_BiLSTMFused``, a ``torch.autograd.Function``. At
+  ``cs_window`` W > 0 its forward is K7 (``bilstm_win_fwd``, replaces
+  ``_fused_win_fwd_kernel``): hs plus one (h, c) checkpoint pair per W-step
+  natural-time block, in the residual dtype; its backward is K8
+  (``bilstm_win_bwd``, replaces ``_fused_win_bwd_kernel``): each window
+  replayed in f32 from its seed, then the gradient sweep; W = min(W, L) as
+  in the JAX call. At W = 0 (the full-residual twin) its forward is K4
+  (``bilstm_full_fwd``, replaces ``_fused_fwd_kernel``): hs plus c at every
+  step in the residual dtype; its backward is K6 (``bilstm_full_bwd``,
+  ``csrc/bilstm_full_bwd.cu``, replaces ``_fused_bwd_kernel``), which reads
+  h_prev from the saved hs (in emb's dtype) and c from the saved cs.
 
 Dtype placement follows the kernel path exactly (lstm.py:1303-1307): wih
 is cast to the embedding dtype, b and whh to f32; gate pre-activations
 accumulate in f32; the h and c carries and the window replay are f32; hs
-and demb are written in the embedding dtype; the checkpoints in the
-residual dtype (None = the embedding dtype); dW_ih is rounded to wih's
-dtype (lstm.py:1216), so in bf16 the Function returns a bf16 dW_ih that
+and demb are written in the embedding dtype; the residuals in the residual
+dtype (None = the embedding dtype); demb's two direction slabs are summed
+in the embedding dtype and dW_ih is rounded to wih's dtype (lstm.py:943,
+947, 1212, 1216), so in bf16 the Function returns a bf16 dW_ih that
 autograd's cast carries back to the f32 parameter. In bf16 this differs
 from the JAX ``scan`` backend, so the plain versions here are held against
-JAX ``backend="interpret"`` (tests/test_torch_ops.py,
-tests/test_torch_train_ops.py). Gate order is [i, f, g, o].
+JAX ``backend="interpret"`` (tests/test_torch_*.py). Gate order is
+[i, f, g, o].
+
+**The split recurrence over pre-projected gates** (``lstm_recurrence``,
+``lstm_recurrence_grouped``, ``bilstm_recurrence_tm``):
+
+    grouped:     xg [Gc, M, L, 4u], whh [Gc, u, 4u] -> hs [Gc, M, L, u]
+    time-major:  xg [L, M, 2*4u],   whh [2, u, 4u]  -> hs [L, M, 2u]
+                 (group 1 walks time reversed; natural-time output)
+
+hs in xg's dtype; whh is cast to f32 (lstm.py:443, 688). No gradient
+needed: kernel 2 (``lstm_split_infer_cuda``, replaces
+``_fwd_kernel_infer``); otherwise ``_SplitRecurrence``: kernel 1
+(``lstm_split_fwd``, replaces ``_fwd_kernel``: hs and cs every step, both
+in xg's dtype) and kernel 3 (``lstm_split_bwd``, replaces ``_bwd_kernel``:
+dxg in xg's dtype, f32 dW_hh summed over row tiles), all in
+``csrc/lstm_split.cu``. The kernels take each layout in place through its
+(group, row, time) strides; no transpose, flip or pad copy is made.
+``lstm_scan`` is the plain f32 counterpart of the JAX ``lstm_scan``
+(autograd-differentiable, no kernel).
 
 Each plain version follows its kernel's algorithm step by step (the
-window replay, the seeds, the kernel-reverse walk, the rounding points),
-so the CPU tests check the port's own backward, not torch autograd.
+window replay, the seeds, the kernel-reverse walk, the residuals read
+back in their stored dtype, the rounding points), so the CPU tests check
+the port's own backward, not torch autograd.
 
 Backends (``ops.core.resolve_backend``): "reference" is the plain version,
 "cuda" the kernels (CUDA tensors only), "auto" picks by the tensor's
 device. A kernel wrapper launches on CUDA tensors or raises; it never
 falls back. The kernels mask their ragged last row tile themselves, so no
-padded copy is made (the JAX call pads rows to its tile, lstm.py:1297-1302).
+padded copy is made (the JAX calls pad rows to their tile).
 """
 
 from __future__ import annotations
@@ -56,6 +83,11 @@ from induction_network_on_fewrel_tpu_torch.ops.core import (
 
 # A block's dynamic shared memory on an H100 (232,448 bytes).
 SMEM_LIMIT = 232448
+# Row tile of the kernels that walk saved full residual streams (K6,
+# kernel 3). It sizes their per-tile partials here and is passed to their
+# launchers (csrc/bilstm_full_bwd.cu, csrc/lstm_split.cu), which refuse any
+# other tile than the one they were compiled for.
+RESID_TM = 8
 
 
 def bilstm_encoder_tm(
@@ -71,9 +103,12 @@ def bilstm_encoder_tm(
 
     ``cs_window`` W > 0: the training route saves one (h, c) pair per W
     natural-time steps (W is clamped to L) and the backward replays each
-    window. W = 0 is the JAX package's full-residual twin (kernels 4 and 6),
-    which is not ported: with a gradient needed it raises.
-    ``residual_dtype``: storage dtype of the checkpoints (None = emb's)."""
+    window (K7/K8). W = 0: the full-residual twin saves hs and c at every
+    step and the backward reads them back (K4/K6).
+    ``residual_dtype``: storage dtype of the checkpoints or of the cs
+    stream (None = emb's)."""
+    if cs_window < 0:
+        raise ValueError(f"cs_window must be >= 0, got {cs_window}")
     wih = wih.to(emb_t.dtype)
     b = b.float()
     whh = whh.float()
@@ -83,39 +118,113 @@ def bilstm_encoder_tm(
             return bilstm_infer_cuda(emb_t.contiguous(), wih.contiguous(), b.contiguous(),
                                      whh.contiguous())
         return bilstm_reference(emb_t, wih, b, whh)
-    if cs_window <= 0:
-        raise NotImplementedError(
-            f"lstm_cs_window={cs_window}: the full-residual BiLSTM backward "
-            "(kernels 4 and 6) is not ported; use a window W > 0"
-        )
     W = min(int(cs_window), emb_t.shape[0])
     res_dt = emb_t.dtype if residual_dtype is None else residual_dtype
     return _BiLSTMFused.apply(emb_t, wih, b, whh, kernel, W, res_dt)
 
 
 class _BiLSTMFused(torch.autograd.Function):
-    """The windowed custom VJP of ``_bilstm_fused_tm``: K7 forward, K8
-    backward (or their plain versions, for ``kernel=False``)."""
+    """The custom VJP of ``_bilstm_fused_tm``: K7 forward and K8 backward
+    at W > 0, K4 forward and K6 backward at W = 0 (or their plain
+    versions, for ``kernel=False``)."""
 
     @staticmethod
     def forward(ctx, emb_t, wih, b, whh, kernel: bool, W: int, res_dt):
         args = (emb_t.contiguous(), wih.contiguous(), b.contiguous(), whh.contiguous())
-        fwd = bilstm_win_fwd if kernel else bilstm_win_fwd_reference
-        hs, ch, cc = fwd(*args, W, res_dt)
-        ctx.save_for_backward(args[0], ch, cc, *args[1:])
+        if W:
+            fwd = bilstm_win_fwd if kernel else bilstm_win_fwd_reference
+            hs, r1, r2 = fwd(*args, W, res_dt)          # (h, c) checkpoints
+        else:
+            fwd = bilstm_full_fwd if kernel else bilstm_full_fwd_reference
+            hs, r2 = fwd(*args, res_dt)
+            r1 = hs                                      # h_prev is read from hs
+        ctx.save_for_backward(args[0], r1, r2, *args[1:])
         ctx.kernel, ctx.W = kernel, W
         return hs
 
     @staticmethod
     def backward(ctx, dhs):
-        emb_t, ch, cc, wih, b, whh = ctx.saved_tensors
-        bwd = bilstm_win_bwd if ctx.kernel else bilstm_win_bwd_reference
-        demb, dwih, db, dwhh = bwd(dhs.to(emb_t.dtype).contiguous(), emb_t, ch, cc,
-                                   wih, b, whh, ctx.W)
+        emb_t, r1, r2, wih, b, whh = ctx.saved_tensors
+        dhs = dhs.to(emb_t.dtype).contiguous()
+        if ctx.W:
+            bwd = bilstm_win_bwd if ctx.kernel else bilstm_win_bwd_reference
+            demb, dwih, db, dwhh = bwd(dhs, emb_t, r1, r2, wih, b, whh, ctx.W)
+        else:
+            bwd = bilstm_full_bwd if ctx.kernel else bilstm_full_bwd_reference
+            demb, dwih, db, dwhh = bwd(dhs, emb_t, r1, r2, wih, b, whh)
         # Per-direction demb summed in the emb dtype, dW_ih rounded to
-        # wih's dtype, as the JAX rule does (lstm.py:1212, 1216).
+        # wih's dtype, as the JAX rule does (lstm.py:943, 947).
         return (demb[0] + demb[1], dwih.to(wih.dtype), db.reshape(b.shape), dwhh,
                 None, None, None)
+
+
+def lstm_scan(xg: torch.Tensor, whh: torch.Tensor) -> torch.Tensor:
+    """([M, L, 4u] pre-projected inputs, [u, 4u]) -> hidden states [M, L, u]
+    in f32: the plain counterpart of the JAX ``lstm_scan`` (zero initial
+    state, f32 recurrence), differentiable by autograd."""
+    M, L, G = xg.shape
+    x = xg.float()
+    hs = [h for _, h, _ in _steps(lambda t: x[:, t], whh.float(), range(L), M, G // 4)]
+    return torch.stack(hs, dim=1)
+
+
+def lstm_recurrence(xg: torch.Tensor, whh: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Single-group recurrence: xg [M, L, 4u], whh [u, 4u] -> [M, L, u] in
+    xg's dtype (f32 recurrence inside)."""
+    return lstm_recurrence_grouped(xg[None], whh[None], backend)[0]
+
+
+def lstm_recurrence_grouped(xg: torch.Tensor, whh: torch.Tensor,
+                            backend: str = "auto") -> torch.Tensor:
+    """Gc independent recurrences with per-group weights in one launch:
+    xg [Gc, M, L, 4u], whh [Gc, u, 4u] -> hs [Gc, M, L, u] in xg's dtype."""
+    return _split_recurrence(xg, whh, backend, tm=False)
+
+
+def bilstm_recurrence_tm(xg_t: torch.Tensor, whh: torch.Tensor,
+                         backend: str = "auto") -> torch.Tensor:
+    """Bidirectional recurrence over natural-time gate inputs: xg_t
+    [L, M, 8u] (cols [0:4u] forward gates, [4u:8u] reverse gates, the
+    reverse NOT pre-flipped), whh [2, u, 4u] -> [L, M, 2u] in natural time
+    (cols [0:u] forward, [u:2u] reverse), in xg's dtype."""
+    if whh.dim() != 3 or whh.shape[0] != 2:
+        raise ValueError(
+            f"bilstm_recurrence_tm takes exactly 2 groups (forward, reverse), "
+            f"got whh {tuple(whh.shape)}"
+        )
+    return _split_recurrence(xg_t, whh, backend, tm=True)
+
+
+def _split_recurrence(xg, whh, backend: str, tm: bool) -> torch.Tensor:
+    whh = whh.float()
+    xg = xg.contiguous()
+    _split_dims(xg, whh, tm)
+    kernel = resolve_backend(backend, xg.device) == "cuda"
+    if not needs_grad(xg, whh):
+        fwd = lstm_split_infer_cuda if kernel else lstm_split_infer_reference
+        return fwd(xg, whh.contiguous(), tm)
+    return _SplitRecurrence.apply(xg, whh, kernel, tm)
+
+
+class _SplitRecurrence(torch.autograd.Function):
+    """The custom VJP of ``_lstm_pallas`` / ``_bilstm_pallas_tm``: kernel 1
+    forward saving hs and cs, kernel 3 backward (or their plain versions,
+    for ``kernel=False``)."""
+
+    @staticmethod
+    def forward(ctx, xg, whh, kernel: bool, tm: bool):
+        whh = whh.contiguous()
+        hs, cs = (lstm_split_fwd if kernel else lstm_split_fwd_reference)(xg, whh, tm)
+        ctx.save_for_backward(xg, hs, cs, whh)
+        ctx.kernel, ctx.tm = kernel, tm
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        xg, hs, cs, whh = ctx.saved_tensors
+        bwd = lstm_split_bwd if ctx.kernel else lstm_split_bwd_reference
+        dxg, dwhh = bwd(dhs.to(xg.dtype).contiguous(), xg, hs, cs, whh, ctx.tm)
+        return dxg, dwhh, None, None
 
 
 # --- plain versions -----------------------------------------------------------
@@ -130,32 +239,63 @@ def _cell(a: torch.Tensor, c_prev: torch.Tensor, u: int):
     return i, f, g, o, c
 
 
+def _cell_grad(a, c_prev, c_t, dh_t, dc, u: int):
+    """One step's gate-gradient da [M, 4u] (from the recomputed gates a)
+    and the dc carry of the kernel-previous step (lstm.py:245-258)."""
+    ig, fg, gg, og, _ = _cell(a, c_prev, u)
+    tc = torch.tanh(c_t)
+    dct = dc + dh_t * og * (1.0 - tc * tc)
+    da = torch.cat([
+        dct * gg * ig * (1.0 - ig),
+        dct * c_prev * fg * (1.0 - fg),
+        dct * ig * (1.0 - gg * gg),
+        dh_t * tc * og * (1.0 - og),
+    ], dim=-1)
+    return da, dct * fg
+
+
+def _times(L: int, rev: bool):
+    """Natural times in kernel order."""
+    return range(L - 1, -1, -1) if rev else range(L)
+
+
+def _steps(xg_at, whh32, times, M: int, u: int, h=None, c=None):
+    """The forward recurrence in kernel order from (h, c) (zero by
+    default): yields (t, h, c) in f32; ``xg_at(t)`` gives the f32 gate
+    inputs of natural time t."""
+    h = whh32.new_zeros((M, u)) if h is None else h
+    c = whh32.new_zeros((M, u)) if c is None else c
+    for t in times:
+        _, _, _, o, c = _cell(xg_at(t) + h @ whh32, c, u)
+        h = o * torch.tanh(c)
+        yield t, h, c
+
+
 def _fused_forward(emb_t, wih, b, whh, W: int | None, res_dt):
-    """The kernels' forward: bf16 products are exact in f32, so upcasting
-    the operands and multiplying in f32 is the f32 accumulation the kernel
-    does. With ``W``, also the checkpoint pair of each natural block."""
+    """The fused kernels' forward: bf16 products are exact in f32, so
+    upcasting the operands and multiplying in f32 is the f32 accumulation
+    the kernel does. W = None: hs only (K1); W > 0: also the checkpoint
+    pair of each natural block (K7); W = 0: also c at every step (K4)."""
     L, M, _ = emb_t.shape
     u = whh.shape[1]
     x = emb_t.float()
     wih32, b32, whh32 = wih.to(emb_t.dtype).float(), b.float(), whh.float()
     hs = torch.empty((L, M, 2 * u), dtype=emb_t.dtype, device=emb_t.device)
-    nB = -(-L // W) if W else 0
-    ch = torch.empty((nB, M, 2 * u), dtype=res_dt, device=emb_t.device) if W else None
-    cc = torch.empty_like(ch) if W else None
+    nB = -(-L // W) if W else L
+    r1 = torch.empty((nB, M, 2 * u), dtype=res_dt, device=emb_t.device) if W else None
+    r2 = torch.empty((nB, M, 2 * u), dtype=res_dt, device=emb_t.device) if W is not None else None
     for d in range(2):
         cols = slice(d * u, (d + 1) * u)
         xg = torch.matmul(x, wih32[d]) + b32[d]            # [L, M, 4u] f32
-        h = x.new_zeros((M, u))
-        c = x.new_zeros((M, u))
-        for t in (range(L) if d == 0 else range(L - 1, -1, -1)):
-            _, _, _, o, c = _cell(xg[t] + h @ whh32[d], c, u)
-            h = o * torch.tanh(c)
+        for t, h, c in _steps(lambda t: xg[t], whh32[d], _times(L, d == 1), M, u):
             hs[t, :, cols] = h.to(emb_t.dtype)
+            if W == 0:
+                r2[t, :, cols] = c.to(res_dt)
             # The block's kernel-last step: this state is its checkpoint.
-            if W and (t % W == 0 if d else (t % W == W - 1 or t == L - 1)):
-                ch[t // W, :, cols] = h.to(res_dt)
-                cc[t // W, :, cols] = c.to(res_dt)
-    return hs, ch, cc
+            elif W and (t % W == 0 if d else (t % W == W - 1 or t == L - 1)):
+                r1[t // W, :, cols] = h.to(res_dt)
+                r2[t // W, :, cols] = c.to(res_dt)
+    return hs, r1, r2
 
 
 def bilstm_reference(emb_t, wih, b, whh) -> torch.Tensor:
@@ -169,16 +309,20 @@ def bilstm_win_fwd_reference(emb_t, wih, b, whh, W: int, res_dt):
     return _fused_forward(emb_t, wih, b, whh, W, res_dt)
 
 
-def bilstm_win_bwd_reference(dhs, emb_t, ch, cc, wih, b, whh, W: int):
-    """The plain version of K8, step for step: per direction, blocks in
-    kernel-reverse order; at each block's entry its forward steps replayed
-    in f32 from the seed (the kernel-previous block's checkpoint, zero for
-    the direction's kernel-first block); then the gradient steps. Returns
-    demb [2, L, M, D] in emb's dtype and f32 dW_ih [2, D, 4u], db [2, 4u],
-    dW_hh [2, u, 4u] (the kernel's per-tile partials, summed)."""
+def bilstm_full_fwd_reference(emb_t, wih, b, whh, res_dt):
+    """The plain version of K4: (hs, cs), cs [L, M, 2u] holding c at every
+    step in ``res_dt``."""
+    hs, _, cs = _fused_forward(emb_t, wih, b, whh, 0, res_dt)
+    return hs, cs
+
+
+def _fused_backward(dhs, emb_t, wih, b, whh, states):
+    """The gradient sweep of K8 and K6. ``states(d)`` yields, in
+    kernel-reverse order, (t, h_prev, c_prev, c_t) in f32 for direction d.
+    Returns demb [2, L, M, D] in emb's dtype and f32 dW_ih [2, D, 4u],
+    db [2, 4u], dW_hh [2, u, 4u] (the kernels' per-tile partials, summed)."""
     L, M, D = emb_t.shape
     u = whh.shape[1]
-    nB = ch.shape[0]
     x = emb_t.float()
     wih32, b32, whh32 = wih.float(), b.float(), whh.float()
     dhs32 = dhs.float()
@@ -190,6 +334,30 @@ def bilstm_win_bwd_reference(dhs, emb_t, ch, cc, wih, b, whh, W: int):
         cols = slice(d * u, (d + 1) * u)
         dh = x.new_zeros((M, u))
         dc = x.new_zeros((M, u))
+        for t, h_prev, c_prev, c_t in states(d):
+            a = x[t] @ wih32[d] + b32[d] + h_prev @ whh32[d]
+            da, dc = _cell_grad(a, c_prev, c_t, dhs32[t, :, cols] + dh, dc, u)
+            demb[d, t] = (da @ wih32[d].T).to(emb_t.dtype)
+            dwih[d] += x[t].T @ da
+            db[d] += da.sum(0)
+            dwhh[d] += h_prev.T @ da
+            dh = da @ whh32[d].T
+    return demb, dwih, db, dwhh
+
+
+def bilstm_win_bwd_reference(dhs, emb_t, ch, cc, wih, b, whh, W: int):
+    """The plain version of K8, step for step: per direction, blocks in
+    kernel-reverse order; at each block's entry its forward steps replayed
+    in f32 from the seed (the kernel-previous block's checkpoint, zero for
+    the direction's kernel-first block); then the gradient steps."""
+    L, M, _ = emb_t.shape
+    u = whh.shape[1]
+    nB = ch.shape[0]
+    x = emb_t.float()
+    wih32, b32, whh32 = wih.float(), b.float(), whh.float()
+
+    def states(d):
+        cols = slice(d * u, (d + 1) * u)
         for blk in (range(nB - 1, -1, -1) if d == 0 else range(nB)):
             base = blk * W
             Wb = min(W, L - base)
@@ -198,38 +366,124 @@ def bilstm_win_bwd_reference(dhs, emb_t, ch, cc, wih, b, whh, W: int):
             else:
                 s = blk - 1 if d == 0 else blk + 1
                 seed_h, seed_c = ch[s, :, cols].float(), cc[s, :, cols].float()
-            h_win, c_win = [None] * Wb, [None] * Wb
-            h, c = seed_h, seed_c
-            for j in range(Wb):
-                pos = j if d == 0 else Wb - 1 - j
-                _, _, _, o, c = _cell(x[base + pos] @ wih32[d] + b32[d] + h @ whh32[d], c, u)
-                h = o * torch.tanh(c)
-                h_win[pos], c_win[pos] = h, c
-            for o in (range(Wb - 1, -1, -1) if d == 0 else range(Wb)):
-                t = base + o
-                if o == (0 if d == 0 else Wb - 1):
-                    h_prev, c_prev = seed_h, seed_c
-                else:
-                    op = o - 1 if d == 0 else o + 1
-                    h_prev, c_prev = h_win[op], c_win[op]
-                tc = torch.tanh(c_win[o])
-                ig, fg, gg, og, _ = _cell(x[t] @ wih32[d] + b32[d] + h_prev @ whh32[d],
-                                          c_prev, u)
-                dh_t = dhs32[t, :, cols] + dh
-                dct = dc + dh_t * og * (1.0 - tc * tc)
-                da = torch.cat([
-                    dct * gg * ig * (1.0 - ig),
-                    dct * c_prev * fg * (1.0 - fg),
-                    dct * ig * (1.0 - gg * gg),
-                    dh_t * tc * og * (1.0 - og),
-                ], dim=-1)                                   # [M, 4u]
-                demb[d, t] = (da @ wih32[d].T).to(emb_t.dtype)
-                dwih[d] += x[t].T @ da
-                db[d] += da.sum(0)
-                dwhh[d] += h_prev.T @ da
-                dh = da @ whh32[d].T
-                dc = dct * fg
-    return demb, dwih, db, dwhh
+            win = {o: (h, c) for o, h, c in _steps(        # keyed by block offset
+                lambda o: x[base + o] @ wih32[d] + b32[d], whh32[d],
+                _times(Wb, d == 1), M, u, seed_h, seed_c)}
+            for o in _times(Wb, d == 0):
+                at_seed = o == (0 if d == 0 else Wb - 1)
+                h_prev, c_prev = (seed_h, seed_c) if at_seed else win[o - 1 if d == 0 else o + 1]
+                yield base + o, h_prev, c_prev, win[o][1]
+
+    return _fused_backward(dhs, emb_t, wih, b, whh, states)
+
+
+def bilstm_full_bwd_reference(dhs, emb_t, hs, cs, wih, b, whh):
+    """The plain version of K6: per direction, kernel-reverse walk over the
+    saved streams; c_t from cs, h_prev from hs and c_prev from cs at the
+    kernel-previous step (their stored dtypes, upcast), zero at the
+    direction's kernel-first step. Returns what K8's plain version does."""
+    L, M, _ = emb_t.shape
+    u = whh.shape[1]
+
+    def states(d):
+        cols = slice(d * u, (d + 1) * u)
+        times = list(_times(L, d == 1))
+        zero = hs.new_zeros((M, u), dtype=torch.float32)
+        for s in range(L - 1, -1, -1):
+            t = times[s]
+            if s:
+                tp = times[s - 1]
+                h_prev, c_prev = hs[tp, :, cols].float(), cs[tp, :, cols].float()
+            else:
+                h_prev, c_prev = zero, zero
+            yield t, h_prev, c_prev, cs[t, :, cols].float()
+
+    return _fused_backward(dhs, emb_t, wih, b, whh, states)
+
+
+def _split_dims(xg, whh, tm: bool) -> tuple[int, int, int, int]:
+    """(Gc, M, L, u) of a split-recurrence input, or ValueError."""
+    if whh.dim() != 3 or whh.shape[2] != 4 * whh.shape[1]:
+        raise ValueError(f"whh must be [Gc, u, 4u], got {tuple(whh.shape)}")
+    Gc, u, G = whh.shape
+    if tm:
+        if xg.dim() != 3 or xg.shape[2] != Gc * G:
+            raise ValueError(f"xg_t must be [L, M, {Gc}*{G}], got {tuple(xg.shape)}")
+        L, M = xg.shape[:2]
+    else:
+        if xg.dim() != 4 or xg.shape[0] != Gc or xg.shape[3] != G:
+            raise ValueError(f"xg must be [{Gc}, M, L, {G}], got {tuple(xg.shape)}")
+        M, L = xg.shape[1:3]
+    return Gc, M, L, u
+
+
+def _gmt(x: torch.Tensor, groups: int, tm: bool) -> torch.Tensor:
+    """The (group, row, time, column) view of a split-recurrence tensor:
+    the grouped layout [Gc, M, L, w] as it is, the time-major [L, M, Gc*w]
+    one regrouped without a copy."""
+    if not tm:
+        return x
+    L, M, width = x.shape
+    return x.view(L, M, groups, width // groups).permute(2, 1, 0, 3)
+
+
+def _split_hs_like(xg, Gc: int, L: int, M: int, u: int, tm: bool):
+    shape = (L, M, Gc * u) if tm else (Gc, M, L, u)
+    return torch.empty(shape, dtype=xg.dtype, device=xg.device)
+
+
+def _split_forward(xg, whh, tm: bool, with_cs: bool):
+    Gc, M, L, u = _split_dims(xg, whh, tm)
+    hs = _split_hs_like(xg, Gc, L, M, u, tm)
+    cs = _split_hs_like(xg, Gc, L, M, u, tm) if with_cs else None
+    xv, hv = _gmt(xg, Gc, tm), _gmt(hs, Gc, tm)
+    cv = _gmt(cs, Gc, tm) if with_cs else None
+    for g in range(Gc):
+        for t, h, c in _steps(lambda t: xv[g, :, t].float(), whh[g].float(),
+                              _times(L, tm and g == 1), M, u):
+            hv[g, :, t] = h.to(xg.dtype)
+            if with_cs:
+                cv[g, :, t] = c.to(xg.dtype)
+    return hs, cs
+
+
+def lstm_split_infer_reference(xg, whh, tm: bool) -> torch.Tensor:
+    """The plain version of kernel 2: hs in xg's dtype."""
+    return _split_forward(xg, whh, tm, with_cs=False)[0]
+
+
+def lstm_split_fwd_reference(xg, whh, tm: bool):
+    """The plain version of kernel 1: (hs, cs), both in xg's dtype."""
+    return _split_forward(xg, whh, tm, with_cs=True)
+
+
+def lstm_split_bwd_reference(dhs, xg, hs, cs, whh, tm: bool):
+    """The plain version of kernel 3: per group, kernel-reverse walk over
+    the saved hs and cs (xg's dtype, upcast; zero state at the kernel-first
+    step), gates recomputed from xg + h_prev W_hh. Returns dxg in xg's
+    dtype and f32 dW_hh [Gc, u, 4u] (the per-tile partials, summed)."""
+    Gc, M, L, u = _split_dims(xg, whh, tm)
+    whh32 = whh.float()
+    dxg = torch.empty_like(xg)
+    dwhh = whh32.new_zeros(whh.shape)
+    xv, dxv = _gmt(xg, Gc, tm), _gmt(dxg, Gc, tm)
+    hv, cv, dhv = _gmt(hs, Gc, tm), _gmt(cs, Gc, tm), _gmt(dhs, Gc, tm)
+    for g in range(Gc):
+        times = list(_times(L, tm and g == 1))
+        dh = whh32.new_zeros((M, u))
+        dc = whh32.new_zeros((M, u))
+        for s in range(L - 1, -1, -1):
+            t = times[s]
+            if s:
+                h_prev, c_prev = hv[g, :, times[s - 1]].float(), cv[g, :, times[s - 1]].float()
+            else:
+                h_prev = c_prev = whh32.new_zeros((M, u))
+            a = xv[g, :, t].float() + h_prev @ whh32[g]
+            da, dc = _cell_grad(a, c_prev, cv[g, :, t].float(), dhv[g, :, t].float() + dh, dc, u)
+            dxv[g, :, t] = da.to(xg.dtype)
+            dwhh[g] += h_prev.T @ da
+            dh = da @ whh32[g].T
+    return dxg, dwhh
 
 
 # --- kernel wrappers ------------------------------------------------------------
@@ -262,16 +516,25 @@ def _check_residuals(name, res_dt):
         raise TypeError(f"{name}: residual dtype must be one of {ACTIVATION_DTYPES}, got {res_dt}")
 
 
+def _refuse_grad(name, *tensors):
+    """A forward-only kernel keeps no residuals, so its output could carry
+    no gradient: refuse an input that requires grad while grad mode is on."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad; the forward-only kernel would "
+            "return a detached output (the training route is the op's autograd Function)"
+        )
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
 def bilstm_infer_cuda(emb_t, wih, b, whh) -> torch.Tensor:
     """Launch K1 on the current stream (no synchronize). Raises for CPU
     tensors, unsupported dtypes, shapes or layouts, launch failures, and
-    for an input that requires grad while grad mode is on: K1 keeps no
-    residuals, so its output could carry no gradient."""
-    if needs_grad(emb_t, wih, b, whh):
-        raise RuntimeError(
-            "bilstm_infer_cuda: an input requires grad; the training route is "
-            "bilstm_encoder_tm (K7/K8), K1 would return a detached output"
-        )
+    for an input that requires grad while grad mode is on."""
+    _refuse_grad("bilstm_infer_cuda", emb_t, wih, b, whh)
     u = _check_lstm_args("bilstm_infer_cuda", emb_t, wih, b, whh)
     L, M, D = emb_t.shape
     hs = torch.empty((L, M, 2 * u), dtype=emb_t.dtype, device=emb_t.device)
@@ -281,8 +544,7 @@ def bilstm_infer_cuda(emb_t, wih, b, whh) -> torch.Tensor:
         LIBRARY.launch(
             "bilstm_infer_fwd",
             emb_t.data_ptr(), wih.data_ptr(), b.data_ptr(), whh.data_ptr(),
-            hs.data_ptr(), L, M, D, u, int(emb_t.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            hs.data_ptr(), L, M, D, u, int(emb_t.dtype == torch.bfloat16), _stream(),
         )
     bilstm_infer_cuda.launches += 1
     return hs
@@ -309,14 +571,36 @@ def bilstm_win_fwd(emb_t, wih, b, whh, W: int, res_dt):
             "bilstm_win_fwd",
             emb_t.data_ptr(), wih.data_ptr(), b.data_ptr(), whh.data_ptr(),
             hs.data_ptr(), ch.data_ptr(), cc.data_ptr(), L, M, D, u, W,
-            int(emb_t.dtype == torch.bfloat16), int(res_dt == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            int(emb_t.dtype == torch.bfloat16), int(res_dt == torch.bfloat16), _stream(),
         )
     bilstm_win_fwd.launches += 1
     return hs, ch, cc
 
 
 bilstm_win_fwd.launches = 0
+
+
+def bilstm_full_fwd(emb_t, wih, b, whh, res_dt):
+    """Launch K4: (hs, cs) as ``bilstm_full_fwd_reference``."""
+    u = _check_lstm_args("bilstm_full_fwd", emb_t, wih, b, whh)
+    _check_residuals("bilstm_full_fwd", res_dt)
+    L, M, D = emb_t.shape
+    hs = torch.empty((L, M, 2 * u), dtype=emb_t.dtype, device=emb_t.device)
+    cs = torch.empty((L, M, 2 * u), dtype=res_dt, device=emb_t.device)
+    if L == 0 or M == 0:
+        return hs, cs
+    with torch.cuda.device(emb_t.device):
+        LIBRARY.launch(
+            "bilstm_full_fwd",
+            emb_t.data_ptr(), wih.data_ptr(), b.data_ptr(), whh.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), L, M, D, u,
+            int(emb_t.dtype == torch.bfloat16), int(res_dt == torch.bfloat16), _stream(),
+        )
+    bilstm_full_fwd.launches += 1
+    return hs, cs
+
+
+bilstm_full_fwd.launches = 0
 
 
 def win_bwd_tile(W: int, D: int, u: int) -> tuple[int, int]:
@@ -330,42 +614,178 @@ def win_bwd_tile(W: int, D: int, u: int) -> tuple[int, int]:
     raise ValueError(f"bilstm_win_bwd: a window of W={W} at u={u} does not fit shared memory")
 
 
+def resid_bwd_smem(D: int, u: int) -> int:
+    """Shared memory of K6 (D = the embedding width) and kernel 3 (D = 0):
+    h_prev, c_prev, c_t, the dh carry, the embeddings and the gates of a
+    tile (``lstm::resid_bwd_smem`` in ``csrc/lstm_common.cuh``)."""
+    return 4 * (4 * RESID_TM * u + RESID_TM * D + RESID_TM * 4 * u)
+
+
+def _check_bwd_widths(name, D: int, u: int):
+    if (4 * u) % 32:
+        raise ValueError(f"{name}: 4u = {4 * u} must be a multiple of 32")
+    if resid_bwd_smem(D, u) > SMEM_LIMIT:
+        raise ValueError(f"{name}: D={D}, u={u} do not fit a block's shared memory")
+
+
+def _sum_partials(emb_t, u, tiles, launch):
+    """Allocate K8/K6's outputs, ``launch`` them, and sum the per-tile
+    partials outside the kernel, as the JAX calls do."""
+    L, M, D = emb_t.shape
+    G = 4 * u
+    dev = emb_t.device
+    demb = torch.empty((2, L, M, D), dtype=emb_t.dtype, device=dev)
+    dwih_p = torch.empty((2, tiles, D, G), dtype=torch.float32, device=dev)
+    db_p = torch.empty((2, tiles, G), dtype=torch.float32, device=dev)
+    dwhh_p = torch.empty((2, tiles, u, G), dtype=torch.float32, device=dev)
+    if M and L:
+        with torch.cuda.device(dev):
+            launch(demb, dwih_p, db_p, dwhh_p)
+    else:
+        for p in (demb, dwih_p, db_p, dwhh_p):
+            p.zero_()
+    return demb, dwih_p.sum(1), db_p.sum(1), dwhh_p.sum(1)
+
+
 def bilstm_win_bwd(dhs, emb_t, ch, cc, wih, b, whh, W: int):
-    """Launch K8, then sum its per-tile partials (outside the kernel, as
-    the JAX call does): the same four outputs as ``bilstm_win_bwd_reference``."""
+    """Launch K8, then sum its per-tile partials: the same four outputs as
+    ``bilstm_win_bwd_reference``."""
     u = _check_lstm_args("bilstm_win_bwd", emb_t, wih, b, whh)
     check_cuda_tensors("bilstm_win_bwd", emb_t, dhs, ch, cc)
     _check_residuals("bilstm_win_bwd", ch.dtype)
     L, M, D = emb_t.shape
-    G = 4 * u
     if dhs.dtype != emb_t.dtype or tuple(dhs.shape) != (L, M, 2 * u):
         raise ValueError(f"bilstm_win_bwd: dhs {dhs.dtype} {tuple(dhs.shape)} != hs")
     if not 1 <= W <= L:
         raise ValueError(f"bilstm_win_bwd: window {W} outside [1, L={L}]")
     if tuple(ch.shape) != (-(-L // W), M, 2 * u) or cc.shape != ch.shape or cc.dtype != ch.dtype:
         raise ValueError(f"bilstm_win_bwd: checkpoints {tuple(ch.shape)} do not match W={W}")
-    if G % 32:
-        raise ValueError(f"bilstm_win_bwd: 4u = {G} must be a multiple of 32")
+    if (4 * u) % 32:
+        raise ValueError(f"bilstm_win_bwd: 4u = {4 * u} must be a multiple of 32")
     tm, _ = win_bwd_tile(W, D, u)
-    nT = -(-M // tm)
-    dev = emb_t.device
-    demb = torch.empty((2, L, M, D), dtype=emb_t.dtype, device=dev)
-    dwih_p = torch.empty((2, nT, D, G), dtype=torch.float32, device=dev)
-    db_p = torch.empty((2, nT, G), dtype=torch.float32, device=dev)
-    dwhh_p = torch.empty((2, nT, u, G), dtype=torch.float32, device=dev)
-    if M == 0:
-        return demb, dwih_p.sum(1), db_p.sum(1), dwhh_p.sum(1)
-    with torch.cuda.device(dev):
+
+    def launch(demb, dwih_p, db_p, dwhh_p):
         LIBRARY.launch(
             "bilstm_win_bwd",
             dhs.data_ptr(), emb_t.data_ptr(), ch.data_ptr(), cc.data_ptr(),
             wih.data_ptr(), b.data_ptr(), whh.data_ptr(), demb.data_ptr(),
             dwih_p.data_ptr(), db_p.data_ptr(), dwhh_p.data_ptr(),
             L, M, D, u, W, tm, int(emb_t.dtype == torch.bfloat16),
-            int(ch.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            int(ch.dtype == torch.bfloat16), _stream(),
         )
-    bilstm_win_bwd.launches += 1
-    return demb, dwih_p.sum(1), db_p.sum(1), dwhh_p.sum(1)
+        bilstm_win_bwd.launches += 1
+
+    return _sum_partials(emb_t, u, -(-M // tm), launch)
 
 
 bilstm_win_bwd.launches = 0
+
+
+def bilstm_full_bwd(dhs, emb_t, hs, cs, wih, b, whh):
+    """Launch K6, then sum its per-tile partials: the same four outputs as
+    ``bilstm_full_bwd_reference``."""
+    u = _check_lstm_args("bilstm_full_bwd", emb_t, wih, b, whh)
+    check_cuda_tensors("bilstm_full_bwd", emb_t, dhs, hs, cs)
+    _check_residuals("bilstm_full_bwd", cs.dtype)
+    L, M, D = emb_t.shape
+    for nm, x in (("dhs", dhs), ("hs", hs)):
+        if x.dtype != emb_t.dtype or tuple(x.shape) != (L, M, 2 * u):
+            raise ValueError(f"bilstm_full_bwd: {nm} {x.dtype} {tuple(x.shape)} != [L, M, 2u]")
+    if tuple(cs.shape) != (L, M, 2 * u):
+        raise ValueError(f"bilstm_full_bwd: cs {tuple(cs.shape)} != [L, M, 2u]")
+    _check_bwd_widths("bilstm_full_bwd", D, u)
+
+    def launch(demb, dwih_p, db_p, dwhh_p):
+        LIBRARY.launch(
+            "bilstm_full_bwd",
+            dhs.data_ptr(), emb_t.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            wih.data_ptr(), b.data_ptr(), whh.data_ptr(), demb.data_ptr(),
+            dwih_p.data_ptr(), db_p.data_ptr(), dwhh_p.data_ptr(),
+            L, M, D, u, RESID_TM, int(emb_t.dtype == torch.bfloat16),
+            int(cs.dtype == torch.bfloat16), _stream(),
+        )
+        bilstm_full_bwd.launches += 1
+
+    return _sum_partials(emb_t, u, -(-M // RESID_TM), launch)
+
+
+bilstm_full_bwd.launches = 0
+
+
+def _check_split_args(name, xg, whh, tm: bool, *streams):
+    """Device, dtype and shape checks of the split kernels; returns
+    (Gc, M, L, u). ``streams`` are u-wide tensors laid out like hs."""
+    check_cuda_tensors(name, xg, whh, *streams)
+    if xg.dtype not in ACTIVATION_DTYPES or whh.dtype != torch.float32:
+        raise TypeError(f"{name}: xg must be one of {ACTIVATION_DTYPES} and whh float32, "
+                        f"got {xg.dtype}/{whh.dtype}")
+    Gc, M, L, u = _split_dims(xg, whh, tm)
+    if 4 * u > 512:
+        raise ValueError(f"{name}: 4u = {4 * u} exceeds the kernel's 512 threads")
+    want = (L, M, Gc * u) if tm else (Gc, M, L, u)
+    for x in streams:
+        if x.dtype != xg.dtype or tuple(x.shape) != want:
+            raise ValueError(f"{name}: {x.dtype} {tuple(x.shape)} != hs {xg.dtype} {want}")
+    return Gc, M, L, u
+
+
+def _split_launch(name, xg, whh, tm: bool, ptrs, hs, extra=()):
+    """Launch ``name`` with the (group, row, time) strides of xg and hs;
+    ``extra`` goes before the stream."""
+    Gc, M, L, u = _split_dims(xg, whh, tm)
+    strides = _gmt(xg, Gc, tm).stride()[:3] + _gmt(hs, Gc, tm).stride()[:3]
+    with torch.cuda.device(xg.device):
+        LIBRARY.launch(name, *ptrs, L, M, u, Gc, *strides, 1 if tm else -1,
+                       int(xg.dtype == torch.bfloat16), *extra, _stream())
+
+
+def lstm_split_infer_cuda(xg, whh, tm: bool) -> torch.Tensor:
+    """Launch kernel 2: hs as ``lstm_split_infer_reference``. Raises, like
+    K1, for an input that requires grad while grad mode is on."""
+    _refuse_grad("lstm_split_infer_cuda", xg, whh)
+    Gc, M, L, u = _check_split_args("lstm_split_infer_cuda", xg, whh, tm)
+    hs = _split_hs_like(xg, Gc, L, M, u, tm)
+    if M and L:
+        _split_launch("lstm_split_fwd_infer", xg, whh, tm,
+                      (xg.data_ptr(), whh.data_ptr(), hs.data_ptr()), hs)
+        lstm_split_infer_cuda.launches += 1
+    return hs
+
+
+lstm_split_infer_cuda.launches = 0
+
+
+def lstm_split_fwd(xg, whh, tm: bool):
+    """Launch kernel 1: (hs, cs) as ``lstm_split_fwd_reference``."""
+    Gc, M, L, u = _check_split_args("lstm_split_fwd", xg, whh, tm)
+    hs = _split_hs_like(xg, Gc, L, M, u, tm)
+    cs = torch.empty_like(hs)
+    if M and L:
+        _split_launch("lstm_split_fwd", xg, whh, tm,
+                      (xg.data_ptr(), whh.data_ptr(), hs.data_ptr(), cs.data_ptr()), hs)
+        lstm_split_fwd.launches += 1
+    return hs, cs
+
+
+lstm_split_fwd.launches = 0
+
+
+def lstm_split_bwd(dhs, xg, hs, cs, whh, tm: bool):
+    """Launch kernel 3, then sum its per-tile dW_hh partials: (dxg, dwhh)
+    as ``lstm_split_bwd_reference``."""
+    Gc, M, L, u = _check_split_args("lstm_split_bwd", xg, whh, tm, dhs, hs, cs)
+    _check_bwd_widths("lstm_split_bwd", 0, u)
+    dxg = torch.empty_like(xg)
+    dwhh_p = torch.empty((Gc, -(-M // RESID_TM), u, 4 * u), dtype=torch.float32,
+                         device=xg.device)
+    if M and L:
+        _split_launch("lstm_split_bwd", xg, whh, tm,
+                      (dhs.data_ptr(), xg.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                       whh.data_ptr(), dxg.data_ptr(), dwhh_p.data_ptr()), hs, (RESID_TM,))
+        lstm_split_bwd.launches += 1
+    else:
+        dwhh_p.zero_()
+    return dxg, dwhh_p.sum(1)
+
+
+lstm_split_bwd.launches = 0

@@ -17,6 +17,7 @@ import torch
 from induction_network_on_fewrel_tpu.ops import core as jcore
 from induction_network_on_fewrel_tpu.ops.attn import masked_selfattn_tm as j_attn
 from induction_network_on_fewrel_tpu.ops.lstm import bilstm_encoder_tm as j_bilstm
+from induction_network_on_fewrel_tpu_torch.kernels.build import CSRC, LAUNCHERS
 from induction_network_on_fewrel_tpu_torch.ops import core as tcore
 from induction_network_on_fewrel_tpu_torch.ops.attn import (
     attn_fwd_cuda,
@@ -199,3 +200,23 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_launching(lstm_inputs, attn_
         else:
             attn_fwd_cuda(*_t(*attn_inputs))
     assert (bilstm_infer_cuda.launches, attn_fwd_cuda.launches) == before
+
+
+@pytest.mark.parametrize("name", sorted(LAUNCHERS))
+def test_launcher_argtypes_match_the_c_signature(name):
+    """Each ctypes declaration in ``LAUNCHERS`` has the arity and types of
+    its ``extern "C"`` launcher in ``csrc/``: a mismatch would pass wrong
+    sizes or pointers to a kernel (the row tile that sizes K6's and kernel
+    3's partials is one such argument)."""
+    import ctypes
+    import re
+
+    stem, argtypes = LAUNCHERS[name]
+    src = (CSRC / f"{stem}.cu").read_text()
+    extern_c = src[src.index('extern "C" {'):]
+    m = re.search(rf"\bint {name}\(([^)]*)\)\s*{{", extern_c)
+    assert m, f"{name} not found in {stem}.cu"
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong}
+    params = [" ".join(p.replace("const ", "").split()[:-1]) for p in m.group(1).split(",")]
+    assert [kinds[p] for p in params] == argtypes
+    assert params[-1] == "void*"                 # the stream comes last

@@ -12,8 +12,10 @@ JAX kernels' own, gradients with ``jax.vjp``:
 
 The dispatch rule is pinned too: with the kernel route forced and the
 launchers replaced by recording fakes, a call that needs a gradient never
-reaches the forward-only K1/K2, and a call that needs none never reaches
-the Functions.
+reaches the forward-only K1/K2 or the split recurrence's kernel 2, and a
+call that needs none never reaches the Functions; ``cs_window=0`` takes
+the full-residual kernels K4/K6. (The full-residual and split routes are
+held against JAX in tests/test_torch_lstm_full_split.py.)
 """
 
 import jax
@@ -145,11 +147,17 @@ def test_windowed_grads_same_at_every_window(lstm_inputs):
             _close(g, w, dict(rtol=1e-5, atol=1e-6))
 
 
-def test_window_zero_refused_with_grad(lstm_inputs):
-    emb_t, wih, b, whh, _ = lstm_inputs
-    e = torch.from_numpy(emb_t).requires_grad_()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlstm.bilstm_encoder_tm(e, *map(torch.from_numpy, (wih, b, whh)), cs_window=0)
+def test_window_zero_refused_with_grad(kernel_route, lstm_inputs):
+    """W = 0 is no longer refused: with a gradient needed it takes the
+    full-residual route (K4 forward, K6 backward, never K7/K8), and its f32
+    gradients equal the W = L windowed ones (one window replayed from the
+    zero state is the forward's own f32 arithmetic)."""
+    _, want = _port_lstm_grads(lstm_inputs, L, torch.float32, torch.float32)
+    kernel_route.clear()
+    _, got = _port_lstm_grads(lstm_inputs, 0, torch.float32, torch.float32)
+    assert kernel_route == ["K4", "K6"]
+    for name, g, w in zip(("demb", "dwih", "db", "dwhh"), got, want):
+        _close(g, w, dict(rtol=1e-5, atol=1e-5))
 
 
 # --- K10 + K11 ------------------------------------------------------------------
@@ -223,6 +231,12 @@ def kernel_route(monkeypatch):
     monkeypatch.setattr(tlstm, "bilstm_infer_cuda", fake("K1", tlstm.bilstm_reference))
     monkeypatch.setattr(tlstm, "bilstm_win_fwd", fake("K7", tlstm.bilstm_win_fwd_reference))
     monkeypatch.setattr(tlstm, "bilstm_win_bwd", fake("K8", tlstm.bilstm_win_bwd_reference))
+    monkeypatch.setattr(tlstm, "bilstm_full_fwd", fake("K4", tlstm.bilstm_full_fwd_reference))
+    monkeypatch.setattr(tlstm, "bilstm_full_bwd", fake("K6", tlstm.bilstm_full_bwd_reference))
+    monkeypatch.setattr(tlstm, "lstm_split_infer_cuda",
+                        fake("split2", tlstm.lstm_split_infer_reference))
+    monkeypatch.setattr(tlstm, "lstm_split_fwd", fake("split1", tlstm.lstm_split_fwd_reference))
+    monkeypatch.setattr(tlstm, "lstm_split_bwd", fake("split3", tlstm.lstm_split_bwd_reference))
     monkeypatch.setattr(tattn, "attn_fwd_cuda", fake("K2", tattn.attn_reference))
     monkeypatch.setattr(tattn, "attn_fwd_stats", fake("K10", tattn.attn_fwd_stats_reference))
     monkeypatch.setattr(tattn, "attn_bwd", fake("K11", tattn.attn_bwd_reference))
@@ -237,49 +251,71 @@ def test_dispatch_rule(kernel_route, lstm_inputs, attn_inputs, grad_mode, requir
     lstm_args = [torch.from_numpy(x).requires_grad_(requires_grad) for x in (emb_t, wih, b, whh)]
     attn_args = [torch.from_numpy(Ht).requires_grad_(requires_grad), torch.from_numpy(mask),
                  torch.from_numpy(w1), torch.from_numpy(w2)]
+    xg_t = torch.zeros((L, M, 8 * U), requires_grad=requires_grad)
     with torch.set_grad_enabled(grad_mode):
         hs = tlstm.bilstm_encoder_tm(*lstm_args)
         out = tattn.masked_selfattn_tm(*attn_args)
+        rec = tlstm.bilstm_recurrence_tm(xg_t, lstm_args[3])
     if grad_mode and requires_grad:
-        assert kernel_route == ["K7", "K10"]
-        assert hs.grad_fn is not None and out.grad_fn is not None
-        (hs.float().sum() + out.float().sum()).backward()
-        assert sorted(kernel_route) == ["K10", "K11", "K7", "K8"]
-        assert all(x.grad is not None for x in lstm_args + attn_args[:1])
+        assert kernel_route == ["K7", "K10", "split1"]
+        assert all(y.grad_fn is not None for y in (hs, out, rec))
+        (hs.float().sum() + out.float().sum() + rec.sum()).backward()
+        assert sorted(kernel_route) == ["K10", "K11", "K7", "K8", "split1", "split3"]
+        assert all(x.grad is not None for x in lstm_args + attn_args[:1] + [xg_t])
     else:
-        assert kernel_route == ["K1", "K2"]
-        assert hs.grad_fn is None and out.grad_fn is None
+        assert kernel_route == ["K1", "K2", "split2"]
+        assert all(y.grad_fn is None for y in (hs, out, rec))
 
 
 def test_forward_only_kernels_refuse_grad_inputs(lstm_inputs, attn_inputs):
-    """K1/K2 would return detached outputs: with grad enabled on an input
-    that requires grad they raise before any device check or launch."""
+    """K1/K2 and kernel 2 would return detached outputs: with grad enabled
+    on an input that requires grad they raise before any device check or
+    launch."""
     emb_t, wih, b, whh, _ = lstm_inputs
     Ht, mask, w1, w2, _ = attn_inputs
-    before = (tlstm.bilstm_infer_cuda.launches, tattn.attn_fwd_cuda.launches)
+    fns = (tlstm.bilstm_infer_cuda, tattn.attn_fwd_cuda, tlstm.lstm_split_infer_cuda)
+    before = [f.launches for f in fns]
     e = torch.from_numpy(emb_t).requires_grad_()
     with pytest.raises(RuntimeError, match="requires grad"):
         tlstm.bilstm_infer_cuda(e, *map(torch.from_numpy, (wih, b, whh)))
     h = torch.from_numpy(Ht).requires_grad_()
     with pytest.raises(RuntimeError, match="requires grad"):
         tattn.attn_fwd_cuda(h, *map(torch.from_numpy, (mask, w1, w2)))
-    assert (tlstm.bilstm_infer_cuda.launches, tattn.attn_fwd_cuda.launches) == before
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tlstm.lstm_split_infer_cuda(torch.zeros((L, M, 8 * U), requires_grad=True),
+                                    torch.from_numpy(whh), True)
+    assert [f.launches for f in fns] == before
 
 
-@pytest.mark.parametrize("wrapper", ["win_fwd", "win_bwd", "attn_stats", "attn_bwd"])
+@pytest.mark.parametrize("wrapper", ["win_fwd", "win_bwd", "attn_stats", "attn_bwd", "full_fwd",
+                                     "full_bwd", "split_infer", "split_fwd", "split_bwd"])
 def test_training_kernel_wrappers_refuse_cpu_tensors(lstm_inputs, attn_inputs, wrapper):
     emb_t, wih, b, whh, dhs = lstm_inputs
     Ht, mask, w1, w2, dout = attn_inputs
     t = lambda *xs: [torch.from_numpy(x) for x in xs]  # noqa: E731
     fns = {"win_fwd": tlstm.bilstm_win_fwd, "win_bwd": tlstm.bilstm_win_bwd,
-           "attn_stats": tattn.attn_fwd_stats, "attn_bwd": tattn.attn_bwd}
+           "attn_stats": tattn.attn_fwd_stats, "attn_bwd": tattn.attn_bwd,
+           "full_fwd": tlstm.bilstm_full_fwd, "full_bwd": tlstm.bilstm_full_bwd,
+           "split_infer": tlstm.lstm_split_infer_cuda, "split_fwd": tlstm.lstm_split_fwd,
+           "split_bwd": tlstm.lstm_split_bwd}
     before = fns[wrapper].launches
+    xg, hs = torch.zeros((L, M, 8 * U)), torch.zeros((L, M, 2 * U))
     with pytest.raises(RuntimeError, match="CUDA device"):
         if wrapper == "win_fwd":
             tlstm.bilstm_win_fwd(*t(emb_t, wih, b, whh), 8, torch.float32)
         elif wrapper == "win_bwd":
             ch = torch.zeros((2, M, 2 * U))
             tlstm.bilstm_win_bwd(torch.from_numpy(dhs), *t(emb_t), ch, ch, *t(wih, b, whh), 8)
+        elif wrapper == "full_fwd":
+            tlstm.bilstm_full_fwd(*t(emb_t, wih, b, whh), torch.float32)
+        elif wrapper == "full_bwd":
+            tlstm.bilstm_full_bwd(torch.from_numpy(dhs), *t(emb_t), hs, hs, *t(wih, b, whh))
+        elif wrapper == "split_infer":
+            tlstm.lstm_split_infer_cuda(xg, torch.from_numpy(whh), True)
+        elif wrapper == "split_fwd":
+            tlstm.lstm_split_fwd(xg, torch.from_numpy(whh), True)
+        elif wrapper == "split_bwd":
+            tlstm.lstm_split_bwd(hs, xg, hs, hs, torch.from_numpy(whh), True)
         elif wrapper == "attn_stats":
             tattn.attn_fwd_stats(*t(Ht, mask, w1, w2))
         else:
