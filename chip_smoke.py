@@ -11,9 +11,13 @@ exits non-zero; no phase catches a failure of its own):
 2. Build: compile every CUDA source in ``csrc/`` with nvcc (sm_90a), one
    process per source, all started together.
 3. Kernel vs plain PyTorch version on the card at the flagship widths
-   (L=40, D=60, u=128, 2u=256, A=64) for M in {1, 16, 200}, f32 and bf16,
-   ragged row tiles, partial and fully masked rows; kernel, plain and
-   library times (CUDA events) and the byte/operation bound.
+   (L=40, D=60, u=128, 2u=256, A=64) for M in {1, 4, 16, 25, 200} (serving
+   buckets, a 5x5 registration, a val/test batch), f32 and bf16, ragged
+   row tiles, partial and fully masked rows; kernel, plain and library
+   times (CUDA events) and the byte/operation bound. K1's library
+   yardstick is cuDNN's f32 ``nn.LSTM`` run as K1 runs, ``.eval()`` under
+   ``torch.no_grad()``; its train-mode forward is printed beside it. Each
+   forward row prints its cluster launch plan (TM, C, CTAs).
 4. Main path: the flagship model (400 002 x 50 synthetic GloVe table, bf16
    encoder, f32 head, seeded fresh init) behind ``InferenceEngine``: one
    tenant of 5 relations registered at K=5, 64 requests answered through
@@ -25,9 +29,10 @@ exits non-zero; no phase catches a failure of its own):
    (200 encoder rows) through the kernels vs the plain backends.
 6. Training kernels vs their plain versions: K7 (windowed BiLSTM forward),
    K8 (its backward), K10 (attention forward with stats), K11 (attention
-   backward) at L=40, D=60, u=128, A=64, M in {16, 200}, f32 and bf16,
-   W=8, a ragged window (W=6), both residual dtypes, a fully masked
-   attention row; kernel, plain and library times and the bound.
+   backward) at L=40, D=60, u=128, A=64, M in {16, 200} and a ragged
+   M=100, f32 and bf16, W=8, a ragged window (W=6), both residual dtypes,
+   a fully masked attention row; kernel, plain and library times and the
+   bound.
 7. Full-residual kernels vs their plain versions: K4 (BiLSTM forward
    writing c every step) and K6 (its backward over the saved hs/cs) at
    L=40, D=60, u=128, M in {16, 200} plus a ragged M=100, f32 and bf16,
@@ -114,6 +119,7 @@ from induction_network_on_fewrel_tpu_torch.ops.lstm import (
     bilstm_win_bwd_reference,
     bilstm_win_fwd,
     bilstm_win_fwd_reference,
+    fwd_plan,
     lstm_recurrence_grouped,
     lstm_split_bwd,
     lstm_split_bwd_reference,
@@ -132,6 +138,9 @@ from induction_network_on_fewrel_tpu_torch.utils.metrics import MetricsLogger
 
 L, D, U, A = 40, 60, 128, 64
 H_DIM = 2 * U
+# Phase 3's row counts: serving buckets 1, 4, 16, a 5x5 registration (25)
+# and the val/test batch (200).
+SERVE_ROWS = (1, 4, 16, 25, 200)
 # Published H100 SXM peaks: HBM bytes/s, and
 # FLOP/s by operand type (bf16 on the tensor cores, f32 on the CUDA cores).
 HBM_BPS = 3.35e12
@@ -176,16 +185,23 @@ def bound(bytes_moved: float, op_times: float) -> tuple[float, str]:
     return (max(t_bytes, op_times) * 1e3, "bytes" if t_bytes >= op_times else "operations")
 
 
-def library_ms(lstm_lib, x) -> float | None:
-    """K1's yardstick: one torch.nn.LSTM(bidirectional=True) call (cuDNN)
-    on the same input, timed here and used nowhere in the port; None where
-    this torch build has no such call for the dtype."""
-    try:
-        lstm_lib(x)
-    except RuntimeError as e:
-        print(f"[check] library LSTM unavailable for {x.dtype}: {e}", flush=True)
-        return None
-    return cuda_ms(lambda: lstm_lib(x), 20)
+def cudnn_infer_ms(M: int) -> float:
+    """K1's yardstick: an f32 torch.nn.LSTM(bidirectional) run the way K1
+    runs, ``.eval()`` under ``torch.no_grad()`` (cuDNN's inference
+    forward; in bf16 it compacts its weights on every call); timed here,
+    used nowhere in the port."""
+    dev = torch.device("cuda")
+    lstm = torch.nn.LSTM(D, U, bidirectional=True).to(dev).eval()
+    lstm.flatten_parameters()
+    x = torch.randn((L, M, D), device=dev)
+    with torch.no_grad():
+        return cuda_ms(lambda: lstm(x), 20)
+
+
+def plan_text(M: int, D_in: int = D) -> str:
+    """The cluster forward's launch plan at M rows (ops/lstm.py:fwd_plan)."""
+    p = fwd_plan(M, D_in, U)
+    return f"plan TM={p.tm} C={p.cluster} CTAs={p.ctas} smem={p.smem}"
 
 
 def lstm_bound_parts(M: int, dt: torch.dtype) -> tuple[float, float]:
@@ -215,13 +231,18 @@ def attn_bound(M: int, dt: torch.dtype):
 
 
 def kernel_checks(gen: torch.Generator) -> dict:
-    """Phase 3: both kernels vs their plain versions at every shape/dtype."""
+    """Phase 3: both kernels vs their plain versions at every shape/dtype:
+    serving buckets M in {1, 4, 16}, a 5x5 registration (M=25) and the
+    val/test batch (M=200)."""
     dev = torch.device("cuda")
     rows = {}
+    infer_lib = {M: cudnn_infer_ms(M) for M in SERVE_ROWS}
+    train_lib = {M: cudnn_lstm_ms(M, False) for M in SERVE_ROWS}
+    for M in SERVE_ROWS:
+        print(f"[check] cuDNN f32 LSTM M={M}: no-grad eval forward (K1's yardstick) "
+              f"{infer_lib[M]:.4f} ms; train-mode forward {train_lib[M]:.4f} ms", flush=True)
     for dt in (torch.float32, torch.bfloat16):
-        lstm_lib = torch.nn.LSTM(D, U, bidirectional=True).to(dev, dt)
-        lstm_lib.flatten_parameters()    # one cuDNN weight buffer, no per-call compaction
-        for M in (1, 16, 200):
+        for M in SERVE_ROWS:
             emb = (torch.randn((L, M, D), generator=gen) * 0.5).to(dev, dt)
             wih = (torch.randn((2, D, 4 * U), generator=gen) / D ** 0.5).to(dev, dt)
             b = (torch.randn((2, 1, 4 * U), generator=gen) * 0.1).to(dev)
@@ -235,7 +256,6 @@ def kernel_checks(gen: torch.Generator) -> dict:
                 raise AssertionError(f"K1 {dt} M={M}: max abs err {err1} > {tol1}")
             ms1 = cuda_ms(lambda: bilstm_infer_cuda(emb, wih, b, whh), 20)
             plain1 = cuda_ms(lambda: bilstm_reference(emb, wih, b, whh), 3)
-            lib1 = library_ms(lstm_lib, emb)
             bd1, by1 = lstm_bound(M, dt)
 
             H = (torch.rand((L, M, H_DIM), generator=gen) * 2 - 1).to(dev, dt)
@@ -260,7 +280,8 @@ def kernel_checks(gen: torch.Generator) -> dict:
             bd2, by2 = attn_bound(M, dt)
             name = "bf16" if dt == torch.bfloat16 else "f32"
             rows[("K1", name, M)] = dict(err=err1, tol=tol1, ms=ms1, plain_ms=plain1,
-                                         library_ms=lib1, bound_ms=bd1, bound_by=by1)
+                                         library_ms=infer_lib[M], bound_ms=bd1, bound_by=by1,
+                                         train_library_ms=train_lib[M], plan=plan_text(M))
             rows[("K2", name, M)] = dict(err=err2, tol=tol2, ms=ms2, plain_ms=plain2,
                                          library_ms=None, bound_ms=bd2, bound_by=by2)
             for k in ("K1", "K2"):
@@ -268,7 +289,7 @@ def kernel_checks(gen: torch.Generator) -> dict:
                 print(f"[check] {k} {name} M={M}: max_abs_err={r['err']:.3g} "
                       f"(tol {r['tol']:g}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                       f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
-                      f"({r['bound_by']})", flush=True)
+                      f"({r['bound_by']}){' ' + r['plan'] if 'plan' in r else ''}", flush=True)
     return rows
 
 
@@ -365,12 +386,13 @@ def train_kernel_checks(gen: torch.Generator, library: dict) -> dict:
     """K7, K8, K10 and K11 vs their plain versions at the flagship widths,
     M in {16, 200}, f32 and bf16; W = 8 with residuals in the activation
     dtype, plus a ragged window (W = 6: 40 = 6*6 + 4), the other residual
-    dtype, and a fully masked attention row."""
+    dtype, ragged row tiles (M = 100), and a fully masked attention row."""
     dev = torch.device("cuda")
     rows = {}
     cases = [(dt, M, 8, dt) for dt in (torch.float32, torch.bfloat16) for M in (16, 200)]
     cases += [(torch.bfloat16, 200, 6, torch.bfloat16), (torch.bfloat16, 16, 8, torch.float32),
-              (torch.float32, 16, 8, torch.bfloat16)]
+              (torch.float32, 16, 8, torch.bfloat16), (torch.float32, 100, 8, torch.float32),
+              (torch.bfloat16, 100, 8, torch.bfloat16)]
     for dt, M, W, rdt in cases:
         name = f"{'bf16' if dt == torch.bfloat16 else 'f32'} M={M} W={W} " \
                f"res={'bf16' if rdt == torch.bfloat16 else 'f32'}"
@@ -436,13 +458,15 @@ def train_kernel_checks(gen: torch.Generator, library: dict) -> dict:
         if M not in library:
             library[M] = (cudnn_lstm_ms(M, False), cudnn_lstm_ms(M, True))
         r["K7"]["library_ms"], r["K8"]["library_ms"] = library[M]
+        r["K7"]["plan"] = plan_text(M)
         for k, (bd, by) in (("K7", win_fwd_bound(M, dt, W, rdt)), ("K8", win_bwd_bound(M, dt, W, rdt)),
                             ("K10", attn_stats_bound(M, dt)), ("K11", attn_bwd_bound(M, dt))):
             r[k].update(bound_ms=bd, bound_by=by)
             rows[(k, name)] = r[k]
             print(f"[check] {k} {name}: max_abs_err={r[k]['err']:.3g} (rel tol {tol:g}) "
                   f"ms={r[k]['ms']:.4f} plain_ms={r[k]['plain_ms']:.4f} "
-                  f"library_ms={r[k]['library_ms']} bound_ms={bd:.5f} ({by})", flush=True)
+                  f"library_ms={r[k]['library_ms']} bound_ms={bd:.5f} ({by})"
+                  f"{' ' + r[k]['plan'] if 'plan' in r[k] else ''}", flush=True)
     return rows
 
 
@@ -511,12 +535,14 @@ def full_kernel_checks(gen: torch.Generator, library: dict) -> dict:
         if M not in library:
             library[M] = (cudnn_lstm_ms(M, False), cudnn_lstm_ms(M, True))
         r["K4"]["library_ms"], r["K6"]["library_ms"] = library[M]
+        r["K4"]["plan"] = plan_text(M)
         for k, (bd, by) in (("K4", full_fwd_bound(M, dt, rdt)), ("K6", full_bwd_bound(M, dt, rdt))):
             r[k].update(bound_ms=bd, bound_by=by)
             rows[(k, name)] = r[k]
             print(f"[check] {k} {name}: max_abs_err={r[k]['err']:.3g} (rel tol {tol:g}) "
                   f"ms={r[k]['ms']:.4f} plain_ms={r[k]['plain_ms']:.4f} "
-                  f"library_ms={r[k]['library_ms']} bound_ms={bd:.5f} ({by})", flush=True)
+                  f"library_ms={r[k]['library_ms']} bound_ms={bd:.5f} ({by})"
+                  f"{' ' + r[k]['plan'] if 'plan' in r[k] else ''}", flush=True)
     print(f"[check] K6 vs K8 (W=8) f32 gradients: max abs err {err68:.3g} (rel tol "
           f"{K6_K8_TOL:g})", flush=True)
     return rows
@@ -669,9 +695,11 @@ def split_recurrence(gen: torch.Generator) -> dict:
             bd, by = split_bound(k, M, dt)
             r[k].update(tol=tol, library_ms=library[M][k], bound_ms=bd, bound_by=by)
             rows[(k, name)] = r[k]
+            plan = f" {plan_text(M, 0)}" if k != "split3" else ""
             print(f"[check] {k} {name}: max_abs_err={r[k]['err']:.3g} (rel tol {tol:g}) "
                   f"ms={r[k]['ms']:.4f} plain_ms={r[k]['plain_ms']:.4f} "
-                  f"library_ms={r[k]['library_ms']:.4f} bound_ms={bd:.5f} ({by})", flush=True)
+                  f"library_ms={r[k]['library_ms']:.4f} bound_ms={bd:.5f} ({by}){plan}",
+                  flush=True)
     print("[split] time-major layout equals the grouped one fed the flipped input", flush=True)
     return {"rows": rows, "launches": launches}
 
@@ -1089,8 +1117,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "L=40 M=16 bf16 (serving bucket 16)",
-            "ms_m200": rows[(key, "bf16", 200)]["ms"],
+            **{f"ms_m{M}": rows[(key, "bf16", M)]["ms"] for M in SERVE_ROWS if M != 16},
             "bound_ms_m200": rows[(key, "bf16", 200)]["bound_ms"],
+            **({"train_library_ms": r["train_library_ms"], "plan": r["plan"]}
+               if key == "K1" else {}),
         })
     main_case = "bf16 M=200 W=8 res=bf16"
     for key, name, src, replaces in (
@@ -1112,6 +1142,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "L=40 M=200 bf16 W=8 (training step, B=4 episodes)",
             "ms_m16": train_rows[(key, "bf16 M=16 W=8 res=bf16")]["ms"],
+            **({"plan": r["plan"]} if key == "K7" else {}),
         })
     for key, name, src, replaces in (
         ("K4", "bilstm_full_fwd", "induction_network_on_fewrel_tpu_torch/csrc/bilstm_infer.cu",
@@ -1128,6 +1159,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "L=40 M=200 bf16 res=bf16 (training step at lstm_cs_window=0)",
             "ms_m16": full_rows[(key, "bf16 M=16 res=bf16")]["ms"],
+            **({"plan": r["plan"]} if key == "K4" else {}),
         })
     for key, name, replaces in (
         ("split2", "lstm_split_fwd_infer", "induction_network_on_fewrel_tpu/ops/lstm.py:189"),

@@ -24,12 +24,15 @@
 // bytes (xg streamed once, 4u values per row and step) and operations are
 // far below the card's rates at these sizes.
 //
-// Design: kernels 1 and 2 are lstm_fwd_kernel (lstm_common.cuh, K1's body)
-// with xg read in place of the projection emb W_ih + b: thread j reads
-// column j of the TM rows' gates (coalesced across the block) and adds
-// h W_hh; TM = 16 rows per block. Kernel 3 is lstm_resid_bwd_kernel (K6's
-// body) without the projection: it writes dxg = da where K6 writes demb,
-// dW_ih and db; TM = 8, as K6.
+// Design: kernels 1 and 2 are the cluster forward body
+// lstm_cluster_fwd_kernel (lstm_common.cuh, K1's) without the projection:
+// one cluster of C CTAs per (row tile, group), each CTA keeping its W_hh
+// slice in shared memory and exchanging h through distributed shared
+// memory; the next step's input gates are xg read in place (coalesced
+// within each gate's unit slice) while the peers' h is in flight. TM and C
+// come from the caller (ops/lstm.py:fwd_plan). Kernel 3 is
+// lstm_resid_bwd_kernel (K6's body) without the projection: it writes
+// dxg = da where K6 writes demb, dW_ih and db; TM = 8, as K6.
 
 #include "lstm_common.cuh"
 
@@ -39,12 +42,11 @@ using lstm::BwdArgs;
 using lstm::FwdArgs;
 using lstm::View;
 
-constexpr int TM_FWD = 16;
 constexpr int TM_BWD = 8;
 
 template <typename T, int MODE>
 int launch_fwd(const void* xg, const void* whh, void* hs, void* cs, int L, int M, int u, int Gc,
-               View xv, View hv, int rev_group, cudaStream_t stream) {
+               View xv, View hv, int rev_group, int tm, int cluster, cudaStream_t stream) {
   FwdArgs<T, T> a{};
   a.x = static_cast<const T*>(xg);
   a.whh = static_cast<const float*>(whh);
@@ -53,7 +55,7 @@ int launch_fwd(const void* xg, const void* whh, void* hs, void* cs, int L, int M
   a.xv = xv;
   a.hv = hv;
   a.L = L; a.M = M; a.D = 0; a.u = u; a.W = 1; a.rev_group = rev_group;
-  return lstm::launch_fwd<T, T, false, MODE, TM_FWD>(a, Gc, stream);
+  return lstm::launch_fwd<T, T, false, MODE>(a, Gc, tm, cluster, stream);
 }
 
 template <typename T>
@@ -83,29 +85,36 @@ extern "C" {
 // f32; hs, cs and dhs share the strides h_g, h_m, h_t (u columns a group)
 // and xg's dtype; whh [Gc, u, 4u] f32 contiguous; rev_group is the group
 // that walks time reversed (-1: none). The caller guarantees 4u <= 512.
+// The forward launchers take the caller's plan before the stream: row tile
+// tm and cluster size (ops/lstm.py:fwd_plan); a plan the body cannot take
+// returns cudaErrorInvalidValue before anything is launched.
 
 // Kernel 2: hs only.
 int lstm_split_fwd_infer(const void* xg, const void* whh, void* hs, int L, int M, int u, int Gc,
                          long long x_g, long long x_m, long long x_t, long long h_g,
-                         long long h_m, long long h_t, int rev_group, int bf16, void* stream) {
+                         long long h_m, long long h_t, int rev_group, int bf16, int tm,
+                         int cluster, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const View xv{x_g, x_m, x_t}, hv{h_g, h_m, h_t};
   if (bf16)
     return launch_fwd<__nv_bfloat16, lstm::kNone>(xg, whh, hs, nullptr, L, M, u, Gc, xv, hv,
-                                                  rev_group, s);
-  return launch_fwd<float, lstm::kNone>(xg, whh, hs, nullptr, L, M, u, Gc, xv, hv, rev_group, s);
+                                                  rev_group, tm, cluster, s);
+  return launch_fwd<float, lstm::kNone>(xg, whh, hs, nullptr, L, M, u, Gc, xv, hv, rev_group,
+                                        tm, cluster, s);
 }
 
 // Kernel 1: hs and cs.
 int lstm_split_fwd(const void* xg, const void* whh, void* hs, void* cs, int L, int M, int u,
                    int Gc, long long x_g, long long x_m, long long x_t, long long h_g,
-                   long long h_m, long long h_t, int rev_group, int bf16, void* stream) {
+                   long long h_m, long long h_t, int rev_group, int bf16, int tm, int cluster,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const View xv{x_g, x_m, x_t}, hv{h_g, h_m, h_t};
   if (bf16)
     return launch_fwd<__nv_bfloat16, lstm::kFull>(xg, whh, hs, cs, L, M, u, Gc, xv, hv,
-                                                  rev_group, s);
-  return launch_fwd<float, lstm::kFull>(xg, whh, hs, cs, L, M, u, Gc, xv, hv, rev_group, s);
+                                                  rev_group, tm, cluster, s);
+  return launch_fwd<float, lstm::kFull>(xg, whh, hs, cs, L, M, u, Gc, xv, hv, rev_group, tm,
+                                        cluster, s);
 }
 
 // Kernel 3: dxg (xg's strides and dtype) and the f32 partials

@@ -72,6 +72,8 @@ padded copy is made (the JAX calls pad rows to their tile).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from induction_network_on_fewrel_tpu_torch.kernels.build import LIBRARY, check_cuda_tensors
@@ -83,6 +85,10 @@ from induction_network_on_fewrel_tpu_torch.ops.core import (
 
 # A block's dynamic shared memory on an H100 (232,448 bytes).
 SMEM_LIMIT = 232448
+# SMs of an H100 SXM, and the threads of a CTA of the cluster forward
+# (``FWD_THREADS`` in ``csrc/lstm_common.cuh``).
+NUM_SMS = 132
+FWD_THREADS = 256
 # Row tile of the kernels that walk saved full residual streams (K6,
 # kernel 3). It sizes their per-tile partials here and is passed to their
 # launchers (csrc/bilstm_full_bwd.cu, csrc/lstm_split.cu), which refuse any
@@ -489,8 +495,76 @@ def lstm_split_bwd_reference(dhs, xg, hs, cs, whh, tm: bool):
 # --- kernel wrappers ------------------------------------------------------------
 
 
-def _check_lstm_args(name, emb_t, wih, b, whh):
-    check_cuda_tensors(name, emb_t, wih, b, whh)
+class FwdPlan(NamedTuple):
+    """Launch plan of the cluster forward (K1, K7, K4, kernels 1/2)."""
+
+    tm: int        # rows per tile
+    cluster: int   # CTAs per cluster; each owns u / cluster units
+    ctas: int      # ceil(M / tm) * groups * cluster
+    smem: int      # dynamic shared memory of a CTA, bytes
+    threads: int = FWD_THREADS
+
+
+def fwd_psplits(tm: int, cluster: int, D: int, u: int) -> int:
+    """Split of the cluster forward's projection over D: 256 threads over
+    (tm/2) x (u/cluster) tiles of 2 rows x 4 columns (1 without a
+    projection; ``lstm::fwd_psplits``)."""
+    if not D:
+        return 1
+    return max(1, min(D, FWD_THREADS // (tm // 2 * (u // cluster))))
+
+
+def fwd_smem(tm: int, cluster: int, D: int, u: int) -> int:
+    """Shared memory of a cluster-forward CTA in bytes (D = 0: no
+    projection, the split kernels): two mbarriers (16 bytes), the W_hh
+    slice [u, NC], the W_ih slice [D, NC] and b [NC], two h buffers
+    [u, tm + 4], the input gates [P, tm, NC], the split-K partials
+    [S, tm, NC + 8] and the staged embeddings [D, tm + 2], NC = 4u /
+    cluster (``lstm::fwd_smem`` in ``csrc/lstm_common.cuh``)."""
+    nc = 4 * u // cluster
+    splits = FWD_THREADS // (tm * nc // 16)
+    return 16 + 4 * (u * nc + D * nc + (nc if D else 0) + 2 * u * (tm + 4)
+                     + fwd_psplits(tm, cluster, D, u) * tm * nc + splits * tm * (nc + 8)
+                     + D * (tm + 2))
+
+
+def fwd_plan(M: int, D: int, u: int, groups: int = 2) -> FwdPlan:
+    """The cluster forward's plan for M rows (D = 0 for the split kernels).
+
+    The cluster is the largest of 8, 4, 2, 1 that divides u, so every CTA
+    owns whole units. The tile is 16 rows unless that gives more CTAs than
+    the card has SMs, then 32 (M = 200, u = 128: 7 x 2 x 8 = 112 CTAs, one
+    wave). Neither the dtype nor the residual mode changes the plan: W_ih is
+    staged in f32 and the residuals go from registers to global memory.
+    Raises ValueError for widths the body cannot take."""
+    cluster = next(c for c in (8, 4, 2, 1) if u % c == 0)
+    units = u // cluster
+    big = -(-M // 16) * groups * cluster > NUM_SMS
+    why = ""
+    for tm in ((32, 16) if big else (16,)):
+        if tm * 4 * units // 16 > FWD_THREADS or tm * units > 4 * FWD_THREADS:
+            why = (f"{units} units per CTA at cluster size {cluster} need more than "
+                   f"{FWD_THREADS} threads")
+            continue
+        smem = fwd_smem(tm, cluster, D, u)
+        if smem > SMEM_LIMIT:
+            why = f"a CTA would need {smem} bytes of shared memory"
+            continue
+        return FwdPlan(tm, cluster, -(-M // tm) * groups * cluster, smem)
+    raise ValueError(f"the cluster LSTM forward cannot take D={D}, u={u}: {why}")
+
+
+def _fwd_plan_for(name, M, D, u, groups=2) -> FwdPlan:
+    try:
+        return fwd_plan(M, D, u, groups)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+
+
+def _check_lstm_args(name, emb_t, wih, b, whh, forward: bool = False):
+    """Dtype, shape and device checks of the fused kernels; returns (u, the
+    forward's plan or None). The plan is made before the device check, so a
+    width the forward cannot take is refused on any device."""
     if emb_t.dtype not in ACTIVATION_DTYPES or wih.dtype != emb_t.dtype:
         raise TypeError(
             f"{name}: emb/wih must share a dtype in {ACTIVATION_DTYPES}, "
@@ -508,7 +582,9 @@ def _check_lstm_args(name, emb_t, wih, b, whh):
         )
     if G > 512:
         raise ValueError(f"{name}: 4u = {G} exceeds the kernel's 512 threads")
-    return u
+    plan = _fwd_plan_for(name, emb_t.shape[1], D, u) if forward else None
+    check_cuda_tensors(name, emb_t, wih, b, whh)
+    return u, plan
 
 
 def _check_residuals(name, res_dt):
@@ -526,8 +602,11 @@ def _refuse_grad(name, *tensors):
         )
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+def _launch(name, device, *args):
+    """Launch ``name`` on the current stream of ``device`` (the stream is
+    the launcher's last argument)."""
+    with torch.cuda.device(device):
+        LIBRARY.launch(name, *args, torch.cuda.current_stream().cuda_stream)
 
 
 def bilstm_infer_cuda(emb_t, wih, b, whh) -> torch.Tensor:
@@ -535,17 +614,15 @@ def bilstm_infer_cuda(emb_t, wih, b, whh) -> torch.Tensor:
     tensors, unsupported dtypes, shapes or layouts, launch failures, and
     for an input that requires grad while grad mode is on."""
     _refuse_grad("bilstm_infer_cuda", emb_t, wih, b, whh)
-    u = _check_lstm_args("bilstm_infer_cuda", emb_t, wih, b, whh)
+    u, plan = _check_lstm_args("bilstm_infer_cuda", emb_t, wih, b, whh, forward=True)
     L, M, D = emb_t.shape
     hs = torch.empty((L, M, 2 * u), dtype=emb_t.dtype, device=emb_t.device)
     if L == 0 or M == 0:
         return hs
-    with torch.cuda.device(emb_t.device):
-        LIBRARY.launch(
-            "bilstm_infer_fwd",
+    _launch("bilstm_infer_fwd", emb_t.device,
             emb_t.data_ptr(), wih.data_ptr(), b.data_ptr(), whh.data_ptr(),
-            hs.data_ptr(), L, M, D, u, int(emb_t.dtype == torch.bfloat16), _stream(),
-        )
+            hs.data_ptr(), L, M, D, u, int(emb_t.dtype == torch.bfloat16), plan.tm,
+            plan.cluster)
     bilstm_infer_cuda.launches += 1
     return hs
 
@@ -555,7 +632,7 @@ bilstm_infer_cuda.launches = 0
 
 def bilstm_win_fwd(emb_t, wih, b, whh, W: int, res_dt):
     """Launch K7: (hs, ch, cc) as ``bilstm_win_fwd_reference``."""
-    u = _check_lstm_args("bilstm_win_fwd", emb_t, wih, b, whh)
+    u, plan = _check_lstm_args("bilstm_win_fwd", emb_t, wih, b, whh, forward=True)
     _check_residuals("bilstm_win_fwd", res_dt)
     L, M, D = emb_t.shape
     if not 1 <= W <= L:
@@ -566,13 +643,11 @@ def bilstm_win_fwd(emb_t, wih, b, whh, W: int, res_dt):
     cc = torch.empty_like(ch)
     if M == 0:
         return hs, ch, cc
-    with torch.cuda.device(emb_t.device):
-        LIBRARY.launch(
-            "bilstm_win_fwd",
+    _launch("bilstm_win_fwd", emb_t.device,
             emb_t.data_ptr(), wih.data_ptr(), b.data_ptr(), whh.data_ptr(),
             hs.data_ptr(), ch.data_ptr(), cc.data_ptr(), L, M, D, u, W,
-            int(emb_t.dtype == torch.bfloat16), int(res_dt == torch.bfloat16), _stream(),
-        )
+            int(emb_t.dtype == torch.bfloat16), int(res_dt == torch.bfloat16), plan.tm,
+            plan.cluster)
     bilstm_win_fwd.launches += 1
     return hs, ch, cc
 
@@ -582,20 +657,18 @@ bilstm_win_fwd.launches = 0
 
 def bilstm_full_fwd(emb_t, wih, b, whh, res_dt):
     """Launch K4: (hs, cs) as ``bilstm_full_fwd_reference``."""
-    u = _check_lstm_args("bilstm_full_fwd", emb_t, wih, b, whh)
+    u, plan = _check_lstm_args("bilstm_full_fwd", emb_t, wih, b, whh, forward=True)
     _check_residuals("bilstm_full_fwd", res_dt)
     L, M, D = emb_t.shape
     hs = torch.empty((L, M, 2 * u), dtype=emb_t.dtype, device=emb_t.device)
     cs = torch.empty((L, M, 2 * u), dtype=res_dt, device=emb_t.device)
     if L == 0 or M == 0:
         return hs, cs
-    with torch.cuda.device(emb_t.device):
-        LIBRARY.launch(
-            "bilstm_full_fwd",
+    _launch("bilstm_full_fwd", emb_t.device,
             emb_t.data_ptr(), wih.data_ptr(), b.data_ptr(), whh.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), L, M, D, u,
-            int(emb_t.dtype == torch.bfloat16), int(res_dt == torch.bfloat16), _stream(),
-        )
+            int(emb_t.dtype == torch.bfloat16), int(res_dt == torch.bfloat16), plan.tm,
+            plan.cluster)
     bilstm_full_fwd.launches += 1
     return hs, cs
 
@@ -639,8 +712,7 @@ def _sum_partials(emb_t, u, tiles, launch):
     db_p = torch.empty((2, tiles, G), dtype=torch.float32, device=dev)
     dwhh_p = torch.empty((2, tiles, u, G), dtype=torch.float32, device=dev)
     if M and L:
-        with torch.cuda.device(dev):
-            launch(demb, dwih_p, db_p, dwhh_p)
+        launch(demb, dwih_p, db_p, dwhh_p)
     else:
         for p in (demb, dwih_p, db_p, dwhh_p):
             p.zero_()
@@ -650,7 +722,7 @@ def _sum_partials(emb_t, u, tiles, launch):
 def bilstm_win_bwd(dhs, emb_t, ch, cc, wih, b, whh, W: int):
     """Launch K8, then sum its per-tile partials: the same four outputs as
     ``bilstm_win_bwd_reference``."""
-    u = _check_lstm_args("bilstm_win_bwd", emb_t, wih, b, whh)
+    u, _ = _check_lstm_args("bilstm_win_bwd", emb_t, wih, b, whh)
     check_cuda_tensors("bilstm_win_bwd", emb_t, dhs, ch, cc)
     _check_residuals("bilstm_win_bwd", ch.dtype)
     L, M, D = emb_t.shape
@@ -665,13 +737,13 @@ def bilstm_win_bwd(dhs, emb_t, ch, cc, wih, b, whh, W: int):
     tm, _ = win_bwd_tile(W, D, u)
 
     def launch(demb, dwih_p, db_p, dwhh_p):
-        LIBRARY.launch(
-            "bilstm_win_bwd",
+        _launch(
+            "bilstm_win_bwd", emb_t.device,
             dhs.data_ptr(), emb_t.data_ptr(), ch.data_ptr(), cc.data_ptr(),
             wih.data_ptr(), b.data_ptr(), whh.data_ptr(), demb.data_ptr(),
             dwih_p.data_ptr(), db_p.data_ptr(), dwhh_p.data_ptr(),
             L, M, D, u, W, tm, int(emb_t.dtype == torch.bfloat16),
-            int(ch.dtype == torch.bfloat16), _stream(),
+            int(ch.dtype == torch.bfloat16),
         )
         bilstm_win_bwd.launches += 1
 
@@ -684,7 +756,7 @@ bilstm_win_bwd.launches = 0
 def bilstm_full_bwd(dhs, emb_t, hs, cs, wih, b, whh):
     """Launch K6, then sum its per-tile partials: the same four outputs as
     ``bilstm_full_bwd_reference``."""
-    u = _check_lstm_args("bilstm_full_bwd", emb_t, wih, b, whh)
+    u, _ = _check_lstm_args("bilstm_full_bwd", emb_t, wih, b, whh)
     check_cuda_tensors("bilstm_full_bwd", emb_t, dhs, hs, cs)
     _check_residuals("bilstm_full_bwd", cs.dtype)
     L, M, D = emb_t.shape
@@ -696,13 +768,13 @@ def bilstm_full_bwd(dhs, emb_t, hs, cs, wih, b, whh):
     _check_bwd_widths("bilstm_full_bwd", D, u)
 
     def launch(demb, dwih_p, db_p, dwhh_p):
-        LIBRARY.launch(
-            "bilstm_full_bwd",
+        _launch(
+            "bilstm_full_bwd", emb_t.device,
             dhs.data_ptr(), emb_t.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             wih.data_ptr(), b.data_ptr(), whh.data_ptr(), demb.data_ptr(),
             dwih_p.data_ptr(), db_p.data_ptr(), dwhh_p.data_ptr(),
             L, M, D, u, RESID_TM, int(emb_t.dtype == torch.bfloat16),
-            int(cs.dtype == torch.bfloat16), _stream(),
+            int(cs.dtype == torch.bfloat16),
         )
         bilstm_full_bwd.launches += 1
 
@@ -712,10 +784,11 @@ def bilstm_full_bwd(dhs, emb_t, hs, cs, wih, b, whh):
 bilstm_full_bwd.launches = 0
 
 
-def _check_split_args(name, xg, whh, tm: bool, *streams):
-    """Device, dtype and shape checks of the split kernels; returns
-    (Gc, M, L, u). ``streams`` are u-wide tensors laid out like hs."""
-    check_cuda_tensors(name, xg, whh, *streams)
+def _check_split_args(name, xg, whh, tm: bool, *streams, forward: bool = False):
+    """Dtype, shape and device checks of the split kernels; returns
+    (Gc, M, L, u, the forward's plan or None). ``streams`` are u-wide
+    tensors laid out like hs. As in ``_check_lstm_args``, the plan is made
+    before the device check."""
     if xg.dtype not in ACTIVATION_DTYPES or whh.dtype != torch.float32:
         raise TypeError(f"{name}: xg must be one of {ACTIVATION_DTYPES} and whh float32, "
                         f"got {xg.dtype}/{whh.dtype}")
@@ -726,7 +799,9 @@ def _check_split_args(name, xg, whh, tm: bool, *streams):
     for x in streams:
         if x.dtype != xg.dtype or tuple(x.shape) != want:
             raise ValueError(f"{name}: {x.dtype} {tuple(x.shape)} != hs {xg.dtype} {want}")
-    return Gc, M, L, u
+    plan = _fwd_plan_for(name, M, 0, u, Gc) if forward else None
+    check_cuda_tensors(name, xg, whh, *streams)
+    return Gc, M, L, u, plan
 
 
 def _split_launch(name, xg, whh, tm: bool, ptrs, hs, extra=()):
@@ -734,20 +809,20 @@ def _split_launch(name, xg, whh, tm: bool, ptrs, hs, extra=()):
     ``extra`` goes before the stream."""
     Gc, M, L, u = _split_dims(xg, whh, tm)
     strides = _gmt(xg, Gc, tm).stride()[:3] + _gmt(hs, Gc, tm).stride()[:3]
-    with torch.cuda.device(xg.device):
-        LIBRARY.launch(name, *ptrs, L, M, u, Gc, *strides, 1 if tm else -1,
-                       int(xg.dtype == torch.bfloat16), *extra, _stream())
+    _launch(name, xg.device, *ptrs, L, M, u, Gc, *strides, 1 if tm else -1,
+            int(xg.dtype == torch.bfloat16), *extra)
 
 
 def lstm_split_infer_cuda(xg, whh, tm: bool) -> torch.Tensor:
     """Launch kernel 2: hs as ``lstm_split_infer_reference``. Raises, like
     K1, for an input that requires grad while grad mode is on."""
     _refuse_grad("lstm_split_infer_cuda", xg, whh)
-    Gc, M, L, u = _check_split_args("lstm_split_infer_cuda", xg, whh, tm)
+    Gc, M, L, u, plan = _check_split_args("lstm_split_infer_cuda", xg, whh, tm, forward=True)
     hs = _split_hs_like(xg, Gc, L, M, u, tm)
     if M and L:
         _split_launch("lstm_split_fwd_infer", xg, whh, tm,
-                      (xg.data_ptr(), whh.data_ptr(), hs.data_ptr()), hs)
+                      (xg.data_ptr(), whh.data_ptr(), hs.data_ptr()), hs,
+                      (plan.tm, plan.cluster))
         lstm_split_infer_cuda.launches += 1
     return hs
 
@@ -757,12 +832,13 @@ lstm_split_infer_cuda.launches = 0
 
 def lstm_split_fwd(xg, whh, tm: bool):
     """Launch kernel 1: (hs, cs) as ``lstm_split_fwd_reference``."""
-    Gc, M, L, u = _check_split_args("lstm_split_fwd", xg, whh, tm)
+    Gc, M, L, u, plan = _check_split_args("lstm_split_fwd", xg, whh, tm, forward=True)
     hs = _split_hs_like(xg, Gc, L, M, u, tm)
     cs = torch.empty_like(hs)
     if M and L:
         _split_launch("lstm_split_fwd", xg, whh, tm,
-                      (xg.data_ptr(), whh.data_ptr(), hs.data_ptr(), cs.data_ptr()), hs)
+                      (xg.data_ptr(), whh.data_ptr(), hs.data_ptr(), cs.data_ptr()), hs,
+                      (plan.tm, plan.cluster))
         lstm_split_fwd.launches += 1
     return hs, cs
 
@@ -773,7 +849,7 @@ lstm_split_fwd.launches = 0
 def lstm_split_bwd(dhs, xg, hs, cs, whh, tm: bool):
     """Launch kernel 3, then sum its per-tile dW_hh partials: (dxg, dwhh)
     as ``lstm_split_bwd_reference``."""
-    Gc, M, L, u = _check_split_args("lstm_split_bwd", xg, whh, tm, dhs, hs, cs)
+    Gc, M, L, u, _ = _check_split_args("lstm_split_bwd", xg, whh, tm, dhs, hs, cs)
     _check_bwd_widths("lstm_split_bwd", 0, u)
     dxg = torch.empty_like(xg)
     dwhh_p = torch.empty((Gc, -(-M // RESID_TM), u, 4 * u), dtype=torch.float32,
