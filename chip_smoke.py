@@ -28,20 +28,27 @@ exits non-zero; no phase catches a failure of its own):
 5. Episode forward: B=4 episodes of 5-way 5-shot with 5 queries per class
    (200 encoder rows) through the kernels vs the plain backends.
 6. Training kernels vs their plain versions: K7 (windowed BiLSTM forward),
-   K8 (its backward), K10 (attention forward with stats), K11 (attention
-   backward) at L=40, D=60, u=128, A=64, M in {16, 200} and a ragged
-   M=100, f32 and bf16, W=8, a ragged window (W=6), both residual dtypes,
-   a fully masked attention row; kernel, plain and library times and the
-   bound.
+   K8 (its backward: the cluster chain kernel, then the weight-gradient
+   kernel ``lstm_wgrad``), K10 (attention forward with stats), K11
+   (attention backward) at L=40, D=60, u=128, A=64, M in {16, 200} and a
+   ragged M=100, f32 and bf16, W=8, a ragged window (W=6), both residual
+   dtypes, a fully masked attention row; kernel, plain and library times
+   and the bound. K8 and its cuDNN yardstick (f32 ``nn.LSTM`` forward +
+   backward) are timed as the median of 5 repeats of 20 launches, with the
+   spread printed. ``lstm_wgrad`` alone vs its plain version on the same
+   da / h_prev streams (K8's hp and K6's shifted hs), timed.
 7. Full-residual kernels vs their plain versions: K4 (BiLSTM forward
-   writing c every step) and K6 (its backward over the saved hs/cs) at
-   L=40, D=60, u=128, M in {16, 200} plus a ragged M=100, f32 and bf16,
-   both residual dtypes; f32 K6 gradients vs f32 K8 (W=8) on the same
-   inputs; kernel, plain and library times and the bound.
+   writing c every step) and K6 (its backward over the saved hs/cs: chain
+   kernel, then ``lstm_wgrad``) at L=40, D=60, u=128, M in {16, 200} plus
+   a ragged M=100, f32 and bf16, both residual dtypes; f32 K6 gradients vs
+   f32 K8 (W=8) on the same inputs; kernel, plain and library times (K6
+   as K8) and the bound. Every backward row prints its chain plan (TM, C,
+   CTAs).
 8. Split recurrence (kernels 2, 1, 3): the public ops API
    ``lstm_recurrence_grouped`` (Gc=2) and ``bilstm_recurrence_tm`` at
    L=40, u=128, M in {16, 200}, f32 and bf16, without grad (kernel 2) and
-   forward + backward under autograd (kernels 1 and 3), launch counts
+   forward + backward under autograd (kernels 1 and 3, and lstm_wgrad
+   after kernel 3), launch counts
    zeroed just before and read just after; then each output vs the plain
    versions, kernel 3 vs its plain version on the same residuals, the
    time-major layout vs the grouped one fed the flipped input; times and
@@ -54,8 +61,8 @@ exits non-zero; no phase catches a failure of its own):
    gradients of every parameter vs the plain backends (every encoder and
    embedding gradient finite and nonzero), 20 steps with a val pass and a
    best-checkpoint save with the training kernels' launch counts zeroed
-   just before and read just after (each of K7/K8/K10/K11 must equal the
-   step count, K4/K6 zero), the same 20 steps with the plain backends
+   just before and read just after (each of K7/K8/K10/K11 and lstm_wgrad
+   must equal the step count, K4/K6 zero), the same 20 steps with the plain backends
    from the same weights (per-step losses within a band), ms/step and
    episodes/s, then ``cli.test_main`` reloads the best checkpoint and
    evaluates. Then five more steps run under torch.profiler: device time
@@ -64,15 +71,16 @@ exits non-zero; no phase catches a failure of its own):
    encoder, bf16 residuals, otherwise the flagship): step-0 gradients vs
    the plain backends and their cosine to the W=8 kernel route from the
    same weights on the same batch, 10 steps with the counts zeroed just
-   before and read just after (K4, K6, K10, K11 once per step, K7/K8
-   never), the same steps with the plain backends (per-step losses within
+   before and read just after (K4, K6, K10, K11, lstm_wgrad once per
+   step, K7/K8 never), the same steps with the plain backends (per-step losses within
    a band), ms/step and episodes/s beside the W=8 figure, and five more
    steps under torch.profiler.
-11. A ``{"kernels": [...]}`` line for all eleven kernels, then the last line
+11. A ``{"kernels": [...]}`` line for the twelve kernels (one per Pallas
+   body, and the weight-gradient kernel of the backwards), then the last line
    ``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX. Exits non-zero without CUDA, and when the port's
-package is not beside it.
+Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
+port's package is not beside it (rc 1, with a message naming the package).
 """
 
 from __future__ import annotations
@@ -89,7 +97,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from induction_network_on_fewrel_tpu_torch import cli
+try:
+    from induction_network_on_fewrel_tpu_torch import cli
+except ModuleNotFoundError as e:    # run from a directory without the port beside it
+    if e.name != "induction_network_on_fewrel_tpu_torch":
+        raise
+    sys.exit("chip_smoke: the port's package induction_network_on_fewrel_tpu_torch is not "
+             "beside this script; run it from the root of a checkout")
 from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
 from induction_network_on_fewrel_tpu_torch.data import (
     GloveTokenizer,
@@ -108,6 +122,7 @@ from induction_network_on_fewrel_tpu_torch.ops.attn import (
     attn_reference,
 )
 from induction_network_on_fewrel_tpu_torch.ops.lstm import (
+    bilstm_bwd_chain_reference,
     bilstm_full_bwd,
     bilstm_full_bwd_reference,
     bilstm_full_fwd,
@@ -119,6 +134,7 @@ from induction_network_on_fewrel_tpu_torch.ops.lstm import (
     bilstm_win_bwd_reference,
     bilstm_win_fwd,
     bilstm_win_fwd_reference,
+    bwd_plan,
     fwd_plan,
     lstm_recurrence_grouped,
     lstm_split_bwd,
@@ -127,6 +143,8 @@ from induction_network_on_fewrel_tpu_torch.ops.lstm import (
     lstm_split_fwd_reference,
     lstm_split_infer_cuda,
     lstm_split_infer_reference,
+    lstm_wgrad,
+    lstm_wgrad_reference,
 )
 from induction_network_on_fewrel_tpu_torch.models.build import batch_to_model_inputs
 from induction_network_on_fewrel_tpu_torch.sampling.episodes import EpisodeSampler
@@ -180,6 +198,16 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def median_ms(fn, repeats: int = 5, iters: int = 20) -> tuple[float, float, float]:
+    """(median, min, max) over ``repeats`` runs of ``cuda_ms(fn, iters)``."""
+    runs = sorted(cuda_ms(fn, iters) for _ in range(repeats))
+    return runs[len(runs) // 2], runs[0], runs[-1]
+
+
+def spread_text(t: tuple[float, float, float]) -> str:
+    return f"{t[0]:.4f} (min {t[1]:.4f} max {t[2]:.4f} over 5 x 20)"
+
+
 def bound(bytes_moved: float, op_times: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BPS
     return (max(t_bytes, op_times) * 1e3, "bytes" if t_bytes >= op_times else "operations")
@@ -198,10 +226,13 @@ def cudnn_infer_ms(M: int) -> float:
         return cuda_ms(lambda: lstm(x), 20)
 
 
-def plan_text(M: int, D_in: int = D) -> str:
-    """The cluster forward's launch plan at M rows (ops/lstm.py:fwd_plan)."""
-    p = fwd_plan(M, D_in, U)
-    return f"plan TM={p.tm} C={p.cluster} CTAs={p.ctas} smem={p.smem}"
+def plan_text(M: int, D_in: int = D, W: int | None = None) -> str:
+    """The cluster forward's launch plan at M rows (ops/lstm.py:fwd_plan),
+    or, with a window W (0: saved streams), the backward chain's
+    (ops/lstm.py:bwd_plan)."""
+    p = fwd_plan(M, D_in, U) if W is None else bwd_plan(M, D_in, U, W)
+    why = f" ({p.why})" if getattr(p, "why", "") else ""
+    return f"plan TM={p.tm} C={p.cluster} CTAs={p.ctas} smem={p.smem}{why}"
 
 
 def lstm_bound_parts(M: int, dt: torch.dtype) -> tuple[float, float]:
@@ -237,7 +268,7 @@ def kernel_checks(gen: torch.Generator) -> dict:
     dev = torch.device("cuda")
     rows = {}
     infer_lib = {M: cudnn_infer_ms(M) for M in SERVE_ROWS}
-    train_lib = {M: cudnn_lstm_ms(M, False) for M in SERVE_ROWS}
+    train_lib = {M: cudnn_lstm_ms(M, False)[0] for M in SERVE_ROWS}
     for M in SERVE_ROWS:
         print(f"[check] cuDNN f32 LSTM M={M}: no-grad eval forward (K1's yardstick) "
               f"{infer_lib[M]:.4f} ms; train-mode forward {train_lib[M]:.4f} ms", flush=True)
@@ -329,10 +360,11 @@ def check_outputs(name: str, pairs: dict, tol: float) -> float:
     return worst
 
 
-def cudnn_lstm_ms(M: int, backward: bool) -> float:
+def cudnn_lstm_ms(M: int, backward: bool) -> tuple[float, float, float]:
     """K7/K8's yardstick: an f32 torch.nn.LSTM(bidirectional) in train mode
     (cuDNN; in bf16 it compacts its weights on every call), forward, or
-    forward + backward; timed here, used nowhere in the port."""
+    forward + backward; timed here, used nowhere in the port. (median, min,
+    max) of ``median_ms``."""
     dev = torch.device("cuda")
     lstm = torch.nn.LSTM(D, U, bidirectional=True).to(dev).train()
     lstm.flatten_parameters()
@@ -343,7 +375,7 @@ def cudnn_lstm_ms(M: int, backward: bool) -> float:
         out, _ = lstm(x)
         if backward:
             torch.autograd.backward(out, g)
-    return cuda_ms(run, 10)
+    return median_ms(run)
 
 
 def win_fwd_bound(M: int, dt: torch.dtype, W: int, rdt: torch.dtype):
@@ -361,9 +393,9 @@ def win_bwd_bound(M: int, dt: torch.dtype, W: int, rdt: torch.dtype):
              + 2 * L * M * D * es + (2 * D * G + 2 * G + 2 * U * G) * 4)        # demb, dW
     # Per step and direction: the gates once from the checkpoints (2MG(D+u)),
     # then da W_ih^T, da W_hh^T, emb^T da, h^T da (2MG(D+u) twice). The
-    # emb x W_ih product runs in the operand dtype. K8, like the Pallas
-    # kernel, computes the gates a second time in its gradient sweep; that
-    # recompute is its design's cost and is not counted here.
+    # emb x W_ih product runs in the operand dtype. The da and hp streams
+    # that K8 hands to lstm_wgrad are its design's cost, not the function's
+    # work, and are not counted here.
     ops_in = 2 * L * 2 * M * D * G
     ops_f32 = 2 * L * (2 * M * U * G + 4 * M * G * (D + U))
     return bound(moved, ops_in / PEAK_FLOPS[dt] + ops_f32 / PEAK_FLOPS[torch.float32])
@@ -443,8 +475,8 @@ def train_kernel_checks(gen: torch.Generator, library: dict) -> dict:
         r = {}
         r["K7"] = dict(err=err7, tol=tol, ms=cuda_ms(lambda: bilstm_win_fwd(emb, wih, b, whh, W, rdt), 10),
                        plain_ms=cuda_ms(lambda: bilstm_win_fwd_reference(emb, wih, b, whh, W, rdt), 2))
-        r["K8"] = dict(err=err8, tol=tol,
-                       ms=cuda_ms(lambda: bilstm_win_bwd(dhs, emb, ch, cc, wih, b, whh, W), 10),
+        k8 = median_ms(lambda: bilstm_win_bwd(dhs, emb, ch, cc, wih, b, whh, W))
+        r["K8"] = dict(err=err8, tol=tol, ms=k8[0], spread=k8,
                        plain_ms=cuda_ms(lambda: bilstm_win_bwd_reference(dhs, emb, ch, cc, wih, b,
                                                                          whh, W), 1))
         r["K10"] = dict(err=err10, tol=tol, ms=cuda_ms(lambda: attn_fwd_stats(H, mask, w1, w2), 20),
@@ -457,8 +489,11 @@ def train_kernel_checks(gen: torch.Generator, library: dict) -> dict:
                         library_ms=None)
         if M not in library:
             library[M] = (cudnn_lstm_ms(M, False), cudnn_lstm_ms(M, True))
-        r["K7"]["library_ms"], r["K8"]["library_ms"] = library[M]
+            print(f"[check] cuDNN f32 LSTM train mode M={M}: forward {spread_text(library[M][0])}"
+                  f" ms; forward + backward {spread_text(library[M][1])} ms", flush=True)
+        r["K7"]["library_ms"], r["K8"]["library_ms"] = library[M][0][0], library[M][1][0]
         r["K7"]["plan"] = plan_text(M)
+        r["K8"]["plan"] = plan_text(M, W=W)
         for k, (bd, by) in (("K7", win_fwd_bound(M, dt, W, rdt)), ("K8", win_bwd_bound(M, dt, W, rdt)),
                             ("K10", attn_stats_bound(M, dt)), ("K11", attn_bwd_bound(M, dt))):
             r[k].update(bound_ms=bd, bound_by=by)
@@ -466,7 +501,64 @@ def train_kernel_checks(gen: torch.Generator, library: dict) -> dict:
             print(f"[check] {k} {name}: max_abs_err={r[k]['err']:.3g} (rel tol {tol:g}) "
                   f"ms={r[k]['ms']:.4f} plain_ms={r[k]['plain_ms']:.4f} "
                   f"library_ms={r[k]['library_ms']} bound_ms={bd:.5f} ({by})"
-                  f"{' ' + r[k]['plan'] if 'plan' in r[k] else ''}", flush=True)
+                  f"{' ' + r[k]['plan'] if 'plan' in r[k] else ''}"
+                  f"{' ms ' + spread_text(r[k]['spread']) if 'spread' in r[k] else ''}", flush=True)
+    return rows
+
+
+def wgrad_bound(M: int, dt: torch.dtype, h_f32: bool):
+    """lstm_wgrad: reads da (f32), emb, the h_prev source (hp in f32, or hs
+    in the activation dtype) and W_ih once, writes demb and the weight
+    gradients; f32 operations: demb = da W_ih^T, emb^T da, h^T da, sum da."""
+    es, G, rows = torch.finfo(dt).bits // 8, 4 * U, L * M
+    moved = (2 * rows * G * 4 + rows * D * es + 2 * rows * U * (4 if h_f32 else es)
+             + 2 * D * G * es + 2 * rows * D * es + (2 * D * G + 2 * G + 2 * U * G) * 4)
+    ops = 2 * (2 * rows * G * (2 * D + U) + rows * G)
+    return bound(moved, ops / PEAK_FLOPS[torch.float32])
+
+
+def hp_from_hs(hs: torch.Tensor) -> torch.Tensor:
+    """The h_prev stream [2, L, M, u] (f32) that K6 reads from its saved hs:
+    each direction's hs at the kernel-previous step, zero at the first."""
+    hp = hs.new_zeros((2,) + hs.shape[:2] + (U,), dtype=torch.float32)
+    hp[0, 1:] = hs[:-1, :, :U].float()
+    hp[1, :-1] = hs[1:, :, U:].float()
+    return hp
+
+
+def wgrad_checks(gen: torch.Generator) -> dict:
+    """The weight-gradient kernel alone vs its plain version on the same
+    streams: da and K8's hp (f32), and da with K6's saved hs (read at the
+    kernel-previous step), at M in {16, 200}, f32 and bf16; run twice, the
+    outputs must repeat bit for bit (no atomics)."""
+    dev = torch.device("cuda")
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for M in (16, 200):
+            emb = (torch.randn((L, M, D), generator=gen) * 0.5).to(dev, dt)
+            wih = (torch.randn((2, D, 4 * U), generator=gen) / D ** 0.5).to(dev, dt)
+            da = (torch.randn((2, L, M, 4 * U), generator=gen) * 0.1).to(dev)
+            hp = (torch.rand((2, L, M, U), generator=gen) * 2 - 1).to(dev)
+            hs = (torch.rand((L, M, H_DIM), generator=gen) * 2 - 1).to(dev, dt)
+            tol = TRAIN_TOL[dt]
+            for src, h, want_h in (("hp", hp, hp), ("hs", hs, hp_from_hs(hs))):
+                name = f"{'bf16' if dt == torch.bfloat16 else 'f32'} M={M} {src}"
+                got = lstm_wgrad(da, emb, h, wih)
+                again = lstm_wgrad(da, emb, h, wih)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"lstm_wgrad {name}: two runs differ")
+                ref = lstm_wgrad_reference(da, emb, want_h, wih)
+                err = check_outputs(f"lstm_wgrad {name}", dict(zip(
+                    ("demb", "dwih", "db", "dwhh"), zip(got, ref))), tol)
+                bd, by = wgrad_bound(M, dt, src == "hp")
+                r = dict(err=err, tol=tol, ms=cuda_ms(lambda: lstm_wgrad(da, emb, h, wih), 20),
+                         plain_ms=cuda_ms(lambda: lstm_wgrad_reference(da, emb, want_h, wih), 20),
+                         library_ms=None, bound_ms=bd, bound_by=by)
+                rows[("wgrad", name)] = r
+                print(f"[check] lstm_wgrad {name}: max_abs_err={err:.3g} (rel tol {tol:g}) "
+                      f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=None "
+                      f"bound_ms={bd:.5f} ({by}); bitwise equal over two runs", flush=True)
     return rows
 
 
@@ -528,21 +620,23 @@ def full_kernel_checks(gen: torch.Generator, library: dict) -> dict:
         r = {}
         r["K4"] = dict(err=err4, tol=tol, ms=cuda_ms(lambda: bilstm_full_fwd(emb, wih, b, whh, rdt), 10),
                        plain_ms=cuda_ms(lambda: bilstm_full_fwd_reference(emb, wih, b, whh, rdt), 2))
-        r["K6"] = dict(err=err6, tol=tol,
-                       ms=cuda_ms(lambda: bilstm_full_bwd(dhs, emb, hs, cs, wih, b, whh), 10),
+        k6 = median_ms(lambda: bilstm_full_bwd(dhs, emb, hs, cs, wih, b, whh))
+        r["K6"] = dict(err=err6, tol=tol, ms=k6[0], spread=k6,
                        plain_ms=cuda_ms(lambda: bilstm_full_bwd_reference(dhs, emb, hs, cs, wih,
                                                                           b, whh), 1))
         if M not in library:
             library[M] = (cudnn_lstm_ms(M, False), cudnn_lstm_ms(M, True))
-        r["K4"]["library_ms"], r["K6"]["library_ms"] = library[M]
+        r["K4"]["library_ms"], r["K6"]["library_ms"] = library[M][0][0], library[M][1][0]
         r["K4"]["plan"] = plan_text(M)
+        r["K6"]["plan"] = plan_text(M, W=0)
         for k, (bd, by) in (("K4", full_fwd_bound(M, dt, rdt)), ("K6", full_bwd_bound(M, dt, rdt))):
             r[k].update(bound_ms=bd, bound_by=by)
             rows[(k, name)] = r[k]
             print(f"[check] {k} {name}: max_abs_err={r[k]['err']:.3g} (rel tol {tol:g}) "
                   f"ms={r[k]['ms']:.4f} plain_ms={r[k]['plain_ms']:.4f} "
                   f"library_ms={r[k]['library_ms']} bound_ms={bd:.5f} ({by})"
-                  f"{' ' + r[k]['plan'] if 'plan' in r[k] else ''}", flush=True)
+                  f"{' ' + r[k]['plan'] if 'plan' in r[k] else ''}"
+                  f"{' ms ' + spread_text(r[k]['spread']) if 'spread' in r[k] else ''}", flush=True)
     print(f"[check] K6 vs K8 (W=8) f32 gradients: max abs err {err68:.3g} (rel tol "
           f"{K6_K8_TOL:g})", flush=True)
     return rows
@@ -695,7 +789,7 @@ def split_recurrence(gen: torch.Generator) -> dict:
             bd, by = split_bound(k, M, dt)
             r[k].update(tol=tol, library_ms=library[M][k], bound_ms=bd, bound_by=by)
             rows[(k, name)] = r[k]
-            plan = f" {plan_text(M, 0)}" if k != "split3" else ""
+            plan = f" {plan_text(M, 0, W=0 if k == 'split3' else None)}"
             print(f"[check] {k} {name}: max_abs_err={r[k]['err']:.3g} (rel tol {tol:g}) "
                   f"ms={r[k]['ms']:.4f} plain_ms={r[k]['plain_ms']:.4f} "
                   f"library_ms={r[k]['library_ms']:.4f} bound_ms={bd:.5f} ({by}){plan}",
@@ -717,8 +811,9 @@ LOSS_REL_TOL = 2e-2
 TRAIN_STEPS = 20
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 TRAIN_KERNELS = {"K7": bilstm_win_fwd, "K8": bilstm_win_bwd, "K10": attn_fwd_stats, "K11": attn_bwd,
-                 "K4": bilstm_full_fwd, "K6": bilstm_full_bwd}
-SPLIT_KERNELS = {"split2": lstm_split_infer_cuda, "split1": lstm_split_fwd, "split3": lstm_split_bwd}
+                 "K4": bilstm_full_fwd, "K6": bilstm_full_bwd, "wgrad": lstm_wgrad}
+SPLIT_KERNELS = {"split2": lstm_split_infer_cuda, "split1": lstm_split_fwd, "split3": lstm_split_bwd,
+                 "wgrad": lstm_wgrad}
 # Training at lstm_cs_window=0 vs the W=8 kernel route from the same
 # weights on the same batch: bf16 residuals at every step against bf16
 # checkpoint seeds; the JAX band for bf16 residuals (tests/test_lstm.py:517).
@@ -840,7 +935,7 @@ def train_main_path() -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
-    expect_launches(launches, ("K7", "K8", "K10", "K11"), TRAIN_STEPS)
+    expect_launches(launches, ("K7", "K8", "K10", "K11", "wgrad"), TRAIN_STEPS)
     trainer.close()
     recs = train_records(ckpt / "metrics.jsonl")
     vals = [r for r in map(json.loads, (ckpt / "metrics.jsonl").read_text().splitlines())
@@ -943,7 +1038,7 @@ def train_full_residual(w8: dict) -> dict:
     trainer, recs = run(model, cfg, "w0")
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
-    expect_launches(launches, ("K4", "K6", "K10", "K11"), W0_STEPS)
+    expect_launches(launches, ("K4", "K6", "K10", "K11", "wgrad"), W0_STEPS)
     _, ref_recs = run(ref_model, ref_cfg, "w0_reference")
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     losses = np.array([r["loss"] for r in recs])
@@ -1088,6 +1183,7 @@ def main() -> int:
     # 6. Training kernels vs plain (cuDNN yardsticks by M, shared with phase 7)
     library: dict = {}
     train_rows = train_kernel_checks(gen, library)
+    wgrad_rows = wgrad_checks(gen)
 
     # 7. Full-residual kernels vs plain
     full_rows = full_kernel_checks(gen, library)
@@ -1140,9 +1236,11 @@ def main() -> int:
             "max_abs_err": max(v["err"] for (k, _), v in train_rows.items() if k == key),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "at": "L=40 M=200 bf16 W=8 (training step, B=4 episodes)",
+            "at": "L=40 M=200 bf16 W=8 (training step, B=4 episodes)"
+                  + ("; chain kernel + lstm_wgrad" if key == "K8" else ""),
             "ms_m16": train_rows[(key, "bf16 M=16 W=8 res=bf16")]["ms"],
-            **({"plan": r["plan"]} if key == "K7" else {}),
+            **({"plan": r["plan"]} if "plan" in r else {}),
+            **({"ms_min": r["spread"][1], "ms_max": r["spread"][2]} if "spread" in r else {}),
         })
     for key, name, src, replaces in (
         ("K4", "bilstm_full_fwd", "induction_network_on_fewrel_tpu_torch/csrc/bilstm_infer.cu",
@@ -1157,10 +1255,25 @@ def main() -> int:
             "max_abs_err": max(v["err"] for (k, _), v in full_rows.items() if k == key),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "at": "L=40 M=200 bf16 res=bf16 (training step at lstm_cs_window=0)",
+            "at": "L=40 M=200 bf16 res=bf16 (training step at lstm_cs_window=0)"
+                  + ("; chain kernel + lstm_wgrad" if key == "K6" else ""),
             "ms_m16": full_rows[(key, "bf16 M=16 res=bf16")]["ms"],
-            **({"plan": r["plan"]} if key == "K4" else {}),
+            **({"plan": r["plan"]} if "plan" in r else {}),
+            **({"ms_min": r["spread"][1], "ms_max": r["spread"][2]} if "spread" in r else {}),
         })
+    r = wgrad_rows[("wgrad", "bf16 M=200 hp")]
+    kernels.append({
+        "name": "lstm_wgrad", "route": "cuda",
+        "source": "induction_network_on_fewrel_tpu_torch/csrc/lstm_wgrad.cu",
+        "replaces": "induction_network_on_fewrel_tpu/ops/lstm.py:1090",
+        "launches": tr["launches"]["wgrad"],
+        "max_abs_err": max(v["err"] for v in wgrad_rows.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "at": "L=40 M=200 bf16, K8's da and hp streams (training step)",
+        "ms_hs": wgrad_rows[("wgrad", "bf16 M=200 hs")]["ms"],
+        "ms_m16": wgrad_rows[("wgrad", "bf16 M=16 hp")]["ms"],
+    })
     for key, name, replaces in (
         ("split2", "lstm_split_fwd_infer", "induction_network_on_fewrel_tpu/ops/lstm.py:189"),
         ("split1", "lstm_split_fwd", "induction_network_on_fewrel_tpu/ops/lstm.py:157"),

@@ -7,10 +7,11 @@
 //     _fwd_call_infer and _fwd_call_tm_infer, the no-grad primal): hs only;
 //   kernel 1 (lstm_split_fwd): _fwd_kernel (_fwd_call, _fwd_call_tm, the
 //     training forward): hs and cs at every step, both in xg's dtype;
-//   kernel 3 (lstm_split_bwd): _bwd_kernel (_bwd_call, _bwd_call_tm):
-//     kernel-reverse walk over the saved hs/cs, gates recomputed from
-//     xg + h_prev W_hh, dxg written every step in xg's dtype, f32 dW_hh
-//     partial slabs per row tile, summed over tiles outside the kernel.
+//   kernel 3 (lstm_split_bwd): _bwd_kernel (_bwd_call, _bwd_call_tm),
+//     together with csrc/lstm_wgrad.cu: kernel-reverse walk over the saved
+//     hs/cs, gates recomputed from xg + h_prev W_hh, dxg = da written every
+//     step in xg's dtype and da in f32; lstm_wgrad sums dW_hh = h_prev^T da
+//     over all rows at once.
 // Per group g (a direction): a_t = xg_t + h_{t-1} W_hh[g], gate order
 // [i, f, g, o], h and c carried in f32; W_hh is f32.
 //
@@ -29,10 +30,10 @@
 // one cluster of C CTAs per (row tile, group), each CTA keeping its W_hh
 // slice in shared memory and exchanging h through distributed shared
 // memory; the next step's input gates are xg read in place (coalesced
-// within each gate's unit slice) while the peers' h is in flight. TM and C
-// come from the caller (ops/lstm.py:fwd_plan). Kernel 3 is
-// lstm_resid_bwd_kernel (K6's body) without the projection: it writes
-// dxg = da where K6 writes demb, dW_ih and db; TM = 8, as K6.
+// within each gate's unit slice) while the peers' h is in flight. Kernel 3
+// is lstm_cluster_bwd_kernel (K6's body) without the projection: it writes
+// dxg = da (and the f32 da stream) where K6 writes only da. TM and C come
+// from the caller (ops/lstm.py:fwd_plan, bwd_plan).
 
 #include "lstm_common.cuh"
 
@@ -41,8 +42,6 @@ namespace {
 using lstm::BwdArgs;
 using lstm::FwdArgs;
 using lstm::View;
-
-constexpr int TM_BWD = 8;
 
 template <typename T, int MODE>
 int launch_fwd(const void* xg, const void* whh, void* hs, void* cs, int L, int M, int u, int Gc,
@@ -60,8 +59,8 @@ int launch_fwd(const void* xg, const void* whh, void* hs, void* cs, int L, int M
 
 template <typename T>
 int launch_bwd(const void* dhs, const void* xg, const void* hs, const void* cs, const void* whh,
-               void* dxg, void* dwhh_p, int L, int M, int u, int Gc, View xv, View hv,
-               int rev_group, cudaStream_t stream) {
+               void* dxg, void* da, int L, int M, int u, int Gc, View xv, View hv,
+               int rev_group, int tm, int cluster, cudaStream_t stream) {
   BwdArgs<T, T> a{};
   a.dhs = static_cast<const T*>(dhs);
   a.x = static_cast<const T*>(xg);
@@ -69,11 +68,11 @@ int launch_bwd(const void* dhs, const void* xg, const void* hs, const void* cs, 
   a.c1 = static_cast<const T*>(cs);
   a.whh = static_cast<const float*>(whh);
   a.dx = static_cast<T*>(dxg);
-  a.dwhh_p = static_cast<float*>(dwhh_p);
+  a.da = static_cast<float*>(da);
   a.xv = xv;
   a.hv = hv;
   a.L = L; a.M = M; a.D = 0; a.u = u; a.W = 0; a.rev_group = rev_group;
-  return lstm::launch_resid_bwd<T, T, false, TM_BWD>(a, Gc, stream);
+  return lstm::launch_bwd<T, T, false, lstm::kSaved>(a, Gc, tm, cluster, stream);
 }
 
 }  // namespace
@@ -84,9 +83,9 @@ extern "C" {
 // (unit column stride, 4u columns a group) in bf16 when bf16 != 0, else
 // f32; hs, cs and dhs share the strides h_g, h_m, h_t (u columns a group)
 // and xg's dtype; whh [Gc, u, 4u] f32 contiguous; rev_group is the group
-// that walks time reversed (-1: none). The caller guarantees 4u <= 512.
-// The forward launchers take the caller's plan before the stream: row tile
-// tm and cluster size (ops/lstm.py:fwd_plan); a plan the body cannot take
+// that walks time reversed (-1: none). Every launcher takes the caller's
+// plan before the stream: row tile tm and cluster size (ops/lstm.py:fwd_plan
+// for the forwards, bwd_plan for kernel 3); a plan the body cannot take
 // returns cudaErrorInvalidValue before anything is launched.
 
 // Kernel 2: hs only.
@@ -117,23 +116,19 @@ int lstm_split_fwd(const void* xg, const void* whh, void* hs, void* cs, int L, i
                                         cluster, s);
 }
 
-// Kernel 3: dxg (xg's strides and dtype) and the f32 partials
-// dwhh_p [Gc, ceil(M/tm), u, 4u]. tm is the caller's row tile, which sizes
-// the partials: any other value than the compiled TM_BWD = 8 is refused with
-// cudaErrorInvalidValue before anything is launched. Also needs 4u a
-// multiple of 32.
+// Kernel 3: dxg (xg's strides and dtype) and da [Gc, L, M, 4u] (f32,
+// contiguous). tm and cluster are the caller's plan (ops/lstm.py:bwd_plan).
 int lstm_split_bwd(const void* dhs, const void* xg, const void* hs, const void* cs,
-                   const void* whh, void* dxg, void* dwhh_p, int L, int M, int u, int Gc,
+                   const void* whh, void* dxg, void* da, int L, int M, int u, int Gc,
                    long long x_g, long long x_m, long long x_t, long long h_g, long long h_m,
-                   long long h_t, int rev_group, int bf16, int tm, void* stream) {
-  if (tm != TM_BWD) return (int)cudaErrorInvalidValue;
+                   long long h_t, int rev_group, int bf16, int tm, int cluster, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const View xv{x_g, x_m, x_t}, hv{h_g, h_m, h_t};
   if (bf16)
-    return launch_bwd<__nv_bfloat16>(dhs, xg, hs, cs, whh, dxg, dwhh_p, L, M, u, Gc, xv, hv,
-                                     rev_group, s);
-  return launch_bwd<float>(dhs, xg, hs, cs, whh, dxg, dwhh_p, L, M, u, Gc, xv, hv, rev_group,
-                           s);
+    return launch_bwd<__nv_bfloat16>(dhs, xg, hs, cs, whh, dxg, da, L, M, u, Gc, xv, hv,
+                                     rev_group, tm, cluster, s);
+  return launch_bwd<float>(dhs, xg, hs, cs, whh, dxg, da, L, M, u, Gc, xv, hv, rev_group, tm,
+                           cluster, s);
 }
 
 const char* lstm_split_error_string(int code) {

@@ -44,17 +44,18 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # strides of xg and of hs, the reversed group and the dtype flag.
 _SPLIT = [_I] * 4 + [_LL] * 6 + [_I] * 2
 # Launcher name -> (source stem, argtypes). The stream is the last argument;
-# the forwards take the row tile and the cluster size (ops/lstm.py:fwd_plan)
-# just before it, kernel 3 its row tile.
+# the LSTM recurrences take the row tile and the cluster size
+# (ops/lstm.py:fwd_plan, bwd_plan) just before it.
 LAUNCHERS = {
     "bilstm_infer_fwd": ("bilstm_infer", [_P] * 5 + [_I] * 7 + [_P]),
     "bilstm_win_fwd": ("bilstm_infer", [_P] * 7 + [_I] * 9 + [_P]),
     "bilstm_full_fwd": ("bilstm_infer", [_P] * 6 + [_I] * 8 + [_P]),
-    "bilstm_win_bwd": ("bilstm_win_bwd", [_P] * 11 + [_I] * 8 + [_P]),
-    "bilstm_full_bwd": ("bilstm_full_bwd", [_P] * 11 + [_I] * 7 + [_P]),
+    "bilstm_win_bwd": ("bilstm_win_bwd", [_P] * 9 + [_I] * 9 + [_P]),
+    "bilstm_full_bwd": ("bilstm_full_bwd", [_P] * 8 + [_I] * 8 + [_P]),
+    "lstm_wgrad": ("lstm_wgrad", [_P] * 8 + [_I] * 5 + [_LL] * 6 + [_I] * 4 + [_P]),
     "lstm_split_fwd_infer": ("lstm_split", [_P] * 3 + _SPLIT + [_I, _I, _P]),
     "lstm_split_fwd": ("lstm_split", [_P] * 4 + _SPLIT + [_I, _I, _P]),
-    "lstm_split_bwd": ("lstm_split", [_P] * 7 + _SPLIT + [_I, _P]),
+    "lstm_split_bwd": ("lstm_split", [_P] * 7 + _SPLIT + [_I, _I, _P]),
     "attn_fwd": ("attn_fwd", [_P] * 5 + [_I] * 5 + [_P]),
     "attn_fwd_stats": ("attn_fwd", [_P] * 7 + [_I] * 5 + [_P]),
     "attn_bwd": ("attn_bwd", [_P] * 11 + [_I] * 6 + [_P]),

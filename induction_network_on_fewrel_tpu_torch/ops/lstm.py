@@ -27,6 +27,12 @@ Two routes, as in the JAX custom VJP:
   step in the residual dtype; its backward is K6 (``bilstm_full_bwd``,
   ``csrc/bilstm_full_bwd.cu``, replaces ``_fused_bwd_kernel``), which reads
   h_prev from the saved hs (in emb's dtype) and c from the saved cs.
+  Each backward is two launches: the chain kernel, which carries only the
+  gradient chain and streams the gate gradients da (and, for K8, the h_prev
+  of every step), then ``lstm_wgrad`` (``csrc/lstm_wgrad.cu``), which takes
+  demb, dW_ih, db and dW_hh as products over all L*M rows. Their plain
+  two-stage version is ``bilstm_bwd_chain_reference`` then
+  ``lstm_wgrad_reference``.
 
 Dtype placement follows the kernel path exactly (lstm.py:1303-1307): wih
 is cast to the embedding dtype, b and whh to f32; gate pre-activations
@@ -52,7 +58,7 @@ needed: kernel 2 (``lstm_split_infer_cuda``, replaces
 ``_fwd_kernel_infer``); otherwise ``_SplitRecurrence``: kernel 1
 (``lstm_split_fwd``, replaces ``_fwd_kernel``: hs and cs every step, both
 in xg's dtype) and kernel 3 (``lstm_split_bwd``, replaces ``_bwd_kernel``:
-dxg in xg's dtype, f32 dW_hh summed over row tiles), all in
+dxg in xg's dtype, then f32 dW_hh from ``lstm_wgrad``), all in
 ``csrc/lstm_split.cu``. The kernels take each layout in place through its
 (group, row, time) strides; no transpose, flip or pad copy is made.
 ``lstm_scan`` is the plain f32 counterpart of the JAX ``lstm_scan``
@@ -85,15 +91,10 @@ from induction_network_on_fewrel_tpu_torch.ops.core import (
 
 # A block's dynamic shared memory on an H100 (232,448 bytes).
 SMEM_LIMIT = 232448
-# SMs of an H100 SXM, and the threads of a CTA of the cluster forward
+# SMs of an H100 SXM, and the threads of a CTA of the cluster bodies
 # (``FWD_THREADS`` in ``csrc/lstm_common.cuh``).
 NUM_SMS = 132
 FWD_THREADS = 256
-# Row tile of the kernels that walk saved full residual streams (K6,
-# kernel 3). It sizes their per-tile partials here and is passed to their
-# launchers (csrc/bilstm_full_bwd.cu, csrc/lstm_split.cu), which refuse any
-# other tile than the one they were compiled for.
-RESID_TM = 8
 
 
 def bilstm_encoder_tm(
@@ -407,6 +408,76 @@ def bilstm_full_bwd_reference(dhs, emb_t, hs, cs, wih, b, whh):
     return _fused_backward(dhs, emb_t, wih, b, whh, states)
 
 
+def bilstm_bwd_chain_reference(dhs, emb_t, r1, r2, wih, b, whh, W: int):
+    """The plain version of the chain kernels' stage: K8's at W > 0 (r1, r2
+    = the checkpoints ch, cc), K6's at W = 0 (r1, r2 = the saved hs, cs).
+    Per direction in kernel-reverse order, the gate gradient of every step
+    and the h_prev it used: da [2, L, M, 4u] and hp [2, L, M, u], f32. At
+    W > 0 each window's gates are kept from its replay, as K8 keeps them,
+    and h_prev at a window's kernel-first step is the (rounded) seed; at
+    W = 0 the gates come from the saved hs at the kernel-previous step."""
+    L, M, _ = emb_t.shape
+    u = whh.shape[1]
+    x = emb_t.float()
+    wih32, b32, whh32 = wih.float(), b.float(), whh.float()
+    da = x.new_zeros((2, L, M, 4 * u))
+    hp = x.new_zeros((2, L, M, u))
+
+    def window_steps(d):
+        """(t, pre-activations, h_prev, c_prev, c_t) in kernel-reverse order."""
+        cols = slice(d * u, (d + 1) * u)
+        nB = r1.shape[0]
+        for blk in (range(nB - 1, -1, -1) if d == 0 else range(nB)):
+            base = blk * W
+            Wb = min(W, L - base)
+            if blk == (0 if d == 0 else nB - 1):
+                h, c = x.new_zeros((M, u)), x.new_zeros((M, u))
+            else:
+                sb = blk - 1 if d == 0 else blk + 1
+                h, c = r1[sb, :, cols].float(), r2[sb, :, cols].float()
+            kept = []                                   # the replay, kernel order
+            for t in (range(base, base + Wb) if d == 0 else range(base + Wb - 1, base - 1, -1)):
+                a = x[t] @ wih32[d] + b32[d] + h @ whh32[d]
+                _, _, _, o, c_t = _cell(a, c, u)
+                kept.append((t, a, h, c, c_t))
+                h, c = o * torch.tanh(c_t), c_t
+            yield from reversed(kept)
+
+    def saved_steps(d):
+        cols = slice(d * u, (d + 1) * u)
+        times = list(_times(L, d == 1))
+        zero = x.new_zeros((M, u))
+        for s in range(L - 1, -1, -1):
+            t = times[s]
+            h, c = ((r1[times[s - 1], :, cols].float(), r2[times[s - 1], :, cols].float())
+                    if s else (zero, zero))
+            yield t, x[t] @ wih32[d] + b32[d] + h @ whh32[d], h, c, r2[t, :, cols].float()
+
+    for d in range(2):
+        cols = slice(d * u, (d + 1) * u)
+        dh = x.new_zeros((M, u))
+        dc = x.new_zeros((M, u))
+        for t, a, h_prev, c_prev, c_t in (window_steps(d) if W else saved_steps(d)):
+            da[d, t], dc = _cell_grad(a, c_prev, c_t, dhs[t, :, cols].float() + dh, dc, u)
+            hp[d, t] = h_prev
+            dh = da[d, t] @ whh32[d].T
+    return da, hp
+
+
+def lstm_wgrad_reference(da, emb_t, hp, wih):
+    """The plain version of ``lstm_wgrad``: from the chain's da and hp (f32,
+    [2, L, M, 4u] and [2, L, M, u]), per direction over all L*M rows:
+    demb = da W_ih^T in emb's dtype [2, L, M, D], and the f32 sums
+    dW_ih = emb^T da [2, D, 4u], db = sum da [2, 4u], dW_hh = hp^T da
+    [2, u, 4u]."""
+    x = emb_t.float().flatten(0, 1)                    # [L*M, D]
+    da2, hp2 = da.flatten(1, 2), hp.flatten(1, 2)      # [2, L*M, *]
+    demb = torch.matmul(da2, wih.float().transpose(1, 2)).to(emb_t.dtype)
+    dwih = torch.matmul(x.T, da2)
+    dwhh = torch.matmul(hp2.transpose(1, 2), da2)
+    return demb.view(da.shape[:3] + (-1,)), dwih, da2.sum(1), dwhh
+
+
 def _split_dims(xg, whh, tm: bool) -> tuple[int, int, int, int]:
     """(Gc, M, L, u) of a split-recurrence input, or ValueError."""
     if whh.dim() != 3 or whh.shape[2] != 4 * whh.shape[1]:
@@ -514,18 +585,25 @@ def fwd_psplits(tm: int, cluster: int, D: int, u: int) -> int:
     return max(1, min(D, FWD_THREADS // (tm // 2 * (u // cluster))))
 
 
-def fwd_smem(tm: int, cluster: int, D: int, u: int) -> int:
-    """Shared memory of a cluster-forward CTA in bytes (D = 0: no
-    projection, the split kernels): two mbarriers (16 bytes), the W_hh
-    slice [u, NC], the W_ih slice [D, NC] and b [NC], two h buffers
-    [u, tm + 4], the input gates [P, tm, NC], the split-K partials
-    [S, tm, NC + 8] and the staged embeddings [D, tm + 2], NC = 4u /
-    cluster (``lstm::fwd_smem`` in ``csrc/lstm_common.cuh``)."""
+def _core_floats(tm: int, cluster: int, D: int, u: int, hs: int) -> int:
+    """Floats of a cluster CTA's forward step (``lstm::fwd_core_floats``):
+    the W_hh slice [u, NC], the W_ih slice [D, NC] and b [NC], two h
+    buffers [u, hs], the input gates [P, tm, NC], the split-K partials
+    [S, tm, NC + 8] and the staged embeddings [D, tm + 2] rounded up to 4
+    floats, NC = 4u / cluster."""
     nc = 4 * u // cluster
     splits = FWD_THREADS // (tm * nc // 16)
-    return 16 + 4 * (u * nc + D * nc + (nc if D else 0) + 2 * u * (tm + 4)
-                     + fwd_psplits(tm, cluster, D, u) * tm * nc + splits * tm * (nc + 8)
-                     + D * (tm + 2))
+    return (u * nc + D * nc + (nc if D else 0) + 2 * u * hs
+            + fwd_psplits(tm, cluster, D, u) * tm * nc + splits * tm * (nc + 8)
+            + -(-D * (tm + 2) // 4) * 4)
+
+
+def fwd_smem(tm: int, cluster: int, D: int, u: int) -> int:
+    """Shared memory of a cluster-forward CTA in bytes (D = 0: no
+    projection, the split kernels): two mbarriers (16 bytes) and the
+    forward step with h buffers of row stride tm + 4 (``lstm::fwd_smem`` in
+    ``csrc/lstm_common.cuh``)."""
+    return 16 + 4 * _core_floats(tm, cluster, D, u, tm + 4)
 
 
 def fwd_plan(M: int, D: int, u: int, groups: int = 2) -> FwdPlan:
@@ -554,17 +632,71 @@ def fwd_plan(M: int, D: int, u: int, groups: int = 2) -> FwdPlan:
     raise ValueError(f"the cluster LSTM forward cannot take D={D}, u={u}: {why}")
 
 
-def _fwd_plan_for(name, M, D, u, groups=2) -> FwdPlan:
+class BwdPlan(NamedTuple):
+    """Launch plan of the cluster backward chain (K8, K6, kernel 3)."""
+
+    tm: int        # rows per tile
+    cluster: int   # CTAs per cluster; each owns u / cluster units
+    ctas: int      # ceil(M / tm) * groups * cluster
+    smem: int      # dynamic shared memory of a CTA, bytes
+    why: str = ""  # why the CTAs take more than one wave, when they do
+    threads: int = FWD_THREADS
+
+
+def bwd_smem(tm: int, cluster: int, D: int, u: int, W: int) -> int:
+    """Shared memory of a cluster-backward CTA in bytes (``lstm::bwd_smem``
+    in ``csrc/lstm_common.cuh``): four mbarriers (32 bytes), the forward
+    step (h buffers of row stride tm where a window must fit, W > 0, else
+    tm + 4), the window's gates and c of the own cells [W, 5, tm u/cluster]
+    (W = 0: none) and the dh reduce-scatter buffers [2, cluster, u/cluster,
+    tm]."""
+    return 32 + 4 * (_core_floats(tm, cluster, D, u, tm if W else tm + 4)
+                     + 5 * W * tm * (u // cluster) + 2 * tm * u)
+
+
+def bwd_plan(M: int, D: int, u: int, W: int, groups: int = 2) -> BwdPlan:
+    """The cluster backward's plan for M rows, window W (0: the saved
+    streams of K6 and kernel 3) and D (0: kernel 3).
+
+    The cluster is the largest of 8, 4, 2, 1 that leaves each CTA a
+    multiple of 4 units (a dh tile's 4 units go to one CTA). The tile is 16
+    rows, or 32 when 16 would give more CTAs than the card has SMs (M = 200,
+    u = 128, W = 8: 7 x 2 x 8 = 112 CTAs, one wave); a tile whose window
+    does not fit shared memory steps down to 8 and 4 rows, and ``why`` then
+    says why the plan takes more than one wave. Raises ValueError for
+    widths the body cannot take."""
+    cluster = next((c for c in (8, 4, 2, 1) if u % c == 0 and (u // c) % 4 == 0), None)
+    if cluster is None:
+        raise ValueError(f"the cluster LSTM backward cannot take u={u}: no cluster size "
+                         "leaves each CTA a multiple of 4 units")
+    units = u // cluster
+    big = -(-M // 16) * groups * cluster > NUM_SMS
+    why = ""
+    for tm in ((32, 16, 8, 4) if big else (16, 8, 4)):
+        if (tm * 4 * units // 16 > FWD_THREADS or tm * units > 4 * FWD_THREADS
+                or tm // 4 * (u // 4) > FWD_THREADS):
+            why = f"a {tm}-row tile of u={u} needs more than {FWD_THREADS} threads"
+            continue
+        smem = bwd_smem(tm, cluster, D, u, W)
+        if smem > SMEM_LIMIT:
+            why = f"a {tm}-row tile at W={W} would need {smem} bytes of shared memory"
+            continue
+        ctas = -(-M // tm) * groups * cluster
+        return BwdPlan(tm, cluster, ctas, smem, why if ctas > NUM_SMS else "")
+    raise ValueError(f"the cluster LSTM backward cannot take D={D}, u={u}, W={W}: {why}")
+
+
+def _plan_for(name, plan, *args):
     try:
-        return fwd_plan(M, D, u, groups)
+        return plan(*args)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
 
 
-def _check_lstm_args(name, emb_t, wih, b, whh, forward: bool = False):
-    """Dtype, shape and device checks of the fused kernels; returns (u, the
-    forward's plan or None). The plan is made before the device check, so a
-    width the forward cannot take is refused on any device."""
+def _check_lstm_args(name, emb_t, wih, b, whh, plan=None):
+    """Dtype, shape and device checks of the fused kernels; returns (u,
+    ``plan(M, D, u)`` or None). The plan is made before the device check,
+    so a width the body cannot take is refused on any device."""
     if emb_t.dtype not in ACTIVATION_DTYPES or wih.dtype != emb_t.dtype:
         raise TypeError(
             f"{name}: emb/wih must share a dtype in {ACTIVATION_DTYPES}, "
@@ -582,7 +714,7 @@ def _check_lstm_args(name, emb_t, wih, b, whh, forward: bool = False):
         )
     if G > 512:
         raise ValueError(f"{name}: 4u = {G} exceeds the kernel's 512 threads")
-    plan = _fwd_plan_for(name, emb_t.shape[1], D, u) if forward else None
+    plan = _plan_for(name, plan, emb_t.shape[1], D, u) if plan else None
     check_cuda_tensors(name, emb_t, wih, b, whh)
     return u, plan
 
@@ -614,7 +746,7 @@ def bilstm_infer_cuda(emb_t, wih, b, whh) -> torch.Tensor:
     tensors, unsupported dtypes, shapes or layouts, launch failures, and
     for an input that requires grad while grad mode is on."""
     _refuse_grad("bilstm_infer_cuda", emb_t, wih, b, whh)
-    u, plan = _check_lstm_args("bilstm_infer_cuda", emb_t, wih, b, whh, forward=True)
+    u, plan = _check_lstm_args("bilstm_infer_cuda", emb_t, wih, b, whh, fwd_plan)
     L, M, D = emb_t.shape
     hs = torch.empty((L, M, 2 * u), dtype=emb_t.dtype, device=emb_t.device)
     if L == 0 or M == 0:
@@ -632,7 +764,7 @@ bilstm_infer_cuda.launches = 0
 
 def bilstm_win_fwd(emb_t, wih, b, whh, W: int, res_dt):
     """Launch K7: (hs, ch, cc) as ``bilstm_win_fwd_reference``."""
-    u, plan = _check_lstm_args("bilstm_win_fwd", emb_t, wih, b, whh, forward=True)
+    u, plan = _check_lstm_args("bilstm_win_fwd", emb_t, wih, b, whh, fwd_plan)
     _check_residuals("bilstm_win_fwd", res_dt)
     L, M, D = emb_t.shape
     if not 1 <= W <= L:
@@ -657,7 +789,7 @@ bilstm_win_fwd.launches = 0
 
 def bilstm_full_fwd(emb_t, wih, b, whh, res_dt):
     """Launch K4: (hs, cs) as ``bilstm_full_fwd_reference``."""
-    u, plan = _check_lstm_args("bilstm_full_fwd", emb_t, wih, b, whh, forward=True)
+    u, plan = _check_lstm_args("bilstm_full_fwd", emb_t, wih, b, whh, fwd_plan)
     _check_residuals("bilstm_full_fwd", res_dt)
     L, M, D = emb_t.shape
     hs = torch.empty((L, M, 2 * u), dtype=emb_t.dtype, device=emb_t.device)
@@ -676,87 +808,74 @@ def bilstm_full_fwd(emb_t, wih, b, whh, res_dt):
 bilstm_full_fwd.launches = 0
 
 
-def win_bwd_tile(W: int, D: int, u: int) -> tuple[int, int]:
-    """K8's row tile: the largest TM in {8, 4, 2, 1} whose window
-    (2 W TM u f32) and step buffers fit a block's shared memory, and the
-    bytes it takes (the formula of ``csrc/bilstm_win_bwd.cu``)."""
-    for tm in (8, 4, 2, 1):
-        smem = 4 * (2 * W * tm * u + 3 * tm * u + tm * D + tm * 4 * u)
-        if smem <= SMEM_LIMIT:
-            return tm, smem
-    raise ValueError(f"bilstm_win_bwd: a window of W={W} at u={u} does not fit shared memory")
-
-
-def resid_bwd_smem(D: int, u: int) -> int:
-    """Shared memory of K6 (D = the embedding width) and kernel 3 (D = 0):
-    h_prev, c_prev, c_t, the dh carry, the embeddings and the gates of a
-    tile (``lstm::resid_bwd_smem`` in ``csrc/lstm_common.cuh``)."""
-    return 4 * (4 * RESID_TM * u + RESID_TM * D + RESID_TM * 4 * u)
-
-
-def _check_bwd_widths(name, D: int, u: int):
-    if (4 * u) % 32:
-        raise ValueError(f"{name}: 4u = {4 * u} must be a multiple of 32")
-    if resid_bwd_smem(D, u) > SMEM_LIMIT:
-        raise ValueError(f"{name}: D={D}, u={u} do not fit a block's shared memory")
-
-
-def _sum_partials(emb_t, u, tiles, launch):
-    """Allocate K8/K6's outputs, ``launch`` them, and sum the per-tile
-    partials outside the kernel, as the JAX calls do."""
+def lstm_wgrad(da, emb_t, h, wih):
+    """Launch the weight-gradient kernel of the fused backward (K8, K6):
+    from da [2, L, M, 4u] (f32) and the h_prev source ``h`` (K8's hp
+    stream [2, L, M, u] in f32, or K6's saved hs [L, M, 2u] in emb's dtype,
+    read at the kernel-previous step) the four outputs of
+    ``lstm_wgrad_reference``."""
     L, M, D = emb_t.shape
-    G = 4 * u
+    u = wih.shape[2] // 4
+    shift = tuple(h.shape) == (L, M, 2 * u)
+    if da.dtype != torch.float32 or tuple(da.shape) != (2, L, M, 4 * u):
+        raise ValueError(f"lstm_wgrad: da {da.dtype} {tuple(da.shape)} != f32 [2, L, M, 4u]")
+    if not (shift and h.dtype == emb_t.dtype
+            or h.dtype == torch.float32 and tuple(h.shape) == (2, L, M, u)):
+        raise ValueError(f"lstm_wgrad: h {h.dtype} {tuple(h.shape)} is neither hp nor hs")
+    check_cuda_tensors("lstm_wgrad", da, emb_t, h, wih)
     dev = emb_t.device
     demb = torch.empty((2, L, M, D), dtype=emb_t.dtype, device=dev)
-    dwih_p = torch.empty((2, tiles, D, G), dtype=torch.float32, device=dev)
-    db_p = torch.empty((2, tiles, G), dtype=torch.float32, device=dev)
-    dwhh_p = torch.empty((2, tiles, u, G), dtype=torch.float32, device=dev)
-    if M and L:
-        launch(demb, dwih_p, db_p, dwhh_p)
-    else:
-        for p in (demb, dwih_p, db_p, dwhh_p):
-            p.zero_()
-    return demb, dwih_p.sum(1), db_p.sum(1), dwhh_p.sum(1)
+    dwih = torch.empty((2, D, 4 * u), dtype=torch.float32, device=dev)
+    db = torch.empty((2, 4 * u), dtype=torch.float32, device=dev)
+    dwhh = torch.empty((2, u, 4 * u), dtype=torch.float32, device=dev)
+    if not L * M:
+        return demb, dwih.zero_(), db.zero_(), dwhh.zero_()
+    hv = (u, 2 * u, 2 * M * u) if shift else (L * M * u, u, M * u)
+    _launch("lstm_wgrad", dev, da.data_ptr(), emb_t.data_ptr(), h.data_ptr(), wih.data_ptr(),
+            demb.data_ptr(), dwih.data_ptr(), db.data_ptr(), dwhh.data_ptr(), L, M, D, u, 2,
+            0, D, M * D, *hv, int(shift), 1, int(emb_t.dtype == torch.bfloat16),
+            int(h.dtype == torch.float32))
+    lstm_wgrad.launches += 1
+    return demb, dwih, db, dwhh
+
+
+lstm_wgrad.launches = 0
 
 
 def bilstm_win_bwd(dhs, emb_t, ch, cc, wih, b, whh, W: int):
-    """Launch K8, then sum its per-tile partials: the same four outputs as
-    ``bilstm_win_bwd_reference``."""
-    u, _ = _check_lstm_args("bilstm_win_bwd", emb_t, wih, b, whh)
-    check_cuda_tensors("bilstm_win_bwd", emb_t, dhs, ch, cc)
-    _check_residuals("bilstm_win_bwd", ch.dtype)
+    """Launch K8's chain kernel, then ``lstm_wgrad``: the same four outputs
+    as ``bilstm_win_bwd_reference``."""
     L, M, D = emb_t.shape
-    if dhs.dtype != emb_t.dtype or tuple(dhs.shape) != (L, M, 2 * u):
-        raise ValueError(f"bilstm_win_bwd: dhs {dhs.dtype} {tuple(dhs.shape)} != hs")
     if not 1 <= W <= L:
         raise ValueError(f"bilstm_win_bwd: window {W} outside [1, L={L}]")
+    u, plan = _check_lstm_args("bilstm_win_bwd", emb_t, wih, b, whh,
+                               lambda M_, D_, u_: bwd_plan(M_, D_, u_, W))
+    check_cuda_tensors("bilstm_win_bwd", emb_t, dhs, ch, cc)
+    _check_residuals("bilstm_win_bwd", ch.dtype)
+    if dhs.dtype != emb_t.dtype or tuple(dhs.shape) != (L, M, 2 * u):
+        raise ValueError(f"bilstm_win_bwd: dhs {dhs.dtype} {tuple(dhs.shape)} != hs")
     if tuple(ch.shape) != (-(-L // W), M, 2 * u) or cc.shape != ch.shape or cc.dtype != ch.dtype:
         raise ValueError(f"bilstm_win_bwd: checkpoints {tuple(ch.shape)} do not match W={W}")
-    if (4 * u) % 32:
-        raise ValueError(f"bilstm_win_bwd: 4u = {4 * u} must be a multiple of 32")
-    tm, _ = win_bwd_tile(W, D, u)
-
-    def launch(demb, dwih_p, db_p, dwhh_p):
-        _launch(
-            "bilstm_win_bwd", emb_t.device,
-            dhs.data_ptr(), emb_t.data_ptr(), ch.data_ptr(), cc.data_ptr(),
-            wih.data_ptr(), b.data_ptr(), whh.data_ptr(), demb.data_ptr(),
-            dwih_p.data_ptr(), db_p.data_ptr(), dwhh_p.data_ptr(),
-            L, M, D, u, W, tm, int(emb_t.dtype == torch.bfloat16),
-            int(ch.dtype == torch.bfloat16),
-        )
+    da = torch.empty((2, L, M, 4 * u), dtype=torch.float32, device=emb_t.device)
+    hp = torch.empty((2, L, M, u), dtype=torch.float32, device=emb_t.device)
+    if M:
+        _launch("bilstm_win_bwd", emb_t.device,
+                dhs.data_ptr(), emb_t.data_ptr(), ch.data_ptr(), cc.data_ptr(), wih.data_ptr(),
+                b.data_ptr(), whh.data_ptr(), da.data_ptr(), hp.data_ptr(), L, M, D, u, W,
+                int(emb_t.dtype == torch.bfloat16), int(ch.dtype == torch.bfloat16), plan.tm,
+                plan.cluster)
         bilstm_win_bwd.launches += 1
-
-    return _sum_partials(emb_t, u, -(-M // tm), launch)
+    return lstm_wgrad(da, emb_t, hp, wih)
 
 
 bilstm_win_bwd.launches = 0
 
 
 def bilstm_full_bwd(dhs, emb_t, hs, cs, wih, b, whh):
-    """Launch K6, then sum its per-tile partials: the same four outputs as
-    ``bilstm_full_bwd_reference``."""
-    u, _ = _check_lstm_args("bilstm_full_bwd", emb_t, wih, b, whh)
+    """Launch K6's chain kernel, then ``lstm_wgrad`` on the saved hs: the
+    same four outputs as ``bilstm_full_bwd_reference``."""
+    u, plan = _check_lstm_args("bilstm_full_bwd", emb_t, wih, b, whh,
+                               lambda M_, D_, u_: bwd_plan(M_, D_, u_, 0))
     check_cuda_tensors("bilstm_full_bwd", emb_t, dhs, hs, cs)
     _check_residuals("bilstm_full_bwd", cs.dtype)
     L, M, D = emb_t.shape
@@ -765,28 +884,23 @@ def bilstm_full_bwd(dhs, emb_t, hs, cs, wih, b, whh):
             raise ValueError(f"bilstm_full_bwd: {nm} {x.dtype} {tuple(x.shape)} != [L, M, 2u]")
     if tuple(cs.shape) != (L, M, 2 * u):
         raise ValueError(f"bilstm_full_bwd: cs {tuple(cs.shape)} != [L, M, 2u]")
-    _check_bwd_widths("bilstm_full_bwd", D, u)
-
-    def launch(demb, dwih_p, db_p, dwhh_p):
-        _launch(
-            "bilstm_full_bwd", emb_t.device,
-            dhs.data_ptr(), emb_t.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-            wih.data_ptr(), b.data_ptr(), whh.data_ptr(), demb.data_ptr(),
-            dwih_p.data_ptr(), db_p.data_ptr(), dwhh_p.data_ptr(),
-            L, M, D, u, RESID_TM, int(emb_t.dtype == torch.bfloat16),
-            int(cs.dtype == torch.bfloat16),
-        )
+    da = torch.empty((2, L, M, 4 * u), dtype=torch.float32, device=emb_t.device)
+    if L and M:
+        _launch("bilstm_full_bwd", emb_t.device,
+                dhs.data_ptr(), emb_t.data_ptr(), hs.data_ptr(), cs.data_ptr(), wih.data_ptr(),
+                b.data_ptr(), whh.data_ptr(), da.data_ptr(), L, M, D, u,
+                int(emb_t.dtype == torch.bfloat16), int(cs.dtype == torch.bfloat16), plan.tm,
+                plan.cluster)
         bilstm_full_bwd.launches += 1
-
-    return _sum_partials(emb_t, u, -(-M // RESID_TM), launch)
+    return lstm_wgrad(da, emb_t, hs, wih)
 
 
 bilstm_full_bwd.launches = 0
 
 
-def _check_split_args(name, xg, whh, tm: bool, *streams, forward: bool = False):
+def _check_split_args(name, xg, whh, tm: bool, *streams, plan=None):
     """Dtype, shape and device checks of the split kernels; returns
-    (Gc, M, L, u, the forward's plan or None). ``streams`` are u-wide
+    (Gc, M, L, u, ``plan(M, 0, u, Gc)`` or None). ``streams`` are u-wide
     tensors laid out like hs. As in ``_check_lstm_args``, the plan is made
     before the device check."""
     if xg.dtype not in ACTIVATION_DTYPES or whh.dtype != torch.float32:
@@ -799,7 +913,7 @@ def _check_split_args(name, xg, whh, tm: bool, *streams, forward: bool = False):
     for x in streams:
         if x.dtype != xg.dtype or tuple(x.shape) != want:
             raise ValueError(f"{name}: {x.dtype} {tuple(x.shape)} != hs {xg.dtype} {want}")
-    plan = _fwd_plan_for(name, M, 0, u, Gc) if forward else None
+    plan = _plan_for(name, plan, M, 0, u, Gc) if plan else None
     check_cuda_tensors(name, xg, whh, *streams)
     return Gc, M, L, u, plan
 
@@ -817,7 +931,7 @@ def lstm_split_infer_cuda(xg, whh, tm: bool) -> torch.Tensor:
     """Launch kernel 2: hs as ``lstm_split_infer_reference``. Raises, like
     K1, for an input that requires grad while grad mode is on."""
     _refuse_grad("lstm_split_infer_cuda", xg, whh)
-    Gc, M, L, u, plan = _check_split_args("lstm_split_infer_cuda", xg, whh, tm, forward=True)
+    Gc, M, L, u, plan = _check_split_args("lstm_split_infer_cuda", xg, whh, tm, plan=fwd_plan)
     hs = _split_hs_like(xg, Gc, L, M, u, tm)
     if M and L:
         _split_launch("lstm_split_fwd_infer", xg, whh, tm,
@@ -832,7 +946,7 @@ lstm_split_infer_cuda.launches = 0
 
 def lstm_split_fwd(xg, whh, tm: bool):
     """Launch kernel 1: (hs, cs) as ``lstm_split_fwd_reference``."""
-    Gc, M, L, u, plan = _check_split_args("lstm_split_fwd", xg, whh, tm, forward=True)
+    Gc, M, L, u, plan = _check_split_args("lstm_split_fwd", xg, whh, tm, plan=fwd_plan)
     hs = _split_hs_like(xg, Gc, L, M, u, tm)
     cs = torch.empty_like(hs)
     if M and L:
@@ -847,21 +961,25 @@ lstm_split_fwd.launches = 0
 
 
 def lstm_split_bwd(dhs, xg, hs, cs, whh, tm: bool):
-    """Launch kernel 3, then sum its per-tile dW_hh partials: (dxg, dwhh)
-    as ``lstm_split_bwd_reference``."""
-    Gc, M, L, u, _ = _check_split_args("lstm_split_bwd", xg, whh, tm, dhs, hs, cs)
-    _check_bwd_widths("lstm_split_bwd", 0, u)
+    """Launch kernel 3's chain kernel (dxg and the f32 da stream), then
+    ``lstm_wgrad`` for dW_hh from the saved hs: (dxg, dwhh) as
+    ``lstm_split_bwd_reference``."""
+    Gc, M, L, u, plan = _check_split_args("lstm_split_bwd", xg, whh, tm, dhs, hs, cs,
+                                          plan=lambda M_, D_, u_, g_: bwd_plan(M_, D_, u_, 0, g_))
     dxg = torch.empty_like(xg)
-    dwhh_p = torch.empty((Gc, -(-M // RESID_TM), u, 4 * u), dtype=torch.float32,
-                         device=xg.device)
-    if M and L:
-        _split_launch("lstm_split_bwd", xg, whh, tm,
-                      (dhs.data_ptr(), xg.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                       whh.data_ptr(), dxg.data_ptr(), dwhh_p.data_ptr()), hs, (RESID_TM,))
-        lstm_split_bwd.launches += 1
-    else:
-        dwhh_p.zero_()
-    return dxg, dwhh_p.sum(1)
+    da = torch.empty((Gc, L, M, 4 * u), dtype=torch.float32, device=xg.device)
+    dwhh = torch.empty((Gc, u, 4 * u), dtype=torch.float32, device=xg.device)
+    if not (M and L):
+        return dxg, dwhh.zero_()
+    _split_launch("lstm_split_bwd", xg, whh, tm,
+                  (dhs.data_ptr(), xg.data_ptr(), hs.data_ptr(), cs.data_ptr(), whh.data_ptr(),
+                   dxg.data_ptr(), da.data_ptr()), hs, (plan.tm, plan.cluster))
+    lstm_split_bwd.launches += 1
+    _launch("lstm_wgrad", xg.device, da.data_ptr(), None, hs.data_ptr(), None, None, None, None,
+            dwhh.data_ptr(), L, M, 0, u, Gc, 0, 0, 0, *_gmt(hs, Gc, tm).stride()[:3], 1,
+            1 if tm else -1, int(xg.dtype == torch.bfloat16), int(hs.dtype == torch.float32))
+    lstm_wgrad.launches += 1
+    return dxg, dwhh
 
 
 lstm_split_bwd.launches = 0

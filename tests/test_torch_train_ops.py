@@ -326,9 +326,14 @@ def test_training_kernel_wrappers_refuse_cpu_tensors(lstm_inputs, attn_inputs, w
 
 
 def test_win_bwd_tile_fits_shared_memory():
-    assert tlstm.win_bwd_tile(8, 60, 128) == (8, 4 * (2 * 8 * 8 * 128 + 3 * 8 * 128 + 8 * 60
-                                                       + 8 * 512))
-    tm, smem = tlstm.win_bwd_tile(40, 60, 128)       # W = L at the flagship widths
-    assert tm == 4 and smem <= tlstm.SMEM_LIMIT
-    with pytest.raises(ValueError, match="does not fit"):
-        tlstm.win_bwd_tile(1000, 60, 128)
+    """K8's plan (``bwd_plan``) keeps its window in shared memory: 32-row
+    tiles at W=8 and M=200, smaller tiles for a longer window, and a width
+    whose window fits no tile is refused (tests/test_torch_lstm_bwd_plan.py
+    covers the other rows and windows)."""
+    plan = tlstm.bwd_plan(200, 60, 128, 8)
+    assert (plan.tm, plan.smem) == (32, tlstm.bwd_smem(32, 8, 60, 128, 8))
+    assert plan.smem <= tlstm.SMEM_LIMIT
+    plan = tlstm.bwd_plan(200, 60, 128, 40)          # W = L at the flagship widths
+    assert plan.tm == 8 and plan.smem <= tlstm.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        tlstm.bwd_plan(200, 60, 128, 1000)
