@@ -17,7 +17,8 @@ exits non-zero; no phase catches a failure of its own):
    times (CUDA events) and the byte/operation bound. K1's library
    yardstick is cuDNN's f32 ``nn.LSTM`` run as K1 runs, ``.eval()`` under
    ``torch.no_grad()``; its train-mode forward is printed beside it. Each
-   forward row prints its cluster launch plan (TM, C, CTAs).
+   forward row prints its cluster launch plan (TM, C, CTAs), each K2 row
+   its plan (ops/attn.py:attn_fwd_plan).
 4. Main path: the flagship model (400 002 x 50 synthetic GloVe table, bf16
    encoder, f32 head, seeded fresh init) behind ``InferenceEngine``: one
    tenant of 5 relations registered at K=5, 64 requests answered through
@@ -37,6 +38,14 @@ exits non-zero; no phase catches a failure of its own):
    backward) are timed as the median of 5 repeats of 20 launches, with the
    spread printed. ``lstm_wgrad`` alone vs its plain version on the same
    da / h_prev streams (K8's hp and K6's shifted hs), timed.
+6b. Attention kernels K2, K10, K11 vs their plain versions at M in {1, 4,
+   16, 25, 200} at the flagship widths and at M in {16, 200} at D = 1280,
+   A = 300 (past the old D <= 1024, A <= 256 limits), f32 and bf16, with a
+   fully masked row (exact zeros, mx = -1e30, dn = 0) and K11 bitwise equal
+   over two runs; times by CUDA events (``ms``) and the kernels' device
+   time under torch.profiler (``device_ms``), the bound, the plain time and
+   each launch's plan. K11 is two launches (token kernel, weight-gradient
+   kernel) behind one wrapper call.
 7. Full-residual kernels vs their plain versions: K4 (BiLSTM forward
    writing c every step) and K6 (its backward over the saved hs/cs: chain
    kernel, then ``lstm_wgrad``) at L=40, D=60, u=128, M in {16, 200} plus
@@ -115,8 +124,10 @@ from induction_network_on_fewrel_tpu_torch.models.base import to_device
 from induction_network_on_fewrel_tpu_torch.models.build import build_model
 from induction_network_on_fewrel_tpu_torch.ops.attn import (
     attn_bwd,
+    attn_bwd_plan,
     attn_bwd_reference,
     attn_fwd_cuda,
+    attn_fwd_plan,
     attn_fwd_stats,
     attn_fwd_stats_reference,
     attn_reference,
@@ -249,16 +260,46 @@ def lstm_bound(M: int, dt: torch.dtype):
     return bound(*lstm_bound_parts(M, dt))
 
 
-def attn_bound_parts(M: int, dt: torch.dtype) -> tuple[float, float]:
-    """K2's (bytes, operation seconds)."""
+def attn_bound_parts(M: int, dt: torch.dtype, d: int = H_DIM, a: int = A) -> tuple[float, float]:
+    """K2's (bytes, operation seconds) at width d, attention dim a."""
     es = torch.finfo(dt).bits // 8
-    moved = L * M * H_DIM * es + M * L * 4 + H_DIM * A * 4 + A * 4 + M * H_DIM * es
-    ops = 2 * L * M * H_DIM * A + 2 * L * M * A + 2 * L * M * H_DIM   # f32 math
+    moved = L * M * d * es + M * L * 4 + d * a * 4 + a * 4 + M * d * es
+    ops = 2 * L * M * d * a + 2 * L * M * a + 2 * L * M * d   # f32 math
     return moved, ops / PEAK_FLOPS[torch.float32]
 
 
-def attn_bound(M: int, dt: torch.dtype):
-    return bound(*attn_bound_parts(M, dt))
+def attn_bound(M: int, dt: torch.dtype, d: int = H_DIM, a: int = A):
+    return bound(*attn_bound_parts(M, dt, d, a))
+
+
+def attn_plan_text(M: int, d: int = H_DIM, a: int = A, which: str = "fwd") -> str:
+    """The attention kernels' launch plan (ops/attn.py:attn_fwd_plan for
+    K2/K10, attn_bwd_plan for K11)."""
+    if which == "fwd":
+        p = attn_fwd_plan(M, L, d, a)
+        return (f"plan tile={p.tile} C={p.cluster} rows={p.rows} steps={p.steps} "
+                f"chunk={p.chunk} CTAs={p.ctas} smem={p.smem}")
+    p = attn_bwd_plan(M, L, d, a)
+    return (f"plan tile={p.tile} CTAs={p.ctas} smem={p.smem} + wgrad CTAs={p.wgrad_ctas} "
+            f"smem={p.wgrad_smem}")
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of ``fn`` per call in ms: its kernels' self device time
+    under torch.profiler over ``iters`` calls, after 3 warm-up calls. Unlike
+    ``cuda_ms`` it leaves out the host's time between launches, which a
+    kernel of tens of microseconds does not hide."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages() if e.self_device_time_total > 0)
+    return us / iters / 1e3
 
 
 def kernel_checks(gen: torch.Generator) -> dict:
@@ -314,7 +355,8 @@ def kernel_checks(gen: torch.Generator) -> dict:
                                          library_ms=infer_lib[M], bound_ms=bd1, bound_by=by1,
                                          train_library_ms=train_lib[M], plan=plan_text(M))
             rows[("K2", name, M)] = dict(err=err2, tol=tol2, ms=ms2, plain_ms=plain2,
-                                         library_ms=None, bound_ms=bd2, bound_by=by2)
+                                         library_ms=None, bound_ms=bd2, bound_by=by2,
+                                         plan=attn_plan_text(M))
             for k in ("K1", "K2"):
                 r = rows[(k, name, M)]
                 print(f"[check] {k} {name} M={M}: max_abs_err={r['err']:.3g} "
@@ -401,17 +443,96 @@ def win_bwd_bound(M: int, dt: torch.dtype, W: int, rdt: torch.dtype):
     return bound(moved, ops_in / PEAK_FLOPS[dt] + ops_f32 / PEAK_FLOPS[torch.float32])
 
 
-def attn_stats_bound(M: int, dt: torch.dtype):
-    t_bytes, t_ops = attn_bound_parts(M, dt)
+def attn_stats_bound(M: int, dt: torch.dtype, d: int = H_DIM, a: int = A):
+    t_bytes, t_ops = attn_bound_parts(M, dt, d, a)
     return bound(t_bytes + 2 * M * 4, t_ops)
 
 
-def attn_bwd_bound(M: int, dt: torch.dtype):
+def attn_bwd_bound(M: int, dt: torch.dtype, d: int = H_DIM, a: int = A):
     es = torch.finfo(dt).bits // 8
-    moved = (2 * L * M * H_DIM * es + M * L * 4 + H_DIM * A * 4 + A * 4          # H, dH, mask, w
-             + 2 * M * H_DIM * es + 2 * M * 4 + H_DIM * A * 4 + A * 4)         # out, dout, stats, dW
-    ops = 3 * 2 * L * M * H_DIM * A + 6 * L * M * A + 6 * L * M * H_DIM          # f32 math
+    moved = (2 * L * M * d * es + M * L * 4 + d * a * 4 + a * 4          # H, dH, mask, w
+             + 2 * M * d * es + 2 * M * 4 + d * a * 4 + a * 4)         # out, dout, stats, dW
+    ops = 3 * 2 * L * M * d * a + 6 * L * M * a + 6 * L * M * d          # f32 math
     return bound(moved, ops / PEAK_FLOPS[torch.float32])
+
+
+# Phase 6b's shapes: the flagship widths at every serving and training row
+# count, and one width past the kernels' old limits (D <= 1024, A <= 256):
+# u = 640 (D = 1280) with A = 300.
+ATTN_CASES = [(M, H_DIM, A) for M in SERVE_ROWS] + [(16, 1280, 300), (200, 1280, 300)]
+
+
+def attn_checks(gen: torch.Generator) -> dict:
+    """Phase 6b: K2, K10 and K11 vs their plain versions at ATTN_CASES, f32
+    and bf16, each with a partly masked row and a fully masked one (M > 1):
+    K2 at phase 3's tolerances, K10/K11 at TRAIN_TOL; the fully masked row
+    gives out = 0, mx = -1e30, dn = 0 and dH = 0 exactly; K11 run twice must
+    repeat bit for bit. Times: CUDA events around 20 calls as the other
+    phases (``ms``, host time between launches included) and the kernels'
+    device time under the profiler (``device_ms``), with the plan of each
+    launch."""
+    dev = torch.device("cuda")
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = "bf16" if dt == torch.bfloat16 else "f32"
+        for M, d, a in ATTN_CASES:
+            name = f"{dname} M={M} D={d} A={a}"
+            tol = TRAIN_TOL[dt]
+            H = (torch.rand((L, M, d), generator=gen) * 2 - 1).to(dev, dt)
+            lengths = torch.randint(1, L + 1, (M,), generator=gen)
+            mask = (torch.arange(L)[None, :] < lengths[:, None]).float()
+            if M > 1:
+                mask[1] = 0.0                       # a fully masked row
+            mask = mask.to(dev)
+            w1 = (torch.randn((d, a), generator=gen) / d ** 0.5).to(dev)
+            w2 = (torch.randn((a, 1), generator=gen) / a ** 0.5).to(dev)
+            dout = (torch.randn((M, d), generator=gen) * 0.1).to(dev, dt)
+            out2 = attn_fwd_cuda(H, mask, w1, w2)
+            out, mx, dn = attn_fwd_stats(H, mask, w1, w2)
+            got11 = attn_bwd(H, mask, w1, w2, out, mx, dn, dout)
+            again = attn_bwd(H, mask, w1, w2, out, mx, dn, dout)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got11, again)):
+                raise AssertionError(f"K11 {name}: two runs differ")
+            ref10 = attn_fwd_stats_reference(H, mask, w1, w2)
+            err2 = (out2.float() - ref10[0].float()).abs().max().item()
+            tol2 = TOL[("K2", dt)]
+            if not (torch.isfinite(out2).all() and err2 <= tol2):
+                raise AssertionError(f"K2 {name}: max abs err {err2} > {tol2}")
+            live = mask.sum(1) > 0
+            err10 = check_outputs(f"K10 {name}", {"out": (out, ref10[0]),
+                                                  "mx": (mx[live], ref10[1][live]),
+                                                  "dn": (dn, ref10[2])}, tol)
+            ref11 = attn_bwd_reference(H, mask, w1, w2, out, mx, dn, dout)
+            err11 = check_outputs(f"K11 {name}", dict(zip(("dH", "dw1", "dw2"),
+                                                          zip(got11, ref11))), tol)
+            if M > 1 and (out2[1].abs().max().item() != 0.0 or out[1].abs().max().item() != 0.0
+                          or mx[1].item() != np.float32(-1e30) or dn[1].item() != 0.0
+                          or got11[0][:, 1].abs().max().item() != 0.0):
+                raise AssertionError(f"{name}: a fully masked row must give out=0, mx=-1e30, "
+                                     "dn=0 and dH=0 exactly")
+            calls = {
+                "K2": (lambda: attn_fwd_cuda(H, mask, w1, w2),
+                       lambda: attn_reference(H, mask, w1, w2), err2, tol2,
+                       attn_bound(M, dt, d, a), attn_plan_text(M, d, a)),
+                "K10": (lambda: attn_fwd_stats(H, mask, w1, w2),
+                        lambda: attn_fwd_stats_reference(H, mask, w1, w2), err10, tol,
+                        attn_stats_bound(M, dt, d, a), attn_plan_text(M, d, a)),
+                "K11": (lambda: attn_bwd(H, mask, w1, w2, out, mx, dn, dout),
+                        lambda: attn_bwd_reference(H, mask, w1, w2, out, mx, dn, dout), err11,
+                        tol, attn_bwd_bound(M, dt, d, a), attn_plan_text(M, d, a, "bwd")),
+            }
+            for k, (fn, plain, err, tl, (bd, by), plan) in calls.items():
+                r = dict(err=err, tol=tl, ms=cuda_ms(fn, 20), device_ms=device_ms(fn),
+                         plain_ms=cuda_ms(plain, 20), library_ms=None, bound_ms=bd,
+                         bound_by=by, plan=plan)
+                rows[(k, name)] = r
+                print(f"[attn] {k} {name}: max_abs_err={err:.3g} (tol {tl:g}"
+                      f"{'' if k == 'K2' else ' rel'}) ms={r['ms']:.4f} "
+                      f"device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                      f"library_ms=None bound_ms={bd:.5f} ({by}) {plan}"
+                      f"{'; bitwise equal over two runs' if k == 'K11' else ''}", flush=True)
+    return rows
 
 
 def train_kernel_checks(gen: torch.Generator, library: dict) -> dict:
@@ -494,6 +615,8 @@ def train_kernel_checks(gen: torch.Generator, library: dict) -> dict:
         r["K7"]["library_ms"], r["K8"]["library_ms"] = library[M][0][0], library[M][1][0]
         r["K7"]["plan"] = plan_text(M)
         r["K8"]["plan"] = plan_text(M, W=W)
+        r["K10"]["plan"] = attn_plan_text(M)
+        r["K11"]["plan"] = attn_plan_text(M, which="bwd")
         for k, (bd, by) in (("K7", win_fwd_bound(M, dt, W, rdt)), ("K8", win_bwd_bound(M, dt, W, rdt)),
                             ("K10", attn_stats_bound(M, dt)), ("K11", attn_bwd_bound(M, dt))):
             r[k].update(bound_ms=bd, bound_by=by)
@@ -1185,6 +1308,9 @@ def main() -> int:
     train_rows = train_kernel_checks(gen, library)
     wgrad_rows = wgrad_checks(gen)
 
+    # 6b. Attention kernels at every row count and a wide width
+    attn_rows = attn_checks(gen)
+
     # 7. Full-residual kernels vs plain
     full_rows = full_kernel_checks(gen, library)
 
@@ -1198,6 +1324,17 @@ def main() -> int:
     tr0 = train_full_residual(tr)
 
     # 11. Summary lines
+    def attn_extra(key: str, M: int) -> dict:
+        """Phase 6b's figures of an attention kernel: device time and plan
+        at the row's M, its worst error there, and the wide case."""
+        r = attn_rows[(key, f"bf16 M={M} D={H_DIM} A={A}")]
+        wide = attn_rows[(key, f"bf16 M={M} D=1280 A=300")]
+        return {"device_ms": r["device_ms"], "plan": r["plan"],
+                "max_abs_err_6b": max(v["err"] for (k, _), v in attn_rows.items() if k == key),
+                "ms_wide_d1280_a300": wide["ms"], "device_ms_wide_d1280_a300": wide["device_ms"],
+                "device_ms_m16" if M == 200 else "device_ms_m200": attn_rows[
+                    (key, f"bf16 M={16 if M == 200 else 200} D={H_DIM} A={A}")]["device_ms"]}
+
     kernels = []
     for key, name, src, replaces in (
         ("K1", "bilstm_infer_fwd", "induction_network_on_fewrel_tpu_torch/csrc/bilstm_infer.cu",
@@ -1216,7 +1353,7 @@ def main() -> int:
             **{f"ms_m{M}": rows[(key, "bf16", M)]["ms"] for M in SERVE_ROWS if M != 16},
             "bound_ms_m200": rows[(key, "bf16", 200)]["bound_ms"],
             **({"train_library_ms": r["train_library_ms"], "plan": r["plan"]}
-               if key == "K1" else {}),
+               if key == "K1" else attn_extra(key, 16)),
         })
     main_case = "bf16 M=200 W=8 res=bf16"
     for key, name, src, replaces in (
@@ -1241,6 +1378,7 @@ def main() -> int:
             "ms_m16": train_rows[(key, "bf16 M=16 W=8 res=bf16")]["ms"],
             **({"plan": r["plan"]} if "plan" in r else {}),
             **({"ms_min": r["spread"][1], "ms_max": r["spread"][2]} if "spread" in r else {}),
+            **(attn_extra(key, 200) if key in ("K10", "K11") else {}),
         })
     for key, name, src, replaces in (
         ("K4", "bilstm_full_fwd", "induction_network_on_fewrel_tpu_torch/csrc/bilstm_infer.cu",

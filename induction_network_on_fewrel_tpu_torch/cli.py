@@ -51,6 +51,13 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p.add_argument("--lstm_residuals", default="auto", choices=["auto", "f32", "bf16"],
                    help="storage dtype of the checkpoints or the cs stream "
                         "(auto = the compute dtype)")
+    p.add_argument("--lstm_backend", default="auto", choices=["auto", "reference", "cuda"],
+                   help="BiLSTM impl: auto = the CUDA kernels on the GPU, the plain "
+                        "PyTorch version on the CPU; reference = the plain version "
+                        "(any width); cuda = the kernels (4u <= 512)")
+    p.add_argument("--attn_backend", default="auto", choices=["auto", "reference", "cuda"],
+                   help="self-attention impl: auto = the CUDA kernels on the GPU, the "
+                        "plain PyTorch version on the CPU")
     p.add_argument("--bf16", action="store_true", help="bf16 embedding + encoder")
     p.add_argument("--loss", default="mse", choices=["mse", "ce"])
     p.add_argument("--lr", type=float, default=1e-3)
@@ -77,7 +84,8 @@ def config_from_args(args):
         n=args.N, k=args.K, q=args.Q, batch_size=args.batch_size, max_length=args.max_length, vocab_size=args.vocab_size,
         lstm_hidden=args.lstm_hidden, induction_dim=args.induction_dim,
         ntn_slices=args.ntn_slices, lstm_cs_window=args.lstm_cs_window,
-        lstm_residuals=args.lstm_residuals,
+        lstm_residuals=args.lstm_residuals, lstm_backend=args.lstm_backend,
+        attn_backend=args.attn_backend,
         compute_dtype="bfloat16" if args.bf16 else "float32",
         loss=args.loss, lr=args.lr, test_iter=args.test_iter, seed=args.seed,
     )

@@ -1,197 +1,266 @@
-// One-pass structured self-attention backward for Hopper (sm_90a): K11.
+// Structured self-attention backward for Hopper (sm_90a): K11.
 //
 // Replaces: induction_network_on_fewrel_tpu/ops/attn.py:_bwd_kernel
 // (launched by _bwd_call, the backward rule _attn_core_bwd of both the
 // "pallas" and the "xla_remat" attention). From the forward's saved
-// softmax stats mx, dn [M] it rebuilds, per row m and step t,
+// softmax stats mx, dn [M] it rebuilds, per token (t, m),
 //
-//   tl_t   = tanh(W1^T h_t)                         [A]
-//   a_t    = exp(s_t - mx) [mask > 0] / (dn + 1e-13),  s_t = w2 . tl_t
+//   T_t    = tanh(W1^T h_t)                         [A]
+//   a_t    = exp(s_t - mx) [mask > 0] / (dn + 1e-13),  s_t = w2 . T_t
 //   ds_t   = a_t (dout . h_t - dout . out)          (out saved in H's dtype)
-//   dproj  = ds_t (1 - tl_t^2) * w2                 [A]
+//   dproj  = ds_t (1 - T_t^2) * w2                  [A]
 //   dH_t   = a_t dout + W1 dproj                    written in H's dtype
-//   dW1   += h_t dproj^T;  dw2 += ds_t tl_t
+//   dW1    = sum_t h_t dproj^T;  dw2 = sum_t ds_t T_t
 //
-// in one pass over H, all in f32 (dout arrives in H's dtype, attn.py:334).
-// A fully masked row has a_t = 0 everywhere and writes exact zeros; the
-// mask itself gets no gradient.
+// all in f32 (dout arrives in H's dtype, attn.py:334). A fully masked row
+// has a_t = 0 everywhere and writes exact zeros; the mask gets no gradient.
 //
-// What bounds it on this card: bytes at large M (H read once, dH written
-// once), but at the flagship's M = 200 it is latency-bound by the per-chunk
-// block barriers, like K2. Work per row-step: two [D] x [D, A] products.
+// What bounds it on this card: f32 operations (three products of 2 D A a
+// token: 12 us at the FP32 peak at M = 200, against 2.5 us for reading H
+// and writing dH in bf16).
 //
-// Design (simple and right first): one block walks rb rows in turn; W1 is
-// staged once per block into shared memory with a padded row stride A + 1,
-// so both the projection (threads along A) and W1 dproj (threads along D)
-// read it without bank conflicts. dW1 [D, A] (64 KiB f32 at D = 256,
-// A = 64) accumulates in shared memory over the block's rows, each thread
-// owning fixed entries, and dw2 in a register of thread a; each block
-// writes its own f32 partials, summed over blocks outside the kernel (as
-// the JAX call sums its per-tile partials, attn.py:309). Time runs in
-// chunks of TLC steps; steps past L are skipped, not padded.
+// Design. Nothing in the backward runs along time: mx, dn and dout . out
+// are fixed per row, so every token is independent apart from the weight
+// gradients' sums. Two launches:
+//
+// 1. attn_bwd_token_kernel, parallel over the N = L M tokens (H viewed as
+//    [N, D]): a CTA owns a tile of R tokens (ops/attn.py:attn_bwd_plan
+//    picks R so that the tiles fill the card: 32 at M = 200, 250 CTAs; 8
+//    at M = 16, 80 CTAs) and runs P = H W1 and dH - a dout = dproj W1^T as
+//    register-tiled products (csrc/attn_common.cuh; any D and A), with the
+//    per-token scalars between them. It writes dH and streams dproj and
+//    T ds [N, A] in f32.
+// 2. attn_wgrad_kernel: [dW1 | dw2] = [H | 1]^T [dproj | T ds] in 32 x 64
+//    tiles. Each tile splits the N tokens over a cluster of WSPLIT = 16
+//    CTAs (M = 200: 9 tiles, 144 CTAs of 500 tokens); after a cluster
+//    barrier CTA q sums rows [2q, 2q + 2) of the tile over the 16 partials
+//    in rank order through distributed shared memory (as
+//    csrc/lstm_wgrad.cu). No atomics and no partial slabs: the outputs
+//    repeat bit for bit, with no reduction launched after the kernel.
+//
+// Why two launches and not one: the weight gradients sum over all tokens,
+// across every CTA of the token launch, and a fixed-order sum across
+// clusters needs a grid-wide barrier or a second pass; the second pass
+// reads back 2 N A f32 (4 MB at M = 200) from L2.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "attn_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TLC = 8;    // time steps per chunk
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-size_t smem_bytes(int D, int A) {
-  return sizeof(float) * ((size_t)D * (A + 1) + (size_t)D * A + A + D + TLC * D +
-                          2 * TLC * A + 2 * TLC + THREADS / 32);
-}
+namespace cg = cooperative_groups;
+using namespace attn;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_kernel(const T* __restrict__ H,         // [L, M, D]
-                const float* __restrict__ mask,  // [M, L]
-                const float* __restrict__ w1,    // [D, A]
-                const float* __restrict__ w2,    // [A]
-                const T* __restrict__ out,       // [M, D]
-                const float* __restrict__ mx,    // [M]
-                const float* __restrict__ dn,    // [M]
-                const T* __restrict__ dout,      // [M, D]
-                T* __restrict__ dH,              // [L, M, D]
-                float* __restrict__ dw1_p,       // [nblk, D, A]
-                float* __restrict__ dw2_p,       // [nblk, A]
-                int L, int M, int D, int A, int rb) {
-  extern __shared__ float smem[];
-  const int AP = A + 1;
-  float* w1_s = smem;               // [D, A+1]  padded rows
-  float* dw1_s = w1_s + D * AP;     // [D, A]
-  float* w2_s = dw1_s + D * A;      // [A]
-  float* do_s = w2_s + A;           // [D]       dout row (f32)
-  float* h_s = do_s + D;            // [TLC, D]
-  float* t_s = h_s + TLC * D;       // [TLC, A]  tanh(h W1)
-  float* p_s = t_s + TLC * A;       // [TLC, A]  dproj
-  float* a_s = p_s + TLC * A;       // [TLC]     softmax weight a_t
-  float* ds_s = a_s + TLC;          // [TLC]
-  float* red_s = ds_s + TLC;        // [THREADS / 32]
+struct BwdArgs {
+  const T* H;         // [L, M, D] = [N, D]
+  const float* mask;  // [M, L]
+  const float* w1;    // [D, A]
+  const float* w2;    // [A]
+  const T* out;       // [M, D]
+  const float* mx;    // [M]
+  const float* dn;    // [M]
+  const T* dout;      // [M, D]
+  T* dH;              // [N, D]
+  float* dproj;       // [N, A]
+  float* tds;         // [N, A]  T ds
+  float* dw1;         // [D, A]
+  float* dw2;         // [A]
+  int L, M, D, A;
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  constexpr int NW = THREADS / 32;
+// Grid ceil(N / R), 256 threads.
+template <typename T, int R>
+__global__ void __launch_bounds__(THREADS) attn_bwd_token_kernel(BwdArgs<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  const int L = a.L, M = a.M, D = a.D, A = a.A, N = L * M;
+  const int n0 = (int)blockIdx.x * R;
+  float* eng = smem;
+  float* t_s = eng + engine_floats(R);   // [R, A]  T, then dproj
+  float* a_s = t_s + R * A;              // [R]     a_t
+  float* ds_s = a_s + R;                 // [R]     ds_t
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int i = tid; i < D * A; i += THREADS) {
-    const int d = i / A, a = i - d * A;
-    w1_s[d * AP + a] = w1[i];
-    dw1_s[i] = 0.0f;
+  // T = tanh(H W1) for the tile, 64 columns of A at a time.
+  for (int a0 = 0; a0 < A; a0 += CW) {
+    tile_product<R, true, false>(
+        eng, D,
+        [&](int k, int r) { return n0 + r < N ? to_f32(a.H[(size_t)(n0 + r) * D + k]) : 0.0f; },
+        [&](int k, int c) { return a0 + c < A ? a.w1[(size_t)k * A + a0 + c] : 0.0f; },
+        [&](int r, int c, float v) {
+          if (a0 + c < A) t_s[r * A + a0 + c] = tanhf(v);
+        });
   }
-  for (int i = tid; i < A; i += THREADS) w2_s[i] = w2[i];
-  float dw2 = 0.0f;  // entry a = tid (A <= THREADS)
-
-  const int r_end = min((int)(blockIdx.x + 1) * rb, M);
-  for (int m = blockIdx.x * rb; m < r_end; ++m) {
-    __syncthreads();  // staging done; the previous row's reads of do_s are done
-    float cpart = 0.0f;
-    for (int d = tid; d < D; d += THREADS) {
-      const float dv = to_f32(dout[(size_t)m * D + d]);
-      do_s[d] = dv;
-      cpart = fmaf(dv, to_f32(out[(size_t)m * D + d]), cpart);
+  // Per token: s, dout . h, dout . out (one warp a token), then a_t, ds_t.
+  for (int r = warp; r < R; r += THREADS / 32) {
+    const int n = n0 + r;
+    if (n >= N) {
+      if (lane == 0) a_s[r] = ds_s[r] = 0.0f;
+      continue;
     }
-    cpart = warp_sum(cpart);
-    if (lane == 0) red_s[warp] = cpart;
-    __syncthreads();
-    float c = 0.0f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) c += red_s[w];
-    const float mxm = mx[m];
-    const float den = dn[m] + 1e-13f;
-
-    for (int t0 = 0; t0 < L; t0 += TLC) {
-      const int n = min(TLC, L - t0);
-      __syncthreads();  // the previous chunk is done with h_s, t_s, p_s
-      for (int i = tid; i < n * D; i += THREADS) {
-        const int tl = i / D, d = i - tl * D;
-        h_s[i] = to_f32(H[((size_t)(t0 + tl) * M + m) * D + d]);
-      }
-      __syncthreads();
-      for (int o = tid; o < n * A; o += THREADS) {
-        const int tl = o / A, a = o - tl * A;
-        const float* h = h_s + tl * D;
-        float p = 0.0f;
-        for (int d = 0; d < D; ++d) p = fmaf(h[d], w1_s[d * AP + a], p);
-        t_s[o] = tanhf(p);
-      }
-      __syncthreads();
-      for (int tl = warp; tl < n; tl += NW) {
-        float sv = 0.0f, dv = 0.0f;
-        for (int a = lane; a < A; a += 32) sv = fmaf(t_s[tl * A + a], w2_s[a], sv);
-        for (int d = lane; d < D; d += 32) dv = fmaf(do_s[d], h_s[tl * D + d], dv);
-        sv = warp_sum(sv);
-        dv = warp_sum(dv);
-        if (lane == 0) {
-          const bool valid = mask[(size_t)m * L + t0 + tl] > 0.0f;
-          const float e = valid ? expf(sv - mxm) : 0.0f;
-          const float at = e / den;
-          a_s[tl] = at;
-          ds_s[tl] = at * (dv - c);
-        }
-      }
-      __syncthreads();
-      for (int o = tid; o < n * A; o += THREADS) {
-        const int tl = o / A, a = o - tl * A;
-        const float tv = t_s[o];
-        p_s[o] = ds_s[tl] * (1.0f - tv * tv) * w2_s[a];
-      }
-      if (tid < A) {
-        for (int tl = 0; tl < n; ++tl) dw2 = fmaf(t_s[tl * A + tid], ds_s[tl], dw2);
-      }
-      __syncthreads();
-      for (int o = tid; o < n * D; o += THREADS) {
-        const int tl = o / D, d = o - tl * D;
-        const float* p = p_s + tl * A;
-        const float* w = w1_s + d * AP;
-        float v = 0.0f;
-        for (int a = 0; a < A; ++a) v = fmaf(p[a], w[a], v);
-        dH[((size_t)(t0 + tl) * M + m) * D + d] = from_f32<T>(a_s[tl] * do_s[d] + v);
-      }
-      for (int e = tid; e < D * A; e += THREADS) {
-        const int d = e / A, a = e - d * A;
-        float s = 0.0f;
-        for (int tl = 0; tl < n; ++tl) s = fmaf(h_s[tl * D + d], p_s[tl * A + a], s);
-        dw1_s[e] += s;
-      }
+    const int m = n % M, t = n / M;
+    float sv = 0.0f, dv = 0.0f, cv = 0.0f;
+    for (int j = lane; j < A; j += 32) sv = fmaf(t_s[r * A + j], a.w2[j], sv);
+    const T* h = a.H + (size_t)n * D;
+    const T* dorow = a.dout + (size_t)m * D;
+    const T* orow = a.out + (size_t)m * D;
+    for (int d = lane; d < D; d += 32) {
+      const float g = to_f32(dorow[d]);
+      dv = fmaf(g, to_f32(h[d]), dv);
+      cv = fmaf(g, to_f32(orow[d]), cv);
+    }
+    sv = warp_sum(sv);
+    dv = warp_sum(dv);
+    cv = warp_sum(cv);
+    if (lane == 0) {
+      const float at = a.mask[(size_t)m * L + t] > 0.0f ? expf(sv - a.mx[m]) / (a.dn[m] + 1e-13f)
+                                                        : 0.0f;
+      a_s[r] = at;
+      ds_s[r] = at * (dv - cv);
     }
   }
   __syncthreads();
-  float* dw1_b = dw1_p + (size_t)blockIdx.x * D * A;
-  for (int e = tid; e < D * A; e += THREADS) dw1_b[e] = dw1_s[e];
-  if (tid < A) dw2_p[(size_t)blockIdx.x * A + tid] = dw2;
+  // dproj = ds (1 - T^2) w2 in place of T; stream dproj and T ds.
+  for (int i = tid; i < R * A; i += THREADS) {
+    const int r = i / A, j = i - r * A, n = n0 + r;
+    if (n >= N) {
+      t_s[i] = 0.0f;
+      continue;
+    }
+    const float tv = t_s[i], ds = ds_s[r];
+    const float dp = ds * (1.0f - tv * tv) * a.w2[j];
+    a.tds[(size_t)n * A + j] = tv * ds;
+    a.dproj[(size_t)n * A + j] = dp;
+    t_s[i] = dp;
+  }
+  // dH = a dout + dproj W1^T, 64 columns of D at a time.
+  for (int d0 = 0; d0 < D; d0 += CW) {
+    tile_product<R, true, true>(
+        eng, A, [&](int k, int r) { return t_s[r * A + k]; },
+        [&](int k, int c) { return d0 + c < D ? a.w1[(size_t)(d0 + c) * A + k] : 0.0f; },
+        [&](int r, int c, float v) {
+          const int n = n0 + r, d = d0 + c;
+          if (n < N && d < D)
+            a.dH[(size_t)n * D + d] =
+                from_f32<T>(fmaf(a_s[r], to_f32(a.dout[(size_t)(n % M) * D + d]), v));
+        });
+  }
+}
+
+// Grid (weight tiles * WSPLIT), clusters of (WSPLIT, 1, 1), 256 threads.
+// Tile i < DT * AT is dW1 rows [WR (i / AT), +WR) x columns [64 (i % AT),
+// +64); the AT tiles after them are dw2's columns (row 0 of 1^T T ds).
+template <typename T>
+__global__ void __launch_bounds__(THREADS) attn_wgrad_kernel(BwdArgs<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int D = a.D, A = a.A, N = a.L * a.M;
+  const int AT = (A + CW - 1) / CW, DT = (D + WR - 1) / WR;
+  const int tile = (int)blockIdx.x / WSPLIT;
+  const bool w1_tile = tile < DT * AT;
+  const int k0 = w1_tile ? tile / AT * WR : 0;
+  const int c0 = (w1_tile ? tile % AT : tile - DT * AT) * CW;
+  const int chunk = (N + WSPLIT - 1) / WSPLIT, nb = rank * chunk;
+  const int K = max(0, min(N, nb + chunk) - nb);
+  float* eng = smem;
+  float* part = eng + engine_floats(WR);   // [WR, CW]
+  auto store = [&](int r, int c, float v) { part[r * CW + c] = v; };
+  if (w1_tile) {
+    tile_product<WR, false, false>(
+        eng, K,
+        [&](int k, int r) { return k0 + r < D ? to_f32(a.H[(size_t)(nb + k) * D + k0 + r]) : 0.0f; },
+        [&](int k, int c) { return c0 + c < A ? a.dproj[(size_t)(nb + k) * A + c0 + c] : 0.0f; },
+        store);
+  } else {
+    tile_product<WR, false, false>(
+        eng, K, [](int, int r) { return r == 0 ? 1.0f : 0.0f; },
+        [&](int k, int c) { return c0 + c < A ? a.tds[(size_t)(nb + k) * A + c0 + c] : 0.0f; },
+        store);
+  }
+  cluster.sync();  // every partial tile of the cluster is written
+  constexpr int ROWS = WR / WSPLIT;
+  for (int idx = threadIdx.x; idx < ROWS * CW; idx += THREADS) {
+    const int r = rank * ROWS + idx / CW, c = idx % CW;
+    float s = 0.0f;
+    for (int q = 0; q < WSPLIT; ++q) s += cluster.map_shared_rank(part, q)[r * CW + c];
+    if (c0 + c >= A) continue;
+    if (w1_tile) {
+      if (k0 + r < D) a.dw1[(size_t)(k0 + r) * A + c0 + c] = s;
+    } else if (r == 0) {
+      a.dw2[c0 + c] = s;
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read its partial
+}
+
+template <typename T, int R>
+int launch_tokens(const BwdArgs<T>& a, cudaStream_t stream) {
+  static int smem_set[64];
+  const size_t smem = bwd_smem(R, a.A);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(attn_bwd_token_kernel<T, R>, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int N = a.L * a.M;
+  attn_bwd_token_kernel<T, R><<<(N + R - 1) / R, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wgrad(const BwdArgs<T>& a, cudaStream_t stream) {
+  static int smem_set[64];
+  const size_t smem = wgrad_smem();
+  cudaError_t err = allow_smem(attn_wgrad_kernel<T>, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  // A cluster of 16 CTAs is past the portable 8 (the attribute is per device).
+  err = cudaFuncSetAttribute(attn_wgrad_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  const int AT = (a.A + CW - 1) / CW, DT = (a.D + WR - 1) / WR;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((DT * AT + AT) * WSPLIT), 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = WSPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attn_wgrad_kernel<T>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* H, const void* mask, const void* w1, const void* w2, const void* out,
-           const void* mx, const void* dn, const void* dout, void* dH, void* dw1_p,
-           void* dw2_p, int L, int M, int D, int A, int rb, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, A);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_kernel<T><<<(M + rb - 1) / rb, THREADS, smem, stream>>>(
-      static_cast<const T*>(H), static_cast<const float*>(mask),
-      static_cast<const float*>(w1), static_cast<const float*>(w2),
-      static_cast<const T*>(out), static_cast<const float*>(mx),
-      static_cast<const float*>(dn), static_cast<const T*>(dout), static_cast<T*>(dH),
-      static_cast<float*>(dw1_p), static_cast<float*>(dw2_p), L, M, D, A, rb);
-  return (int)cudaGetLastError();
+           const void* mx, const void* dn, const void* dout, void* dH, void* dproj, void* tds,
+           void* dw1, void* dw2, int L, int M, int D, int A, int tile, cudaStream_t stream) {
+  BwdArgs<T> a{};
+  a.H = static_cast<const T*>(H);
+  a.mask = static_cast<const float*>(mask);
+  a.w1 = static_cast<const float*>(w1);
+  a.w2 = static_cast<const float*>(w2);
+  a.out = static_cast<const T*>(out);
+  a.mx = static_cast<const float*>(mx);
+  a.dn = static_cast<const float*>(dn);
+  a.dout = static_cast<const T*>(dout);
+  a.dH = static_cast<T*>(dH);
+  a.dproj = static_cast<float*>(dproj);
+  a.tds = static_cast<float*>(tds);
+  a.dw1 = static_cast<float*>(dw1);
+  a.dw2 = static_cast<float*>(dw2);
+  a.L = L; a.M = M; a.D = D; a.A = A;
+  int err;
+  switch (tile) {
+    case 8: err = launch_tokens<T, 8>(a, stream); break;
+    case 16: err = launch_tokens<T, 16>(a, stream); break;
+    case 32: err = launch_tokens<T, 32>(a, stream); break;
+    case 64: err = launch_tokens<T, 64>(a, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != 0) return err;
+  return launch_wgrad<T>(a, stream);
 }
 
 }  // namespace
@@ -200,20 +269,19 @@ extern "C" {
 
 // H [L, M, D], out and dout [M, D] (bf16 when bf16 != 0, else f32); mask
 // [M, L], w1 [D, A], w2 [A, 1], mx and dn [M] f32 -> dH [L, M, D] in H's
-// dtype and the f32 partials dw1_p [ceil(M/rb), D, A], dw2_p [ceil(M/rb), A],
-// one slab per block of rb rows. The caller guarantees A <= 256, M >= 1,
-// rb >= 1, that the dynamic shared memory
-// fits a block (4 (2 D A + D + A + 8 D + 16 A + 24) bytes), and contiguous
-// tensors.
+// dtype, dw1 [D, A] and dw2 [A, 1] f32, through the f32 scratch streams
+// dproj and tds [L M, A]. tile (ops/attn.py:attn_bwd_plan) is the token
+// kernel's R in {8, 16, 32, 64}. Two launches on the stream. The caller
+// guarantees L, M >= 1 and contiguous tensors.
 int attn_bwd(const void* H, const void* mask, const void* w1, const void* w2, const void* out,
-             const void* mx, const void* dn, const void* dout, void* dH, void* dw1_p,
-             void* dw2_p, int L, int M, int D, int A, int rb, int bf16, void* stream) {
+             const void* mx, const void* dn, const void* dout, void* dH, void* dproj, void* tds,
+             void* dw1, void* dw2, int L, int M, int D, int A, int tile, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(H, mask, w1, w2, out, mx, dn, dout, dH, dw1_p, dw2_p, L, M,
-                                 D, A, rb, s);
-  return launch<float>(H, mask, w1, w2, out, mx, dn, dout, dH, dw1_p, dw2_p, L, M, D, A, rb,
-                       s);
+    return launch<__nv_bfloat16>(H, mask, w1, w2, out, mx, dn, dout, dH, dproj, tds, dw1, dw2, L,
+                                 M, D, A, tile, s);
+  return launch<float>(H, mask, w1, w2, out, mx, dn, dout, dH, dproj, tds, dw1, dw2, L, M, D, A,
+                       tile, s);
 }
 
 const char* attn_bwd_error_string(int code) {

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` source has a plain ``extern "C"`` launcher interface and
 compiles on its own into a shared library for ``sm_90a`` (the LSTM sources
-share device code through ``csrc/lstm_common.cuh``):
+share device code through ``csrc/lstm_common.cuh``, the attention sources
+through ``csrc/attn_common.cuh``):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so csrc/<name>.cu
@@ -45,7 +46,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SPLIT = [_I] * 4 + [_LL] * 6 + [_I] * 2
 # Launcher name -> (source stem, argtypes). The stream is the last argument;
 # the LSTM recurrences take the row tile and the cluster size
-# (ops/lstm.py:fwd_plan, bwd_plan) just before it.
+# (ops/lstm.py:fwd_plan, bwd_plan) just before it, the attention kernels
+# their plan's fields (ops/attn.py:attn_fwd_plan, attn_bwd_plan).
 LAUNCHERS = {
     "bilstm_infer_fwd": ("bilstm_infer", [_P] * 5 + [_I] * 7 + [_P]),
     "bilstm_win_fwd": ("bilstm_infer", [_P] * 7 + [_I] * 9 + [_P]),
@@ -56,9 +58,9 @@ LAUNCHERS = {
     "lstm_split_fwd_infer": ("lstm_split", [_P] * 3 + _SPLIT + [_I, _I, _P]),
     "lstm_split_fwd": ("lstm_split", [_P] * 4 + _SPLIT + [_I, _I, _P]),
     "lstm_split_bwd": ("lstm_split", [_P] * 7 + _SPLIT + [_I, _I, _P]),
-    "attn_fwd": ("attn_fwd", [_P] * 5 + [_I] * 5 + [_P]),
-    "attn_fwd_stats": ("attn_fwd", [_P] * 7 + [_I] * 5 + [_P]),
-    "attn_bwd": ("attn_bwd", [_P] * 11 + [_I] * 6 + [_P]),
+    "attn_fwd": ("attn_fwd", [_P] * 5 + [_I] * 10 + [_P]),
+    "attn_fwd_stats": ("attn_fwd", [_P] * 7 + [_I] * 10 + [_P]),
+    "attn_bwd": ("attn_bwd", [_P] * 13 + [_I] * 6 + [_P]),
 }
 SOURCES = tuple(sorted({stem for stem, _ in LAUNCHERS.values()}))
 
@@ -140,10 +142,28 @@ class KernelLibrary:
         self.build_seconds = time.monotonic() - t0
         return fns
 
+    def launch_on(self, device, name: str, *args) -> None:
+        """``launch(name, *args, stream)`` on the current stream of CUDA
+        ``device``, made the current device for the call if it is not. The
+        raw stream handle is read without making a ``torch.cuda.Stream``:
+        the serving path's kernels take tens of microseconds, so the
+        wrapper's host time is part of what a caller waits for."""
+        import torch
+
+        cur = torch.cuda.current_device()
+        idx = cur if device.index is None else device.index
+        stream = torch._C._cuda_getCurrentRawStream(idx)
+        if idx == cur:
+            self.launch(name, *args, stream)
+        else:
+            with torch.cuda.device(idx):
+                self.launch(name, *args, stream)
+
     def launch(self, name: str, *args) -> None:
         """Call launcher ``name``; raise if it reports a CUDA error (a
         refused launch never runs, and a later synchronize would not say so)."""
-        code = self.build()[name](*args)
+        fns = self._fns if self._fns is not None else self.build()
+        code = fns[name](*args)
         if code != 0:
             msg = self._error_string(code).decode()
             raise RuntimeError(f"{name}: CUDA error {code} ({msg}) at launch")

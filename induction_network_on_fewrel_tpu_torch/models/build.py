@@ -23,6 +23,7 @@ from induction_network_on_fewrel_tpu_torch.models.embedding import Embedding
 from induction_network_on_fewrel_tpu_torch.models.encoders import BiLSTMSelfAttnEncoder
 from induction_network_on_fewrel_tpu_torch.models.induction import InductionNetwork
 from induction_network_on_fewrel_tpu_torch.ops.core import resolve_backend
+from induction_network_on_fewrel_tpu_torch.ops.lstm import kernel_width_refusal
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 RESIDUAL_DTYPES = {"auto": None, "f32": torch.float32, "bf16": torch.bfloat16}
@@ -84,6 +85,28 @@ def resolve_runtime_backends(cfg: ExperimentConfig, device) -> dict:
     }
 
 
+def check_kernel_widths(cfg: ExperimentConfig, device) -> None:
+    """Refuse by name a width that the BiLSTM kernels cannot take, when
+    ``lstm_backend`` resolves to "cuda" on ``device``: the cluster bodies
+    hold 4u <= 512 gate columns and their weight slices in one CTA's
+    shared memory (``ops/lstm.kernel_width_refusal``). ``build_model``
+    calls this before it makes any parameter, so such a model fails here
+    and not at its first forward. ``--lstm_backend reference`` runs the
+    plain version at any width; nothing switches to it by itself. The
+    attention kernels take any D and A."""
+    if resolve_backend(cfg.lstm_backend, device) != "cuda":
+        return
+    D = cfg.word_dim + 2 * cfg.pos_dim
+    why = kernel_width_refusal(D, cfg.lstm_hidden, int(cfg.lstm_cs_window))
+    if why:
+        raise ValueError(
+            f"lstm_hidden={cfg.lstm_hidden} (input width {D}, lstm_cs_window="
+            f"{cfg.lstm_cs_window}) is wider than the BiLSTM CUDA kernels take: {why}; "
+            "pass --lstm_backend reference (lstm_backend=\"reference\") to run the "
+            "plain PyTorch version on the card"
+        )
+
+
 def build_model(
     cfg: ExperimentConfig,
     glove_init: np.ndarray | None = None,
@@ -103,6 +126,7 @@ def build_model(
             f"runs --encoder bilstm only"
         )
     dev = resolve_device(device)
+    check_kernel_widths(cfg, dev)
     backends = resolve_runtime_backends(cfg, dev)
     gen = torch.Generator().manual_seed(cfg.seed)
     compute = DTYPES[cfg.compute_dtype]

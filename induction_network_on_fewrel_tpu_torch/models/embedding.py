@@ -17,9 +17,27 @@ from torch import nn
 
 def normal_param(gen: torch.Generator, shape, std: float, device) -> nn.Parameter:
     """f32 N(0, std²) parameter drawn on the CPU from ``gen`` (so a seed
-    gives the same weights on every device), then moved to ``device``."""
+    gives the same weights on every device), then moved to ``device``.
+    The embeddings' init, flax's ``normal(0.1)``."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32) * std
     return nn.Parameter(w.to(device))
+
+
+# Std of a standard normal truncated to [-2, 2]: flax's variance-scaling
+# initializers divide their target std by it.
+TRUNC_STD = 0.87962566103423978
+
+
+def truncated_normal_param(gen: torch.Generator, shape, std: float, device) -> nn.Parameter:
+    """f32 parameter of std ``std`` drawn as flax's ``variance_scaling(...,
+    "truncated_normal")`` (``lecun_normal``, ``glorot_normal``) draws it: a
+    standard normal truncated to [-2, 2] (inverse CDF of a uniform draw
+    from ``gen`` on the CPU, in f64) times ``std / TRUNC_STD``, so
+    |w| <= 2 std / TRUNC_STD ~ 2.27 std; then moved to ``device``."""
+    lo = torch.special.ndtr(torch.tensor(-2.0, dtype=torch.float64))
+    u = torch.rand(shape, generator=gen, dtype=torch.float64)
+    z = torch.special.ndtri(lo + (1.0 - 2.0 * lo) * u).clamp(-2.0, 2.0)
+    return nn.Parameter((z * (std / TRUNC_STD)).to(torch.float32).to(device))
 
 
 class Embedding(nn.Module):

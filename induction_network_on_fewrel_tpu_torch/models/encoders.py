@@ -27,7 +27,7 @@ import math
 import torch
 from torch import nn
 
-from induction_network_on_fewrel_tpu_torch.models.embedding import normal_param
+from induction_network_on_fewrel_tpu_torch.models.embedding import truncated_normal_param
 from induction_network_on_fewrel_tpu_torch.ops.attn import masked_selfattn_tm
 from induction_network_on_fewrel_tpu_torch.ops.lstm import bilstm_encoder_tm
 
@@ -61,20 +61,23 @@ class BiLSTMSelfAttnEncoder(nn.Module):
         self.compute_dtype = compute_dtype
         self.lstm_cs_window = lstm_cs_window
         self.lstm_residual_dtype = lstm_residual_dtype
-        # Initializers of the JAX encoder's families: lecun-normal input and
-        # attention projections, orthogonal recurrent weights per
-        # direction, forget-gate bias 1.
-        self.w_ih = normal_param(generator, (2, D, 4 * u), 1.0 / math.sqrt(D), device)
+        # The JAX encoder's initializers: flax's truncated lecun-normal for
+        # the input and attention projections (fan-in D per direction, 2u
+        # and A), orthogonal recurrent weights per direction, forget-gate
+        # bias 1.
+        self.w_ih = truncated_normal_param(generator, (2, D, 4 * u), 1.0 / math.sqrt(D), device)
         self.w_hh = nn.Parameter(torch.stack(
             [_orthogonal_rows(generator, u, 4 * u) for _ in range(2)]
         ).to(device))
         bias = torch.zeros((2, 4 * u))
         bias[:, u:2 * u] = 1.0
         self.bias = nn.Parameter(bias.to(device))
-        self.att_w1 = normal_param(
+        self.att_w1 = truncated_normal_param(
             generator, (2 * u, att_dim), 1.0 / math.sqrt(2 * u), device
         )
-        self.att_w2 = normal_param(generator, (att_dim, 1), 1.0 / math.sqrt(att_dim), device)
+        self.att_w2 = truncated_normal_param(
+            generator, (att_dim, 1), 1.0 / math.sqrt(att_dim), device
+        )
 
     def forward(self, emb_t: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """emb_t [L, M, D] time-major embeddings, mask [M, L] -> [M, 2u]."""

@@ -26,20 +26,23 @@ import torch
 from torch import nn
 
 from induction_network_on_fewrel_tpu_torch.models.base import FewShotModel
-from induction_network_on_fewrel_tpu_torch.models.embedding import normal_param
+from induction_network_on_fewrel_tpu_torch.models.embedding import truncated_normal_param
 from induction_network_on_fewrel_tpu_torch.ops.core import squash
 
 
 class Dense(nn.Module):
     """``x @ weight.T + bias`` with torch's [out, in] weight layout (the JAX
     ``Dense`` kernel is its transpose; interop.py maps one to the other).
-    lecun-normal weight, zero bias, as the JAX Dense's defaults. Computes
+    flax's truncated lecun-normal weight (fan-in ``in_dim``) and zero bias,
+    as the JAX Dense's defaults. Computes
     in ``dtype``: the input is cast to it, like a flax Dense(dtype=...)."""
 
     def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype, *,
                  device, generator: torch.Generator):
         super().__init__()
-        self.weight = normal_param(generator, (out_dim, in_dim), 1.0 / math.sqrt(in_dim), device)
+        self.weight = truncated_normal_param(
+            generator, (out_dim, in_dim), 1.0 / math.sqrt(in_dim), device
+        )
         self.bias = nn.Parameter(torch.zeros(out_dim, device=device))
         self.dtype = dtype
 
@@ -76,8 +79,9 @@ class RelationNTN(nn.Module):
     def __init__(self, class_dim: int, slices: int = 100,
                  dtype: torch.dtype = torch.float32, *, device, generator):
         super().__init__()
-        # glorot-normal with the slice axis as batch axis: fan_in = fan_out = C.
-        self.tensor_slices = normal_param(
+        # flax's truncated glorot-normal with the slice axis as batch axis:
+        # fan_in = fan_out = C, so std = sqrt(2 / (2C)).
+        self.tensor_slices = truncated_normal_param(
             generator, (slices, class_dim, class_dim), 1.0 / math.sqrt(class_dim), device
         )
         self.dense = Dense(slices, 1, dtype, device=device, generator=generator)

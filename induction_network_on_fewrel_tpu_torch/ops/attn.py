@@ -31,9 +31,20 @@ gives exact zeros forward and backward. The mask gets no gradient.
 
 Backends (``ops.core.resolve_backend``): "reference" is the plain version,
 "cuda" the kernels (CUDA tensors only), "auto" picks by the device.
+
+The kernels take any D and A. Their launch plans are made here, on the
+host, and tested on the CPU: ``attn_fwd_plan`` splits each row's L steps
+over a cluster of 8 CTAs and groups rows so that serving sizes and the
+training batch both fill the card; ``attn_bwd_plan`` picks K11's token
+tile. ``attn_fwd_split_reference`` is the plain twin of the forward's
+split and rank-ordered merge, so that arithmetic is held against the JAX
+kernel on the CPU.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -45,8 +56,16 @@ from induction_network_on_fewrel_tpu_torch.ops.core import (
 )
 
 _NEG = -1e30
-# K11's rows per block: its dW1/dw2 partials have ceil(M / 4) slabs.
-BWD_ROWS_PER_BLOCK = 4
+# A block's dynamic shared memory and the SMs of an H100 SXM.
+SMEM_LIMIT = 232448
+NUM_SMS = 132
+# The product engine of csrc/attn_common.cuh: output columns of a tile,
+# depth of a staged slab, the token tiles it is compiled for; the CTAs of
+# K2/K10's cluster (the time split), and of K11's weight-gradient cluster
+# (the token split) with the dW1 rows of its tiles.
+CW, SLAB, SPLIT = 64, 64, 8
+WSPLIT, WR = 16, 32
+TILES = (64, 32, 16, 8)
 
 
 def masked_selfattn_tm(
@@ -133,25 +152,190 @@ def attn_bwd_reference(H_t, mask, w1, w2, out, mx, dn, dout):
     return dh.to(H_t.dtype), dw1, dw2
 
 
+def attn_fwd_split_reference(H_t, mask, w1, w2, plan=None):
+    """The plain twin of K2/K10's split and merge: (out in H's dtype, mx,
+    dn), as ``attn_fwd_stats_reference`` up to f32 rounding. Rank q of the
+    plan's cluster owns steps [q Lc, q Lc + Lc) and passes them in chunks
+    of ``plan.chunk``, carrying its partial (m, d, acc) as an online
+    softmax; the partials are then merged in rank order: M = max m_q,
+    d = sum_q d_q e^(m_q - M), out = sum_q acc_q e^(m_q - M) / (d + 1e-13).
+    ``plan`` defaults to ``attn_fwd_plan`` of the inputs' widths."""
+    L, M, D = H_t.shape
+    plan = plan or attn_fwd_plan(M, L, D, w1.shape[1])
+    H32 = H_t.float()
+    _, s, mk = _scores(H32, mask, w1, w2)                      # s: NEG where masked
+    parts = []
+    for q in range(plan.cluster):
+        m = torch.full((M,), _NEG)
+        d = torch.zeros(M)
+        acc = torch.zeros((M, D))
+        t0, tn = q * plan.steps, max(0, min(plan.steps, L - q * plan.steps))
+        for p in range(0, tn, plan.chunk):
+            sl = slice(t0 + p, t0 + min(p + plan.chunk, tn))
+            m_new = torch.maximum(m, s[sl].amax(dim=0))
+            corr = torch.exp(m - m_new)
+            e = torch.exp(s[sl] - m_new) * mk[sl]
+            d = d * corr + e.sum(dim=0)
+            acc = acc * corr[:, None] + torch.einsum("lm,lmd->md", e, H32[sl])
+            m = m_new
+        parts.append((m, d, acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    dn, out = torch.zeros(M), torch.zeros((M, D))
+    for m, d, acc in parts:
+        f = torch.exp(m - mx)
+        dn = dn + d * f
+        out = out + acc * f[:, None]
+    return (out / (dn + 1e-13)[:, None]).to(H_t.dtype), mx, dn
+
+
+# --- launch plans ---------------------------------------------------------------
+
+
+def engine_floats(R: int) -> int:
+    """Shared floats of the product engine for an R-row tile
+    (``attn::engine_floats``): two slabs of each operand [SLAB, R + 4] and
+    [SLAB, CW + 4], and the split partials [64 / R, R, CW]."""
+    return 2 * SLAB * (R + 4) + 2 * SLAB * (CW + 4) + 64 * CW
+
+
+def attn_fwd_smem(R: int, G: int, D: int) -> int:
+    """K2/K10's shared bytes (``attn::fwd_smem``): the engine, half-row
+    score sums [R, 2], scores and weights [R], per row the max, normalizer
+    and rescale [3G] and the weighted sum [G, D], and the merge's per-rank
+    factors [SPLIT, G]."""
+    return 4 * (engine_floats(R) + 4 * R + (3 + SPLIT) * G + G * D)
+
+
+def attn_bwd_smem(R: int, A: int) -> int:
+    """K11's token kernel's shared bytes (``attn::bwd_smem``): the engine,
+    tanh(P) then dproj of the tile [R, A], and a_t, ds_t [R]."""
+    return 4 * (engine_floats(R) + R * A + 2 * R)
+
+
+def attn_wgrad_smem() -> int:
+    """K11's weight-gradient kernel's shared bytes (``attn::wgrad_smem``):
+    the engine at WR rows and its partial tile [WR, CW]."""
+    return 4 * (engine_floats(WR) + WR * CW)
+
+
+class AttnFwdPlan(NamedTuple):
+    """Launch plan of K2/K10: a cluster of ``cluster`` CTAs per group of
+    ``rows`` rows; CTA q owns steps [q steps, q steps + steps) of each."""
+
+    tile: int      # R: token rows of the CTA's product tile
+    cluster: int   # CTAs splitting a row's steps
+    rows: int      # G: rows of a cluster
+    steps: int     # Lc = ceil(L / cluster): steps of a CTA
+    chunk: int     # steps of a row per pass: min(Lc, R / G)
+    ctas: int      # ceil(M / G) * cluster
+    smem: int      # dynamic shared memory of a CTA, bytes
+
+
+def _tile_for(tokens: int) -> int:
+    return next(R for R in reversed(TILES) if R >= tokens)
+
+
+@functools.lru_cache(maxsize=None)
+def attn_fwd_plan(M: int, L: int, D: int, A: int) -> AttnFwdPlan:
+    """K2/K10's plan. Each row's L steps are split over a cluster of 8
+    CTAs (Lc = ceil(L / 8) steps each), so one row fills a cluster. Rows
+    are grouped G to a cluster, as many as one 64-token tile holds while
+    the CTAs still number 3/2 of the card's SMs (M = 16: G = 1, 128 CTAs;
+    M = 200, L = 40: G = 8, 200 CTAs, one wave at two CTAs an SM). A
+    longer row (Lc > 64) takes a cluster alone and passes its steps in
+    chunks of 64. Each CTA forms the weighted sums [G, D] of its steps
+    after the projection, a pass that grows with G D, so G D is kept to
+    4096 (D = 1280: G = 3); the sums live in shared memory, which may
+    lower G further. A does not
+    enter the forward's shared memory (64 of its columns a pass). Raises
+    ValueError when not even one row fits."""
+    Lc = max(1, -(-L // SPLIT))
+    if Lc > TILES[0]:
+        G = 1
+    else:
+        G = max(1, min(TILES[0] // Lc, 2 * M * SPLIT // (3 * NUM_SMS), M, 4096 // D))
+    while True:
+        chunk = min(Lc, TILES[0] // G)
+        R = _tile_for(G * chunk)
+        smem = attn_fwd_smem(R, G, D)
+        if smem <= SMEM_LIMIT:
+            return AttnFwdPlan(R, SPLIT, G, Lc, chunk, -(-M // G) * SPLIT, smem)
+        if G == 1:
+            raise ValueError(f"the attention forward cannot take D={D}: a CTA would need "
+                             f"{smem} bytes of shared memory")
+        G -= 1
+
+
+class AttnBwdPlan(NamedTuple):
+    """Launch plan of K11: the token kernel's tile and CTAs, then the
+    weight-gradient kernel's clusters."""
+
+    tile: int         # R: tokens of a CTA
+    ctas: int         # ceil(L M / R)
+    smem: int         # the token kernel's shared bytes
+    wgrad_ctas: int   # (dW1 tiles + dw2 tiles) * WSPLIT
+    wgrad_smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def attn_bwd_plan(M: int, L: int, D: int, A: int) -> AttnBwdPlan:
+    """K11's plan: the largest token tile that still gives two CTAs per
+    SM (M = 200, L = 40: R = 16, 500 CTAs; M = 16: R = 8, 80 CTAs), else
+    the smallest; a tile whose tanh(P) [R, A] does not fit shared memory
+    steps down. The weight-gradient kernel has one cluster of WSPLIT CTAs
+    per WR x 64 tile of dW1 and per 64 columns of dw2. Raises ValueError
+    when not even an 8-token tile fits."""
+    N = L * M
+    fits = [R for R in TILES if attn_bwd_smem(R, A) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"the attention backward cannot take A={A}: an 8-token tile would "
+                         f"need {attn_bwd_smem(TILES[-1], A)} bytes of shared memory")
+    R = next((R for R in fits if -(-N // R) >= 2 * NUM_SMS), fits[-1])
+    at = -(-A // CW)
+    return AttnBwdPlan(R, -(-N // R), attn_bwd_smem(R, A),
+                       (-(-D // WR) * at + at) * WSPLIT, attn_wgrad_smem())
+
+
+def _plan_for(name, plan, *args):
+    try:
+        return plan(*args)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+
+
 # --- kernel wrappers ------------------------------------------------------------
 
 
-def _check_attn_args(name, H_t, mask, w1, w2):
+def _check_attn_args(name, H_t, mask, w1, w2, plan, *more):
+    """Dtype, shape and device checks; returns (L, M, D, A, ``plan(M, L,
+    D, A)``). The plan is made before the device check, so a width the
+    kernels cannot take is refused on any device; ``more`` are further
+    tensors that must share the device."""
     L, M, D = H_t.shape
-    check_cuda_tensors(name, H_t, mask, w1, w2)
     if H_t.dtype not in ACTIVATION_DTYPES:
         raise TypeError(f"{name}: H must be one of {ACTIVATION_DTYPES}, got {H_t.dtype}")
-    if any(x.dtype != torch.float32 for x in (mask, w1, w2)):
+    f32 = torch.float32
+    if mask.dtype != f32 or w1.dtype != f32 or w2.dtype != f32:
         raise TypeError(f"{name}: mask, w1 and w2 must be float32")
     A = w1.shape[-1]
-    if tuple(mask.shape) != (M, L) or tuple(w1.shape) != (D, A) or tuple(w2.shape) != (A, 1):
+    if mask.shape != (M, L) or w1.shape != (D, A) or w2.shape != (A, 1):
         raise ValueError(
             f"{name}: mask {tuple(mask.shape)}, w1 {tuple(w1.shape)}, "
             f"w2 {tuple(w2.shape)} do not match H {tuple(H_t.shape)}"
         )
-    if D > 1024:
-        raise ValueError(f"{name}: D = {D} exceeds the kernel's 1024 columns")
-    return L, M, D, A
+    plan = _plan_for(name, plan, M, L, D, A)
+    check_cuda_tensors(name, H_t, mask, w1, w2, *more)
+    return L, M, D, A, plan
+
+
+def _launch(name, device, *args):
+    """Launch ``name`` on the current stream of ``device`` (the stream is
+    the launcher's last argument)."""
+    LIBRARY.launch_on(device, name, *args)
+
+
+def _fwd_plan_args(plan: AttnFwdPlan) -> tuple:
+    return plan.tile, plan.cluster, plan.rows, plan.steps, plan.chunk
 
 
 def attn_fwd_cuda(H_t, mask, w1, w2) -> torch.Tensor:
@@ -164,17 +348,14 @@ def attn_fwd_cuda(H_t, mask, w1, w2) -> torch.Tensor:
             "attn_fwd_cuda: an input requires grad; the training route is "
             "masked_selfattn_tm (K10/K11), K2 would return a detached output"
         )
-    L, M, D, A = _check_attn_args("attn_fwd_cuda", H_t, mask, w1, w2)
+    L, M, D, A, plan = _check_attn_args("attn_fwd_cuda", H_t, mask, w1, w2, attn_fwd_plan)
+    if M == 0 or L == 0:
+        return torch.zeros((M, D), dtype=H_t.dtype, device=H_t.device)
     out = torch.empty((M, D), dtype=H_t.dtype, device=H_t.device)
-    if M == 0:
-        return out
-    with torch.cuda.device(H_t.device):
-        LIBRARY.launch(
-            "attn_fwd",
+    _launch("attn_fwd", H_t.device,
             H_t.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(),
             out.data_ptr(), L, M, D, A, int(H_t.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
+            *_fwd_plan_args(plan))
     attn_fwd_cuda.launches += 1
     return out
 
@@ -184,20 +365,18 @@ attn_fwd_cuda.launches = 0
 
 def attn_fwd_stats(H_t, mask, w1, w2):
     """Launch K10: (out, mx, dn) as ``attn_fwd_stats_reference``."""
-    L, M, D, A = _check_attn_args("attn_fwd_stats", H_t, mask, w1, w2)
+    L, M, D, A, plan = _check_attn_args("attn_fwd_stats", H_t, mask, w1, w2, attn_fwd_plan)
     dev = H_t.device
+    if M == 0 or L == 0:     # no step: the fully masked row's stats
+        return (torch.zeros((M, D), dtype=H_t.dtype, device=dev),
+                torch.full((M,), _NEG, device=dev), torch.zeros((M,), device=dev))
     out = torch.empty((M, D), dtype=H_t.dtype, device=dev)
     mx = torch.empty((M,), dtype=torch.float32, device=dev)
     dn = torch.empty((M,), dtype=torch.float32, device=dev)
-    if M == 0:
-        return out, mx, dn
-    with torch.cuda.device(dev):
-        LIBRARY.launch(
-            "attn_fwd_stats",
+    _launch("attn_fwd_stats", dev,
             H_t.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(),
             out.data_ptr(), mx.data_ptr(), dn.data_ptr(), L, M, D, A,
-            int(H_t.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
-        )
+            int(H_t.dtype == torch.bfloat16), *_fwd_plan_args(plan))
     attn_fwd_stats.launches += 1
     return out, mx, dn
 
@@ -206,35 +385,34 @@ attn_fwd_stats.launches = 0
 
 
 def attn_bwd(H_t, mask, w1, w2, out, mx, dn, dout):
-    """Launch K11, then sum its per-block partials (outside the kernel, as
-    the JAX call does): the same outputs as ``attn_bwd_reference``."""
-    L, M, D, A = _check_attn_args("attn_bwd", H_t, mask, w1, w2)
-    check_cuda_tensors("attn_bwd", H_t, out, mx, dn, dout)
+    """Launch K11 (its token kernel, then its weight-gradient kernel; one
+    call, counted once): the same outputs as ``attn_bwd_reference``. dW1
+    and dw2 come out of the kernel whole, with no reduction after it."""
+    L, M, D, A = H_t.shape + w1.shape[-1:]
     if out.dtype != H_t.dtype or dout.dtype != H_t.dtype or \
             tuple(out.shape) != (M, D) or tuple(dout.shape) != (M, D):
         raise ValueError("attn_bwd: out and dout must be [M, D] in H's dtype")
     if mx.dtype != torch.float32 or dn.dtype != torch.float32 or \
             tuple(mx.shape) != (M,) or tuple(dn.shape) != (M,):
         raise ValueError("attn_bwd: mx and dn must be [M] float32")
-    if A > 256:
-        raise ValueError(f"attn_bwd: A = {A} exceeds the kernel's 256 threads")
-    rb = BWD_ROWS_PER_BLOCK
-    nblk = -(-M // rb)
+    *_, plan = _check_attn_args("attn_bwd", H_t, mask, w1, w2, attn_bwd_plan,
+                                out, mx, dn, dout)
     dev = H_t.device
+    if M == 0 or L == 0:
+        return (torch.zeros((L, M, D), dtype=H_t.dtype, device=dev),
+                torch.zeros((D, A), device=dev), torch.zeros((A, 1), device=dev))
     dH = torch.empty((L, M, D), dtype=H_t.dtype, device=dev)
-    dw1_p = torch.empty((nblk, D, A), dtype=torch.float32, device=dev)
-    dw2_p = torch.empty((nblk, A), dtype=torch.float32, device=dev)
-    if M > 0:
-        with torch.cuda.device(dev):
-            LIBRARY.launch(
-                "attn_bwd",
-                H_t.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                out.data_ptr(), mx.data_ptr(), dn.data_ptr(), dout.data_ptr(),
-                dH.data_ptr(), dw1_p.data_ptr(), dw2_p.data_ptr(), L, M, D, A, rb,
-                int(H_t.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
-            )
-        attn_bwd.launches += 1
-    return dH, dw1_p.sum(0), dw2_p.sum(0).reshape(A, 1)
+    dproj = torch.empty((L * M, A), dtype=torch.float32, device=dev)
+    tds = torch.empty((L * M, A), dtype=torch.float32, device=dev)
+    dw1 = torch.empty((D, A), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((A, 1), dtype=torch.float32, device=dev)
+    _launch("attn_bwd", dev,
+            H_t.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            out.data_ptr(), mx.data_ptr(), dn.data_ptr(), dout.data_ptr(),
+            dH.data_ptr(), dproj.data_ptr(), tds.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+            L, M, D, A, plan.tile, int(H_t.dtype == torch.bfloat16))
+    attn_bwd.launches += 1
+    return dH, dw1, dw2
 
 
 attn_bwd.launches = 0

@@ -95,6 +95,8 @@ SMEM_LIMIT = 232448
 # (``FWD_THREADS`` in ``csrc/lstm_common.cuh``).
 NUM_SMS = 132
 FWD_THREADS = 256
+# The widest gate row (4u) the LSTM kernels' launchers take.
+MAX_GATES = 512
 
 
 def bilstm_encoder_tm(
@@ -686,6 +688,21 @@ def bwd_plan(M: int, D: int, u: int, W: int, groups: int = 2) -> BwdPlan:
     raise ValueError(f"the cluster LSTM backward cannot take D={D}, u={u}, W={W}: {why}")
 
 
+def kernel_width_refusal(D: int, u: int, W: int) -> str:
+    """Why the BiLSTM kernels cannot take input width D, hidden width u and
+    window W (0: the full-residual route), or "" when they can: the
+    launchers' gate-row limit, then the forward and backward plans at the
+    smallest row tile (a width no tile takes fails at every M)."""
+    if 4 * u > MAX_GATES:
+        return f"4u = {4 * u} exceeds the kernels' {MAX_GATES} gate columns"
+    try:
+        fwd_plan(1, D, u)
+        bwd_plan(1, D, u, W)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
 def _plan_for(name, plan, *args):
     try:
         return plan(*args)
@@ -712,8 +729,8 @@ def _check_lstm_args(name, emb_t, wih, b, whh, plan=None):
         raise ValueError(
             f"{name}: wih {tuple(wih.shape)} / b {tuple(b.shape)} do not match D={D}, u={u}"
         )
-    if G > 512:
-        raise ValueError(f"{name}: 4u = {G} exceeds the kernel's 512 threads")
+    if G > MAX_GATES:
+        raise ValueError(f"{name}: 4u = {G} exceeds the kernel's {MAX_GATES} threads")
     plan = _plan_for(name, plan, emb_t.shape[1], D, u) if plan else None
     check_cuda_tensors(name, emb_t, wih, b, whh)
     return u, plan
@@ -737,8 +754,7 @@ def _refuse_grad(name, *tensors):
 def _launch(name, device, *args):
     """Launch ``name`` on the current stream of ``device`` (the stream is
     the launcher's last argument)."""
-    with torch.cuda.device(device):
-        LIBRARY.launch(name, *args, torch.cuda.current_stream().cuda_stream)
+    LIBRARY.launch_on(device, name, *args)
 
 
 def bilstm_infer_cuda(emb_t, wih, b, whh) -> torch.Tensor:
@@ -907,8 +923,8 @@ def _check_split_args(name, xg, whh, tm: bool, *streams, plan=None):
         raise TypeError(f"{name}: xg must be one of {ACTIVATION_DTYPES} and whh float32, "
                         f"got {xg.dtype}/{whh.dtype}")
     Gc, M, L, u = _split_dims(xg, whh, tm)
-    if 4 * u > 512:
-        raise ValueError(f"{name}: 4u = {4 * u} exceeds the kernel's 512 threads")
+    if 4 * u > MAX_GATES:
+        raise ValueError(f"{name}: 4u = {4 * u} exceeds the kernel's {MAX_GATES} threads")
     want = (L, M, Gc * u) if tm else (Gc, M, L, u)
     for x in streams:
         if x.dtype != xg.dtype or tuple(x.shape) != want:

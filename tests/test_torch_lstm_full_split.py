@@ -13,7 +13,7 @@ Functions the card's kernels sit behind:
   ``bilstm_recurrence_tm``): forward and ``jax.vjp``, direction
   independence, and the time-major layout against the grouped one fed the
   flipped input;
-* a 4-step training trajectory at ``lstm_cs_window=0`` against JAX
+* a 20-step training trajectory at ``lstm_cs_window=0`` against JAX
   ``make_train_step`` with the interpret-mode kernels.
 
 Bars: f32 1e-5 (forward and full-residual gradients; the split gradients
@@ -282,11 +282,11 @@ def _batches(n):
 
 
 def test_window_zero_trajectory_matches_jax_train_step():
-    """4 steps of the port's ``train_step`` at ``lstm_cs_window=0`` (the
+    """20 steps of the port's ``train_step`` at ``lstm_cs_window=0`` (the
     plain versions of K4/K6 through the Function) against JAX
     ``make_train_step`` with the interpret-mode full-residual kernels,
     f32, on identical batches from the same weights."""
-    steps = 4
+    steps = 20
     jcfg = JaxConfig(**TRAJ, lstm_backend="interpret", lstm_cs_window=0)
     cfg = ExperimentConfig(**TRAJ, lstm_cs_window=0)
     batches = _batches(steps)

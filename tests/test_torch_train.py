@@ -4,7 +4,7 @@
   (clip_by_global_norm -> add_decayed_weights -> adam, staircase decay):
   the clip below and above its threshold, coupled decay, and a staircase
   crossing two boundaries, on the same parameters and gradients.
-* An 8-step trajectory of the port's ``train_step`` against JAX
+* A 20-step trajectory of the port's ``train_step`` against JAX
   ``make_train_step`` on identical batches from one seeded sampler, the
   weights carried by ``interop.params_from_jax``, f32, mse and ce, at the
   tests/test_trajectory_twin.py bars (losses rtol 2e-4, final params atol
@@ -53,7 +53,7 @@ SMALL = dict(
 )
 TRAJ = dict(SMALL, n=3, k=2, q=2, batch_size=2, compute_dtype="float32", lr=2e-3,
             weight_decay=1e-4, grad_clip=1.0, lr_step_size=3, lr_gamma=0.5)
-STEPS = 8
+STEPS = 20
 
 
 # --- optimizer -------------------------------------------------------------------
