@@ -17,7 +17,17 @@ read by this slice. As in the JAX CLI the encoder computes in f32 unless
 then reports the final val accuracy of the best checkpoint as a JSON line;
 ``test`` restores the best checkpoint (the latest one when there is no
 best) with the architecture of its ``config.json`` and prints
-``{"test_accuracy", "acc_ci95"}``.
+``{"test_accuracy", "acc_ci95"}``. ``train --resume`` continues the latest
+checkpoint of ``--save_ckpt`` (weights, optimizer state, best val accuracy
+and the samplers' streams: the same updates as an uninterrupted run) for
+``--train_iter`` more steps; ``train --only_test`` restores (``--resume``
+or ``--load_ckpt``) and reports the test accuracy. ``--optimizer``,
+``--embed_optimizer`` (``lazy`` refused by name), ``--weight_decay``,
+``--lr_step_size`` and ``--grad_clip`` choose the update;
+``--steps_per_call`` steps run per dispatch (one CUDA-graph replay on the
+card), ``--eval_steps_per_call`` eval batches, ``--metric_window_calls``
+dispatches per metric record, and ``--grad_probe_every`` logs the
+gradient-health probe.
 
 Runs on the GPU by default and refuses to start without CUDA unless
 ``--device cpu`` is given.
@@ -60,11 +70,33 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                         "plain PyTorch version on the CPU")
     p.add_argument("--bf16", action="store_true", help="bf16 embedding + encoder")
     p.add_argument("--loss", default="mse", choices=["mse", "ce"])
+    p.add_argument("--optimizer", default="adam", choices=["adam", "adamw", "sgd"])
+    p.add_argument("--embed_optimizer", default="shared",
+                   choices=["shared", "lazy", "sgd", "frozen"],
+                   help="word-embedding table optimizer: shared = main optimizer "
+                        "(reference parity: dense update of the whole table every step; "
+                        "the DEFAULT), sgd = plain -lr*g on the table (no decay, no "
+                        "moments), frozen = fixed GloVe (no gradient, no update); lazy "
+                        "is not ported yet and is refused")
     p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--weight_decay", type=float, default=1e-5)
+    p.add_argument("--lr_step_size", type=int, default=2000)
+    p.add_argument("--grad_clip", type=float, default=10.0)
     if train:
         p.add_argument("--train_iter", type=int, default=10000)
         p.add_argument("--val_iter", type=int, default=1000)
         p.add_argument("--val_step", type=int, default=1000)
+    # On both parsers: the test entry point's eval loop fuses batches too.
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="optimizer steps (or eval batches) fused into one dispatch "
+                        "(one CUDA-graph replay); identical results, amortized host "
+                        "launch latency")
+    p.add_argument("--eval_steps_per_call", type=int, default=0,
+                   help="eval batches fused per dispatch at val/test boundaries "
+                        "(0 = auto: min(steps_per_call, 16))")
+    p.add_argument("--metric_window_calls", type=int, default=4,
+                   help="fused train calls between metric fetches (each fetch syncs "
+                        "the card)")
     p.add_argument("--test_iter", type=int, default=3000)
     p.add_argument("--synthetic", action="store_true",
                    help="train and evaluate on the synthetic FewRel/GloVe fixtures "
@@ -73,6 +105,13 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                    help="default: the GPU (refuses to start without CUDA)")
     p.add_argument("--save_ckpt", default="./checkpoint", help="checkpoint directory")
     p.add_argument("--load_ckpt", default=None, help="checkpoint directory to restore")
+    if train:
+        p.add_argument("--resume", action="store_true",
+                       help="resume latest state from --save_ckpt")
+        p.add_argument("--only_test", action="store_true")
+        p.add_argument("--grad_probe_every", type=int, default=0,
+                       help="every K steps, log grad global-norm + grad-cosine vs an "
+                            "all-f32 reference backward on the same batch (0 = off)")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -81,16 +120,23 @@ def config_from_args(args):
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
 
     kw = dict(
-        n=args.N, k=args.K, q=args.Q, batch_size=args.batch_size, max_length=args.max_length, vocab_size=args.vocab_size,
+        n=args.N, k=args.K, q=args.Q, batch_size=args.batch_size, max_length=args.max_length,
+        vocab_size=args.vocab_size,
         lstm_hidden=args.lstm_hidden, induction_dim=args.induction_dim,
         ntn_slices=args.ntn_slices, lstm_cs_window=args.lstm_cs_window,
         lstm_residuals=args.lstm_residuals, lstm_backend=args.lstm_backend,
         attn_backend=args.attn_backend,
         compute_dtype="bfloat16" if args.bf16 else "float32",
-        loss=args.loss, lr=args.lr, test_iter=args.test_iter, seed=args.seed,
+        loss=args.loss, optimizer=args.optimizer, embed_optimizer=args.embed_optimizer,
+        lr=args.lr, weight_decay=args.weight_decay, lr_step_size=args.lr_step_size,
+        grad_clip=args.grad_clip, steps_per_call=args.steps_per_call,
+        eval_steps_per_call=args.eval_steps_per_call,
+        metric_window_calls=args.metric_window_calls, test_iter=args.test_iter,
+        seed=args.seed,
     )
     if hasattr(args, "train_iter"):
-        kw.update(train_iter=args.train_iter, val_iter=args.val_iter, val_step=args.val_step)
+        kw.update(train_iter=args.train_iter, val_iter=args.val_iter, val_step=args.val_step,
+                  grad_probe_every=args.grad_probe_every)
     return ExperimentConfig(**kw)
 
 
@@ -163,18 +209,42 @@ def _merge_ckpt_architecture(cfg, src: str):
 
 
 def train_main(argv=None) -> int:
+    """Train (``--resume`` continues the latest state of ``--load_ckpt``
+    or else ``--save_ckpt``; ``--load_ckpt`` alone starts from that
+    directory's best weights and optimizer state), then report the best
+    checkpoint's val accuracy; with ``--only_test``, restore as above and
+    report the test accuracy instead."""
     from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
 
     args = build_arg_parser(train=True).parse_args(argv)
     cfg = config_from_args(args)
     if args.load_ckpt:
         cfg = _merge_ckpt_architecture(cfg, args.load_ckpt)
-    trainer, _ = make_trainer(args, cfg)
+    trainer, test_sampler = make_trainer(args, cfg, only_test=args.only_test)
     try:
-        if args.load_ckpt:
+        start_step = 0
+        if args.resume:
+            src = args.load_ckpt or args.save_ckpt
+            own = trainer.ckpt is not None and src == args.save_ckpt
+            mngr = trainer.ckpt if own else CheckpointManager(src, cfg)
+            try:
+                start_step, extra = mngr.restore_latest(trainer.model, trainer.opt)
+                trainer.best_val = extra["best_val"]
+                trainer.restore_sampler_states(extra["samplers"])
+                print(f"restored latest checkpoint step={start_step} from {src}",
+                      file=sys.stderr)
+            except FileNotFoundError:
+                if args.load_ckpt:
+                    raise
+                print(f"no checkpoint in {src}; starting fresh", file=sys.stderr)
+        elif args.load_ckpt:
             step = CheckpointManager(args.load_ckpt).restore_best(trainer.model, trainer.opt)
             print(f"restored best checkpoint step={step} from {args.load_ckpt}", file=sys.stderr)
-        trainer.train(cfg.train_iter)
+        if args.only_test:
+            metrics = trainer.evaluate(cfg.test_iter, sampler=test_sampler, return_metrics=True)
+            print_result(metrics, "test_accuracy")
+            return 0
+        trainer.train(cfg.train_iter, start_step=start_step)
         if "best" in trainer.ckpt.written:
             step = trainer.ckpt.restore_best(trainer.model)
             print(f"final eval from best checkpoint (step {step})", file=sys.stderr)

@@ -4,11 +4,12 @@ The port's own copy of the ``ExperimentConfig`` fields that the serving
 and training paths read (``induction_network_on_fewrel_tpu/config.py``):
 episode geometry, tokenization/embedding, the BiLSTM + self-attention
 encoder and its training-route knobs, the induction/NTN head, the NOTA
-head, the dtypes, the kernel backends, the optimizer and loop lengths, and
-the seed. Names and defaults are the JAX package's, so a config built with
-the same keywords describes the same model in both packages, and the
-``config.json`` a checkpoint writes loads into the JAX config too. The
-parallel, fleet and observability knobs come with their slices.
+head, the dtypes, the kernel backends, the optimizer family, the loop
+lengths, the fused-dispatch and grad-probe knobs, and the seed. Names and
+defaults are the JAX package's, so a config built with the same keywords
+describes the same model in both packages, and the ``config.json`` a
+checkpoint writes loads into the JAX config too. The parallel, fleet and
+observability knobs come with their slices.
 """
 
 from __future__ import annotations
@@ -63,9 +64,13 @@ class ExperimentConfig:
 
     # --- optimization (train/steps.make_optimizer) ---
     loss: str = "mse"         # mse (paper §3.4) | ce
-    optimizer: str = "adam"   # adam (the only one ported)
-    # Word-table optimizer: "shared" = the main Adam updates the table
-    # densely (reference parity; the only value ported).
+    # adam (coupled L2 after the clip) | adamw (decoupled decay) | sgd
+    # (coupled L2, no momentum): train/steps.make_optimizer.
+    optimizer: str = "adam"
+    # Word-table optimizer: "shared" = the main optimizer updates the table
+    # densely (reference parity); "sgd" = plain -lr*g on the table (no
+    # decay, no moments); "frozen" = the table gets no gradient, no update
+    # and no moments; "lazy" is refused by name (ROADMAP queue A item 4).
     embed_optimizer: str = "shared"
     lr: float = 1e-3
     weight_decay: float = 1e-5
@@ -76,6 +81,20 @@ class ExperimentConfig:
     val_iter: int = 1000
     val_step: int = 1000
     test_iter: int = 3000
+    # Optimizer steps per dispatch (train/steps.make_multi_train_step: one
+    # CUDA-graph replay of S captured steps on the card); 1 = one step per
+    # dispatch. The updates are the same as S single steps.
+    steps_per_call: int = 1
+    # Eval batches per dispatch at val/test boundaries; 0 = auto:
+    # min(steps_per_call, 16).
+    eval_steps_per_call: int = 0
+    # Train dispatches between metric records: the window in steps is
+    # max(50, metric_window_calls * steps_per_call).
+    metric_window_calls: int = 4
+    # Every K steps, log the gradient's global norm and its cosine to an
+    # all-f32 plain-backend reference gradient on the same batch
+    # (train/steps.make_grad_probe); 0 = off.
+    grad_probe_every: int = 0
 
     # --- numerics ---
     compute_dtype: str = "bfloat16"  # embedding + encoder dtype

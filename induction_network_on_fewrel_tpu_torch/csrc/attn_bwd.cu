@@ -211,9 +211,18 @@ int launch_wgrad(const BwdArgs<T>& a, cudaStream_t stream) {
   const size_t smem = wgrad_smem();
   cudaError_t err = allow_smem(attn_wgrad_kernel<T>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  // A cluster of 16 CTAs is past the portable 8 (the attribute is per device).
-  err = cudaFuncSetAttribute(attn_wgrad_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  // A cluster of 16 CTAs is past the portable 8 (the attribute is per
+  // device, set once like the shared-memory limit).
+  static int nonportable_set[64];
+  int dev = 0;
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !nonportable_set[dev]) {
+    err = cudaFuncSetAttribute(attn_wgrad_kernel<T>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) nonportable_set[dev] = 1;
+  }
   const int AT = (a.A + CW - 1) / CW, DT = (a.D + WR - 1) / WR;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((DT * AT + AT) * WSPLIT), 1, 1);

@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # The split recurrence's launchers: L, M, u, Gc, the (group, row, time)
 # strides of xg and of hs, the reversed group and the dtype flag.
 _SPLIT = [_I] * 4 + [_LL] * 6 + [_I] * 2
@@ -61,6 +61,10 @@ LAUNCHERS = {
     "attn_fwd": ("attn_fwd", [_P] * 5 + [_I] * 10 + [_P]),
     "attn_fwd_stats": ("attn_fwd", [_P] * 7 + [_I] * 10 + [_P]),
     "attn_bwd": ("attn_bwd", [_P] * 13 + [_I] * 6 + [_P]),
+    # The optimizer pair (ops/optim.py): the host table of entries, its
+    # length, the workspace and state pointers, then the hyperparameters.
+    "optim_sumsq": ("optim", [_P, _I, _P, _P, _P, _P]),
+    "optim_update": ("optim", [_P, _I, _P, _P, _P, _F, _F, _I] + [_F] * 7 + [_P]),
 }
 SOURCES = tuple(sorted({stem for stem, _ in LAUNCHERS.values()}))
 

@@ -132,7 +132,8 @@ def build_model(
     compute = DTYPES[cfg.compute_dtype]
     embedding = Embedding(
         cfg.vocab_size, cfg.word_dim, cfg.pos_dim, cfg.max_length,
-        glove_init=glove_init, compute_dtype=compute, device=dev, generator=gen,
+        glove_init=glove_init, compute_dtype=compute,
+        freeze_word_table=cfg.embed_optimizer == "frozen", device=dev, generator=gen,
     )
     encoder = BiLSTMSelfAttnEncoder(
         embedding.output_dim, cfg.lstm_hidden, cfg.att_dim,

@@ -1,122 +1,184 @@
-"""Train/eval steps and the optimizer chain.
+"""Train/eval steps, the optimizer family, the CUDA-graph steps and the grad probe.
 
-Counterpart of ``induction_network_on_fewrel_tpu/train/steps.py`` for the
-flagship path (``embed_optimizer="shared"``, ``optimizer="adam"``). One
-training step is forward, loss, backward and update, eager on the card;
-the encoder's backward runs the K8/K11 kernels through the autograd
-Functions of ``ops/``.
+Counterpart of ``induction_network_on_fewrel_tpu/train/steps.py``. There
+one training step (forward, loss, backward, clip, update) is one jitted XLA
+program, and ``make_multi_train_step`` scans S steps in one dispatch. Here:
 
-``ClipDecayAdam`` is the optax chain the JAX package builds, written out so
-its semantics match exactly rather than approximately:
+* ``train_step`` / ``eval_step``: the eager step, the CPU path. The
+  encoder's backward runs the K8/K11 kernels (K6 at lstm_cs_window=0)
+  through the autograd Functions of ``ops/`` on the card, their plain
+  versions on the CPU.
+* ``make_train_step`` / ``make_multi_train_step`` / ``make_eval_step`` /
+  ``make_multi_eval_step``: on the card, each call is ONE CUDA-graph replay
+  of S captured steps (S = 1 for the single-step factories), one graph per
+  input shape, captured at the first call. The host copies the batch
+  from pinned memory into the graph's static inputs and replays; the
+  metrics are copied out of the graph's static outputs after each replay.
+  Before the capture, one forward and backward run on a side stream
+  without an update (and the optimizer kernels once on scratch tensors),
+  so step 1 of a graph run is step 1 of an eager run from the same
+  weights. On the CPU the factories return the eager steps. The S-step
+  graph computes the same sequence of updates as S single steps.
+* ``ClipDecayOptimizer`` / ``make_optimizer``: the optax chain of the JAX
+  ``make_optimizer`` (steps.py:48-128), clip_by_global_norm over every
+  gradient, then per tensor adam (coupled L2 after the clip), adamw
+  (decoupled) or sgd (coupled L2, no momentum), with the staircase rate;
+  the word table on the main rule (``embed_optimizer="shared"``), on plain
+  sgd (``"sgd"``: -lr*g, no decay, no moments) or ``"frozen"`` (no
+  gradient, no update, no moments, nothing in the norm). The update is
+  ``ops/optim.py``: two kernels on the card, the per-parameter loop on the
+  CPU. The count, the rate and the bias corrections live on the device.
+* ``make_grad_probe``: the run-config gradient against an all-f32 plain
+  backend (lstm_cs_window=0) reference gradient on the same batch and
+  weights; norms and cosine through one shared reduction. Eager, off the
+  training graph.
 
-    clip_by_global_norm(grad_clip)    g <- g if |g| < max else g / |g| * max
-                                      (no epsilon, unlike clip_grad_norm_)
-    add_decayed_weights(wd)           g <- g + wd * p   (coupled L2, after
-                                      the clip)
-    adam(schedule)                    m <- b1 m + (1-b1) g;  v <- b2 v + (1-b2) g^2
-                                      p <- p - lr(c) * m_hat / (sqrt(v_hat) + eps)
-                                      (eps outside the square root)
-
-with the staircase schedule lr(c) = lr * gamma ** floor(c / step_size),
-where c counts the updates already applied (optax's ``scale_by_schedule``
-reads its count before incrementing it) and the bias corrections use c+1.
-The whole update stays on the device: the clip's choice is a
-``torch.where`` on the norm, never a host sync.
+Launch counts under a graph: a kernel wrapper counts the calls that launch
+its kernel, so under a graph it counts the warm-up's and the capture's
+calls, not the replays (count those from the profiler's kernel records).
 """
 
 from __future__ import annotations
 
+import functools
+import gc
 import math
 
+import numpy as np
 import torch
 
 from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
-from induction_network_on_fewrel_tpu_torch.models.base import to_device
+from induction_network_on_fewrel_tpu_torch.models.base import QUERY_KEYS, to_device
 from induction_network_on_fewrel_tpu_torch.models.losses import (
     LOSS_FNS,
     accuracy,
     episode_metrics,
 )
+from induction_network_on_fewrel_tpu_torch.ops.optim import (
+    MOMENT_RULES,
+    RULES,
+    OptimHyper,
+    make_workspace,
+    optim_sumsq,
+    optim_update,
+)
+
+TRAIN_METRICS = ("loss", "accuracy", "grad_norm")
+WORD_TABLE = "embedding.word_embedding"
+OPTIMIZERS = ("adam", "adamw", "sgd")
+EMBED_OPTIMIZERS = ("shared", "sgd", "frozen", "lazy")
 
 
-class ClipDecayAdam:
-    """clip_by_global_norm -> add_decayed_weights -> adam with a staircase
-    learning rate, over a fixed list of parameters."""
+class ClipDecayOptimizer:
+    """clip_by_global_norm over every gradient, then each parameter's rule
+    (``ops.optim.RULES``, or "frozen": left out of the update and the
+    norm), with a staircase learning rate. Moments exist only for the
+    adam/adamw tensors. ``count`` is an int64 device scalar."""
 
     def __init__(self, params, lr: float, weight_decay: float, lr_step_size: int,
-                 lr_gamma: float, grad_clip: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 lr_gamma: float, grad_clip: float, rules=None, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
         self.params = list(params)
-        self.lr, self.weight_decay = lr, weight_decay
-        self.lr_step_size, self.lr_gamma = lr_step_size, lr_gamma
-        self.grad_clip = grad_clip
-        self.b1, self.b2, self.eps = b1, b2, eps
-        self.count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.rules = list(rules) if rules is not None else ["adam"] * len(self.params)
+        if len(self.rules) != len(self.params):
+            raise ValueError(f"{len(self.rules)} rules for {len(self.params)} parameters")
+        for r in self.rules:
+            if r not in RULES + ("frozen",):
+                raise ValueError(f"unknown update rule {r!r} (one of {RULES + ('frozen',)})")
+        self.hyper = OptimHyper(lr, lr_gamma, lr_step_size, weight_decay, grad_clip, b1, b2, eps)
+        dev = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.mu = [torch.zeros_like(p) if r in MOMENT_RULES else None
+                   for p, r in zip(self.params, self.rules)]
+        self.nu = [torch.zeros_like(p) if r in MOMENT_RULES else None
+                   for p, r in zip(self.params, self.rules)]
+        self._live = [i for i, r in enumerate(self.rules) if r != "frozen"]
+        self._ws = make_workspace([self.params[i] for i in self._live]) \
+            if dev.type == "cuda" else None
 
     def learning_rate(self) -> float:
-        """The staircase rate of the next update."""
-        return self.lr * self.lr_gamma ** (self.count // self.lr_step_size)
+        """The staircase rate of the next update, on the host (reads the
+        device count; the step itself computes it on the device)."""
+        h = self.hyper
+        return h.lr * h.lr_gamma ** (int(self.count) // h.lr_step_size)
 
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
 
+    def _table(self):
+        i = self._live
+        return ([self.params[k] for k in i], [self.params[k].grad for k in i],
+                [self.mu[k] for k in i], [self.nu[k] for k in i], [self.rules[k] for k in i])
+
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """Apply one update from the parameters' ``.grad``; returns the
-        global gradient norm (a device scalar, before the clip)."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-        )
-        keep = norm < self.grad_clip
-        lr = self.learning_rate()
-        c = self.count + 1
-        bc1, bc2 = 1.0 - self.b1 ** c, 1.0 - self.b2 ** c
-        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
-            g = torch.where(keep, g, g / norm * self.grad_clip)
-            if self.weight_decay:
-                g = g + self.weight_decay * p
-            m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            p.add_(upd, alpha=-lr)
-        self.count = c
-        return norm
+        """Apply one update from the parameters' ``.grad`` (None: zeros);
+        returns the global gradient norm before the clip (a fresh f32
+        device scalar)."""
+        params, grads, mus, nus, rules = self._table()
+        norm = optim_sumsq(params, grads, self._ws)
+        optim_update(params, grads, mus, nus, rules, norm, self.count, self.hyper, self._ws)
+        return norm.reshape(())
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "mu": [m.detach().clone() for m in self.mu],
-                "nu": [v.detach().clone() for v in self.nu]}
+        """``count`` as an int (the format of the earlier Adam-only
+        optimizer, whose state loads here), the rule of every parameter,
+        and its moments (None where its rule keeps none)."""
+        def copy(xs):
+            return [None if x is None else x.detach().clone() for x in xs]
+
+        return {"count": int(self.count), "rules": list(self.rules),
+                "mu": copy(self.mu), "nu": copy(self.nu)}
 
     def load_state_dict(self, state: dict) -> None:
-        if len(state["mu"]) != len(self.params):
+        """Copy ``state`` in place into this optimizer's tensors (a
+        captured graph holds their addresses). A state without "rules" is
+        the Adam-only format: every parameter on "adam"."""
+        rules = list(state.get("rules", ["adam"] * len(state["mu"])))
+        if len(state["mu"]) != len(self.params) or len(state["nu"]) != len(self.params):
             raise ValueError(
                 f"optimizer state has {len(state['mu'])} moments for {len(self.params)} params"
             )
-        self.count = int(state["count"])
+        if rules != self.rules:
+            raise ValueError(f"optimizer state was saved with rules {rules}, this optimizer "
+                             f"has {self.rules} (optimizer/embed_optimizer differ)")
         for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
-            if dst.shape != src.shape:
-                raise ValueError(f"optimizer moment shape {tuple(src.shape)} != {tuple(dst.shape)}")
+            if dst is None:
+                continue
+            if src is None or dst.shape != src.shape:
+                raise ValueError(f"optimizer moment {None if src is None else tuple(src.shape)} "
+                                 f"!= {tuple(dst.shape)}")
             dst.copy_(src)
+        self.count.fill_(int(state["count"]))
 
 
-def make_optimizer(cfg: ExperimentConfig, model: torch.nn.Module) -> ClipDecayAdam:
-    """The JAX ``make_optimizer`` chain for ``optimizer="adam"`` and
-    ``embed_optimizer="shared"`` (one optimizer for every parameter, the
-    word table included, densely); other values raise by name."""
-    if cfg.optimizer != "adam":
-        raise ValueError(f"optimizer {cfg.optimizer!r} is not ported yet (adam only)")
-    if cfg.embed_optimizer != "shared":
+def make_optimizer(cfg: ExperimentConfig, model: torch.nn.Module) -> ClipDecayOptimizer:
+    """The JAX ``make_optimizer`` chain for ``cfg.optimizer`` and
+    ``cfg.embed_optimizer`` over every parameter of ``model``."""
+    if cfg.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r} (one of {OPTIMIZERS})")
+    if cfg.embed_optimizer == "lazy":
         raise ValueError(
-            f"embed_optimizer {cfg.embed_optimizer!r} is not ported yet (shared only)"
+            "embed_optimizer 'lazy' is not ported yet: its catch-up is a loop whose trip "
+            "count depends on the data, which a CUDA graph cannot replay (ROADMAP queue A "
+            "item 4); use shared, sgd or frozen"
         )
+    if cfg.embed_optimizer not in EMBED_OPTIMIZERS:
+        raise ValueError(f"unknown embed_optimizer {cfg.embed_optimizer!r} "
+                         f"(one of {EMBED_OPTIMIZERS})")
     if cfg.lr_step_size <= 0 or not math.isfinite(cfg.lr):
         raise ValueError(f"bad schedule: lr={cfg.lr}, lr_step_size={cfg.lr_step_size}")
-    return ClipDecayAdam(
+    names = [n for n, _ in model.named_parameters()]
+    if cfg.embed_optimizer != "shared" and WORD_TABLE not in names:
+        raise ValueError(f"embed_optimizer={cfg.embed_optimizer!r} but the model has no "
+                         f"{WORD_TABLE} parameter: the flag would do nothing")
+    table_rule = {"shared": cfg.optimizer, "sgd": "sgd_plain", "frozen": "frozen"}[
+        cfg.embed_optimizer]
+    return ClipDecayOptimizer(
         model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay,
         lr_step_size=cfg.lr_step_size, lr_gamma=cfg.lr_gamma, grad_clip=cfg.grad_clip,
+        rules=[table_rule if n == WORD_TABLE else cfg.optimizer for n in names],
     )
 
 
@@ -127,25 +189,296 @@ def loss_and_metrics(model, support, query, label, loss_name: str):
     return loss, {"loss": loss.detach(), "accuracy": accuracy(logits.detach(), label)}
 
 
-def train_step(model, opt: ClipDecayAdam, cfg: ExperimentConfig, support, query, label) -> dict:
-    """One update on one batch (numpy or tensor leaves). Returns device
-    scalars: loss, accuracy and the pre-clip gradient norm."""
+def _inputs_on(model, support, query, label):
     dev = model.device
-    support, query = to_device(support, dev), to_device(query, dev)
-    label = torch.as_tensor(label).to(dev)
+    return to_device(support, dev), to_device(query, dev), torch.as_tensor(label).to(dev)
+
+
+def train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, support, query,
+               label) -> dict:
+    """One eager update on one batch (numpy or tensor leaves). Returns
+    device scalars: loss, accuracy and the pre-clip gradient norm."""
+    support, query, label = _inputs_on(model, support, query, label)
     opt.zero_grad()
     loss, metrics = loss_and_metrics(model, support, query, label, cfg.loss)
     loss.backward()
     metrics["grad_norm"] = opt.step()
+    opt.zero_grad()
     return metrics
+
+
+def _eval_metrics(model, cfg, support, query, label) -> dict:
+    logits = model(support, query)
+    return {"loss": LOSS_FNS[cfg.loss](logits, label),
+            **episode_metrics(logits, label, cfg.na_rate > 0)}
 
 
 @torch.inference_mode()
 def eval_step(model, cfg: ExperimentConfig, support, query, label) -> dict:
     """Loss + episode metrics of one batch, without a graph (the K1/K2 route)."""
-    dev = model.device
-    support, query = to_device(support, dev), to_device(query, dev)
-    label = torch.as_tensor(label).to(dev)
-    logits = model(support, query)
-    return {"loss": LOSS_FNS[cfg.loss](logits, label),
-            **episode_metrics(logits, label, cfg.na_rate > 0)}
+    return _eval_metrics(model, cfg, *_inputs_on(model, support, query, label))
+
+
+def eval_metric_keys(cfg: ExperimentConfig) -> tuple:
+    return ("loss", "accuracy") + (("nota_tp", "nota_pred", "nota_true") if cfg.na_rate > 0
+                                   else ())
+
+
+# --- CUDA graphs -------------------------------------------------------------------
+
+
+def batch_leaves(support, query, label) -> list:
+    """(name, numpy array) of every input leaf of a (stacked) batch: what
+    ``CapturedSteps.fill`` copies into a graph's static inputs."""
+    return ([("s_" + k, np.asarray(support[k])) for k in QUERY_KEYS]
+            + [("q_" + k, np.asarray(query[k])) for k in QUERY_KEYS]
+            + [("label", np.asarray(label))])
+
+
+def _batch(dev: dict, i: int):
+    """Batch ``i`` of the stacked static inputs as model inputs."""
+    return ({k: dev["s_" + k][i] for k in QUERY_KEYS}, {k: dev["q_" + k][i] for k in QUERY_KEYS},
+            dev["label"][i])
+
+
+class CapturedSteps:
+    """One CUDA graph of ``run`` over S stacked batches, with its static
+    inputs (pinned host buffers and their device copies) and output.
+
+    ``run(dev) -> [S, k]`` is captured once; ``warm(dev)`` runs first on a
+    side stream, eagerly, and must leave the training state as it was.
+    Each call copies a batch in, replays, and returns a copy of the output.
+    ``pool_bytes`` is what the capture added to the caching allocator's
+    reserve (the graph's private memory pool)."""
+
+    def __init__(self, leaves: list, run, warm, device: torch.device):
+        self.host = {n: torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, pin_memory=True)
+                     for n, a in leaves}
+        self.dev = {n: torch.empty_like(h, device=device) for n, h in self.host.items()}
+        self.copied = torch.cuda.Event()
+        self.fill(leaves)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            warm(self.dev)
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        gc.collect()
+        torch.cuda.empty_cache()        # as the capture does on entry
+        reserved = torch.cuda.memory_reserved(device)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = run(self.dev)
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+
+    def fill(self, leaves: list) -> None:
+        """Copy a batch into the static inputs: into the pinned buffers once
+        the previous call's copies have read them, then to the device on
+        the current stream without a host wait."""
+        self.copied.synchronize()
+        for n, a in leaves:
+            self.host[n].numpy()[...] = a
+        for n, h in self.host.items():
+            self.dev[n].copy_(h, non_blocking=True)
+        self.copied.record()
+
+    def __call__(self, leaves: list) -> torch.Tensor:
+        self.fill(leaves)
+        self.graph.replay()
+        return self.out.clone()
+
+
+class GraphSteps:
+    """``(support_s, query_s, label_s) -> {key: [S] tensor}`` through one
+    ``CapturedSteps`` per input signature (captured at its first call)."""
+
+    def __init__(self, run_of, warm, keys: tuple, device: torch.device):
+        self.run_of, self.warm, self.keys, self.device = run_of, warm, keys, device
+        self.graphs: dict = {}
+
+    def __call__(self, support_s, query_s, label_s) -> dict:
+        leaves = batch_leaves(support_s, query_s, label_s)
+        out = self.captured(leaves)(leaves)
+        return {k: out[:, j] for j, k in enumerate(self.keys)}
+
+    def captured(self, leaves: list) -> CapturedSteps:
+        """The graph of these inputs' signature, captured on first use."""
+        sig = tuple((n, a.shape, a.dtype.str) for n, a in leaves)
+        graph = self.graphs.get(sig)
+        if graph is None:
+            S = leaves[-1][1].shape[0]
+            graph = self.graphs[sig] = CapturedSteps(leaves, self.run_of(S), self.warm,
+                                                     self.device)
+        return graph
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(g.pool_bytes for g in self.graphs.values())
+
+
+def stack1(support, query, label):
+    """One batch as a stack of one: leading axis 1 on every leaf."""
+    return ({k: np.asarray(v)[None] for k, v in support.items()},
+            {k: np.asarray(v)[None] for k, v in query.items()}, np.asarray(label)[None])
+
+
+def _single(multi):
+    """A one-batch callable over an S-step callable run at S = 1."""
+    def step(support, query, label) -> dict:
+        return {k: v[0] for k, v in multi(*stack1(support, query, label)).items()}
+
+    step.graphs = multi
+    return step
+
+
+def _eager_multi(step):
+    def multi(support_s, query_s, label_s) -> dict:
+        outs = [step({k: v[i] for k, v in support_s.items()},
+                     {k: v[i] for k, v in query_s.items()}, label_s[i])
+                for i in range(len(label_s))]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    return multi
+
+
+def _train_graphs(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig) -> GraphSteps:
+    def run_of(S: int):
+        def run(dev) -> torch.Tensor:
+            rows = []
+            for i in range(S):
+                support, query, label = _batch(dev, i)
+                opt.zero_grad()
+                loss, m = loss_and_metrics(model, support, query, label, cfg.loss)
+                loss.backward()
+                rows.append(torch.stack([m["loss"].float(), m["accuracy"].float(), opt.step()]))
+            opt.zero_grad()
+            return torch.stack(rows)
+
+        return run
+
+    def warm(dev) -> None:
+        opt.zero_grad()
+        loss, _ = loss_and_metrics(model, *_batch(dev, 0), cfg.loss)
+        loss.backward()
+        opt.zero_grad()
+        _warm_optim_kernels(model.device)
+
+    return GraphSteps(run_of, warm, TRAIN_METRICS, model.device)
+
+
+def _warm_optim_kernels(device) -> None:
+    """Launch the optimizer pair once on scratch tensors, so their module is
+    loaded before a capture; the training state is not touched."""
+    p = torch.zeros(1, device=device)
+    g, m, v = torch.ones_like(p), torch.zeros_like(p), torch.zeros_like(p)
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    ws = make_workspace([p])
+    norm = optim_sumsq([p], [g], ws)
+    optim_update([p], [g], [m], [v], ["adam"], norm, count,
+                 OptimHyper(1e-3, 0.5, 1, 0.0, 1.0), ws)
+
+
+def _eval_graphs(model, cfg: ExperimentConfig) -> GraphSteps:
+    keys = eval_metric_keys(cfg)
+
+    def run_of(S: int):
+        @torch.inference_mode()
+        def run(dev) -> torch.Tensor:
+            rows = []
+            for i in range(S):
+                m = _eval_metrics(model, cfg, *_batch(dev, i))
+                rows.append(torch.stack([m[k].float() for k in keys]))
+            return torch.stack(rows)
+
+        return run
+
+    @torch.inference_mode()
+    def warm(dev) -> None:
+        _eval_metrics(model, cfg, *_batch(dev, 0))
+
+    return GraphSteps(run_of, warm, keys, model.device)
+
+
+def make_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig):
+    """``(support, query, label) -> {loss, accuracy, grad_norm}`` device
+    scalars (copies). On the card one CUDA-graph replay per call; on the
+    CPU the eager ``train_step``."""
+    if model.device.type != "cuda":
+        return functools.partial(train_step, model, opt, cfg)
+    return _single(_train_graphs(model, opt, cfg))
+
+
+def make_multi_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig):
+    """``(support_s, query_s, label_s)`` stacked [S, ...] -> metrics [S]:
+    S updates per call, the same sequence as S single steps. On the card
+    one replay of a graph of S captured steps; on the CPU S eager steps."""
+    if model.device.type != "cuda":
+        return _eager_multi(functools.partial(train_step, model, opt, cfg))
+    return _train_graphs(model, opt, cfg)
+
+
+def make_eval_step(model, cfg: ExperimentConfig):
+    """``(support, query, label) -> eval metrics`` (K1/K2, no autograd);
+    one graph replay per call on the card, ``eval_step`` on the CPU."""
+    if model.device.type != "cuda":
+        return functools.partial(eval_step, model, cfg)
+    return _single(_eval_graphs(model, cfg))
+
+
+def make_multi_eval_step(model, cfg: ExperimentConfig):
+    """Eval metrics [S] of S stacked batches per call (one replay on the
+    card); the same values as S calls of the single eval step."""
+    if model.device.type != "cuda":
+        return _eager_multi(functools.partial(eval_step, model, cfg))
+    return _eval_graphs(model, cfg)
+
+
+# --- grad probe ---------------------------------------------------------------------
+
+
+def probe_reference_config(cfg: ExperimentConfig) -> ExperimentConfig:
+    """The probe's reference: all f32, the plain backends, and the
+    full-residual route (the JAX probe's scan LSTM keeps no window)."""
+    return cfg.replace(compute_dtype="float32", head_dtype="float32",
+                       lstm_backend="reference", attn_backend="reference",
+                       lstm_cs_window=0, lstm_residuals="f32")
+
+
+def _flat_grad(model, cfg, support, query, label) -> torch.Tensor:
+    """Every parameter's gradient of the loss on one batch, flattened in
+    f32 (zeros for a parameter with none, as a frozen table); no ``.grad``
+    is touched."""
+    params = list(model.parameters())
+    loss, _ = loss_and_metrics(model, support, query, label, cfg.loss)
+    grads = torch.autograd.grad(loss, [p for p in params if p.requires_grad],
+                                allow_unused=True)
+    grads = iter(grads)
+    flat = [(next(grads) if p.requires_grad else None) for p in params]
+    return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1).float()
+                      for p, g in zip(params, flat)])
+
+
+def make_grad_probe(model, cfg: ExperimentConfig):
+    """``(support, query, label) -> {grad_norm, grad_norm_f32,
+    grad_cosine}`` (f32 device scalars): the run-config gradient and the
+    reference gradient (``probe_reference_config``) on the same batch and
+    weights, all three inner products through one reduction (``torch.dot``
+    in f32) so its rounding is common to the norms and the cosine, and a
+    shared epsilon (two zero gradients agree: cosine 1). Eager; touches no
+    training state."""
+    from induction_network_on_fewrel_tpu_torch.models.build import build_model
+
+    ref_cfg = probe_reference_config(cfg)
+    ref_model = build_model(ref_cfg, device=model.device)
+
+    def probe(support, query, label) -> dict:
+        ref_model.load_state_dict(model.state_dict())
+        batch = _inputs_on(model, support, query, label)
+        g_run = _flat_grad(model, cfg, *batch)
+        g_ref = _flat_grad(ref_model, ref_cfg, *batch)
+        d_rr, d_ff, d_rf = torch.dot(g_run, g_run), torch.dot(g_ref, g_ref), torch.dot(g_run, g_ref)
+        cos = (d_rf + 1e-30) / (torch.sqrt(d_rr * d_ff) + 1e-30)
+        return {"grad_norm": torch.sqrt(d_rr), "grad_norm_f32": torch.sqrt(d_ff),
+                "grad_cosine": cos}
+
+    return probe

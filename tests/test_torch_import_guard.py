@@ -98,3 +98,20 @@ def test_entry_points_refuse_to_run_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(ExperimentConfig(vocab_size=12), device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("module,wrappers", [("ops.optim", ("optim_sumsq", "optim_update")),
+                                             ("ops.segsum", ())])
+def test_kernel_modules_of_the_training_step_are_guarded(module, wrappers):
+    """The optimizer pair's and the segment sum's modules are among the
+    sources scanned above (and so among the modules imported with JAX
+    blocked); each kernel wrapper counts its launches. The segment sum is
+    a library call (``index_add_``) and counts none."""
+    import importlib
+
+    assert PORT / (module.replace(".", "/") + ".py") in _sources()
+    mod = importlib.import_module(f"induction_network_on_fewrel_tpu_torch.{module}")
+    for name in wrappers:
+        assert isinstance(getattr(mod, name).launches, int), name
+    if not wrappers:
+        assert not hasattr(mod.segsum, "launches")

@@ -10,6 +10,9 @@
   normal (std within 3 %, |w| <= 2 std / 0.87962566 ~ 2.27 std, which an
   untruncated normal of 245 760 draws exceeds by far) and orthogonal
   recurrent weights.
+* The word table is a copy of ``glove_init``: on the CPU an update of one
+  model's table reaches neither the caller's array nor another model
+  built from it.
 """
 
 import math
@@ -136,3 +139,14 @@ def test_w_hh_is_orthogonal_like_flax(fresh_model):
         w = fresh_model.encoder.w_hh[d].detach()
         torch.testing.assert_close(w @ w.T, torch.eye(128), atol=1e-5, rtol=0)
     assert not torch.equal(fresh_model.encoder.w_hh[0], fresh_model.encoder.w_hh[1])
+
+
+def test_glove_init_is_copied():
+    cfg = ExperimentConfig(vocab_size=12, word_dim=4, pos_dim=2, max_length=6, lstm_hidden=4,
+                           att_dim=4)
+    glove = np.arange(48, dtype=np.float32).reshape(12, 4)
+    a, b = (tbuild.build_model(cfg, glove_init=glove, device="cpu") for _ in range(2))
+    with torch.no_grad():
+        a.embedding.word_embedding.add_(1.0)
+    np.testing.assert_array_equal(glove, np.arange(48, dtype=np.float32).reshape(12, 4))
+    np.testing.assert_array_equal(b.embedding.word_embedding.detach().numpy(), glove)

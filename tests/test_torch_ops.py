@@ -216,7 +216,8 @@ def test_launcher_argtypes_match_the_c_signature(name):
     extern_c = src[src.index('extern "C" {'):]
     m = re.search(rf"\bint {name}\(([^)]*)\)\s*{{", extern_c)
     assert m, f"{name} not found in {stem}.cu"
-    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong}
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
     params = [" ".join(p.replace("const ", "").split()[:-1]) for p in m.group(1).split(",")]
     assert [kinds[p] for p in params] == argtypes
     assert params[-1] == "void*"                 # the stream comes last

@@ -45,7 +45,11 @@ from induction_network_on_fewrel_tpu_torch.models.build import build_model, reso
 from induction_network_on_fewrel_tpu_torch.models.losses import episode_metrics, mse_onehot_loss
 from induction_network_on_fewrel_tpu_torch.sampling.episodes import EpisodeSampler
 from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
-from induction_network_on_fewrel_tpu_torch.train.steps import ClipDecayAdam, make_optimizer, train_step
+from induction_network_on_fewrel_tpu_torch.train.steps import (
+    ClipDecayOptimizer,
+    make_optimizer,
+    train_step,
+)
 
 SMALL = dict(
     vocab_size=60, max_length=12, word_dim=10, pos_dim=2, lstm_hidden=16,
@@ -74,7 +78,7 @@ def test_optimizer_matches_optax_chain():
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = tx.init(jp)
     tp = [torch.nn.Parameter(torch.from_numpy(v.copy())) for v in params.values()]
-    opt = ClipDecayAdam(tp, **cfg)
+    opt = ClipDecayOptimizer(tp, **cfg)
     clipped = []
     for step, scale in enumerate([0.05, 3.0, 0.1, 5.0, 0.02, 2.0, 0.3]):
         grads = {k: (rng.normal(size=v.shape) * scale).astype(np.float32)
@@ -95,14 +99,18 @@ def test_optimizer_matches_optax_chain():
 def test_optimizer_clip_has_no_epsilon_and_decay_is_coupled():
     """A gradient of norm exactly 2 with clip 1 is halved (clip_grad_norm_
     would divide by 2 + 1e-6); with lr_step_size huge and one update, the
-    update direction includes wd * p before Adam's normalization."""
+    update direction includes wd * p before Adam's normalization. The bias
+    corrections 1 - b^1 are f32 values, as optax computes them on the
+    device (with lr = 1 their rounding shows at 1e-5)."""
     p = torch.nn.Parameter(torch.tensor([3.0, -4.0]))
-    opt = ClipDecayAdam([p], lr=1.0, weight_decay=0.5, lr_step_size=10**9, lr_gamma=0.5,
-                        grad_clip=1.0)
+    opt = ClipDecayOptimizer([p], lr=1.0, weight_decay=0.5, lr_step_size=10**9, lr_gamma=0.5,
+                             grad_clip=1.0)
     p.grad = torch.tensor([2.0, 0.0])
     opt.step()
     g = torch.tensor([1.0, 0.0]) + 0.5 * torch.tensor([3.0, -4.0])    # clipped + decay
-    expect = torch.tensor([3.0, -4.0]) - g / (g.abs() + 1e-8)         # first Adam step
+    m, v = (1 - 0.9) * g, (1 - 0.999) * g * g                         # first moments
+    bc1, bc2 = 1 - torch.tensor(0.9), 1 - torch.tensor(0.999)         # f32, as optax
+    expect = torch.tensor([3.0, -4.0]) - (m / bc1) / (torch.sqrt(v / bc2) + 1e-8)
     torch.testing.assert_close(p.detach(), expect, rtol=1e-6, atol=1e-6)
 
 
@@ -110,17 +118,17 @@ def test_optimizer_refuses_unported_choices():
     model = build_model(ExperimentConfig(**SMALL), device="cpu")
     with pytest.raises(ValueError, match="embed_optimizer 'lazy' is not ported"):
         make_optimizer(ExperimentConfig(**SMALL, embed_optimizer="lazy"), model)
-    with pytest.raises(ValueError, match="optimizer 'sgd' is not ported"):
-        make_optimizer(ExperimentConfig(**SMALL, optimizer="sgd"), model)
+    with pytest.raises(ValueError, match="unknown optimizer 'rmsprop'"):
+        make_optimizer(ExperimentConfig(**SMALL, optimizer="rmsprop"), model)
 
 
 def test_optimizer_state_round_trip():
     p = torch.nn.Parameter(torch.ones(3))
-    opt = ClipDecayAdam([p], lr=0.1, weight_decay=0.0, lr_step_size=2, lr_gamma=0.5,
+    opt = ClipDecayOptimizer([p], lr=0.1, weight_decay=0.0, lr_step_size=2, lr_gamma=0.5,
                         grad_clip=10.0)
     p.grad = torch.ones(3)
     opt.step()
-    other = ClipDecayAdam([torch.nn.Parameter(torch.ones(3))], lr=0.1, weight_decay=0.0,
+    other = ClipDecayOptimizer([torch.nn.Parameter(torch.ones(3))], lr=0.1, weight_decay=0.0,
                           lr_step_size=2, lr_gamma=0.5, grad_clip=10.0)
     other.load_state_dict(opt.state_dict())
     assert other.count == 1 and torch.equal(other.mu[0], opt.mu[0])
