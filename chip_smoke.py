@@ -21,11 +21,38 @@ exits non-zero; no phase catches a failure of its own):
    its plan (ops/attn.py:attn_fwd_plan).
 4. Main path: the flagship model (400 002 x 50 synthetic GloVe table, bf16
    encoder, f32 head, seeded fresh init) behind ``InferenceEngine``: one
-   tenant of 5 relations registered at K=5, 64 requests answered through
-   ``classify_batch`` in buckets 1, 4 and 16. The kernels' launch counts
-   are zeroed just before and read just after; both must have launched.
-   Logits are held against an engine on the same weights with the plain
-   ("reference") backends on the same card.
+   tenant of 5 relations registered at K=5 (tier 8), its query graphs
+   captured at ``warmup``, 64 requests answered through ``classify_batch``
+   in buckets 1, 4 and 16 as graph replays. The kernels' launch counts are
+   zeroed just before and read just after; both must have launched (the
+   distil, and the graphs' warm-ups and captures). Logits are held against
+   an engine on the same weights with the plain ("reference") backends on
+   the same card; request latency per bucket and the host split.
+4b. (run after phase 10, on phase 9's best checkpoint) A correctness load
+   through the continuous batcher: ~400 requests in bursts of 1-16 for two
+   tenants of different N (tiers 4 and 8), a tier-crossing registration
+   (tier 16, captured during traffic) and a ``publish_params`` mid-run;
+   nothing shed, dropped or degraded, no capture after warmup but the
+   crossing's, every verdict's logits the eager scoring of its query on
+   its own snapshot's weights; a profiled window with one K1 and one K2
+   launch per executed batch; each bucket's graph replay vs the eager
+   ``QueryRunner`` at f32. Its rate is no measurement.
+4c. In a process of its own (``chip_smoke.py --sweep``, which holds only
+   the serving plane), an engine on the checkpoint with tenants of 9 and 6
+   relations: its capacity on single-query requests from one client
+   thread (served/s with 64 closed-loop clients), then Poisson arrivals at
+   30, 60 and 90 % of it, 3 s each: offered and served/s, queue depth,
+   shed, latency p50/p99 overall and per bucket (p99 only from 50 requests
+   up), the host split per batch, the longest gap between completions and
+   the garbage collector's pauses.
+4a. ``serve_main`` on the checkpoint, on the card, with a synthetic support
+   file and query file in a temp dir, tiers on, at resident f32, bf16 and
+   int8 with K1/K2, then at f32 with the plain backends: every verdict
+   served (no error, shed or degraded verdict, no capture after warmup),
+   the kernels' wrapper counts zeroed before and read after; f32 logits
+   and labels vs the plain backends; bf16 and int8 vs f32, each bar
+   checked to lie between the sound residency's reading and a planted
+   fault's (int8 scale 1 % high; bf16 vectors rounded through fp8).
 5. Episode forward: B=4 episodes of 5-way 5-shot with 5 queries per class
    (200 encoder rows) through the kernels vs the plain backends.
 6. Training kernels vs their plain versions: K7 (windowed BiLSTM forward),
@@ -117,9 +144,10 @@ exits non-zero; no phase catches a failure of its own):
    and the same profiles.
 11. A ``{"kernels": [...]}`` line for the fourteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards and the
-   optimizer pair), a ``{"training_step": ...}`` line of the step's
-   figures and the segment sum's, then the last line ``{"ok": true,
-   "device": {...}}``.
+   optimizer pair; K1 and K2 with the serving phases' counts), a
+   ``{"training_step": ...}`` line of the step's figures and the segment
+   sum's, a ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
 port's package is not beside it (rc 1, with a message naming the package).
@@ -128,12 +156,14 @@ port's package is not beside it (rc 1, with a message naming the package).
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1633,6 +1663,8 @@ def train_main_path() -> dict:
             or "loaded best checkpoint" not in err.getvalue():
         raise AssertionError(f"test_main: rc {rc}, {result}, {err.getvalue()!r}")
     print(f"[test] test_main reloaded the best checkpoint: {result}", flush=True)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    shutil.copytree(ckpt, SERVE_DIR / "ckpt")       # served by phases 4a-4c
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     eager = profile_eager_steps(trainer)
     on = ("K7", "K8") + STEP_KERNELS
@@ -1730,6 +1762,530 @@ def train_full_residual(w8: dict) -> dict:
             "prof4": prof4}
 
 
+# --- The serving plane on a trained checkpoint (phases 4a-4c) -------------------
+
+SERVE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
+SERVE_KERNELS = {"K1": bilstm_infer_cuda, "K2": attn_fwd_cuda}
+SERVE_BUCKETS = (1, 2, 4, 8, 16)
+SERVE_RELATIONS = 10
+SERVE_TIERS = "4,8,16,32,64"
+# Resident bf16 / int8 class matrices vs f32 on the same checkpoint and
+# queries: max abs logit difference over the f32 logits' scale. Each bar
+# lies between two readings that phase 4a takes in every run on the same
+# queries: the sound residency's (served by serve_main, and scored eagerly)
+# and a planted fault's (PLANTED): int8 with its dequant scale 1 % off,
+# bf16 vectors rounded through fp8 e4m3 (3 mantissa bits). The run fails
+# unless sound <= bar < fault.
+RESIDENT_REL_TOL = {"bf16": 1.5e-3, "int8": 3e-3}
+PLANTED = {"bf16": "bf16 vectors rounded through fp8 e4m3", "int8": "int8 scale 1 % high"}
+# A graph replay vs the eager scorer on the same weights, matrix and
+# queries, f32 residency: the same kernels on the same inputs.
+GRAPH_EAGER_TOL = 1e-6
+# Phase 4b is a correctness load: bursts of 1-16 requests at this mean gap
+# keep traffic in flight through a tier crossing and a publish. Its rate
+# is no measurement; the latency and throughput figures come from 4c.
+OPEN_LOOP_REQUESTS = 400
+OPEN_LOOP_GAP_S = 0.008
+# Phase 4c, a capacity sweep of single-query requests (one client thread,
+# two tenants). Capacity: served/s with CAPACITY_CLIENTS closed-loop
+# clients for CAPACITY_S. Then Poisson arrivals at SWEEP_FRACTIONS of that
+# capacity, each held SWEEP_HOLD_S. A bucket's p99 is printed only from
+# MIN_P99_N requests up.
+CAPACITY_CLIENTS = 64
+CAPACITY_S = 2.0
+SWEEP_FRACTIONS = (0.3, 0.6, 0.9)
+SWEEP_HOLD_S = 3.0
+MIN_P99_N = 50
+
+
+def raw_instance(inst) -> dict:
+    """A synthetic instance in the FewRel JSON schema."""
+    return {"tokens": list(inst.tokens), "h": [inst.head_name, "Q1", [list(inst.head_pos)]],
+            "t": [inst.tail_name, "Q2", [list(inst.tail_pos)]]}
+
+
+def serve_dataset(cfg):
+    return make_synthetic_fewrel(num_relations=SERVE_RELATIONS, instances_per_relation=30,
+                                 vocab_size=cfg.vocab_size - 2, sentence_len=(10, 60), seed=5)
+
+
+def serve_checkpoint(cfg) -> dict:
+    """Phase 4a: ``serve_main`` on phase 9's best checkpoint, on the card,
+    with a synthetic support file (K supports of each relation) and query
+    file (8 held-out instances of each) written to a temp dir, tiers on, at
+    resident f32, bf16 and int8, with K1/K2; then at f32 with the plain
+    backends. Every verdict must be served (no error, shed or degraded
+    verdict, no capture after warmup); labels and f32 logits vs the plain
+    backends, bf16 and int8 vs f32."""
+    from induction_network_on_fewrel_tpu_torch.serving.cli import serve_main
+
+    ds = serve_dataset(cfg)
+    support, queries = SERVE_DIR / "support.json", SERVE_DIR / "queries.jsonl"
+    support.write_text(json.dumps({r: [raw_instance(i) for i in ds.instances[r][:cfg.k]]
+                                   for r in ds.rel_names}))
+    lines = [json.dumps(raw_instance(i)) for r in ds.rel_names
+             for i in ds.instances[r][cfg.k:cfg.k + 8]]
+    queries.write_text("\n".join(lines) + "\n")
+    base = ["--load_ckpt", str(SERVE_DIR / "ckpt"), "--support_file", str(support), "--input",
+            str(queries), "--K", str(cfg.k), "--geometry_tiers", SERVE_TIERS]
+
+    def serve(*extra) -> dict:
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = serve_main(base + list(extra))
+        seconds = time.monotonic() - t0
+        verdicts = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+        text = err.getvalue()
+        stats = json.loads(text.split("serve stats: ")[1].splitlines()[0])
+        warm = re.search(r"warmup: (\d+) query programs \((\d+) CUDA graphs\)", text)
+        bad = [v for v in verdicts if "error" in v or "shed" in v or v.get("degraded")]
+        if rc != 0 or len(verdicts) != len(lines) or bad or warm is None:
+            raise AssertionError(f"serve_main {extra}: rc {rc}, {len(verdicts)} verdicts, "
+                                 f"bad {bad[:2]}, stderr {text[-2000:]!r}")
+        if (stats["served"], stats["execute_errors"], stats["degraded"], stats["breaker_shed"],
+                stats["rejected"], stats["steady_recompiles"]) != (len(lines), 0, 0, 0, 0, 0):
+            raise AssertionError(f"serve_main {extra}: stats {stats}")
+        logits = np.array([list(v["logits"].values()) for v in verdicts])
+        if not np.isfinite(logits).all():
+            raise AssertionError(f"serve_main {extra}: non-finite logits")
+        return {"verdicts": verdicts, "logits": logits, "stats": stats, "seconds": seconds,
+                "programs": int(warm.group(1)), "graphs": int(warm.group(2))}
+
+    torch.cuda.synchronize()
+    for fn in SERVE_KERNELS.values():
+        fn.launches = 0
+    runs = {dt: serve("--resident_dtype", dt) for dt in ("f32", "bf16", "int8")}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in SERVE_KERNELS.items()}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"serve_main did not go through both kernels: {launches}")
+    ref = serve("--resident_dtype", "f32", "--lstm_backend", "reference", "--attn_backend",
+                "reference")
+    if {k: fn.launches for k, fn in SERVE_KERNELS.items()} != launches:
+        raise AssertionError("the plain-backend serve_main launched a kernel")
+    f32, want = runs["f32"]["logits"], ref["logits"]
+    scale = float(np.abs(want).max())
+    err = float(np.abs(f32 - want).max())
+    if err > LOGIT_REL_TOL * scale:
+        raise AssertionError(f"serve_main f32 logits vs plain backends: {err} > "
+                             f"{LOGIT_REL_TOL}*{scale}")
+    clear = [v["margin"] > 2 * LOGIT_REL_TOL * scale for v in ref["verdicts"]]
+    flips = [i for i, (a, b) in enumerate(zip(runs["f32"]["verdicts"], ref["verdicts"]))
+             if a["label"] != b["label"]]
+    if any(clear[i] for i in flips):
+        raise AssertionError(f"serve_main labels disagree with the plain backends at {flips}")
+    out = {"launches": launches, "f32_vs_plain": err / scale, "label_flips_vs_plain": len(flips),
+           "seconds": {dt: round(r["seconds"], 2) for dt, r in runs.items()},
+           "graphs": {dt: r["graphs"] for dt, r in runs.items()}}
+    print(f"[serve 4a] serve_main on phase 9's checkpoint: {len(lines)} queries over "
+          f"{SERVE_RELATIONS} relations (tier 16) at f32/bf16/int8 in {out['seconds']} s, "
+          f"graphs {out['graphs']}; wrapper launches (warm-ups, captures, distils) {launches}; "
+          f"f32 logits vs plain backends max abs err {err:.3g} at scale {scale:.3g} (rel tol "
+          f"{LOGIT_REL_TOL}); label flips {len(flips)} (none where the plain margin clears "
+          f"2x the bar)", flush=True)
+    eager = resident_readings(cfg, support, lines, f32, scale)
+    out["eager"] = eager
+    for dt in ("bf16", "int8"):
+        d = float(np.abs(runs[dt]["logits"] - f32).max())
+        agree = float(np.mean([a["label"] == b["label"] for a, b in
+                               zip(runs[dt]["verdicts"], runs["f32"]["verdicts"])]))
+        bar = RESIDENT_REL_TOL[dt]
+        print(f"[serve 4a] {dt} vs f32: max abs logit diff {d:.3g} ({d / scale:.3g} of scale; "
+              f"eager {eager[dt]:.3g}; planted fault, {PLANTED[dt]}: {eager[dt + ' fault']:.3g}; "
+              f"bar {bar}); label agreement {agree:.4f}; resident bytes "
+              f"{runs[dt]['stats']['resident_bytes']} vs {runs['f32']['stats']['resident_bytes']}",
+              flush=True)
+        if max(d / scale, eager[dt]) > bar or eager[dt + " fault"] <= bar:
+            raise AssertionError(f"{dt} vs f32: sound {d / scale:.3g} (eager {eager[dt]:.3g}) "
+                                 f"and planted fault {eager[dt + ' fault']:.3g} do not lie "
+                                 f"either side of the bar {bar}")
+        out[f"{dt}_vs_f32"], out[f"{dt}_label_agreement"] = d / scale, agree
+    return out
+
+
+def resident_readings(cfg, support: Path, lines: list, served_f32: np.ndarray,
+                      scale: float) -> dict:
+    """Phase 4a's queries scored eagerly (K1, K2), one at a time, on the f32
+    snapshot's class matrix in each resident form, sound and with its
+    planted fault (PLANTED): each form's max abs logit difference from the
+    eager f32 scoring over ``scale``. The eager f32 logits must equal what
+    serve_main served at f32 (``served_f32``) within GRAPH_EAGER_TOL."""
+    from induction_network_on_fewrel_tpu_torch.data import load_fewrel_json
+    from induction_network_on_fewrel_tpu_torch.serving.buckets import QueryRunner, stack_queries
+    from induction_network_on_fewrel_tpu_torch.serving.registry import quantize_int8
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        engine = InferenceEngine.from_checkpoint(str(SERVE_DIR / "ckpt"), k=cfg.k,
+                                                 geometry_tiers=SERVE_TIERS, start=False)
+    try:
+        engine.register_dataset(load_fewrel_json(str(support)))
+        snap = engine.registry.snapshot()
+        stack = snap.matrix.float().cpu()
+        q, s = quantize_int8(stack.numpy())
+        q = torch.from_numpy(q)
+        forms = {"f32": (stack, None), "int8": (q, s), "int8 fault": (q, np.float32(s * 1.01)),
+                 "bf16": (stack.bfloat16(), None),
+                 "bf16 fault": (stack.to(torch.float8_e4m3fn).bfloat16(), None)}
+        runner = QueryRunner(engine.registry.banks[snap.bank])
+        queries = [stack_queries([engine._tokenize(json.loads(ln))], 1) for ln in lines]
+        cols = list(range(snap.n_classes)) + ([-1] if engine.nota else [])
+        logits = {name: np.stack([runner.run(mat, qy, sc)[0][cols] for qy in queries])
+                  for name, (mat, sc) in forms.items()}
+    finally:
+        engine.close()
+    graph_err = float(np.abs(logits["f32"] - served_f32).max()) / scale
+    if graph_err > GRAPH_EAGER_TOL:
+        raise AssertionError(f"eager f32 vs serve_main f32: {graph_err} > {GRAPH_EAGER_TOL}")
+    out = {name: float(np.abs(x - logits["f32"]).max()) / scale
+           for name, x in logits.items() if name != "f32"}
+    out["f32_vs_served"] = graph_err
+    return out
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def serve_traffic(cfg) -> dict:
+    """Phase 4b: ``InferenceEngine.from_checkpoint`` (phase 9's checkpoint)
+    under a correctness load through the continuous batcher: bursts of 1-16
+    requests at exponential gaps for two tenants of 3 and 6 relations
+    (tiers 4 and 8), in four segments; after the first, tenant a grows to 9
+    relations (tier 16, whose graphs are captured then, on this thread,
+    while the worker replays), after the second new weights are published,
+    and traffic keeps arriving until each has committed. Every
+    request must be served (nothing shed, dropped or degraded), nothing
+    captured after warmup but the crossing's warm-up, and each verdict's
+    logits must be the eager scoring of its query on its own snapshot's
+    weights and matrix. Then a profiled window (one K1 and one K2 launch per
+    executed batch) and each bucket's graph against the eager scorer."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from induction_network_on_fewrel_tpu_torch.serving.batcher import Saturated
+    from induction_network_on_fewrel_tpu_torch.serving.buckets import QueryRunner, stack_queries
+
+    ds = serve_dataset(cfg)
+    with contextlib.redirect_stderr(io.StringIO()):
+        engine = InferenceEngine.from_checkpoint(
+            str(SERVE_DIR / "ckpt"), k=cfg.k, buckets=SERVE_BUCKETS, max_queue_depth=8192,
+            tenant_share=0.75, default_deadline_s=10.0)
+    snaps: dict = {}
+
+    def note(*tenants):
+        for t in tenants:
+            snap = engine.registry.snapshot(t)
+            snaps[snap.version] = snap
+
+    engine.register_dataset(ds, max_classes=3, tenant="a")
+    engine.register_dataset(ds, max_classes=6, tenant="b")
+    note("a", "b")
+    made = engine.warmup()
+    captures0 = engine.programs.captures
+    old_sd = {k: v.clone() for k, v in engine.registry.model.state_dict().items()}
+    new_sd = build_model(engine.cfg.replace(seed=1)).state_dict()
+    pool = [i for r in ds.rel_names[:9] for i in ds.instances[r][cfg.k:]]
+    rng = np.random.default_rng(0)
+    # Four segments of open-loop bursts; the second runs on until the
+    # crossing registration has committed and the third until the publish
+    # has, so traffic is in flight through both and after each.
+    per_segment = max(1, OPEN_LOOP_REQUESTS // (4 * 8))
+    marks, done = [threading.Event(), threading.Event()], [threading.Event(), threading.Event()]
+    reqs, shed, bursts = [], [0], [0]
+
+    def segment(count: int, until=None):
+        j = 0
+        while j < count or (until is not None and not until.is_set()):
+            clock[0] += rng.exponential(OPEN_LOOP_GAP_S)
+            delay = clock[0] - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            tenant = "ab"[bursts[0] % 2]
+            for _ in range(int(rng.integers(1, 17))):
+                inst = pool[int(rng.integers(len(pool)))]
+                try:
+                    reqs.append((tenant, inst, engine.submit(inst, tenant=tenant)))
+                except Saturated:
+                    shed[0] += 1
+            bursts[0] += 1
+            j += 1
+
+    def generate():
+        segment(per_segment)
+        marks[0].set()
+        segment(per_segment, done[0])
+        marks[1].set()
+        segment(per_segment, done[1])
+        segment(per_segment)
+
+    torch.cuda.synchronize()
+    for fn in SERVE_KERNELS.values():
+        fn.launches = 0
+    stats0 = engine.stats.snapshot()
+    t0 = time.monotonic()
+    clock = [t0]
+    gen = threading.Thread(target=generate)
+    gen.start()
+    marks[0].wait()
+    engine.register_dataset(ds, max_classes=9, tenant="a")    # tier 4 -> 16, captured now
+    note("a")
+    done[0].set()
+    marks[1].wait()
+    engine.publish_params(new_sd)
+    note("a", "b")
+    done[1].set()
+    gen.join()
+    verdicts, errors = [], []
+    for tenant, inst, fut in reqs:
+        try:
+            verdicts.append((inst, fut.result(timeout=60.0)))
+        except Exception as e:  # noqa: BLE001 — any failure is a drop
+            errors.append(f"{type(e).__name__}: {e}")
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in SERVE_KERNELS.items()}
+    stats1 = engine.stats.snapshot()
+    crossing = engine.programs.captures - captures0
+    served = stats1["served"] - stats0["served"]
+    if errors or shed[0] or stats1["degraded"] or stats1["execute_errors"] or \
+            served != len(reqs):
+        raise AssertionError(f"open loop: {len(errors)} errors {errors[:2]}, {shed[0]} shed, "
+                             f"stats {stats1}")
+    if stats1["steady_recompiles"] or crossing != len(engine.registry.banks) * len(
+            SERVE_BUCKETS) or min(launches.values()) == 0:
+        raise AssertionError(f"open loop: steady recompiles {stats1['steady_recompiles']}, "
+                             f"crossing captures {crossing}, wrapper launches {launches}")
+    pvs = sorted({snaps[v["snapshot_version"]].params_version for _, v in verdicts})
+    if pvs != [0, 1]:
+        raise AssertionError(f"open loop: verdicts on params versions {pvs}, expected [0, 1]")
+
+    # Each verdict on its own snapshot's weights: eager rescoring (K1, K2).
+    refs = {0: build_model(engine.cfg), 1: build_model(engine.cfg)}
+    refs[0].load_state_dict(old_sd)
+    refs[1].load_state_dict(new_sd)
+    worst, apart = 0.0, 0.0
+    for inst, v in verdicts:
+        snap = snaps[v["snapshot_version"]]
+        t = engine.tokenizer(inst)
+        query = stack_queries([{k: getattr(t, k) for k in QUERY_DTYPES}], 1)
+        n = snap.n_classes
+        row = QueryRunner(refs[snap.params_version]).run(snap.matrix, query)[0][:n]
+        other = QueryRunner(refs[1 - snap.params_version]).run(snap.matrix, query)[0][:n]
+        got = np.array(list(v["logits"].values()))
+        sc = float(np.abs(row).max())
+        worst = max(worst, float(np.abs(got - row).max()) / sc)
+        apart = max(apart, float(np.abs(got - other).max()) / sc)
+    if worst > LOGIT_REL_TOL or apart < 10 * LOGIT_REL_TOL:
+        raise AssertionError(f"open loop: verdicts vs their snapshots' weights {worst} (tol "
+                             f"{LOGIT_REL_TOL}); vs the other weights only {apart}")
+    print(f"[serve 4b] correctness load: {len(reqs)} requests in {bursts[0]} bursts of 1-16 "
+          f"over {wall:.2f} s, tenants a 3 -> 9 relations (tier 4 -> 16, {crossing} graphs "
+          f"captured during traffic) and b 6 (tier 8); warmup made {made} programs ({captures0} "
+          f"graphs); publish mid-run; shed {shed[0]}, errors 0, degraded 0, steady recompiles "
+          f"0; wrapper launches {launches}; verdicts on params versions {pvs}, each within "
+          f"{worst:.3g} of its snapshot's weights (rel tol {LOGIT_REL_TOL}; {apart:.3g} from "
+          f"the other weights); batches {stats1['batches'] - stats0['batches']}", flush=True)
+
+    # One K1 and one K2 launch per executed batch, by the profiler.
+    b0 = engine.stats.batches
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_prof = time.monotonic()
+        futs = []
+        for j in range(24):
+            futs += [engine.submit(pool[(j * 7 + i) % len(pool)], tenant="ab"[j % 2])
+                     for i in range(1 + j % 16)]
+            time.sleep(0.002)
+        for f in futs:
+            f.result(timeout=60.0)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.monotonic() - t_prof) * 1e3
+    batches = engine.stats.batches - b0
+    rows = profile_rows(prof)
+    counts = profiled_counts(rows)
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    want = {k: batches if k in ("K1", "K2") else 0 for k in PROFILED}
+    if counts != want:
+        raise AssertionError(f"profiled serving window: {counts}, expected {want}")
+    print(f"[serve 4b] profiled window: {len(futs)} requests in {batches} batches; launches "
+          f"(profiler) K1 {counts['K1']}, K2 {counts['K2']}, no other hand kernel; device busy "
+          f"{busy_ms / batches:.3f} ms/batch, {sum(r[2] for r in rows) / batches:.1f} "
+          f"launches/batch, {busy_ms / prof_wall_ms:.1%} of the window's wall", flush=True)
+    for key, us, n in rows[:8]:
+        print(f"[serve 4b]   {us / batches / 1e3:8.4f} ms/batch {n / batches:5.1f}x  {key[:90]}",
+              flush=True)
+    engine.close()
+
+    # Each bucket's graph vs the eager scorer, f32 residency, same weights.
+    snap = engine.registry.snapshot("b")
+    graph_err = 0.0
+    for b in SERVE_BUCKETS:
+        ts = [engine.tokenizer(i) for i in pool[:b]]
+        query = stack_queries([{k: getattr(t, k) for k in QUERY_DTYPES} for t in ts], b)
+        got = engine.programs.run(snap.bank, snap.matrix, query)
+        want_b = QueryRunner(engine.registry.banks[snap.bank]).run(snap.matrix, query)
+        graph_err = max(graph_err, float(np.abs(got - want_b).max() / np.abs(want_b).max()))
+    if graph_err > GRAPH_EAGER_TOL:
+        raise AssertionError(f"graph replay vs eager: {graph_err} > {GRAPH_EAGER_TOL} of scale")
+    print(f"[serve 4b] graph replay vs eager QueryRunner, buckets {SERVE_BUCKETS}, f32: max "
+          f"abs err {graph_err:.3g} of scale (tol {GRAPH_EAGER_TOL})", flush=True)
+    return {"launches": launches, "profiled": {k: counts[k] for k in ("K1", "K2")},
+            "profiled_batches": batches, "busy_ms_per_batch": busy_ms / batches,
+            "busy_share": busy_ms / prof_wall_ms, "requests": len(reqs), "shed": shed[0],
+            "crossing_graphs": crossing, "warmup_programs": made, "warmup_graphs": captures0,
+            "pin_err": worst, "graph_vs_eager": graph_err}
+
+
+def sweep_process() -> dict:
+    """Phase 4c in a process of its own (``chip_smoke.py --sweep``), which
+    holds only the serving plane, as a serving process does: this one's heap
+    holds every earlier phase's objects, and the garbage collector's pauses
+    grow with them. Echoes its lines and returns its figures."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--sweep"],
+                          capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if line.startswith("[serve 4c]"):
+            print(line, flush=True)
+    if proc.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"phase 4c: rc {proc.returncode}, stderr {proc.stderr[-3000:]!r}")
+    return json.loads(lines[-1])
+
+
+def sweep_main() -> int:
+    """Phase 4c's process: an engine on phase 9's checkpoint with tenants a
+    (9 relations, tier 16) and b (6, tier 8), its graphs captured at
+    warmup, then ``serve_sweep``; the figures go out as the last line."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke --sweep: torch.cuda.is_available() is False")
+    with contextlib.redirect_stderr(io.StringIO()):
+        engine = InferenceEngine.from_checkpoint(
+            str(SERVE_DIR / "ckpt"), buckets=SERVE_BUCKETS, max_queue_depth=8192,
+            tenant_share=0.75, default_deadline_s=10.0)
+    try:
+        ds = serve_dataset(engine.cfg)
+        engine.register_dataset(ds, max_classes=9, tenant="a")
+        engine.register_dataset(ds, max_classes=6, tenant="b")
+        engine.warmup()
+        k = engine.registry.k
+        sweep = serve_sweep(engine, [i for r in ds.rel_names[:9] for i in ds.instances[r][k:]])
+    finally:
+        engine.close()
+    print(json.dumps(sweep), flush=True)
+    return 0
+
+
+def serve_sweep(engine, pool: list) -> dict:
+    """Phase 4c: the engine's capacity and its latency below it, on
+    single-query requests from one client thread, tenants a and b drawn at
+    random. Capacity is served/s with CAPACITY_CLIENTS closed-loop clients;
+    then Poisson arrivals at each of SWEEP_FRACTIONS of it for SWEEP_HOLD_S.
+    Reports per rate: offered and served/s, the queue depth seen at each
+    arrival, shed count, latency p50/p99 overall and per bucket (p99 from
+    MIN_P99_N requests up), the host split per batch, the longest gap
+    between two completions and the garbage collector's pauses. Any
+    execute error, degraded verdict or capture fails the phase."""
+    from induction_network_on_fewrel_tpu_torch.serving.batcher import Saturated
+
+    rng = np.random.default_rng(1)
+    stats0 = engine.stats.snapshot()
+    pauses, gc_t0 = [], [0.0]
+
+    def on_gc(phase: str, info: dict) -> None:
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"], time.perf_counter() - gc_t0[0]))
+
+    def pick():
+        return pool[int(rng.integers(len(pool)))], "ab"[int(rng.integers(2))]
+
+    def collect(futs: list, t0: float) -> tuple[list, float]:
+        """The verdicts, and the seconds from t0 until the last one."""
+        verdicts = [f.result(timeout=60.0) for f in futs]
+        span = time.monotonic() - t0
+        bad = [v for v in verdicts if v.get("degraded")]
+        if bad:
+            raise AssertionError(f"sweep: {len(bad)} degraded verdicts")
+        return verdicts, span
+
+    # Capacity: a closed loop of CAPACITY_CLIENTS outstanding requests.
+    slots, futs = threading.Semaphore(CAPACITY_CLIENTS), []
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < CAPACITY_S:
+        slots.acquire()
+        inst, tenant = pick()
+        fut = engine.submit(inst, tenant=tenant)
+        fut.add_done_callback(lambda _: slots.release())
+        futs.append(fut)
+    _, span = collect(futs, t0)
+    capacity = len(futs) / span
+    print(f"[serve 4c] capacity: {len(futs)} single-query requests with {CAPACITY_CLIENTS} "
+          f"closed-loop clients in {span:.3f} s: {capacity:.1f} served/s", flush=True)
+
+    rates = []
+    gc.callbacks.append(on_gc)
+    for frac in SWEEP_FRACTIONS:
+        rate = frac * capacity
+        futs, depth, shed, ends = [], [], 0, []
+        pauses.clear()
+        engine.host_split.reset()
+        b0 = engine.stats.batches
+        t0 = clock = time.monotonic()
+        while True:
+            clock += rng.exponential(1.0 / rate)
+            if clock - t0 > SWEEP_HOLD_S:
+                break
+            delay = clock - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            inst, tenant = pick()
+            depth.append(engine.batcher.queue_depth)
+            try:
+                futs.append(engine.submit(inst, tenant=tenant))
+            except Saturated:
+                shed += 1
+                continue
+            futs[-1].add_done_callback(lambda _: ends.append(time.monotonic()))
+        verdicts, span = collect(futs, t0)
+        by_bucket: dict[int, list] = {}
+        for v in verdicts:
+            by_bucket.setdefault(v["bucket"], []).append(v["latency_ms"])
+        lat = [v["latency_ms"] for v in verdicts]
+        row = {
+            "fraction": frac, "offered_per_s": (len(futs) + shed) / SWEEP_HOLD_S,
+            "served_per_s": len(futs) / span, "requests": len(futs), "shed": shed,
+            "queue_depth_p50": pct(depth, 50), "queue_depth_max": int(max(depth)),
+            "batches": engine.stats.batches - b0, "p50_ms": pct(lat, 50), "p99_ms": pct(lat, 99),
+            "buckets": {b: {"n": len(x), "p50_ms": pct(x, 50),
+                            "p99_ms": pct(x, 99) if len(x) >= MIN_P99_N else None}
+                        for b, x in sorted(by_bucket.items())},
+            "host_split_ms": engine.host_split.ms(),
+            "max_completion_gap_ms": 1e3 * float(np.diff(sorted(ends)).max()),
+            "gc_pauses": {f"gen{g}": {"n": sum(1 for x, _ in pauses if x == g),
+                                      "max_ms": 1e3 * max((t for x, t in pauses if x == g),
+                                                          default=0.0)} for g in (0, 1, 2)},
+        }
+        rates.append(row)
+        print(f"[serve 4c] {frac:.0%} of capacity: offered {row['offered_per_s']:.1f}/s, served "
+              f"{row['served_per_s']:.1f}/s, {row['requests']} requests in {row['batches']} "
+              f"batches, shed {shed}, queue depth p50 {row['queue_depth_p50']:.0f} max "
+              f"{row['queue_depth_max']}; latency ms p50 {row['p50_ms']:.3f} p99 "
+              f"{row['p99_ms']:.3f}", flush=True)
+        for b, r in row["buckets"].items():
+            p99 = f"{r['p99_ms']:.3f}" if r["p99_ms"] is not None else f"n < {MIN_P99_N}"
+            print(f"[serve 4c]   bucket {b}: {r['n']} requests, p50 {r['p50_ms']:.3f} ms, p99 "
+                  f"{p99}", flush=True)
+        print(f"[serve 4c]   host ms per batch (tokenize per request): {row['host_split_ms']}; "
+              f"longest gap between completions {row['max_completion_gap_ms']:.3f} ms; gc "
+              f"pauses {row['gc_pauses']}", flush=True)
+    gc.callbacks.remove(on_gc)
+    stats1 = engine.stats.snapshot()
+    for key in ("execute_errors", "degraded", "breaker_shed", "steady_recompiles"):
+        if stats1[key] != stats0[key]:
+            raise AssertionError(f"sweep: {key} {stats0[key]} -> {stats1[key]}")
+    return {"capacity_per_s": capacity, "capacity_clients": CAPACITY_CLIENTS, "rates": rates}
+
+
 def tokenize_rows(tok, instances) -> dict[str, np.ndarray]:
     ts = [tok(i) for i in instances]
     return {k: np.stack([getattr(t, k) for t in ts]).astype(dt)
@@ -1788,21 +2344,27 @@ def main() -> int:
     attn_fwd_cuda.launches = 0
     engine = InferenceEngine(model, cfg, tok, k=cfg.k)
     engine.register_dataset(ds)
+    made = engine.warmup()
     verdicts = [engine.classify_batch(b) for b in batches]
     torch.cuda.synchronize()
     launches = {"K1": bilstm_infer_cuda.launches, "K2": attn_fwd_cuda.launches}
-    print(f"[main] served {engine.served} requests in {engine.batches} batches; "
-          f"launches {launches}; "
+    served = engine.stats.served
+    print(f"[main] served {served} requests in {engine.stats.batches} batches as CUDA-graph "
+          f"replays ({made} query programs, {engine.programs.captures} graphs captured at "
+          f"warmup); wrapper launches (distil, warm-ups, captures) {launches}; "
           f"{n_long} sentences truncated at L={cfg.max_length}", flush=True)
-    if engine.served < 32 or min(launches.values()) == 0:
+    if served < 32 or min(launches.values()) == 0 or engine.stats.steady_compiles:
         raise AssertionError(f"main path did not go through both kernels: {launches}")
+    engine.close()
 
     ref_cfg = cfg.replace(lstm_backend="reference", attn_backend="reference")
     ref_model = build_model(ref_cfg, glove_init=vocab.vectors)
     ref_model.load_state_dict(model.state_dict())
     ref_engine = InferenceEngine(ref_model, ref_cfg, tok, k=cfg.k)
     ref_engine.register_dataset(ds)
+    ref_engine.warmup()
     ref_verdicts = [ref_engine.classify_batch(b) for b in batches]
+    ref_engine.close()
     names = engine.class_names
 
     def logit_matrix(vs):
@@ -1824,10 +2386,14 @@ def main() -> int:
     for batch in verdicts:
         for v in batch:
             by_bucket.setdefault(v["bucket"], []).append(v["latency_ms"])
+    main_latency = {}
     for bkt in sorted(by_bucket):
         lat = np.array(by_bucket[bkt])
+        main_latency[bkt] = round(float(np.percentile(lat, 50)), 3)
         print(f"[main] bucket {bkt}: {len(lat)} requests, request latency ms "
               f"p50 {np.percentile(lat, 50):.3f} max {lat.max():.3f}", flush=True)
+    print(f"[main] host ms per batch (tokenize per request): {engine.host_split.ms()}",
+          flush=True)
 
     # 5. Episode forward (B=4, N=5, K=5, Q=5 -> 200 encoder rows)
     B, N, K, Q = cfg.batch_size, cfg.n, cfg.k, cfg.q
@@ -1873,6 +2439,12 @@ def main() -> int:
     # 10. Training at lstm_cs_window=0
     tr0 = train_full_residual(tr)
 
+    # 4b, 4c, 4a. The serving plane on phase 9's best checkpoint
+    serve4b = serve_traffic(cfg)
+    serve4c = sweep_process()
+    serve4a = serve_checkpoint(cfg)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+
     # 11. Summary lines
     def attn_extra(key: str, M: int) -> dict:
         """Phase 6b's figures of an attention kernel: device time and plan
@@ -1900,6 +2472,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "L=40 M=16 bf16 (serving bucket 16)", "launches_val": tr["launches"][key],
+            "launches_serve_wrappers": serve4a["launches"][key] + serve4b["launches"][key],
+            "launches_serve_profiled": serve4b["profiled"][key],
+            "serve_batches_profiled": serve4b["profiled_batches"],
             **{f"ms_m{M}": rows[(key, "bf16", M)]["ms"] for M in SERVE_ROWS if M != 16},
             "bound_ms_m200": rows[(key, "bf16", 200)]["bound_ms"],
             **({"train_library_ms": r["train_library_ms"], "plan": r["plan"]}
@@ -2006,6 +2581,9 @@ def main() -> int:
     }
     steps_summary["segsum_index_add"] = segsum_row
     print(json.dumps({"training_step": steps_summary}), flush=True)
+    print(json.dumps({"serving": {"main_path_p50_ms_by_bucket": main_latency,
+                                  "serve_main": serve4a, "correctness_load": serve4b,
+                                  "sweep": serve4c}}), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2016,4 +2594,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sweep_main() if sys.argv[1:] == ["--sweep"] else main())

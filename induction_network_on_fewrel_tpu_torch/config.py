@@ -5,11 +5,15 @@ and training paths read (``induction_network_on_fewrel_tpu/config.py``):
 episode geometry, tokenization/embedding, the BiLSTM + self-attention
 encoder and its training-route knobs, the induction/NTN head, the NOTA
 head, the dtypes, the kernel backends, the optimizer family, the loop
-lengths, the fused-dispatch and grad-probe knobs, and the seed. Names and
-defaults are the JAX package's, so a config built with the same keywords
-describes the same model in both packages, and the ``config.json`` a
-checkpoint writes loads into the JAX config too. The parallel, fleet and
-observability knobs come with their slices.
+lengths, the fused-dispatch and grad-probe knobs, the serving runtime
+knobs (resident dtype, parity probe, geometry tiers) and the seed. Names
+and defaults are the JAX package's, so a config built with the same
+keywords describes the same model in both packages, and the
+``config.json`` a checkpoint writes loads into the JAX config too. The
+parallel, fleet and observability knobs come with their slices.
+
+``resolve_quant_policy`` and ``resolve_geometry_policy`` are copies of the
+JAX package's one-home resolvers of the serving knobs.
 """
 
 from __future__ import annotations
@@ -95,6 +99,22 @@ class ExperimentConfig:
     # all-f32 plain-backend reference gradient on the same batch
     # (train/steps.make_grad_probe); 0 = off.
     grad_probe_every: int = 0
+    # Head-only feature-cache checkpoints (no encoder) cannot serve queries;
+    # the serving engine refuses them by name. The feature cache itself
+    # comes with ROADMAP queue A item 4.
+    feature_cache: bool = False
+
+    # --- serving runtime knobs (not architecture fields) ---
+    # Dtype of the resident per-tenant class matrix: "f32", "bf16" or
+    # "int8" (per-tenant symmetric f32 scale, dequantized in the head).
+    resident_dtype: str = "f32"
+    # Every K scored batches of a quantized tenant, re-score the same
+    # queries against the f32 class matrix and record verdict agreement
+    # and margin drift (serving/stats.py); 0 = off.
+    quant_probe_every: int = 0
+    # The N-tier ladder resident [N, C] class stacks pad up to (zero rows),
+    # bounding the query graphs by tiers x buckets x dtypes; "off" = exact-N.
+    geometry_tiers: str = "4,8,16,32,64"
 
     # --- numerics ---
     compute_dtype: str = "bfloat16"  # embedding + encoder dtype
@@ -125,3 +145,48 @@ class ExperimentConfig:
         more) are ignored."""
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in json.loads(s).items() if k in names})
+
+
+# Legal resident class-matrix dtypes, in density order.
+RESIDENT_DTYPE_CHOICES = ("f32", "bf16", "int8")
+
+
+def _knob_reader(knobs: Any, base: "ExperimentConfig | None"):
+    fields = {f.name: f.default for f in dataclasses.fields(ExperimentConfig)}
+
+    def knob(name):
+        v = getattr(knobs, name, None)
+        if v is None and base is not None:
+            v = getattr(base, name, None)
+        return fields[name] if v is None else v
+
+    return knob
+
+
+def resolve_quant_policy(knobs: Any, base: "ExperimentConfig | None" = None) -> dict:
+    """The one home of the quantized-serving knobs. ``knobs`` is any object
+    with ``resident_dtype``/``quant_probe_every`` attributes (a config or an
+    argparse namespace); a missing or None attribute falls back to ``base``
+    (the served checkpoint's config), then to the default. Returns
+    {"resident_dtype", "probe_every"}."""
+    knob = _knob_reader(knobs, base)
+    dtype = str(knob("resident_dtype"))
+    if dtype not in RESIDENT_DTYPE_CHOICES:
+        raise ValueError(
+            f"resident_dtype must be one of {RESIDENT_DTYPE_CHOICES}, got {dtype!r}"
+        )
+    probe_every = int(knob("quant_probe_every"))
+    if probe_every < 0:
+        raise ValueError(f"quant_probe_every must be >= 0, got {probe_every}")
+    return {"resident_dtype": dtype, "probe_every": probe_every}
+
+
+def resolve_geometry_policy(knobs: Any, base: "ExperimentConfig | None" = None) -> dict:
+    """The one home of the geometry knob, resolved like
+    ``resolve_quant_policy``. Returns {"tiers": tuple | None (exact-N)}.
+    The JAX package's fleet placement knob (``geometry_tier_spread``)
+    comes with the fleet slice."""
+    from induction_network_on_fewrel_tpu_torch.serving.geometry import parse_tiers
+
+    knob = _knob_reader(knobs, base)
+    return {"tiers": parse_tiers(knob("geometry_tiers"))}

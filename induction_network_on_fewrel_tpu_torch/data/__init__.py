@@ -3,7 +3,7 @@ from induction_network_on_fewrel_tpu_torch.data.fewrel import (  # noqa: F401
     Instance,
     load_fewrel_json,
 )
-from induction_network_on_fewrel_tpu_torch.data.glove import GloveVocab  # noqa: F401
+from induction_network_on_fewrel_tpu_torch.data.glove import GloveVocab, load_glove  # noqa: F401
 from induction_network_on_fewrel_tpu_torch.data.tokenizer import (  # noqa: F401
     GloveTokenizer,
     TokenizedInstance,

@@ -1,30 +1,74 @@
-"""InferenceEngine: the synchronous serving core.
+"""InferenceEngine: checkpoint -> multi-tenant few-shot serving on the card.
 
-Counterpart of ``induction_network_on_fewrel_tpu/serving/engine.py``
-(``InferenceEngine``) without its threads: a ``TenantRegistry`` holds each
-tenant's distilled class matrix, and ``classify_batch`` tokenizes the
-queries, pads each batch of up to ``max(buckets)`` rows to its bucket,
-scores it with one eager ``score_queries`` call on the device and turns
-every live logits row into a verdict (``_verdict``, a copy of the JAX
-engine's, including its quality features). The continuous batcher,
-deadlines, SLOs, drift, breaker, quantized and tiered residency and
-hot-swap publish come with later slices.
+The counterpart of ``induction_network_on_fewrel_tpu/serving/engine.py``
+(``InferenceEngine``) for one replica. It wires a ``TenantRegistry``
+(supports distilled once into copy-on-write snapshots on two parameter
+banks), a ``QueryGraphCache`` (one CUDA graph per (n_tier, bucket, dtype)
+and bank, made at ``warmup``), a scheduler (the continuous cross-bucket
+batcher by default, the per-bucket micro-batcher as the A/B arm), a
+``ServingStats`` and an optional per-tenant ``CircuitBreaker``. Steady
+state per query: host tokenization at ``submit``, then one graph replay
+per batch (K1, K2 and the head against the tenant's resident class
+matrix) and the verdicts.
+
+* **Tenancy**: ``submit(..., tenant=...)`` scopes a query to one tenant's
+  snapshot; batches never mix tenants.
+* **Hot-swap**: ``publish_params``/``publish_checkpoint`` load new
+  weights into the idle bank, re-distil and flip every snapshot; a batch
+  in flight finishes on its pinned bank, and nothing is captured.
+* **Warm-before-swap**: a registration that moves a live tenant across an
+  N tier, and a ``set_resident_dtype`` roll, capture the new key's graphs
+  first (counted as warmup), so steady-state traffic never captures.
+* **Failure containment**: a batch whose execution raises fails its own
+  futures with a typed ``ExecuteError`` (never another tenant's), feeds
+  the breaker, and the worker survives; a quarantined tenant gets
+  degraded NOTA verdicts with no device time.
+* **Parity probe**: every ``quant_probe_every``-th batch of a quantized
+  tenant is re-scored against its f32 shadow, and the verdict agreement
+  and margin drift are counted (``stats.record_quant_probe``).
+* **NOTA per tenant** (FewRel 2.0): a NOTA head's logit is appended as the
+  last column and biased by the tenant's threshold; without a head a
+  threshold is an open-set floor on the best class logit.
+
+Threads and streams: the batcher's worker runs every batch with the
+engine's device current and on a stream of its own, and replays graphs
+that the control thread captured (``serving/buckets.py`` states the
+capture rule). ``classify_batch``, the synchronous helper, runs its
+batches on the caller's thread under the same lock as the worker's, on
+the worker's stream. Each batch also records its host split (pack, copy
+in, replay call, wait, verdicts; tokenization at submit): ``host_split``.
 
 Device rule: ``device=None`` means "cuda" and raises without CUDA; the
-model must already live on that device.
+model must already live on that device. Refused as in the JAX package: a
+model other than induction, and feature-cache checkpoints. The tracing,
+SLO, drift, watchdog and chaos hooks come with the observability slice
+(ROADMAP queue A item 7), the dp-sharded query path with item 5.
 """
 
 from __future__ import annotations
 
+import contextlib
+import sys
+import threading
 import time
+from concurrent.futures import Future
 
 import numpy as np
+import torch
 
 from induction_network_on_fewrel_tpu_torch.data.fewrel import Instance
 from induction_network_on_fewrel_tpu_torch.models.build import resolve_device
+from induction_network_on_fewrel_tpu_torch.serving.batcher import (
+    ContinuousBatcher,
+    DynamicBatcher,
+    ExecuteError,
+    Request,
+    Saturated,
+)
 from induction_network_on_fewrel_tpu_torch.serving.buckets import (
     DEFAULT_BUCKETS,
-    QueryRunner,
+    QueryGraphCache,
+    make_program,
     select_bucket,
     stack_queries,
 )
@@ -32,8 +76,11 @@ from induction_network_on_fewrel_tpu_torch.serving.registry import (
     DEFAULT_TENANT,
     TenantRegistry,
 )
+from induction_network_on_fewrel_tpu_torch.serving.stats import ServingStats
 
 NO_RELATION = "no_relation"
+# Host segments of a batch, in order (``host_split``).
+SPLIT_KEYS = ("tokenize", "pack", "copy", "replay", "wait", "verdict")
 
 
 def quality_features(scores):
@@ -55,34 +102,208 @@ def quality_features(scores):
     return margin, entropy
 
 
+def degraded_verdict(tenant: str, *, snapshot_version: int = -1,
+                     latency_ms: float = 0.0) -> dict:
+    """The degraded-mode NOTA verdict of a quarantined tenant."""
+    return {
+        "label": NO_RELATION,
+        "class_index": -1,
+        "nota": True,
+        "degraded": True,
+        "margin": 0.0,
+        "entropy": 0.0,
+        "tenant": tenant,
+        "snapshot_version": snapshot_version,
+        "logits": {},
+        "latency_ms": latency_ms,
+    }
+
+
+class _Knobs:
+    """The engine's serving kwargs as the one-home resolvers read them
+    (None = inherit the served config's value)."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+class HostSplit:
+    """Host seconds per segment, summed over batches (tokenization over
+    requests); ``ms()`` is the mean per batch (per request for tokenize)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._sum = dict.fromkeys(SPLIT_KEYS, 0.0)
+            self.batches = 0
+            self.requests = 0
+
+    def add_tokenize(self, s: float) -> None:
+        with self._lock:
+            self._sum["tokenize"] += s
+            self.requests += 1
+
+    def add_batch(self, **segments: float) -> None:
+        with self._lock:
+            for k, v in segments.items():
+                self._sum[k] += v
+            self.batches += 1
+
+    def ms(self) -> dict:
+        with self._lock:
+            out = {k: round(1e3 * v / max(1, self.batches), 4) for k, v in self._sum.items()}
+            out["tokenize"] = round(1e3 * self._sum["tokenize"] / max(1, self.requests), 4)
+            return out
+
+
 class InferenceEngine:
     def __init__(self, model, cfg, tokenizer, k: int | None = None,
-                 buckets: tuple[int, ...] = DEFAULT_BUCKETS, device=None):
+                 buckets: tuple[int, ...] = DEFAULT_BUCKETS, device=None,
+                 max_queue_depth: int = 64, batch_window_s: float = 0.002,
+                 default_deadline_s: float = 1.0, scheduler: str = "continuous",
+                 tenant_share: float = 0.5, logger=None, breaker=None,
+                 start: bool = True, resident_dtype: str | None = None,
+                 quant_probe_every: int | None = None,
+                 geometry_tiers: str | None = None, program_factory=make_program):
+        from induction_network_on_fewrel_tpu_torch.config import (
+            resolve_geometry_policy,
+            resolve_quant_policy,
+        )
+
         if cfg.model != "induction":
             raise ValueError(
-                f"class-vector serving requires --model induction; got {cfg.model!r}"
+                f"class-vector serving requires --model induction (supports distill to "
+                f"per-class vectors); got {cfg.model!r}"
             )
+        if cfg.feature_cache:
+            raise ValueError(
+                "feature-cache checkpoints hold head-only params (no encoder): the "
+                "serving engine cannot encode queries through them; serve a full checkpoint"
+            )
+        if scheduler not in ("continuous", "microbatch"):
+            raise ValueError(f"scheduler must be 'continuous' or 'microbatch', got {scheduler!r}")
         dev = resolve_device(device)
         if model.device.type != dev.type or dev.index not in (None, model.device.index):
             raise ValueError(f"model lives on {model.device}, engine asked for {dev}")
         self.cfg = cfg
         self.model = model
+        self.device = model.device
         self.tokenizer = tokenizer
         self.nota = cfg.na_rate > 0
-        self.buckets = tuple(sorted(buckets))
-        self.registry = TenantRegistry(model, tokenizer, k=k if k is not None else cfg.k)
-        self.runner = QueryRunner(model)
-        self.served = 0
-        self.batches = 0
+        self.max_length = cfg.max_length
+        self.default_deadline_s = default_deadline_s
+        self.scheduler = scheduler
+        self._logger = logger
+        self._emit_step = 0
+        self.breaker = breaker
+        if breaker is not None and breaker.on_transition is None:
+            breaker.on_transition = self._on_breaker_transition
+        quant = resolve_quant_policy(
+            _Knobs(resident_dtype=resident_dtype, quant_probe_every=quant_probe_every), base=cfg)
+        geom = resolve_geometry_policy(_Knobs(geometry_tiers=geometry_tiers), base=cfg)
+        self.quant_probe_every = quant["probe_every"]
+        self._quant_batches = 0
+        self.stats = ServingStats()
+        self.registry = TenantRegistry(
+            model, tokenizer, k=k if k is not None else cfg.k, logger=logger,
+            resident_dtype=quant["resident_dtype"], tiers=geom["tiers"],
+        )
+        self.tiers = self.registry.tiers
+        self.stats.bind_resident(self.registry.resident_bytes)
+        self.programs = QueryGraphCache(self.registry.banks, stats=self.stats,
+                                        factory=program_factory)
+        self.host_split = HostSplit()
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._exec_lock = threading.Lock()
+        if scheduler == "continuous":
+            self.batcher = ContinuousBatcher(
+                self._execute_group, buckets=buckets, max_queue_depth=max_queue_depth,
+                tenant_share=tenant_share, stats=self.stats, start=start,
+            )
+        else:
+            self.batcher = DynamicBatcher(
+                self._execute_batch, buckets=buckets, max_queue_depth=max_queue_depth,
+                batch_window_s=batch_window_s, stats=self.stats, start=start,
+            )
 
-    # --- registration -----------------------------------------------------
+    # --- construction from a trained artifact ----------------------------
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, device=None, glove: str | None = None,
+                        glove_mat: str | None = None, lstm_backend: str | None = None,
+                        attn_backend: str | None = None, **kw) -> "InferenceEngine":
+        """An engine on a port checkpoint directory: its ``config.json``
+        decides the architecture, its best slot (else its latest) the
+        weights. ``lstm_backend``/``attn_backend`` override the stored
+        kernel backends; ``glove`` (+ ``glove_mat``) is the vocabulary the
+        model was trained with (the synthetic one of its size otherwise)."""
+        from induction_network_on_fewrel_tpu_torch.data import (
+            GloveTokenizer,
+            load_glove,
+            make_synthetic_glove,
+        )
+        from induction_network_on_fewrel_tpu_torch.models.build import build_model
+        from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
+
+        cfg = CheckpointManager.load_config(ckpt_dir)
+        cfg = cfg.replace(**{k: v for k, v in (("lstm_backend", lstm_backend),
+                                               ("attn_backend", attn_backend)) if v is not None})
+        vocab = (load_glove(glove, glove_mat) if glove
+                 else make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim))
+        if (cfg.vocab_size, cfg.word_dim) != (vocab.vocab_size, vocab.word_dim):
+            raise ValueError(
+                f"vocab {vocab.vocab_size}x{vocab.word_dim} does not match the checkpoint's "
+                f"embedding table {cfg.vocab_size}x{cfg.word_dim}: pass the GloVe file the "
+                "model was trained with"
+            )
+        tok = GloveTokenizer(vocab, max_length=cfg.max_length)
+        model = build_model(cfg, glove_init=vocab.vectors, device=device)
+        mngr = CheckpointManager(ckpt_dir)
+        try:
+            step, which = mngr.restore_best(model), "best"
+        except FileNotFoundError:
+            (step, _), which = mngr.restore_latest(model), "latest"
+        print(f"serving {which} checkpoint step={step} from {ckpt_dir} on {model.device}",
+              file=sys.stderr)
+        return cls(model, cfg, tok, device=device, **kw)
+
+    # --- registration / tenant lifecycle ----------------------------------
 
     def register_class(self, name: str, instances, tenant: str = DEFAULT_TENANT):
+        self._warm_tier_crossing(tenant, (name,))
         return self.registry.register(name, instances, tenant=tenant)
 
     def register_dataset(self, dataset, max_classes: int | None = None,
                          tenant: str = DEFAULT_TENANT) -> list[str]:
+        adding = list(dataset.rel_names)
+        if max_classes is not None:
+            adding = adding[:max_classes]
+        self._warm_tier_crossing(tenant, adding)
         return self.registry.register_dataset(dataset, max_classes=max_classes, tenant=tenant)
+
+    def _dtypes_for(self, dtype: str) -> tuple[str, ...]:
+        """The program dtypes a tenant at ``dtype`` needs: its own, and f32
+        for the parity probe's shadow when the probe is on."""
+        if self.quant_probe_every > 0 and dtype != "f32":
+            return (dtype, "f32")
+        return (dtype,)
+
+    def _warm_tier_crossing(self, tenant: str, adding) -> int:
+        """When a registration will move a live tenant across an N tier,
+        make the new tier's programs first (counted as warmup), so its
+        next batch finds them ready. Returns the programs made."""
+        if self.tiers is None or not self.registry.has_tenant(tenant):
+            return 0
+        snap = self.registry.snapshot(tenant)
+        cur_tier, c = snap.matrix.shape
+        new_tier = self.registry.tier_of(len(set(snap.names) | set(adding)))
+        if new_tier <= cur_tier:
+            return 0
+        return self.programs.warmup(new_tier, c, self.batcher.buckets, self.max_length,
+                                    dtypes=self._dtypes_for(snap.resident_dtype))
 
     def set_nota_threshold(self, threshold: float | None, tenant: str = DEFAULT_TENANT):
         return self.registry.set_nota_threshold(threshold, tenant=tenant)
@@ -91,46 +312,247 @@ class InferenceEngine:
     def class_names(self) -> tuple[str, ...]:
         return self.registry.names
 
-    # --- query path -------------------------------------------------------
+    def warmup(self) -> int:
+        """Make every bucket's program for every registered tenant's
+        (n_tier, resident dtype), and the f32 shadow's when the parity
+        probe is on; returns the programs this call made. After warmup,
+        steady-state traffic captures nothing (``steady_recompiles``)."""
+        compiled = 0
+        for tenant in self.registry.tenants():
+            snap = self.registry.snapshot(tenant)
+            n, c = snap.matrix.shape
+            compiled += self.programs.warmup(n, c, self.batcher.buckets, self.max_length,
+                                             dtypes=self._dtypes_for(snap.resident_dtype))
+        return compiled
 
-    def classify(self, instance, tenant: str = DEFAULT_TENANT) -> dict:
-        return self.classify_batch([instance], tenant=tenant)[0]
+    def set_resident_dtype(self, tenant: str, dtype: str):
+        """Re-quantize one live tenant: the new dtype's programs first
+        (counted as warmup), then the registry's republish."""
+        snap = self.registry.snapshot(tenant)
+        n, c = snap.matrix.shape
+        self.programs.warmup(n, c, self.batcher.buckets, self.max_length,
+                             dtypes=self._dtypes_for(dtype))
+        return self.registry.set_resident_dtype(tenant, dtype)
+
+    # --- hot-swap publish -------------------------------------------------
+
+    def publish_params(self, new_params) -> int:
+        """Atomic hot-swap to a model state_dict: every tenant re-distils
+        on the idle bank and flips to it; batches in flight finish on
+        their pinned bank; nothing is captured. Returns params_version."""
+        version = self.registry.publish_params(new_params)
+        self.stats.record_swap()
+        return version
+
+    def publish_checkpoint(self, ckpt_dir: str) -> int:
+        version = self.registry.publish_checkpoint(ckpt_dir)
+        self.stats.record_swap()
+        return version
+
+    def prepare_publish(self, new_params, target_version=None):
+        """Phase 1 of a two-phase publish (the registry's transaction)."""
+        return self.registry.prepare_publish(new_params, target_version=target_version)
+
+    def commit_publish(self, txn) -> int:
+        version = txn.commit()
+        self.stats.record_swap()
+        return version
+
+    # --- query path ------------------------------------------------------
+
+    def _tokenize(self, instance) -> dict[str, np.ndarray]:
+        t0 = time.perf_counter()
+        t = self.tokenizer(self._as_instance(instance))
+        self.host_split.add_tokenize(time.perf_counter() - t0)
+        return {"word": t.word, "pos1": t.pos1, "pos2": t.pos2, "mask": t.mask}
+
+    def submit(self, instance, deadline_s: float | None = None,
+               tenant: str = DEFAULT_TENANT):
+        """Tokenize one query and enqueue it for ``tenant``; returns a
+        Future of its verdict. Raises ``Saturated`` under backpressure or
+        while the tenant's breaker is open."""
+        self.registry.snapshot(tenant)   # raises for unknown tenants
+        if self.breaker is not None:
+            retry = self.breaker.admit(tenant)
+            if retry is not None:
+                self.stats.record_breaker_shed(tenant)
+                raise Saturated(retry, tenant=tenant)
+        return self.batcher.submit(
+            self._tokenize(instance),
+            deadline_s if deadline_s is not None else self.default_deadline_s,
+            tenant=tenant,
+        )
+
+    def classify(self, instance, deadline_s: float | None = None,
+                 tenant: str = DEFAULT_TENANT) -> dict:
+        """Synchronous submit + wait."""
+        fut = self.submit(instance, deadline_s, tenant=tenant)
+        return fut.result(timeout=(deadline_s or self.default_deadline_s) + 5.0)
 
     def classify_batch(self, instances, tenant: str = DEFAULT_TENANT) -> list[dict]:
-        """Verdicts for ``instances`` under ``tenant``'s current snapshot,
-        scored in batches of at most ``max(buckets)`` rows, each padded to
-        its bucket. ``latency_ms`` is the wall time of the request's batch:
-        tokenize, pack, score (ending in the device-to-host copy), verdicts."""
-        snap = self.registry.snapshot(tenant)
-        cap = self.buckets[-1]
+        """Verdicts for ``instances`` in batches of at most ``max(buckets)``
+        rows, each padded to its bucket and run on the caller's thread
+        (under the worker's lock, on its stream): a thin synchronous
+        helper whose batch composition is fixed by the call. A failed
+        batch raises its ``ExecuteError``."""
+        cap = self.batcher.buckets[-1]
         instances = list(instances)
         verdicts: list[dict] = []
         for start in range(0, len(instances), cap):
-            t0 = time.monotonic()
-            chunk = instances[start:start + cap]
-            queries = []
-            for inst in chunk:
-                t = self.tokenizer(self._as_instance(inst))
-                queries.append({"word": t.word, "pos1": t.pos1, "pos2": t.pos2, "mask": t.mask})
-            bucket = select_bucket(len(chunk), self.buckets)
-            logits = self.runner.run(snap.matrix, stack_queries(queries, bucket))
-            batch = [self._verdict(row, snap) for row in logits[: len(chunk)]]
-            ms = round((time.monotonic() - t0) * 1e3, 3)
-            for v in batch:
-                v["latency_ms"] = ms
-                v["bucket"] = bucket
-            verdicts.extend(batch)
-            self.served += len(chunk)
-            self.batches += 1
+            now = time.monotonic()
+            batch = [Request(query=self._tokenize(inst), deadline=now + self.default_deadline_s,
+                             future=Future(), enqueued_at=now, tenant=tenant)
+                     for inst in instances[start:start + cap]]
+            self._execute_group(tenant, batch)
+            verdicts.extend(r.future.result() for r in batch)
         return verdicts
 
-    def _verdict(self, row: np.ndarray, snap) -> dict:
-        """One logits row -> verdict dict under the tenant's NOTA policy.
+    @contextlib.contextmanager
+    def _device_scope(self):
+        """One batch's scope: the worker's lock, the engine's device and
+        the worker's stream current, inference mode."""
+        with self._exec_lock, torch.inference_mode():
+            if self._stream is None:
+                yield
+            else:
+                with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+                    yield
 
-        With a trained NOTA head the snapshot threshold BIASES the
-        no-relation logit (0.0 = the head's own calibration); without one,
-        a set threshold is an open-set floor on the best class logit. Ties
-        resolve toward the class."""
+    def _execute_group(self, tenant: str, batch: list[Request]) -> None:
+        """Continuous-scheduler callback: one tenant's batch."""
+        with self._device_scope():
+            try:
+                self._run_group(tenant, batch)
+            except BaseException as e:  # noqa: BLE001 — contain, never wedge
+                self._contain_execute_failure(tenant, batch, e)
+        self._maybe_emit()
+
+    def _execute_batch(self, batch: list[Request]) -> None:
+        """Micro-batcher callback: the collected batch may mix tenants;
+        one program call per tenant sub-batch."""
+        by_tenant: dict[str, list[Request]] = {}
+        for r in batch:
+            by_tenant.setdefault(r.tenant, []).append(r)
+        with self._device_scope():
+            for tenant, group in by_tenant.items():
+                try:
+                    self._run_group(tenant, group)
+                except BaseException as e:  # noqa: BLE001 — isolate per tenant
+                    self._contain_execute_failure(tenant, group, e)
+        self._maybe_emit()
+
+    def _contain_execute_failure(self, tenant: str, batch: list[Request],
+                                 exc: BaseException) -> None:
+        """One failed launch: the batch's futures fail with a typed
+        ``ExecuteError`` carrying a retry-after hint, the failure feeds the
+        tenant's breaker, and one kind="fault" record names it."""
+        retry = (self.breaker.open_s if self.breaker is not None
+                 else 2.0 * self.stats.exec_estimate_s())
+        err = ExecuteError(tenant, retry_after_s=retry, cause=exc)
+        for r in batch:
+            if not r.future.done():
+                r.future.set_exception(err)
+        self.stats.record_execute_error(tenant, len(batch))
+        if self.breaker is not None:
+            self.breaker.record_failure(tenant)
+        if self._logger is not None:
+            self._logger.log(self.stats.served, kind="fault", action="execute_error",
+                             tenant=tenant, requests=float(len(batch)),
+                             cause=f"{type(exc).__name__}: {exc}")
+
+    def _run_group(self, tenant: str, batch: list[Request]) -> None:
+        # The pinned snapshot fixes (bank, matrix, names, threshold) for the
+        # whole batch, and keeps a publish from overwriting its bank.
+        snap = self.registry.pin(tenant)
+        try:
+            if snap.degraded:
+                self._serve_degraded(tenant, batch, snap)
+                if self.breaker is not None:
+                    self.breaker.record_success(tenant)
+                return
+            bucket = select_bucket(len(batch), self.batcher.buckets)
+            t_stack = time.monotonic()
+            query = stack_queries([r.query for r in batch], bucket)
+            t0 = time.monotonic()
+            logits = self.programs.run(snap.bank, snap.matrix, query, scale=snap.scale)
+            t_exec_end = time.monotonic()
+            copy_s, replay_s, wait_s = self.programs.split
+            self.stats.record_batch(len(batch), bucket, t_exec_end - t0)
+            if self.breaker is not None:
+                self.breaker.record_success(tenant)
+            resolved = [(req, self._verdict(row, snap))
+                        for row, req in zip(logits, batch)]   # zip drops the pad rows
+            now = time.monotonic()
+            for req, verdict in resolved:
+                verdict["latency_ms"] = round((now - req.enqueued_at) * 1e3, 3)
+                verdict["bucket"] = bucket
+                self.stats.record_done(now - req.enqueued_at, tenant=tenant,
+                                       nota=verdict["nota"], margin=verdict["margin"],
+                                       entropy=verdict["entropy"])
+                req.future.set_result(verdict)
+            self.host_split.add_batch(pack=t0 - t_stack, copy=copy_s, replay=replay_s,
+                                      wait=wait_s, verdict=now - t_exec_end)
+            if self.quant_probe_every > 0 and snap.shadow is not None:
+                self._quant_batches += 1
+                if self._quant_batches % self.quant_probe_every == 0:
+                    self._parity_probe(tenant, snap, query, logits, len(batch))
+        finally:
+            self.registry.unpin(snap)
+
+    def _serve_degraded(self, tenant: str, batch: list[Request], snap) -> None:
+        """Quarantined tenant: every request resolves ``no_relation`` with
+        ``degraded=True``, with no device time and no quality observation."""
+        now = time.monotonic()
+        for req in batch:
+            verdict = degraded_verdict(
+                tenant, snapshot_version=snap.version,
+                latency_ms=round((now - req.enqueued_at) * 1e3, 3),
+            )
+            self.stats.record_done(now - req.enqueued_at, tenant=tenant)
+            req.future.set_result(verdict)
+        self.stats.record_degraded(tenant, len(batch))
+        if self._logger is not None:
+            self._logger.log(self.stats.served, kind="fault", action="degraded_verdicts",
+                             tenant=tenant, served=float(len(batch)))
+
+    def _parity_probe(self, tenant: str, snap, query, logits, rows) -> None:
+        """Re-score the padded batch against the tenant's f32 shadow and
+        count per-row verdict agreement (label and NOTA flag) and margin
+        drift. A failing probe is contained here: the batch has answered."""
+        try:
+            ref = self.programs.run(snap.bank, snap.shadow, query)
+            agree, drift_sum = 0, 0.0
+            for i in range(rows):
+                vq = self._verdict(logits[i], snap)
+                vf = self._verdict(ref[i], snap)
+                if vq["label"] == vf["label"] and vq["nota"] == vf["nota"]:
+                    agree += 1
+                drift_sum += abs(vq["margin"] - vf["margin"])
+            self.stats.record_quant_probe(tenant, agree / rows, drift_sum / rows, rows)
+        except Exception as e:  # noqa: BLE001 — the probe must not hurt serving
+            if self._logger is not None:
+                self._logger.log(self.stats.served, kind="fault", action="quant_probe_error",
+                                 tenant=tenant, cause=f"{type(e).__name__}: {e}")
+
+    def _on_breaker_transition(self, tenant, frm, to, failures, now) -> None:
+        if self._logger is not None:
+            self._logger.log(self.stats.served, kind="fault", action="breaker",
+                             tenant=tenant, **{"from": frm, "to": to},
+                             failures=float(failures))
+
+    def quarantine_tenant(self, tenant: str, reason: str = "") -> None:
+        self.registry.quarantine_tenant(tenant, reason=reason)
+
+    def unquarantine_tenant(self, tenant: str, reason: str = "") -> None:
+        self.registry.unquarantine_tenant(tenant, reason=reason)
+
+    def _verdict(self, row: np.ndarray, snap) -> dict:
+        """One logits row -> verdict under the tenant's NOTA policy. Only
+        the first ``n_classes`` columns are read (pad rows of the tier
+        never win); the NOTA logit is ``row[-1]`` for every tier. With a
+        NOTA head the threshold biases its logit; without one a threshold
+        is an open-set floor on the best class logit. Ties resolve toward
+        the class."""
         names = snap.names
         n = len(names)
         best = int(np.argmax(row[:n]))
@@ -140,13 +562,12 @@ class InferenceEngine:
         else:
             is_nota = thr is not None and float(row[best]) < thr
         m_arr, e_arr = quality_features(row[:n])
-        margin, entropy = float(m_arr), float(e_arr)
         verdict = {
             "label": NO_RELATION if is_nota else names[best],
             "class_index": -1 if is_nota else best,
             "nota": is_nota,
-            "margin": round(margin, 6),
-            "entropy": round(entropy, 6),
+            "margin": round(float(m_arr), 6),
+            "entropy": round(float(e_arr), 6),
             "tenant": snap.tenant,
             "snapshot_version": snap.version,
             "logits": {nm: float(row[i]) for i, nm in enumerate(names)},
@@ -154,6 +575,24 @@ class InferenceEngine:
         if self.nota:
             verdict["logits"][NO_RELATION] = float(row[-1])
         return verdict
+
+    # --- observability / lifecycle ---------------------------------------
+
+    def _maybe_emit(self, every: int = 50) -> None:
+        if self._logger is None:
+            return
+        if self.stats.batches - self._emit_step >= every:
+            self._emit_step = self.stats.batches
+            self.stats.emit(self._logger, self._emit_step, queue_depth=self.batcher.queue_depth)
+
+    def emit_stats(self) -> None:
+        if self._logger is not None:
+            self.stats.emit(self._logger, self.stats.batches,
+                            queue_depth=self.batcher.queue_depth)
+
+    def close(self) -> None:
+        self.batcher.close()
+        self.emit_stats()
 
     @staticmethod
     def _as_instance(x):

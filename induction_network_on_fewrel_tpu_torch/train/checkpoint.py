@@ -80,7 +80,7 @@ class CheckpointManager:
     def has(self, slot: str) -> bool:
         return (self.dir / f"{slot}.pt").exists()
 
-    def _load(self, slot: str, model, opt=None) -> dict:
+    def _payload(self, slot: str, map_location) -> dict:
         if slot not in SLOTS:
             raise ValueError(f"unknown checkpoint slot {slot!r} ({SLOTS})")
         path = self.dir / f"{slot}.pt"
@@ -93,7 +93,16 @@ class CheckpointManager:
             if differ:
                 raise ValueError(f"checkpoint {self.dir} was saved with other architecture "
                                  f"fields: {differ}")
-        payload = torch.load(path, map_location=model.device, weights_only=True)
+        return torch.load(path, map_location=map_location, weights_only=True)
+
+    def params(self, slot: str) -> dict:
+        """The model state_dict of ``slot`` as CPU tensors (the serving
+        publish's source). Raises FileNotFoundError when it was never
+        written."""
+        return self._payload(slot, "cpu")["params"]
+
+    def _load(self, slot: str, model, opt=None) -> dict:
+        payload = self._payload(slot, model.device)
         model.load_state_dict(payload["params"])
         if opt is not None:
             opt.load_state_dict(payload["opt"])

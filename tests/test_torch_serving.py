@@ -109,8 +109,10 @@ def test_engine_logits_match_jax_class_vectors_and_score_queries(setup):
     sup = {k: a.reshape(1, len(names), K, L) for k, a in _rows(
         s["tok"], [i for n in names for i in ds.instances[n][:K]]).items()}
     jcv = s["apply"](v, sup, method="class_vectors")
-    np.testing.assert_allclose(
-        eng.registry.snapshot().matrix.numpy(), np.asarray(jcv)[0], rtol=1e-5, atol=1e-5)
+    # The 3 classes are resident on the 4-row tier: a zero pad row follows.
+    mat = eng.registry.snapshot().matrix.numpy()
+    assert mat.shape[0] == 4 and not mat[len(names):].any()
+    np.testing.assert_allclose(mat[:len(names)], np.asarray(jcv)[0], rtol=1e-5, atol=1e-5)
     queries = [i for n in names for i in ds.instances[n][K:K + 2]]     # 6 rows
     verdicts = eng.classify_batch(queries)
     assert [vd["bucket"] for vd in verdicts] == [4] * 4 + [2] * 2
