@@ -77,7 +77,8 @@ exits non-zero; no phase catches a failure of its own):
    norm, and ``optim_update``, the clip, decay, moments and update of every
    tensor) vs the plain twin and the per-parameter loop on the flagship
    parameter list for every rule (adam, adamw, sgd) and word-table mode
-   (shared, sgd, frozen): the update within 1e-6 of each tensor's scale,
+   (shared, sgd, frozen; and adam_nodecay, the lazy table's rule and its
+   dense twin's): the update within 1e-6 of each tensor's scale,
    the norm bitwise equal over two runs; times for Adam with a shared table
    beside the bound (bytes), the plain versions and the library yardsticks
    (``get_total_norm``, ``Adam(fused=True)``, and ``clip_grad_norm_`` +
@@ -142,12 +143,48 @@ exits non-zero; no phase catches a failure of its own):
    optimizer pair, K7/K8 never), the same steps with the plain backends
    (losses within a band), ms/step and episodes/s beside the W=8 figure,
    and the same profiles.
-11. A ``{"kernels": [...]}`` line for the fourteen hand kernels (one per
-   Pallas body, the weight-gradient kernel of the backwards and the
-   optimizer pair; K1 and K2 with the serving phases' counts), a
-   ``{"training_step": ...}`` line of the step's figures and the segment
-   sum's, a ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, then the
-   last line ``{"ok": true, "device": {...}}``.
+9c. Real-format files (``build/chip_smoke_real/``, removed at the end):
+   FewRel-schema JSON splits at FewRel 1.0's sizes (64 train, 16 val and 16
+   test relations of 700 instances, drawn from 50 000 words) and a GloVe
+   word2id JSON + .npy of 400 000 x 50, written from the synthetic
+   generators; the vocabulary and token ids they load to equal the
+   generators'. ``cli.make_trainer`` on them with ``--trainN 10 --na_rate 1
+   --nota_head stats --loss ce --steps_per_call 4`` (bf16, val every 10
+   steps): 40 steps as graph replays under the profiler, launches counted
+   as in phase 9; ``cli.train_main`` with ``--fault_step 20`` (it crashes
+   before its step-20 boundary), then ``--resume`` from the ring's step 12
+   to step 40, against the uninterrupted run (val accuracy within 2e-2 at
+   every boundary, parameters within 5e-2 of scale: the shared table's
+   gradient is f32 atomics); ``cli.test_main`` on the test file reports NOTA
+   precision and recall; ms/step, episodes/s, host-to-device bytes a step
+   and the graph's profile.
+9d. ``--token_cache --embed_optimizer lazy`` on 9c's files, same flags:
+   ``lazy_catchup`` and ``lazy_scatter`` (``csrc/lazy_embed.cu``) vs their
+   plain versions on a 400 002 x 50 lazy state with gaps 0-1500 (beyond
+   the 1024 cap), all-zero rows and pad lanes, at the corpus's R = U and a
+   live batch's R, and the in-place materialize (never-touched rows
+   bitwise); 20 lazy steps vs the dense twin (Adam with decay off the
+   table only) from the same weights on the same batches (``hold_state``'s
+   bars after 4 steps, losses within 2e-2 over 20; rows outside the corpus
+   bitwise),
+   and one lazy step under the profiler with shapes (no ``index_add_``, no
+   fill of a [V, D] tensor); 40 steps through the trainer the CLI builds,
+   under the profiler (the catch-up once per replay and per materialize,
+   the write-back once per replay); the kernels' times at that run's state
+   beside their bounds, plain versions and (write-back) four
+   ``index_copy_``; host-to-device bytes a step beside 9c's; the ring: a
+   base, then deltas (bytes against the base), a resume from the step-20
+   delta equal to the uninterrupted run within 1e-6 of scale, a bit-flipped
+   delta quarantined with the restore falling back to the base bitwise;
+   ``register_tokens`` on the run's best checkpoint (offset-form rows) vs
+   ``register`` on the same raw sentences; the graph's profile.
+11. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
+   Pallas body, the weight-gradient kernel of the backwards, the
+   optimizer pair and the lazy table's two; K1 and K2 with the serving
+   phases' counts), a ``{"training_step": ...}`` line of the step's figures,
+   the segment sum's and phases 9c/9d's, a ``{"serving": ...}`` line of
+   phases 4, 4a, 4b and 4c, then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
 port's package is not beside it (rc 1, with a message naming the package).
@@ -234,8 +271,20 @@ from induction_network_on_fewrel_tpu_torch.ops.optim import (
     optim_update,
     optim_update_reference,
 )
+from induction_network_on_fewrel_tpu_torch.ops.lazy_embed import (
+    CATCHUP_CAP,
+    lazy_catchup,
+    lazy_catchup_reference,
+    lazy_materialize,
+    lazy_scatter,
+    lazy_scatter_reference,
+)
 from induction_network_on_fewrel_tpu_torch.ops.segsum import segsum, segsum_reference
-from induction_network_on_fewrel_tpu_torch.train.framework import FewShotTrainer, stack_batches
+from induction_network_on_fewrel_tpu_torch.train.framework import (
+    FewShotTrainer,
+    batch_inputs,
+    stack_batches,
+)
 from induction_network_on_fewrel_tpu_torch.train.steps import (
     WORD_TABLE,
     batch_leaves,
@@ -1011,7 +1060,8 @@ def split_recurrence(gen: torch.Generator) -> dict:
 # apart), the norm within OPTIM_TOL of the plain twin's (the same chunks, a
 # different order inside each) and bitwise equal over two runs.
 OPTIM_TOL = 1e-6
-OPTIM_MODES = [(o, e) for o in ("adam", "adamw", "sgd") for e in ("shared", "sgd", "frozen")]
+OPTIM_MODES = ([(o, e) for o in ("adam", "adamw", "sgd") for e in ("shared", "sgd", "frozen")]
+               + [("adam", "nodecay")])     # the lazy table's rule, and its dense twin's
 # The segment sum vs index_put_ with accumulate on the flagship batch's word
 # ids: the same f32 terms per row in another order (atomics); the padding
 # id's row sums thousands of terms, so the bar is relative to the output's
@@ -1045,7 +1095,8 @@ def optim_checks(model, gen: torch.Generator) -> dict:
 
     rows, timed = {}, None
     for idx, (o, e) in enumerate(OPTIM_MODES):
-        table_rule = {"shared": o, "sgd": "sgd_plain", "frozen": "frozen"}[e]
+        table_rule = {"shared": o, "sgd": "sgd_plain", "frozen": "frozen",
+                      "nodecay": "adam_nodecay"}[e]
         rules = [table_rule if n == WORD_TABLE else o for n in names]
         live = [i for i, r in enumerate(rules) if r != "frozen"]
         rl = [rules[i] for i in live]
@@ -1173,6 +1224,204 @@ def segsum_checks(model, support: dict, query: dict, gen: torch.Generator) -> di
     return {"err": err, "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1]}
 
 
+# Phase 9c's real-format files: FewRel 1.0's published split sizes (64 train,
+# 16 val relations of 700 instances; the test split 16 more) from the
+# synthetic generator, and a GloVe word2id JSON + .npy of the flagship
+# table's 400 000 words (the loader appends [UNK] and [BLANK]).
+REAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_real"
+REAL_SPLITS = {"train": (64, 0), "val": (16, 1), "test": (16, 2)}
+REAL_INSTANCES = 700
+# Distinct words the sentences draw from: a real corpus of this size uses
+# tens of thousands of the table's 400 000 (the JAX package: "real corpora
+# run 40-60k rows", models/embedding.py), not all of them. So the lazy
+# run's compact rows, and its ring deltas, cover about an eighth of the
+# table, as a FewRel run's would.
+REAL_CORPUS_WORDS = 50_000
+
+
+def fewrel_record(inst) -> dict:
+    return {"tokens": list(inst.tokens), "h": [inst.head_name, "Q1", [list(inst.head_pos)]],
+            "t": [inst.tail_name, "Q2", [list(inst.tail_pos)]]}
+
+
+def write_real_files(directory: Path) -> dict:
+    """Write the splits and the GloVe pair to ``directory``; returns their
+    paths and the generators' objects they were written from."""
+    cfg = ExperimentConfig()
+    directory.mkdir(parents=True, exist_ok=True)
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    words = sorted(((i, w) for w, i in vocab.word2id.items() if i < cfg.vocab_size - 2))
+    paths = {"glove": directory / "glove_word2id.json", "glove_mat": directory / "glove_mat.npy"}
+    paths["glove"].write_text(json.dumps({w: i for i, w in words}))
+    np.save(paths["glove_mat"], vocab.vectors[:cfg.vocab_size - 2])
+    data = {}
+    for split, (n_rel, seed) in REAL_SPLITS.items():
+        ds = make_synthetic_fewrel(num_relations=n_rel, instances_per_relation=REAL_INSTANCES,
+                                   vocab_size=REAL_CORPUS_WORDS, seed=seed)
+        paths[split] = directory / f"{split}.json"
+        paths[split].write_text(json.dumps({r: [fewrel_record(i) for i in ds.instances[r]]
+                                            for r in ds.rel_names}))
+        data[split] = ds
+    return {"paths": paths, "vocab": vocab, "data": data}
+
+
+def real_argv(paths: dict, *splits: str) -> list:
+    out = ["--glove", str(paths["glove"]), "--glove_mat", str(paths["glove_mat"])]
+    for split in splits:
+        out += [f"--{split}_file", str(paths[split])]
+    return out
+
+
+# The lazy word table's kernels (phase 9d) vs their plain versions: the same
+# f32 operations in the same order, but CUDA's powf and PyTorch's pow of
+# the bias corrections may differ by an ulp, so outputs are held within 1e-6
+# of each output's scale (the JAX bar for lazy vs dense Adam,
+# tests/test_lazy_embed.py); pad lanes, rows left out and never-touched
+# rows bitwise.
+LAZY_TOL = 1e-6
+LAZY_GAPS = (0, 1, 2, 7, 1023, 1024, 1025, 1500)
+LAZY_T = 2600                   # past the flagship's first staircase step (2000)
+
+
+def lazy_state(gen: torch.Generator, V: int, D: int, t: int) -> dict:
+    """A lazy table state at update count ``t``: 20 % of the rows alive
+    (nonzero moments) with gaps 0-1500 (LAZY_GAPS beyond the cap among
+    them), the rest never touched (zero moments, any last)."""
+    dev = torch.device("cuda")
+    alive = torch.rand(V, generator=gen) < 0.2
+    gaps = torch.randint(0, 1501, (V,), generator=gen)
+    gaps[:len(LAZY_GAPS)] = torch.tensor(LAZY_GAPS)
+    alive[:len(LAZY_GAPS)] = True
+    last = torch.where(alive, t - gaps, torch.randint(0, t + 1, (V,), generator=gen))
+    m = torch.randn((V, D), generator=gen) * 1e-3 * alive[:, None]
+    v = (torch.randn((V, D), generator=gen) * 1e-3).square() * alive[:, None]
+    return {"table": (torch.randn((V, D), generator=gen) * 0.5).to(dev), "m": m.to(dev),
+            "v": v.to(dev), "last": last.to(torch.int32).to(dev), "alive": alive.to(dev)}
+
+
+def lazy_kernel_checks(gen: torch.Generator, uids: torch.Tensor, live_tokens: int) -> dict:
+    """Phase 9d's kernel checks at the flagship table (400 002 x 50) and
+    schedule: ``lazy_catchup`` at R = U (the token cache's corpus rows
+    ``uids``) and at a live batch's R (its distinct ids, then pad lanes),
+    ``lazy_materialize`` (the catch-up in place over the whole table) and
+    ``lazy_scatter`` (pad lanes dropped), each vs its plain version; then
+    device times at R = U and for materialize, the bound (bytes) and the
+    plain versions, and for the scatter the library yardstick (four
+    ``index_copy_`` calls)."""
+    dev = torch.device("cuda")
+    cfg = ExperimentConfig()
+    V, D = cfg.vocab_size, cfg.word_dim
+    hp = OptimHyper(cfg.lr, cfg.lr_gamma, cfg.lr_step_size, 0.0, cfg.grad_clip)
+    st = lazy_state(gen, V, D, LAZY_T)
+    count = torch.tensor(LAZY_T, dtype=torch.int64, device=dev)
+    live = torch.unique(torch.randint(0, V - 1, (live_tokens,), generator=gen))
+    live = torch.cat([live, torch.full((live_tokens - live.numel(),), V)]).to(torch.int32)
+    worst, out = 0.0, {}
+    for tag, ids in (("cached", uids), ("live", live.to(dev))):
+        R = ids.numel()
+        bufs = tuple(torch.empty((R, D), device=dev) for _ in range(3))
+        lazy_catchup(st["table"], st["m"], st["v"], st["last"], ids, count, hp, bufs)
+        want = lazy_catchup_reference(st["table"], st["m"], st["v"], st["last"], ids, LAZY_T, hp)
+        worst = max(worst, check_outputs(f"lazy_catchup {tag}", dict(zip("Wmv", zip(bufs, want))),
+                                         LAZY_TOL))
+        pad = ids.long() >= V
+        if pad.any() and not all(torch.equal(b[pad], w[pad]) for b, w in zip(bufs, want)):
+            raise AssertionError("lazy_catchup: pad lanes differ from the clamped row")
+        out[tag] = (ids, bufs)
+        print(f"[lazy] lazy_catchup {tag}: R={R} ({int(pad.sum())} pad lanes) at t={LAZY_T}, "
+              f"gaps 0-1500 (cap {CATCHUP_CAP}): max abs err {worst:.3g} (tol {LAZY_TOL} of "
+              f"scale)", flush=True)
+    # Materialize: in place over the whole table.
+    k_state = {k: st[k].clone() for k in ("table", "m", "v", "last")}
+    lazy_materialize(k_state["table"], k_state["m"], k_state["v"], k_state["last"], count, hp)
+    W, mm, vv = lazy_catchup_reference(st["table"], st["m"], st["v"], st["last"], None, LAZY_T,
+                                       hp)
+    worst = max(worst, check_outputs("lazy_materialize", {"W": (k_state["table"], W),
+                                                          "m": (k_state["m"], mm),
+                                                          "v": (k_state["v"], vv)}, LAZY_TOL))
+    dead = ~st["alive"]
+    if not torch.equal(k_state["table"][dead], st["table"][dead]) \
+            or not torch.equal(k_state["last"][dead], st["last"][dead]) \
+            or bool((k_state["last"][st["alive"]] != LAZY_T).any()):
+        raise AssertionError("lazy_materialize: a never-touched row moved, or last is wrong")
+    # Scatter (live ids: pad lanes dropped).
+    ids, bufs = out["live"]
+    rows = tuple(torch.randn(b.shape, generator=gen).to(dev) for b in bufs)
+    k_state = {k: st[k].clone() for k in ("table", "m", "v", "last")}
+    p_state = {k: st[k].clone() for k in ("table", "m", "v", "last")}
+    lazy_scatter(k_state["table"], k_state["m"], k_state["v"], k_state["last"], ids, rows, count)
+    lazy_scatter_reference(p_state["table"], p_state["m"], p_state["v"], p_state["last"], ids,
+                           *rows, LAZY_T)
+    if not all(torch.equal(k_state[k], p_state[k]) for k in k_state):
+        raise AssertionError("lazy_scatter differs from its plain version")
+    if not torch.equal(k_state["table"][V - 1], st["table"][V - 1]):
+        raise AssertionError("lazy_scatter wrote a pad lane")
+    print(f"[lazy] lazy_materialize over {V} rows ({int(dead.sum())} never touched, left "
+          f"bitwise): within {LAZY_TOL} of scale; lazy_scatter of {ids.numel()} rows with pad "
+          f"lanes: bitwise equal to its plain version, pads dropped", flush=True)
+
+    # Times at the token cache's R = U on this state (gaps 0-1500: the
+    # catch-up's worst case), materialize first: the write-backs below
+    # overwrite the rows they time.
+    times = []
+    for _ in range(3):
+        k_state = {k: st[k].clone() for k in ("table", "m", "v", "last")}
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        lazy_materialize(k_state["table"], k_state["m"], k_state["v"], k_state["last"], count, hp)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    ms_m = sorted(times)[1]
+    moved = int((st["alive"] & (st["last"] < LAZY_T)).sum())
+    b_m = bound(8 * V * D + 4 * V + moved * D * 4 + 12 * moved * D + 4 * V, 0.0)
+    ids, bufs = out["cached"]
+    rows = lazy_times(st["table"], st["m"], st["v"], st["last"], ids, bufs, count, hp)
+    rows["lazy_catchup"].update(err=worst, materialize_ms=ms_m, materialize_bound_ms=b_m[0],
+                                materialize_moved_rows=moved)
+    print(f"[lazy] gaps 0-1500, R=U={ids.numel()}: lazy_catchup "
+          f"{rows['lazy_catchup']['ms']:.4f} ms (bound {rows['lazy_catchup']['bound_ms']:.4f} by "
+          f"bytes, plain {rows['lazy_catchup']['plain_ms']:.3f}; no library call computes it); "
+          f"lazy_materialize over {V} rows ({moved} to catch up): {ms_m:.4f} ms (bound "
+          f"{b_m[0]:.4f}); lazy_scatter {rows['lazy_scatter']['ms']:.4f} ms (bound "
+          f"{rows['lazy_scatter']['bound_ms']:.4f}, plain {rows['lazy_scatter']['plain_ms']:.4f}, "
+          f"four index_copy_ {rows['lazy_scatter']['library_ms']:.4f})", flush=True)
+    return rows
+
+
+def lazy_times(table, m, v, last, ids, bufs, count, hp) -> dict:
+    """CUDA-event times (warm L2) of ``lazy_catchup`` of rows ``ids`` of the
+    state into ``bufs`` and of ``lazy_scatter`` of ``bufs`` back, their plain
+    versions', the write-back's library yardstick (four ``index_copy_``:
+    table, moments, last) and their byte bounds (each input read once, each
+    output written once). The write-backs write ``bufs`` over the rows."""
+    U, D = bufs[0].shape
+    t = int(count)
+    ms_c = cuda_ms(lambda: lazy_catchup(table, m, v, last, ids, count, hp, bufs), 20)
+    plain_c = cuda_ms(lambda: lazy_catchup_reference(table, m, v, last, ids, t, hp), 2)
+    b_c = bound(3 * U * D * 4 + 8 * U + 3 * U * D * 4, 0.0)
+    ms_s = cuda_ms(lambda: lazy_scatter(table, m, v, last, ids, bufs, count), 20)
+    plain_s = cuda_ms(lambda: lazy_scatter_reference(table, m, v, last, ids, *bufs, t), 5)
+    b_s = bound(3 * U * D * 4 + 4 * U + 3 * U * D * 4 + 4 * U, 0.0)
+    idx64 = ids.long()
+    stamp = torch.full((U,), t, dtype=torch.int32, device=ids.device)
+
+    def index_copies():
+        table.index_copy_(0, idx64, bufs[0])
+        m.index_copy_(0, idx64, bufs[1])
+        v.index_copy_(0, idx64, bufs[2])
+        last.index_copy_(0, idx64, stamp)
+
+    lib_s = cuda_ms(index_copies, 20)
+    return {
+        "lazy_catchup": {"ms": ms_c, "plain_ms": plain_c, "bound_ms": b_c[0],
+                         "bound_by": b_c[1], "library_ms": None, "R": U},
+        "lazy_scatter": {"err": 0.0, "ms": ms_s, "plain_ms": plain_s, "bound_ms": b_s[0],
+                         "bound_by": b_s[1], "library_ms": lib_s, "R": U},
+    }
+
+
 # Training main path, kernel route vs the plain ("reference") backends from
 # the same weights on the same batches. Both run the same bf16 encoder
 # arithmetic, except that a bf16 value written by a kernel (hs, demb, dH,
@@ -1188,7 +1437,9 @@ WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 TRAIN_KERNELS = {"K7": bilstm_win_fwd, "K8": bilstm_win_bwd, "K10": attn_fwd_stats, "K11": attn_bwd,
                  "K4": bilstm_full_fwd, "K6": bilstm_full_bwd, "wgrad": lstm_wgrad,
                  "optim_sumsq": optim_sumsq, "optim_update": optim_update,
-                 "K1": bilstm_infer_cuda, "K2": attn_fwd_cuda}
+                 "K1": bilstm_infer_cuda, "K2": attn_fwd_cuda,
+                 "lazy_catchup": lazy_catchup, "lazy_scatter": lazy_scatter}
+LAZY_KERNELS = ("lazy_catchup", "lazy_scatter")
 STEP_KERNELS = ("K10", "K11", "wgrad", "optim_sumsq", "optim_update")
 SPLIT_KERNELS = {"split2": lstm_split_infer_cuda, "split1": lstm_split_fwd, "split3": lstm_split_bwd,
                  "wgrad": lstm_wgrad}
@@ -1212,7 +1463,12 @@ PROFILED = {
     "wgrad": r"lstm_wgrad_kernel<",
     "optim_sumsq": r"optim_sumsq_kernel\(",
     "optim_update": r"optim_update_kernel\(",
+    "lazy_catchup": r"lazy_catchup_kernel\(",
+    "lazy_scatter": r"lazy_scatter_kernel\(",
 }
+# index_add_'s kernels: the dense table gradient, never on the lazy path.
+INDEX_ADD = "indexFunc"
+
 # The sorting scatter behind autograd of table[ids] (index_put_ with
 # accumulate): no longer on the training path.
 SORT_SCATTER = "indexing_backward_kernel"
@@ -1263,10 +1519,14 @@ def train_records(path: Path) -> list[dict]:
 
 
 def profile_rows(prof) -> list:
+    """(kernel, device us, launches) of the profile's device work; the
+    profiler's own step annotations and ``counted_profile``'s spin kernels
+    are left out."""
     from torch.autograd import DeviceType
 
     return sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep") and "spin_kernel" not in e.key),
                   key=lambda r: -r[1])
 
 
@@ -1275,12 +1535,10 @@ def profile_eager_steps(trainer, steps: int = 5, tag: str = "profile eager") -> 
     the parent's path) of the trainer's model: device time by kernel, and
     the device's busy share of the wall time (the sum of kernel times over
     the synchronized wall; one stream, so kernels do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     batches = [batch_to_model_inputs(trainer.train_sampler.sample_batch()) for _ in range(steps)]
     train_step(trainer.model, trainer.opt, trainer.cfg, *batches[0])     # warm
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with counted_profile() as prof:
         t0 = time.monotonic()
         for b in batches:
             train_step(trainer.model, trainer.opt, trainer.cfg, *b)
@@ -1296,6 +1554,30 @@ def profile_eager_steps(trainer, steps: int = 5, tag: str = "profile eager") -> 
     return {"busy_ms": busy / steps / 1e3, "launches": sum(r[2] for r in rows) / steps}
 
 
+@contextlib.contextmanager
+def counted_profile():
+    """torch.profiler (CPU and CUDA activities) over the block, after one
+    warm-up cycle and a few spin kernels: the tracer runs before the first
+    launch it must count. The block ends synchronized."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        # The first device records of a window can be lost (a replay's first
+        # memcpys and kernels were, the same in two windows): a few spin
+        # kernels take that place, and ``profile_rows`` leaves them out.
+        for _ in range(8):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        time.sleep(0.005)
+        yield prof
+        torch.cuda.synchronize()
+        prof.step()
+
+
 def profiled_counts(rows: list) -> dict:
     """Launches of each PROFILED kernel among the profiler's rows."""
     return {k: sum(n for key, _, n in rows if re.search(pat, key)) for k, pat in PROFILED.items()}
@@ -1307,7 +1589,13 @@ def no_sort_scatter(rows: list, tag: str) -> None:
                              f"sort")
 
 
-def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile graph") -> dict:
+def no_index_add(rows: list, tag: str) -> None:
+    if any(INDEX_ADD in key for key, _, _ in rows):
+        raise AssertionError(f"{tag}: {INDEX_ADD} ran: a dense table gradient (index_add_)")
+
+
+def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile graph",
+                        per_call: tuple = ()) -> dict:
     """The trainer's CUDA-graph step (``steps_per_call`` steps a replay):
     unprofiled ms/step over ``calls`` replays with the host split (sample:
     the episode batches drawn and stacked on the host; copy: into the pinned
@@ -1315,15 +1603,15 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
     previous call's copies; replay: ``graph.replay()`` returning), then
     ``calls`` more under torch.profiler: device busy and launches per step,
     and each kernel of ``on`` launched once per step (K11's two kernels
-    each once), every other PROFILED kernel never."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+    each once), each of ``per_call`` once per replay (the lazy table's
+    catch-up and write-back on the token cache), every other PROFILED
+    kernel never."""
     spc = trainer.cfg.steps_per_call
     graphs = trainer.multi_train_step if spc > 1 else trainer.train_step.graphs
     sampler = trainer.train_sampler
 
     def sample():
-        return batch_leaves(*stack_batches([batch_to_model_inputs(sampler.sample_batch())
+        return batch_leaves(*stack_batches([batch_inputs(sampler.sample_batch())
                                             for _ in range(spc)]))
 
     captured = graphs.captured(sample())
@@ -1345,7 +1633,7 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
     step_ms = (time.perf_counter() - t_start) / (calls * spc) * 1e3
     split = {k: v / (calls * spc) * 1e3 for k, v in split.items()}
     stacked = [sample() for _ in range(calls)]
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with counted_profile() as prof:
         t0 = time.monotonic()
         for leaves in stacked:
             captured.fill(leaves)
@@ -1370,10 +1658,26 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
         raise AssertionError("the profiler saw no kernel in the graph replays")
     per_replay = {k: n / calls for k, n in profiled_counts(rows).items()}
     print(f"[{tag}] hand kernels per replay of {spc} steps: {per_replay}", flush=True)
-    want = {k: float(spc if k.split()[0] in on else 0) for k in PROFILED}
+    want = {k: float(spc if k.split()[0] in on else 1 if k in per_call else 0) for k in PROFILED}
+    if per_replay != want:
+        # Should the profiler drop a kernel record of a window, a second
+        # window of the same replays counts it; a kernel a replay does not
+        # launch is missing from both.
+        odd = [(key[:100], n) for key, _, n in rows if n % calls]
+        with counted_profile() as prof2:
+            for leaves in stacked:
+                captured.fill(leaves)
+                captured.graph.replay()
+        again = {k: n / calls for k, n in profiled_counts(profile_rows(prof2)).items()}
+        print(f"[{tag}] kernel rows off a multiple of {calls} replays: {odd}; a second window: "
+              f"{again}", flush=True)
+        per_replay = {k: max(per_replay[k], again[k]) for k in per_replay}
     if per_replay != want:
         raise AssertionError(f"kernels per replay {per_replay}, expected {want}")
-    no_sort_scatter(rows, tag)
+    if per_call:
+        no_index_add(rows, tag)
+    else:
+        no_sort_scatter(rows, tag)
     return {"step_ms": step_ms, "episodes_per_s": trainer.cfg.batch_size * 1e3 / step_ms,
             "split": split, "busy_ms": busy / steps / 1e3, "launches": launches,
             "busy_share": busy / wall_us, "pool_bytes": graphs.pool_bytes}
@@ -1492,7 +1796,8 @@ def fused_vs_single(cfg, vocab, batches: list) -> dict:
     return {**held, "metrics_rel": worst}
 
 
-def run_trainer(trainer, steps: int, on: tuple, evals: int = 0) -> tuple[dict, dict, list]:
+def run_trainer(trainer, steps: int, on: tuple, evals: int = 0,
+                expect: dict | None = None) -> tuple[dict, dict, list]:
     """``trainer.train(steps)``, the main path, under torch.profiler, with the wrappers' counts zeroed just before and read
     just after. A wrapper counts the calls that launch its kernel: under a
     graph, the warm-up's and the capture's, not the replays. So every
@@ -1501,15 +1806,13 @@ def run_trainer(trainer, steps: int, on: tuple, evals: int = 0) -> tuple[dict, d
     kernel of ``on`` once per step plus once per captured graph's warm-up
     (an eager forward and backward and one optimizer pair), the eval
     kernels (K1, K2) once per evaluated batch (``evals``) plus once per
-    eval graph's warm-up. Returns (profiled launches, wrapper counts, the
-    [train] records)."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+    eval graph's warm-up; ``expect`` overrides the count of a kernel (the
+    lazy table's, which run once per replay and at each materialize).
+    Returns (profiled launches, wrapper counts, the [train] records)."""
     torch.cuda.synchronize()
     for fn in TRAIN_KERNELS.values():
         fn.launches = 0
-    with contextlib.redirect_stderr(io.StringIO()), \
-            torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with contextlib.redirect_stderr(io.StringIO()), counted_profile() as prof:
         trainer.train(steps)                # the [train]/[val] lines; read back below
         torch.cuda.synchronize()
     wrapped = {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
@@ -1521,11 +1824,15 @@ def run_trainer(trainer, steps: int, on: tuple, evals: int = 0) -> tuple[dict, d
     n_eval = graphs_of(trainer.eval_step, trainer.multi_eval_step)
     want = {k: (0 if k.split()[0] not in on else
                 evals + n_eval if k in ("K1", "K2") else steps + n_train) for k in PROFILED}
+    want.update(expect or {})
     if launches != want:
         raise AssertionError(f"training kernels launched {launches} (profiler), expected {want} "
                              f"({steps} steps, {n_train} train graphs, {evals} eval batches, "
                              f"{n_eval} eval graphs)")
-    no_sort_scatter(rows, "main path")
+    if trainer.lazy is None:
+        no_sort_scatter(rows, "main path")
+    else:
+        no_index_add(rows, "lazy main path")
     trainer.close()
     return launches, wrapped, train_records(trainer.logger.path)
 
@@ -1760,6 +2067,425 @@ def train_full_residual(w8: dict) -> dict:
             "grad_rel": worst, "cosine_w8": cos, "loss_rel": max(loss_rel, loss_rel4),
             "graph": graph_check, "fused": fused_check, "eager": eager, "prof1": prof1,
             "prof4": prof4}
+
+
+# --- Phases 9c and 9d: real-format files, the ring, lazy Adam over the token cache ---
+
+REAL_STEPS = 40
+REAL_FAULT = 20
+# 10-way training episodes with NOTA (FewRel 2.0), 5-way eval, ce, 4 steps a
+# replay, a val pass of 40 episodes every 10 steps (so at steps 12, 20, 32
+# and 40: a replay may not cross a boundary unseen).
+REAL_ARGV = ["--bf16", "--trainN", "10", "--na_rate", "1", "--nota_head", "stats", "--loss",
+             "ce", "--steps_per_call", "4", "--val_step", "10", "--val_iter", "40"]
+# Phase 9c's resume vs the uninterrupted run on the shared table: the table's
+# gradient is index_add_'s f32 atomics, so the two runs differ by rounding
+# from the first step on (``hold_state``): held as two runs from the same
+# weights over many steps are held, val accuracy within 2e-2 at every
+# boundary, and each parameter within GRAD_REL_TOL of its scale at step 40.
+REAL_VAL_TOL = 2e-2
+
+
+def evals_per_pass(trainer) -> int:
+    """Eval batches one val pass of ``trainer.evaluate`` runs, the repeated
+    ones of a fused tail included."""
+    remaining, spc, n = max(1, trainer.cfg.val_iter // trainer.cfg.batch_size), trainer.eval_spc, 0
+    while remaining > 0:
+        if spc > 1 and remaining >= max(1, spc // 8):
+            n, remaining = n + spc, remaining - min(spc, remaining)
+        else:
+            n, remaining = n + 1, remaining - 1
+    return n
+
+
+def h2d_bytes(trainer) -> float:
+    """Host-to-device bytes of one training step: the static inputs of one
+    batch (token leaves, or the token cache's indices) and its labels."""
+    batch = batch_inputs(trainer.train_sampler.sample_batch())
+    return float(sum(a.nbytes for _, a in batch_leaves(*stack_batches([batch]))))
+
+
+def val_records(path: Path) -> list[dict]:
+    return [r for r in map(json.loads, path.read_text().splitlines()) if r["kind"] == "val"]
+
+
+def quiet_cli(fn, argv) -> tuple[int, str, str]:
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def real_files_phase(real: dict) -> dict:
+    """Phase 9c: ``cli.train_main`` on the real-format files, the shared
+    table, 10-way training with NOTA: the vocabulary and token ids the CLI
+    reads vs the generator's; REAL_STEPS steps as graph replays (the trainer
+    the CLI builds, under the profiler, launches counted); a run with
+    ``--fault_step`` that crashes before its step-20 boundary, then
+    ``--resume`` to step 40, against the uninterrupted run; ``test_main`` on
+    the test file with NOTA precision and recall; ms/step, episodes/s and
+    the host-to-device bytes of a step."""
+    from induction_network_on_fewrel_tpu_torch.data import load_fewrel_json, load_glove
+    from induction_network_on_fewrel_tpu_torch.train.token_cache import tokenize_dataset
+
+    paths = real["paths"]
+    t0 = time.monotonic()
+    loaded = load_glove(paths["glove"], paths["glove_mat"])
+    if loaded.word2id != real["vocab"].word2id or not np.array_equal(loaded.vectors,
+                                                                     real["vocab"].vectors):
+        raise AssertionError("the GloVe files do not load into the generator's vocabulary")
+    loaded_data = {split: load_fewrel_json(paths[split]) for split in REAL_SPLITS}
+    for split, ds in loaded_data.items():
+        if ds.instances != real["data"][split].instances:
+            raise AssertionError(f"{split}: the file's instances differ from the generator's")
+    # Equal instances and vocabularies tokenize alike; the val split shows it.
+    got, sizes = tokenize_dataset(loaded_data["val"], GloveTokenizer(loaded, max_length=L))
+    want, wsizes = tokenize_dataset(real["data"]["val"], GloveTokenizer(real["vocab"],
+                                                                        max_length=L))
+    if sizes != wsizes or any(not np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError("token ids from the files differ from the generator's")
+    splits = ", ".join(f"{split} {n_rel} x {REAL_INSTANCES}"
+                       for split, (n_rel, _) in REAL_SPLITS.items())
+    print(f"[9c] {loaded.vocab_size} x {loaded.word_dim} GloVe and the splits ({splits}) load "
+          f"to the generator's vocabulary and token ids ({time.monotonic() - t0:.1f} s)",
+          flush=True)
+    files = real_argv(paths, "train", "val")
+    whole, parts = REAL_DIR / "whole", REAL_DIR / "parts"
+    args = cli.build_arg_parser(train=True).parse_args(
+        REAL_ARGV + files + ["--train_iter", str(REAL_STEPS), "--save_ckpt", str(whole)])
+    cfg = cli.config_from_args(args)
+    trainer, _ = cli.make_trainer(args, cfg)
+    trainer.metric_window = 1
+    cfg = trainer.cfg
+    passes = REAL_STEPS // cfg.val_step
+    on = ("K7", "K8", "K1", "K2") + STEP_KERNELS
+    launches, _, recs = run_trainer(trainer, REAL_STEPS, on, passes * evals_per_pass(trainer))
+    bytes_step = h2d_bytes(trainer)
+    steady = step_ms_of(recs, cfg.batch_size, 1)
+    print(f"[9c] {REAL_STEPS} steps of {cfg.train_n}-way {cfg.k}-shot training with NOTA "
+          f"({cfg.batch_size * (cfg.train_n * (cfg.k + cfg.q) + cfg.na_rate * cfg.q)} encoder "
+          f"rows a step) as graph replays of {cfg.steps_per_call}: launches (profiler) "
+          f"{launches}; ms/step median of replays 2-{len(recs)} {steady:.2f} -> "
+          f"{cfg.batch_size * 1e3 / steady:.1f} episodes/s; host-to-device {bytes_step:.0f} "
+          f"bytes a step", flush=True)
+    prof = profile_graph_steps(trainer, ("K7", "K8") + STEP_KERNELS, tag="profile graph 9c")
+
+    fault_argv = REAL_ARGV + files + ["--save_ckpt", str(parts), "--fault_step", str(REAL_FAULT)]
+    try:
+        quiet_cli(cli.train_main, fault_argv + ["--train_iter", str(REAL_STEPS)])
+        raise AssertionError("--fault_step did not fire")
+    except RuntimeError as e:
+        if f"injected fault at step {REAL_FAULT}" not in str(e):
+            raise
+    rc, _, err = quiet_cli(cli.train_main, fault_argv + ["--resume", "--train_iter",
+                                                         str(REAL_STEPS - 12)])
+    if rc != 0 or "restored latest checkpoint step=12" not in err:
+        raise AssertionError(f"--resume: rc {rc}, {err[-2000:]!r}")
+    a = torch.load(whole / "latest.pt", weights_only=True)
+    b = torch.load(parts / "latest.pt", weights_only=True)
+    if a["step"] != b["step"] or a["opt"]["count"] != b["opt"]["count"]:
+        raise AssertionError(f"resume: step {b['step']} count {b['opt']['count']} vs "
+                             f"{a['step']} {a['opt']['count']}")
+    worst = max(rel_err(b["params"][k], v)[1] for k, v in a["params"].items())
+    va, vb = val_records(whole / "metrics.jsonl"), val_records(parts / "metrics.jsonl")
+    val_diff = max(abs(x["accuracy"] - y["accuracy"]) for x, y in zip(va, vb))
+    if [r["step"] for r in va] != [r["step"] for r in vb] or val_diff > REAL_VAL_TOL \
+            or worst > GRAD_REL_TOL:
+        raise AssertionError(f"resume vs uninterrupted: val {[r['accuracy'] for r in vb]} vs "
+                             f"{[r['accuracy'] for r in va]}, params {worst:.3g}")
+    print(f"[9c] --fault_step {REAL_FAULT} crashed the run before its step-20 boundary; --resume "
+          f"from the ring's step 12 to step {REAL_STEPS}: val accuracy at "
+          f"{[r['step'] for r in va]} within {val_diff:.3g} of the uninterrupted run (tol "
+          f"{REAL_VAL_TOL}), parameters within {worst:.3g} of scale (tol {GRAD_REL_TOL}; the "
+          f"table gradient's atomics)", flush=True)
+    rc, out, err = quiet_cli(cli.test_main, ["--bf16", "--na_rate", "1", "--nota_head", "stats",
+                                             "--loss", "ce", "--load_ckpt", str(whole),
+                                             "--test_iter", "40", "--steps_per_call", "4"]
+                             + real_argv(paths, "test"))
+    result = json.loads(out.strip().splitlines()[-1])
+    if rc != 0 or not {"nota_precision", "nota_recall"} <= set(result):
+        raise AssertionError(f"test_main: rc {rc}, {result}, {err[-2000:]!r}")
+    print(f"[9c] test_main on the test file: {result}", flush=True)
+    return {"launches": launches, "step_ms": steady, "episodes_per_s": cfg.batch_size * 1e3 / steady,
+            "h2d_bytes_per_step": bytes_step, "resume_param_rel": worst, "resume_val_diff": val_diff,
+            "test": result, "prof": prof, "vocab": loaded}
+
+
+def lazy_twin_check(cfg, vocab, table) -> dict:
+    """TRAIN_STEPS lazy steps (token cache, replays of S=4) against the
+    dense twin (shared Adam with the table on ``adam_nodecay``: decay off
+    the table only) from
+    the same weights on the same index batches. After the first replay the
+    state is held to ``hold_state``'s bars (1e-6 of scale but the
+    table elements whose gradient is within the twin's atomics' rounding of
+    zero, the table's moments 1e-5); every replay's losses within
+    LOSS_REL_TOL; rows outside the corpus bitwise at their GloVe values in
+    both runs. Then one more lazy step, eagerly, under the profiler with
+    shapes (``no_dense_table_ops``)."""
+    from induction_network_on_fewrel_tpu_torch.sampling.index import IndexEpisodeSampler
+    from induction_network_on_fewrel_tpu_torch.train.lazy_embed import LazyTable, live_rows
+    from induction_network_on_fewrel_tpu_torch.train.steps import ClipDecayOptimizer
+
+    shared = cfg.replace(embed_optimizer="shared")
+    lazy_model = build_model(cfg, glove_init=vocab.vectors)
+    twin = build_model(shared, glove_init=vocab.vectors)
+    opt_l = make_optimizer(cfg, lazy_model)
+    lazy = LazyTable(lazy_model, opt_l.hyper, live_rows(cfg), uids=table.uids)
+    opt_l.attach_compact(lazy.rows, lazy.rows_m, lazy.rows_v)
+    names = [n for n, _ in twin.named_parameters()]
+    opt_t = ClipDecayOptimizer(twin.parameters(), cfg.lr, cfg.weight_decay, cfg.lr_step_size,
+                               cfg.lr_gamma, cfg.grad_clip,
+                               rules=["adam_nodecay" if n == WORD_TABLE else "adam" for n in names])
+    multi_l = make_multi_train_step(lazy_model, opt_l, cfg, source=table, lazy=lazy)
+    multi_t = make_multi_train_step(twin, opt_t, shared, source=table)
+    sampler = IndexEpisodeSampler(table.sizes, cfg.train_n, cfg.k, cfg.q, cfg.batch_size,
+                                  cfg.na_rate, seed=cfg.seed)
+    batches = [batch_inputs(sampler.sample_batch()) for _ in range(TRAIN_STEPS)]
+    table0 = twin.embedding.word_embedding.detach().clone()
+    it = names.index(WORD_TABLE)
+    worst_loss, held = 0.0, None
+    for i in range(0, TRAIN_STEPS, 4):
+        ml, mt = multi_l(*stack_batches(batches[i:i + 4])), multi_t(*stack_batches(batches[i:i + 4]))
+        _, rel = rel_err(ml["loss"].float(), mt["loss"].float())
+        worst_loss = max(worst_loss, rel)
+        if i == 0:
+            lazy.materialize(opt_l.count)
+            held = hold_lazy_state(lazy_model, opt_l, lazy, twin, opt_t, it, table0)
+    if worst_loss > LOSS_REL_TOL:
+        raise AssertionError(f"lazy vs dense twin: losses {worst_loss:.3g} > {LOSS_REL_TOL}")
+    lazy.materialize(opt_l.count)
+    outside = torch.ones(table0.shape[0], dtype=torch.bool, device=table0.device)
+    outside[table.uids.long()] = False
+    for tag, m in (("lazy", lazy_model), ("twin", twin)):
+        if not torch.equal(m.embedding.word_embedding.detach()[outside], table0[outside]):
+            raise AssertionError(f"{tag}: a row outside the corpus moved")
+    final = max(rel_err(a.detach(), b.detach())[1]
+                for a, b in zip(lazy_model.parameters(), twin.parameters()))
+    print(f"[9d] lazy vs the dense twin (decay off the table only), same weights and batches: "
+          f"after 4 steps {held}; {TRAIN_STEPS} steps' losses within {worst_loss:.3g} (tol "
+          f"{LOSS_REL_TOL}); parameters after {TRAIN_STEPS} steps within {final:.3g} of scale "
+          f"(reported); {int(outside.sum())} rows outside the corpus bitwise unchanged in both",
+          flush=True)
+    no_dense_table_ops(lazy_model, opt_l, cfg, table, lazy, sampler)
+    return {**held, "loss_rel": worst_loss, "param_rel_20": final}
+
+
+def hold_lazy_state(lazy_model, opt_l, lazy, twin, opt_t, it: int, table0) -> dict:
+    """``hold_state`` for a lazy run against its dense twin: the table's
+    moments are the lazy table's m and v."""
+    if int(opt_l.count) != int(opt_t.count):
+        raise AssertionError(f"count {int(opt_l.count)} != {int(opt_t.count)}")
+    held = table_held(opt_t, it)
+    worst, worst_table = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(lazy_model.parameters(), twin.parameters())):
+        pairs = [("", a.detach(), b.detach())]
+        pairs += ([(" m", lazy.m, opt_t.mu[it]), (" v", lazy.v, opt_t.nu[it])] if i == it else
+                  [(" m", opt_l.mu[i], opt_t.mu[i]), (" v", opt_l.nu[i], opt_t.nu[i])])
+        for what, x, y in pairs:
+            if i == it:
+                x, y = x[held], y[held]
+            _, rel = rel_err(x, y)
+            tol = SEGSUM_TOL if i == it and what else GRAPH_PARAM_TOL
+            if rel > tol:
+                raise AssertionError(f"lazy vs twin: parameter {i}{what} relative error {rel:.3g} "
+                                     f"> {tol}")
+            if i == it and what:
+                worst_table = max(worst_table, rel)
+            else:
+                worst = max(worst, rel)
+    moved = (lazy_model.embedding.word_embedding.detach() - table0)[held].abs().max().item()
+    if moved <= 100 * GRAPH_PARAM_TOL * table0[held].abs().max().item():
+        raise AssertionError(f"lazy vs twin: the table moved by {moved}: was it updated?")
+    return {"state_rel": worst, "table_moments_rel": worst_table,
+            "table_left_out": int((~held).sum()), "table_moved": moved}
+
+
+def lazy_resume_check(cfg, vocab, train_t, val_t) -> dict:
+    """The ring of a lazy run: 20 steps (a base at the step-12 boundary, a
+    delta at step 20), then 20 more; a second trainer resumes the step-20
+    delta and trains the same 20: its state must equal the uninterrupted
+    run's within GRAPH_PARAM_TOL of scale (no atomics on this path). Before
+    that a copy of the directory with its delta bit-flipped: the delta is
+    quarantined and the restore falls back to the base, bitwise."""
+    from induction_network_on_fewrel_tpu_torch.sampling.index import IndexEpisodeSampler
+    from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
+
+    def trainer_at(directory):
+        return FewShotTrainer(
+            build_model(cfg, glove_init=vocab.vectors), cfg,
+            IndexEpisodeSampler(train_t.sizes, cfg.train_n, cfg.k, cfg.q, cfg.batch_size,
+                                cfg.na_rate, seed=cfg.seed),
+            IndexEpisodeSampler(val_t.sizes, cfg.n, cfg.k, cfg.q, cfg.batch_size, cfg.na_rate,
+                                seed=cfg.seed + 1),
+            ckpt_dir=str(directory), logger=MetricsLogger(directory, quiet=True),
+            train_table=train_t, val_table=val_t)
+
+    run_b, resumed, corrupt = REAL_DIR / "lazy_b", REAL_DIR / "lazy_r", REAL_DIR / "lazy_c"
+    b = trainer_at(run_b)
+    b.train(REAL_FAULT)
+    for d in (resumed, corrupt):
+        shutil.copytree(run_b, d)
+    b.train(REAL_STEPS - REAL_FAULT, start_step=REAL_FAULT)
+    b.close()
+    saves = [r for r in map(json.loads, (run_b / "metrics.jsonl").read_text().splitlines())
+             if r["kind"] == "ckpt"]
+    modes = [(r["step"], r["mode"], int(r["bytes"]), int(r.get("rows", -1))) for r in saves]
+    base_bytes = next(n for _, m, n, _ in modes if m == "base")
+    deltas = [n for _, m, n, _ in modes if m == "delta"]
+    if not deltas:
+        raise AssertionError(f"no delta ring save: {modes}")
+
+    r = trainer_at(resumed)
+    data = bytearray((corrupt / "ring_delta.pt").read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    (corrupt / "ring_delta.pt").write_bytes(bytes(data))
+    step_c, _ = CheckpointManager(corrupt, cfg).restore_latest(r.model, r.opt, r.lazy)
+    base = torch.load(corrupt / "ring_base.pt", weights_only=True)
+    if step_c != base["step"] or not (corrupt / "ring_delta.pt.quarantined").exists() or not all(
+            torch.equal(v.cpu(), base["params"][k]) for k, v in r.model.state_dict().items()):
+        raise AssertionError(f"corrupt delta: restored step {step_c}, base {base['step']}")
+    step_r, extra = r.ckpt.restore_latest(r.model, r.opt, r.lazy)
+    r.best_val = extra["best_val"]
+    r.restore_sampler_states(extra["samplers"])
+    if step_r != REAL_FAULT:
+        raise AssertionError(f"resume from the delta: step {step_r}")
+    r.train(REAL_STEPS - REAL_FAULT, start_step=REAL_FAULT)
+    r.close()
+    pairs = [(x.detach(), y.detach()) for x, y in zip(r.model.parameters(), b.model.parameters())]
+    pairs += [(getattr(r.lazy, k), getattr(b.lazy, k)) for k in ("m", "v")]
+    pairs += [(x, y) for x, y in zip(r.opt.mu + r.opt.nu, b.opt.mu + b.opt.nu) if x is not None]
+    worst = max(rel_err(x, y)[1] for x, y in pairs)
+    bitwise = all(torch.equal(x, y) for x, y in pairs) and torch.equal(r.lazy.last, b.lazy.last)
+    if worst > GRAPH_PARAM_TOL or int(r.opt.count) != int(b.opt.count) \
+            or not torch.equal(r.lazy.last, b.lazy.last):
+        raise AssertionError(f"resume from the delta vs uninterrupted: {worst:.3g}")
+    print(f"[9d] ring saves of the lazy run (step, mode, bytes, rows): {modes}; a delta "
+          f"{min(deltas) / base_bytes:.1%}-{max(deltas) / base_bytes:.1%} of the full base; a "
+          f"bit-flipped delta quarantined, the restore fell back to the step-{step_c} base "
+          f"bitwise; resumed from the step-{REAL_FAULT} delta to step {REAL_STEPS}: state within "
+          f"{worst:.3g} of scale of the uninterrupted run (tol {GRAPH_PARAM_TOL}; bitwise: "
+          f"{bitwise})", flush=True)
+    return {"ring": modes, "delta_over_base": max(deltas) / base_bytes, "resume_rel": worst,
+            "resume_bitwise": bitwise}
+
+
+def no_dense_table_ops(model, opt, cfg, table, lazy, sampler) -> None:
+    """One eager run of the lazy token-cache step body (the code the graph
+    captures) under the profiler with shapes: no ``index_add_`` and no
+    zero fill, fill or scatter of a [V, D] tensor."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from induction_network_on_fewrel_tpu_torch.train.steps import _train_run_of
+
+    V, D = model.embedding.word_embedding.shape
+    run_of, _ = _train_run_of(model, opt, cfg, table, lazy)
+    batch = batch_inputs(sampler.sample_batch())
+    dev = {n: torch.as_tensor(a).cuda() for n, a in batch_leaves(*stack_batches([batch]))}
+    with torch_profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        run_of(1)(dev)
+        torch.cuda.synchronize()
+    bad = [(e.key, e.input_shapes) for e in prof.key_averages(group_by_input_shape=True)
+           if e.key in ("aten::index_add_", "aten::zero_", "aten::fill_", "aten::zeros",
+                        "aten::index_put_", "aten::scatter_", "aten::index_copy_")
+           and any(list(s) == [V, D] for s in e.input_shapes if s)]
+    if bad or any(e.key == "aten::index_add_" for e in prof.key_averages()):
+        raise AssertionError(f"the lazy step touched a dense [V, D] table: {bad}")
+    print(f"[9d] one lazy step under the profiler with shapes: no index_add_, and no zero fill, "
+          f"fill, scatter or index write of a [{V}, {D}] tensor", flush=True)
+
+
+def lazy_phase(real: dict, tr9c: dict, gen: torch.Generator) -> dict:
+    """Phase 9d: ``--token_cache --embed_optimizer lazy`` on 9c's files, the
+    flagship widths, graph replays: the two lazy kernels vs their plain
+    versions (``lazy_kernel_checks``), 20 steps against the dense twin, the
+    main path (REAL_STEPS steps through the trainer the CLI builds, under
+    the profiler: the catch-up once per replay and per materialize, the
+    write-back once per replay, no index_add_), the host-to-device bytes
+    of a step beside 9c's, the ring (base, deltas, a resume from a delta, a
+    corrupt delta), ``register_tokens`` on the run's best checkpoint vs
+    ``register`` on the same raw sentences, and the graph's profile."""
+    from induction_network_on_fewrel_tpu_torch.serving.registry import TenantRegistry
+    from induction_network_on_fewrel_tpu_torch.train.lazy_embed import live_rows
+    from induction_network_on_fewrel_tpu_torch.train.token_cache import tokenize_dataset
+
+    paths = real["paths"]
+    directory = REAL_DIR / "lazy"
+    args = cli.build_arg_parser(train=True).parse_args(
+        REAL_ARGV + real_argv(paths, "train", "val")
+        + ["--token_cache", "--embed_optimizer", "lazy", "--train_iter", str(REAL_STEPS),
+           "--save_ckpt", str(directory)])
+    cfg = cli.config_from_args(args)
+    trainer, _ = cli.make_trainer(args, cfg)
+    trainer.metric_window = 1
+    cfg = trainer.cfg
+    train_t, val_t = trainer.train_table, trainer.val_table
+    print(f"[9d] token tables on the card: train {train_t.rows} rows "
+          f"({train_t.nbytes / 2**20:.1f} MiB, {train_t.uids.numel()} distinct words), val "
+          f"{val_t.rows} rows", flush=True)
+    kernel_rows = lazy_kernel_checks(gen, train_t.uids, live_rows(cfg))
+    twin = lazy_twin_check(cfg, tr9c["vocab"], train_t)
+
+    on = ("K7", "K8", "K1", "K2") + STEP_KERNELS + LAZY_KERNELS
+    passes = REAL_STEPS // cfg.val_step
+    replays = REAL_STEPS // cfg.steps_per_call
+    expect = {"lazy_catchup": replays + 1 + passes + 1, "lazy_scatter": replays + 1}
+    launches, wrapped, recs = run_trainer(trainer, REAL_STEPS, on,
+                                          passes * evals_per_pass(trainer), expect)
+    bytes_step = h2d_bytes(trainer)
+    steady = step_ms_of(recs, cfg.batch_size, 1)
+    print(f"[9d] {REAL_STEPS} lazy steps over the token cache as graph replays of "
+          f"{cfg.steps_per_call}: launches (profiler) {launches}, wrapper counts (warm-ups, "
+          f"captures, materializes) {wrapped}; ms/step median of replays 2-{len(recs)} "
+          f"{steady:.2f} -> {cfg.batch_size * 1e3 / steady:.1f} episodes/s (9c: "
+          f"{tr9c['step_ms']:.2f}, {tr9c['episodes_per_s']:.1f}); host-to-device {bytes_step:.0f} "
+          f"bytes a step (9c: {tr9c['h2d_bytes_per_step']:.0f})", flush=True)
+    # The catch-up and write-back at the main path's state: the trained
+    # run's table, every corpus row current (the steady state: k = 0). The
+    # compact rows hold the last replay's rows, so the write-backs write
+    # the values the table holds.
+    lazy = trainer.lazy
+    with torch.no_grad():
+        main = lazy_times(lazy.table.detach(), lazy.m, lazy.v, lazy.last, lazy.ids,
+                          (lazy.rows.detach(), lazy.rows_m, lazy.rows_v), trainer.opt.count,
+                          lazy.hyper)
+    print(f"[9d] at the trained run's state (U={lazy.U}, every row current): lazy_catchup "
+          f"{main['lazy_catchup']['ms']:.4f} ms (bound {main['lazy_catchup']['bound_ms']:.4f}, "
+          f"plain {main['lazy_catchup']['plain_ms']:.4f}); lazy_scatter "
+          f"{main['lazy_scatter']['ms']:.4f} ms (bound {main['lazy_scatter']['bound_ms']:.4f}, "
+          f"plain {main['lazy_scatter']['plain_ms']:.4f}, four index_copy_ "
+          f"{main['lazy_scatter']['library_ms']:.4f})", flush=True)
+    ring = lazy_resume_check(cfg, tr9c["vocab"], train_t, val_t)
+    prof = profile_graph_steps(trainer, ("K7", "K8") + STEP_KERNELS, tag="profile graph 9d",
+                               per_call=LAZY_KERNELS)
+
+    engine = InferenceEngine.from_checkpoint(str(directory), glove=str(paths["glove"]),
+                                             glove_mat=str(paths["glove_mat"]), start=False)
+    test_ds = real["data"]["test"]
+    table, sizes = tokenize_dataset(test_ds, engine.tokenizer)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    by_rows = TenantRegistry(engine.model, engine.tokenizer, k=cfg.k, tiers=None)
+    by_raw = TenantRegistry(engine.model, engine.tokenizer, k=cfg.k, tiers=None)
+    worst = 0.0
+    for ci, rel in enumerate(test_ds.rel_names[:5]):
+        rows = [{k: v[starts[ci] + j] for k, v in table.items()} for j in range(cfg.k)]
+        got = by_rows.register_tokens(rel, rows)
+        want = by_raw.register(rel, test_ds.instances[rel][:cfg.k])
+        worst = max(worst, float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)))
+    engine.close()
+    if worst > 1e-5:
+        raise AssertionError(f"register_tokens vs register: {worst:.3g}")
+    print(f"[9d] register_tokens (offset-form rows of the token cache) on the run's best "
+          f"checkpoint: 5 class vectors within {worst:.3g} of scale of register on the raw "
+          f"sentences (tol 1e-5)", flush=True)
+    for key in LAZY_KERNELS:
+        worst_case = kernel_rows[key]
+        kernel_rows[key] = {**worst_case, **main[key], "launches": launches[key],
+                            "ms_gaps_0_1500": worst_case["ms"],
+                            "plain_ms_gaps_0_1500": worst_case["plain_ms"]}
+    return {"launches": launches, "step_ms": steady,
+            "episodes_per_s": cfg.batch_size * 1e3 / steady, "h2d_bytes_per_step": bytes_step,
+            "twin": twin, "ring": ring, "register_rel": worst, "prof": prof,
+            "kernels": kernel_rows, "U": lazy.U}
 
 
 # --- The serving plane on a trained checkpoint (phases 4a-4c) -------------------
@@ -2439,6 +3165,13 @@ def main() -> int:
     # 10. Training at lstm_cs_window=0
     tr0 = train_full_residual(tr)
 
+    # 9c, 9d. Real-format files; lazy Adam over the token cache
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    real = write_real_files(REAL_DIR)
+    tr9c = real_files_phase(real)
+    tr9d = lazy_phase(real, tr9c, gen)
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+
     # 4b, 4c, 4a. The serving plane on phase 9's best checkpoint
     serve4b = serve_traffic(cfg)
     serve4c = sweep_process()
@@ -2569,6 +3302,22 @@ def main() -> int:
             **({k: r[k] for k in ("pair_ms", "clip_grad_norm_adam_fused_ms")}
                if key == "optim_update" else {}),
         })
+    for key, replaces in (("lazy_catchup", "induction_network_on_fewrel_tpu/train/lazy_embed.py:147"),
+                          ("lazy_scatter", "induction_network_on_fewrel_tpu/train/lazy_embed.py:460")):
+        r = tr9d["kernels"][key]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": "induction_network_on_fewrel_tpu_torch/csrc/lazy_embed.cu",
+            "replaces": replaces, "launches": r["launches"], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "at": f"R=U={r['R']} corpus rows x 50, the trained 9d run's state (every row "
+                  "current); once per replay of 4 steps"
+                  + ("" if key == "lazy_scatter" else " and at each materialize"),
+            "ms_gaps_0_1500": r["ms_gaps_0_1500"], "plain_ms_gaps_0_1500": r["plain_ms_gaps_0_1500"],
+            **({k: r[k] for k in ("materialize_ms", "materialize_bound_ms",
+                                  "materialize_moved_rows")} if key == "lazy_catchup" else {}),
+        })
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -2580,6 +3329,8 @@ def main() -> int:
         for tag, r in (("W=8", tr), ("W=0", tr0))
     }
     steps_summary["segsum_index_add"] = segsum_row
+    steps_summary["real_files_9c"] = {k: v for k, v in tr9c.items() if k != "vocab"}
+    steps_summary["lazy_token_cache_9d"] = {k: v for k, v in tr9d.items() if k != "kernels"}
     print(json.dumps({"training_step": steps_summary}), flush=True)
     print(json.dumps({"serving": {"main_path_p50_ms_by_bucket": main_latency,
                                   "serve_main": serve4a, "correctness_load": serve4b,

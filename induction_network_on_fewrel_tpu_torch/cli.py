@@ -1,33 +1,49 @@
 """Train and test entry points of the port.
 
-    python -m induction_network_on_fewrel_tpu_torch.cli train --synthetic \\
+    python -m induction_network_on_fewrel_tpu_torch.cli train \\
+        --train_file train_wiki.json --val_file val_wiki.json \\
+        --glove glove_word2id.json --glove_mat glove_mat.npy \\
         --N 5 --K 5 --Q 5 --batch_size 4 --train_iter 1000 --val_step 200 \\
-        --val_iter 200 --bf16 --save_ckpt ./ckpt_torch
-    python -m induction_network_on_fewrel_tpu_torch.cli test --synthetic \\
-        --load_ckpt ./ckpt_torch --test_iter 1000 --bf16
+        --val_iter 200 --bf16 --token_cache --embed_optimizer lazy \\
+        --save_ckpt ./ckpt_torch
+    python -m induction_network_on_fewrel_tpu_torch.cli test \\
+        --test_file val_pubmed.json --glove glove_word2id.json \\
+        --glove_mat glove_mat.npy --load_ckpt ./ckpt_torch --test_iter 1000 --bf16
 
 The counterparts of ``train.py`` / ``test.py`` (``train_main`` /
 ``test_main`` of the JAX ``cli.py``) with a subset of their flags under the
-same names. Data is the synthetic FewRel/GloVe fixtures (train, val and
-test splits from seeds 0, 1 and 2, as the JAX package makes them when no
-file is given); ``--synthetic`` says so explicitly, and real files are not
-read by this slice. As in the JAX CLI the encoder computes in f32 unless
-``--bf16``. ``train`` logs ``[train]``/``[val]`` records (stderr and
-``<save_ckpt>/metrics.jsonl``), keeps the best and latest checkpoints,
-then reports the final val accuracy of the best checkpoint as a JSON line;
-``test`` restores the best checkpoint (the latest one when there is no
-best) with the architecture of its ``config.json`` and prints
-``{"test_accuracy", "acc_ci95"}``. ``train --resume`` continues the latest
-checkpoint of ``--save_ckpt`` (weights, optimizer state, best val accuracy
-and the samplers' streams: the same updates as an uninterrupted run) for
-``--train_iter`` more steps; ``train --only_test`` restores (``--resume``
-or ``--load_ckpt``) and reports the test accuracy. ``--optimizer``,
-``--embed_optimizer`` (``lazy`` refused by name), ``--weight_decay``,
-``--lr_step_size`` and ``--grad_clip`` choose the update;
-``--steps_per_call`` steps run per dispatch (one CUDA-graph replay on the
-card), ``--eval_steps_per_call`` eval batches, ``--metric_window_calls``
-dispatches per metric record, and ``--grad_probe_every`` logs the
-gradient-health probe.
+same names. Data: FewRel-schema JSON splits (``--train_file``,
+``--val_file``, ``--test_file``) and GloVe (``--glove`` word2id JSON with
+``--glove_mat`` .npy, a combined JSON or the stock .txt), which then set
+``vocab_size`` and ``word_dim``; a split or vocabulary without a file is
+the synthetic fixture (train, val and test from seeds 0, 1 and 2, as the
+JAX package makes them; ``--synthetic`` says so explicitly). As in the JAX
+CLI the encoder computes in f32 unless ``--bf16``. ``train`` logs
+``[train]``/``[val]`` records (stderr and ``<save_ckpt>/metrics.jsonl``),
+keeps the best checkpoints and a recovery ring (``--ckpt_delta``: base +
+delta saves of the lazy word table), then reports the final val accuracy
+of the best checkpoint as a JSON line; ``test`` restores the best
+checkpoint (the latest one when there is no best) with the architecture of
+its ``config.json`` and prints ``{"test_accuracy", "acc_ci95"}`` (with
+NOTA, its precision and recall). ``train --resume`` continues the newest
+intact checkpoint of ``--save_ckpt`` (weights, optimizer and lazy state,
+best val accuracy and the samplers' streams: the same updates as an
+uninterrupted run) for ``--train_iter`` more steps; ``train --only_test``
+restores (``--resume`` or ``--load_ckpt``) and reports the test accuracy.
+
+``--trainN`` trains N-way episodes other than the eval's ``--N``;
+``--na_rate``/``--nota_head`` the FewRel 2.0 none-of-the-above queries and
+head (mse with ``--na_rate >= 3`` is refused without ``--force``);
+``--token_cache`` keeps each split's tokens on the card and sends only
+episode indices; ``--embed_optimizer lazy`` is exact lazy Adam on the word
+table (Adam only; without ``--token_cache`` it warns); ``--divergence_guard
+stop`` restores the best checkpoint on a val collapse and ends the run;
+``--fault_step`` injects a crash on a fresh run. ``--optimizer``,
+``--weight_decay``, ``--lr_step_size`` and ``--grad_clip`` choose the
+update; ``--steps_per_call`` steps run per dispatch (one CUDA-graph replay
+on the card), ``--eval_steps_per_call`` eval batches,
+``--metric_window_calls`` dispatches per metric record, and
+``--grad_probe_every`` logs the gradient-health probe.
 
 Runs on the GPU by default and refuses to start without CUDA unless
 ``--device cpu`` is given.
@@ -39,19 +55,27 @@ import argparse
 import json
 import os
 import sys
+import warnings
 
 
 def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog=f"python -m induction_network_on_fewrel_tpu_torch.cli {'train' if train else 'test'}",
     )
-    p.add_argument("--N", type=int, default=5, help="N-way")
+    p.add_argument("--trainN", type=int, default=None,
+                   help="N-way during training (defaults to --N)")
+    p.add_argument("--N", type=int, default=5, help="N-way at eval")
     p.add_argument("--K", type=int, default=5, help="K-shot")
     p.add_argument("--Q", type=int, default=5, help="queries per class")
+    p.add_argument("--na_rate", type=int, default=0, help="NOTA queries ratio (FewRel 2.0)")
+    p.add_argument("--nota_head", default="scalar", choices=["scalar", "stats"],
+                   help="NOTA threshold head: one global learned logit, or a per-query "
+                        "learned affine over class-score statistics")
     p.add_argument("--batch_size", type=int, default=4, help="episodes per step")
     p.add_argument("--max_length", type=int, default=40)
     p.add_argument("--vocab_size", type=int, default=400002,
-                   help="word-embedding rows incl. UNK/BLANK (the synthetic GloVe size)")
+                   help="word-embedding rows incl. UNK/BLANK (the synthetic GloVe size; a "
+                        "--glove file sets it)")
     p.add_argument("--lstm_hidden", type=int, default=128)
     p.add_argument("--induction_dim", type=int, default=100)
     p.add_argument("--ntn_slices", type=int, default=100)
@@ -69,15 +93,23 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                    help="self-attention impl: auto = the CUDA kernels on the GPU, the "
                         "plain PyTorch version on the CPU")
     p.add_argument("--bf16", action="store_true", help="bf16 embedding + encoder")
+    p.add_argument("--token_cache", action="store_true",
+                   help="device-resident token cache: each split tokenized once on the "
+                        "card, only episode indices cross per step")
+    p.add_argument("--divergence_guard", default="none", choices=["none", "stop"],
+                   help="on a >2x val-accuracy collapse: 'none' logs it, 'stop' restores "
+                        "the best checkpoint and ends the run")
     p.add_argument("--loss", default="mse", choices=["mse", "ce"])
     p.add_argument("--optimizer", default="adam", choices=["adam", "adamw", "sgd"])
     p.add_argument("--embed_optimizer", default="shared",
                    choices=["shared", "lazy", "sgd", "frozen"],
                    help="word-embedding table optimizer: shared = main optimizer "
                         "(reference parity: dense update of the whole table every step; "
-                        "the DEFAULT), sgd = plain -lr*g on the table (no decay, no "
-                        "moments), frozen = fixed GloVe (no gradient, no update); lazy "
-                        "is not ported yet and is refused")
+                        "the DEFAULT), lazy = dense Adam's exact trajectory with weight "
+                        "decay off the table, at the cost of the rows a step touches "
+                        "(--optimizer adam; fast with --token_cache), sgd = plain -lr*g "
+                        "on the table (no decay, no moments), frozen = fixed GloVe (no "
+                        "gradient, no update)")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--weight_decay", type=float, default=1e-5)
     p.add_argument("--lr_step_size", type=int, default=2000)
@@ -86,6 +118,11 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
         p.add_argument("--train_iter", type=int, default=10000)
         p.add_argument("--val_iter", type=int, default=1000)
         p.add_argument("--val_step", type=int, default=1000)
+        p.add_argument("--force", action="store_true",
+                       help="run a known-degenerate config (--loss mse with --na_rate >= 3)")
+        p.add_argument("--fault_step", type=int, default=0,
+                       help="inject a crash once the step counter reaches this value (fresh "
+                            "runs only; 0 = off)")
     # On both parsers: the test entry point's eval loop fuses batches too.
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="optimizer steps (or eval batches) fused into one dispatch "
@@ -97,10 +134,22 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p.add_argument("--metric_window_calls", type=int, default=4,
                    help="fused train calls between metric fetches (each fetch syncs "
                         "the card)")
+    p.add_argument("--ckpt_delta", default="auto", choices=["auto", "off"],
+                   help="delta ring checkpoints: ring saves of a lazy-table state write a "
+                        "base + the changed rows (auto), or full states (off)")
     p.add_argument("--test_iter", type=int, default=3000)
+    p.add_argument("--train_file", default=None,
+                   help="FewRel-schema JSON; synthetic if omitted")
+    p.add_argument("--val_file", default=None)
+    p.add_argument("--test_file", default=None)
+    p.add_argument("--glove", default=None, help="GloVe json (word2id or combined) or .txt")
+    p.add_argument("--glove_mat", default=None, help=".npy matrix for a word2id json")
     p.add_argument("--synthetic", action="store_true",
-                   help="train and evaluate on the synthetic FewRel/GloVe fixtures "
-                        "(the only data this slice reads)")
+                   help="the synthetic FewRel/GloVe fixtures (the default for every split "
+                        "and the vocabulary without a file)")
+    p.add_argument("--sampler", default="auto", choices=["auto", "native", "python"],
+                   help="episode sampler backend: the numpy samplers (native is not "
+                        "ported yet)")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="default: the GPU (refuses to start without CUDA)")
     p.add_argument("--save_ckpt", default="./checkpoint", help="checkpoint directory")
@@ -116,11 +165,30 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     return p
 
 
+def check_degenerate(loss: str, na_rate: int, force: bool) -> None:
+    """MSE over the sigmoid scores at na_rate >= 3 falls into the all-NOTA
+    optimum and stays there (the JAX ``_check_degenerate``): training
+    runs opt in with --force."""
+    if loss == "mse" and na_rate >= 3 and not force:
+        raise ValueError(
+            f"--loss mse with --na_rate {na_rate} is a known-degenerate combination (the "
+            "sigmoid-MSE objective's all-NOTA optimum dominates at high NOTA rates and "
+            "training collapses to it). Use --loss ce, lower --na_rate, or pass --force "
+            "to run it anyway"
+        )
+
+
 def config_from_args(args):
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.sampling.index import check_sampler_backend
 
+    check_sampler_backend(args.sampler)
+    training = hasattr(args, "train_iter") and not args.only_test
+    if training:
+        check_degenerate(args.loss, args.na_rate, args.force)
     kw = dict(
-        n=args.N, k=args.K, q=args.Q, batch_size=args.batch_size, max_length=args.max_length,
+        train_n=args.trainN or args.N, n=args.N, k=args.K, q=args.Q, na_rate=args.na_rate,
+        nota_head=args.nota_head, batch_size=args.batch_size, max_length=args.max_length,
         vocab_size=args.vocab_size,
         lstm_hidden=args.lstm_hidden, induction_dim=args.induction_dim,
         ntn_slices=args.ntn_slices, lstm_cs_window=args.lstm_cs_window,
@@ -132,20 +200,49 @@ def config_from_args(args):
         grad_clip=args.grad_clip, steps_per_call=args.steps_per_call,
         eval_steps_per_call=args.eval_steps_per_call,
         metric_window_calls=args.metric_window_calls, test_iter=args.test_iter,
-        seed=args.seed,
+        token_cache=args.token_cache, ckpt_delta=args.ckpt_delta,
+        divergence_guard=args.divergence_guard, sampler=args.sampler, seed=args.seed,
     )
     if hasattr(args, "train_iter"):
         kw.update(train_iter=args.train_iter, val_iter=args.val_iter, val_step=args.val_step,
-                  grad_probe_every=args.grad_probe_every)
-    return ExperimentConfig(**kw)
+                  grad_probe_every=args.grad_probe_every, fault_step=args.fault_step)
+    cfg = ExperimentConfig(**kw)
+    if training and cfg.embed_optimizer == "lazy":
+        from induction_network_on_fewrel_tpu_torch.train.lazy_embed import require_adam
+
+        require_adam(cfg)
+        if not cfg.token_cache:
+            warnings.warn(
+                "--embed_optimizer lazy without --token_cache deduplicates every batch's word "
+                "ids on the card (a sort per step); add --token_cache for the precomputed "
+                "corpus remap, whose catch-up and write-back run once per fused call",
+                stacklevel=2,
+            )
+    return cfg
 
 
-def load_data(cfg, split: str):
-    """The synthetic split (seeds 0/1/2 for train/val/test, the JAX sizes)."""
-    from induction_network_on_fewrel_tpu_torch.data import make_synthetic_fewrel
+def load_vocab(args, cfg):
+    """The --glove file, or the synthetic GloVe fixture of the config's
+    vocab_size and word_dim."""
+    from induction_network_on_fewrel_tpu_torch.data import load_glove, make_synthetic_glove
 
+    if getattr(args, "glove", None):
+        return load_glove(args.glove, args.glove_mat)
+    return make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+
+
+def load_data(cfg, split: str, args=None):
+    """A split's FewRel-schema file, else the synthetic split (seeds 0/1/2
+    for train/val/test, the JAX sizes)."""
+    from induction_network_on_fewrel_tpu_torch.data import load_fewrel_json, make_synthetic_fewrel
+
+    path = getattr(args, f"{split}_file", None) if args is not None else None
+    if path:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"--{split}_file {path}: no such file")
+        return load_fewrel_json(path)
     return make_synthetic_fewrel(
-        num_relations=cfg.n * 2,
+        num_relations=max(cfg.train_n, cfg.n) * 2,
         instances_per_relation=max(cfg.k + cfg.q + 5, 20),
         vocab_size=cfg.vocab_size - 2,
         seed={"train": 0, "val": 1, "test": 2}[split],
@@ -153,34 +250,49 @@ def load_data(cfg, split: str):
 
 
 def make_trainer(args, cfg, only_test: bool = False):
-    """(trainer, test sampler): data, model (built on ``args.device``),
-    samplers and logger. ``only_test`` builds the test split's sampler and
-    no train/val samplers, logger file or checkpoint manager."""
-    from induction_network_on_fewrel_tpu_torch.data import GloveTokenizer, make_synthetic_glove
+    """(trainer, test split): vocabulary and data, model (built on
+    ``args.device``), samplers (index samplers and device token tables with
+    --token_cache) and logger. A GloVe file sets the config's vocab_size
+    and word_dim (``trainer.cfg``). ``only_test`` builds the test split's
+    (sampler, token table or None) and no train/val samplers, logger file
+    or checkpoint manager; otherwise the test split is None."""
+    from induction_network_on_fewrel_tpu_torch.data import GloveTokenizer
     from induction_network_on_fewrel_tpu_torch.models.build import build_model
     from induction_network_on_fewrel_tpu_torch.sampling.episodes import EpisodeSampler
+    from induction_network_on_fewrel_tpu_torch.sampling.index import IndexEpisodeSampler
     from induction_network_on_fewrel_tpu_torch.train.framework import FewShotTrainer
+    from induction_network_on_fewrel_tpu_torch.train.token_cache import build_token_table
     from induction_network_on_fewrel_tpu_torch.utils.metrics import MetricsLogger
 
-    if not args.synthetic:
-        raise SystemExit(
-            "this slice reads no FewRel/GloVe files: pass --synthetic to run on the "
-            "synthetic fixtures"
-        )
-    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    for split in ("train", "val", "test"):
+        path = getattr(args, f"{split}_file", None)
+        if path and not os.path.isfile(path):
+            raise FileNotFoundError(f"--{split}_file {path}: no such file")
+    vocab = load_vocab(args, cfg)
+    if (cfg.vocab_size, cfg.word_dim) != (vocab.vocab_size, vocab.word_dim):
+        cfg = cfg.replace(vocab_size=vocab.vocab_size, word_dim=vocab.word_dim)
     tok = GloveTokenizer(vocab, max_length=cfg.max_length)
     model = build_model(cfg, glove_init=vocab.vectors, device=args.device)
 
-    def sampler(split, seed):
-        return EpisodeSampler(load_data(cfg, split), tok, cfg.n, cfg.k, cfg.q,
-                              batch_size=cfg.batch_size, na_rate=cfg.na_rate, seed=seed)
+    def split_of(split, n, seed, lazy=False):
+        ds = load_data(cfg, split, args)
+        if not cfg.token_cache:
+            return EpisodeSampler(ds, tok, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
+                                  na_rate=cfg.na_rate, seed=seed), None
+        table = build_token_table(ds, tok, model.device, lazy=lazy)
+        return IndexEpisodeSampler(table.sizes, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
+                                   na_rate=cfg.na_rate, seed=seed), table
 
-    train_s = None if only_test else sampler("train", cfg.seed)
-    val_s = None if only_test else sampler("val", cfg.seed + 1)
-    logger = MetricsLogger(None if only_test else args.save_ckpt)
-    trainer = FewShotTrainer(model, cfg, train_s, val_s,
-                             ckpt_dir=None if only_test else args.save_ckpt, logger=logger)
-    return trainer, sampler("test", cfg.seed + 2) if only_test else None
+    if only_test:
+        trainer = FewShotTrainer(model, cfg, None, logger=MetricsLogger(None))
+        return trainer, split_of("test", cfg.n, cfg.seed + 2)
+    train_s, train_t = split_of("train", cfg.train_n, cfg.seed,
+                                lazy=cfg.embed_optimizer == "lazy")
+    val_s, val_t = split_of("val", cfg.n, cfg.seed + 1)
+    trainer = FewShotTrainer(model, cfg, train_s, val_s, ckpt_dir=args.save_ckpt,
+                             logger=MetricsLogger(args.save_ckpt), train_table=train_t,
+                             val_table=val_t)
+    return trainer, None
 
 
 def print_result(metrics: dict, key: str) -> None:
@@ -209,18 +321,21 @@ def _merge_ckpt_architecture(cfg, src: str):
 
 
 def train_main(argv=None) -> int:
-    """Train (``--resume`` continues the latest state of ``--load_ckpt``
-    or else ``--save_ckpt``; ``--load_ckpt`` alone starts from that
-    directory's best weights and optimizer state), then report the best
-    checkpoint's val accuracy; with ``--only_test``, restore as above and
-    report the test accuracy instead."""
+    """Train (``--resume`` continues the newest intact state of
+    ``--load_ckpt`` or else ``--save_ckpt``; ``--load_ckpt`` alone starts
+    from that directory's best weights and optimizer state), then report the
+    best checkpoint's val accuracy; with ``--only_test``, restore as above
+    and report the test accuracy instead."""
     from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
 
     args = build_arg_parser(train=True).parse_args(argv)
     cfg = config_from_args(args)
     if args.load_ckpt:
         cfg = _merge_ckpt_architecture(cfg, args.load_ckpt)
-    trainer, test_sampler = make_trainer(args, cfg, only_test=args.only_test)
+        if not args.only_test:      # the checkpoint's config.json may bring back mse
+            check_degenerate(cfg.loss, cfg.na_rate, args.force)
+    trainer, test_split = make_trainer(args, cfg, only_test=args.only_test)
+    cfg = trainer.cfg
     try:
         start_step = 0
         if args.resume:
@@ -228,7 +343,7 @@ def train_main(argv=None) -> int:
             own = trainer.ckpt is not None and src == args.save_ckpt
             mngr = trainer.ckpt if own else CheckpointManager(src, cfg)
             try:
-                start_step, extra = mngr.restore_latest(trainer.model, trainer.opt)
+                start_step, extra = mngr.restore_latest(trainer.model, trainer.opt, trainer.lazy)
                 trainer.best_val = extra["best_val"]
                 trainer.restore_sampler_states(extra["samplers"])
                 print(f"restored latest checkpoint step={start_step} from {src}",
@@ -238,14 +353,17 @@ def train_main(argv=None) -> int:
                     raise
                 print(f"no checkpoint in {src}; starting fresh", file=sys.stderr)
         elif args.load_ckpt:
-            step = CheckpointManager(args.load_ckpt).restore_best(trainer.model, trainer.opt)
+            step = CheckpointManager(args.load_ckpt).restore_best(trainer.model, trainer.opt,
+                                                                  trainer.lazy)
             print(f"restored best checkpoint step={step} from {args.load_ckpt}", file=sys.stderr)
         if args.only_test:
-            metrics = trainer.evaluate(cfg.test_iter, sampler=test_sampler, return_metrics=True)
+            sampler, source = test_split
+            metrics = trainer.evaluate(cfg.test_iter, sampler=sampler, return_metrics=True,
+                                       source=source)
             print_result(metrics, "test_accuracy")
             return 0
         trainer.train(cfg.train_iter, start_step=start_step)
-        if "best" in trainer.ckpt.written:
+        if trainer.ckpt.has("best") and "best" in trainer.ckpt.written:
             step = trainer.ckpt.restore_best(trainer.model)
             print(f"final eval from best checkpoint (step {step})", file=sys.stderr)
         print_result(trainer.evaluate(cfg.val_iter, return_metrics=True), "final_val_accuracy")
@@ -263,13 +381,14 @@ def test_main(argv=None) -> int:
         print("test needs --load_ckpt (or an existing --save_ckpt dir)", file=sys.stderr)
         return 2
     cfg = _merge_ckpt_architecture(config_from_args(args), src)
-    trainer, test_sampler = make_trainer(args, cfg, only_test=True)
+    trainer, (sampler, source) = make_trainer(args, cfg, only_test=True)
     try:
-        mngr = CheckpointManager(src)
+        mngr = CheckpointManager(src, logger=trainer.logger)
         which = "best" if mngr.has("best") else "latest"
         step = mngr.restore(which, trainer.model)
         print(f"loaded {which} checkpoint step={step} from {src}", file=sys.stderr)
-        metrics = trainer.evaluate(cfg.test_iter, sampler=test_sampler, return_metrics=True)
+        metrics = trainer.evaluate(trainer.cfg.test_iter, sampler=sampler, return_metrics=True,
+                                   source=source)
         trainer.logger.log(step, "test", **metrics)
         print_result(metrics, "test_accuracy")
         return 0

@@ -5,7 +5,8 @@ and training paths read (``induction_network_on_fewrel_tpu/config.py``):
 episode geometry, tokenization/embedding, the BiLSTM + self-attention
 encoder and its training-route knobs, the induction/NTN head, the NOTA
 head, the dtypes, the kernel backends, the optimizer family, the loop
-lengths, the fused-dispatch and grad-probe knobs, the serving runtime
+lengths, the fused-dispatch and grad-probe knobs, the token cache, the
+checkpoint ring, the divergence guard and fault injection, the serving runtime
 knobs (resident dtype, parity probe, geometry tiers) and the seed. Names
 and defaults are the JAX package's, so a config built with the same
 keywords describes the same model in both packages, and the
@@ -26,7 +27,8 @@ from typing import Any
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     # --- episode geometry ---
-    n: int = 5                # N-way (training and eval)
+    train_n: int = 5          # N-way during training (can exceed eval N)
+    n: int = 5                # N-way at eval
     k: int = 5                # K-shot
     q: int = 5                # queries per class per episode
     na_rate: int = 0          # NOTA: na_rate*Q extra none-of-the-above queries
@@ -72,9 +74,11 @@ class ExperimentConfig:
     # (coupled L2, no momentum): train/steps.make_optimizer.
     optimizer: str = "adam"
     # Word-table optimizer: "shared" = the main optimizer updates the table
-    # densely (reference parity); "sgd" = plain -lr*g on the table (no
-    # decay, no moments); "frozen" = the table gets no gradient, no update
-    # and no moments; "lazy" is refused by name (ROADMAP queue A item 4).
+    # densely (reference parity); "lazy" = dense Adam's exact trajectory
+    # with weight decay off the table, at the cost of the rows a step
+    # touches (train/lazy_embed.py; Adam only); "sgd" = plain -lr*g on the
+    # table (no decay, no moments); "frozen" = the table gets no gradient,
+    # no update and no moments.
     embed_optimizer: str = "shared"
     lr: float = 1e-3
     weight_decay: float = 1e-5
@@ -101,8 +105,24 @@ class ExperimentConfig:
     grad_probe_every: int = 0
     # Head-only feature-cache checkpoints (no encoder) cannot serve queries;
     # the serving engine refuses them by name. The feature cache itself
-    # comes with ROADMAP queue A item 4.
+    # comes with ROADMAP queue A item 6 (it needs the BERT encoder).
     feature_cache: bool = False
+    # Device-resident token cache (train/token_cache.py): each split is
+    # tokenized once into a [M, L] table on the device; per step only
+    # episode indices cross to the card and the gather runs in the graph.
+    token_cache: bool = False
+    # Delta ring checkpoints (train/checkpoint.py): recovery-ring saves
+    # write a base plus the changed rows of the lazy word table and its
+    # moments; "auto" = on when the state carries the lazy leaves, "off" =
+    # every ring save is full. Best saves stay full.
+    ckpt_delta: str = "auto"
+    # On a >2x val-accuracy collapse (the MSE-sigmoid dead zone): "none"
+    # logs it; "stop" restores the best checkpoint, purges the newer ring
+    # slots and ends the run.
+    divergence_guard: str = "none"
+    # Failure injection: raise once the step counter reaches this value on
+    # a fresh run (a --resume continues past it); 0 = off.
+    fault_step: int = 0
 
     # --- serving runtime knobs (not architecture fields) ---
     # Dtype of the resident per-tenant class matrix: "f32", "bf16" or
@@ -115,6 +135,11 @@ class ExperimentConfig:
     # The N-tier ladder resident [N, C] class stacks pad up to (zero rows),
     # bounding the query graphs by tiers x buckets x dtypes; "off" = exact-N.
     geometry_tiers: str = "4,8,16,32,64"
+
+    # --- host data pipeline ---
+    # "auto" | "python": the numpy samplers; "native" (the C++ sampler) is
+    # refused by name until ROADMAP queue A item 7.
+    sampler: str = "auto"
 
     # --- numerics ---
     compute_dtype: str = "bfloat16"  # embedding + encoder dtype

@@ -23,6 +23,8 @@
 //                          adamw  m, v from g; p -= lr (m^/(sqrt(v^) + eps) + wd p)
 //                          sgd    p -= lr (g + wd p)
 //                          sgd_plain (the word table's sgd) p -= lr g
+//                          adam_nodecay (the lazy word table's compact rows,
+//                                 train/lazy_embed.py) adam without the decay
 //                        with lr = lr0 gamma^floor(c / step) and the bias
 //                        corrections 1 - b^(c+1) in f32 (optax's order). It
 //                        reads p, g, m, v once and writes p, m, v once; the
@@ -48,7 +50,7 @@ constexpr int kVec = 4;           // a float4 per load
 constexpr int kIters = 16;        // float4 loads per thread per chunk
 constexpr int kChunk = kThreads * kVec * kIters;   // ops/optim.py:CHUNK
 
-enum Rule : int { kAdam = 0, kAdamW = 1, kSgd = 2, kSgdPlain = 3 };
+enum Rule : int { kAdam = 0, kAdamW = 1, kSgd = 2, kSgdPlain = 3, kAdamNoDecay = 4 };
 
 struct Entry {
   float* p;
@@ -170,7 +172,8 @@ __device__ __forceinline__ void update_one(float& p, float g, float& m, float& v
   g = s.keep ? g : g / s.gn * h.clip;
   switch (rule) {
     case kAdam:
-    case kAdamW: {
+    case kAdamW:
+    case kAdamNoDecay: {
       if (rule == kAdam) g = g + h.wd * p;
       m = h.b1 * m + h.omb1 * g;
       v = h.b2 * v + h.omb2 * (g * g);
@@ -200,7 +203,7 @@ optim_update_kernel(const __grid_constant__ Table t, const float* norm, long lon
   s.bc2 = 1.f - powf(h.b2, (float)(c + 1));
   s.gn = *norm;
   s.keep = s.gn < h.clip;
-  const bool moments = e.rule == kAdam || e.rule == kAdamW;
+  const bool moments = e.rule == kAdam || e.rule == kAdamW || e.rule == kAdamNoDecay;
   const bool vec = aligned16(e.p) && aligned16(e.g) && aligned16(e.m) && aligned16(e.v);
   const long long base = (chunk - e.chunk0) * kChunk;
 #pragma unroll 2
@@ -257,9 +260,10 @@ int make_table(const long long* entries, int count, Table* t) {
     e.n = r[4];
     e.chunk0 = r[5];
     e.rule = (int)r[6];
-    if (e.chunk0 != chunks || e.n < 1 || e.rule < kAdam || e.rule > kSgdPlain)
+    if (e.chunk0 != chunks || e.n < 1 || e.rule < kAdam || e.rule > kAdamNoDecay)
       return (int)cudaErrorInvalidValue;
-    if ((e.rule == kAdam || e.rule == kAdamW) && (e.m == nullptr || e.v == nullptr))
+    if ((e.rule == kAdam || e.rule == kAdamW || e.rule == kAdamNoDecay) &&
+        (e.m == nullptr || e.v == nullptr))
       return (int)cudaErrorInvalidValue;
     chunks += (e.n + kChunk - 1) / kChunk;
   }

@@ -65,6 +65,11 @@ LAUNCHERS = {
     # length, the workspace and state pointers, then the hyperparameters.
     "optim_sumsq": ("optim", [_P, _I, _P, _P, _P, _P]),
     "optim_update": ("optim", [_P, _I, _P, _P, _P, _F, _F, _I] + [_F] * 7 + [_P]),
+    # The lazy word table (ops/lazy_embed.py): state and buffer pointers,
+    # the row counts and width, the rate and Adam's constants, the cap and
+    # the in-place flag; the scatter's pointers and sizes.
+    "lazy_catchup": ("lazy_embed", [_P] * 9 + [_I] * 3 + [_F, _F, _I, _F, _F, _F, _I, _I, _P]),
+    "lazy_scatter": ("lazy_embed", [_P] * 9 + [_I] * 3 + [_P]),
 }
 SOURCES = tuple(sorted({stem for stem, _ in LAUNCHERS.values()}))
 

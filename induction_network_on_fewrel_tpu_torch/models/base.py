@@ -2,8 +2,10 @@
 
 Counterpart of ``induction_network_on_fewrel_tpu/models/base.py``
 (``FewShotModel``). Inputs are dicts of ``{word, pos1, pos2, mask}``
-integer tensors with a trailing [L] axis (per-token position ids; the
-per-sentence offset form is the training slice's). ``encode`` flattens the
+integer tensors with a trailing [L] axis; a position leaf may instead hold
+per-sentence offsets, one rank below ``word`` (the token cache's form,
+``models/embedding.is_offset_form``), expanded to per-token ids inside the
+forward. ``encode`` flattens the
 leading axes to M rows, transposes the int ids to time-major [L, M] before
 the gathers (so the embedding lands directly in the layout the encoder
 reads) and returns sentence vectors with the leading axes restored.
@@ -18,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from induction_network_on_fewrel_tpu_torch.models.embedding import expand_positions
 
 QUERY_KEYS = ("word", "pos1", "pos2", "mask")
 
@@ -52,12 +56,9 @@ class FewShotModel(nn.Module):
         return self.embedding.word_embedding.device
 
     def encode(self, word, pos1, pos2, mask) -> torch.Tensor:
-        """[..., L] token features -> [..., H] sentence vectors."""
-        if pos1.dim() != word.dim() or pos2.dim() != word.dim():
-            raise ValueError(
-                "per-sentence position offsets are not supported on the "
-                "serving path: pass per-token pos1/pos2 ids shaped like word"
-            )
+        """[..., L] token features -> [..., H] sentence vectors (position
+        leaves per token or per-sentence offsets)."""
+        pos1, pos2 = expand_positions(pos1, word), expand_positions(pos2, word)
         lead, L = word.shape[:-1], word.shape[-1]
 
         def tmj(x):
@@ -81,7 +82,8 @@ class FewShotModel(nn.Module):
         sup_lead = support["word"].shape[:-1]
         qry_lead = query["word"].shape[:-1]
         cat = {
-            k: torch.cat([support[k].reshape(-1, L), query[k].reshape(-1, L)])
+            k: torch.cat([expand_positions(support[k], support["word"]).reshape(-1, L),
+                          expand_positions(query[k], query["word"]).reshape(-1, L)])
             for k in QUERY_KEYS
         }
         enc = self.encode(cat["word"], cat["pos1"], cat["pos2"], cat["mask"])

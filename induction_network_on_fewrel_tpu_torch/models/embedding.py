@@ -12,9 +12,20 @@ rows, go through ``ops.segsum.lookup_matmul_grad`` (a one-hot product);
 a larger word table (the 400 002-row GloVe table) through
 ``ops.segsum.lookup_scatter_grad`` (the sort-free scatter-add,
 ``index_add_``). ``freeze_word_table`` (``embed_optimizer="frozen"``)
-gathers from a detached table, so the table gets no gradient at all. The
-per-sentence offset form of the positions comes with the token-cache
-slice.
+gathers from a detached table, so the table gets no gradient at all.
+
+``compact_rows`` (set by the lazy word-table step, train/lazy_embed.py,
+for the duration of its forward): a [U, word_dim] leaf of caught-up rows
+that the word ids have been remapped into. The forward then gathers from
+it and never reads the dense table, so the step's table gradient is the
+compact [U, word_dim] one (the one-hot product up to
+``MATMUL_GRAD_MAX_ROWS`` rows, else ``lookup_prefix_grad``: no atomics).
+
+Positions in OFFSET form (``is_offset_form``: one rank below ``word``,
+the token cache's per-sentence start offsets, whose per-token ids are
+exactly ``off + l``) are expanded to per-token ids by
+``expand_positions``; pos1 and pos2 are tested independently. The
+gathered vectors are the per-token form's, bitwise.
 """
 
 from __future__ import annotations
@@ -26,8 +37,24 @@ from torch import nn
 from induction_network_on_fewrel_tpu_torch.ops.segsum import (
     MATMUL_GRAD_MAX_ROWS,
     lookup_matmul_grad,
+    lookup_prefix_grad,
     lookup_scatter_grad,
 )
+
+
+def is_offset_form(pos: torch.Tensor, word_rank: int) -> bool:
+    """True when a position leaf holds per-sentence offsets (one rank below
+    ``word``), the JAX ``is_offset_form`` (models/embedding.py:34)."""
+    return pos.dim() == word_rank - 1
+
+
+def expand_positions(pos: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
+    """Per-token position ids shaped like ``word`` ([..., L]): offsets
+    ``off [...]`` become ``off + arange(L)``; per-token ids pass through."""
+    if not is_offset_form(pos, word.dim()):
+        return pos
+    L = word.shape[-1]
+    return pos.long()[..., None] + torch.arange(L, device=pos.device)
 
 
 def normal_param(gen: torch.Generator, shape, std: float, device) -> nn.Parameter:
@@ -92,12 +119,19 @@ class Embedding(nn.Module):
             generator, (2 * max_length, pos_dim), 0.1, device
         )
         self.compute_dtype = compute_dtype
+        self.compact_rows: torch.Tensor | None = None
 
     def forward(self, word, pos1, pos2) -> torch.Tensor:
         """int ids of one shape S -> [*S, word_dim + 2*pos_dim] vectors
-        (callers pass time-major [L, M] ids to get [L, M, D])."""
+        (callers pass time-major [L, M] ids to get [L, M, D]). With
+        ``compact_rows`` set, ``word`` indexes those rows."""
         word = word.long()
-        if self.freeze_word_table:
+        if self.compact_rows is not None:
+            rows = self.compact_rows
+            lookup = (lookup_matmul_grad if rows.shape[0] <= MATMUL_GRAD_MAX_ROWS
+                      else lookup_prefix_grad)
+            word_vecs = lookup(rows, word)
+        elif self.freeze_word_table:
             word_vecs = self.word_embedding.detach()[word]
         elif self.word_embedding.shape[0] <= MATMUL_GRAD_MAX_ROWS:
             word_vecs = lookup_matmul_grad(self.word_embedding, word)

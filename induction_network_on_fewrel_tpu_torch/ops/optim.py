@@ -12,6 +12,10 @@ then per tensor one of
                p <- p - lr (m^ / (sqrt(v^) + eps) + wd p)   (optax.adamw)
     sgd        p <- p - lr (g + wd p)                       (optax.sgd, no momentum)
     sgd_plain  p <- p - lr g   (the word table's ``embed_optimizer="sgd"``)
+    adam_nodecay  adam without the coupled L2: the compact rows of the lazy
+               word table (``embed_optimizer="lazy"``, train/lazy_embed.py;
+               the JAX ``touched_update``, lazy_embed.py:198), and the table
+               of the dense twin that lazy Adam equals
 
 with the staircase rate lr = lr0 gamma^floor(c / step_size), where c
 counts the updates already applied, and the bias corrections
@@ -53,8 +57,8 @@ from induction_network_on_fewrel_tpu_torch.kernels.build import LIBRARY, check_c
 CHUNK = 16384
 MAX_TENSORS = 64
 _FINAL_THREADS = 256
-RULES = ("adam", "adamw", "sgd", "sgd_plain")
-MOMENT_RULES = ("adam", "adamw")
+RULES = ("adam", "adamw", "sgd", "sgd_plain", "adam_nodecay")
+MOMENT_RULES = ("adam", "adamw", "adam_nodecay")
 
 
 class OptimHyper(NamedTuple):

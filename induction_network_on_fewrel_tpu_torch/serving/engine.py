@@ -276,6 +276,12 @@ class InferenceEngine:
         self._warm_tier_crossing(tenant, (name,))
         return self.registry.register(name, instances, tenant=tenant)
 
+    def register_tokens(self, name: str, rows, tenant: str = DEFAULT_TENANT):
+        """``register_class`` from already-tokenized rows (the token cache's
+        form, ``TenantRegistry.register_tokens``)."""
+        self._warm_tier_crossing(tenant, (name,))
+        return self.registry.register_tokens(name, rows, tenant=tenant)
+
     def register_dataset(self, dataset, max_classes: int | None = None,
                          tenant: str = DEFAULT_TENANT) -> list[str]:
         adding = list(dataset.rel_names)

@@ -41,9 +41,10 @@ registration). On the card the registry's device work runs on a stream
 of its own and ends in a host synchronization, so the batcher's worker,
 which replays graphs on its own stream, never waits on it. Support sets
 are normalized to exactly K shots (cycle-pad when fewer arrive, truncate
-when more); registration uses per-token position ids. ``register_tokens``
-(already-tokenized rows in the token cache's compact form) comes with the
-token cache, ROADMAP queue A item 4, and is refused by name.
+when more). ``register_tokens`` registers already-tokenized rows (the
+token cache's form: a position leaf may be a per-sentence offset, which is
+expanded to per-token ids, so a class registered either way distils from
+the same rows); ``register`` tokenizes raw instances and goes through it.
 """
 
 from __future__ import annotations
@@ -237,7 +238,24 @@ class TenantRegistry:
     def register(self, name: str, instances, tenant: str = DEFAULT_TENANT) -> np.ndarray:
         """Register (or replace) one class from raw ``Instance``s; returns
         its distilled [C] class vector (host copy)."""
-        rows = self._normalize_shots(self._rows(instances))
+        return self.register_tokens(name, self._rows(instances), tenant=tenant)
+
+    @staticmethod
+    def _per_token(row: dict) -> dict:
+        """A tokenized row with offset-form positions expanded (``off + l``)."""
+        L = np.asarray(row["word"]).shape[-1]
+        out = dict(row)
+        for key in ("pos1", "pos2"):
+            pos = np.asarray(row[key])
+            if pos.ndim == 0:
+                out[key] = int(pos) + np.arange(L, dtype=np.int32)
+        return out
+
+    def register_tokens(self, name: str, rows, tenant: str = DEFAULT_TENANT) -> np.ndarray:
+        """Register (or replace) one class from already-tokenized [L]-leaf
+        dicts (word, pos1, pos2, mask; a position leaf may be a scalar
+        offset); returns its distilled [C] class vector (host copy)."""
+        rows = self._normalize_shots([self._per_token(r) for r in rows])
 
         def commit(slots: list[int]) -> np.ndarray:
             slot = slots[0]
@@ -253,13 +271,6 @@ class TenantRegistry:
             return self._pool[slot].vec.copy()
 
         return self._intern_classes([rows], commit)
-
-    def register_tokens(self, name: str, rows, tenant: str = DEFAULT_TENANT):
-        raise NotImplementedError(
-            "register_tokens (already-tokenized rows in the token cache's form) is not "
-            "ported yet: it comes with the token cache, ROADMAP queue A item 4; "
-            "register raw instances with register()"
-        )
 
     def register_dataset(self, dataset, max_classes: int | None = None,
                          tenant: str = DEFAULT_TENANT) -> list[str]:

@@ -2,19 +2,37 @@
 
 Counterpart of ``induction_network_on_fewrel_tpu/train/framework.py``
 (``FewShotTrainer.train``/``evaluate``, framework.py:266-330, 380-470,
-725-729) for the single-device path: sample host batches -> one dispatch
-of ``steps_per_call`` training steps (on the card one CUDA-graph replay,
-``train/steps.py``; when fewer steps are left they run one at a time) -> a
-``[train]`` record of the window's mean metrics every ``metric_window``
-steps (default max(50, metric_window_calls * steps_per_call); each record
-syncs the card) and at the end -> every ``grad_probe_every`` steps a
-``health`` record (event "grad_probe": the gradient's norm and its cosine
-to an all-f32 plain reference, ``make_grad_probe``) -> validation every
-``val_step`` steps, logged as ``[val]`` with ``acc_ci95`` (its time, the
-probe's and the saves', kept out of ``episodes_per_s``) -> best-checkpoint
-save on improvement and a latest save at every val boundary and at the
-end. A fused call may not skip a val boundary: ``steps_per_call >
-val_step`` with a val sampler is refused.
+539-622, 725-729) for the single-device path: sample host batches -> one
+dispatch of ``steps_per_call`` training steps (on the card one CUDA-graph
+replay, ``train/steps.py``; when fewer steps are left they run one at a
+time) -> a ``[train]`` record of the window's mean metrics every
+``metric_window`` steps (default max(50, metric_window_calls *
+steps_per_call); each record syncs the card) and at the end -> every
+``grad_probe_every`` steps a ``health`` record (event "grad_probe": the
+gradient's norm and its cosine to an all-f32 plain reference,
+``make_grad_probe``) -> validation every ``val_step`` steps, logged as
+``[val]`` with ``acc_ci95`` (its time, the probe's and the saves', kept
+out of ``episodes_per_s``) -> a best save on improvement and a
+recovery-ring save at every val boundary (a ``ckpt`` record: full, base
+or delta and its bytes) and at the end. A fused call may not skip a val
+boundary: ``steps_per_call > val_step`` with a val sampler is refused.
+Training episodes are ``train_n``-way, val and test ``n``-way (each shape
+its own graph).
+
+With ``embed_optimizer="lazy"`` the trainer owns the lazy word table
+(``train/lazy_embed.LazyTable``) and materializes it (every row caught up,
+in place) before each val pass, each save and at the end. With
+``token_cache`` the samplers draw index episodes and the steps gather
+from the splits' device tables (``train_table``/``val_table``;
+``evaluate(source=...)`` for a test table).
+
+The divergence guard: once the best val accuracy clears twice the
+random-guess floor (capped at the floor/1.0 midpoint), a val accuracy
+under half the best logs a ``divergence`` record; with
+``divergence_guard="stop"`` the best checkpoint is restored, the ring
+slots newer than it are purged, and the run ends. ``fault_step`` raises
+before the val boundary once the step counter reaches it, on a fresh run
+only (``start_step == 0``), so the ring holds the state a crash leaves.
 
 Each dispatch's metrics are copies of the graph's static outputs, so the
 window keeps one tensor per dispatch, not a reference to a buffer the next
@@ -30,8 +48,8 @@ fractions.
 
 ``train(num_iters, start_step)`` numbers steps from ``start_step``;
 ``sampler_states``/``restore_sampler_states`` carry the samplers' random
-streams through the latest checkpoint, so a resumed run continues the
-episode stream of the run it resumes.
+streams through every checkpoint, so a resumed run continues the episode
+stream of the run it resumes.
 """
 
 from __future__ import annotations
@@ -43,6 +61,7 @@ import torch
 
 from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
 from induction_network_on_fewrel_tpu_torch.models.build import batch_to_model_inputs
+from induction_network_on_fewrel_tpu_torch.sampling.index import IndexEpisodeBatch
 from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
 from induction_network_on_fewrel_tpu_torch.train.steps import (
     make_eval_step,
@@ -56,16 +75,29 @@ from induction_network_on_fewrel_tpu_torch.utils.metrics import MetricsLogger
 
 
 def stack_batches(batches):
-    """[(support, query, label)] -> stacked (support_s, query_s, label_s)."""
-    sup = {k: np.stack([b[0][k] for b in batches]) for k in batches[0][0]}
-    qry = {k: np.stack([b[1][k] for b in batches]) for k in batches[0][1]}
-    return sup, qry, np.stack([b[2] for b in batches])
+    """[(support, query, label)] -> stacked (support_s, query_s, label_s);
+    token dicts or index arrays."""
+    def stack(xs):
+        if isinstance(xs[0], dict):
+            return {k: np.stack([x[k] for x in xs]) for k in xs[0]}
+        return np.stack(xs)
+
+    return stack([b[0] for b in batches]), stack([b[1] for b in batches]), \
+        np.stack([b[2] for b in batches])
+
+
+def batch_inputs(batch):
+    """A sampler's batch as step inputs: token dicts of an EpisodeBatch, or
+    the index arrays of an IndexEpisodeBatch."""
+    if isinstance(batch, IndexEpisodeBatch):
+        return batch.support_idx, batch.query_idx, batch.label
+    return batch_to_model_inputs(batch)
 
 
 class FewShotTrainer:
     def __init__(self, model, cfg: ExperimentConfig, train_sampler, val_sampler=None,
                  ckpt_dir: str | None = None, logger: MetricsLogger | None = None,
-                 metric_window: int | None = None):
+                 metric_window: int | None = None, train_table=None, val_table=None):
         spc = cfg.steps_per_call
         if spc < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {spc}")
@@ -76,25 +108,63 @@ class FewShotTrainer:
                 f"steps_per_call ({spc}) must not exceed "
                 f"val_step ({cfg.val_step}); lower it or raise val_step"
             )
+        if cfg.divergence_guard not in ("none", "stop"):
+            raise ValueError(f"unknown divergence_guard {cfg.divergence_guard!r} (none | stop)")
         self.model = model
         self.cfg = cfg
         self.train_sampler = train_sampler
         self.val_sampler = val_sampler
         self.logger = logger or MetricsLogger(quiet=True)
         self.opt = make_optimizer(cfg, model)
-        self.ckpt = CheckpointManager(ckpt_dir, cfg) if ckpt_dir else None
+        self.lazy = None
+        if cfg.embed_optimizer == "lazy":
+            from induction_network_on_fewrel_tpu_torch.train.lazy_embed import (
+                LazyTable,
+                live_rows,
+            )
+
+            uids = train_table.uids if train_table is not None else None
+            self.lazy = LazyTable(model, self.opt.hyper, live_rows(cfg), uids=uids)
+            self.opt.attach_compact(self.lazy.rows, self.lazy.rows_m, self.lazy.rows_v)
+        self.ckpt = CheckpointManager(ckpt_dir, cfg, logger=self.logger) if ckpt_dir else None
         self.best_val = -1.0
+        # Divergence-guard arming threshold (the JAX rule): twice the
+        # random-guess floor 1/(N + has_nota), capped at the floor/1.0 midpoint.
+        floor = 1.0 / (cfg.n + (1 if cfg.na_rate > 0 else 0))
+        self.guard_arm = min(2.0 * floor, 0.5 * (1.0 + floor))
         self.metric_window = metric_window or max(50, cfg.metric_window_calls * spc)
-        self.train_step = make_train_step(model, self.opt, cfg)
-        self.multi_train_step = make_multi_train_step(model, self.opt, cfg) if spc > 1 else None
+        self.train_step = make_train_step(model, self.opt, cfg, train_table, self.lazy)
+        self.multi_train_step = (make_multi_train_step(model, self.opt, cfg, train_table,
+                                                       self.lazy) if spc > 1 else None)
         self.eval_spc = cfg.eval_steps_per_call or min(spc, 16)
-        self.eval_step = make_eval_step(model, cfg)
-        self.multi_eval_step = make_multi_eval_step(model, cfg) if self.eval_spc > 1 else None
+        self._eval_steps = {}
+        self.train_table, self.val_table = train_table, val_table
+        self.eval_step, self.multi_eval_step = self._evals(val_table)
+        if cfg.grad_probe_every > 0 and (train_table is not None or self.lazy is not None):
+            raise ValueError("grad_probe_every probes the dense step on token batches: it does "
+                             "not combine with the token cache or embed_optimizer=lazy")
         self.grad_probe = make_grad_probe(model, cfg) if cfg.grad_probe_every > 0 else None
+
+    def _evals(self, source):
+        """(single, fused or None) eval steps bound to ``source`` (a token
+        table, or None for token batches), made once per source."""
+        key = id(source)
+        if key not in self._eval_steps:
+            self._eval_steps[key] = (
+                make_eval_step(self.model, self.cfg, source),
+                make_multi_eval_step(self.model, self.cfg, source) if self.eval_spc > 1 else None,
+                source)
+        return self._eval_steps[key][:2]
+
+    def materialize(self) -> None:
+        """Catch the lazy table up to the current step (no-op otherwise)."""
+        if self.lazy is not None:
+            self.lazy.materialize(self.opt.count)
 
     def train(self, num_iters: int | None = None, start_step: int = 0) -> int:
         """Run ``num_iters`` updates (default ``cfg.train_iter``) numbered
-        from ``start_step``; returns the last step."""
+        from ``start_step``; returns the last step (the restored best's
+        after a divergence stop)."""
         cfg = self.cfg
         spc = cfg.steps_per_call
         end_step = start_step + (num_iters or cfg.train_iter)
@@ -104,11 +174,11 @@ class FewShotTrainer:
         t0 = time.monotonic()
         while step < end_step:
             if self.multi_train_step is not None and end_step - step >= spc:
-                batches = [batch_to_model_inputs(next(it)) for _ in range(spc)]
+                batches = [batch_inputs(next(it)) for _ in range(spc)]
                 window.append(self.multi_train_step(*stack_batches(batches)))
                 prev, step = step, step + spc
             else:
-                batches = [batch_to_model_inputs(next(it))]
+                batches = [batch_inputs(next(it))]
                 window.append(self.train_step(*batches[0]))
                 prev, step = step, step + 1
             if step - last_logged >= self.metric_window or step >= end_step:
@@ -127,25 +197,61 @@ class FewShotTrainer:
                 self.logger.log(step, "health", event="grad_probe", severity="info",
                                 **{k: float(v) for k, v in out.items()})
                 t0 += time.monotonic() - t_probe    # the probe stays out of episodes_per_s
+            if cfg.fault_step and start_step == 0 and step >= cfg.fault_step:
+                raise RuntimeError(
+                    f"injected fault at step {step} (--fault_step {cfg.fault_step}); resume "
+                    "with --resume (resumed runs ignore the injection)"
+                )
             if self.val_sampler is not None and cfg.val_step \
                     and step // cfg.val_step > prev // cfg.val_step:
                 t_val = time.monotonic()
-                m = self.evaluate(cfg.val_iter, return_metrics=True)
-                self.logger.log(step, "val", **m)
-                if m["accuracy"] > self.best_val:
-                    self.best_val = m["accuracy"]
-                    if self.ckpt is not None:
-                        self.ckpt.save(step, self.model, self.opt, m["accuracy"])
-                if self.ckpt is not None:
-                    self.save_latest(step)
+                stopped = self._val_boundary(step)
                 t0 += time.monotonic() - t_val    # eval + saves stay out of episodes_per_s
+                if stopped is not None:
+                    return stopped
+        self.materialize()
         if self.ckpt is not None:
             self.save_latest(step)
         return step
 
+    def _val_boundary(self, step: int) -> int | None:
+        """Materialize, evaluate, save (best on improvement, the ring
+        always), then the divergence guard; the restored best step when the
+        guard stops the run."""
+        cfg = self.cfg
+        self.materialize()
+        m = self.evaluate(cfg.val_iter, return_metrics=True)
+        self.logger.log(step, "val", **m)
+        improved = m["accuracy"] > self.best_val
+        if improved:
+            self.best_val = m["accuracy"]
+        if self.ckpt is not None:
+            if improved:
+                self.ckpt.save(step, self.model, self.opt, m["accuracy"], lazy=self.lazy,
+                               samplers=self.sampler_states())
+            self.save_latest(step)
+        if self.best_val > self.guard_arm and m["accuracy"] < 0.5 * self.best_val:
+            self.logger.log(step, "divergence", val_accuracy=m["accuracy"],
+                            best_val=self.best_val)
+            if cfg.divergence_guard == "stop" and self.ckpt is not None:
+                try:
+                    best_step = self.ckpt.restore_best(self.model, self.opt, self.lazy)
+                except FileNotFoundError:
+                    best_step = None
+                if best_step is not None:
+                    self.ckpt.purge_ring_newer_than(best_step)
+                self.logger.log(step, "divergence_stop",
+                                restored_step=float(-1 if best_step is None else best_step))
+                return step if best_step is None else best_step
+        return None
+
     def save_latest(self, step: int) -> None:
-        self.ckpt.save_latest(step, self.model, self.opt, best_val=self.best_val,
-                              samplers=self.sampler_states())
+        info = self.ckpt.save_latest(step, self.model, self.opt, best_val=self.best_val,
+                                     samplers=self.sampler_states(), lazy=self.lazy)
+        if info is not None:
+            self.logger.log(step, "ckpt", event="ring_save", mode=info["mode"],
+                            bytes=float(info["bytes"]),
+                            **({"rows": float(info["rows"])} if "rows" in info else {}))
 
     def sampler_states(self) -> dict:
         """The random-stream state of the train and val samplers."""
@@ -158,23 +264,26 @@ class FewShotTrainer:
             if s is not None and name in states:
                 s.rng.bit_generator.state = states[name]
 
-    def evaluate(self, num_episodes: int, sampler=None, return_metrics: bool = False):
+    def evaluate(self, num_episodes: int, sampler=None, return_metrics: bool = False,
+                 source=None):
         """Mean episode accuracy over ``num_episodes`` episodes (at least one
-        batch), or the full metric dict with ``return_metrics``."""
+        batch), or the full metric dict with ``return_metrics``. ``source``:
+        the token table of ``sampler``'s split (default: the val split's)."""
         sampler = sampler or self.val_sampler
+        single, multi = self._evals(source if source is not None else self.val_table)
         remaining = max(1, num_episodes // sampler.batch_size)
         it = iter(sampler)
         spc = self.eval_spc
         outs = []
         while remaining > 0:
-            if self.multi_eval_step is not None and remaining >= max(1, spc // 8):
+            if multi is not None and remaining >= max(1, spc // 8):
                 take = min(spc, remaining)
-                batches = [batch_to_model_inputs(next(it)) for _ in range(take)]
-                out = self.multi_eval_step(*stack_batches(batches + [batches[-1]] * (spc - take)))
+                batches = [batch_inputs(next(it)) for _ in range(take)]
+                out = multi(*stack_batches(batches + [batches[-1]] * (spc - take)))
                 outs.append({k: v[:take] for k, v in out.items()})
                 remaining -= take
             else:
-                out = self.eval_step(*batch_to_model_inputs(next(it)))
+                out = single(*batch_inputs(next(it)))
                 outs.append({k: v.reshape(1) for k, v in out.items()})
                 remaining -= 1
         arrays = {k: torch.cat([o[k] for o in outs]).float().cpu().numpy() for k in outs[0]}

@@ -24,10 +24,21 @@ program, and ``make_multi_train_step`` scans S steps in one dispatch. Here:
   gradient, then per tensor adam (coupled L2 after the clip), adamw
   (decoupled) or sgd (coupled L2, no momentum), with the staircase rate;
   the word table on the main rule (``embed_optimizer="shared"``), on plain
-  sgd (``"sgd"``: -lr*g, no decay, no moments) or ``"frozen"`` (no
-  gradient, no update, no moments, nothing in the norm). The update is
+  sgd (``"sgd"``: -lr*g, no decay, no moments), ``"frozen"`` (no
+  gradient, no update, no moments, nothing in the norm) or ``"lazy"``
+  (its compact rows on ``adam_nodecay``, ``attach_compact``). The update is
   ``ops/optim.py``: two kernels on the card, the per-parameter loop on the
   CPU. The count, the rate and the bias corrections live on the device.
+* the token cache (``source``, a ``train/token_cache.TokenTable``): the
+  step factories take index batches (``sup_idx [B, N, K]``, ``qry_idx
+  [B, TQ]``, ``label``) and gather the token rows inside the step (inside
+  the graph on the card), so only the indices cross to the card.
+* the lazy word table (``lazy``, a ``train/lazy_embed.LazyTable``): the
+  table's rule is "lazy" (out of the dense update), and each step reads
+  and updates compact rows (``adam_nodecay``) between a catch-up kernel
+  and a scatter kernel: per step on the live path (after a graph-safe
+  dedup of the batch's ids), once per call of S steps on the token cache.
+  On the CPU the same step body runs eagerly.
 * ``make_grad_probe``: the run-config gradient against an all-f32 plain
   backend (lstm_cs_window=0) reference gradient on the same batch and
   weights; norms and cosine through one shared reduction. Eager, off the
@@ -40,6 +51,7 @@ calls, not the replays (count those from the profiler's kernel records).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import math
@@ -67,13 +79,19 @@ TRAIN_METRICS = ("loss", "accuracy", "grad_norm")
 WORD_TABLE = "embedding.word_embedding"
 OPTIMIZERS = ("adam", "adamw", "sgd")
 EMBED_OPTIMIZERS = ("shared", "sgd", "frozen", "lazy")
+# Rules that keep a parameter out of the dense update: no gradient used,
+# no moments, nothing in the norm.
+EXCLUDED_RULES = ("frozen", "lazy")
 
 
 class ClipDecayOptimizer:
     """clip_by_global_norm over every gradient, then each parameter's rule
-    (``ops.optim.RULES``, or "frozen": left out of the update and the
-    norm), with a staircase learning rate. Moments exist only for the
-    adam/adamw tensors. ``count`` is an int64 device scalar."""
+    (``ops.optim.RULES``, or "frozen"/"lazy": left out of the update and
+    the norm), with a staircase learning rate. Moments exist only for the
+    adam/adamw tensors. ``count`` is an int64 device scalar.
+    ``attach_compact`` adds the lazy table's compact rows as one more
+    entry (``adam_nodecay``, its moments the compact buffers), outside the
+    parameter list and the state dict."""
 
     def __init__(self, params, lr: float, weight_decay: float, lr_step_size: int,
                  lr_gamma: float, grad_clip: float, rules=None, b1: float = 0.9,
@@ -83,8 +101,8 @@ class ClipDecayOptimizer:
         if len(self.rules) != len(self.params):
             raise ValueError(f"{len(self.rules)} rules for {len(self.params)} parameters")
         for r in self.rules:
-            if r not in RULES + ("frozen",):
-                raise ValueError(f"unknown update rule {r!r} (one of {RULES + ('frozen',)})")
+            if r not in RULES + EXCLUDED_RULES:
+                raise ValueError(f"unknown update rule {r!r} (one of {RULES + EXCLUDED_RULES})")
         self.hyper = OptimHyper(lr, lr_gamma, lr_step_size, weight_decay, grad_clip, b1, b2, eps)
         dev = self.params[0].device
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
@@ -92,9 +110,17 @@ class ClipDecayOptimizer:
                    for p, r in zip(self.params, self.rules)]
         self.nu = [torch.zeros_like(p) if r in MOMENT_RULES else None
                    for p, r in zip(self.params, self.rules)]
-        self._live = [i for i, r in enumerate(self.rules) if r != "frozen"]
+        self._live = [i for i, r in enumerate(self.rules) if r not in EXCLUDED_RULES]
+        self._compact = None
         self._ws = make_workspace([self.params[i] for i in self._live]) \
             if dev.type == "cuda" else None
+
+    def attach_compact(self, rows: torch.Tensor, m: torch.Tensor, v: torch.Tensor) -> None:
+        """Update ``rows`` (a leaf) with ``adam_nodecay`` and the moments
+        ``m``, ``v`` in every step, its gradient in the global norm."""
+        self._compact = (rows, m, v)
+        if self._ws is not None:
+            self._ws = make_workspace([self.params[i] for i in self._live] + [rows])
 
     def learning_rate(self) -> float:
         """The staircase rate of the next update, on the host (reads the
@@ -105,11 +131,18 @@ class ClipDecayOptimizer:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+        if self._compact is not None:
+            self._compact[0].grad = None
 
     def _table(self):
         i = self._live
-        return ([self.params[k] for k in i], [self.params[k].grad for k in i],
-                [self.mu[k] for k in i], [self.nu[k] for k in i], [self.rules[k] for k in i])
+        table = ([self.params[k] for k in i], [self.params[k].grad for k in i],
+                 [self.mu[k] for k in i], [self.nu[k] for k in i], [self.rules[k] for k in i])
+        if self._compact is not None:
+            rows, m, v = self._compact
+            for col, x in zip(table, (rows, rows.grad, m, v, "adam_nodecay")):
+                col.append(x)
+        return table
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -159,11 +192,9 @@ def make_optimizer(cfg: ExperimentConfig, model: torch.nn.Module) -> ClipDecayOp
     if cfg.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r} (one of {OPTIMIZERS})")
     if cfg.embed_optimizer == "lazy":
-        raise ValueError(
-            "embed_optimizer 'lazy' is not ported yet: its catch-up is a loop whose trip "
-            "count depends on the data, which a CUDA graph cannot replay (ROADMAP queue A "
-            "item 4); use shared, sgd or frozen"
-        )
+        from induction_network_on_fewrel_tpu_torch.train.lazy_embed import require_adam
+
+        require_adam(cfg)
     if cfg.embed_optimizer not in EMBED_OPTIMIZERS:
         raise ValueError(f"unknown embed_optimizer {cfg.embed_optimizer!r} "
                          f"(one of {EMBED_OPTIMIZERS})")
@@ -173,8 +204,8 @@ def make_optimizer(cfg: ExperimentConfig, model: torch.nn.Module) -> ClipDecayOp
     if cfg.embed_optimizer != "shared" and WORD_TABLE not in names:
         raise ValueError(f"embed_optimizer={cfg.embed_optimizer!r} but the model has no "
                          f"{WORD_TABLE} parameter: the flag would do nothing")
-    table_rule = {"shared": cfg.optimizer, "sgd": "sgd_plain", "frozen": "frozen"}[
-        cfg.embed_optimizer]
+    table_rule = {"shared": cfg.optimizer, "sgd": "sgd_plain", "frozen": "frozen",
+                  "lazy": "lazy"}[cfg.embed_optimizer]
     return ClipDecayOptimizer(
         model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay,
         lr_step_size=cfg.lr_step_size, lr_gamma=cfg.lr_gamma, grad_clip=cfg.grad_clip,
@@ -229,7 +260,11 @@ def eval_metric_keys(cfg: ExperimentConfig) -> tuple:
 
 def batch_leaves(support, query, label) -> list:
     """(name, numpy array) of every input leaf of a (stacked) batch: what
-    ``CapturedSteps.fill`` copies into a graph's static inputs."""
+    ``CapturedSteps.fill`` copies into a graph's static inputs. A token
+    dict per side, or (token cache) the index arrays ``s_idx``/``q_idx``."""
+    if not isinstance(support, dict):
+        return [("s_idx", np.asarray(support)), ("q_idx", np.asarray(query)),
+                ("label", np.asarray(label))]
     return ([("s_" + k, np.asarray(support[k])) for k in QUERY_KEYS]
             + [("q_" + k, np.asarray(query[k])) for k in QUERY_KEYS]
             + [("label", np.asarray(label))])
@@ -239,6 +274,20 @@ def _batch(dev: dict, i: int):
     """Batch ``i`` of the stacked static inputs as model inputs."""
     return ({k: dev["s_" + k][i] for k in QUERY_KEYS}, {k: dev["q_" + k][i] for k in QUERY_KEYS},
             dev["label"][i])
+
+
+def batch_source(source=None, compact: bool = False):
+    """``(dev, i) -> (support, query, label)`` of batch ``i``: the token
+    leaves themselves, or (``source``, a TokenTable) the rows their indices
+    name, gathered on the device (``compact``: words as ``winv``)."""
+    if source is None:
+        return _batch
+
+    def gathered(dev: dict, i: int):
+        return (source.gather(dev["s_idx"][i], compact), source.gather(dev["q_idx"][i], compact),
+                dev["label"][i])
+
+    return gathered
 
 
 class CapturedSteps:
@@ -318,8 +367,11 @@ class GraphSteps:
 
 def stack1(support, query, label):
     """One batch as a stack of one: leading axis 1 on every leaf."""
-    return ({k: np.asarray(v)[None] for k, v in support.items()},
-            {k: np.asarray(v)[None] for k, v in query.items()}, np.asarray(label)[None])
+    def one(x):
+        return ({k: np.asarray(v)[None] for k, v in x.items()} if isinstance(x, dict)
+                else np.asarray(x)[None])
+
+    return one(support), one(query), np.asarray(label)[None]
 
 
 def _single(multi):
@@ -341,28 +393,83 @@ def _eager_multi(step):
     return multi
 
 
-def _train_graphs(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig) -> GraphSteps:
+class EagerSteps:
+    """The CPU twin of ``GraphSteps`` for the token-cache and lazy steps:
+    the same ``run_of(S)`` body, run eagerly on the batch's tensors."""
+
+    def __init__(self, run_of, keys: tuple, device: torch.device):
+        self.run_of, self.keys, self.device = run_of, keys, device
+
+    def __call__(self, support_s, query_s, label_s) -> dict:
+        leaves = batch_leaves(support_s, query_s, label_s)
+        dev = {n: torch.as_tensor(a).to(self.device) for n, a in leaves}
+        out = self.run_of(len(label_s))(dev)
+        return {k: out[:, j] for j, k in enumerate(self.keys)}
+
+
+def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
+                  lazy=None):
+    """``run_of(S)``: S training steps on the stacked inputs ``dev``, and
+    the metrics [S, 3]. The lazy table's prologue and epilogue wrap each
+    step (live) or the S steps (token cache)."""
+    batch_of = batch_source(source, compact=lazy is not None and lazy.cached)
+    hoisted = lazy is not None and lazy.cached
+
+    def one_step(dev, i) -> torch.Tensor:
+        support, query, label = batch_of(dev, i)
+        if lazy is not None and not lazy.cached:
+            support, query = lazy.dedup(support, query)
+            lazy.prologue(opt.count)
+        opt.zero_grad()
+        with lazy.compact_forward() if lazy is not None else contextlib.nullcontext():
+            loss, m = loss_and_metrics(model, support, query, label, cfg.loss)
+        loss.backward()
+        norm = opt.step()
+        if lazy is not None and not lazy.cached:
+            lazy.epilogue(opt.count)
+        return torch.stack([m["loss"].float(), m["accuracy"].float(), norm])
+
     def run_of(S: int):
         def run(dev) -> torch.Tensor:
-            rows = []
-            for i in range(S):
-                support, query, label = _batch(dev, i)
-                opt.zero_grad()
-                loss, m = loss_and_metrics(model, support, query, label, cfg.loss)
-                loss.backward()
-                rows.append(torch.stack([m["loss"].float(), m["accuracy"].float(), opt.step()]))
+            if hoisted:
+                lazy.prologue(opt.count)
+            rows = [one_step(dev, i) for i in range(S)]
+            if hoisted:
+                lazy.epilogue(opt.count)
             opt.zero_grad()
             return torch.stack(rows)
 
         return run
 
     def warm(dev) -> None:
+        """One forward and backward without an update, then the update's
+        and the lazy table's kernels once on scratch tensors. The lazy
+        prologue writes only the compact buffers, which every step
+        rewrites."""
+        support, query, label = batch_of(dev, 0)
+        if lazy is not None:
+            if lazy.cached:
+                lazy.prologue(opt.count)
+            else:
+                support, query = lazy.dedup(support, query)
+                lazy.prologue(opt.count)
         opt.zero_grad()
-        loss, _ = loss_and_metrics(model, *_batch(dev, 0), cfg.loss)
+        with lazy.compact_forward() if lazy is not None else contextlib.nullcontext():
+            loss, _ = loss_and_metrics(model, support, query, label, cfg.loss)
         loss.backward()
         opt.zero_grad()
         _warm_optim_kernels(model.device)
+        if lazy is not None:
+            lazy.warm_kernels()
 
+    return run_of, warm
+
+
+def _train_graphs(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
+                  lazy=None):
+    run_of, warm = _train_run_of(model, opt, cfg, source, lazy)
+    if model.device.type != "cuda":
+        return EagerSteps(run_of, TRAIN_METRICS, model.device)
     return GraphSteps(run_of, warm, TRAIN_METRICS, model.device)
 
 
@@ -378,15 +485,16 @@ def _warm_optim_kernels(device) -> None:
                  OptimHyper(1e-3, 0.5, 1, 0.0, 1.0), ws)
 
 
-def _eval_graphs(model, cfg: ExperimentConfig) -> GraphSteps:
+def _eval_run_of(model, cfg: ExperimentConfig, source=None):
     keys = eval_metric_keys(cfg)
+    batch_of = batch_source(source)
 
     def run_of(S: int):
         @torch.inference_mode()
         def run(dev) -> torch.Tensor:
             rows = []
             for i in range(S):
-                m = _eval_metrics(model, cfg, *_batch(dev, i))
+                m = _eval_metrics(model, cfg, *batch_of(dev, i))
                 rows.append(torch.stack([m[k].float() for k in keys]))
             return torch.stack(rows)
 
@@ -394,43 +502,53 @@ def _eval_graphs(model, cfg: ExperimentConfig) -> GraphSteps:
 
     @torch.inference_mode()
     def warm(dev) -> None:
-        _eval_metrics(model, cfg, *_batch(dev, 0))
+        _eval_metrics(model, cfg, *batch_of(dev, 0))
 
+    return run_of, warm, keys
+
+
+def _eval_graphs(model, cfg: ExperimentConfig, source=None):
+    run_of, warm, keys = _eval_run_of(model, cfg, source)
+    if model.device.type != "cuda":
+        return EagerSteps(run_of, keys, model.device)
     return GraphSteps(run_of, warm, keys, model.device)
 
 
-def make_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig):
+def make_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
+                    lazy=None):
     """``(support, query, label) -> {loss, accuracy, grad_norm}`` device
     scalars (copies). On the card one CUDA-graph replay per call; on the
-    CPU the eager ``train_step``."""
-    if model.device.type != "cuda":
+    CPU the eager ``train_step`` (the eager step body with a token-cache
+    ``source`` or a ``lazy`` table)."""
+    if model.device.type != "cuda" and source is None and lazy is None:
         return functools.partial(train_step, model, opt, cfg)
-    return _single(_train_graphs(model, opt, cfg))
+    return _single(_train_graphs(model, opt, cfg, source, lazy))
 
 
-def make_multi_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig):
+def make_multi_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
+                          lazy=None):
     """``(support_s, query_s, label_s)`` stacked [S, ...] -> metrics [S]:
     S updates per call, the same sequence as S single steps. On the card
     one replay of a graph of S captured steps; on the CPU S eager steps."""
-    if model.device.type != "cuda":
+    if model.device.type != "cuda" and source is None and lazy is None:
         return _eager_multi(functools.partial(train_step, model, opt, cfg))
-    return _train_graphs(model, opt, cfg)
+    return _train_graphs(model, opt, cfg, source, lazy)
 
 
-def make_eval_step(model, cfg: ExperimentConfig):
+def make_eval_step(model, cfg: ExperimentConfig, source=None):
     """``(support, query, label) -> eval metrics`` (K1/K2, no autograd);
     one graph replay per call on the card, ``eval_step`` on the CPU."""
-    if model.device.type != "cuda":
+    if model.device.type != "cuda" and source is None:
         return functools.partial(eval_step, model, cfg)
-    return _single(_eval_graphs(model, cfg))
+    return _single(_eval_graphs(model, cfg, source))
 
 
-def make_multi_eval_step(model, cfg: ExperimentConfig):
+def make_multi_eval_step(model, cfg: ExperimentConfig, source=None):
     """Eval metrics [S] of S stacked batches per call (one replay on the
     card); the same values as S calls of the single eval step."""
-    if model.device.type != "cuda":
+    if model.device.type != "cuda" and source is None:
         return _eager_multi(functools.partial(eval_step, model, cfg))
-    return _eval_graphs(model, cfg)
+    return _eval_graphs(model, cfg, source)
 
 
 # --- grad probe ---------------------------------------------------------------------

@@ -18,8 +18,8 @@
 * The trainer: ``steps_per_call > val_step`` is refused with the JAX
   message; a fused loop with a one-at-a-time tail equals the plain loop;
   ``grad_probe_every`` logs ``health`` records.
-* The CLI: the new flags reach the config; ``--embed_optimizer lazy`` is
-  refused by name; ``--resume`` continues a run to the same checkpoints as
+* The CLI: the new flags reach the config; ``--embed_optimizer lazy`` with
+  another optimizer than Adam is refused by name; ``--resume`` continues a run to the same checkpoints as
   an uninterrupted run; ``--only_test`` reports the test accuracy.
 """
 
@@ -247,9 +247,11 @@ def test_cli_new_flags_reach_the_config():
 
 
 def test_cli_refuses_lazy_by_name(tmp_path):
-    with pytest.raises(ValueError, match="embed_optimizer 'lazy' is not ported"):
-        cli.main(["train", *TINY, "--embed_optimizer", "lazy", "--train_iter", "1",
-                  "--save_ckpt", str(tmp_path / "c")])
+    """Lazy Adam replicates Adam's momentum tail: with another optimizer
+    ``--embed_optimizer lazy`` is refused by name."""
+    with pytest.raises(ValueError, match="embed_optimizer=lazy .* requires --optimizer adam"):
+        cli.main(["train", *TINY, "--embed_optimizer", "lazy", "--optimizer", "sgd",
+                  "--train_iter", "1", "--save_ckpt", str(tmp_path / "c")])
 
 
 def _payload(path):

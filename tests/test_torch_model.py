@@ -185,8 +185,15 @@ def test_build_model_refuses_other_models_and_encoders():
 
 
 def test_offset_form_positions_refused(batch):
+    """Offset-form positions (the token cache's per-sentence offsets, one
+    rank below ``word``) are no longer refused: they encode bitwise like
+    the per-token ids ``off + l`` they stand for, pos1 and pos2 each."""
     sup, _ = batch
     _, _, tmodel = _pair()
     s = to_device(sup, "cpu")
-    with pytest.raises(ValueError, match="per-token"):
-        tmodel.encode(s["word"], s["pos1"][..., 0], s["pos2"], s["mask"])
+    off = torch.randint(1, L + 1, s["word"].shape[:-1], generator=torch.Generator().manual_seed(0))
+    full = off[..., None] + torch.arange(L)
+    with torch.no_grad():
+        want = tmodel.encode(s["word"], full, full, s["mask"])
+        for pos1, pos2 in ((off, full), (full, off), (off, off)):
+            assert torch.equal(tmodel.encode(s["word"], pos1, pos2, s["mask"]), want)

@@ -7,7 +7,8 @@
   frozen table gets a zero gradient on the JAX side (its Embedding
   stop-gradients it) and none here.
 * A frozen table gets no gradient and holds no moments; an sgd table
-  holds no moments; ``lazy`` is refused by name.
+  holds no moments; ``lazy`` takes the table out of the dense update and is
+  refused by name with another optimizer than Adam.
 * ``state_dict`` round trips in every mode, copies in place, and the
   earlier Adam-only format (an int count, moments for every parameter, no
   rules) still loads; a state of other rules is refused by name.
@@ -148,8 +149,11 @@ def test_frozen_table_gets_no_gradient_and_no_moments():
 
 def test_lazy_is_refused_by_name():
     model = build_model(ExperimentConfig(**SMALL), device="cpu")
-    with pytest.raises(ValueError, match="embed_optimizer 'lazy' is not ported yet.*queue A"):
-        make_optimizer(ExperimentConfig(**SMALL, embed_optimizer="lazy"), model)
+    with pytest.raises(ValueError, match="embed_optimizer=lazy .* requires --optimizer adam"):
+        make_optimizer(ExperimentConfig(**SMALL, embed_optimizer="lazy", optimizer="adamw"), model)
+    lazy = make_optimizer(ExperimentConfig(**SMALL, embed_optimizer="lazy"), model)
+    j = [n for n, _ in model.named_parameters()].index("embedding.word_embedding")
+    assert lazy.rules[j] == "lazy" and lazy.mu[j] is None       # out of the dense update
     with pytest.raises(ValueError, match="unknown embed_optimizer 'dense'"):
         make_optimizer(ExperimentConfig(**SMALL, embed_optimizer="dense"), model)
 

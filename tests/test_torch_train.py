@@ -11,7 +11,8 @@
   1e-3).
 * The numpy ``EpisodeSampler`` copy gives the JAX sampler's batches.
 * The CLI's train -> test round trip on the CPU, and its refusal to run
-  on a machine without CUDA unless given ``--device cpu``.
+  on a machine without CUDA unless given ``--device cpu``, or on a data
+  file that does not exist.
 """
 
 import dataclasses
@@ -116,8 +117,8 @@ def test_optimizer_clip_has_no_epsilon_and_decay_is_coupled():
 
 def test_optimizer_refuses_unported_choices():
     model = build_model(ExperimentConfig(**SMALL), device="cpu")
-    with pytest.raises(ValueError, match="embed_optimizer 'lazy' is not ported"):
-        make_optimizer(ExperimentConfig(**SMALL, embed_optimizer="lazy"), model)
+    with pytest.raises(ValueError, match="embed_optimizer=lazy .* requires --optimizer adam"):
+        make_optimizer(ExperimentConfig(**SMALL, embed_optimizer="lazy", optimizer="sgd"), model)
     with pytest.raises(ValueError, match="unknown optimizer 'rmsprop'"):
         make_optimizer(ExperimentConfig(**SMALL, optimizer="rmsprop"), model)
 
@@ -267,6 +268,9 @@ def test_cli_train_then_test_round_trip(tmp_path, capsys):
     final = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(final) == {"final_val_accuracy", "acc_ci95"}
     recs = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+    assert [(r["step"], r["mode"]) for r in recs if r["kind"] == "ckpt"] == [(3, "full"),
+                                                                             (6, "full")]
+    recs = [r for r in recs if r["kind"] != "ckpt"]         # the ring saves' records
     assert [r["kind"] for r in recs].count("val") == 2
     assert recs[-2]["kind"] == "train" and recs[-2]["step"] == 6 and "loss" in recs[-2]
     assert all("acc_ci95" in r for r in recs if r["kind"] == "val")
@@ -310,6 +314,7 @@ def test_cli_refuses_without_cuda_or_synthetic(tmp_path):
         pytest.skip("a CUDA device is present: the refusal path is not reachable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["train", *TINY, "--train_iter", "1", "--save_ckpt", str(tmp_path / "c")])
-    with pytest.raises(SystemExit, match="--synthetic"):
-        cli.main(["train", *TINY[1:], "--device", "cpu", "--save_ckpt", str(tmp_path / "c")])
+    with pytest.raises(FileNotFoundError, match="--train_file"):
+        cli.main(["train", *TINY[1:], "--device", "cpu", "--train_file",
+                  str(tmp_path / "missing.json"), "--save_ckpt", str(tmp_path / "c")])
     assert cli.main([]) == 2
