@@ -178,11 +178,33 @@ exits non-zero; no phase catches a failure of its own):
    delta quarantined with the restore falling back to the base bitwise;
    ``register_tokens`` on the run's best checkpoint (offset-form rows) vs
    ``register`` on the same raw sentences; the graph's profile.
-11. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
+11. (run after phase 4a) The few-shot model zoo at the flagship episode
+   and step (bf16 encoder, f32 head, mse, W=8, Adam, shared table, 4 steps
+   a replay), full width: 11a proto, proto_hatt, siamese, gnn, snail and
+   metanet over the BiLSTM (u=128, A=64), 11b each over the CNN (230
+   filters) and proto and gnn over the transformer (4 x 256, 4 heads, ff
+   1024). Each: one S=4 replay vs four eager steps from the same weights
+   (``hold_state``'s bars, cuDNN deterministic); the optimizer pair on
+   the model's parameter list vs its plain twin; on the BiLSTM, each
+   leaf's step-0 gradient within 5e-2 of its own scale (the leaves whose
+   f32 gradient is rounding noise left out and printed) and 8 steps'
+   losses within 2e-2 of the plain backends; 8 steps and a val pass (40 episodes)
+   as graph replays with the wrappers' counts zeroed just before and read
+   just after, launches by the profiler (K7, K8, K10, K11, lstm_wgrad and
+   the optimizer pair once a step, K1 and K2 once a val batch; only the
+   optimizer pair off the BiLSTM); ms/step, episodes/s, device busy and
+   launches a step of the graph. 11c: ``cli.train_main`` for ``--model
+   proto --encoder cnn --loss ce`` on phase 9c's files, 200 steps in runs
+   of 20, 160 and 20 joined by ``--resume`` (the last 20 steps' mean loss
+   below the first 20's), then ``cli.test_main`` on the test file (its
+   accuracy printed, no bar: the data is synthetic). The phase's seconds.
+12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
-   phases' counts), a ``{"training_step": ...}`` line of the step's figures,
-   the segment sum's and phases 9c/9d's, a ``{"serving": ...}`` line of
+   phases' counts; ``launches_zoo`` their launches in phase 11, and the
+   optimizer pair's errors on the zoo models' parameter lists), a
+   ``{"training_step": ...}`` line of the step's figures, the segment
+   sum's, phases 9c/9d's and the zoo's, a ``{"serving": ...}`` line of
    phases 4, 4a, 4b and 4c, then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -1432,6 +1454,9 @@ def lazy_times(table, m, v, last, ids, bufs, count, hp) -> dict:
 #   per-step losses: |loss - loss_ref| / loss_ref <= 2e-2 over 20 steps.
 GRAD_REL_TOL = 5e-2
 LOSS_REL_TOL = 2e-2
+# Phase 11: a leaf whose f32 gradient lies below this share of the largest
+# element over all leaves holds rounding noise alone (grads_vs).
+NOISE_LEAF = 1e-6
 TRAIN_STEPS = 20
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 TRAIN_KERNELS = {"K7": bilstm_win_fwd, "K8": bilstm_win_bwd, "K10": attn_fwd_stats, "K11": attn_bwd,
@@ -2488,6 +2513,257 @@ def lazy_phase(real: dict, tr9c: dict, gen: torch.Generator) -> dict:
             "kernels": kernel_rows, "U": lazy.U}
 
 
+# --- Phase 11: the few-shot model zoo ------------------------------------------
+
+ZOO_MODELS = ("proto", "proto_hatt", "siamese", "gnn", "snail", "metanet")
+ZOO_STEPS = 8
+ZOO_DIR = WORK_DIR.parent / "chip_smoke_zoo"
+# The flagship episode and step (bf16 encoder, f32 head, mse, W=8, Adam,
+# shared table), 4 steps a replay, one val pass of 40 episodes at step 8.
+ZOO_ARGV = ["--synthetic", "--bf16", "--steps_per_call", "4", "--val_step", str(ZOO_STEPS),
+            "--val_iter", "40", "--train_iter", str(ZOO_STEPS)]
+# 11c: proto over the CNN through cli.train_main on phase 9c's files, 200
+# steps in three runs (20, --resume 160, --resume 20), so that the first
+# and the last run each log one [train] record: the mean loss of steps
+# 1-20 and of steps 181-200. ce: proto's -||q - p||^2 logits start deep in
+# the sigmoid's flat tail, where the mse objective barely moves them.
+ZOO_CLI_ARGV = ["--bf16", "--model", "proto", "--encoder", "cnn", "--loss", "ce",
+                "--steps_per_call", "4", "--val_step", "20", "--val_iter", "40"]
+ZOO_CLI_RUNS = (20, 160, 20)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block: a convolution's
+    weight gradient may otherwise sum in atomics order, and a run-to-run
+    comparison of training states would see it."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def fused_vs_eager(cfg, vocab, batches: list, tag: str) -> dict:
+    """One replay of the S=4 graph (``make_multi_train_step``) against four
+    eager ``train_step``s from the same fresh weights on the same 4
+    batches: losses and norms within GRAPH_PARAM_TOL, then the state
+    (``hold_state``)."""
+    with deterministic_cudnn():
+        eager, fused = (build_model(cfg, glove_init=vocab.vectors) for _ in range(2))
+        opt_e, opt_f = make_optimizer(cfg, eager), make_optimizer(cfg, fused)
+        table0 = eager.embedding.word_embedding.detach().clone()
+        me = [train_step(eager, opt_e, cfg, *b) for b in batches]
+        mf = make_multi_train_step(fused, opt_f, cfg)(*stack_batches(batches))
+    worst = 0.0
+    for key in ("loss", "grad_norm"):
+        _, rel = rel_err(mf[key].float(), torch.stack([m[key] for m in me]).float())
+        worst = max(worst, rel)
+        if rel > GRAPH_PARAM_TOL:
+            raise AssertionError(f"{tag}: S=4 replay vs 4 eager steps: {key} relative error "
+                                 f"{rel:.3g}")
+    held = hold_state(tag, (fused, opt_f), (eager, opt_e), table0)
+    return {**held, "metrics_rel": worst}
+
+
+def grads_vs(g: dict, g_ref: dict, g_f32: dict, tag: str) -> dict:
+    """Every parameter's step-0 gradient within GRAD_REL_TOL of its own
+    scale (phase 9's bar), kernels vs plain backends, both in bf16. A
+    leaf whose gradient in an f32 run of the plain backends (``g_f32``,
+    the same weights and batch) is below NOISE_LEAF of the largest
+    element over all leaves carries rounding noise alone (a softmax's
+    shared shift: gnn's ``adj_*.Dense_2.bias``, snail's ``att_*.k.bias``):
+    it is left out of the bar, and each such leaf is printed with its
+    readings. The f32 run draws the line because in bf16 a noise leaf and
+    a small real one lie at the same level."""
+    top = max(gr.abs().max().item() for gr in g_f32.values())
+    rows, levels, dropped = {}, {}, {}
+    for n, gr in g_ref.items():
+        if not torch.isfinite(g[n]).all():
+            raise AssertionError(f"{tag}: step-0 gradient of {n} is not finite")
+        level = g_f32[n].abs().max().item() / top
+        if level < NOISE_LEAF:
+            dropped[n] = {"f32_level": level,
+                          "bf16_abs_err_of_top": (g[n] - gr).abs().max().item() / top}
+            continue
+        rows[n], levels[n] = rel_err(g[n], gr)[1], level
+    name, low = max(rows, key=rows.get), min(levels, key=levels.get)
+    print(f"[{tag}] step-0 gradients of {len(rows)} leaves within {rows[name]:.3g} of their own "
+          f"scale (worst {name}; tol {GRAD_REL_TOL}; the smallest kept leaf, {low}, at "
+          f"{levels[low]:.3g} of the largest f32 element); {len(dropped)} leaves below "
+          f"{NOISE_LEAF:g} left out: {dropped}", flush=True)
+    if rows[name] > GRAD_REL_TOL:
+        raise AssertionError(f"{tag}: step-0 gradient of {name}: error {rows[name]:.3g} of its "
+                             f"scale > {GRAD_REL_TOL}")
+    return {"worst": rows[name], "leaves": len(rows), "dropped": len(dropped),
+            "smallest_kept_level": levels[low],
+            "largest_dropped_level": max((d["f32_level"] for d in dropped.values()), default=None)}
+
+
+def zoo_optim_check(model, gen: torch.Generator) -> dict:
+    """The optimizer pair on the model's parameter list (table entries past
+    the flagship's step's) vs the plain twin and the per-parameter loop,
+    Adam, from random parameters, gradients and moments at count 2000: the
+    norm and the update within OPTIM_TOL of scale."""
+    dev = torch.device("cuda")
+    cfg = ExperimentConfig()
+    hp = OptimHyper(cfg.lr, cfg.lr_gamma, cfg.lr_step_size, cfg.weight_decay, cfg.grad_clip)
+    names = [n for n, _ in model.named_parameters()]
+
+    def rand(like, scale):
+        return torch.randn(like.shape, generator=gen, device=dev) * scale
+
+    params = [rand(p, 0.1) for p in model.parameters()]
+    grads = [rand(p, 1e-2) for p in params]
+    mus, nus = [rand(p, 1e-3) for p in params], [rand(p, 1e-3).square() for p in params]
+    rules = ["adam"] * len(params)
+    ws = make_workspace(params)
+    norm = optim_sumsq(params, grads, ws)
+    _, n_rel = rel_err(norm, optim_sumsq_reference(params, grads))
+    if n_rel > OPTIM_TOL:
+        raise AssertionError(f"zoo optim_sumsq: relative error {n_rel:.3g} > {OPTIM_TOL}")
+    kp, km, kv = ([x.clone() for x in xs] for xs in (params, mus, nus))
+    count, p_count = (torch.full((), 2000, dtype=torch.int64, device=dev) for _ in range(2))
+    optim_update(kp, grads, km, kv, rules, norm, count, hp, ws)
+    optim_update_reference(params, grads, mus, nus, rules, norm, p_count, hp)
+    pairs = {f"{n}.{w}": (a, b) for n, *trip in zip(names, kp, km, kv, params, mus, nus)
+             for w, a, b in (("p", trip[0], trip[3]), ("m", trip[1], trip[4]),
+                             ("v", trip[2], trip[5]))}
+    err = check_outputs("zoo optim_update", pairs, OPTIM_TOL)
+    return {"sumsq_rel": n_rel, "update_err": err}
+
+
+def zoo_case(model_name: str, encoder: str, vocab, tok, gen: torch.Generator) -> dict:
+    """One zoo model over one encoder at full width: one S=4 replay vs four
+    eager steps; on the BiLSTM, step-0 gradients and ZOO_STEPS losses
+    against the plain backends from the same weights; ZOO_STEPS steps and a
+    val pass as graph replays with the wrappers' counts zeroed just before
+    and read just after, launches by the profiler (K7, K8, K10, K11 and the
+    weight-gradient and optimizer kernels once a step, K1 and K2 once a val
+    batch); then the graph's profile."""
+    tag = f"zoo {model_name}/{encoder}"
+    t0 = time.monotonic()
+    cfg = cli.config_from_args(cli.parse_args(
+        train=True, argv=ZOO_ARGV + ["--model", model_name, "--encoder", encoder]))
+
+    def sampler(split="train", seed=0):
+        return EpisodeSampler(cli.load_data(cfg, split), tok, cfg.n, cfg.k, cfg.q,
+                              batch_size=cfg.batch_size, seed=cfg.seed + seed)
+
+    four = sampler()
+    fused = fused_vs_eager(cfg, vocab, [batch_to_model_inputs(four.sample_batch())
+                                        for _ in range(4)], tag)
+    model = build_model(cfg, glove_init=vocab.vectors)
+    kernels = encoder == "bilstm"
+    out = {"fused_vs_eager": fused, "tensors": len(list(model.parameters())),
+           "optim": zoo_optim_check(model, gen)}
+    if kernels:
+        ref_cfg = cfg.replace(lstm_backend="reference", attn_backend="reference")
+        ref_model = build_model(ref_cfg, glove_init=vocab.vectors)
+        ref_model.load_state_dict(model.state_dict())
+        f32_cfg = ref_cfg.replace(compute_dtype="float32")
+        f32_model = build_model(f32_cfg, glove_init=vocab.vectors)
+        f32_model.load_state_dict(model.state_dict())
+        first = sampler().sample_batch()
+        out["grads"] = grads_vs(batch_grads(model, cfg, first),
+                                batch_grads(ref_model, ref_cfg, first),
+                                batch_grads(f32_model, f32_cfg, first), tag)
+        del f32_model
+    on = (("K7", "K8") + STEP_KERNELS if kernels else ("optim_sumsq", "optim_update"))
+    trainer = FewShotTrainer(model, cfg, sampler(), sampler("val", 1),
+                             logger=MetricsLogger(ZOO_DIR / f"{model_name}_{encoder}",
+                                                  quiet=True), metric_window=1)
+    evals = evals_per_pass(trainer)
+    launches, wrapped, recs = run_trainer(trainer, ZOO_STEPS, on + (("K1", "K2") if kernels
+                                                                    else ()), evals)
+    out["launches"] = launches
+    if kernels:
+        ref_trainer = FewShotTrainer(ref_model, ref_cfg.replace(steps_per_call=1), sampler(),
+                                     logger=MetricsLogger(ZOO_DIR / f"{model_name}_reference",
+                                                          quiet=True), metric_window=1)
+        ref_trainer.train(ZOO_STEPS)
+        ref_trainer.close()
+        _, out["loss_rel"] = losses_vs(
+            recs, train_records(ZOO_DIR / f"{model_name}_reference" / "metrics.jsonl"), tag)
+        del ref_model, ref_trainer
+    prof = profile_graph_steps(trainer, on, calls=4, tag=f"profile {tag}")
+    out.update({k: prof[k] for k in ("step_ms", "episodes_per_s", "busy_ms", "busy_share")},
+               launches_per_step=prof["launches"])
+    print(f"[{tag}] S=4 replay vs 4 eager steps: state {fused['state_rel']:.3g}, metrics "
+          f"{fused['metrics_rel']:.3g} (tol {GRAPH_PARAM_TOL}); optimizer pair on the model's "
+          f"{out['tensors']} tensors vs plain: norm rel {out['optim']['sumsq_rel']:.3g}, update "
+          f"max abs err {out['optim']['update_err']:.3g} (tol {OPTIM_TOL} of scale)"
+          + (f"; vs plain backends: step-0 gradients {out['grads']['worst']:.3g} of their "
+             f"scale (tol {GRAD_REL_TOL}), losses over {ZOO_STEPS} steps {out['loss_rel']:.3g} (tol "
+             f"{LOSS_REL_TOL})" if kernels else "")
+          + f"; launches (profiler, {ZOO_STEPS} steps + {evals} val batches) "
+          f"{ {k: n for k, n in launches.items() if n} }; {prof['step_ms']:.3f} ms/step, "
+          f"{prof['episodes_per_s']:.1f} episodes/s, busy {prof['busy_ms']:.3f} ms/step "
+          f"({prof['busy_share']:.1%}), {prof['launches']:.1f} launches/step; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_cli(real: dict) -> dict:
+    """11c: ``cli.train_main`` for proto over the CNN on phase 9c's files,
+    200 steps in three runs joined by ``--resume``: the mean loss of steps
+    181-200 must be below that of steps 1-20; then ``cli.test_main`` on
+    the test file."""
+    ckpt = ZOO_DIR / "cli"
+    argv = ZOO_CLI_ARGV + real_argv(real["paths"], "train", "val") + ["--save_ckpt", str(ckpt)]
+    for i, n in enumerate(ZOO_CLI_RUNS):
+        rc, _, err = quiet_cli(cli.train_main, argv + ["--train_iter", str(n)]
+                               + (["--resume"] if i else []))
+        if rc != 0:
+            raise AssertionError(f"zoo train_main run {i}: rc {rc}, {err[-2000:]!r}")
+    recs = train_records(ckpt / "metrics.jsonl")
+    steps = [r["step"] for r in recs]
+    total = sum(ZOO_CLI_RUNS)
+    if steps[0] != ZOO_CLI_RUNS[0] or steps[-2:] != [total - ZOO_CLI_RUNS[-1], total]:
+        raise AssertionError(f"zoo train_main: [train] records at steps {steps}")
+    first, last = recs[0]["loss"], recs[-1]["loss"]
+    if not last < first:
+        raise AssertionError(f"zoo train_main: mean loss of the last {ZOO_CLI_RUNS[-1]} steps "
+                             f"{last} not below the first {ZOO_CLI_RUNS[0]}'s {first}")
+    rc, out, err = quiet_cli(cli.test_main, ["--bf16", "--model", "proto", "--encoder", "cnn",
+                                             "--loss", "ce", "--load_ckpt", str(ckpt),
+                                             "--test_iter", "40", "--steps_per_call", "4"]
+                             + real_argv(real["paths"], "test"))
+    result = json.loads(out.strip().splitlines()[-1])
+    if rc != 0 or not 0.0 <= result["test_accuracy"] <= 1.0:
+        raise AssertionError(f"zoo test_main: rc {rc}, {result}, {err[-2000:]!r}")
+    print(f"[zoo cli] train_main --model proto --encoder cnn on 9c's files, "
+          f"{sum(ZOO_CLI_RUNS)} steps in runs of {ZOO_CLI_RUNS} joined by --resume: mean loss "
+          f"steps 1-{ZOO_CLI_RUNS[0]} {first:.5f} -> steps "
+          f"{sum(ZOO_CLI_RUNS) - ZOO_CLI_RUNS[-1] + 1}-{sum(ZOO_CLI_RUNS)} {last:.5f}; "
+          f"test_main on the test file: {result}", flush=True)
+    return {"loss_first": first, "loss_last": last, "test": result}
+
+
+def zoo_phase(real: dict) -> dict:
+    """Phase 11: 11a every zoo model over the BiLSTM, 11b over the CNN and
+    (proto, gnn) over the transformer, 11c the CLI on real-format files."""
+    t0 = time.monotonic()
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    cfg = ExperimentConfig()
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    tok = GloveTokenizer(vocab, max_length=cfg.max_length)
+    cases = [(m, "bilstm") for m in ZOO_MODELS] + [(m, "cnn") for m in ZOO_MODELS] \
+        + [("proto", "transformer"), ("gnn", "transformer")]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {f"{m}/{e}": zoo_case(m, e, vocab, tok, gen) for m, e in cases}
+    out["cli"] = zoo_cli(real)
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t0
+    print(f"[zoo] phase 11: {len(cases)} model/encoder cases and the CLI in "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # --- The serving plane on a trained checkpoint (phases 4a-4c) -------------------
 
 SERVE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
@@ -3170,7 +3446,6 @@ def main() -> int:
     real = write_real_files(REAL_DIR)
     tr9c = real_files_phase(real)
     tr9d = lazy_phase(real, tr9c, gen)
-    shutil.rmtree(REAL_DIR, ignore_errors=True)
 
     # 4b, 4c, 4a. The serving plane on phase 9's best checkpoint
     serve4b = serve_traffic(cfg)
@@ -3178,7 +3453,11 @@ def main() -> int:
     serve4a = serve_checkpoint(cfg)
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
 
-    # 11. Summary lines
+    # 11. The few-shot model zoo (11c on phase 9c's files)
+    zoo = zoo_phase(real)
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+
+    # 12. Summary lines
     def attn_extra(key: str, M: int) -> dict:
         """Phase 6b's figures of an attention kernel: device time and plan
         at the row's M, its worst error there, and the wide case."""
@@ -3189,6 +3468,12 @@ def main() -> int:
                 "ms_wide_d1280_a300": wide["ms"], "device_ms_wide_d1280_a300": wide["device_ms"],
                 "device_ms_m16" if M == 200 else "device_ms_m200": attn_rows[
                     (key, f"bf16 M={16 if M == 200 else 200} D={H_DIM} A={A}")]["device_ms"]}
+
+    def zoo_launches(key: str) -> int:
+        """Launches of ``key`` over phase 11's runs (profiler)."""
+        return sum(v["launches"][key] for k, v in zoo.items() if "/" in k)
+
+    zoo_optim = [v["optim"] for k, v in zoo.items() if "/" in k]
 
     kernels = []
     for key, name, src, replaces in (
@@ -3205,6 +3490,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "L=40 M=16 bf16 (serving bucket 16)", "launches_val": tr["launches"][key],
+            "launches_zoo": zoo_launches(key),
             "launches_serve_wrappers": serve4a["launches"][key] + serve4b["launches"][key],
             "launches_serve_profiled": serve4b["profiled"][key],
             "serve_batches_profiled": serve4b["profiled_batches"],
@@ -3233,6 +3519,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "L=40 M=200 bf16 W=8 (training step, B=4 episodes)"
                   + ("; chain kernel + lstm_wgrad" if key == "K8" else ""),
+            "launches_zoo": zoo_launches(key),
             "ms_m16": train_rows[(key, "bf16 M=16 W=8 res=bf16")]["ms"],
             **({"plan": r["plan"]} if "plan" in r else {}),
             **({"ms_min": r["spread"][1], "ms_max": r["spread"][2]} if "spread" in r else {}),
@@ -3262,7 +3549,7 @@ def main() -> int:
         "name": "lstm_wgrad", "route": "cuda",
         "source": "induction_network_on_fewrel_tpu_torch/csrc/lstm_wgrad.cu",
         "replaces": "induction_network_on_fewrel_tpu/ops/lstm.py:1090",
-        "launches": tr["launches"]["wgrad"],
+        "launches": tr["launches"]["wgrad"], "launches_zoo": zoo_launches("wgrad"),
         "max_abs_err": max(v["err"] for v in wgrad_rows.values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
@@ -3298,7 +3585,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": step_at + "; ms, plain_ms and library_ms are device times under the profiler",
             "ms_events": r["ms_events"],
-            "launches_w0": tr0["launches"][key],
+            "launches_w0": tr0["launches"][key], "launches_zoo": zoo_launches(key),
+            ("rel_err_zoo" if key == "optim_sumsq" else "max_abs_err_zoo"):
+                max(w["sumsq_rel" if key == "optim_sumsq" else "update_err"] for w in zoo_optim),
             **({k: r[k] for k in ("pair_ms", "clip_grad_norm_adam_fused_ms")}
                if key == "optim_update" else {}),
         })
@@ -3331,6 +3620,7 @@ def main() -> int:
     steps_summary["segsum_index_add"] = segsum_row
     steps_summary["real_files_9c"] = {k: v for k, v in tr9c.items() if k != "vocab"}
     steps_summary["lazy_token_cache_9d"] = {k: v for k, v in tr9d.items() if k != "kernels"}
+    steps_summary["zoo_11"] = zoo
     print(json.dumps({"training_step": steps_summary}), flush=True)
     print(json.dumps({"serving": {"main_path_p50_ms_by_bucket": main_latency,
                                   "serve_main": serve4a, "correctness_load": serve4b,

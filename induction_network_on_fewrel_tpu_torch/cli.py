@@ -31,6 +31,13 @@ best val accuracy and the samplers' streams: the same updates as an
 uninterrupted run) for ``--train_iter`` more steps; ``train --only_test``
 restores (``--resume`` or ``--load_ckpt``) and reports the test accuracy.
 
+``--model`` and ``--encoder`` choose any model of the zoo (induction,
+proto, proto_hatt, siamese, gnn, snail, metanet) over the CNN, BiLSTM or
+transformer encoder, with the JAX widths ``--proto_metric``, ``--gnn_dim``,
+``--gnn_blocks``, ``--snail_tc_filters``, ``--hidden_size`` and
+``--tfm_*``; ``--model pair``, ``--encoder bert`` and the parallel flags
+(``--moe_*``, ``--sp``, ``--pp``, ``--ep``, ``--tfm_stacked``) are refused
+by name (rc 2) with the slice that brings them (``parse_args``).
 ``--trainN`` trains N-way episodes other than the eval's ``--N``;
 ``--na_rate``/``--nota_head`` the FewRel 2.0 none-of-the-above queries and
 head (mse with ``--na_rate >= 3`` is refused without ``--force``);
@@ -72,6 +79,23 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                    help="NOTA threshold head: one global learned logit, or a per-query "
                         "learned affine over class-score statistics")
     p.add_argument("--batch_size", type=int, default=4, help="episodes per step")
+    p.add_argument("--model", default="induction",
+                   choices=["induction", "proto", "proto_hatt", "siamese", "gnn", "snail",
+                            "metanet", "pair"],
+                   help="few-shot model (pair = BERT-PAIR: not ported yet)")
+    p.add_argument("--proto_metric", default="euclid", choices=["euclid", "dot"],
+                   help="proto similarity")
+    p.add_argument("--gnn_dim", type=int, default=64, help="features added per GNN block")
+    p.add_argument("--gnn_blocks", type=int, default=2)
+    p.add_argument("--snail_tc_filters", type=int, default=128)
+    p.add_argument("--encoder", default="bilstm",
+                   choices=["cnn", "bilstm", "bert", "transformer"],
+                   help="sentence encoder (bert: not ported yet)")
+    p.add_argument("--tfm_layers", type=int, default=4)
+    p.add_argument("--tfm_model", type=int, default=256)
+    p.add_argument("--tfm_heads", type=int, default=4)
+    p.add_argument("--tfm_ff", type=int, default=1024)
+    p.add_argument("--hidden_size", type=int, default=230, help="CNN filters")
     p.add_argument("--max_length", type=int, default=40)
     p.add_argument("--vocab_size", type=int, default=400002,
                    help="word-embedding rows incl. UNK/BLANK (the synthetic GloVe size; a "
@@ -162,7 +186,47 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                        help="every K steps, log grad global-norm + grad-cosine vs an "
                             "all-f32 reference backward on the same batch (0 = off)")
     p.add_argument("--seed", type=int, default=0)
+    later = p.add_argument_group("JAX flags refused by name unless at their JAX default")
+    for flag, (default, kind, _) in DEFERRED.items():
+        if kind is bool:
+            later.add_argument(flag, action="store_true", help="not ported yet")
+        else:
+            later.add_argument(flag, type=kind, default=default, help="not ported yet")
     return p
+
+
+# JAX flags of the parallel part of ROADMAP queue A item 6: flag -> (its
+# JAX default, type, the models/build.LATER_SLICE entry that names its
+# slice). Given with anything but the default, they are refused by name.
+DEFERRED = {
+    "--moe_experts": (0, int, "moe"), "--moe_top_k": (2, int, "moe"),
+    "--moe_capacity": (2.0, float, "moe"), "--moe_every": (2, int, "moe"),
+    "--moe_group_size": (512, int, "moe"), "--moe_aux_weight": (1e-2, float, "moe"),
+    "--ep": (1, int, "moe"), "--sp": (1, int, "sp"), "--pp": (1, int, "stacked"),
+    "--tfm_stacked": (False, bool, "stacked"),
+}
+
+
+def parse_args(train: bool, argv=None):
+    """Parse ``argv``; exit (rc 2) naming the slice that brings ``--model
+    pair``, ``--encoder bert`` or a deferred JAX flag given with anything
+    but its default."""
+    from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.models.build import (
+        LATER_SLICE,
+        refuse_later_slices,
+    )
+
+    parser = build_arg_parser(train)
+    args = parser.parse_args(argv)
+    try:
+        refuse_later_slices(ExperimentConfig(model=args.model, encoder=args.encoder))
+    except ValueError as e:
+        parser.error(str(e))
+    for flag, (default, _, slice_) in DEFERRED.items():
+        if getattr(args, flag[2:]) != default:
+            parser.error(f"{flag} is not ported yet: {LATER_SLICE[slice_]}")
+    return args
 
 
 def check_degenerate(loss: str, na_rate: int, force: bool) -> None:
@@ -189,7 +253,10 @@ def config_from_args(args):
     kw = dict(
         train_n=args.trainN or args.N, n=args.N, k=args.K, q=args.Q, na_rate=args.na_rate,
         nota_head=args.nota_head, batch_size=args.batch_size, max_length=args.max_length,
-        vocab_size=args.vocab_size,
+        vocab_size=args.vocab_size, model=args.model, proto_metric=args.proto_metric,
+        gnn_dim=args.gnn_dim, gnn_blocks=args.gnn_blocks, snail_tc_filters=args.snail_tc_filters,
+        encoder=args.encoder, hidden_size=args.hidden_size, tfm_layers=args.tfm_layers,
+        tfm_model=args.tfm_model, tfm_heads=args.tfm_heads, tfm_ff=args.tfm_ff,
         lstm_hidden=args.lstm_hidden, induction_dim=args.induction_dim,
         ntn_slices=args.ntn_slices, lstm_cs_window=args.lstm_cs_window,
         lstm_residuals=args.lstm_residuals, lstm_backend=args.lstm_backend,
@@ -328,7 +395,7 @@ def train_main(argv=None) -> int:
     and report the test accuracy instead."""
     from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
 
-    args = build_arg_parser(train=True).parse_args(argv)
+    args = parse_args(train=True, argv=argv)
     cfg = config_from_args(args)
     if args.load_ckpt:
         cfg = _merge_ckpt_architecture(cfg, args.load_ckpt)
@@ -375,7 +442,7 @@ def train_main(argv=None) -> int:
 def test_main(argv=None) -> int:
     from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
 
-    args = build_arg_parser(train=False).parse_args(argv)
+    args = parse_args(train=False, argv=argv)
     src = args.load_ckpt or args.save_ckpt
     if not os.path.isdir(src):
         print("test needs --load_ckpt (or an existing --save_ckpt dir)", file=sys.stderr)

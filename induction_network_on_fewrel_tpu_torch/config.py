@@ -2,8 +2,9 @@
 
 The port's own copy of the ``ExperimentConfig`` fields that the serving
 and training paths read (``induction_network_on_fewrel_tpu/config.py``):
-episode geometry, tokenization/embedding, the BiLSTM + self-attention
-encoder and its training-route knobs, the induction/NTN head, the NOTA
+episode geometry, tokenization/embedding, the few-shot model zoo and its
+heads' widths, the CNN, BiLSTM + self-attention and transformer
+encoders (the BiLSTM's training-route knobs), the induction/NTN head, the NOTA
 head, the dtypes, the kernel backends, the optimizer family, the loop
 lengths, the fused-dispatch and grad-probe knobs, the token cache, the
 checkpoint ring, the divergence guard and fault injection, the serving runtime
@@ -44,9 +45,17 @@ class ExperimentConfig:
     pos_dim: int = 5          # each of the two position embeddings
     vocab_size: int = 400002  # GloVe 400k + [UNK] + [BLANK]
 
-    # --- few-shot model: this slice serves induction + bilstm only ---
-    model: str = "induction"
+    # --- few-shot model (models/build.py dispatches every one) ---
+    model: str = "induction"  # induction | proto | proto_hatt | siamese | gnn | snail | metanet
+    proto_metric: str = "euclid"  # euclid | dot (proto only)
+    gnn_dim: int = 64         # features added per GNN block
+    gnn_blocks: int = 2
+    gnn_adj_hidden: int = 64  # adjacency MLP hidden width
+    snail_tc_filters: int = 128
+
+    # --- encoder: cnn | bilstm | transformer ---
     encoder: str = "bilstm"
+    hidden_size: int = 230    # CNN filters
     lstm_hidden: int = 128    # per direction
     att_dim: int = 64         # structured self-attention projection dim
     # Kernel backends (models/build.resolve_runtime_backends is the one
@@ -62,6 +71,16 @@ class ExperimentConfig:
     # dtype of the checkpoints or of the cs stream.
     lstm_cs_window: int = 8
     lstm_residuals: str = "auto"
+    # Transformer encoder (models/transformer.py, the dense path):
+    tfm_layers: int = 4
+    tfm_model: int = 256
+    tfm_heads: int = 4
+    tfm_ff: int = 1024
+    # The JAX package's MoE FFN and layer-stacked (pipeline) transformer:
+    # kept only so that a config or checkpoint asking for them is refused
+    # by name (models/build.py); they come with ep and pp.
+    moe_experts: int = 0
+    tfm_stacked: bool = False
 
     # --- induction + relation modules ---
     induction_dim: int = 100  # class-vector dim C after the squash transform
@@ -149,17 +168,32 @@ class ExperimentConfig:
     # Fields whose value shapes the parameters or the optimizer state: a
     # checkpoint restores only into a config that agrees on them.
     ARCHITECTURE_FIELDS = (
-        "model", "encoder", "lstm_hidden", "att_dim", "word_dim", "pos_dim",
+        "model", "proto_metric", "gnn_dim", "gnn_blocks", "gnn_adj_hidden",
+        "snail_tc_filters",
+        "encoder", "hidden_size", "lstm_hidden", "att_dim", "word_dim", "pos_dim",
         "vocab_size", "max_length", "induction_dim", "routing_iters",
-        "ntn_slices", "loss", "optimizer", "embed_optimizer", "nota_head",
+        "ntn_slices", "tfm_layers", "tfm_model", "tfm_heads", "tfm_ff",
+        "moe_experts", "tfm_stacked",
+        "loss", "optimizer", "embed_optimizer", "nota_head",
     )
+    # Episode-geometry fields that shape the parameters of some models:
+    # gnn/snail bake the N-way label width into their layers and metanet
+    # into its slow head; proto_hatt's feature-attention convs are K tall.
+    MODEL_GEOMETRY_FIELDS = {
+        "gnn": ("train_n", "n"),
+        "snail": ("train_n", "n"),
+        "metanet": ("train_n", "n"),
+        "proto_hatt": ("k",),
+    }
 
     def replace(self, **kw: Any) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
 
     def merge_architecture_from(self, other: "ExperimentConfig") -> "ExperimentConfig":
-        """This config with ``other``'s architecture fields."""
-        return self.replace(**{f: getattr(other, f) for f in self.ARCHITECTURE_FIELDS})
+        """This config with ``other``'s architecture fields, and the
+        geometry fields that shape ``other.model``'s parameters."""
+        fields = self.ARCHITECTURE_FIELDS + self.MODEL_GEOMETRY_FIELDS.get(other.model, ())
+        return self.replace(**{f: getattr(other, f) for f in fields})
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)

@@ -6,9 +6,11 @@ integer tensors with a trailing [L] axis; a position leaf may instead hold
 per-sentence offsets, one rank below ``word`` (the token cache's form,
 ``models/embedding.is_offset_form``), expanded to per-token ids inside the
 forward. ``encode`` flattens the
-leading axes to M rows, transposes the int ids to time-major [L, M] before
-the gathers (so the embedding lands directly in the layout the encoder
-reads) and returns sentence vectors with the leading axes restored.
+leading axes to M rows and returns sentence vectors with the leading axes
+restored. For an encoder that ``wants_time_major`` (the BiLSTM) it
+transposes the int ids to [L, M] before the gathers, so the embedding
+lands directly in the layout that encoder reads; the CNN and the
+transformer take batch-major [M, L, D] embeddings.
 
 The NOTA head appends a none-of-the-above logit as class N: "scalar" is
 one learned threshold, "stats" a learned affine over each query's class
@@ -60,12 +62,10 @@ class FewShotModel(nn.Module):
         leaves per token or per-sentence offsets)."""
         pos1, pos2 = expand_positions(pos1, word), expand_positions(pos2, word)
         lead, L = word.shape[:-1], word.shape[-1]
-
-        def tmj(x):
-            return x.reshape(-1, L).transpose(0, 1)   # [L, M]
-
-        emb_t = self.embedding(tmj(word), tmj(pos1), tmj(pos2))
-        enc = self.encoder(emb_t, mask.reshape(-1, L))
+        ids = [x.reshape(-1, L) for x in (word, pos1, pos2)]        # [M, L]
+        if getattr(self.encoder, "wants_time_major", False):
+            ids = [x.transpose(0, 1) for x in ids]                 # [L, M]
+        enc = self.encoder(self.embedding(*ids), mask.reshape(-1, L))
         return enc.reshape(*lead, -1)
 
     def encode_episode(self, support: dict, query: dict):

@@ -1,8 +1,10 @@
-"""Model factory: ExperimentConfig -> InductionNetwork on a device.
+"""Model factory: ExperimentConfig -> a few-shot model on a device.
 
-Counterpart of ``induction_network_on_fewrel_tpu/models/build.py`` for
-``--model induction --encoder bilstm``; other models and encoders come with
-later slices and are refused by name.
+Counterpart of ``induction_network_on_fewrel_tpu/models/build.py``: the
+models induction, proto, proto_hatt, siamese, gnn, snail and metanet over
+the cnn, bilstm and transformer encoders. The JAX package's ``--model
+pair``, ``--encoder bert``, MoE and the layer-stacked transformer come
+with later slices and are refused by name (``LATER_SLICE``).
 
 Device rule: ``device=None`` means "cuda". Without CUDA that raises, unless
 the caller asked for ``device="cpu"`` explicitly: there is no silent CPU
@@ -19,9 +21,20 @@ import numpy as np
 import torch
 
 from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+from induction_network_on_fewrel_tpu_torch.models.base import FewShotModel
 from induction_network_on_fewrel_tpu_torch.models.embedding import Embedding
-from induction_network_on_fewrel_tpu_torch.models.encoders import BiLSTMSelfAttnEncoder
+from induction_network_on_fewrel_tpu_torch.models.encoders import (
+    BiLSTMSelfAttnEncoder,
+    CNNEncoder,
+)
+from induction_network_on_fewrel_tpu_torch.models.gnn import GNN
 from induction_network_on_fewrel_tpu_torch.models.induction import InductionNetwork
+from induction_network_on_fewrel_tpu_torch.models.metanet import MetaNet
+from induction_network_on_fewrel_tpu_torch.models.proto import PROTO_METRICS, PrototypicalNetwork
+from induction_network_on_fewrel_tpu_torch.models.proto_hatt import ProtoHATT
+from induction_network_on_fewrel_tpu_torch.models.siamese import SiameseNetwork
+from induction_network_on_fewrel_tpu_torch.models.snail import SNAIL
+from induction_network_on_fewrel_tpu_torch.models.transformer import TransformerEncoder
 from induction_network_on_fewrel_tpu_torch.ops.core import resolve_backend
 from induction_network_on_fewrel_tpu_torch.ops.lstm import kernel_width_refusal
 
@@ -107,50 +120,124 @@ def check_kernel_widths(cfg: ExperimentConfig, device) -> None:
         )
 
 
-def build_model(
-    cfg: ExperimentConfig,
-    glove_init: np.ndarray | None = None,
-    device=None,
-) -> InductionNetwork:
-    """Fresh InductionNetwork with f32 parameters drawn from a
-    ``torch.Generator`` seeded with ``cfg.seed``; ``glove_init`` [vocab,
-    word_dim] replaces the word table's random init."""
-    if cfg.model != "induction":
-        raise ValueError(
-            f"model {cfg.model!r} is not ported yet: the torch package serves "
-            f"--model induction only"
-        )
-    if cfg.encoder != "bilstm":
-        raise ValueError(
-            f"encoder {cfg.encoder!r} is not ported yet: the torch package "
-            f"runs --encoder bilstm only"
-        )
-    dev = resolve_device(device)
-    check_kernel_widths(cfg, dev)
-    backends = resolve_runtime_backends(cfg, dev)
-    gen = torch.Generator().manual_seed(cfg.seed)
+# The JAX package's models and encoders that come with a later slice, and
+# the ROADMAP queue A item that brings them.
+LATER_SLICE = {
+    "pair": "--model pair (BERT-PAIR) comes with ROADMAP queue A item 6's next slice: BERT, "
+            "--model pair and the frozen-encoder feature cache",
+    "bert": "--encoder bert comes with ROADMAP queue A item 6's next slice: BERT, "
+            "--model pair and the frozen-encoder feature cache",
+    "moe": "--moe_experts (the MoE FFN, sharded over ep) comes with ROADMAP queue A item 6's "
+           "parallel part (tp, pp, sp ring attention and ep/MoE)",
+    "stacked": "tfm_stacked / --pp (the layer-stacked pipeline transformer) comes with ROADMAP "
+               "queue A item 6's parallel part (tp, pp, sp ring attention and ep/MoE)",
+    "sp": "--sp (ring attention over the token axis) comes with ROADMAP queue A item 6's "
+          "parallel part (tp, pp, sp ring attention and ep/MoE)",
+}
+MODELS = ("induction", "proto", "proto_hatt", "siamese", "gnn", "snail", "metanet")
+ENCODERS = ("cnn", "bilstm", "transformer")
+# Models whose parameter shapes hold the N-way width.
+N_TIED = tuple(m for m, f in ExperimentConfig.MODEL_GEOMETRY_FIELDS.items() if "n" in f)
+
+
+def refuse_later_slices(cfg: ExperimentConfig) -> None:
+    """Raise ValueError naming the slice that brings a model, encoder or
+    transformer option of the JAX package that this package lacks, and
+    for any other unknown model or encoder."""
+    if cfg.model == "pair":
+        raise ValueError(f"--model pair is not ported yet: {LATER_SLICE['pair']}")
+    if cfg.encoder == "bert":
+        raise ValueError(f"--encoder bert is not ported yet: {LATER_SLICE['bert']}")
+    if cfg.moe_experts > 0:
+        raise ValueError(f"moe_experts={cfg.moe_experts} is not ported yet: {LATER_SLICE['moe']}")
+    if cfg.tfm_stacked:
+        raise ValueError(f"tfm_stacked is not ported yet: {LATER_SLICE['stacked']}")
+    if cfg.model not in MODELS:
+        raise ValueError(f"unknown model {cfg.model!r} (one of {MODELS})")
+    if cfg.encoder not in ENCODERS:
+        raise ValueError(f"unknown encoder {cfg.encoder!r} (one of {ENCODERS})")
+
+
+def encoder_output_dim(cfg: ExperimentConfig) -> int:
+    """Sentence-vector width of ``cfg``'s encoder."""
+    if cfg.encoder == "bilstm":
+        return 2 * cfg.lstm_hidden
+    if cfg.encoder == "transformer":
+        return cfg.tfm_model
+    return cfg.hidden_size  # cnn
+
+
+def build_encoder(cfg: ExperimentConfig, input_dim: int, device, gen: torch.Generator):
     compute = DTYPES[cfg.compute_dtype]
-    embedding = Embedding(
-        cfg.vocab_size, cfg.word_dim, cfg.pos_dim, cfg.max_length,
-        glove_init=glove_init, compute_dtype=compute,
-        freeze_word_table=cfg.embed_optimizer == "frozen", device=dev, generator=gen,
-    )
-    encoder = BiLSTMSelfAttnEncoder(
-        embedding.output_dim, cfg.lstm_hidden, cfg.att_dim,
+    if cfg.encoder == "cnn":
+        return CNNEncoder(input_dim, cfg.hidden_size, compute_dtype=compute, device=device,
+                          generator=gen)
+    if cfg.encoder == "transformer":
+        return TransformerEncoder(input_dim, cfg.tfm_layers, cfg.tfm_model, cfg.tfm_heads,
+                                  cfg.tfm_ff, cfg.max_length, compute_dtype=compute,
+                                  device=device, generator=gen)
+    backends = resolve_runtime_backends(cfg, device)
+    return BiLSTMSelfAttnEncoder(
+        input_dim, cfg.lstm_hidden, cfg.att_dim,
         lstm_backend=backends["lstm_backend"],
         attn_backend=backends["attn_backend"],
         compute_dtype=compute,
         lstm_cs_window=backends["lstm_cs_window"],
         lstm_residual_dtype=backends["lstm_residual_dtype"],
-        device=dev, generator=gen,
+        device=device, generator=gen,
     )
-    model = InductionNetwork(
-        embedding, encoder,
-        induction_dim=cfg.induction_dim, routing_iters=cfg.routing_iters,
-        ntn_slices=cfg.ntn_slices, nota=cfg.na_rate > 0, nota_head=cfg.nota_head,
-        head_dtype=DTYPES[cfg.head_dtype], device=dev, generator=gen,
+
+
+def build_model(
+    cfg: ExperimentConfig,
+    glove_init: np.ndarray | None = None,
+    device=None,
+) -> FewShotModel:
+    """Fresh ``cfg.model`` over ``cfg.encoder`` with f32 parameters drawn
+    from a ``torch.Generator`` seeded with ``cfg.seed``; ``glove_init``
+    [vocab, word_dim] replaces the word table's random init. Models of
+    later slices, N-tied models trained at another N than they are
+    evaluated at, and a BiLSTM too wide for its kernels are refused by
+    name before any parameter is made."""
+    refuse_later_slices(cfg)
+    if cfg.model in N_TIED and cfg.train_n != cfg.n:
+        raise ValueError(
+            f"model {cfg.model!r} ties parameter shapes to N; --trainN ({cfg.train_n}) "
+            f"must equal --N ({cfg.n})"
+        )
+    if cfg.model == "proto" and cfg.proto_metric not in PROTO_METRICS:
+        raise ValueError(f"unknown proto metric {cfg.proto_metric!r} (one of {PROTO_METRICS})")
+    dev = resolve_device(device)
+    if cfg.encoder == "bilstm":
+        check_kernel_widths(cfg, dev)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    compute, head = DTYPES[cfg.compute_dtype], DTYPES[cfg.head_dtype]
+    embedding = Embedding(
+        cfg.vocab_size, cfg.word_dim, cfg.pos_dim, cfg.max_length,
+        glove_init=glove_init, compute_dtype=compute,
+        freeze_word_table=cfg.embed_optimizer == "frozen", device=dev, generator=gen,
     )
-    return model
+    encoder = build_encoder(cfg, embedding.output_dim, dev, gen)
+    common = dict(nota=cfg.na_rate > 0, nota_head=cfg.nota_head, head_dtype=head, device=dev)
+    if cfg.model == "induction":
+        return InductionNetwork(
+            embedding, encoder, induction_dim=cfg.induction_dim,
+            routing_iters=cfg.routing_iters, ntn_slices=cfg.ntn_slices, generator=gen,
+            **common,
+        )
+    if cfg.model == "proto":
+        return PrototypicalNetwork(embedding, encoder, cfg.proto_metric, **common)
+    if cfg.model == "siamese":
+        return SiameseNetwork(embedding, encoder, **common)
+    if cfg.model == "metanet":
+        return MetaNet(embedding, encoder, cfg.n, generator=gen, **common)
+    common.update(compute_dtype=compute, generator=gen)
+    if cfg.model == "proto_hatt":
+        return ProtoHATT(embedding, encoder, cfg.k, **common)
+    if cfg.model == "gnn":
+        return GNN(embedding, encoder, cfg.n, cfg.gnn_dim, cfg.gnn_blocks, cfg.gnn_adj_hidden,
+                   **common)
+    return SNAIL(embedding, encoder, cfg.n, cfg.k, cfg.snail_tc_filters, **common)
 
 
 def batch_to_model_inputs(batch) -> tuple[dict, dict, np.ndarray]:

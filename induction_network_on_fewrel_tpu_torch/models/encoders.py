@@ -1,7 +1,16 @@
-"""Sentence encoder: BiLSTM + structured self-attention.
+"""Sentence encoders: CNN, and BiLSTM + structured self-attention.
 
-Counterpart of ``induction_network_on_fewrel_tpu/models/encoders.py``
-(``BiLSTMSelfAttnEncoder``), with the same parameters and layouts:
+Counterparts of ``induction_network_on_fewrel_tpu/models/encoders.py``.
+
+``CNNEncoder`` (the thunlp default): a convolution of ``hidden_size``
+filters over a window of 3 tokens with flax's SAME padding (one zero row
+each side), ReLU, and a max over the valid tokens (``ops.core.masked_max``,
+whose gradient splits ties evenly, as ``jnp.max``'s does). It takes
+batch-major embeddings [M, L, D] and computes in the compute dtype with f32
+parameters; the flax kernel ``Conv_0/kernel [3, D, H]`` is the torch
+weight ``Conv_0.weight [H, D, 3]``.
+
+``BiLSTMSelfAttnEncoder`` has the JAX encoder's parameters and layouts:
 ``w_ih [2, D, 4u]``, ``w_hh [2, u, 4u]``, ``bias [2, 4u]`` (leading axis =
 direction, 0 forward / 1 reverse, independent weights), ``att_w1 [2u, A]``
 and ``att_w2 [A, 1]``. The body runs time-major: embeddings [L, M, D] go
@@ -28,7 +37,9 @@ import torch
 from torch import nn
 
 from induction_network_on_fewrel_tpu_torch.models.embedding import truncated_normal_param
+from induction_network_on_fewrel_tpu_torch.models.layers import Conv
 from induction_network_on_fewrel_tpu_torch.ops.attn import masked_selfattn_tm
+from induction_network_on_fewrel_tpu_torch.ops.core import masked_max
 from induction_network_on_fewrel_tpu_torch.ops.lstm import bilstm_encoder_tm
 
 
@@ -38,7 +49,31 @@ def _orthogonal_rows(gen: torch.Generator, rows: int, cols: int) -> torch.Tensor
     return (q * torch.sign(torch.diagonal(r))).T.contiguous()
 
 
+class CNNEncoder(nn.Module):
+    def __init__(self, input_dim: int, hidden_size: int = 230, window: int = 3,
+                 compute_dtype: torch.dtype = torch.float32, *, device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.compute_dtype = compute_dtype
+        same = ((window - 1) // 2, window // 2)
+        self.Conv_0 = Conv(input_dim, hidden_size, (window,), compute_dtype, padding=(same,),
+                           device=device, generator=generator)
+
+    def forward(self, emb: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """emb [M, L, D], mask [M, L] -> [M, hidden_size]."""
+        x = torch.relu(self.Conv_0(emb.transpose(1, 2)))         # [M, H, L]
+        return masked_max(x, mask[:, None, :], dim=-1).to(self.compute_dtype)
+
+    @property
+    def output_dim(self) -> int:
+        return self.hidden_size
+
+
 class BiLSTMSelfAttnEncoder(nn.Module):
+    # FewShotModel.encode gathers the embeddings straight into [L, M, D].
+    wants_time_major = True
+
     def __init__(
         self,
         input_dim: int,

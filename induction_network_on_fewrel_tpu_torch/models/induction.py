@@ -27,30 +27,8 @@ from torch import nn
 
 from induction_network_on_fewrel_tpu_torch.models.base import FewShotModel
 from induction_network_on_fewrel_tpu_torch.models.embedding import truncated_normal_param
+from induction_network_on_fewrel_tpu_torch.models.layers import Dense
 from induction_network_on_fewrel_tpu_torch.ops.core import squash
-
-
-class Dense(nn.Module):
-    """``x @ weight.T + bias`` with torch's [out, in] weight layout (the JAX
-    ``Dense`` kernel is its transpose; interop.py maps one to the other).
-    flax's truncated lecun-normal weight (fan-in ``in_dim``) and zero bias,
-    as the JAX Dense's defaults. Computes
-    in ``dtype``: the input is cast to it, like a flax Dense(dtype=...)."""
-
-    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype, *,
-                 device, generator: torch.Generator):
-        super().__init__()
-        self.weight = truncated_normal_param(
-            generator, (out_dim, in_dim), 1.0 / math.sqrt(in_dim), device
-        )
-        self.bias = nn.Parameter(torch.zeros(out_dim, device=device))
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return torch.nn.functional.linear(
-            x.to(dt), self.weight.to(dt), self.bias.to(dt)
-        )
 
 
 class Induction(nn.Module):

@@ -26,7 +26,7 @@ update at all: it has no gradient, no moments and adds nothing to |g|.
 
 Two kernels (``csrc/optim.cu``), one launch each per update, over a table
 of (parameter, gradient, moments, size, rule) entries that travels as the
-kernel's by-value parameter:
+kernel's by-value parameter (up to 256 tensors, 14 KB):
 
 * ``optim_sumsq``: per-chunk sums of squares of every gradient, then the
   global norm from the chunk sums in a fixed order (bitwise repeatable).
@@ -55,7 +55,7 @@ from induction_network_on_fewrel_tpu_torch.kernels.build import LIBRARY, check_c
 # csrc/optim.cu: elements per chunk (one CTA of 256 threads x 16 float4),
 # the table's capacity and the threads of the final sum.
 CHUNK = 16384
-MAX_TENSORS = 64
+MAX_TENSORS = 256
 _FINAL_THREADS = 256
 RULES = ("adam", "adamw", "sgd", "sgd_plain", "adam_nodecay")
 MOMENT_RULES = ("adam", "adamw", "adam_nodecay")

@@ -176,7 +176,8 @@ class InferenceEngine:
         if cfg.model != "induction":
             raise ValueError(
                 f"class-vector serving requires --model induction (supports distill to "
-                f"per-class vectors); got {cfg.model!r}"
+                f"per-class vectors); got {cfg.model!r}. Other episode heads re-read the "
+                f"support set per query"
             )
         if cfg.feature_cache:
             raise ValueError(
