@@ -9,7 +9,8 @@ exits non-zero; no phase catches a failure of its own):
 1. Environment: torch / CUDA versions and the card's name and power limit
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``).
 2. Build: compile every CUDA source in ``csrc/`` with nvcc (sm_90a), one
-   process per source, all started together.
+   process per source, all started together; then the C++ episode sampler
+   (``csrc/episode_sampler.cpp``) with g++.
 3. Kernel vs plain PyTorch version on the card at the flagship widths
    (L=40, D=60, u=128, 2u=256, A=64) for M in {1, 4, 16, 25, 200} (serving
    buckets, a 5x5 registration, a val/test batch), f32 and bf16, ragged
@@ -107,7 +108,8 @@ exits non-zero; no phase catches a failure of its own):
    input weights make it compute ``bilstm_recurrence_tm``, held against
    kernel 2 and timed.
 9. Training main path: ``FewShotTrainer`` built by the CLI's wiring at the
-   flagship config (bf16 encoder, 400 002-row table, mse, W=8, bf16
+   flagship config, on the input path before the host feed (``--sampler
+   python --prefetch_depth 0``, as phases 9c and 9d) (bf16 encoder, 400 002-row table, mse, W=8, bf16
    checkpoints, Adam, shared table, B=4 episodes = 200 encoder rows per
    step): step-0 gradients of every parameter vs the plain backends (every
    encoder and embedding gradient finite and nonzero); one CUDA-graph step
@@ -178,6 +180,26 @@ exits non-zero; no phase catches a failure of its own):
    delta quarantined with the restore falling back to the base bitwise;
    ``register_tokens`` on the run's best checkpoint (offset-form rows) vs
    ``register`` on the same raw sentences; the graph's profile.
+9e. The host feed (``datapipe/``, ``sampling/native.py``), on 9c's files,
+   full width; files under ``build/chip_smoke_feed/``, removed at the end.
+   (a) The flagship at phase 9's config through ``cli.make_trainer`` with
+   ``--sampler python --prefetch_depth 0`` and with the C++ sampler at
+   depths 0 and 2: 20 steps as graph replays with a val pass, the
+   wrappers' counts zeroed just before and read just after, launches by
+   the profiler (the main path's kernels once a step, K1/K2 once a val
+   batch), then the graph's profile: ms/step, episodes/s, host sampling
+   ms, device busy, the card's share and the feed's stall share; the
+   native runs' losses at depths 0 and 2 within 1e-6. (b) 9c and 9d with
+   the C++ sampler at depths 0 and 2, the same columns, beside 9c's and
+   9d's. (c) phase 11b's proto/cnn and siamese/cnn through the CLI's
+   trainer with the C++ sampler at depth 2, beside their phase-11 rows.
+   (d) The JAX bench headline's shape: B=64, the token cache, lazy Adam
+   on the 400 002 x 50 table, one graph of 512 steps, the C++ index
+   sampler behind a feed at depths 0, 2 and 4: episodes/s over
+   hard-synced calls, the feed's stall share. (e) ``cli.train_main``
+   (token cache, lazy, C++ sampler, depth 2) crashed by ``--fault_step``
+   and resumed: its index batches equal the uninterrupted run's bitwise,
+   its losses within 1e-6. A ``{"feed": ...}`` line holds (a)-(e).
 11. (run after phase 4a) The few-shot model zoo at the flagship episode
    and step (bf16 encoder, f32 head, mse, W=8, Adam, shared table, 4 steps
    a replay), full width: 11a proto, proto_hatt, siamese, gnn, snail and
@@ -204,7 +226,9 @@ exits non-zero; no phase catches a failure of its own):
    phases' counts; ``launches_zoo`` their launches in phase 11, and the
    optimizer pair's errors on the zoo models' parameter lists), a
    ``{"training_step": ...}`` line of the step's figures, the segment
-   sum's, phases 9c/9d's and the zoo's, a ``{"serving": ...}`` line of
+   sum's, phases 9c/9d's and the zoo's, the ``{"feed": ...}`` line of
+   phase 9e (``launches_feed_9e`` in the kernels line: its (a) native
+   depth-2 run's profiled launches), a ``{"serving": ...}`` line of
    phases 4, 4a, 4b and 4c, then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -242,7 +266,7 @@ from induction_network_on_fewrel_tpu_torch.data import (
     make_synthetic_fewrel,
     make_synthetic_glove,
 )
-from induction_network_on_fewrel_tpu_torch.kernels.build import LIBRARY, SOURCES
+from induction_network_on_fewrel_tpu_torch.kernels.build import LIBRARY, SAMPLER_LIBRARY, SOURCES
 from induction_network_on_fewrel_tpu_torch.models.base import to_device
 from induction_network_on_fewrel_tpu_torch.models.build import build_model
 from induction_network_on_fewrel_tpu_torch.ops.attn import (
@@ -1459,6 +1483,9 @@ LOSS_REL_TOL = 2e-2
 NOISE_LEAF = 1e-6
 TRAIN_STEPS = 20
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# The input path phases 9-9d and 11 measure, as before the host feed: the
+# numpy sampler on the trainer's thread (phase 9e sets it beside the feed).
+TODAY = ["--sampler", "python", "--prefetch_depth", "0"]
 TRAIN_KERNELS = {"K7": bilstm_win_fwd, "K8": bilstm_win_bwd, "K10": attn_fwd_stats, "K11": attn_bwd,
                  "K4": bilstm_full_fwd, "K6": bilstm_full_bwd, "wgrad": lstm_wgrad,
                  "optim_sumsq": optim_sumsq, "optim_update": optim_update,
@@ -1636,12 +1663,15 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
     sampler = trainer.train_sampler
 
     def sample():
+        if spc > 1 and hasattr(sampler, "sample_fused"):        # one fused unit, as trained
+            return batch_leaves(*batch_inputs(sampler.sample_fused(spc)))
         return batch_leaves(*stack_batches([batch_inputs(sampler.sample_batch())
                                             for _ in range(spc)]))
 
     captured = graphs.captured(sample())
     split = {"sample": 0.0, "copy": 0.0, "replay": 0.0}
     torch.cuda.synchronize()
+    stats0 = sampler.stats() if hasattr(sampler, "stats") else None
     t_start = time.perf_counter()
     for _ in range(calls):
         t0 = time.perf_counter()
@@ -1655,8 +1685,13 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
         split["copy"] += t2 - t1
         split["replay"] += t3 - t2
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t_start) / (calls * spc) * 1e3
+    wall = time.perf_counter() - t_start
+    step_ms = wall / (calls * spc) * 1e3
     split = {k: v / (calls * spc) * 1e3 for k, v in split.items()}
+    # The share of the wall the trainer's thread waited on the feed (at
+    # depth 0 the inline sampling itself).
+    stall_frac = (None if stats0 is None else
+                  (sampler.stats()["stall_s"] - stats0["stall_s"]) / wall)
     stacked = [sample() for _ in range(calls)]
     with counted_profile() as prof:
         t0 = time.monotonic()
@@ -1672,7 +1707,8 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
     print(f"[{tag}] steps_per_call={spc}: unprofiled {step_ms:.3f} ms/step -> "
           f"{trainer.cfg.batch_size * 1e3 / step_ms:.1f} episodes/s; host split per step: sample "
           f"{split['sample']:.3f} ms, copy {split['copy']:.3f} ms, replay {split['replay']:.3f} "
-          f"ms; graph pool {graphs.pool_bytes / 2**20:.1f} MiB", flush=True)
+          f"ms; graph pool {graphs.pool_bytes / 2**20:.1f} MiB"
+          + ("" if stall_frac is None else f"; feed stall {stall_frac:.2%} of wall"), flush=True)
     print(f"[{tag}] {steps} steps under the profiler: wall {wall_us / steps / 1e3:.3f} ms/step, "
           f"{launches:.1f} launches/step, device busy {busy / steps / 1e3:.3f} ms/step "
           f"({busy / wall_us:.1%} of wall)", flush=True)
@@ -1705,7 +1741,8 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
         no_sort_scatter(rows, tag)
     return {"step_ms": step_ms, "episodes_per_s": trainer.cfg.batch_size * 1e3 / step_ms,
             "split": split, "busy_ms": busy / steps / 1e3, "launches": launches,
-            "busy_share": busy / wall_us, "pool_bytes": graphs.pool_bytes}
+            "busy_share": busy / wall_us, "pool_bytes": graphs.pool_bytes,
+            "feed_stall_frac": stall_frac}
 
 
 def graphs_of(single, multi) -> int:
@@ -1858,7 +1895,7 @@ def run_trainer(trainer, steps: int, on: tuple, evals: int = 0,
         no_sort_scatter(rows, "main path")
     else:
         no_index_add(rows, "lazy main path")
-    trainer.close()
+    trainer.logger.close()          # flushed; the samplers stay open for the profiles
     return launches, wrapped, train_records(trainer.logger.path)
 
 
@@ -1899,7 +1936,7 @@ def train_main_path() -> dict:
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     ckpt, ref_dir = WORK_DIR / "ckpt", WORK_DIR / "reference"
     argv = ["--synthetic", "--bf16", "--train_iter", str(TRAIN_STEPS), "--val_step",
-            str(TRAIN_STEPS), "--val_iter", "40", "--save_ckpt", str(ckpt)]
+            str(TRAIN_STEPS), "--val_iter", "40", "--save_ckpt", str(ckpt), *TODAY]
     args = cli.build_arg_parser(train=True).parse_args(argv)
     cfg = cli.config_from_args(args)
     trainer, _ = cli.make_trainer(args, cfg)        # the model is built on the card
@@ -2102,7 +2139,7 @@ REAL_FAULT = 20
 # replay, a val pass of 40 episodes every 10 steps (so at steps 12, 20, 32
 # and 40: a replay may not cross a boundary unseen).
 REAL_ARGV = ["--bf16", "--trainN", "10", "--na_rate", "1", "--nota_head", "stats", "--loss",
-             "ce", "--steps_per_call", "4", "--val_step", "10", "--val_iter", "40"]
+             "ce", "--steps_per_call", "4", "--val_step", "10", "--val_iter", "40", *TODAY]
 # Phase 9c's resume vs the uninterrupted run on the shared table: the table's
 # gradient is index_add_'s f32 atomics, so the two runs differ by rounding
 # from the first step on (``hold_state``): held as two runs from the same
@@ -2513,6 +2550,281 @@ def lazy_phase(real: dict, tr9c: dict, gen: torch.Generator) -> dict:
             "kernels": kernel_rows, "U": lazy.U}
 
 
+# --- Phase 9e: the host feed ------------------------------------------------------
+
+FEED_STEPS = 20
+# Native at depth 0 vs depth 2, the same batches from the same weights: per
+# step losses within the graph bar (GRAPH_PARAM_TOL) of each other; only
+# the shared table's f32 atomics may order a sum differently.
+FEED_LOSS_TOL = GRAPH_PARAM_TOL
+# 9e(d), the JAX bench headline's shape: B=64 episodes a step, the token
+# cache, lazy Adam on the 400 002-row table, steps_per_call as the JAX bench
+# scans (512: the graph captures it in ~10 s, a call takes ~11 s on the
+# card); one hard-synced call per depth after one warm call.
+BENCH_B = 64
+BENCH_SPC = 512
+BENCH_CALLS = 1
+BENCH_DEPTHS = (0, 2, 4)
+FEED_DIR = WORK_DIR.parent / "chip_smoke_feed"
+
+
+def feed_argv(sampler: str, depth: int) -> list:
+    return ["--sampler", sampler, "--prefetch_depth", str(depth)]
+
+
+def feed_trainer(argv: list):
+    """The trainer ``cli.make_trainer`` builds for ``argv``, one [train]
+    record per dispatch."""
+    args = cli.build_arg_parser(train=True).parse_args(argv)
+    trainer, _ = cli.make_trainer(args, cli.config_from_args(args))
+    trainer.metric_window = 1
+    return trainer
+
+
+def feed_columns(prof: dict) -> dict:
+    """9e's columns of a ``profile_graph_steps`` reading: ms/step,
+    episodes/s, host sampling ms a step (the trainer thread's draw: the
+    feed's wait at depth 2), device busy ms a step and the card's share of
+    the wall under the profiler, and the feed's stall share (unprofiled)."""
+    return {"step_ms": prof["step_ms"], "episodes_per_s": prof["episodes_per_s"],
+            "sample_ms": prof["split"]["sample"], "busy_ms": prof["busy_ms"],
+            "card_share": prof["busy_share"], "feed_stall_frac": prof["feed_stall_frac"]}
+
+
+def close_trainer(trainer) -> None:
+    trainer.close()                 # joins the feed's producer thread
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def feed_flagship() -> dict:
+    """9e(a): the flagship at phase 9's config through ``cli.make_trainer``
+    with today's input path (``--sampler python --prefetch_depth 0``) and
+    the C++ sampler at depths 0 and 2: FEED_STEPS steps as graph replays
+    with a val pass, the wrappers' counts zeroed just before and read just
+    after, launches by the profiler; then the graph's profile. The two
+    native runs start from the same weights and draw the same batches, so
+    their losses agree within FEED_LOSS_TOL."""
+    base = ["--synthetic", "--bf16", "--train_iter", str(FEED_STEPS), "--val_step",
+            str(FEED_STEPS), "--val_iter", "40"]
+    on = ("K7", "K8", "K1", "K2") + STEP_KERNELS
+    rows, losses = {}, {}
+    for sampler, depth in (("python", 0), ("native", 0), ("native", 2)):
+        tag = f"{sampler} d{depth}"
+        trainer = feed_trainer(base + feed_argv(sampler, depth)
+                               + ["--save_ckpt", str(FEED_DIR / f"flagship_{sampler}_{depth}")])
+        evals = 40 // trainer.cfg.batch_size
+        launches, wrapped, recs = run_trainer(trainer, FEED_STEPS, on, evals)
+        losses[tag] = np.array([r["loss"] for r in recs])
+        if len(recs) != FEED_STEPS or not np.isfinite(losses[tag]).all():
+            raise AssertionError(f"9e(a) {tag}: {len(recs)} records, losses {losses[tag]}")
+        prof = profile_graph_steps(trainer, ("K7", "K8") + STEP_KERNELS,
+                                   tag=f"profile 9e(a) {tag}")
+        rows[tag] = {**feed_columns(prof), "launches": launches, "wrapper_counts": wrapped}
+        close_trainer(trainer)
+    a, b = losses["native d0"], losses["native d2"]
+    rel = float(np.max(np.abs(a - b) / np.abs(a)))
+    if rel > FEED_LOSS_TOL:
+        raise AssertionError(f"9e(a): native losses at depth 0 vs 2 differ by {rel:.3g} > "
+                             f"{FEED_LOSS_TOL}")
+    print(f"[9e(a)] flagship, {FEED_STEPS} steps: losses native d0 vs d2 within {rel:.3g} "
+          f"(tol {FEED_LOSS_TOL}); {json.dumps(rows)}", flush=True)
+    return {"rows": rows, "loss_rel_native_d0_d2": rel}
+
+
+def feed_real(real: dict) -> dict:
+    """9e(b): 9c (shared table) and 9d (token cache, lazy) on 9c's files
+    with the C++ sampler at depths 0 and 2: the graph's profile of each
+    (``profile_graph_steps``: each hand kernel once a step, the lazy pair
+    once a replay)."""
+    files = real_argv(real["paths"], "train", "val")
+    rows = {}
+    for phase, extra, per_call in (("9c", [], ()),
+                                   ("9d", ["--token_cache", "--embed_optimizer", "lazy"],
+                                    LAZY_KERNELS)):
+        for depth in (0, 2):
+            tag = f"{phase} native d{depth}"
+            trainer = feed_trainer(REAL_ARGV + files + extra + feed_argv("native", depth)
+                                   + ["--save_ckpt", str(FEED_DIR / f"{phase}_{depth}")])
+            prof = profile_graph_steps(trainer, ("K7", "K8") + STEP_KERNELS,
+                                       tag=f"profile 9e(b) {tag}", per_call=per_call)
+            rows[tag] = feed_columns(prof)
+            close_trainer(trainer)
+    return rows
+
+
+def feed_zoo() -> dict:
+    """9e(c): phase 11b's proto/cnn and siamese/cnn through ``cli.make_trainer``
+    with the C++ sampler at depth 2: the graph's profile of each (only the
+    optimizer pair is a hand kernel off the BiLSTM)."""
+    rows = {}
+    for model_name in ("proto", "siamese"):
+        tag = f"{model_name}/cnn native d2"
+        trainer = feed_trainer(ZOO_ARGV + ["--model", model_name, "--encoder", "cnn",
+                                           "--save_ckpt", str(FEED_DIR / model_name)]
+                               + feed_argv("native", 2))
+        prof = profile_graph_steps(trainer, ("optim_sumsq", "optim_update"), calls=4,
+                                   tag=f"profile 9e(c) {tag}")
+        rows[tag] = feed_columns(prof)
+        close_trainer(trainer)
+    return rows
+
+
+def feed_bench(real: dict) -> dict:
+    """9e(d): the JAX bench headline's shape: B=BENCH_B, the token cache over
+    9c's train file, lazy Adam on the 400 002 x 50 table, steps_per_call
+    BENCH_SPC (one CUDA graph of that many steps); the C++ index sampler
+    through a PipelineFeed producing whole fused units at each depth of
+    BENCH_DEPTHS (a fresh sampler of one seed each: the same stream), one
+    warm call, then BENCH_CALLS calls each ended by reading its last loss
+    (hard-synced): episodes/s and the feed's stall share of the wall."""
+    from induction_network_on_fewrel_tpu_torch.datapipe import PipelineFeed
+    from induction_network_on_fewrel_tpu_torch.sampling.native import NativeIndexSampler
+
+    t0 = time.monotonic()
+    trainer = feed_trainer(["--bf16", "--batch_size", str(BENCH_B), "--token_cache",
+                            "--embed_optimizer", "lazy", "--steps_per_call", str(BENCH_SPC),
+                            "--val_step", "0", "--save_ckpt", str(FEED_DIR / "bench")]
+                           + real_argv(real["paths"], "train", "val") + feed_argv("native", 0))
+    cfg, graphs = trainer.cfg, trainer.multi_train_step
+    sizes = trainer.train_table.sizes
+    out = {"steps_per_call": BENCH_SPC, "batch_size": BENCH_B, "calls": BENCH_CALLS}
+    for depth in BENCH_DEPTHS:
+        feed = PipelineFeed(NativeIndexSampler(sizes, cfg.train_n, cfg.k, cfg.q,
+                                               batch_size=BENCH_B, seed=1234),
+                            prefetch_depth=depth, unit=BENCH_SPC)
+        t_warm = time.monotonic()
+        loss = graphs(*feed.sample_fused(BENCH_SPC))["loss"][-1].item()    # captures once
+        warm_s = time.monotonic() - t_warm
+        before = feed.stats()
+        t1 = time.monotonic()
+        for _ in range(BENCH_CALLS):
+            loss = graphs(*feed.sample_fused(BENCH_SPC))["loss"][-1].item()  # hard sync
+        wall = time.monotonic() - t1
+        stall = feed.stats()["stall_s"] - before["stall_s"]
+        feed.close()
+        if not np.isfinite(loss):
+            raise AssertionError(f"9e(d) depth {depth}: loss {loss}")
+        out[f"d{depth}"] = {"episodes_per_s": BENCH_CALLS * BENCH_SPC * BENCH_B / wall,
+                            "feed_stall_frac": stall / wall, "wall_s": wall,
+                            "warm_call_s": warm_s, "last_loss": loss}
+        print(f"[9e(d)] B={BENCH_B} token cache + lazy, steps_per_call {BENCH_SPC}, depth "
+              f"{depth}: {out[f'd{depth}']['episodes_per_s']:.1f} episodes/s (hard-synced, "
+              f"{BENCH_CALLS} calls in {wall:.2f} s), feed stall {stall / wall:.3%} of wall; "
+              f"warm call {warm_s:.2f} s", flush=True)
+    out["graph_pool_bytes"] = graphs.pool_bytes
+    close_trainer(trainer)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+@contextlib.contextmanager
+def recorded_feeds():
+    """Every batch a PipelineFeed hands to the trainer, in order, as the
+    bytes of its arrays (a fused draw as its single batches)."""
+    from induction_network_on_fewrel_tpu_torch.datapipe import PipelineFeed
+
+    seen: list[bytes] = []
+    single, fused = PipelineFeed.sample_batch, PipelineFeed._sample_fused
+
+    def sample_batch(self):
+        out = single(self)
+        seen.append(b"".join(np.ascontiguousarray(x).tobytes() for x in out))
+        return out
+
+    def sample_fused(self, n):
+        out = fused(self, n)
+        seen.extend(b"".join(np.ascontiguousarray(x[i]).tobytes() for x in out)
+                    for i in range(n))
+        return out
+
+    PipelineFeed.sample_batch, PipelineFeed._sample_fused = sample_batch, sample_fused
+    try:
+        yield seen
+    finally:
+        PipelineFeed.sample_batch, PipelineFeed._sample_fused = single, fused
+
+
+@contextlib.contextmanager
+def per_dispatch_records():
+    """``cli.make_trainer``'s trainers log one [train] record per dispatch."""
+    make = cli.make_trainer
+
+    def made(*args, **kw):
+        trainer, test = make(*args, **kw)
+        trainer.metric_window = 1
+        return trainer, test
+
+    cli.make_trainer = made
+    try:
+        yield
+    finally:
+        cli.make_trainer = make
+
+
+def feed_resume(real: dict) -> dict:
+    """9e(e): ``cli.train_main`` on 9c's files with the token cache, lazy
+    Adam (repeatable on the card: no atomics add a value) and the C++
+    sampler at depth 2: an uninterrupted run of REAL_STEPS, a run crashed
+    by ``--fault_step`` and its ``--resume`` from the ring's step 12. The
+    resumed run's episode index batches equal the uninterrupted run's
+    from step 12 on, bitwise, and its per-dispatch losses within 1e-6."""
+    argv = (REAL_ARGV + real_argv(real["paths"], "train", "val")
+            + ["--token_cache", "--embed_optimizer", "lazy"] + feed_argv("native", 2))
+    whole, parts = FEED_DIR / "resume_whole", FEED_DIR / "resume_parts"
+    with recorded_feeds() as seen, per_dispatch_records():
+        rc, _, err = quiet_cli(cli.train_main, argv + ["--train_iter", str(REAL_STEPS),
+                                                       "--save_ckpt", str(whole)])
+        if rc != 0:
+            raise AssertionError(f"9e(e) uninterrupted run: rc {rc}, {err[-2000:]!r}")
+        want = list(seen)
+        seen.clear()
+        try:
+            quiet_cli(cli.train_main, argv + ["--train_iter", str(REAL_STEPS), "--fault_step",
+                                              str(REAL_FAULT), "--save_ckpt", str(parts)])
+            raise AssertionError("9e(e): --fault_step did not fire")
+        except RuntimeError as e:
+            if f"injected fault at step {REAL_FAULT}" not in str(e):
+                raise
+        crashed = list(seen)
+        seen.clear()
+        rc, _, err = quiet_cli(cli.train_main, argv + ["--train_iter", str(REAL_STEPS - 12),
+                                                       "--fault_step", str(REAL_FAULT),
+                                                       "--resume", "--save_ckpt", str(parts)])
+        if rc != 0 or "restored latest checkpoint step=12" not in err:
+            raise AssertionError(f"9e(e) --resume: rc {rc}, {err[-2000:]!r}")
+        resumed = list(seen)
+    if len(want) != REAL_STEPS or crashed != want[:REAL_FAULT] or resumed != want[12:]:
+        raise AssertionError(f"9e(e): the resumed stream differs: {len(want)} batches, crashed "
+                             f"run {len(crashed)} (prefix {crashed == want[:REAL_FAULT]}), "
+                             f"resumed {len(resumed)} (equal {resumed == want[12:]})")
+    a = {r["step"]: r["loss"] for r in train_records(whole / "metrics.jsonl")}
+    b = {r["step"]: r["loss"] for r in train_records(parts / "metrics.jsonl")[-(len(a) - 3):]}
+    if sorted(b) != [s for s in sorted(a) if s > 12]:
+        raise AssertionError(f"9e(e): [train] records at {sorted(b)} vs {sorted(a)}")
+    rel = max(abs(b[t] - a[t]) / abs(a[t]) for t in b)
+    if rel > 1e-6:
+        raise AssertionError(f"9e(e): resumed losses differ by {rel:.3g} > 1e-6")
+    print(f"[9e(e)] train_main --fault_step {REAL_FAULT}, then --resume from step 12 at depth 2 "
+          f"over the C++ sampler: the resumed run's {len(resumed)} index batches equal the "
+          f"uninterrupted run's steps 13-{REAL_STEPS} bitwise; its losses at steps {sorted(b)} "
+          f"within {rel:.3g} (tol 1e-6)", flush=True)
+    return {"batches_resumed": len(resumed), "loss_rel": rel}
+
+
+def feed_phase(real: dict) -> dict:
+    """Phase 9e, the host feed: (a)-(e); (c)'s phase-11 rows are set beside
+    its own in the summary."""
+    t0 = time.monotonic()
+    shutil.rmtree(FEED_DIR, ignore_errors=True)
+    out = {"a_flagship": feed_flagship(), "b_real_files": feed_real(real),
+           "c_zoo": feed_zoo(), "d_bench": feed_bench(real), "e_resume": feed_resume(real)}
+    shutil.rmtree(FEED_DIR, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t0
+    print(f"[9e] the host feed in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # --- Phase 11: the few-shot model zoo ------------------------------------------
 
 ZOO_MODELS = ("proto", "proto_hatt", "siamese", "gnn", "snail", "metanet")
@@ -2689,7 +3001,7 @@ def zoo_case(model_name: str, encoder: str, vocab, tok, gen: torch.Generator) ->
         del ref_model, ref_trainer
     prof = profile_graph_steps(trainer, on, calls=4, tag=f"profile {tag}")
     out.update({k: prof[k] for k in ("step_ms", "episodes_per_s", "busy_ms", "busy_share")},
-               launches_per_step=prof["launches"])
+               launches_per_step=prof["launches"], sample_ms=prof["split"]["sample"])
     print(f"[{tag}] S=4 replay vs 4 eager steps: state {fused['state_rel']:.3g}, metrics "
           f"{fused['metrics_rel']:.3g} (tol {GRAPH_PARAM_TOL}); optimizer pair on the model's "
           f"{out['tensors']} tensors vs plain: norm rel {out['optim']['sumsq_rel']:.3g}, update "
@@ -2962,8 +3274,6 @@ def serve_traffic(cfg) -> dict:
     logits must be the eager scoring of its query on its own snapshot's
     weights and matrix. Then a profiled window (one K1 and one K2 launch per
     executed batch) and each bucket's graph against the eager scorer."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     from induction_network_on_fewrel_tpu_torch.serving.batcher import Saturated
     from induction_network_on_fewrel_tpu_torch.serving.buckets import QueryRunner, stack_queries
 
@@ -3088,9 +3398,11 @@ def serve_traffic(cfg) -> dict:
           f"{worst:.3g} of its snapshot's weights (rel tol {LOGIT_REL_TOL}; {apart:.3g} from "
           f"the other weights); batches {stats1['batches'] - stats0['batches']}", flush=True)
 
-    # One K1 and one K2 launch per executed batch, by the profiler.
+    # One K1 and one K2 launch per executed batch, by the profiler (its
+    # tracer armed by a warm-up cycle first: a bare window can lose the
+    # first batch's kernel records).
     b0 = engine.stats.batches
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with counted_profile() as prof:
         t_prof = time.monotonic()
         futs = []
         for j in range(24):
@@ -3317,6 +3629,9 @@ def main() -> int:
     LIBRARY.build()
     print(f"[build] nvcc sm_90a, all kernels ({len(SOURCES)} sources in parallel): "
           f"{LIBRARY.build_seconds:.1f} s", flush=True)
+    SAMPLER_LIBRARY.build()
+    print(f"[build] g++ -O3, the C++ episode sampler (csrc/episode_sampler.cpp): "
+          f"{SAMPLER_LIBRARY.build_seconds:.1f} s", flush=True)
 
     # 3. Kernel vs plain
     gen = torch.Generator().manual_seed(0)
@@ -3447,6 +3762,9 @@ def main() -> int:
     tr9c = real_files_phase(real)
     tr9d = lazy_phase(real, tr9c, gen)
 
+    # 9e. The host feed on the same files
+    feed = feed_phase(real)
+
     # 4b, 4c, 4a. The serving plane on phase 9's best checkpoint
     serve4b = serve_traffic(cfg)
     serve4c = sweep_process()
@@ -3474,6 +3792,8 @@ def main() -> int:
         return sum(v["launches"][key] for k, v in zoo.items() if "/" in k)
 
     zoo_optim = [v["optim"] for k, v in zoo.items() if "/" in k]
+    # Phase 9e(a)'s main path: the flagship on the C++ sampler behind the feed.
+    feed_launches = feed["a_flagship"]["rows"]["native d2"]["launches"]
 
     kernels = []
     for key, name, src, replaces in (
@@ -3490,6 +3810,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "L=40 M=16 bf16 (serving bucket 16)", "launches_val": tr["launches"][key],
+            "launches_feed_9e": feed_launches[key],
             "launches_zoo": zoo_launches(key),
             "launches_serve_wrappers": serve4a["launches"][key] + serve4b["launches"][key],
             "launches_serve_profiled": serve4b["profiled"][key],
@@ -3519,7 +3840,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "L=40 M=200 bf16 W=8 (training step, B=4 episodes)"
                   + ("; chain kernel + lstm_wgrad" if key == "K8" else ""),
-            "launches_zoo": zoo_launches(key),
+            "launches_zoo": zoo_launches(key), "launches_feed_9e": feed_launches[key],
             "ms_m16": train_rows[(key, "bf16 M=16 W=8 res=bf16")]["ms"],
             **({"plan": r["plan"]} if "plan" in r else {}),
             **({"ms_min": r["spread"][1], "ms_max": r["spread"][2]} if "spread" in r else {}),
@@ -3550,6 +3871,7 @@ def main() -> int:
         "source": "induction_network_on_fewrel_tpu_torch/csrc/lstm_wgrad.cu",
         "replaces": "induction_network_on_fewrel_tpu/ops/lstm.py:1090",
         "launches": tr["launches"]["wgrad"], "launches_zoo": zoo_launches("wgrad"),
+        "launches_feed_9e": feed_launches["wgrad"],
         "max_abs_err": max(v["err"] for v in wgrad_rows.values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
@@ -3586,6 +3908,7 @@ def main() -> int:
             "at": step_at + "; ms, plain_ms and library_ms are device times under the profiler",
             "ms_events": r["ms_events"],
             "launches_w0": tr0["launches"][key], "launches_zoo": zoo_launches(key),
+            "launches_feed_9e": feed_launches[key],
             ("rel_err_zoo" if key == "optim_sumsq" else "max_abs_err_zoo"):
                 max(w["sumsq_rel" if key == "optim_sumsq" else "update_err"] for w in zoo_optim),
             **({k: r[k] for k in ("pair_ms", "clip_grad_norm_adam_fused_ms")}
@@ -3622,6 +3945,12 @@ def main() -> int:
     steps_summary["lazy_token_cache_9d"] = {k: v for k, v in tr9d.items() if k != "kernels"}
     steps_summary["zoo_11"] = zoo
     print(json.dumps({"training_step": steps_summary}), flush=True)
+    feed["b_real_files"].update({"9c today": feed_columns(tr9c["prof"]),
+                                 "9d today": feed_columns(tr9d["prof"])})
+    feed["c_zoo"].update({f"{m}/cnn phase 11": {
+        k: zoo[f"{m}/cnn"][k] for k in ("step_ms", "episodes_per_s", "sample_ms", "busy_ms")}
+        | {"card_share": zoo[f"{m}/cnn"]["busy_share"]} for m in ("proto", "siamese")})
+    print(json.dumps({"feed": feed}), flush=True)
     print(json.dumps({"serving": {"main_path_p50_ms_by_bucket": main_latency,
                                   "serve_main": serve4a, "correctness_load": serve4b,
                                   "sweep": serve4c}}), flush=True)

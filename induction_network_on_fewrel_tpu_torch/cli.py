@@ -34,10 +34,16 @@ restores (``--resume`` or ``--load_ckpt``) and reports the test accuracy.
 ``--model`` and ``--encoder`` choose any model of the zoo (induction,
 proto, proto_hatt, siamese, gnn, snail, metanet) over the CNN, BiLSTM or
 transformer encoder, with the JAX widths ``--proto_metric``, ``--gnn_dim``,
-``--gnn_blocks``, ``--snail_tc_filters``, ``--hidden_size`` and
-``--tfm_*``; ``--model pair``, ``--encoder bert`` and the parallel flags
-(``--moe_*``, ``--sp``, ``--pp``, ``--ep``, ``--tfm_stacked``) are refused
-by name (rc 2) with the slice that brings them (``parse_args``).
+``--gnn_blocks``, ``--snail_tc_filters``, ``--hidden_size``, ``--tfm_*`` and
+``--routing_iters`` (``--fp16`` is the bf16 alias). Every other JAX
+train/test flag is parsed: at its JAX default it is accepted, otherwise
+refused by name (rc 2) with the ROADMAP item that brings it (``DEFERRED``)
+or why it has no counterpart (``NO_COUNTERPART``), as are ``--model pair``
+and ``--encoder bert`` (``parse_args``).
+``--sampler`` (auto: the C++ sampler for training, numpy for val/test),
+``--prefetch`` and ``--sampler_threads`` (its ring), ``--prefetch_depth``
+(the host feed's producer queue), ``--mixture`` and ``--feed_fault``
+choose the input path (``make_trainer``).
 ``--trainN`` trains N-way episodes other than the eval's ``--N``;
 ``--na_rate``/``--nota_head`` the FewRel 2.0 none-of-the-above queries and
 head (mse with ``--na_rate >= 3`` is refused without ``--force``);
@@ -102,6 +108,8 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                         "--glove file sets it)")
     p.add_argument("--lstm_hidden", type=int, default=128)
     p.add_argument("--induction_dim", type=int, default=100)
+    p.add_argument("--routing_iters", type=int, default=3,
+                   help="dynamic-routing iterations of the induction module")
     p.add_argument("--ntn_slices", type=int, default=100)
     p.add_argument("--lstm_cs_window", type=int, default=8,
                    help="BiLSTM checkpoint window of the training route "
@@ -117,6 +125,7 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                    help="self-attention impl: auto = the CUDA kernels on the GPU, the "
                         "plain PyTorch version on the CPU")
     p.add_argument("--bf16", action="store_true", help="bf16 embedding + encoder")
+    p.add_argument("--fp16", action="store_true", help="(reference flag) alias for --bf16")
     p.add_argument("--token_cache", action="store_true",
                    help="device-resident token cache: each split tokenized once on the "
                         "card, only episode indices cross per step")
@@ -172,8 +181,30 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                    help="the synthetic FewRel/GloVe fixtures (the default for every split "
                         "and the vocabulary without a file)")
     p.add_argument("--sampler", default="auto", choices=["auto", "native", "python"],
-                   help="episode sampler backend: the numpy samplers (native is not "
-                        "ported yet)")
+                   help="episode sampler backend: native = the C++ sampler (built with g++ "
+                        "at first use), python = the numpy samplers, auto = native for "
+                        "training and python for val/test")
+    p.add_argument("--prefetch", type=int, default=4,
+                   help="the C++ sampler's ring of batches (0 = synchronous)")
+    p.add_argument("--sampler_threads", type=int, default=2,
+                   help="the C++ sampler ring's worker threads")
+    p.add_argument("--prefetch_depth", type=int, default=2,
+                   help="the host feed's depth (units of steps_per_call batches on fused "
+                        "index paths): a producer thread samples ahead into a bounded queue "
+                        "so sampling overlaps the step; the pipeline cursor rides in every "
+                        "checkpoint and --resume replays the exact episode stream. 0 = the "
+                        "synchronous path (the same stream)")
+    p.add_argument("--mixture", default="",
+                   help="episode-mixture schedule (datapipe/mixture.py): "
+                        "'source:w[@idx][,w@idx...];...' where a source is 'train', "
+                        "'synthetic[:SEED]' or a FewRel-schema JSON path, e.g. "
+                        "'train:1.0;pubmed.json:0.0@0,1.0@4000'; the per-batch source pick is "
+                        "a function of (seed, batch index) and resumes exactly. Live token "
+                        "path only")
+    if train:
+        p.add_argument("--feed_fault", default="",
+                       help="feed fault injection (drills): 'slow:SECONDS', 'stall:INDEX', "
+                            "'poison:INDEX' (comma-separable)")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="default: the GPU (refuses to start without CUDA)")
     p.add_argument("--save_ckpt", default="./checkpoint", help="checkpoint directory")
@@ -187,35 +218,95 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                             "all-f32 reference backward on the same batch (0 = off)")
     p.add_argument("--seed", type=int, default=0)
     later = p.add_argument_group("JAX flags refused by name unless at their JAX default")
-    for flag, (default, kind, _) in DEFERRED.items():
+    for flag, (default, kind, why) in {**DEFERRED, **NO_COUNTERPART}.items():
+        if flag in TRAIN_ONLY and not train:
+            continue
+        why = f"not ported yet: {why}" if flag in DEFERRED else f"no counterpart: {why}"
         if kind is bool:
-            later.add_argument(flag, action="store_true", help="not ported yet")
+            later.add_argument(flag, action="store_true", help=why)
+        elif flag == "--adv":
+            later.add_argument(flag, nargs="?", const="synthetic", default=None, help=why)
         else:
-            later.add_argument(flag, type=kind, default=default, help="not ported yet")
+            later.add_argument(flag, type=kind, default=default, help=why)
     return p
 
 
-# JAX flags of the parallel part of ROADMAP queue A item 6: flag -> (its
-# JAX default, type, the models/build.LATER_SLICE entry that names its
-# slice). Given with anything but the default, they are refused by name.
+# JAX train/test flags this package has not ported: flag -> (its JAX
+# default, type, the ROADMAP queue A item that brings it). Given with
+# anything but the default (or a value meaning the same here, _NEUTRAL),
+# each is refused by name (rc 2).
+BERT = "ROADMAP queue A item 6b (BERT, --model pair and the frozen-encoder feature cache)"
+ADV = "ROADMAP queue A item 6c (adversarial domain adaptation)"
+MOE = ("ROADMAP queue A item 6c (the MoE FFN at ep=1; --ep > 1 with item 6d, the sharded "
+       "executors)")
+STACKED = ("ROADMAP queue A item 6c (the layer-stacked transformer at pp=1; --pp > 1 with item "
+           "6d, the sharded executors)")
+SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention, pp, ep)"
+DP = ("ROADMAP queue A item 5 (data parallel: compact demb, ZeRO-1, bucketed gradients, "
+      "async collectives)")
+OBS = "ROADMAP queue A item 7b (observability and the checkpoint manager's leftovers)"
+ADAPT = "ROADMAP queue A item 7b (obs/adapt.py, after item 6c's train/finetune.py)"
 DEFERRED = {
-    "--moe_experts": (0, int, "moe"), "--moe_top_k": (2, int, "moe"),
-    "--moe_capacity": (2.0, float, "moe"), "--moe_every": (2, int, "moe"),
-    "--moe_group_size": (512, int, "moe"), "--moe_aux_weight": (1e-2, float, "moe"),
-    "--ep": (1, int, "moe"), "--sp": (1, int, "sp"), "--pp": (1, int, "stacked"),
-    "--tfm_stacked": (False, bool, "stacked"),
+    "--moe_experts": (0, int, MOE), "--moe_top_k": (2, int, MOE),
+    "--moe_capacity": (2.0, float, MOE), "--moe_every": (2, int, MOE),
+    "--moe_group_size": (512, int, MOE), "--moe_aux_weight": (1e-2, float, MOE),
+    "--ep": (1, int, MOE), "--sp": (1, int, SHARDED), "--pp": (1, int, STACKED),
+    "--tfm_stacked": (False, bool, STACKED), "--tp": (1, int, SHARDED),
+    "--pp_microbatches": (4, int, SHARDED),
+    "--bert_frozen": (False, bool, BERT), "--bert_layers": (12, int, BERT),
+    "--bert_hidden": (768, int, BERT), "--bert_heads": (12, int, BERT),
+    "--bert_intermediate": (3072, int, BERT), "--bert_vocab": (None, str, BERT),
+    "--bert_vocab_size": (30522, int, BERT), "--bert_weights": (None, str, BERT),
+    "--bert_remat": (False, bool, BERT), "--feature_cache": (False, bool, BERT),
+    "--adv": (None, str, ADV), "--adv_lambda": (1.0, float, ADV),
+    "--adv_dis_hidden": (256, int, ADV), "--adv_batch": (32, int, ADV),
+    "--dp": (0, int, DP), "--zero_opt": (False, bool, DP), "--compact_demb": ("auto", str, DP),
+    "--grad_bucketing": ("auto", str, DP), "--grad_bucket_count": (4, int, DP),
+    "--async_collectives": ("auto", str, DP),
+    "--run_dir": (None, str, OBS), "--tensorboard": (None, str, OBS),
+    "--profile": (None, str, OBS), "--profile_steps": (10, int, OBS),
+    "--perf": (False, bool, OBS), "--debug_nans": (False, bool, OBS),
+    "--nan_inject_step": (0, int, OBS), "--watchdog": (False, bool, OBS),
+    "--chaos": ("", str, OBS), "--ckpt_stage": ("auto", str, OBS),
+    "--adapt": (False, bool, ADAPT), "--adapt_retries": (None, int, ADAPT),
+    "--adapt_backoff_s": (None, float, ADAPT), "--adapt_cooldown_s": (None, float, ADAPT),
+    "--adapt_step_budget": (None, int, ADAPT), "--adapt_wall_s": (None, float, ADAPT),
+    "--adapt_verify_s": (None, float, ADAPT), "--adapt_canary": (None, str, ADAPT),
 }
+# JAX flags with no counterpart here: flag -> (its JAX default, type, why).
+NO_COUNTERPART = {
+    "--compile_cache": ("auto", str, "the port keeps no XLA compile cache (its kernels build "
+                                     "once into build/torch_kernels)"),
+    "--remat_attn": ("on", str, "the attention backward always rebuilds the projection from "
+                                "the forward's saved softmax statistics (K10 -> K11), as "
+                                "--remat_attn on does"),
+}
+# Values other than the JAX default that mean the same on one card.
+_NEUTRAL = {"--dp": (1,), "--ckpt_stage": ("off",), "--compile_cache": ("off",)}
+# The JAX package has these on its train parser only.
+TRAIN_ONLY = {"--adv", "--adv_lambda", "--adv_dis_hidden", "--adv_batch", "--tensorboard",
+              "--profile", "--profile_steps", "--perf", "--debug_nans", "--nan_inject_step",
+              "--watchdog", "--chaos"} | {f for f in DEFERRED if f.startswith("--adapt")}
+
+
+def refuse_deferred(parser: argparse.ArgumentParser, args) -> None:
+    """Exit (rc 2) naming the first unported JAX flag given with anything
+    but its JAX default, with the ROADMAP item that brings it."""
+    for flag, (default, _, why) in {**DEFERRED, **NO_COUNTERPART}.items():
+        value = getattr(args, flag[2:], default)
+        if value == default or value in _NEUTRAL.get(flag, ()):
+            continue
+        if flag in DEFERRED:
+            parser.error(f"{flag} is not ported yet: it comes with {why}")
+        parser.error(f"{flag} {value} has no counterpart here: {why}")
 
 
 def parse_args(train: bool, argv=None):
     """Parse ``argv``; exit (rc 2) naming the slice that brings ``--model
-    pair``, ``--encoder bert`` or a deferred JAX flag given with anything
+    pair``, ``--encoder bert`` or an unported JAX flag given with anything
     but its default."""
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
-    from induction_network_on_fewrel_tpu_torch.models.build import (
-        LATER_SLICE,
-        refuse_later_slices,
-    )
+    from induction_network_on_fewrel_tpu_torch.models.build import refuse_later_slices
 
     parser = build_arg_parser(train)
     args = parser.parse_args(argv)
@@ -223,9 +314,7 @@ def parse_args(train: bool, argv=None):
         refuse_later_slices(ExperimentConfig(model=args.model, encoder=args.encoder))
     except ValueError as e:
         parser.error(str(e))
-    for flag, (default, _, slice_) in DEFERRED.items():
-        if getattr(args, flag[2:]) != default:
-            parser.error(f"{flag} is not ported yet: {LATER_SLICE[slice_]}")
+    refuse_deferred(parser, args)
     return args
 
 
@@ -258,21 +347,25 @@ def config_from_args(args):
         encoder=args.encoder, hidden_size=args.hidden_size, tfm_layers=args.tfm_layers,
         tfm_model=args.tfm_model, tfm_heads=args.tfm_heads, tfm_ff=args.tfm_ff,
         lstm_hidden=args.lstm_hidden, induction_dim=args.induction_dim,
-        ntn_slices=args.ntn_slices, lstm_cs_window=args.lstm_cs_window,
+        routing_iters=args.routing_iters, ntn_slices=args.ntn_slices, lstm_cs_window=args.lstm_cs_window,
         lstm_residuals=args.lstm_residuals, lstm_backend=args.lstm_backend,
         attn_backend=args.attn_backend,
-        compute_dtype="bfloat16" if args.bf16 else "float32",
+        compute_dtype="bfloat16" if args.bf16 or args.fp16 else "float32",
         loss=args.loss, optimizer=args.optimizer, embed_optimizer=args.embed_optimizer,
         lr=args.lr, weight_decay=args.weight_decay, lr_step_size=args.lr_step_size,
         grad_clip=args.grad_clip, steps_per_call=args.steps_per_call,
         eval_steps_per_call=args.eval_steps_per_call,
         metric_window_calls=args.metric_window_calls, test_iter=args.test_iter,
         token_cache=args.token_cache, ckpt_delta=args.ckpt_delta,
-        divergence_guard=args.divergence_guard, sampler=args.sampler, seed=args.seed,
+        divergence_guard=args.divergence_guard, sampler=args.sampler, prefetch=args.prefetch,
+        sampler_threads=args.sampler_threads, prefetch_depth=args.prefetch_depth,
+        mixture=args.mixture, feed_fault=getattr(args, "feed_fault", ""), seed=args.seed,
     )
     if hasattr(args, "train_iter"):
         kw.update(train_iter=args.train_iter, val_iter=args.val_iter, val_step=args.val_step,
                   grad_probe_every=args.grad_probe_every, fault_step=args.fault_step)
+    else:                   # the JAX test entry point's config: no training loop
+        kw.update(train_iter=0, val_step=0)
     cfg = ExperimentConfig(**kw)
     if training and cfg.embed_optimizer == "lazy":
         from induction_network_on_fewrel_tpu_torch.train.lazy_embed import require_adam
@@ -322,11 +415,22 @@ def make_trainer(args, cfg, only_test: bool = False):
     --token_cache) and logger. A GloVe file sets the config's vocab_size
     and word_dim (``trainer.cfg``). ``only_test`` builds the test split's
     (sampler, token table or None) and no train/val samplers, logger file
-    or checkpoint manager; otherwise the test split is None."""
+    or checkpoint manager; otherwise the test split is None.
+
+    The train sampler is ``--sampler``'s (auto: the C++ sampler, with its
+    ring of ``--prefetch`` batches on the live token path), or a
+    ``MixtureSampler`` of ring-free children under ``--mixture``, wrapped in
+    a ``PipelineFeed`` of depth ``--prefetch_depth`` (units of
+    steps_per_call batches where the sampler fills fused blocks) with the
+    ``--feed_fault`` plan. Val and test samplers are synchronous and, under
+    auto, the numpy ones."""
     from induction_network_on_fewrel_tpu_torch.data import GloveTokenizer
+    from induction_network_on_fewrel_tpu_torch.datapipe import FeedFaults, PipelineFeed
     from induction_network_on_fewrel_tpu_torch.models.build import build_model
-    from induction_network_on_fewrel_tpu_torch.sampling.episodes import EpisodeSampler
-    from induction_network_on_fewrel_tpu_torch.sampling.index import IndexEpisodeSampler
+    from induction_network_on_fewrel_tpu_torch.sampling.native import (
+        make_index_sampler,
+        make_sampler,
+    )
     from induction_network_on_fewrel_tpu_torch.train.framework import FewShotTrainer
     from induction_network_on_fewrel_tpu_torch.train.token_cache import build_token_table
     from induction_network_on_fewrel_tpu_torch.utils.metrics import MetricsLogger
@@ -335,31 +439,75 @@ def make_trainer(args, cfg, only_test: bool = False):
         path = getattr(args, f"{split}_file", None)
         if path and not os.path.isfile(path):
             raise FileNotFoundError(f"--{split}_file {path}: no such file")
+    if cfg.mixture and cfg.token_cache and not only_test:
+        raise ValueError("--mixture does not combine with --token_cache (an index sampler is "
+                         "bound to one split's device table); drop one of them")
     vocab = load_vocab(args, cfg)
     if (cfg.vocab_size, cfg.word_dim) != (vocab.vocab_size, vocab.word_dim):
         cfg = cfg.replace(vocab_size=vocab.vocab_size, word_dim=vocab.word_dim)
     tok = GloveTokenizer(vocab, max_length=cfg.max_length)
     model = build_model(cfg, glove_init=vocab.vectors, device=args.device)
 
-    def split_of(split, n, seed, lazy=False):
+    def live(ds, n, seed, train=False, prefetch=0):
+        return make_sampler(ds, tok, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
+                            na_rate=cfg.na_rate, seed=seed, backend=cfg.sampler,
+                            prefetch=prefetch, num_threads=cfg.sampler_threads, eval=not train)
+
+    def split_of(split, n, seed, lazy=False, train=False):
         ds = load_data(cfg, split, args)
         if not cfg.token_cache:
-            return EpisodeSampler(ds, tok, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
-                                  na_rate=cfg.na_rate, seed=seed), None
+            return live(ds, n, seed, train, cfg.prefetch if train and not cfg.mixture else 0), None
         table = build_token_table(ds, tok, model.device, lazy=lazy)
-        return IndexEpisodeSampler(table.sizes, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
-                                   na_rate=cfg.na_rate, seed=seed), table
+        return make_index_sampler(table.sizes, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
+                                  na_rate=cfg.na_rate, seed=seed, backend=cfg.sampler,
+                                  eval=not train), table
 
     if only_test:
         trainer = FewShotTrainer(model, cfg, None, logger=MetricsLogger(None))
         return trainer, split_of("test", cfg.n, cfg.seed + 2)
-    train_s, train_t = split_of("train", cfg.train_n, cfg.seed,
+    train_s, train_t = split_of("train", cfg.train_n, cfg.seed, train=True,
                                 lazy=cfg.embed_optimizer == "lazy")
+    if cfg.mixture:
+        train_s = mixture_sampler(cfg, args, train_s, live)
+    unit = cfg.steps_per_call if cfg.steps_per_call > 1 and hasattr(train_s, "sample_fused") \
+        else 1
+    train_s = PipelineFeed(train_s, prefetch_depth=cfg.prefetch_depth, unit=unit,
+                           faults=FeedFaults.parse(cfg.feed_fault),
+                           stream_tag=f"mixture={cfg.mixture};seed={cfg.seed}")
     val_s, val_t = split_of("val", cfg.n, cfg.seed + 1)
     trainer = FewShotTrainer(model, cfg, train_s, val_s, ckpt_dir=args.save_ckpt,
                              logger=MetricsLogger(args.save_ckpt), train_table=train_t,
                              val_table=val_t)
     return trainer, None
+
+
+def mixture_sampler(cfg, args, train_sampler, live):
+    """The ``--mixture`` schedule's ``MixtureSampler``: ``train`` is the run's
+    train sampler (built without the C++ ring: the feed is the pipeline),
+    ``synthetic[:SEED]`` a synthetic split (seed 83 by default) and any
+    other source a FewRel-schema JSON file; each other source's stream is
+    seeded by its position (seed + 1000 + i)."""
+    from induction_network_on_fewrel_tpu_torch.data import load_fewrel_json, make_synthetic_fewrel
+    from induction_network_on_fewrel_tpu_torch.datapipe import MixtureSampler, MixtureSchedule
+
+    schedule = MixtureSchedule.parse(cfg.mixture)
+    if "train" not in schedule.names and hasattr(train_sampler, "close"):
+        train_sampler.close()
+    children = []
+    for i, name in enumerate(schedule.names):
+        if name == "train":
+            children.append((name, train_sampler))
+            continue
+        if name.startswith("synthetic"):
+            _, _, sseed = name.partition(":")
+            ds = make_synthetic_fewrel(
+                num_relations=max(cfg.train_n, cfg.n) * 2,
+                instances_per_relation=max(cfg.k + cfg.q + 5, 20),
+                vocab_size=cfg.vocab_size - 2, seed=int(sseed or 83))
+        else:
+            ds = load_fewrel_json(name)
+        children.append((name, live(ds, cfg.train_n, cfg.seed + 1000 + i, train=True)))
+    return MixtureSampler(children, schedule, seed=cfg.seed)
 
 
 def print_result(metrics: dict, key: str) -> None:
@@ -425,8 +573,8 @@ def train_main(argv=None) -> int:
             print(f"restored best checkpoint step={step} from {args.load_ckpt}", file=sys.stderr)
         if args.only_test:
             sampler, source = test_split
-            metrics = trainer.evaluate(cfg.test_iter, sampler=sampler, return_metrics=True,
-                                       source=source)
+            trainer.val_sampler = sampler           # closed with the trainer
+            metrics = trainer.evaluate(cfg.test_iter, return_metrics=True, source=source)
             print_result(metrics, "test_accuracy")
             return 0
         trainer.train(cfg.train_iter, start_step=start_step)
@@ -449,6 +597,7 @@ def test_main(argv=None) -> int:
         return 2
     cfg = _merge_ckpt_architecture(config_from_args(args), src)
     trainer, (sampler, source) = make_trainer(args, cfg, only_test=True)
+    trainer.val_sampler = sampler                   # closed with the trainer
     try:
         mngr = CheckpointManager(src, logger=trainer.logger)
         which = "best" if mngr.has("best") else "latest"

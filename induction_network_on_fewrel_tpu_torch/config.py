@@ -8,7 +8,8 @@ encoders (the BiLSTM's training-route knobs), the induction/NTN head, the NOTA
 head, the dtypes, the kernel backends, the optimizer family, the loop
 lengths, the fused-dispatch and grad-probe knobs, the token cache, the
 checkpoint ring, the divergence guard and fault injection, the serving runtime
-knobs (resident dtype, parity probe, geometry tiers) and the seed. Names
+knobs (resident dtype, parity probe, geometry tiers), the host feed (sampler
+backend, prefetch, mixture, feed faults) and the seed. Names
 and defaults are the JAX package's, so a config built with the same
 keywords describes the same model in both packages, and the
 ``config.json`` a checkpoint writes loads into the JAX config too. The
@@ -155,10 +156,20 @@ class ExperimentConfig:
     # bounding the query graphs by tiers x buckets x dtypes; "off" = exact-N.
     geometry_tiers: str = "4,8,16,32,64"
 
-    # --- host data pipeline ---
-    # "auto" | "python": the numpy samplers; "native" (the C++ sampler) is
-    # refused by name until ROADMAP queue A item 7.
+    # --- host data pipeline (sampling/native.py, datapipe/) ---
+    # "auto" (the C++ sampler for training, numpy for eval) | "native" |
+    # "python" (the numpy samplers).
     sampler: str = "auto"
+    prefetch: int = 4         # the C++ sampler's ring of batches (0 = synchronous)
+    sampler_threads: int = 2  # the ring's worker threads
+    # The feed's producer thread draws the train stream into a bounded queue
+    # of this many units (steps_per_call batches on fused index paths); the
+    # pipeline cursor rides in every checkpoint. 0 = the synchronous path.
+    prefetch_depth: int = 2
+    # Episode-mixture schedule (datapipe/mixture.py); "" = one source.
+    mixture: str = ""
+    # Feed fault injection (datapipe/faults.py): "slow:S,stall:I,poison:I".
+    feed_fault: str = ""
 
     # --- numerics ---
     compute_dtype: str = "bfloat16"  # embedding + encoder dtype

@@ -1,4 +1,5 @@
-"""Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
+"""Build the hand-written CUDA kernels with ``nvcc``, and the host sampler with
+``g++``, and load them with ctypes.
 
 Each ``csrc/*.cu`` source has a plain ``extern "C"`` launcher interface and
 compiles on its own into a shared library for ``sm_90a`` (the LSTM sources
@@ -19,6 +20,15 @@ time any kernel is needed.
 Every launcher takes its pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` after the launch; ``KernelLibrary.launch`` turns a
 non-zero code into an exception. Nothing here runs at import time.
+
+The host route (``HostLibrary``) builds a C++ source of ``csrc/`` that runs
+on the CPU, the episode sampler ``csrc/episode_sampler.cpp``, with
+
+    g++ -O3 -std=c++17 -shared -fPIC -pthread
+        -o build/torch_kernels/<name>-<hash>.so csrc/<name>.cpp
+
+into the same directory, keyed the same way. It needs ``g++`` and no CUDA
+toolchain, so the CPU tests build it too; ``nvcc`` never sees a ``.cpp``.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ LAUNCHERS = {
     "lazy_scatter": ("lazy_embed", [_P] * 9 + [_I] * 3 + [_P]),
 }
 SOURCES = tuple(sorted({stem for stem, _ in LAUNCHERS.values()}))
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 def _nvcc() -> str:
@@ -94,6 +105,12 @@ def _lib_path(stem: str) -> Path:
     src = (CSRC / f"{stem}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{stem}-{h}.so"
+
+
+def _host_lib_path(stem: str) -> Path:
+    src = (CSRC / f"{stem}.cpp").read_bytes()
+    h = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{stem}-{h}.so"
 
 
@@ -179,6 +196,46 @@ class KernelLibrary:
 
 
 LIBRARY = KernelLibrary()
+
+
+class HostLibrary:
+    """One ``csrc/<stem>.cpp`` built with g++ at first use and loaded once
+    per process; ``build()`` returns the ``ctypes.CDLL`` and records the
+    seconds it took. A failed build raises with the compiler's output."""
+
+    def __init__(self, stem: str):
+        self.stem = stem
+        self._lock = threading.Lock()
+        self._lib: ctypes.CDLL | None = None
+        self.build_seconds = 0.0
+
+    def build(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                t0 = time.monotonic()
+                out = _host_lib_path(self.stem)
+                if not out.exists():
+                    self._compile(out)
+                self._lib = ctypes.CDLL(str(out))
+                self.build_seconds = time.monotonic() - t0
+            return self._lib
+
+    def _compile(self, out: Path) -> None:
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found on PATH: {self.stem}.cpp is compiled at first use")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{self.stem}.cpp")],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed on {self.stem}.cpp (rc {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)            # atomic: concurrent builds race benignly
+
+
+SAMPLER_LIBRARY = HostLibrary("episode_sampler")
 
 
 def check_cuda_tensors(name: str, *tensors) -> None:

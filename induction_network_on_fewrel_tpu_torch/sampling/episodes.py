@@ -10,6 +10,8 @@ K support + Q query instances without overlap; with ``na_rate > 0`` add
 ``na_rate * Q`` extra queries from relations outside the episode's N,
 labeled N (none-of-the-above); shuffle the queries within the episode.
 The dataset is tokenized once up front into per-relation array blocks.
+``feed_state``/``restore_feed_state`` carry the random stream through a
+checkpoint (datapipe/cursor.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ import numpy as np
 
 from induction_network_on_fewrel_tpu_torch.data.fewrel import FewRelDataset
 from induction_network_on_fewrel_tpu_torch.data.tokenizer import GloveTokenizer
+from induction_network_on_fewrel_tpu_torch.datapipe.cursor import (
+    restore_rng_feed_state,
+    rng_feed_state,
+)
 
 
 class EpisodeBatch(NamedTuple):
@@ -135,3 +141,10 @@ class EpisodeSampler:
     def __iter__(self) -> Iterator[EpisodeBatch]:
         while True:
             yield self.sample_batch()
+
+    def feed_state(self) -> dict:
+        """The cursor protocol (datapipe/cursor.py): the generator's state."""
+        return rng_feed_state(self.rng)
+
+    def restore_feed_state(self, state: dict) -> None:
+        restore_rng_feed_state(self.rng, state)

@@ -10,8 +10,9 @@ statistics (N distinct relations, disjoint K+Q draws per class, NOTA
 queries from outside relations at ``na_rate``, shuffled queries) but
 returns GLOBAL row indices into a flat table of the split
 (train/token_cache.py), so per step only the indices cross to the card.
-The random stream is ``rng``; its ``bit_generator.state`` travels with the
-checkpoints.
+The random stream is ``rng``; ``feed_state`` (its ``bit_generator`` state)
+travels with the checkpoints. ``sample_fused(S)`` stacks S batches, the
+interface of the C++ index sampler (``sampling/native.py``).
 """
 
 from __future__ import annotations
@@ -20,9 +21,13 @@ from typing import Iterator, NamedTuple
 
 import numpy as np
 
+from induction_network_on_fewrel_tpu_torch.datapipe.cursor import (
+    restore_rng_feed_state,
+    rng_feed_state,
+)
 from induction_network_on_fewrel_tpu_torch.sampling.episodes import check_episode_feasibility
 
-SAMPLER_BACKENDS = ("auto", "python")
+SAMPLER_BACKENDS = ("auto", "native", "python")
 
 
 class IndexEpisodeBatch(NamedTuple):
@@ -34,12 +39,7 @@ class IndexEpisodeBatch(NamedTuple):
 
 
 def check_sampler_backend(backend: str) -> None:
-    """The numpy samplers are the only backend of the port."""
-    if backend == "native":
-        raise ValueError(
-            "--sampler native (the C++ prefetching sampler, native/) is not ported yet "
-            "(ROADMAP queue A item 7); use --sampler auto or python"
-        )
+    """``backend`` names a sampler backend (sampling/native.py chooses)."""
     if backend not in SAMPLER_BACKENDS:
         raise ValueError(f"unknown sampler {backend!r} (one of {SAMPLER_BACKENDS})")
 
@@ -79,11 +79,27 @@ class IndexEpisodeSampler:
         perm = rng.permutation(label.shape[0])
         return support, query[perm], label[perm]
 
+    @property
+    def total_q(self) -> int:
+        return (self.n + self.na_rate) * self.q
+
     def sample_batch(self) -> IndexEpisodeBatch:
         eps = [self._sample_episode() for _ in range(self.batch_size)]
         return IndexEpisodeBatch(np.stack([e[0] for e in eps]), np.stack([e[1] for e in eps]),
                                  np.stack([e[2] for e in eps]))
 
+    def sample_fused(self, s: int):
+        """S stacked batches: (sup [S,B,N,K], qry [S,B,TQ], label [S,B,TQ])."""
+        batches = [self.sample_batch() for _ in range(s)]
+        return tuple(np.stack([b[f] for b in batches]) for f in range(3))
+
     def __iter__(self) -> Iterator[IndexEpisodeBatch]:
         while True:
             yield self.sample_batch()
+
+    def feed_state(self) -> dict:
+        """The cursor protocol (datapipe/cursor.py): the generator's state."""
+        return rng_feed_state(self.rng)
+
+    def restore_feed_state(self, state: dict) -> None:
+        restore_rng_feed_state(self.rng, state)

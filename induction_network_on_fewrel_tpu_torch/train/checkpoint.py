@@ -19,7 +19,10 @@ step (and val accuracy), a sha256 of every tensor and scalar of the
 payload and a digest of those. A full payload is ``{"step", "params"
 (the model's state_dict), "opt" (ClipDecayOptimizer.state_dict), "lazy"
 (the lazy table's m, v, last, when it has one), "best_val", "samplers"
-(the samplers' random states), "val_accuracy" (best slots)}``. A delta is
+(the streams' positions: the train feed's pipeline cursor and the val
+sampler's state, ``FewShotTrainer.sampler_states``), "val_accuracy" (best
+slots)}``. The cursor thus lies under the slot's sidecar and goes with its
+slot, so every restorable step carries its cursor. A delta is
 the base's step and nonce, the ids of the rows where any of the four
 embedding leaves (table, m, v, last) differ from the base, those rows,
 and every other leaf in full. The diff runs on the device against the

@@ -47,9 +47,19 @@ with NOTA, its precision and recall aggregated exactly from the per-batch
 fractions.
 
 ``train(num_iters, start_step)`` numbers steps from ``start_step``;
-``sampler_states``/``restore_sampler_states`` carry the samplers' random
-streams through every checkpoint, so a resumed run continues the episode
-stream of the run it resumes.
+``sampler_states``/``restore_sampler_states`` carry the samplers' streams
+through every checkpoint, so a resumed run continues the episode stream of
+the run it resumes.
+
+The host feed (``datapipe/producer.PipelineFeed``, recognized by its
+``cursor_state``): the trainer gives it its logger, draws whole fused
+units from it (``sample_fused``) where it has them, logs one
+``kind="data"`` record of ``drain_stats()`` per metric window (just before
+that window's ``[train]`` record), saves its ``PipelineCursor`` as the
+train stream's state (the val sampler's ``feed_state`` beside it) and
+closes it, joining its producer thread, in ``close()``. A checkpoint
+written before the feed holds the numpy samplers' ``bit_generator``
+states; those still restore into numpy samplers.
 """
 
 from __future__ import annotations
@@ -60,8 +70,13 @@ import numpy as np
 import torch
 
 from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+from induction_network_on_fewrel_tpu_torch.datapipe.cursor import (
+    PipelineCursor,
+    capture_sampler_state,
+    restore_sampler_state,
+)
 from induction_network_on_fewrel_tpu_torch.models.build import batch_to_model_inputs
-from induction_network_on_fewrel_tpu_torch.sampling.index import IndexEpisodeBatch
+from induction_network_on_fewrel_tpu_torch.sampling.episodes import EpisodeBatch
 from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
 from induction_network_on_fewrel_tpu_torch.train.steps import (
     make_eval_step,
@@ -87,11 +102,17 @@ def stack_batches(batches):
 
 
 def batch_inputs(batch):
-    """A sampler's batch as step inputs: token dicts of an EpisodeBatch, or
-    the index arrays of an IndexEpisodeBatch."""
-    if isinstance(batch, IndexEpisodeBatch):
-        return batch.support_idx, batch.query_idx, batch.label
-    return batch_to_model_inputs(batch)
+    """A sampler's batch, or a fused unit of them (``sample_fused``), as
+    step inputs: token dicts of an EpisodeBatch, or the index arrays."""
+    if isinstance(batch, EpisodeBatch):
+        return batch_to_model_inputs(batch)
+    return tuple(batch)
+
+
+def first_batch(inputs):
+    """Batch 0 of stacked step inputs."""
+    return tuple({k: v[0] for k, v in x.items()} if isinstance(x, dict) else x[0]
+                 for x in inputs)
 
 
 class FewShotTrainer:
@@ -115,6 +136,9 @@ class FewShotTrainer:
         self.train_sampler = train_sampler
         self.val_sampler = val_sampler
         self.logger = logger or MetricsLogger(quiet=True)
+        self._feed = train_sampler if hasattr(train_sampler, "cursor_state") else None
+        if self._feed is not None and self._feed.logger is None:
+            self._feed.logger = self.logger
         self.opt = make_optimizer(cfg, model)
         self.lazy = None
         if cfg.embed_optimizer == "lazy":
@@ -174,8 +198,13 @@ class FewShotTrainer:
         t0 = time.monotonic()
         while step < end_step:
             if self.multi_train_step is not None and end_step - step >= spc:
-                batches = [batch_inputs(next(it)) for _ in range(spc)]
-                window.append(self.multi_train_step(*stack_batches(batches)))
+                if hasattr(self.train_sampler, "sample_fused"):
+                    fused = batch_inputs(self.train_sampler.sample_fused(spc))  # [S, B, ...]
+                    batches = [first_batch(fused)]
+                else:
+                    batches = [batch_inputs(next(it)) for _ in range(spc)]
+                    fused = stack_batches(batches)
+                window.append(self.multi_train_step(*fused))
                 prev, step = step, step + spc
             else:
                 batches = [batch_inputs(next(it))]
@@ -186,6 +215,8 @@ class FewShotTrainer:
                 means = torch.stack([torch.cat([m[k].reshape(-1) for m in window]).float().mean()
                                      for k in keys]).tolist()      # one sync per window
                 dt = max(time.monotonic() - t0, 1e-9)
+                if self._feed is not None:
+                    self.logger.log(step, "data", **self._feed.drain_stats())
                 self.logger.log(step, "train",
                                 episodes_per_s=(step - last_logged) * cfg.batch_size / dt,
                                 **dict(zip(keys, means)))
@@ -254,15 +285,39 @@ class FewShotTrainer:
                             **({"rows": float(info["rows"])} if "rows" in info else {}))
 
     def sampler_states(self) -> dict:
-        """The random-stream state of the train and val samplers."""
-        return {name: s.rng.bit_generator.state
-                for name, s in (("train", self.train_sampler), ("val", self.val_sampler))
-                if s is not None and hasattr(s, "rng")}
+        """The streams' states: the feed's cursor (``PipelineCursor.to_dict``)
+        for the train stream, else the sampler's ``feed_state``; the val
+        sampler's ``feed_state``."""
+        out = {}
+        if self._feed is not None:
+            out["train"] = self._feed.cursor_state().to_dict()
+        elif self.train_sampler is not None:
+            out["train"] = capture_sampler_state(self.train_sampler)
+        if self.val_sampler is not None:
+            out["val"] = capture_sampler_state(self.val_sampler)
+        return out
 
     def restore_sampler_states(self, states: dict) -> None:
+        """Reposition the streams at ``sampler_states``' output, or at a
+        checkpoint's from before the feed (raw ``bit_generator`` states)."""
         for name, s in (("train", self.train_sampler), ("val", self.val_sampler)):
-            if s is not None and name in states:
-                s.rng.bit_generator.state = states[name]
+            if s is None or name not in states:
+                continue
+            state = states[name]
+            if "kind" not in state and "consumed" not in state:    # a raw bit_generator state
+                state = {"kind": "rng", "bit_generator": state["bit_generator"], "state": state}
+            base = s.base if s is self._feed else s
+            if state.get("kind") == "rng" and not hasattr(base, "rng"):
+                raise ValueError(
+                    f"the checkpoint's {name} stream is the numpy sampler's random state, and "
+                    f"this run's {name} sampler is {type(base).__name__}; resume it with "
+                    "--sampler python")
+            if s is self._feed:
+                cursor = (PipelineCursor.from_dict(state) if "consumed" in state else
+                          PipelineCursor(0, 0, state, s.layout, s.stream_tag))
+                s.restore_cursor(cursor)
+            else:
+                restore_sampler_state(s, state)
 
     def evaluate(self, num_episodes: int, sampler=None, return_metrics: bool = False,
                  source=None):
@@ -302,4 +357,9 @@ class FewShotTrainer:
         return metrics
 
     def close(self) -> None:
+        """Close the samplers (the feed joins its producer thread) and the
+        logger."""
+        for s in (self.train_sampler, self.val_sampler):
+            if hasattr(s, "close"):
+                s.close()
         self.logger.close()

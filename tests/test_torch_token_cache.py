@@ -44,6 +44,7 @@ from induction_network_on_fewrel_tpu_torch.sampling.index import (
     IndexEpisodeSampler,
     check_sampler_backend,
 )
+from induction_network_on_fewrel_tpu_torch.sampling.native import make_index_sampler
 from induction_network_on_fewrel_tpu_torch.serving.buckets import zero_batch
 from induction_network_on_fewrel_tpu_torch.serving.registry import TenantRegistry
 from induction_network_on_fewrel_tpu_torch.train.framework import stack_batches
@@ -146,8 +147,17 @@ def test_index_sampler_matches_jax(na_rate):
     again.rng.bit_generator.state = state
     assert all(np.array_equal(x, y) for x, y in zip(ours.sample_batch(), again.sample_batch()))
     check_sampler_backend("python")
-    with pytest.raises(ValueError, match="--sampler native .* queue A item 7"):
-        check_sampler_backend("native")
+    check_sampler_backend("native")
+    native = make_index_sampler(sizes, 3, 2, 2, batch_size=3, na_rate=na_rate, seed=11,
+                                backend="native")
+    try:
+        sup, qry, lab = native.sample_batch()
+    finally:
+        native.close()
+    assert sup.shape == (3, 3, 2) and qry.shape == lab.shape == (3, (3 + na_rate) * 2)
+    assert set(np.unique(lab)) <= set(range(3 + (na_rate > 0)))
+    with pytest.raises(ValueError, match="unknown sampler"):
+        check_sampler_backend("cpp")
 
 
 def _live_batch(table, sup_i, qry_i, label):
