@@ -220,6 +220,42 @@ exits non-zero; no phase catches a failure of its own):
    of 20, 160 and 20 joined by ``--resume`` (the last 20 steps' mean loss
    below the first 20's), then ``cli.test_main`` on the test file (its
    accuracy printed, no bar: the data is synthetic). The phase's seconds.
+13. (run after phase 11) BERT-base (12 layers x 768, 12 heads, FFN 3072,
+   30 522 ids through the hash-fallback tokenizer, random weights from the
+   seed) under the flagship's induction head, L=40, bf16 encoder, f32
+   head, Adam, through the CLI's parsing and wiring. 13a fine-tuned, 5-way
+   5-shot, Q=5, B=2 (100 rows, 4 000 tokens a step), 4 steps a replay: one
+   S=4 replay vs four eager steps at ``hold_state``'s bars (the token
+   table in the word table's place) and the same with ``--bert_remat``
+   (S=2); every step-0 gradient finite and each backbone leaf's nonzero;
+   the optimizer pair on BERT-base's 156 tensors vs its plain twin and
+   loop at 1e-6 of scale, timed beside its bound and
+   ``Adam(fused=True)``; 8 steps and a val pass as graph replays with the
+   wrappers' counts zeroed just before and read just after, launches by
+   the profiler (the pair once a step, no other hand kernel); ms/step,
+   episodes/s, busy, launches, graph pool and peak memory; the step's
+   matmul FLOPs beside the bf16 bound; one layer's attention core, plain
+   vs ``scaled_dot_product_attention`` (a measurement only). 13b
+   ``--bert_frozen`` on live tokens: no backbone leaf gets a loss
+   gradient, one update moves the backbone by the decay term alone (the
+   JAX chain's), then 8 steps as replays. 13c ``--bert_frozen
+   --feature_cache`` through ``cli.train_main`` on 9c's files (train and
+   val encoded once, 40 head steps, a checkpoint), then the same command
+   line's trainer from ``cli.make_trainer``: the head-only state, the
+   tokenize and encode seconds and rows/s beside the bound, 40 head steps
+   as replays, the bytes sent a step; the backbone rebuilt from the
+   checkpoint's config re-encodes the val split equal to the training
+   encoder's table on 256 sampled rows (1e-6 of scale); ``cli.test_main``
+   re-encodes and scores the test split (no bar: synthetic data); the
+   serving engine refuses the checkpoint by name. 13d BERT-PAIR at FewRel
+   2.0's pair shape (5-way 1-shot, Q=1, ``--na_rate 1``, B=4: 120
+   sequences of 80 tokens), ce: one S=2 replay vs two eager steps, then 4
+   steps as replays. 13e 13a's checkpoint through
+   ``InferenceEngine.from_checkpoint``: one tenant of 5 relations at K=5,
+   48 requests in buckets 1, 4 and 16 as graph replays, no capture after
+   warmup, every verdict's logits vs the eager scoring at f32 residency
+   (2e-2 of scale); p50 per bucket and the host split. The phase's
+   seconds.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -228,9 +264,11 @@ exits non-zero; no phase catches a failure of its own):
    ``{"training_step": ...}`` line of the step's figures, the segment
    sum's, phases 9c/9d's and the zoo's, the ``{"feed": ...}`` line of
    phase 9e (``launches_feed_9e`` in the kernels line: its (a) native
-   depth-2 run's profiled launches), a ``{"serving": ...}`` line of
-   phases 4, 4a, 4b and 4c, then the last line ``{"ok": true, "device":
-   {...}}``.
+   depth-2 run's profiled launches; ``*_bert``: the optimizer pair on
+   phase 13a's parameter list and its launches in phase 13), a
+   ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
+   ...}`` line of phase 13, the run's seconds, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
 port's package is not beside it (rc 1, with a message naming the package).
@@ -239,6 +277,7 @@ port's package is not beside it (rc 1, with a message naming the package).
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import io
 import json
@@ -268,6 +307,7 @@ from induction_network_on_fewrel_tpu_torch.data import (
 )
 from induction_network_on_fewrel_tpu_torch.kernels.build import LIBRARY, SAMPLER_LIBRARY, SOURCES
 from induction_network_on_fewrel_tpu_torch.models.base import to_device
+from induction_network_on_fewrel_tpu_torch.models.bert import attention_bias
 from induction_network_on_fewrel_tpu_torch.models.build import build_model
 from induction_network_on_fewrel_tpu_torch.ops.attn import (
     attn_bwd,
@@ -326,6 +366,8 @@ from induction_network_on_fewrel_tpu_torch.ops.lazy_embed import (
     lazy_scatter_reference,
 )
 from induction_network_on_fewrel_tpu_torch.ops.segsum import segsum, segsum_reference
+from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
+from induction_network_on_fewrel_tpu_torch.train.feature_cache import encode_table
 from induction_network_on_fewrel_tpu_torch.train.framework import (
     FewShotTrainer,
     batch_inputs,
@@ -472,12 +514,19 @@ def device_ms(fn, iters: int = 20) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages() if e.self_device_time_total > 0)
-    return us / iters / 1e3
+    # A window can come back without any device record (phase 13a's
+    # optim_sumsq read 0.0 once in a full run): profile again, and fail
+    # rather than report a time the profiler did not see.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.self_device_time_total > 0)
+        if us > 0:
+            return us / iters / 1e3
+    raise AssertionError("device_ms: the profiler recorded no device time in three windows")
 
 
 def kernel_checks(gen: torch.Generator) -> dict:
@@ -1769,18 +1818,21 @@ def table_held(opt, i: int) -> torch.Tensor:
     return ~((r > 0) & (r < TABLE_LOOSE * r.max()))
 
 
-def hold_state(tag: str, got: tuple, want: tuple, table0: torch.Tensor) -> dict:
+def hold_state(tag: str, got: tuple, want: tuple, table0: torch.Tensor,
+               table: str = WORD_TABLE) -> dict:
     """Hold the training state of run ``got`` (model, optimizer) to run
-    ``want`` from the same weights (``table0``: the word table before):
+    ``want`` from the same weights (``table0``: the word table before;
+    ``table`` its name, BERT's token table on phase 13's paths):
     the count equal; every parameter and moment within GRAPH_PARAM_TOL of
     its scale, the word table's and its moments' on the ``table_held``
     elements (its moments within SEGSUM_TOL); the table's change far above
     that bar in both runs."""
     (model, opt), (_, ref) = got, want
+    worst_name = None
     if int(opt.count) != int(ref.count):
         raise AssertionError(f"{tag}: count {int(opt.count)} != {int(ref.count)}")
     names = [n for n, _ in model.named_parameters()]
-    it = names.index(WORD_TABLE)
+    it = names.index(table)
     held = table_held(ref, it)
     worst, worst_table = 0.0, 0.0
     for i, name in enumerate(names):
@@ -1798,21 +1850,22 @@ def hold_state(tag: str, got: tuple, want: tuple, table0: torch.Tensor) -> dict:
                 raise AssertionError(f"{tag}: {name}{what} relative error {rel:.3g} > {tol}")
             if i == it and what:
                 worst_table = max(worst_table, rel)
-            else:
-                worst = max(worst, rel)
+            elif rel >= worst:
+                worst, worst_name = rel, name + what
     scale = ref.params[it].detach()[held].abs().max().item()
     moved = [(p.params[it].detach() - table0)[held].abs().max().item() for p in (opt, ref)]
     if min(moved) <= 100 * GRAPH_PARAM_TOL * scale:
         raise AssertionError(f"{tag}: the word table moved by {moved} (got, want), not far above "
                              f"the bar {GRAPH_PARAM_TOL * scale:.3g}: was its update applied?")
     left_out = int((~held).sum())
-    print(f"[{tag}] count {int(opt.count)}; parameters and moments worst rel {worst:.3g} (tol "
+    print(f"[{tag}] count {int(opt.count)}; parameters and moments worst rel {worst:.3g} "
+          f"({worst_name}; tol "
           f"{GRAPH_PARAM_TOL} of scale), the word table's on all but {left_out} of "
           f"{held.numel()} elements (gradient within the atomics' rounding of zero), its "
           f"moments {worst_table:.3g} (tol {SEGSUM_TOL}); the table moved by {moved[0]:.3g} / "
           f"{moved[1]:.3g}", flush=True)
-    return {"state_rel": worst, "table_moments_rel": worst_table, "table_left_out": left_out,
-            "table_moved": moved[1]}
+    return {"state_rel": worst, "worst_leaf": worst_name, "table_moments_rel": worst_table,
+            "table_left_out": left_out, "table_moved": moved[1]}
 
 
 def graph_vs_eager(cfg, vocab, batch) -> dict:
@@ -3076,6 +3129,509 @@ def zoo_phase(real: dict) -> dict:
     return out
 
 
+# --- Phase 13: BERT-base through the port's CLI ------------------------------------
+
+BERT_DIR = WORK_DIR.parent / "chip_smoke_bert"
+BERT_STEPS = 8
+# 13a/13b: BERT-base (12 layers x 768, 12 heads, FFN 3072, 30 522 ids through
+# the hash-fallback tokenizer, random weights from the seed) under the
+# flagship's induction head: L=40, bf16 encoder, f32 head, mse, Adam, 5-way
+# 5-shot, Q=5, B=2 (100 encoder rows, 4 000 tokens a step), 4 steps a
+# replay, one val pass of 20 episodes at step 8.
+BERT_ARGV = ["--synthetic", "--bf16", "--encoder", "bert", "--batch_size", "2",
+             "--steps_per_call", "4", "--val_step", str(BERT_STEPS), "--val_iter", "20",
+             "--train_iter", str(BERT_STEPS), *TODAY]
+BERT_TABLE = "encoder.backbone.tok_emb.embedding"
+# 13c: the frozen backbone's feature cache on 9c's files through the CLI, 40
+# head steps, 4 a replay; the test-time re-encode held on 256 sampled rows.
+CACHE_STEPS = 40
+CACHE_ARGV = ["--bf16", "--encoder", "bert", "--bert_frozen", "--feature_cache",
+              "--batch_size", "2", "--steps_per_call", "4", "--val_step", str(CACHE_STEPS),
+              "--val_iter", "20", "--train_iter", str(CACHE_STEPS)]
+CACHE_ROWS = 256
+# The test-time features of a cached checkpoint (its backbone rebuilt from the
+# checkpoint's config) vs the training run's, the same split in the same
+# chunks: the same weights and operations, so within 1e-6 of scale.
+CACHE_TOL = 1e-6
+# 13d: BERT-PAIR at FewRel 2.0's pair shape: 5-way 1-shot, Q=1, one NOTA
+# query a class (na_rate 1), B=4: 120 sequences of 2L = 80 tokens a step, 2
+# steps a replay.
+PAIR_ARGV = ["--synthetic", "--bf16", "--model", "pair", "--encoder", "bert", "--K", "1",
+             "--Q", "1", "--na_rate", "1", "--batch_size", "4", "--loss", "ce",
+             "--steps_per_call", "2", *TODAY]
+PAIR_STEPS = 4
+PAIR_TABLE = "backbone.tok_emb.embedding"
+# 13e: 13a's checkpoint served: one tenant of 5 relations at K=5, 48 requests.
+BERT_SERVE_PLAN = [1] * 16 + [4] * 4 + [16]
+OPTIM_ON = ("optim_sumsq", "optim_update")
+
+
+def bert_setup(argv: list):
+    """(cfg, tokenizer, sampler factory) of a phase-13 command line as the
+    CLI parses it; the samplers draw the CLI's synthetic splits."""
+    cfg = cli.config_from_args(cli.parse_args(train=True, argv=argv))
+    tok, cfg, _ = cli.make_tokenizer(None, cfg)
+
+    def sampler(split: str = "train", seed: int = 0):
+        return EpisodeSampler(cli.load_data(cfg, split), tok,
+                              cfg.train_n if split == "train" else cfg.n, cfg.k, cfg.q,
+                              batch_size=cfg.batch_size, na_rate=cfg.na_rate,
+                              seed=cfg.seed + seed)
+
+    return cfg, tok, sampler
+
+
+def bert_flops(cfg, sequences: int, length: int, passes: int = 3) -> float:
+    """Matmul FLOPs of the BERT layers over ``sequences`` x ``length``
+    tokens: per token and layer the QKV, output and FFN products, 2(4H^2 +
+    2HI), and the two attention contractions, 4LH; ``passes`` 3 for a
+    training step (forward and backward), 1 for a forward."""
+    H, inter = cfg.bert_hidden, cfg.bert_intermediate
+    per_token = cfg.bert_layers * (2 * (4 * H * H + 2 * H * inter) + 4 * length * H)
+    return passes * sequences * length * per_token
+
+
+def bert_fused_vs_eager(cfg, base, batches: list, tag: str, table: str) -> dict:
+    """One replay of the S-step graph against S eager ``train_step``s from
+    ``base``'s weights on the same S batches: losses and norms within
+    GRAPH_PARAM_TOL, then the state at ``hold_state``'s bars (``table``, the
+    BERT token table, in the word table's place)."""
+    eager, fused = copy.deepcopy(base), copy.deepcopy(base)
+    opt_e, opt_f = make_optimizer(cfg, eager), make_optimizer(cfg, fused)
+    table0 = dict(eager.named_parameters())[table].detach().clone()
+    me = [train_step(eager, opt_e, cfg, *b) for b in batches]
+    mf = make_multi_train_step(fused, opt_f, cfg)(*stack_batches(batches))
+    worst = 0.0
+    for key in ("loss", "grad_norm"):
+        _, rel = rel_err(mf[key].float(), torch.stack([m[key] for m in me]).float())
+        worst = max(worst, rel)
+        if rel > GRAPH_PARAM_TOL:
+            raise AssertionError(f"{tag}: S={len(batches)} replay vs {len(batches)} eager steps: "
+                                 f"{key} relative error {rel:.3g}")
+    held = hold_state(tag, (fused, opt_f), (eager, opt_e), table0, table)
+    del eager, fused, opt_e, opt_f, mf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**held, "metrics_rel": worst}
+
+
+def bert_grads(model, cfg, batch) -> dict:
+    """Step-0 loss gradients of one batch (no update): each leaf's largest
+    |g|, None for a leaf without a gradient; every gradient finite."""
+    support, query, label = batch
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_and_metrics(model, to_device(support, "cuda"), to_device(query, "cuda"),
+                               torch.as_tensor(label).cuda(), cfg.loss)
+    loss.backward()
+    out = {}
+    for n, p in model.named_parameters():
+        if p.grad is not None and not torch.isfinite(p.grad).all():
+            raise AssertionError(f"step-0 gradient of {n} is not finite")
+        out[n] = None if p.grad is None else p.grad.abs().max().item()
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def bert_optim(model, gen: torch.Generator) -> dict:
+    """13a: the optimizer pair on BERT-base's parameter list (Adam on each
+    tensor, from random parameters, gradients and moments at count 2000, the
+    clip engaged) vs its plain twin and the per-parameter loop, within
+    OPTIM_TOL of each tensor's scale; device times beside the bound (bytes)
+    and ``Adam(fused=True)``."""
+    dev = torch.device("cuda")
+    cfg = ExperimentConfig()
+    hp = OptimHyper(cfg.lr, cfg.lr_gamma, cfg.lr_step_size, cfg.weight_decay, cfg.grad_clip)
+    names = [n for n, _ in model.named_parameters()]
+
+    def rand(like, scale):
+        return torch.randn(like.shape, generator=gen, device=dev) * scale
+
+    params = [rand(p, 0.1) for p in model.parameters()]
+    grads = [rand(p, 1e-3) for p in params]
+    mus, nus = [rand(p, 1e-3) for p in params], [rand(p, 1e-3).square() for p in params]
+    rules = ["adam"] * len(params)
+    ws = make_workspace(params)
+    norm = optim_sumsq(params, grads, ws)
+    _, n_rel = rel_err(norm, optim_sumsq_reference(params, grads))
+    if n_rel > OPTIM_TOL:
+        raise AssertionError(f"bert optim_sumsq: relative error {n_rel:.3g} > {OPTIM_TOL}")
+    kp, km, kv = ([x.clone() for x in xs] for xs in (params, mus, nus))
+    count, p_count = (torch.full((), 2000, dtype=torch.int64, device=dev) for _ in range(2))
+    optim_update(kp, grads, km, kv, rules, norm, count, hp, ws)
+    optim_update_reference(params, grads, mus, nus, rules, norm, p_count, hp)
+    pairs = {f"{n}.{w}": (a, b) for n, *trip in zip(names, kp, km, kv, params, mus, nus)
+             for w, a, b in (("p", trip[0], trip[3]), ("m", trip[1], trip[4]),
+                             ("v", trip[2], trip[5]))}
+    err = check_outputs("bert optim_update", pairs, OPTIM_TOL)
+    numels = [p.numel() for p in params]
+    n_all = sum(numels)
+    sumsq_bound = bound(4 * n_all + 4, 3 * n_all / PEAK_FLOPS[torch.float32])
+    update_bound = bound(optim_bytes(numels, rules), 20 * n_all / PEAK_FLOPS[torch.float32])
+    ms_sumsq = device_ms(lambda: optim_sumsq(params, grads, ws))
+    ms_update = device_ms(lambda: optim_update(kp, grads, km, kv, rules, norm, count, hp, ws))
+    plain_sumsq = device_ms(lambda: optim_sumsq_reference(params, grads), 3)
+    plain_update = device_ms(
+        lambda: optim_update_reference(params, grads, mus, nus, rules, norm, p_count, hp), 3)
+    lib_sumsq = (device_ms(lambda: torch.nn.utils.get_total_norm(grads))
+                 if hasattr(torch.nn.utils, "get_total_norm") else None)
+    lib_params = [torch.nn.Parameter(p.clone()) for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    adam = torch.optim.Adam(lib_params, lr=hp.lr, weight_decay=hp.weight_decay, fused=True)
+    lib_update = device_ms(adam.step)
+    print(f"[bert 13a] optimizer pair on BERT-base's {len(params)} tensors, {n_all} elements: "
+          f"norm vs twin rel {n_rel:.3g}, update vs loop max abs err {err:.3g} (tol {OPTIM_TOL} "
+          f"of scale); device ms: sumsq {ms_sumsq:.4f} (bound {sumsq_bound[0]:.4f}, twin "
+          f"{plain_sumsq:.4f}, get_total_norm {lib_sumsq}), update {ms_update:.4f} (bound "
+          f"{update_bound[0]:.4f} by {update_bound[1]}, loop {plain_update:.4f}, "
+          f"Adam(fused=True) {lib_update:.4f})", flush=True)
+    del params, grads, mus, nus, kp, km, kv, lib_params, adam, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tensors": len(numels), "elements": n_all, "err": err, "sumsq_rel": n_rel,
+            "optim_sumsq": {"ms": ms_sumsq, "plain_ms": plain_sumsq, "bound_ms": sumsq_bound[0],
+                            "bound_by": sumsq_bound[1], "library_ms": lib_sumsq},
+            "optim_update": {"ms": ms_update, "plain_ms": plain_update,
+                             "bound_ms": update_bound[0], "bound_by": update_bound[1],
+                             "library_ms": lib_update}}
+
+
+def sdpa_vs_plain(gen: torch.Generator) -> dict:
+    """13a: one BERT-base layer's attention core at 13a's shape (100
+    sequences x 40 tokens, 12 heads of 64, bf16, ragged masks): the port's
+    plain form (``models/bert.py``) against
+    ``F.scaled_dot_product_attention`` on the same q, k, v and mask, device
+    times. A measurement for a later PR; the path keeps the plain form."""
+    B, nh, d = 100, 12, 64
+    q, k, v = (torch.randn(B, L, nh, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.randint(8, L + 1, (B,), generator=gen, device="cuda")
+    mask = (torch.arange(L, device="cuda")[None] < lens[:, None]).float()
+    bias = attention_bias(mask)
+    keep = mask[:, None, None, :] > 0
+
+    def plain():
+        s = torch.einsum("blhd,bmhd->bhlm", q, k).float() / d ** 0.5
+        att = torch.softmax(s + bias, dim=-1)
+        return torch.einsum("bhlm,bmhd->blhd", att.to(torch.bfloat16), v)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=keep).transpose(1, 2)
+
+    diff = (plain().float() - sdpa().float()).abs().max().item()
+    return {"plain_ms": device_ms(plain), "sdpa_ms": device_ms(sdpa), "max_abs_diff": diff}
+
+
+def bert_train_run(trainer, steps: int, tag: str, evals: int = 0) -> dict:
+    """``run_trainer`` over ``steps`` graph-replayed steps (the optimizer
+    pair once a step, no other hand kernel), then ``profile_graph_steps``
+    over two more replays; the peak memory of both."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, _, recs = run_trainer(trainer, steps, OPTIM_ON, evals)
+    losses = [r["loss"] for r in recs]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: non-finite training loss {losses}")
+    prof = profile_graph_steps(trainer, OPTIM_ON, calls=2, tag=f"profile {tag}")
+    return {"launches": {k: n for k, n in launches.items() if n}, "losses": losses,
+            **{k: prof[k] for k in ("step_ms", "episodes_per_s", "busy_ms", "busy_share",
+                                    "pool_bytes")},
+            "launches_per_step": prof["launches"], "host_split_ms": prof["split"],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def bert_finetune(gen: torch.Generator) -> tuple[dict, object, dict]:
+    """13a: fine-tuned BERT-base under the induction head. Returns (the
+    readings, the fresh model, the checkpoint's directory)."""
+    tag = "bert 13a"
+    cfg, _, sampler = bert_setup(BERT_ARGV)
+    t0 = time.monotonic()
+    base = build_model(cfg)
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in base.parameters())
+    four = sampler()
+    batches = [batch_to_model_inputs(four.sample_batch()) for _ in range(4)]
+    fused = bert_fused_vs_eager(cfg, base, batches, tag, BERT_TABLE)
+    cfg_r = cfg.replace(bert_remat=True)
+    remat = build_model(cfg_r)
+    remat.load_state_dict(base.state_dict())
+    fused_remat = bert_fused_vs_eager(cfg_r, remat, batches[:2], f"{tag} remat", BERT_TABLE)
+    del remat
+    grads = bert_grads(base, cfg, batches[0])
+    backbone = {n: g for n, g in grads.items() if ".backbone." in n}
+    if any(g is None or g == 0.0 for g in backbone.values()):
+        raise AssertionError(f"{tag}: a backbone leaf has no gradient: "
+                             f"{[n for n, g in backbone.items() if not g]}")
+    optim = bert_optim(base, gen)
+    sdpa = sdpa_vs_plain(gen)
+    model = copy.deepcopy(base)
+    trainer = FewShotTrainer(model, cfg, sampler(), sampler("val", 1),
+                             logger=MetricsLogger(BERT_DIR / "finetune", quiet=True),
+                             metric_window=1)
+    run = bert_train_run(trainer, BERT_STEPS, tag, evals_per_pass(trainer))
+    rows = cfg.batch_size * (cfg.train_n * cfg.k + (cfg.train_n + cfg.na_rate) * cfg.q)
+    flops = bert_flops(cfg, rows, cfg.max_length)
+    run["tflop_per_step"] = flops / 1e12
+    run["flop_bound_ms"] = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    ckpt = BERT_DIR / "ckpt"
+    m = trainer.evaluate(cfg.val_iter, return_metrics=True)
+    CheckpointManager(ckpt, cfg).save(BERT_STEPS, model, trainer.opt, m["accuracy"])
+    trainer.close()
+    print(f"[{tag}] BERT-base fine-tuned ({n_params} parameters, {len(grads)} tensors, init "
+          f"{init_s:.1f} s): S=4 replay vs 4 eager steps: state {fused['state_rel']:.3g}, metrics "
+          f"{fused['metrics_rel']:.3g} (tol {GRAPH_PARAM_TOL}), the token table's moments "
+          f"{fused['table_moments_rel']:.3g}; --bert_remat (each layer under "
+          f"torch.utils.checkpoint) captured: S=2 replay vs 2 eager steps, state "
+          f"{fused_remat['state_rel']:.3g}; step-0 gradients finite, every backbone leaf's "
+          f"nonzero (smallest max |g| {min(backbone.values()):.3g}); {BERT_STEPS} steps + "
+          f"val as replays: launches {run['launches']}; {run['step_ms']:.3f} ms/step, "
+          f"{run['episodes_per_s']:.1f} episodes/s, busy {run['busy_ms']:.3f} ms/step "
+          f"({run['busy_share']:.1%}), {run['launches_per_step']:.1f} launches/step, graph pool "
+          f"{run['pool_bytes'] / 2**20:.1f} MiB, peak {run['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{run['tflop_per_step']:.3f} TFLOP a step, bf16 bound {run['flop_bound_ms']:.3f} ms; "
+          f"attention core plain {sdpa['plain_ms']:.4f} ms vs scaled_dot_product_attention "
+          f"{sdpa['sdpa_ms']:.4f} ms (max abs diff {sdpa['max_abs_diff']:.3g}); val accuracy "
+          f"{m['accuracy']:.4f}", flush=True)
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"parameters": n_params, "init_s": init_s, "fused_vs_eager": fused,
+             "remat_fused_vs_eager": fused_remat,
+             "optim": optim, "sdpa": sdpa, **run}, base, ckpt)
+
+
+def bert_frozen(base) -> dict:
+    """13b: ``--bert_frozen`` on live tokens, 13a's shape and weights: the
+    backbone's loss gradients exactly zero (no ``grad``), and one update
+    moves it by the decay term alone (the JAX chain's: the optimizer's
+    update with zero gradients); 8 steps and a val pass as replays."""
+    tag = "bert 13b"
+    cfg, _, sampler = bert_setup(BERT_ARGV + ["--bert_frozen"])
+    model = build_model(cfg)
+    model.load_state_dict(base.state_dict())
+    batch = batch_to_model_inputs(sampler().sample_batch())
+    grads = bert_grads(model, cfg, batch)
+    live = [n for n, g in grads.items() if ".backbone." in n and g is not None]
+    head = max(g for n, g in grads.items() if ".backbone." not in n)
+    if live or not head > 0:
+        raise AssertionError(f"{tag}: backbone leaves with a gradient {live}, head max {head}")
+    opt = make_optimizer(cfg, model)
+    bb = [(n, p) for n, p in model.named_parameters() if ".backbone." in n]
+    p0 = [p.detach().clone() for _, p in bb]
+    train_step(model, opt, cfg, *batch)
+    want = [x.clone() for x in p0]
+    hp = OptimHyper(cfg.lr, cfg.lr_gamma, cfg.lr_step_size, cfg.weight_decay, cfg.grad_clip)
+    optim_update_reference(want, [None] * len(want), [torch.zeros_like(x) for x in want],
+                           [torch.zeros_like(x) for x in want], ["adam"] * len(want),
+                           torch.zeros(1, device="cuda"),
+                           torch.zeros((), dtype=torch.int64, device="cuda"), hp)
+    err = check_outputs(f"{tag} decay-only update",
+                        {n: (p.detach(), w) for (n, p), w in zip(bb, want)}, OPTIM_TOL)
+    moved = max((p.detach() - x).abs().max().item() for (_, p), x in zip(bb, p0))
+    if not moved > 0.5 * cfg.lr:
+        raise AssertionError(f"{tag}: the backbone moved by {moved}, not by the decay step")
+    trainer = FewShotTrainer(model, cfg, sampler(), sampler("val", 1),
+                             logger=MetricsLogger(BERT_DIR / "frozen", quiet=True),
+                             metric_window=1)
+    run = bert_train_run(trainer, BERT_STEPS, tag, evals_per_pass(trainer))
+    trainer.close()
+    print(f"[{tag}] --bert_frozen: every backbone leaf without a loss gradient (head max |g| "
+          f"{head:.3g}); one update moved the backbone by {moved:.3g} (lr {cfg.lr}), equal to "
+          f"the decay-only update within {err:.3g} (tol {OPTIM_TOL} of scale); launches "
+          f"{run['launches']}; {run['step_ms']:.3f} ms/step, busy {run['busy_ms']:.3f} ms/step "
+          f"({run['busy_share']:.1%}), peak {run['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    del trainer, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"backbone_moved": moved, "decay_err": err, **run}
+
+
+def bert_cache(real: dict) -> dict:
+    """13c: ``--bert_frozen --feature_cache`` through ``cli.train_main`` on
+    9c's files (train and val encoded once, 40 head steps, a checkpoint);
+    the same command line's trainer from ``cli.make_trainer`` profiled: the
+    head-only state, the encode times, launches and ms/step of the graph
+    replays, the bytes sent a step; the backbone rebuilt from the
+    checkpoint's config re-encodes the val split equal to the training
+    encoder's table on 256 sampled rows; ``cli.test_main`` re-encodes the
+    test split and scores it; the serving engine refuses the checkpoint."""
+    tag = "bert 13c"
+    files = [a for s in ("train", "val") for a in (f"--{s}_file", str(real["paths"][s]))]
+    ckpt = BERT_DIR / "cache"
+    rc, out, err = quiet_cli(cli.train_main, CACHE_ARGV + files + ["--save_ckpt", str(ckpt)])
+    if rc != 0:
+        raise AssertionError(f"{tag}: train_main rc {rc}, {err[-2000:]!r}")
+    trained = json.loads(out.strip().splitlines()[-1])
+    args = cli.parse_args(True, CACHE_ARGV + files + ["--save_ckpt", str(BERT_DIR / "cache_prof")])
+    with contextlib.redirect_stderr(io.StringIO()):
+        trainer, _ = cli.make_trainer(args, cli.config_from_args(args))
+    cfg = trainer.cfg
+    names = [n for n, _ in trainer.model.named_parameters()]
+    if any("backbone" in n or n.startswith(("encoder.", "embedding.")) for n in names):
+        raise AssertionError(f"{tag}: the cached state holds encoder leaves: {names}")
+    tables = {s: {"rows": t.rows, "tokenize_s": t.tokenize_s, "encode_s": t.encode_s,
+                  "rows_per_s": t.rows / t.encode_s, "bytes": t.nbytes,
+                  "flop_bound_s": bert_flops(cfg, t.rows, cfg.max_length, 1)
+                  / PEAK_FLOPS[torch.bfloat16]}
+              for s, t in (("train", trainer.train_table), ("val", trainer.val_table))}
+    run = bert_train_run(trainer, CACHE_STEPS, tag, evals_per_pass(trainer))
+    run["h2d_bytes_per_step"] = h2d_bytes(trainer)
+    val_table = trainer.val_table.table
+    trainer.close()
+    saved = CheckpointManager.load_config(ckpt)
+    with contextlib.redirect_stderr(io.StringIO()):
+        rebuilt = cli.bert_backbone_model(saved, "cuda")
+    tok, _, _ = cli.make_tokenizer(args, saved)
+    again, _ = encode_table(rebuilt, cli.load_data(saved, "val", args), tok)
+    rows = torch.randperm(val_table.shape[0], generator=torch.Generator().manual_seed(13))
+    rows = rows[:CACHE_ROWS].cuda()
+    _, re_rel = rel_err(again[rows], val_table[rows])
+    if re_rel > CACHE_TOL:
+        raise AssertionError(f"{tag}: the rebuilt backbone's features differ by {re_rel:.3g} of "
+                             f"scale from the training encoder's")
+    del rebuilt, again, val_table
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc, out, err = quiet_cli(cli.test_main, ["--bf16", "--load_ckpt", str(ckpt), "--test_iter",
+                                             "40", "--steps_per_call", "4", "--test_file",
+                                             str(real["paths"]["test"])])
+    if rc != 0:
+        raise AssertionError(f"{tag}: test_main rc {rc}, {err[-2000:]!r}")
+    tested = json.loads(out.strip().splitlines()[-1])
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            InferenceEngine.from_checkpoint(str(ckpt))
+    except ValueError as e:
+        if "feature-cache checkpoints" not in str(e):
+            raise
+        refusal = str(e)
+    else:
+        raise AssertionError(f"{tag}: the serving engine took a feature-cache checkpoint")
+    print(f"[{tag}] feature cache through cli.train_main on 9c's files: {trained}; the state "
+          f"holds the head's {len(names)} tensors alone; encoded {tables}; {CACHE_STEPS} head "
+          f"steps as replays: launches {run['launches']}, {run['step_ms']:.4f} ms/step, "
+          f"{run['episodes_per_s']:.1f} episodes/s, busy {run['busy_ms']:.4f} ms/step "
+          f"({run['busy_share']:.1%}), {run['launches_per_step']:.1f} launches/step, "
+          f"{run['h2d_bytes_per_step']:.0f} bytes to the card a step; the backbone rebuilt "
+          f"from the checkpoint's config re-encodes {CACHE_ROWS} sampled val rows within "
+          f"{re_rel:.3g} of scale (tol {CACHE_TOL}); test_main: {tested}; the engine refuses "
+          f"it: {refusal!r}", flush=True)
+    return {"train_main": trained, "head_tensors": len(names), "tables": tables,
+            "rebuilt_rel": re_rel, "test_main": tested, **run}
+
+
+def bert_pair() -> dict:
+    """13d: BERT-PAIR at FewRel 2.0's pair shape: one S=2 replay vs two
+    eager steps, then 4 steps as replays."""
+    tag = "bert 13d"
+    cfg, _, sampler = bert_setup(PAIR_ARGV)
+    base = build_model(cfg)
+    two = sampler()
+    batches = [batch_to_model_inputs(two.sample_batch()) for _ in range(2)]
+    fused = bert_fused_vs_eager(cfg, base, batches, tag, PAIR_TABLE)
+    trainer = FewShotTrainer(base, cfg, sampler(),
+                             logger=MetricsLogger(BERT_DIR / "pair", quiet=True),
+                             metric_window=1)
+    run = bert_train_run(trainer, PAIR_STEPS, tag)
+    seqs = cfg.batch_size * (cfg.train_n + cfg.na_rate) * cfg.q * cfg.train_n * cfg.k
+    flops = bert_flops(cfg, seqs, 2 * cfg.max_length)
+    run.update(sequences=seqs, tflop_per_step=flops / 1e12,
+               flop_bound_ms=flops / PEAK_FLOPS[torch.bfloat16] * 1e3)
+    trainer.close()
+    print(f"[{tag}] BERT-PAIR, {seqs} sequences of {2 * cfg.max_length} tokens a step: S=2 "
+          f"replay vs 2 eager steps: state {fused['state_rel']:.3g}, metrics "
+          f"{fused['metrics_rel']:.3g} (tol {GRAPH_PARAM_TOL}); launches {run['launches']}; "
+          f"{run['step_ms']:.3f} ms/step, busy {run['busy_ms']:.3f} ms/step "
+          f"({run['busy_share']:.1%}), {run['launches_per_step']:.1f} launches/step, peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB; {run['tflop_per_step']:.3f} TFLOP a step, bf16 "
+          f"bound {run['flop_bound_ms']:.3f} ms", flush=True)
+    del trainer, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fused_vs_eager": fused, **run}
+
+
+def bert_serve(ckpt: Path) -> dict:
+    """13e: 13a's checkpoint through ``InferenceEngine.from_checkpoint``:
+    one tenant of 5 relations at K=5, 48 requests in buckets 1, 4 and 16 as
+    graph replays, no capture after warmup; every verdict's logits vs the
+    eager scoring of its query at f32 residency."""
+    from induction_network_on_fewrel_tpu_torch.serving.buckets import QueryRunner, stack_queries
+
+    tag = "bert 13e"
+    with contextlib.redirect_stderr(io.StringIO()):
+        engine = InferenceEngine.from_checkpoint(str(ckpt))
+    cfg = engine.cfg
+    ds = make_synthetic_fewrel(num_relations=5, instances_per_relation=40,
+                               vocab_size=cfg.vocab_size - 2, sentence_len=(10, 60), seed=0)
+    engine.register_dataset(ds)
+    made = engine.warmup()
+    captured = engine.programs.captures
+    pool = [i for rel in ds.rel_names for i in ds.instances[rel][cfg.k:cfg.k + 10]]
+    batches, pos = [], 0
+    for size in BERT_SERVE_PLAN:
+        batches.append(pool[pos:pos + size])
+        pos += size
+    verdicts = [engine.classify_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    if engine.stats.served != pos or engine.stats.steady_compiles \
+            or engine.programs.captures != captured:
+        raise AssertionError(f"{tag}: served {engine.stats.served} of {pos}, steady compiles "
+                             f"{engine.stats.steady_compiles}, captures {captured} -> "
+                             f"{engine.programs.captures}")
+    snap = engine.registry.snapshot()
+    runner = QueryRunner(engine.registry.banks[snap.bank])
+    names = engine.class_names
+    worst, scale = 0.0, 0.0
+    for batch, vs in zip(batches, verdicts):
+        for inst, v in zip(batch, vs):
+            t = engine.tokenizer(inst)
+            want = runner.run(snap.matrix, stack_queries(
+                [{k: getattr(t, k) for k in QUERY_DTYPES}], 1))[0][:len(names)]
+            got = np.array([v["logits"][n] for n in names])
+            if not np.isfinite(got).all():
+                raise AssertionError(f"{tag}: non-finite logits")
+            worst, scale = max(worst, float(np.abs(got - want).max())), max(
+                scale, float(np.abs(want).max()))
+    if worst > LOGIT_REL_TOL * scale:
+        raise AssertionError(f"{tag}: served logits vs eager {worst} > {LOGIT_REL_TOL}*{scale}")
+    by_bucket: dict = {}
+    for vs in verdicts:
+        for v in vs:
+            by_bucket.setdefault(v["bucket"], []).append(v["latency_ms"])
+    p50 = {b: float(np.percentile(by_bucket[b], 50)) for b in sorted(by_bucket)}
+    split = engine.host_split.ms()
+    engine.close()
+    print(f"[{tag}] served {pos} requests of one 5-relation tenant from 13a's checkpoint as "
+          f"graph replays ({made} query programs at warmup, none after); logits vs eager at f32 "
+          f"residency: max abs err {worst:.3g} at scale {scale:.3g} (tol {LOGIT_REL_TOL}); p50 "
+          f"ms by bucket {p50}; host ms per batch {split}", flush=True)
+    return {"served": pos, "programs": made, "logit_err": worst, "logit_scale": scale,
+            "p50_ms_by_bucket": p50, "host_split_ms": split}
+
+
+def bert_phase(real: dict) -> dict:
+    """Phase 13: 13a fine-tuned BERT-base, 13b frozen, 13c the feature cache,
+    13d BERT-PAIR, 13e 13a's checkpoint served."""
+    t0 = time.monotonic()
+    shutil.rmtree(BERT_DIR, ignore_errors=True)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    out["a_finetune"], base, ckpt = bert_finetune(gen)
+    out["b_frozen"] = bert_frozen(base)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c_feature_cache"] = bert_cache(real)
+    out["d_pair"] = bert_pair()
+    out["e_serving"] = bert_serve(ckpt)
+    shutil.rmtree(BERT_DIR, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t0
+    print(f"[bert] phase 13 in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # --- The serving plane on a trained checkpoint (phases 4a-4c) -------------------
 
 SERVE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
@@ -3773,6 +4329,10 @@ def main() -> int:
 
     # 11. The few-shot model zoo (11c on phase 9c's files)
     zoo = zoo_phase(real)
+
+    # 13. BERT-base: fine-tuned, frozen, the feature cache (13c on 9c's files),
+    # BERT-PAIR, served
+    bert = bert_phase(real)
     shutil.rmtree(REAL_DIR, ignore_errors=True)
 
     # 12. Summary lines
@@ -3896,8 +4456,10 @@ def main() -> int:
             "ms_m16": split["rows"][(key, "bf16 M=16 tm")]["ms"],
         })
     step_at = "the flagship parameter list (training step, Adam, shared table)"
+    bert_optim_rows = bert["a_finetune"]["optim"]
     for key in ("optim_sumsq", "optim_update"):
         r = optim_rows[key]
+        b = bert_optim_rows[key]
         kernels.append({
             "name": key, "route": "cuda",
             "source": "induction_network_on_fewrel_tpu_torch/csrc/optim.cu",
@@ -3913,6 +4475,13 @@ def main() -> int:
                 max(w["sumsq_rel" if key == "optim_sumsq" else "update_err"] for w in zoo_optim),
             **({k: r[k] for k in ("pair_ms", "clip_grad_norm_adam_fused_ms")}
                if key == "optim_update" else {}),
+            "launches_bert": {p: bert[p]["launches"][key] for p in
+                              ("a_finetune", "b_frozen", "c_feature_cache", "d_pair")},
+            "max_abs_err_bert": bert_optim_rows["err"],
+            **{f"{k}_bert": b[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+            "at_bert": f"BERT-base's {bert_optim_rows['tensors']} tensors, "
+                       f"{bert_optim_rows['elements']} elements (phase 13a; device times)",
         })
     for key, replaces in (("lazy_catchup", "induction_network_on_fewrel_tpu/train/lazy_embed.py:147"),
                           ("lazy_scatter", "induction_network_on_fewrel_tpu/train/lazy_embed.py:460")):
@@ -3954,6 +4523,7 @@ def main() -> int:
     print(json.dumps({"serving": {"main_path_p50_ms_by_bucket": main_latency,
                                   "serve_main": serve4a, "correctness_load": serve4b,
                                   "sweep": serve4c}}), flush=True)
+    print(json.dumps({"bert": bert}), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

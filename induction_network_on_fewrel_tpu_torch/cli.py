@@ -32,14 +32,22 @@ uninterrupted run) for ``--train_iter`` more steps; ``train --only_test``
 restores (``--resume`` or ``--load_ckpt``) and reports the test accuracy.
 
 ``--model`` and ``--encoder`` choose any model of the zoo (induction,
-proto, proto_hatt, siamese, gnn, snail, metanet) over the CNN, BiLSTM or
-transformer encoder, with the JAX widths ``--proto_metric``, ``--gnn_dim``,
-``--gnn_blocks``, ``--snail_tc_filters``, ``--hidden_size``, ``--tfm_*`` and
-``--routing_iters`` (``--fp16`` is the bf16 alias). Every other JAX
-train/test flag is parsed: at its JAX default it is accepted, otherwise
-refused by name (rc 2) with the ROADMAP item that brings it (``DEFERRED``)
-or why it has no counterpart (``NO_COUNTERPART``), as are ``--model pair``
-and ``--encoder bert`` (``parse_args``).
+proto, proto_hatt, siamese, gnn, snail, metanet) over the CNN, BiLSTM,
+transformer or BERT encoder, or BERT-PAIR (``--model pair --encoder
+bert``), with the JAX widths ``--proto_metric``, ``--gnn_dim``,
+``--gnn_blocks``, ``--snail_tc_filters``, ``--hidden_size``, ``--tfm_*``,
+``--bert_*`` and ``--routing_iters`` (``--fp16`` is the bf16 alias). The
+BERT paths tokenize with ``BertTokenizer`` (WordPiece over ``--bert_vocab``,
+which sets ``--bert_vocab_size``, else the hash fallback) and load no
+GloVe; ``--bert_weights`` (an .npz of bert-base-uncased weights) is copied
+into the backbone before training or encoding; the CLI's default is the
+fine-tuned backbone, ``--bert_frozen`` freezes it. ``--feature_cache``
+(frozen BERT only) encodes each split once into a table on the card and
+trains the head alone; ``test`` on such a checkpoint rebuilds the backbone
+from the seed and ``bert_weights`` and re-encodes the test split. Every
+other JAX train/test flag is parsed: at its JAX default it is accepted,
+otherwise refused by name (rc 2) with the ROADMAP item that brings it
+(``DEFERRED``) or why it has no counterpart (``NO_COUNTERPART``).
 ``--sampler`` (auto: the C++ sampler for training, numpy for val/test),
 ``--prefetch`` and ``--sampler_threads`` (its ring), ``--prefetch_depth``
 (the host feed's producer queue), ``--mixture`` and ``--feed_fault``
@@ -88,7 +96,7 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p.add_argument("--model", default="induction",
                    choices=["induction", "proto", "proto_hatt", "siamese", "gnn", "snail",
                             "metanet", "pair"],
-                   help="few-shot model (pair = BERT-PAIR: not ported yet)")
+                   help="few-shot model (pair = BERT-PAIR, needs --encoder bert)")
     p.add_argument("--proto_metric", default="euclid", choices=["euclid", "dot"],
                    help="proto similarity")
     p.add_argument("--gnn_dim", type=int, default=64, help="features added per GNN block")
@@ -96,7 +104,7 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p.add_argument("--snail_tc_filters", type=int, default=128)
     p.add_argument("--encoder", default="bilstm",
                    choices=["cnn", "bilstm", "bert", "transformer"],
-                   help="sentence encoder (bert: not ported yet)")
+                   help="sentence encoder")
     p.add_argument("--tfm_layers", type=int, default=4)
     p.add_argument("--tfm_model", type=int, default=256)
     p.add_argument("--tfm_heads", type=int, default=4)
@@ -111,6 +119,21 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p.add_argument("--routing_iters", type=int, default=3,
                    help="dynamic-routing iterations of the induction module")
     p.add_argument("--ntn_slices", type=int, default=100)
+    p.add_argument("--bert_frozen", action="store_true", help="freeze the BERT backbone")
+    p.add_argument("--bert_layers", type=int, default=12)
+    p.add_argument("--bert_hidden", type=int, default=768)
+    p.add_argument("--bert_heads", type=int, default=12)
+    p.add_argument("--bert_intermediate", type=int, default=3072)
+    p.add_argument("--bert_vocab", default=None,
+                   help="vocab.txt for WordPiece (hash fallback if absent)")
+    p.add_argument("--bert_vocab_size", type=int, default=30522,
+                   help="embedding rows in hash-fallback mode")
+    p.add_argument("--bert_weights", default=None, help=".npz of bert-base-uncased weights")
+    p.add_argument("--bert_remat", action="store_true",
+                   help="recompute each BERT layer in the backward (memory vs FLOPs)")
+    p.add_argument("--feature_cache", action="store_true",
+                   help="frozen-encoder feature cache: encode each split once on the card, "
+                        "train the episode head on gathered features (frozen bert only)")
     p.add_argument("--lstm_cs_window", type=int, default=8,
                    help="BiLSTM checkpoint window of the training route "
                         "(0 = the full-residual twin)")
@@ -235,7 +258,6 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
 # default, type, the ROADMAP queue A item that brings it). Given with
 # anything but the default (or a value meaning the same here, _NEUTRAL),
 # each is refused by name (rc 2).
-BERT = "ROADMAP queue A item 6b (BERT, --model pair and the frozen-encoder feature cache)"
 ADV = "ROADMAP queue A item 6c (adversarial domain adaptation)"
 MOE = ("ROADMAP queue A item 6c (the MoE FFN at ep=1; --ep > 1 with item 6d, the sharded "
        "executors)")
@@ -253,11 +275,6 @@ DEFERRED = {
     "--ep": (1, int, MOE), "--sp": (1, int, SHARDED), "--pp": (1, int, STACKED),
     "--tfm_stacked": (False, bool, STACKED), "--tp": (1, int, SHARDED),
     "--pp_microbatches": (4, int, SHARDED),
-    "--bert_frozen": (False, bool, BERT), "--bert_layers": (12, int, BERT),
-    "--bert_hidden": (768, int, BERT), "--bert_heads": (12, int, BERT),
-    "--bert_intermediate": (3072, int, BERT), "--bert_vocab": (None, str, BERT),
-    "--bert_vocab_size": (30522, int, BERT), "--bert_weights": (None, str, BERT),
-    "--bert_remat": (False, bool, BERT), "--feature_cache": (False, bool, BERT),
     "--adv": (None, str, ADV), "--adv_lambda": (1.0, float, ADV),
     "--adv_dis_hidden": (256, int, ADV), "--adv_batch": (32, int, ADV),
     "--dp": (0, int, DP), "--zero_opt": (False, bool, DP), "--compact_demb": ("auto", str, DP),
@@ -302,9 +319,9 @@ def refuse_deferred(parser: argparse.ArgumentParser, args) -> None:
 
 
 def parse_args(train: bool, argv=None):
-    """Parse ``argv``; exit (rc 2) naming the slice that brings ``--model
-    pair``, ``--encoder bert`` or an unported JAX flag given with anything
-    but its default."""
+    """Parse ``argv``; exit (rc 2) naming the slice that brings an unported
+    JAX flag given with anything but its default, and on ``train
+    --bert_weights`` without ``--encoder bert``."""
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
     from induction_network_on_fewrel_tpu_torch.models.build import refuse_later_slices
 
@@ -315,6 +332,8 @@ def parse_args(train: bool, argv=None):
     except ValueError as e:
         parser.error(str(e))
     refuse_deferred(parser, args)
+    if train and args.bert_weights and args.encoder != "bert":
+        parser.error("--bert_weights requires --encoder bert")
     return args
 
 
@@ -332,10 +351,21 @@ def check_degenerate(loss: str, na_rate: int, force: bool) -> None:
 
 
 def config_from_args(args):
+    """The run's ExperimentConfig. Refused before anything is built:
+    ``--feature_cache`` with ``--token_cache``, ``--token_cache`` with
+    ``--model pair``, and for training a feature cache off frozen BERT and
+    an ``--embed_optimizer`` other than shared on the BERT paths."""
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.models.build import check_feature_cache
     from induction_network_on_fewrel_tpu_torch.sampling.index import check_sampler_backend
+    from induction_network_on_fewrel_tpu_torch.train.steps import check_embed_optimizer
 
     check_sampler_backend(args.sampler)
+    if args.feature_cache and args.token_cache:
+        raise ValueError("--token_cache and --feature_cache are exclusive (the feature cache "
+                         "already runs in index mode)")
+    if args.token_cache and args.model == "pair":
+        raise ValueError("--token_cache does not serve --model pair (pair consumes token pairs)")
     training = hasattr(args, "train_iter") and not args.only_test
     if training:
         check_degenerate(args.loss, args.na_rate, args.force)
@@ -344,6 +374,11 @@ def config_from_args(args):
         nota_head=args.nota_head, batch_size=args.batch_size, max_length=args.max_length,
         vocab_size=args.vocab_size, model=args.model, proto_metric=args.proto_metric,
         gnn_dim=args.gnn_dim, gnn_blocks=args.gnn_blocks, snail_tc_filters=args.snail_tc_filters,
+        bert_frozen=args.bert_frozen, bert_layers=args.bert_layers, bert_hidden=args.bert_hidden,
+        bert_heads=args.bert_heads, bert_intermediate=args.bert_intermediate,
+        bert_vocab_size=args.bert_vocab_size, bert_vocab_path=args.bert_vocab,
+        bert_remat=args.bert_remat, bert_weights=args.bert_weights,
+        feature_cache=args.feature_cache,
         encoder=args.encoder, hidden_size=args.hidden_size, tfm_layers=args.tfm_layers,
         tfm_model=args.tfm_model, tfm_heads=args.tfm_heads, tfm_ff=args.tfm_ff,
         lstm_hidden=args.lstm_hidden, induction_dim=args.induction_dim,
@@ -367,6 +402,9 @@ def config_from_args(args):
     else:                   # the JAX test entry point's config: no training loop
         kw.update(train_iter=0, val_step=0)
     cfg = ExperimentConfig(**kw)
+    if training:
+        check_feature_cache(cfg)
+        check_embed_optimizer(cfg)
     if training and cfg.embed_optimizer == "lazy":
         from induction_network_on_fewrel_tpu_torch.train.lazy_embed import require_adam
 
@@ -409,13 +447,49 @@ def load_data(cfg, split: str, args=None):
     )
 
 
+def make_tokenizer(args, cfg):
+    """(tokenizer, cfg, GloVe vectors or None): ``BertTokenizer`` for the
+    BERT paths (a ``--bert_vocab`` file sets ``bert_vocab_size``; no GloVe is
+    loaded), else the GloVe tokenizer over ``load_vocab``, which sets
+    ``vocab_size`` and ``word_dim``."""
+    from induction_network_on_fewrel_tpu_torch.data import BertTokenizer, GloveTokenizer
+
+    if cfg.encoder == "bert":
+        tok = BertTokenizer(cfg.max_length, vocab_path=cfg.bert_vocab_path,
+                            vocab_size=cfg.bert_vocab_size)
+        return tok, cfg.replace(bert_vocab_size=tok.vocab_size), None
+    vocab = load_vocab(args, cfg)
+    if (cfg.vocab_size, cfg.word_dim) != (vocab.vocab_size, vocab.word_dim):
+        cfg = cfg.replace(vocab_size=vocab.vocab_size, word_dim=vocab.word_dim)
+    return GloveTokenizer(vocab, max_length=cfg.max_length), cfg, vocab.vectors
+
+
+def bert_backbone_model(cfg, device):
+    """The full BERT model of ``cfg`` from its seed, with ``bert_weights``
+    (if any) copied into its backbone."""
+    from induction_network_on_fewrel_tpu_torch.models.bert import load_hf_weights
+    from induction_network_on_fewrel_tpu_torch.models.build import build_model
+
+    model = build_model(cfg.replace(feature_cache=False), device=device)
+    if cfg.bert_weights:
+        load_hf_weights(model if cfg.model == "pair" else model.encoder, cfg.bert_weights)
+        print(f"loaded BERT weights from {cfg.bert_weights}", file=sys.stderr)
+    return model
+
+
 def make_trainer(args, cfg, only_test: bool = False):
     """(trainer, test split): vocabulary and data, model (built on
     ``args.device``), samplers (index samplers and device token tables with
-    --token_cache) and logger. A GloVe file sets the config's vocab_size
-    and word_dim (``trainer.cfg``). ``only_test`` builds the test split's
-    (sampler, token table or None) and no train/val samplers, logger file
-    or checkpoint manager; otherwise the test split is None.
+    --token_cache, feature tables with --feature_cache) and logger. A GloVe
+    file sets the config's vocab_size and word_dim, a --bert_vocab file its
+    bert_vocab_size (``trainer.cfg``). ``only_test`` builds the test split's
+    (sampler, table or None) and no train/val samplers, logger file or
+    checkpoint manager; otherwise the test split is None.
+
+    On the BERT paths ``--bert_weights`` goes into the backbone before any
+    step or encoding. With --feature_cache the backbone's full model is
+    built from the seed (and the weights) to encode the splits, and the
+    trainer's model is the head alone.
 
     The train sampler is ``--sampler``'s (auto: the C++ sampler, with its
     ring of ``--prefetch`` batches on the live token path), or a
@@ -424,13 +498,13 @@ def make_trainer(args, cfg, only_test: bool = False):
     steps_per_call batches where the sampler fills fused blocks) with the
     ``--feed_fault`` plan. Val and test samplers are synchronous and, under
     auto, the numpy ones."""
-    from induction_network_on_fewrel_tpu_torch.data import GloveTokenizer
     from induction_network_on_fewrel_tpu_torch.datapipe import FeedFaults, PipelineFeed
     from induction_network_on_fewrel_tpu_torch.models.build import build_model
     from induction_network_on_fewrel_tpu_torch.sampling.native import (
         make_index_sampler,
         make_sampler,
     )
+    from induction_network_on_fewrel_tpu_torch.train.feature_cache import build_feature_table
     from induction_network_on_fewrel_tpu_torch.train.framework import FewShotTrainer
     from induction_network_on_fewrel_tpu_torch.train.token_cache import build_token_table
     from induction_network_on_fewrel_tpu_torch.utils.metrics import MetricsLogger
@@ -439,14 +513,18 @@ def make_trainer(args, cfg, only_test: bool = False):
         path = getattr(args, f"{split}_file", None)
         if path and not os.path.isfile(path):
             raise FileNotFoundError(f"--{split}_file {path}: no such file")
-    if cfg.mixture and cfg.token_cache and not only_test:
-        raise ValueError("--mixture does not combine with --token_cache (an index sampler is "
-                         "bound to one split's device table); drop one of them")
-    vocab = load_vocab(args, cfg)
-    if (cfg.vocab_size, cfg.word_dim) != (vocab.vocab_size, vocab.word_dim):
-        cfg = cfg.replace(vocab_size=vocab.vocab_size, word_dim=vocab.word_dim)
-    tok = GloveTokenizer(vocab, max_length=cfg.max_length)
-    model = build_model(cfg, glove_init=vocab.vectors, device=args.device)
+    if cfg.mixture and (cfg.token_cache or cfg.feature_cache) and not only_test:
+        raise ValueError("--mixture does not combine with --token_cache or --feature_cache (an "
+                         "index sampler is bound to one split's device table); drop one of them")
+    tok, cfg, vectors = make_tokenizer(args, cfg)
+    encoder_model = None
+    if cfg.feature_cache:
+        encoder_model = bert_backbone_model(cfg, args.device)
+        model = build_model(cfg, device=args.device)
+    elif cfg.encoder == "bert" and not only_test:
+        model = bert_backbone_model(cfg, args.device)
+    else:
+        model = build_model(cfg, glove_init=vectors, device=args.device)
 
     def live(ds, n, seed, train=False, prefetch=0):
         return make_sampler(ds, tok, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
@@ -455,9 +533,15 @@ def make_trainer(args, cfg, only_test: bool = False):
 
     def split_of(split, n, seed, lazy=False, train=False):
         ds = load_data(cfg, split, args)
-        if not cfg.token_cache:
+        if encoder_model is not None:
+            table = build_feature_table(encoder_model, ds, tok)
+            print(f"feature cache: {split} split, {table.rows} rows tokenized in "
+                  f"{table.tokenize_s:.3f} s, encoded in {table.encode_s:.3f} s, a "
+                  f"{table.nbytes}-byte table", file=sys.stderr)
+        elif not cfg.token_cache:
             return live(ds, n, seed, train, cfg.prefetch if train and not cfg.mixture else 0), None
-        table = build_token_table(ds, tok, model.device, lazy=lazy)
+        else:
+            table = build_token_table(ds, tok, model.device, lazy=lazy)
         return make_index_sampler(table.sizes, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
                                   na_rate=cfg.na_rate, seed=seed, backend=cfg.sampler,
                                   eval=not train), table
@@ -530,6 +614,11 @@ def _merge_ckpt_architecture(cfg, src: str):
     except FileNotFoundError:
         return cfg
     merged = cfg.merge_architecture_from(saved)
+    if merged.feature_cache and saved.seed != cfg.seed:
+        # The head was trained on the features of the backbone drawn from
+        # the checkpoint's seed; another seed would encode with another one.
+        raise ValueError(f"{src} is a feature-cache checkpoint: its backbone is rebuilt from "
+                         f"its seed, pass --seed {saved.seed} (got {cfg.seed})")
     if merged != cfg:
         print(f"using architecture from {src}/config.json", file=sys.stderr)
     return merged

@@ -4,7 +4,8 @@ The port's own copy of the ``ExperimentConfig`` fields that the serving
 and training paths read (``induction_network_on_fewrel_tpu/config.py``):
 episode geometry, tokenization/embedding, the few-shot model zoo and its
 heads' widths, the CNN, BiLSTM + self-attention and transformer
-encoders (the BiLSTM's training-route knobs), the induction/NTN head, the NOTA
+encoders (the BiLSTM's training-route knobs), the BERT encoder and the
+feature cache, the induction/NTN head, the NOTA
 head, the dtypes, the kernel backends, the optimizer family, the loop
 lengths, the fused-dispatch and grad-probe knobs, the token cache, the
 checkpoint ring, the divergence guard and fault injection, the serving runtime
@@ -47,14 +48,14 @@ class ExperimentConfig:
     vocab_size: int = 400002  # GloVe 400k + [UNK] + [BLANK]
 
     # --- few-shot model (models/build.py dispatches every one) ---
-    model: str = "induction"  # induction | proto | proto_hatt | siamese | gnn | snail | metanet
+    model: str = "induction"  # induction | proto | proto_hatt | siamese | gnn | snail | metanet | pair
     proto_metric: str = "euclid"  # euclid | dot (proto only)
     gnn_dim: int = 64         # features added per GNN block
     gnn_blocks: int = 2
     gnn_adj_hidden: int = 64  # adjacency MLP hidden width
     snail_tc_filters: int = 128
 
-    # --- encoder: cnn | bilstm | transformer ---
+    # --- encoder: cnn | bilstm | transformer | bert ---
     encoder: str = "bilstm"
     hidden_size: int = 230    # CNN filters
     lstm_hidden: int = 128    # per direction
@@ -82,6 +83,17 @@ class ExperimentConfig:
     # by name (models/build.py); they come with ep and pp.
     moe_experts: int = 0
     tfm_stacked: bool = False
+    # BERT (models/bert.py; random init unless --bert_weights names a
+    # .npz of bert-base-uncased weights):
+    bert_layers: int = 12
+    bert_hidden: int = 768
+    bert_heads: int = 12
+    bert_intermediate: int = 3072
+    bert_vocab_size: int = 30522  # bert-base-uncased WordPiece vocab
+    bert_vocab_path: str | None = None  # vocab.txt (None -> hash fallback)
+    bert_frozen: bool = True  # the frozen -> fine-tuned regime's frozen phase
+    bert_weights: str | None = None  # .npz of pretrained weights (or None)
+    bert_remat: bool = False  # torch.utils.checkpoint per layer (memory vs FLOPs)
 
     # --- induction + relation modules ---
     induction_dim: int = 100  # class-vector dim C after the squash transform
@@ -123,9 +135,10 @@ class ExperimentConfig:
     # all-f32 plain-backend reference gradient on the same batch
     # (train/steps.make_grad_probe); 0 = off.
     grad_probe_every: int = 0
-    # Head-only feature-cache checkpoints (no encoder) cannot serve queries;
-    # the serving engine refuses them by name. The feature cache itself
-    # comes with ROADMAP queue A item 6 (it needs the BERT encoder).
+    # Frozen-BERT feature cache (train/feature_cache.py): each split is
+    # encoded once into a [M, H] f32 table on the device and the steps
+    # train the head alone. Its checkpoints hold head-only params, which
+    # the serving engine refuses by name.
     feature_cache: bool = False
     # Device-resident token cache (train/token_cache.py): each split is
     # tokenized once into a [M, L] table on the device; per step only
@@ -183,9 +196,13 @@ class ExperimentConfig:
         "snail_tc_filters",
         "encoder", "hidden_size", "lstm_hidden", "att_dim", "word_dim", "pos_dim",
         "vocab_size", "max_length", "induction_dim", "routing_iters",
-        "ntn_slices", "tfm_layers", "tfm_model", "tfm_heads", "tfm_ff",
+        "ntn_slices", "bert_layers", "bert_hidden", "bert_heads", "bert_intermediate",
+        "bert_vocab_size", "bert_vocab_path", "tfm_layers", "tfm_model", "tfm_heads", "tfm_ff",
         "moe_experts", "tfm_stacked",
         "loss", "optimizer", "embed_optimizer", "nota_head",
+        # A feature-cache checkpoint holds the head alone; the run that
+        # tests it rebuilds the same backbone (seed, frozen flag, weights).
+        "feature_cache", "bert_frozen", "bert_weights",
     )
     # Episode-geometry fields that shape the parameters of some models:
     # gnn/snail bake the N-way label width into their layers and metanet

@@ -1,3 +1,4 @@
+from induction_network_on_fewrel_tpu_torch.data.bert_tokenizer import BertTokenizer  # noqa: F401
 from induction_network_on_fewrel_tpu_torch.data.fewrel import (  # noqa: F401
     FewRelDataset,
     Instance,

@@ -27,8 +27,19 @@ explicit parameters) keeps its name and layout. ``ZOO_PATHS`` lists the
 JAX paths the rule accepts: the CNN's and the transformer's encoder
 layers, proto_hatt's convs and instance attention, siamese's metric,
 gnn's adjacency MLPs and graph layers, snail's attention, causal-conv and
-readout layers, and metanet's slow head and meta-learner. A leaf outside
-both tables raises, in either direction.
+readout layers, metanet's slow head and meta-learner, the BERT backbone
+(``encoder/backbone/...`` under a few-shot model, ``backbone/...`` under
+BERT-PAIR) and BERT-PAIR's match head:
+
+    backbone/tok_emb/embedding, pos_emb, seg_emb      same names, as-is
+    backbone/ln_emb/{scale,bias}                      as-is
+    backbone/layer_i/attention/{qkv,out}/kernel       .weight, kernel^T
+    backbone/layer_i/{intermediate,mlp_out}/kernel    .weight, kernel^T
+    backbone/layer_i/ln_{att,mlp}/{scale,bias}        as-is
+    match_head/{kernel,bias}                          .weight (kernel^T), .bias
+
+(BERT-PAIR's ``nota_logit`` is the flagship's leaf.) A leaf outside both
+tables raises, in either direction.
 """
 
 from __future__ import annotations
@@ -78,6 +89,10 @@ ZOO_PATHS = re.compile("|".join([
     r"out/(kernel|bias)",
     r"w_slow",
     r"meta_[ab][12]",
+    r"(encoder/)?backbone/(tok_emb/embedding|pos_emb|seg_emb)",
+    r"(encoder/)?backbone/(ln_emb|layer_\d+/ln_(att|mlp))/(scale|bias)",
+    r"(encoder/)?backbone/layer_\d+/(attention/(qkv|out)|intermediate|mlp_out)/(kernel|bias)",
+    r"match_head/(kernel|bias)",
 ]))
 # Kernel rank -> the permutation from JAX's layout to torch's.
 TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}

@@ -55,7 +55,7 @@ class FewShotModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embedding.word_embedding.device
+        return next(self.parameters()).device
 
     def encode(self, word, pos1, pos2, mask) -> torch.Tensor:
         """[..., L] token features -> [..., H] sentence vectors (position
@@ -72,7 +72,10 @@ class FewShotModel(nn.Module):
         """(support [B, N, K, L] dict, query [B, TQ, L] dict) ->
         ([B, N, K, H], [B, TQ, H]): ONE encoder call over support ⧺ query
         rows (the encoder is row-independent, so concat-encode-split is
-        exact)."""
+        exact). Encoded rows (the feature cache's [B, N, K, H] and [B, TQ,
+        H] tensors) pass straight through."""
+        if not isinstance(support, dict):
+            return support, query
         L = support["word"].shape[-1]
         if query["word"].shape[-1] != L:
             raise ValueError(

@@ -2,9 +2,12 @@
 
 Counterpart of ``induction_network_on_fewrel_tpu/models/build.py``: the
 models induction, proto, proto_hatt, siamese, gnn, snail and metanet over
-the cnn, bilstm and transformer encoders. The JAX package's ``--model
-pair``, ``--encoder bert``, MoE and the layer-stacked transformer come
-with later slices and are refused by name (``LATER_SLICE``).
+the cnn, bilstm, transformer and bert encoders, and BERT-PAIR (``--model
+pair``, its own backbone). With ``feature_cache`` the model is the head
+alone over encoded rows (``models/bert.CachedFeatures``); its backbone is
+``build_model(cfg.replace(feature_cache=False))``. The JAX package's MoE
+and layer-stacked transformer come with later slices and are refused by
+name (``LATER_SLICE``).
 
 Device rule: ``device=None`` means "cuda". Without CUDA that raises, unless
 the caller asked for ``device="cpu"`` explicitly: there is no silent CPU
@@ -22,6 +25,11 @@ import torch
 
 from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
 from induction_network_on_fewrel_tpu_torch.models.base import FewShotModel
+from induction_network_on_fewrel_tpu_torch.models.bert import (
+    BertEmbeddingPassthrough,
+    BertEncoder,
+    CachedFeatures,
+)
 from induction_network_on_fewrel_tpu_torch.models.embedding import Embedding
 from induction_network_on_fewrel_tpu_torch.models.encoders import (
     BiLSTMSelfAttnEncoder,
@@ -30,6 +38,7 @@ from induction_network_on_fewrel_tpu_torch.models.encoders import (
 from induction_network_on_fewrel_tpu_torch.models.gnn import GNN
 from induction_network_on_fewrel_tpu_torch.models.induction import InductionNetwork
 from induction_network_on_fewrel_tpu_torch.models.metanet import MetaNet
+from induction_network_on_fewrel_tpu_torch.models.pair import PairModel
 from induction_network_on_fewrel_tpu_torch.models.proto import PROTO_METRICS, PrototypicalNetwork
 from induction_network_on_fewrel_tpu_torch.models.proto_hatt import ProtoHATT
 from induction_network_on_fewrel_tpu_torch.models.siamese import SiameseNetwork
@@ -123,10 +132,6 @@ def check_kernel_widths(cfg: ExperimentConfig, device) -> None:
 # The JAX package's models and encoders that come with a later slice, and
 # the ROADMAP queue A item that brings them.
 LATER_SLICE = {
-    "pair": "--model pair (BERT-PAIR) comes with ROADMAP queue A item 6's next slice: BERT, "
-            "--model pair and the frozen-encoder feature cache",
-    "bert": "--encoder bert comes with ROADMAP queue A item 6's next slice: BERT, "
-            "--model pair and the frozen-encoder feature cache",
     "moe": "--moe_experts (the MoE FFN, sharded over ep) comes with ROADMAP queue A item 6's "
            "parallel part (tp, pp, sp ring attention and ep/MoE)",
     "stacked": "tfm_stacked / --pp (the layer-stacked pipeline transformer) comes with ROADMAP "
@@ -134,8 +139,8 @@ LATER_SLICE = {
     "sp": "--sp (ring attention over the token axis) comes with ROADMAP queue A item 6's "
           "parallel part (tp, pp, sp ring attention and ep/MoE)",
 }
-MODELS = ("induction", "proto", "proto_hatt", "siamese", "gnn", "snail", "metanet")
-ENCODERS = ("cnn", "bilstm", "transformer")
+MODELS = ("induction", "proto", "proto_hatt", "siamese", "gnn", "snail", "metanet", "pair")
+ENCODERS = ("cnn", "bilstm", "transformer", "bert")
 # Models whose parameter shapes hold the N-way width.
 N_TIED = tuple(m for m, f in ExperimentConfig.MODEL_GEOMETRY_FIELDS.items() if "n" in f)
 
@@ -144,10 +149,6 @@ def refuse_later_slices(cfg: ExperimentConfig) -> None:
     """Raise ValueError naming the slice that brings a model, encoder or
     transformer option of the JAX package that this package lacks, and
     for any other unknown model or encoder."""
-    if cfg.model == "pair":
-        raise ValueError(f"--model pair is not ported yet: {LATER_SLICE['pair']}")
-    if cfg.encoder == "bert":
-        raise ValueError(f"--encoder bert is not ported yet: {LATER_SLICE['bert']}")
     if cfg.moe_experts > 0:
         raise ValueError(f"moe_experts={cfg.moe_experts} is not ported yet: {LATER_SLICE['moe']}")
     if cfg.tfm_stacked:
@@ -164,11 +165,45 @@ def encoder_output_dim(cfg: ExperimentConfig) -> int:
         return 2 * cfg.lstm_hidden
     if cfg.encoder == "transformer":
         return cfg.tfm_model
+    if cfg.encoder == "bert":
+        return cfg.bert_hidden
     return cfg.hidden_size  # cnn
+
+
+def check_feature_cache(cfg: ExperimentConfig) -> None:
+    """Refuse by name a feature cache the model cannot train on: the cache
+    holds frozen-BERT sentence vectors (the JAX refusals, cli.py:994-1001)."""
+    if not cfg.feature_cache:
+        return
+    if cfg.encoder != "bert" or not cfg.bert_frozen:
+        raise ValueError("--feature_cache requires --encoder bert with the frozen backbone "
+                         "(a trainable encoder would be silently frozen)")
+    if cfg.model == "pair":
+        raise ValueError("--feature_cache cannot serve --model pair: it scores token-level "
+                         "sentence pairs through the backbone")
+
+
+def build_pair(cfg: ExperimentConfig, device, gen: torch.Generator) -> PairModel:
+    """BERT-PAIR (JAX build.py:184-212): it owns its backbone, so it needs
+    ``--encoder bert``, and it has the scalar NOTA logit alone."""
+    if cfg.encoder != "bert":
+        raise ValueError("--model pair requires --encoder bert (token-level sequence-pair input)")
+    if cfg.nota_head != "scalar":
+        raise ValueError("--model pair supports only --nota_head scalar")
+    return PairModel(cfg.bert_vocab_size, cfg.bert_layers, cfg.bert_hidden, cfg.bert_heads,
+                     cfg.bert_intermediate, frozen=cfg.bert_frozen, remat=cfg.bert_remat,
+                     nota=cfg.na_rate > 0, compute_dtype=DTYPES[cfg.compute_dtype],
+                     device=device, generator=gen)
 
 
 def build_encoder(cfg: ExperimentConfig, input_dim: int, device, gen: torch.Generator):
     compute = DTYPES[cfg.compute_dtype]
+    if cfg.encoder == "bert":
+        if cfg.feature_cache:
+            return CachedFeatures(cfg.bert_hidden)
+        return BertEncoder(cfg.bert_vocab_size, cfg.bert_layers, cfg.bert_hidden, cfg.bert_heads,
+                           cfg.bert_intermediate, frozen=cfg.bert_frozen, remat=cfg.bert_remat,
+                           dtype=compute, device=device, generator=gen)
     if cfg.encoder == "cnn":
         return CNNEncoder(input_dim, cfg.hidden_size, compute_dtype=compute, device=device,
                           generator=gen)
@@ -197,9 +232,12 @@ def build_model(
     from a ``torch.Generator`` seeded with ``cfg.seed``; ``glove_init``
     [vocab, word_dim] replaces the word table's random init. Models of
     later slices, N-tied models trained at another N than they are
-    evaluated at, and a BiLSTM too wide for its kernels are refused by
-    name before any parameter is made."""
+    evaluated at, a BiLSTM too wide for its kernels and a feature cache
+    off frozen BERT are refused by name before any parameter is made.
+    The BERT encoder sits behind ``BertEmbeddingPassthrough`` (it owns its
+    token table; ``glove_init`` does not apply)."""
     refuse_later_slices(cfg)
+    check_feature_cache(cfg)
     if cfg.model in N_TIED and cfg.train_n != cfg.n:
         raise ValueError(
             f"model {cfg.model!r} ties parameter shapes to N; --trainN ({cfg.train_n}) "
@@ -211,13 +249,19 @@ def build_model(
     if cfg.encoder == "bilstm":
         check_kernel_widths(cfg, dev)
     gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.model == "pair":
+        return build_pair(cfg, dev, gen)
     compute, head = DTYPES[cfg.compute_dtype], DTYPES[cfg.head_dtype]
-    embedding = Embedding(
-        cfg.vocab_size, cfg.word_dim, cfg.pos_dim, cfg.max_length,
-        glove_init=glove_init, compute_dtype=compute,
-        freeze_word_table=cfg.embed_optimizer == "frozen", device=dev, generator=gen,
-    )
-    encoder = build_encoder(cfg, embedding.output_dim, dev, gen)
+    if cfg.encoder == "bert":
+        embedding = BertEmbeddingPassthrough()
+        encoder = build_encoder(cfg, cfg.bert_hidden, dev, gen)
+    else:
+        embedding = Embedding(
+            cfg.vocab_size, cfg.word_dim, cfg.pos_dim, cfg.max_length,
+            glove_init=glove_init, compute_dtype=compute,
+            freeze_word_table=cfg.embed_optimizer == "frozen", device=dev, generator=gen,
+        )
+        encoder = build_encoder(cfg, embedding.output_dim, dev, gen)
     common = dict(nota=cfg.na_rate > 0, nota_head=cfg.nota_head, head_dtype=head, device=dev)
     if cfg.model == "induction":
         return InductionNetwork(

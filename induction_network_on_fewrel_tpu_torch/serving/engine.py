@@ -240,8 +240,12 @@ class InferenceEngine:
         decides the architecture, its best slot (else its latest) the
         weights. ``lstm_backend``/``attn_backend`` override the stored
         kernel backends; ``glove`` (+ ``glove_mat``) is the vocabulary the
-        model was trained with (the synthetic one of its size otherwise)."""
+        model was trained with (the synthetic one of its size otherwise). A
+        BERT checkpoint owns its embedding: it is served with the
+        ``BertTokenizer`` of its config (``bert_vocab_path``, else the hash
+        fallback) and loads no GloVe."""
         from induction_network_on_fewrel_tpu_torch.data import (
+            BertTokenizer,
             GloveTokenizer,
             load_glove,
             make_synthetic_glove,
@@ -252,16 +256,21 @@ class InferenceEngine:
         cfg = CheckpointManager.load_config(ckpt_dir)
         cfg = cfg.replace(**{k: v for k, v in (("lstm_backend", lstm_backend),
                                                ("attn_backend", attn_backend)) if v is not None})
-        vocab = (load_glove(glove, glove_mat) if glove
-                 else make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim))
-        if (cfg.vocab_size, cfg.word_dim) != (vocab.vocab_size, vocab.word_dim):
-            raise ValueError(
-                f"vocab {vocab.vocab_size}x{vocab.word_dim} does not match the checkpoint's "
-                f"embedding table {cfg.vocab_size}x{cfg.word_dim}: pass the GloVe file the "
-                "model was trained with"
-            )
-        tok = GloveTokenizer(vocab, max_length=cfg.max_length)
-        model = build_model(cfg, glove_init=vocab.vectors, device=device)
+        if cfg.encoder == "bert":
+            tok = BertTokenizer(cfg.max_length, vocab_path=cfg.bert_vocab_path,
+                                vocab_size=cfg.bert_vocab_size)
+            model = build_model(cfg, device=device)
+        else:
+            vocab = (load_glove(glove, glove_mat) if glove else
+                     make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim))
+            if (cfg.vocab_size, cfg.word_dim) != (vocab.vocab_size, vocab.word_dim):
+                raise ValueError(
+                    f"vocab {vocab.vocab_size}x{vocab.word_dim} does not match the checkpoint's "
+                    f"embedding table {cfg.vocab_size}x{cfg.word_dim}: pass the GloVe file the "
+                    "model was trained with"
+                )
+            tok = GloveTokenizer(vocab, max_length=cfg.max_length)
+            model = build_model(cfg, glove_init=vocab.vectors, device=device)
         mngr = CheckpointManager(ckpt_dir)
         try:
             step, which = mngr.restore_best(model), "best"

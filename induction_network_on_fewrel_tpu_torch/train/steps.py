@@ -186,9 +186,27 @@ class ClipDecayOptimizer:
         self.count.fill_(int(state["count"]))
 
 
+def check_embed_optimizer(cfg: ExperimentConfig) -> None:
+    """Refuse ``embed_optimizer`` other than "shared" for a model without a
+    GloVe table: the BERT paths own their embedding and a feature-cache
+    state is the head alone (the JAX refusal, cli.py:810-823)."""
+    if cfg.embed_optimizer == "shared":
+        return
+    what = ("--feature_cache (head-only state, no word table)" if cfg.feature_cache else
+            "--encoder bert (owns its embedding; no GloVe table)" if cfg.encoder == "bert" else
+            None)
+    if what is not None:
+        raise ValueError(f"--embed_optimizer {cfg.embed_optimizer} does not combine with {what}; "
+                         "use --embed_optimizer shared there")
+
+
 def make_optimizer(cfg: ExperimentConfig, model: torch.nn.Module) -> ClipDecayOptimizer:
     """The JAX ``make_optimizer`` chain for ``cfg.optimizer`` and
-    ``cfg.embed_optimizer`` over every parameter of ``model``."""
+    ``cfg.embed_optimizer`` over every parameter of ``model``. A parameter
+    without a gradient (a frozen BERT backbone's) stays in the update with
+    zeros, as the JAX chain's ``stop_gradient`` leaves it: under a weight
+    decay it still moves by the decay term."""
+    check_embed_optimizer(cfg)
     if cfg.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r} (one of {OPTIMIZERS})")
     if cfg.embed_optimizer == "lazy":

@@ -3,7 +3,7 @@
 * One command line, through both packages' ``build_arg_parser`` and
   ``config_from_args``, gives configs whose shared fields are all equal
   (``--routing_iters`` and the ``--fp16`` alias included, the host feed's
-  flags too).
+  flags and the ``--bert_*`` / ``--feature_cache`` flags too).
 * Every flag of both JAX parsers is either parsed by the port at the JAX
   default (a ported flag, or an unported one given its default) or, given
   anything else, refused by name with the ROADMAP item that brings it (or
@@ -37,6 +37,10 @@ ARGVS = {
              "--device", "cpu"],
     "zoo": ["--model", "proto", "--encoder", "cnn", "--hidden_size", "16",
             "--routing_iters", "1", "--token_cache", "--sampler", "python", "--device", "cpu"],
+    "bert": ["--encoder", "bert", "--bert_frozen", "--bert_layers", "2", "--bert_hidden", "32",
+             "--bert_heads", "4", "--bert_intermediate", "64", "--bert_vocab_size", "500",
+             "--bert_vocab", "vocab.txt", "--bert_weights", "bert.npz", "--bert_remat",
+             "--feature_cache", "--fp16", "--device", "cpu"],
 }
 
 

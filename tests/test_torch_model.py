@@ -177,16 +177,30 @@ def test_interop_refuses_unknown_leaves():
     assert len({name for _, name, _ in PARAM_MAP}) == len(PARAM_MAP)
 
 
+@pytest.mark.parametrize("kw", [{"model": "pair", "encoder": "bert"}, {"encoder": "bert"}],
+                         ids=["pair", "bert"])
+def test_build_model_builds_pair_and_bert(kw):
+    """BERT-PAIR and the BERT encoder, refused before their slice, build:
+    BERT-PAIR owns its backbone, the induction head's BERT sits behind the
+    passthrough embedding (parity with JAX: tests/test_torch_bert.py,
+    tests/test_torch_pair.py)."""
+    model = build_model(ExperimentConfig(vocab_size=12, bert_layers=1, bert_hidden=16,
+                                         bert_heads=2, bert_intermediate=32, bert_vocab_size=100,
+                                         **kw), device="cpu")
+    names = [n for n, _ in model.named_parameters()]
+    prefix = "backbone." if kw.get("model") == "pair" else "encoder.backbone."
+    assert f"{prefix}tok_emb.embedding" in names and not any("word_embedding" in n for n in names)
+    assert model.device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("kw,named", [
-    ({"model": "pair"}, "--model pair"), ({"encoder": "bert"}, "--encoder bert"),
     ({"encoder": "transformer", "moe_experts": 4}, "--moe_experts"),
     ({"encoder": "transformer", "tfm_stacked": True}, "tfm_stacked"),
-], ids=["pair", "bert", "moe", "stacked"])
+], ids=["moe", "stacked"])
 def test_build_model_refuses_other_models_and_encoders(kw, named):
-    """The JAX package's models, encoders and transformer layouts of later
-    slices are refused by name, with the ROADMAP item that brings them,
-    before any parameter is made (the zoo itself builds:
-    tests/test_torch_zoo_models.py)."""
+    """The JAX package's transformer layouts of later slices are refused by
+    name, with the ROADMAP item that brings them, before any parameter is
+    made (the zoo itself builds: tests/test_torch_zoo_models.py)."""
     with pytest.raises(ValueError, match=rf"not ported yet: {named}.* ROADMAP queue A item 6"):
         build_model(ExperimentConfig(vocab_size=12, **kw), device="cpu")
 

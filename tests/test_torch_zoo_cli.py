@@ -8,10 +8,10 @@
   the checkpoint, as the JAX ``merge_architecture_from`` does (JAX
   ``tests/test_model_zoo.py:151``), and keeps the runtime's for proto.
 * Refused by name: gnn/snail/metanet with ``--trainN`` other than ``--N``
-  (``build_model`` and the CLI); ``--model pair``, ``--encoder bert``,
-  ``--moe_*``, ``--sp``, ``--pp``, ``--ep`` and ``--tfm_stacked`` on the
-  CLI (rc 2), pair/bert/MoE/stacked in ``build_model``; an unknown proto
-  metric.
+  (``build_model`` and the CLI); ``--moe_*``, ``--sp``, ``--pp``, ``--ep``
+  and ``--tfm_stacked`` on the CLI (rc 2), MoE/stacked in ``build_model``;
+  an unknown proto metric. ``--model pair`` and ``--encoder bert`` run:
+  ``train`` one step at a tiny BERT width, ``test`` builds the model.
 * Serving: a proto checkpoint written by ``cli train`` is refused by name
   through ``InferenceEngine.from_checkpoint`` and ``serve_main``, as the
   JAX engine refuses it.
@@ -88,12 +88,38 @@ def test_n_tied_models_refuse_another_train_n(model):
                   "--train_iter", "1"])
 
 
+BERT_TINY = ["--encoder", "bert", "--bert_layers", "1", "--bert_hidden", "16", "--bert_heads",
+             "2", "--bert_intermediate", "32", "--bert_vocab_size", "200"]
+
+
+@pytest.mark.parametrize("argv", [["--model", "pair"], []], ids=["--model pair", "--encoder bert"])
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_cli_runs_bert_and_pair(tmp_path, capsys, mode, argv):
+    """``--model pair`` and ``--encoder bert``, refused by name before their
+    slice, now run: ``train`` one step at a tiny BERT width, ``test`` parses
+    and builds the model its flags describe."""
+    argv = [*TINY, *BERT_TINY, *argv]
+    if mode == "train":
+        assert cli.main(["train", *argv, "--train_iter", "1", "--val_step", "1", "--val_iter",
+                         "2", "--save_ckpt", str(tmp_path / "c")]) == 0
+        assert "final_val_accuracy" in capsys.readouterr().out
+        return
+    cfg = cli.config_from_args(cli.parse_args(False, argv))
+    model = build_model(cfg, device="cpu")
+    assert (type(model).__name__, cfg.encoder) == (
+        "PairModel" if "pair" in argv else "InductionNetwork", "bert")
+    assert sum(p.numel() for n, p in model.named_parameters() if "backbone" in n) > 0
+
+
+# The ids are the ones these cases had beside the pair and bert cases
+# (argv0, argv1), which now run (test_cli_runs_bert_and_pair).
 @pytest.mark.parametrize("argv,named", [
-    (["--model", "pair"], "--model pair"), (["--encoder", "bert"], "--encoder bert"),
-    (["--moe_experts", "4"], "--moe_experts"), (["--moe_top_k", "1"], "--moe_top_k"),
-    (["--sp", "2"], "--sp"), (["--pp", "2"], "--pp"), (["--ep", "2"], "--ep"),
-    (["--tfm_stacked"], "--tfm_stacked"),
-], ids=lambda v: v if isinstance(v, str) else None)
+    pytest.param(argv, named, id=f"argv{i}-{named}") for i, (argv, named) in enumerate([
+        (["--moe_experts", "4"], "--moe_experts"), (["--moe_top_k", "1"], "--moe_top_k"),
+        (["--sp", "2"], "--sp"), (["--pp", "2"], "--pp"), (["--ep", "2"], "--ep"),
+        (["--tfm_stacked"], "--tfm_stacked"),
+    ], start=2)
+])
 @pytest.mark.parametrize("mode", ["train", "test"])
 def test_cli_refuses_later_slices_by_name(capsys, mode, argv, named):
     with pytest.raises(SystemExit) as e:
