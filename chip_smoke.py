@@ -256,6 +256,32 @@ exits non-zero; no phase catches a failure of its own):
    warmup, every verdict's logits vs the eager scoring at f32 residency
    (2e-2 of scale); p50 per bucket and the host split. The phase's
    seconds.
+14. (run after phase 11) The rest of the single-card zoo, through the
+   CLI's wiring (files under ``build/chip_smoke_slice6c/``, removed at the
+   end). 14a: bare ``--adv`` (the JAX DANN defaults: 32 source and 32
+   target instances a step from the seed-97 synthetic target, a 256-wide
+   discriminator, lambda 1.0) at the flagship config through
+   ``cli.make_trainer``: K7, K8, K10 and K11 vs their plain versions at
+   M = 32, f32 and bf16, at phase 6's bars; every model and
+   discriminator leaf's step-0 gradient within 5e-2 of its own scale
+   against the plain backends (noise leaves left out and printed); one
+   graph step vs one eager step and one S=4 replay vs four S=1 replays
+   (``hold_state``'s bars, the discriminator's state within 1e-6); 20
+   steps and a val pass as graph replays at spc 1, and 20 at spc 4, under
+   the profiler (K7, K8, ``lstm_wgrad``, K10 and K11 three times a step,
+   the optimizer pair twice, K1/K2 once a val batch), losses and domain
+   losses within 2e-2 of the plain backends; the best checkpoint holds the
+   plain model's leaves alone, and ``cli.test_main`` on it runs K1 and K2;
+   the graph's profile beside phase 9's flagship. 14b: ``--adv <file>``
+   (``make_domain_shifted_fewrel``, shift 1.0, as FewRel JSON) through
+   ``cli.train_main``; its domain accuracy per window. 14c: ``--encoder
+   transformer --moe_experts 8`` (ep 1, the JAX defaults): one graph step
+   vs one eager step, 8 steps and a val pass as replays (the pair once a
+   step), ms/step, peak GiB, the share of assignments dropped at capacity.
+   14d: ``--tfm_stacked`` (pp 1): the same, beside the unstacked
+   transformer at the same config in the same call and phase 11's
+   proto/transformer. A ``{"slice6c": ...}`` line; the phase must end
+   within 120 s.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -265,9 +291,11 @@ exits non-zero; no phase catches a failure of its own):
    sum's, phases 9c/9d's and the zoo's, the ``{"feed": ...}`` line of
    phase 9e (``launches_feed_9e`` in the kernels line: its (a) native
    depth-2 run's profiled launches; ``*_bert``: the optimizer pair on
-   phase 13a's parameter list and its launches in phase 13), a
+   phase 13a's parameter list and its launches in phase 13;
+   ``launches_adv``: phase 14a's profiled launches), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
-   ...}`` line of phase 13, the run's seconds, then the last line
+   ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
+   run's seconds, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
@@ -302,13 +330,15 @@ except ModuleNotFoundError as e:    # run from a directory without the port besi
 from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
 from induction_network_on_fewrel_tpu_torch.data import (
     GloveTokenizer,
+    make_domain_shifted_fewrel,
     make_synthetic_fewrel,
     make_synthetic_glove,
 )
 from induction_network_on_fewrel_tpu_torch.kernels.build import LIBRARY, SAMPLER_LIBRARY, SOURCES
 from induction_network_on_fewrel_tpu_torch.models.base import to_device
 from induction_network_on_fewrel_tpu_torch.models.bert import attention_bias
-from induction_network_on_fewrel_tpu_torch.models.build import build_model
+from induction_network_on_fewrel_tpu_torch.models.build import build_model, encoder_output_dim
+from induction_network_on_fewrel_tpu_torch.models.moe import MoeFfn, moe_geometry
 from induction_network_on_fewrel_tpu_torch.ops.attn import (
     attn_bwd,
     attn_bwd_plan,
@@ -375,8 +405,13 @@ from induction_network_on_fewrel_tpu_torch.train.framework import (
 )
 from induction_network_on_fewrel_tpu_torch.train.steps import (
     WORD_TABLE,
+    adv_loss_and_metrics,
+    adv_train_step,
     batch_leaves,
+    init_disc_state,
     loss_and_metrics,
+    make_adv_multi_train_step,
+    make_adv_train_step,
     make_grad_probe,
     make_multi_train_step,
     make_optimizer,
@@ -762,17 +797,19 @@ def attn_checks(gen: torch.Generator) -> dict:
     return rows
 
 
-def train_kernel_checks(gen: torch.Generator, library: dict) -> dict:
+def train_kernel_checks(gen: torch.Generator, library: dict, cases: list | None = None) -> dict:
     """K7, K8, K10 and K11 vs their plain versions at the flagship widths,
     M in {16, 200}, f32 and bf16; W = 8 with residuals in the activation
     dtype, plus a ragged window (W = 6: 40 = 6*6 + 4), the other residual
-    dtype, ragged row tiles (M = 100), and a fully masked attention row."""
+    dtype, ragged row tiles (M = 100), and a fully masked attention row.
+    ``cases``: other (dtype, M, W, residual dtype) cases (phase 14a's M)."""
     dev = torch.device("cuda")
     rows = {}
-    cases = [(dt, M, 8, dt) for dt in (torch.float32, torch.bfloat16) for M in (16, 200)]
-    cases += [(torch.bfloat16, 200, 6, torch.bfloat16), (torch.bfloat16, 16, 8, torch.float32),
-              (torch.float32, 16, 8, torch.bfloat16), (torch.float32, 100, 8, torch.float32),
-              (torch.bfloat16, 100, 8, torch.bfloat16)]
+    if cases is None:
+        cases = [(dt, M, 8, dt) for dt in (torch.float32, torch.bfloat16) for M in (16, 200)]
+        cases += [(torch.bfloat16, 200, 6, torch.bfloat16), (torch.bfloat16, 16, 8, torch.float32),
+                  (torch.float32, 16, 8, torch.bfloat16), (torch.float32, 100, 8, torch.float32),
+                  (torch.bfloat16, 100, 8, torch.bfloat16)]
     for dt, M, W, rdt in cases:
         name = f"{'bf16' if dt == torch.bfloat16 else 'f32'} M={M} W={W} " \
                f"res={'bf16' if rdt == torch.bfloat16 else 'f32'}"
@@ -1696,7 +1733,7 @@ def no_index_add(rows: list, tag: str) -> None:
 
 
 def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile graph",
-                        per_call: tuple = ()) -> dict:
+                        per_call: tuple = (), per_step: dict | None = None) -> dict:
     """The trainer's CUDA-graph step (``steps_per_call`` steps a replay):
     unprofiled ms/step over ``calls`` replays with the host split (sample:
     the episode batches drawn and stacked on the host; copy: into the pinned
@@ -1704,14 +1741,20 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
     previous call's copies; replay: ``graph.replay()`` returning), then
     ``calls`` more under torch.profiler: device busy and launches per step,
     and each kernel of ``on`` launched once per step (K11's two kernels
-    each once), each of ``per_call`` once per replay (the lazy table's
-    catch-up and write-back on the token cache), every other PROFILED
-    kernel never."""
+    each once; ``per_step`` overrides that count: the adversarial step's
+    three encoder calls), each of ``per_call`` once per replay (the lazy
+    table's catch-up and write-back on the token cache), every other
+    PROFILED kernel never. An adversarial trainer's replays take its
+    instance batches too."""
     spc = trainer.cfg.steps_per_call
     graphs = trainer.multi_train_step if spc > 1 else trainer.train_step.graphs
     sampler = trainer.train_sampler
+    adv = getattr(trainer, "adv", None)
 
     def sample():
+        if adv is not None:
+            return batch_leaves(*stack_batches([batch_inputs(sampler.sample_batch())
+                                                for _ in range(spc)]), *adv.sample(spc))
         if spc > 1 and hasattr(sampler, "sample_fused"):        # one fused unit, as trained
             return batch_leaves(*batch_inputs(sampler.sample_fused(spc)))
         return batch_leaves(*stack_batches([batch_inputs(sampler.sample_batch())
@@ -1768,7 +1811,9 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
         raise AssertionError("the profiler saw no kernel in the graph replays")
     per_replay = {k: n / calls for k, n in profiled_counts(rows).items()}
     print(f"[{tag}] hand kernels per replay of {spc} steps: {per_replay}", flush=True)
-    want = {k: float(spc if k.split()[0] in on else 1 if k in per_call else 0) for k in PROFILED}
+    times = per_step or {}
+    want = {k: float(spc * times.get(k.split()[0], 1) if k.split()[0] in on else
+                     1 if k in per_call else 0) for k in PROFILED}
     if per_replay != want:
         # Should the profiler drop a kernel record of a window, a second
         # window of the same replays counts it; a kernel a replay does not
@@ -1868,9 +1913,10 @@ def hold_state(tag: str, got: tuple, want: tuple, table0: torch.Tensor,
             "table_left_out": left_out, "table_moved": moved[1]}
 
 
-def graph_vs_eager(cfg, vocab, batch) -> dict:
+def graph_vs_eager(cfg, vocab, batch, tag: str | None = None) -> dict:
     """One update of the graph step (``make_train_step``) against one eager
     ``train_step`` from the same fresh weights on the same batch."""
+    tag = tag or f"W={cfg.lstm_cs_window}"
     eager, graph = (build_model(cfg, glove_init=vocab.vectors) for _ in range(2))
     opt_e, opt_g = make_optimizer(cfg, eager), make_optimizer(cfg, graph)
     table0 = eager.embedding.word_embedding.detach().clone()
@@ -1878,11 +1924,11 @@ def graph_vs_eager(cfg, vocab, batch) -> dict:
     mg = make_train_step(graph, opt_g, cfg)(*batch)
     loss_rel = abs(float(mg["loss"]) - float(me["loss"])) / abs(float(me["loss"]))
     norm_rel = abs(float(mg["grad_norm"]) - float(me["grad_norm"])) / float(me["grad_norm"])
-    print(f"[graph] W={cfg.lstm_cs_window}: one graph step vs one eager step from the same "
+    print(f"[graph] {tag}: one graph step vs one eager step from the same "
           f"weights: loss rel diff {loss_rel:.3g}, grad norm rel diff {norm_rel:.3g}", flush=True)
     if loss_rel > GRAPH_PARAM_TOL or norm_rel > GRAPH_PARAM_TOL:
         raise AssertionError(f"graph step: loss {loss_rel:.3g} or norm {norm_rel:.3g} differs")
-    held = hold_state(f"graph W={cfg.lstm_cs_window}", (graph, opt_g), (eager, opt_e), table0)
+    held = hold_state(f"graph {tag}", (graph, opt_g), (eager, opt_e), table0)
     return {**held, "loss_rel": loss_rel, "norm_rel": norm_rel}
 
 
@@ -1952,12 +1998,12 @@ def run_trainer(trainer, steps: int, on: tuple, evals: int = 0,
     return launches, wrapped, train_records(trainer.logger.path)
 
 
-def losses_vs(recs: list, ref_recs: list, tag: str) -> tuple[np.ndarray, float]:
+def losses_vs(recs: list, ref_recs: list, tag: str, key: str = "loss") -> tuple[np.ndarray, float]:
     """Per-step losses (one [train] record per dispatch: a fused record is
     the mean of its steps) against the plain-backend run's at the same
-    steps."""
-    ref = {r["step"]: r["loss"] for r in ref_recs}
-    losses = np.array([r["loss"] for r in recs])
+    steps (``key``: another per-step metric, the domain loss)."""
+    ref = {r["step"]: r[key] for r in ref_recs}
+    losses = np.array([r[key] for r in recs])
     if not np.isfinite(losses).all():
         raise AssertionError(f"{tag}: non-finite training loss")
     steps = [r["step"] for r in recs]
@@ -3634,6 +3680,359 @@ def bert_phase(real: dict) -> dict:
 
 # --- The serving plane on a trained checkpoint (phases 4a-4c) -------------------
 
+# --- Phase 14: the rest of the single-card zoo (adversarial, MoE, stacked) ----------
+
+SLICE_DIR = WORK_DIR.parent / "chip_smoke_slice6c"
+ADV_STEPS = 20
+# 14a: the flagship ExperimentConfig with bare --adv at the JAX DANN defaults
+# (--adv_batch 32, --adv_dis_hidden 256, --adv_lambda 1.0), one val pass.
+ADV_ARGV = ["--synthetic", "--bf16", "--adv", "--train_iter", str(ADV_STEPS), "--val_step",
+            str(ADV_STEPS), "--val_iter", "40", *TODAY]
+ADV_M = 32                              # each instance batch's encoder rows
+# An adversarial step runs the encoder three times (the episode's 200 rows,
+# the 32 source and the 32 target instances) and updates two parameter
+# lists (the model's and the discriminator's).
+ENCODER_KERNELS = ("K7", "K8", "K10", "K11", "wgrad")
+ADV_PER_STEP = {**{k: 3 for k in ENCODER_KERNELS}, "optim_sumsq": 2, "optim_update": 2}
+ADV_ON = ("K7", "K8") + STEP_KERNELS
+ADV_FILE_STEPS = 100                    # 14b: two metric windows of 50 steps
+SLICE_STEPS = 8
+# 14c/14d: the transformer at the JAX widths (4 x 256, 4 heads, FFN 1024)
+# under the induction head, the flagship episode and step, 4 steps a replay.
+TFM_ARGV = ["--synthetic", "--bf16", "--encoder", "transformer", "--steps_per_call", "4",
+            "--train_iter", str(SLICE_STEPS), "--val_step", str(SLICE_STEPS), "--val_iter", "40",
+            *TODAY]
+# README's --moe_experts 8 at ep=1; every other --moe_* at its JAX default
+# (top-k 2, capacity 2.0, every 2nd block, groups of 512, aux weight 1e-2).
+MOE_FLAGS = ["--moe_experts", "8"]
+SLICE_SECONDS = 120
+
+
+def adv_expect(steps: int, graphs: int) -> dict:
+    """Profiled launches of ``steps`` adversarial steps as replays of
+    ``graphs`` captured graphs: each encoder kernel three times a step and a
+    graph's warm-up (an eager forward and backward), the optimizer pair
+    twice a step and once a warm-up (on scratch tensors)."""
+    out = {}
+    for k in PROFILED:
+        n = ADV_PER_STEP.get(k.split()[0])
+        if n is not None:
+            out[k] = n * steps + (3 if n == 3 else 1) * graphs
+    return out
+
+
+def adv_batches(cfg, tok, pieces, n: int) -> list:
+    """``n`` (support, query, label, src, tgt) batches: the episode sampler
+    of the run's seed and ``pieces``' instance samplers."""
+    s = EpisodeSampler(cli.load_data(cfg, "train"), tok, cfg.n, cfg.k, cfg.q,
+                       batch_size=cfg.batch_size, seed=cfg.seed)
+    return [batch_to_model_inputs(s.sample_batch()) + pieces.sample() for _ in range(n)]
+
+
+def stack_adv(batches: list) -> tuple:
+    return stack_batches([b[:3] for b in batches]) + tuple(
+        {k: np.stack([b[j][k] for b in batches]) for k in batches[0][j]} for j in (3, 4))
+
+
+def adv_grads(model, disc, cfg, batch) -> dict:
+    """Gradients of the adversarial objective on one batch (no update): the
+    model's leaves and the discriminator's (``disc.*``)."""
+    sup, qry, label, src, tgt = batch
+    for m in (model, disc):
+        m.zero_grad(set_to_none=True)
+    loss, _ = adv_loss_and_metrics(model, disc, cfg, to_device(sup, "cuda"),
+                                   to_device(qry, "cuda"), torch.as_tensor(label).cuda(),
+                                   to_device(src, "cuda"), to_device(tgt, "cuda"))
+    loss.backward()
+    g = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    g.update({f"disc.{n}": p.grad.detach().clone() for n, p in disc.named_parameters()})
+    for m in (model, disc):
+        m.zero_grad(set_to_none=True)
+    return g
+
+
+def adv_pair(cfg, vocab) -> list:
+    """Two fresh (model, optimizer, discriminator state) from the seeds."""
+    out = []
+    for _ in range(2):
+        model = build_model(cfg, glove_init=vocab.vectors)
+        out.append((model, make_optimizer(cfg, model),
+                    init_disc_state(cfg, encoder_output_dim(cfg), "cuda")))
+    return out
+
+
+def hold_adv(tag: str, got: tuple, want: tuple, table0: torch.Tensor) -> dict:
+    """``hold_state`` on the models, then the discriminators: counts equal,
+    parameters and moments within GRAPH_PARAM_TOL of their scale."""
+    (model, opt, disc), (ref_model, ref_opt, ref_disc) = got, want
+    held = hold_state(tag, (model, opt), (ref_model, ref_opt), table0)
+    if int(disc.opt.count) != int(ref_disc.opt.count):
+        raise AssertionError(f"{tag}: discriminator count {int(disc.opt.count)} != "
+                             f"{int(ref_disc.opt.count)}")
+    worst = 0.0
+    for xs, ys in ((disc.opt.params, ref_disc.opt.params), (disc.opt.mu, ref_disc.opt.mu),
+                   (disc.opt.nu, ref_disc.opt.nu)):
+        for a, b in zip(xs, ys):
+            worst = max(worst, rel_err(a.detach(), b.detach())[1])
+    print(f"[{tag}] discriminator count {int(disc.opt.count)}, parameters and moments worst rel "
+          f"{worst:.3g} (tol {GRAPH_PARAM_TOL})", flush=True)
+    if worst > GRAPH_PARAM_TOL:
+        raise AssertionError(f"{tag}: discriminator state relative error {worst:.3g}")
+    return {**held, "disc_rel": worst}
+
+
+def adv_metrics_rel(got: dict, want: list, tag: str) -> float:
+    """The worst relative difference of the step metrics (``want``: one
+    dict per step) over the losses and the norm."""
+    worst = 0.0
+    for key in ("loss", "domain_loss", "grad_norm"):
+        ref = torch.stack([torch.as_tensor(m[key]).reshape(()) for m in want]).float()
+        worst = max(worst, rel_err(torch.as_tensor(got[key]).float().reshape(-1), ref)[1])
+    if worst > GRAPH_PARAM_TOL:
+        raise AssertionError(f"{tag}: step metrics relative error {worst:.3g}")
+    return worst
+
+
+def adv_graph_checks(cfg, vocab, first, four: list) -> tuple[dict, dict]:
+    """One graph step vs one eager step, and one S=4 replay vs four S=1
+    replays, each from the same fresh weights on the same batches."""
+    (eager, opt_e, de), (graph, opt_g, dg) = adv_pair(cfg, vocab)
+    table0 = eager.embedding.word_embedding.detach().clone()
+    me = adv_train_step(eager, opt_e, de, cfg, *first)
+    mg = make_adv_train_step(graph, opt_g, dg, cfg)(*first)
+    rel = adv_metrics_rel(mg, [me], "14a graph vs eager")
+    g_vs_e = {**hold_adv("14a graph vs eager", (graph, opt_g, dg), (eager, opt_e, de), table0),
+              "metrics_rel": rel}
+    del eager, graph, opt_e, opt_g
+    (single, opt_s, ds_), (fused, opt_f, df) = adv_pair(cfg, vocab)
+    table0 = single.embedding.word_embedding.detach().clone()
+    step = make_adv_train_step(single, opt_s, ds_, cfg)
+    ms = [step(*b) for b in four]
+    mf = make_adv_multi_train_step(fused, opt_f, df, cfg)(*stack_adv(four))
+    rel = adv_metrics_rel(mf, ms, "14a S=4 vs 4 x S=1")
+    f_vs_s = {**hold_adv("14a S=4 vs 4 x S=1", (fused, opt_f, df), (single, opt_s, ds_), table0),
+              "metrics_rel": rel}
+    print(f"[14a] one graph step vs one eager step: metrics rel {g_vs_e['metrics_rel']:.3g}; "
+          f"one S=4 replay vs four S=1 replays: metrics rel {f_vs_s['metrics_rel']:.3g} "
+          f"(tol {GRAPH_PARAM_TOL})", flush=True)
+    return g_vs_e, f_vs_s
+
+
+def adv_phase(tr: dict, gen: torch.Generator, card: str) -> dict:
+    """14a: bare ``--adv`` at the flagship config through ``cli.make_trainer``."""
+    ckpt, ref_dir = SLICE_DIR / "adv", SLICE_DIR / "adv_reference"
+    args = cli.build_arg_parser(train=True).parse_args(ADV_ARGV + ["--save_ckpt", str(ckpt)])
+    cfg = cli.config_from_args(args)
+    trainer, _ = cli.make_trainer(args, cfg)        # the model is built on the card
+    trainer.metric_window = 1
+    model, disc = trainer.model, trainer.adv.disc
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    tok = GloveTokenizer(vocab, max_length=cfg.max_length)
+    train_ds = cli.load_data(cfg, "train")
+
+    def pieces(m):
+        """Fresh instance samplers and a discriminator from their seeds."""
+        return cli.adv_pieces(args, cfg, tok, train_ds, m)
+
+    print(f"[14a] --adv (synthetic target, seed 97): adv_batch {cfg.adv_batch} x 2, "
+          f"adv_dis_hidden {cfg.adv_dis_hidden}, adv_lambda {cfg.adv_lambda}; encoder rows a "
+          f"step {cfg.batch_size * cfg.n * (cfg.k + cfg.q)} + {ADV_M} + {ADV_M}; "
+          f"discriminator {sum(p.numel() for p in disc.module.parameters())} parameters; {card}",
+          flush=True)
+    kchecks = train_kernel_checks(gen, {}, [(torch.float32, ADV_M, 8, torch.float32),
+                                            (torch.bfloat16, ADV_M, 8, torch.bfloat16)])
+
+    first = adv_batches(cfg, tok, pieces(model), 1)[0]
+    ref_cfg = cfg.replace(lstm_backend="reference", attn_backend="reference")
+    f32_cfg = ref_cfg.replace(compute_dtype="float32")
+    ref_model = build_model(ref_cfg, glove_init=vocab.vectors)
+    ref_model.load_state_dict(model.state_dict())
+    f32_model = build_model(f32_cfg, glove_init=vocab.vectors)
+    f32_model.load_state_dict(model.state_dict())
+    grads = grads_vs(adv_grads(model, disc.module, cfg, first),
+                     adv_grads(ref_model, disc.module, ref_cfg, first),
+                     adv_grads(f32_model, disc.module, f32_cfg, first), "14a adv")
+    del f32_model
+    graph, fused = adv_graph_checks(cfg, vocab, first, adv_batches(cfg, tok, pieces(model), 4))
+
+    evals = 40 // cfg.batch_size                    # --val_iter 40, one val pass
+    launches, wrapped, recs = run_trainer(trainer, ADV_STEPS, ADV_ON + ("K1", "K2"), evals,
+                                          expect=adv_expect(ADV_STEPS, 1))
+    if len(recs) != ADV_STEPS or not (ckpt / "best.pt").exists():
+        raise AssertionError(f"14a: {len(recs)} train records, best.pt missing?")
+    ref_trainer = FewShotTrainer(
+        ref_model, ref_cfg, EpisodeSampler(train_ds, tok, cfg.n, cfg.k, cfg.q,
+                                           batch_size=cfg.batch_size, seed=cfg.seed),
+        logger=MetricsLogger(ref_dir, quiet=True), metric_window=1, adv=pieces(ref_model))
+    ref_trainer.train(ADV_STEPS)
+    ref_trainer.close()
+    ref_recs = train_records(ref_dir / "metrics.jsonl")
+    rel = {k: losses_vs(recs, ref_recs, f"14a {k}", k)[1] for k in ("loss", "domain_loss")}
+
+    cfg4 = cfg.replace(steps_per_call=4)
+    m4 = build_model(cfg4, glove_init=vocab.vectors)
+    trainer4 = FewShotTrainer(
+        m4, cfg4, EpisodeSampler(train_ds, tok, cfg.n, cfg.k, cfg.q, batch_size=cfg.batch_size,
+                                 seed=cfg.seed),
+        logger=MetricsLogger(SLICE_DIR / "adv_spc4", quiet=True), metric_window=1,
+        adv=pieces(m4))
+    launches4, _, recs4 = run_trainer(trainer4, ADV_STEPS, ADV_ON,
+                                      expect=adv_expect(ADV_STEPS, 1))
+    rel4 = {k: losses_vs(recs4, ref_recs, f"14a spc4 {k}", k)[1] for k in ("loss", "domain_loss")}
+    print(f"[14a] {ADV_STEPS} steps as graph replays at steps_per_call 1 and 4: launches "
+          f"(profiler) {launches} / {launches4}; wrapper counts (warm-up and capture) {wrapped}; "
+          f"losses {np.round([r['loss'] for r in recs], 5).tolist()}; domain losses "
+          f"{np.round([r['domain_loss'] for r in recs], 5).tolist()}; vs plain backends: "
+          f"{rel} (spc 1), {rel4} (spc 4; tol {LOSS_REL_TOL})", flush=True)
+
+    saved = set(CheckpointManager(ckpt).params("best"))
+    if saved != set(model.state_dict()):
+        raise AssertionError(f"14a: the checkpoint's leaves differ from the model's: "
+                             f"{sorted(saved ^ set(model.state_dict()))}")
+    bilstm_infer_cuda.launches = attn_fwd_cuda.launches = 0
+    rc, out, err = quiet_cli(cli.test_main, ["--synthetic", "--bf16", "--load_ckpt", str(ckpt),
+                                             "--test_iter", "40"])
+    served = {"K1": bilstm_infer_cuda.launches, "K2": attn_fwd_cuda.launches}
+    result = json.loads(out.strip().splitlines()[-1])
+    if rc != 0 or min(served.values()) == 0 or not 0.0 <= result["test_accuracy"] <= 1.0:
+        raise AssertionError(f"14a test_main: rc {rc}, {served}, {result}, {err[-2000:]!r}")
+    print(f"[14a] the checkpoint holds the plain model's {len(saved)} leaves and no "
+          f"discriminator leaf; test_main on it: {result}, wrapper launches {served}", flush=True)
+
+    prof1 = profile_graph_steps(trainer, ADV_ON, tag="profile 14a adv", per_step=ADV_PER_STEP)
+    prof4 = profile_graph_steps(trainer4, ADV_ON, tag="profile 14a adv spc4",
+                                per_step=ADV_PER_STEP)
+    for tag, p, base in (("spc 1", prof1, tr["prof1"]), ("spc 4", prof4, tr["prof4"])):
+        print(f"[14a] {tag}: {p['step_ms']:.3f} ms/step unprofiled, busy {p['busy_ms']:.3f} "
+              f"ms/step ({p['busy_share']:.1%} of wall), {p['launches']:.1f} launches/step; "
+              f"phase 9's flagship in this call {base['step_ms']:.3f} ms/step, busy "
+              f"{base['busy_ms']:.3f}, {base['launches']:.1f} launches/step ({card})", flush=True)
+    close_trainer(trainer)
+    close_trainer(trainer4)
+    return {"kernel_checks_m32": {f"{k} {n}": {"err": r["err"], "tol": r["tol"], "ms": r["ms"],
+                                               "plain_ms": r["plain_ms"],
+                                               "bound_ms": r["bound_ms"]}
+                                  for (k, n), r in kchecks.items()},
+            "grads": grads, "graph_vs_eager": graph, "fused_vs_single": fused,
+            "launches": launches, "launches_spc4": launches4, "loss_rel": rel,
+            "loss_rel_spc4": rel4, "test": result, "test_launches": served,
+            "checkpoint_leaves": len(saved),
+            **{f"{k}{sfx}": p[k] for sfx, p in (("", prof1), ("_spc4", prof4))
+               for k in ("step_ms", "busy_ms", "busy_share")},
+            "launches_per_step": prof1["launches"], "launches_per_step_spc4": prof4["launches"],
+            "flagship_step_ms": tr["prof1"]["step_ms"],
+            "flagship_spc4_step_ms": tr["prof4"]["step_ms"]}
+
+
+def adv_file_phase(cfg) -> dict:
+    """14b: ``--adv <file>``: the domain-shifted twin of the synthetic
+    relations (shift 1.0) written as FewRel JSON, through ``cli.train_main``."""
+    shifted = make_domain_shifted_fewrel(num_relations=10, instances_per_relation=30,
+                                         vocab_size=cfg.vocab_size - 2, shift=1.0, seed=0)
+    path = SLICE_DIR / "target_shifted.json"
+    path.write_text(json.dumps({rel: [fewrel_record(i) for i in shifted.instances[rel]]
+                                for rel in shifted.rel_names}))
+    ckpt = SLICE_DIR / "adv_file"
+    rc, _, err = quiet_cli(cli.train_main, [
+        "--synthetic", "--bf16", "--adv", str(path), "--steps_per_call", "4", "--train_iter",
+        str(ADV_FILE_STEPS), "--val_step", str(ADV_FILE_STEPS), "--val_iter", "40",
+        "--save_ckpt", str(ckpt), *TODAY])
+    recs = train_records(ckpt / "metrics.jsonl")
+    if rc != 0 or len(recs) != 2 or not all(np.isfinite(r["domain_loss"]) for r in recs):
+        raise AssertionError(f"14b: rc {rc}, {recs}, {err[-2000:]!r}")
+    out = {f"steps_{r['step']}": {k: r[k] for k in ("loss", "domain_loss", "domain_accuracy",
+                                                    "episodes_per_s")} for r in recs}
+    print(f"[14b] --adv {path.name} (make_domain_shifted_fewrel shift 1.0, 10 relations x 30): "
+          f"{ADV_FILE_STEPS} steps through train_main; per 50-step window {out}", flush=True)
+    return out
+
+
+def transformer_trainer(flags: list, name: str):
+    args = cli.build_arg_parser(train=True).parse_args(
+        TFM_ARGV + flags + ["--save_ckpt", str(SLICE_DIR / name)])
+    cfg = cli.config_from_args(args)
+    trainer, _ = cli.make_trainer(args, cfg)
+    trainer.metric_window = 1
+    return trainer, cfg
+
+
+def transformer_phase(tag: str, flags: list, name: str, vocab, tok) -> tuple[dict, object]:
+    """One graph step vs one eager step from the same weights, then
+    SLICE_STEPS steps and a val pass as graph replays (the optimizer pair
+    once a step, no other hand kernel), then the graph's profile."""
+    trainer, cfg = transformer_trainer(flags, name)
+    s = EpisodeSampler(cli.load_data(cfg, "train"), tok, cfg.n, cfg.k, cfg.q,
+                       batch_size=cfg.batch_size, seed=cfg.seed)
+    graph = graph_vs_eager(cfg, vocab, batch_to_model_inputs(s.sample_batch()), tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches, _, recs = run_trainer(trainer, SLICE_STEPS, OPTIM_ON, evals_per_pass(trainer))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in recs]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: non-finite losses {losses}")
+    prof = profile_graph_steps(trainer, OPTIM_ON, calls=4, tag=f"profile {tag}")
+    out = {"graph_vs_eager": graph, "launches": launches, "losses": losses, "peak_gib": peak,
+           "tensors": len(list(trainer.model.parameters())),
+           "launches_per_step": prof["launches"],
+           **{k: prof[k] for k in ("step_ms", "episodes_per_s", "busy_ms", "busy_share")}}
+    return out, trainer
+
+
+def slice_phase(tr: dict, zoo: dict, gen: torch.Generator, card: str) -> dict:
+    """Phase 14: 14a the adversarial step, 14b its target file, 14c the MoE
+    transformer, 14d the stacked transformer, each through the CLI."""
+    t0 = time.monotonic()
+    shutil.rmtree(SLICE_DIR, ignore_errors=True)
+    SLICE_DIR.mkdir(parents=True)
+    out = {"card": card, "a_adv": adv_phase(tr, gen, card)}
+    cfg = ExperimentConfig()
+    out["b_adv_file"] = adv_file_phase(cfg)
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    tok = GloveTokenizer(vocab, max_length=cfg.max_length)
+
+    moe, trainer = transformer_phase("14c moe", MOE_FLAGS, "moe", vocab, tok)
+    layers = [m for m in trainer.model.modules() if isinstance(m, MoeFfn)]
+    tc = trainer.cfg
+    T = tc.batch_size * tc.n * (tc.k + tc.q) * tc.max_length
+    _, S, G, C = moe_geometry(T, tc.moe_experts, tc.moe_top_k, tc.moe_capacity,
+                              tc.moe_group_size)
+    moe.update(moe_layers=len(layers), tokens=T, groups=G, group_size=S, capacity=C,
+               dispatch_bytes=G * S * 8 * C * 4,
+               drop_share=[float(m.drop_share) for m in layers])
+    print(f"[14c] --moe_experts 8 (ep 1): {len(layers)} MoE layers over {T} tokens a step in "
+          f"{G} groups of {S}, capacity {C}; dispatch/combine [{G}, {S}, 8, {C}] f32 "
+          f"({moe['dispatch_bytes'] / 1e6:.1f} MB each); share of assignments dropped at "
+          f"capacity (last step, per layer) {moe['drop_share']}; peak {moe['peak_gib']:.2f} GiB; "
+          f"{moe['step_ms']:.3f} ms/step, busy {moe['busy_ms']:.3f} ms/step "
+          f"({moe['busy_share']:.1%}), {moe['launches_per_step']:.1f} launches/step; {card}",
+          flush=True)
+    close_trainer(trainer)
+
+    stacked, trainer = transformer_phase("14d stacked", ["--tfm_stacked"], "stacked", vocab, tok)
+    close_trainer(trainer)
+    flat, trainer = transformer_trainer([], "unstacked")
+    prof = profile_graph_steps(flat, OPTIM_ON, calls=4, tag="profile 14d unstacked")
+    close_trainer(flat)
+    stacked["unstacked"] = {k: prof[k] for k in ("step_ms", "busy_ms", "busy_share", "launches")}
+    stacked["phase11_proto_transformer_step_ms"] = zoo["proto/transformer"]["step_ms"]
+    print(f"[14d] --tfm_stacked (pp 1): {stacked['step_ms']:.3f} ms/step, busy "
+          f"{stacked['busy_ms']:.3f}, {stacked['launches_per_step']:.1f} launches/step; the unstacked "
+          f"transformer at the same config in this call {prof['step_ms']:.3f} ms/step, busy "
+          f"{prof['busy_ms']:.3f}, {prof['launches']:.1f} launches/step; phase 11's "
+          f"proto/transformer {stacked['phase11_proto_transformer_step_ms']:.3f} ms/step; "
+          f"{card}", flush=True)
+    out.update(c_moe=moe, d_stacked=stacked)
+    shutil.rmtree(SLICE_DIR, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t0
+    print(f"[slice6c] phase 14 in {out['seconds']:.1f} s (limit {SLICE_SECONDS} s; {card})",
+          flush=True)
+    if out["seconds"] > SLICE_SECONDS:
+        raise AssertionError(f"phase 14 took {out['seconds']:.1f} s > {SLICE_SECONDS} s")
+    return out
+
+
 SERVE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
 SERVE_KERNELS = {"K1": bilstm_infer_cuda, "K2": attn_fwd_cuda}
 SERVE_BUCKETS = (1, 2, 4, 8, 16)
@@ -4330,6 +4729,10 @@ def main() -> int:
     # 11. The few-shot model zoo (11c on phase 9c's files)
     zoo = zoo_phase(real)
 
+    # 14. The rest of the single-card zoo: the adversarial step, the MoE and
+    # the stacked transformer
+    slice6c = slice_phase(tr, zoo, gen, smi)
+
     # 13. BERT-base: fine-tuned, frozen, the feature cache (13c on 9c's files),
     # BERT-PAIR, served
     bert = bert_phase(real)
@@ -4355,6 +4758,7 @@ def main() -> int:
     # Phase 9e(a)'s main path: the flagship on the C++ sampler behind the feed.
     feed_launches = feed["a_flagship"]["rows"]["native d2"]["launches"]
 
+    adv_launches = slice6c["a_adv"]["launches"]
     kernels = []
     for key, name, src, replaces in (
         ("K1", "bilstm_infer_fwd", "induction_network_on_fewrel_tpu_torch/csrc/bilstm_infer.cu",
@@ -4499,6 +4903,13 @@ def main() -> int:
             **({k: r[k] for k in ("materialize_ms", "materialize_bound_ms",
                                   "materialize_moved_rows")} if key == "lazy_catchup" else {}),
         })
+    # Phase 14a's profiled launches (20 adversarial steps and a val pass):
+    # each kernel by its PROFILED key; the split recurrence is off that path.
+    profiled_key = {"bilstm_infer_fwd": "K1", "attn_fwd": "K2", "bilstm_win_fwd": "K7",
+                    "bilstm_win_bwd": "K8", "attn_fwd_stats": "K10", "attn_bwd": "K11",
+                    "bilstm_full_fwd": "K4", "bilstm_full_bwd": "K6", "lstm_wgrad": "wgrad"}
+    for k in kernels:
+        k["launches_adv"] = adv_launches.get(profiled_key.get(k["name"], k["name"]), 0)
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -4524,6 +4935,7 @@ def main() -> int:
                                   "serve_main": serve4a, "correctness_load": serve4b,
                                   "sweep": serve4c}}), flush=True)
     print(json.dumps({"bert": bert}), flush=True)
+    print(json.dumps({"slice6c": slice6c}), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,8 +59,14 @@ head (mse with ``--na_rate >= 3`` is refused without ``--force``);
 episode indices; ``--embed_optimizer lazy`` is exact lazy Adam on the word
 table (Adam only; without ``--token_cache`` it warns); ``--divergence_guard
 stop`` restores the best checkpoint on a val collapse and ends the run;
-``--fault_step`` injects a crash on a fresh run. ``--optimizer``,
-``--weight_decay``, ``--lr_step_size`` and ``--grad_clip`` choose the
+``--fault_step`` injects a crash on a fresh run. ``--moe_*`` (the MoE FFN in
+every ``--moe_every``-th transformer block, its load-balance term in the
+objective) and ``--tfm_stacked`` (the layer-stacked transformer) run on one
+card (``--ep``/``--pp`` 1); ``train --adv [TARGET_FILE]`` is FewRel 2.0
+adversarial adaptation (the DANN step against a domain discriminator over
+``--adv_batch`` source and target instances a step; bare ``--adv`` is the
+synthetic target domain), with ``--adv_lambda`` and ``--adv_dis_hidden``.
+``--optimizer``, ``--weight_decay``, ``--lr_step_size`` and ``--grad_clip`` choose the
 update; ``--steps_per_call`` steps run per dispatch (one CUDA-graph replay
 on the card), ``--eval_steps_per_call`` eval batches,
 ``--metric_window_calls`` dispatches per metric record, and
@@ -77,6 +83,8 @@ import json
 import os
 import sys
 import warnings
+
+from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE, SHARDED
 
 
 def build_arg_parser(train: bool) -> argparse.ArgumentParser:
@@ -109,6 +117,20 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p.add_argument("--tfm_model", type=int, default=256)
     p.add_argument("--tfm_heads", type=int, default=4)
     p.add_argument("--tfm_ff", type=int, default=1024)
+    p.add_argument("--moe_experts", type=int, default=0,
+                   help="MoE: route every --moe_every-th transformer block through this many "
+                        "experts (0 = dense MLP everywhere)")
+    p.add_argument("--moe_top_k", type=int, default=2)
+    p.add_argument("--moe_capacity", type=float, default=2.0,
+                   help="expert capacity factor (tokens past capacity are dropped)")
+    p.add_argument("--moe_every", type=int, default=2)
+    p.add_argument("--moe_group_size", type=int, default=512,
+                   help="tokens per routing group (bounds the [G, S, E, C] one-hots)")
+    p.add_argument("--moe_aux_weight", type=float, default=1e-2,
+                   help="load-balance aux loss weight (training objective only)")
+    p.add_argument("--tfm_stacked", action="store_true",
+                   help="layer-stacked transformer parameters [NL, ...], a loop over the layer "
+                        "axis on one card (the pipeline-parallel layout)")
     p.add_argument("--hidden_size", type=int, default=230, help="CNN filters")
     p.add_argument("--max_length", type=int, default=40)
     p.add_argument("--vocab_size", type=int, default=400002,
@@ -198,6 +220,17 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                    help="FewRel-schema JSON; synthetic if omitted")
     p.add_argument("--val_file", default=None)
     p.add_argument("--test_file", default=None)
+    if train:
+        p.add_argument("--adv", nargs="?", const="synthetic", default=None,
+                       metavar="TARGET_FILE",
+                       help="FewRel 2.0 adversarial adaptation against this unlabeled "
+                            "target-domain FewRel-schema JSON; bare --adv uses a synthetic "
+                            "target domain")
+        p.add_argument("--adv_lambda", type=float, default=1.0,
+                       help="gradient-reversal scale on the encoder")
+        p.add_argument("--adv_dis_hidden", type=int, default=256)
+        p.add_argument("--adv_batch", type=int, default=32,
+                       help="unlabeled instances per domain per step")
     p.add_argument("--glove", default=None, help="GloVe json (word2id or combined) or .txt")
     p.add_argument("--glove_mat", default=None, help=".npy matrix for a word2id json")
     p.add_argument("--synthetic", action="store_true",
@@ -247,8 +280,6 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
         why = f"not ported yet: {why}" if flag in DEFERRED else f"no counterpart: {why}"
         if kind is bool:
             later.add_argument(flag, action="store_true", help=why)
-        elif flag == "--adv":
-            later.add_argument(flag, nargs="?", const="synthetic", default=None, help=why)
         else:
             later.add_argument(flag, type=kind, default=default, help=why)
     return p
@@ -258,25 +289,14 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
 # default, type, the ROADMAP queue A item that brings it). Given with
 # anything but the default (or a value meaning the same here, _NEUTRAL),
 # each is refused by name (rc 2).
-ADV = "ROADMAP queue A item 6c (adversarial domain adaptation)"
-MOE = ("ROADMAP queue A item 6c (the MoE FFN at ep=1; --ep > 1 with item 6d, the sharded "
-       "executors)")
-STACKED = ("ROADMAP queue A item 6c (the layer-stacked transformer at pp=1; --pp > 1 with item "
-           "6d, the sharded executors)")
-SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention, pp, ep)"
 DP = ("ROADMAP queue A item 5 (data parallel: compact demb, ZeRO-1, bucketed gradients, "
       "async collectives)")
 OBS = "ROADMAP queue A item 7b (observability and the checkpoint manager's leftovers)"
-ADAPT = "ROADMAP queue A item 7b (obs/adapt.py, after item 6c's train/finetune.py)"
+ADAPT = "ROADMAP queue A item 7b (obs/adapt.py with its train/finetune.py)"
 DEFERRED = {
-    "--moe_experts": (0, int, MOE), "--moe_top_k": (2, int, MOE),
-    "--moe_capacity": (2.0, float, MOE), "--moe_every": (2, int, MOE),
-    "--moe_group_size": (512, int, MOE), "--moe_aux_weight": (1e-2, float, MOE),
-    "--ep": (1, int, MOE), "--sp": (1, int, SHARDED), "--pp": (1, int, STACKED),
-    "--tfm_stacked": (False, bool, STACKED), "--tp": (1, int, SHARDED),
+    "--ep": (1, int, LATER_SLICE["ep"]), "--pp": (1, int, LATER_SLICE["pp"]),
+    "--sp": (1, int, LATER_SLICE["sp"]), "--tp": (1, int, SHARDED),
     "--pp_microbatches": (4, int, SHARDED),
-    "--adv": (None, str, ADV), "--adv_lambda": (1.0, float, ADV),
-    "--adv_dis_hidden": (256, int, ADV), "--adv_batch": (32, int, ADV),
     "--dp": (0, int, DP), "--zero_opt": (False, bool, DP), "--compact_demb": ("auto", str, DP),
     "--grad_bucketing": ("auto", str, DP), "--grad_bucket_count": (4, int, DP),
     "--async_collectives": ("auto", str, DP),
@@ -301,9 +321,8 @@ NO_COUNTERPART = {
 # Values other than the JAX default that mean the same on one card.
 _NEUTRAL = {"--dp": (1,), "--ckpt_stage": ("off",), "--compile_cache": ("off",)}
 # The JAX package has these on its train parser only.
-TRAIN_ONLY = {"--adv", "--adv_lambda", "--adv_dis_hidden", "--adv_batch", "--tensorboard",
-              "--profile", "--profile_steps", "--perf", "--debug_nans", "--nan_inject_step",
-              "--watchdog", "--chaos"} | {f for f in DEFERRED if f.startswith("--adapt")}
+TRAIN_ONLY = {"--tensorboard", "--profile", "--profile_steps", "--perf", "--debug_nans",
+              "--nan_inject_step", "--watchdog", "--chaos"} | {f for f in DEFERRED if f.startswith("--adapt")}
 
 
 def refuse_deferred(parser: argparse.ArgumentParser, args) -> None:
@@ -320,15 +339,23 @@ def refuse_deferred(parser: argparse.ArgumentParser, args) -> None:
 
 def parse_args(train: bool, argv=None):
     """Parse ``argv``; exit (rc 2) naming the slice that brings an unported
-    JAX flag given with anything but its default, and on ``train
-    --bert_weights`` without ``--encoder bert``."""
+    JAX flag given with anything but its default, naming an MoE or stacked
+    option the model would not honor (``check_transformer_options``), and
+    on ``train --bert_weights`` without ``--encoder bert``."""
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
-    from induction_network_on_fewrel_tpu_torch.models.build import refuse_later_slices
+    from induction_network_on_fewrel_tpu_torch.models.build import (
+        check_transformer_options,
+        refuse_later_slices,
+    )
 
     parser = build_arg_parser(train)
     args = parser.parse_args(argv)
     try:
-        refuse_later_slices(ExperimentConfig(model=args.model, encoder=args.encoder))
+        cfg = ExperimentConfig(model=args.model, encoder=args.encoder, tfm_layers=args.tfm_layers,
+                               moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+                               moe_every=args.moe_every, tfm_stacked=args.tfm_stacked)
+        refuse_later_slices(cfg)
+        check_transformer_options(cfg)
     except ValueError as e:
         parser.error(str(e))
     refuse_deferred(parser, args)
@@ -350,11 +377,31 @@ def check_degenerate(loss: str, na_rate: int, force: bool) -> None:
         )
 
 
+def check_adv(cfg) -> None:
+    """Refuse by name what the adversarial step cannot train (the JAX
+    refusals, cli.py:812-814, :1004, :1086)."""
+    if not cfg.adv:
+        return
+    if cfg.embed_optimizer == "lazy":
+        raise ValueError("--embed_optimizer lazy does not combine with --adv (the DANN step); "
+                         "use --embed_optimizer shared there")
+    if cfg.feature_cache:
+        raise ValueError("--feature_cache excludes --adv: the domain game trains the encoder, "
+                         "which the cache freezes out of the step")
+    if cfg.token_cache:
+        raise ValueError("--token_cache does not serve --adv (the DANN domain samplers stream "
+                         "separate unlabeled instances)")
+    if cfg.model == "pair":
+        raise ValueError("--adv does not serve --model pair (it scores sentence pairs; the "
+                         "domain game needs a sentence encoder)")
+
+
 def config_from_args(args):
     """The run's ExperimentConfig. Refused before anything is built:
     ``--feature_cache`` with ``--token_cache``, ``--token_cache`` with
-    ``--model pair``, and for training a feature cache off frozen BERT and
-    an ``--embed_optimizer`` other than shared on the BERT paths."""
+    ``--model pair``, and for training a feature cache off frozen BERT, an
+    ``--embed_optimizer`` other than shared on the BERT paths and ``--adv``
+    with lazy, the feature cache, the token cache or ``--model pair``."""
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
     from induction_network_on_fewrel_tpu_torch.models.build import check_feature_cache
     from induction_network_on_fewrel_tpu_torch.sampling.index import check_sampler_backend
@@ -381,6 +428,9 @@ def config_from_args(args):
         feature_cache=args.feature_cache,
         encoder=args.encoder, hidden_size=args.hidden_size, tfm_layers=args.tfm_layers,
         tfm_model=args.tfm_model, tfm_heads=args.tfm_heads, tfm_ff=args.tfm_ff,
+        moe_experts=args.moe_experts, moe_top_k=args.moe_top_k, moe_capacity=args.moe_capacity,
+        moe_every=args.moe_every, moe_group_size=args.moe_group_size,
+        moe_aux_weight=args.moe_aux_weight, tfm_stacked=args.tfm_stacked,
         lstm_hidden=args.lstm_hidden, induction_dim=args.induction_dim,
         routing_iters=args.routing_iters, ntn_slices=args.ntn_slices, lstm_cs_window=args.lstm_cs_window,
         lstm_residuals=args.lstm_residuals, lstm_backend=args.lstm_backend,
@@ -398,11 +448,14 @@ def config_from_args(args):
     )
     if hasattr(args, "train_iter"):
         kw.update(train_iter=args.train_iter, val_iter=args.val_iter, val_step=args.val_step,
-                  grad_probe_every=args.grad_probe_every, fault_step=args.fault_step)
+                  grad_probe_every=args.grad_probe_every, fault_step=args.fault_step,
+                  adv=args.adv is not None, adv_lambda=args.adv_lambda,
+                  adv_dis_hidden=args.adv_dis_hidden, adv_batch=args.adv_batch)
     else:                   # the JAX test entry point's config: no training loop
         kw.update(train_iter=0, val_step=0)
     cfg = ExperimentConfig(**kw)
     if training:
+        check_adv(cfg)
         check_feature_cache(cfg)
         check_embed_optimizer(cfg)
     if training and cfg.embed_optimizer == "lazy":
@@ -531,8 +584,10 @@ def make_trainer(args, cfg, only_test: bool = False):
                             na_rate=cfg.na_rate, seed=seed, backend=cfg.sampler,
                             prefetch=prefetch, num_threads=cfg.sampler_threads, eval=not train)
 
+    datasets = {}
+
     def split_of(split, n, seed, lazy=False, train=False):
-        ds = load_data(cfg, split, args)
+        ds = datasets[split] = load_data(cfg, split, args)
         if encoder_model is not None:
             table = build_feature_table(encoder_model, ds, tok)
             print(f"feature cache: {split} split, {table.rows} rows tokenized in "
@@ -553,16 +608,46 @@ def make_trainer(args, cfg, only_test: bool = False):
                                 lazy=cfg.embed_optimizer == "lazy")
     if cfg.mixture:
         train_s = mixture_sampler(cfg, args, train_s, live)
+    # The adversarial loop draws single batches (the JAX draw order).
     unit = cfg.steps_per_call if cfg.steps_per_call > 1 and hasattr(train_s, "sample_fused") \
-        else 1
+        and not cfg.adv else 1
     train_s = PipelineFeed(train_s, prefetch_depth=cfg.prefetch_depth, unit=unit,
                            faults=FeedFaults.parse(cfg.feed_fault),
                            stream_tag=f"mixture={cfg.mixture};seed={cfg.seed}")
     val_s, val_t = split_of("val", cfg.n, cfg.seed + 1)
+    adv = adv_pieces(args, cfg, tok, datasets["train"], model) if cfg.adv else None
     trainer = FewShotTrainer(model, cfg, train_s, val_s, ckpt_dir=args.save_ckpt,
                              logger=MetricsLogger(args.save_ckpt), train_table=train_t,
-                             val_table=val_t)
+                             val_table=val_t, adv=adv)
     return trainer, None
+
+
+def adv_pieces(args, cfg, tok, train_ds, model):
+    """The adversarial loop's ``AdvPieces``: the target domain (``--adv``'s
+    FewRel-schema file, or for bare ``--adv`` the JAX package's synthetic
+    target, seed 97), a fresh discriminator (``init_disc_state``) and the
+    source and target ``InstanceSampler``s (seeds seed+31 and seed+32)."""
+    from induction_network_on_fewrel_tpu_torch.data import load_fewrel_json, make_synthetic_fewrel
+    from induction_network_on_fewrel_tpu_torch.models.build import encoder_output_dim
+    from induction_network_on_fewrel_tpu_torch.sampling.episodes import InstanceSampler
+    from induction_network_on_fewrel_tpu_torch.train.framework import AdvPieces
+    from induction_network_on_fewrel_tpu_torch.train.steps import init_disc_state
+
+    if args.adv != "synthetic":
+        if not os.path.isfile(args.adv):
+            raise FileNotFoundError(f"--adv {args.adv}: no such file")
+        tgt_ds = load_fewrel_json(args.adv)
+    else:
+        # A synthetic "other domain": its own seed, so the discriminator has
+        # a real signal to separate.
+        tgt_ds = make_synthetic_fewrel(
+            num_relations=max(cfg.train_n, cfg.n) * 2,
+            instances_per_relation=max(cfg.k + cfg.q + 5, 20),
+            vocab_size=cfg.vocab_size - 2, seed=97)
+    return AdvPieces(
+        disc=init_disc_state(cfg, encoder_output_dim(cfg), model.device),
+        src_sampler=InstanceSampler(train_ds, tok, cfg.adv_batch, seed=cfg.seed + 31),
+        tgt_sampler=InstanceSampler(tgt_ds, tok, cfg.adv_batch, seed=cfg.seed + 32))
 
 
 def mixture_sampler(cfg, args, train_sampler, live):

@@ -8,9 +8,11 @@ encoders (the BiLSTM's training-route knobs), the BERT encoder and the
 feature cache, the induction/NTN head, the NOTA
 head, the dtypes, the kernel backends, the optimizer family, the loop
 lengths, the fused-dispatch and grad-probe knobs, the token cache, the
-checkpoint ring, the divergence guard and fault injection, the serving runtime
-knobs (resident dtype, parity probe, geometry tiers), the host feed (sampler
-backend, prefetch, mixture, feed faults) and the seed. Names
+checkpoint ring, the divergence guard and fault injection, the transformer's
+MoE FFN and layer-stacked layout, FewRel 2.0 adversarial adaptation
+(``adv*``), the serving runtime knobs (resident dtype, parity probe,
+geometry tiers), the host feed (sampler backend, prefetch, mixture, feed
+faults) and the seed. Names
 and defaults are the JAX package's, so a config built with the same
 keywords describes the same model in both packages, and the
 ``config.json`` a checkpoint writes loads into the JAX config too. The
@@ -73,15 +75,23 @@ class ExperimentConfig:
     # dtype of the checkpoints or of the cs stream.
     lstm_cs_window: int = 8
     lstm_residuals: str = "auto"
-    # Transformer encoder (models/transformer.py, the dense path):
+    # Transformer encoder (models/transformer.py):
     tfm_layers: int = 4
     tfm_model: int = 256
     tfm_heads: int = 4
     tfm_ff: int = 1024
-    # The JAX package's MoE FFN and layer-stacked (pipeline) transformer:
-    # kept only so that a config or checkpoint asking for them is refused
-    # by name (models/build.py); they come with ep and pp.
+    # Mixture-of-Experts FFN (models/moe.py): 0 = dense MLP everywhere;
+    # > 0 routes every ``moe_every``-th block through that many experts
+    # (on one card: the JAX package's ep=1).
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity: float = 2.0
+    moe_every: int = 2
+    moe_group_size: int = 512  # tokens per routing group (memory knob)
+    moe_aux_weight: float = 1e-2  # load-balance aux loss weight
+    # Layer-stacked transformer (models/pipeline_transformer.py): the
+    # pipeline-parallel parameter layout, run as a loop over the layer axis
+    # on one card (the JAX package's pp=1).
     tfm_stacked: bool = False
     # BERT (models/bert.py; random init unless --bert_weights names a
     # .npz of bert-base-uncased weights):
@@ -157,6 +167,12 @@ class ExperimentConfig:
     # a fresh run (a --resume continues past it); 0 = off.
     fault_step: int = 0
 
+    # --- FewRel 2.0 adversarial domain adaptation (training-time only) ---
+    adv: bool = False         # train encoder against a domain discriminator
+    adv_lambda: float = 1.0   # gradient-reversal scale (encoder side)
+    adv_dis_hidden: int = 256 # discriminator MLP width
+    adv_batch: int = 32       # unlabeled instances per domain per step
+
     # --- serving runtime knobs (not architecture fields) ---
     # Dtype of the resident per-tenant class matrix: "f32", "bf16" or
     # "int8" (per-tenant symmetric f32 scale, dequantized in the head).
@@ -198,7 +214,9 @@ class ExperimentConfig:
         "vocab_size", "max_length", "induction_dim", "routing_iters",
         "ntn_slices", "bert_layers", "bert_hidden", "bert_heads", "bert_intermediate",
         "bert_vocab_size", "bert_vocab_path", "tfm_layers", "tfm_model", "tfm_heads", "tfm_ff",
-        "moe_experts", "tfm_stacked",
+        # moe_top_k/moe_capacity are runtime routing knobs (no parameter
+        # shape depends on them); experts/every shape the tree.
+        "moe_experts", "moe_every", "tfm_stacked",
         "loss", "optimizer", "embed_optimizer", "nota_head",
         # A feature-cache checkpoint holds the head alone; the run that
         # tests it rebuilds the same backbone (seed, frozen flag, weights).

@@ -10,6 +10,7 @@ from induction_network_on_fewrel_tpu_torch.data.tokenizer import (  # noqa: F401
     TokenizedInstance,
 )
 from induction_network_on_fewrel_tpu_torch.data.synthetic import (  # noqa: F401
+    make_domain_shifted_fewrel,
     make_synthetic_fewrel,
     make_synthetic_glove,
 )

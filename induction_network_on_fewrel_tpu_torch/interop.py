@@ -38,8 +38,17 @@ BERT-PAIR) and BERT-PAIR's match head:
     backbone/layer_i/ln_{att,mlp}/{scale,bias}        as-is
     match_head/{kernel,bias}                          .weight (kernel^T), .bias
 
-(BERT-PAIR's ``nota_logit`` is the flagship's leaf.) A leaf outside both
-tables raises, in either direction.
+(BERT-PAIR's ``nota_logit`` is the flagship's leaf.) The transformer's
+MoE blocks (``encoder/moe_i/router/{kernel,bias}`` a Dense;
+``encoder/moe_i/experts_{up,down}[_bias]`` as-is, the expert kernels in
+the JAX [E, in, out] layout) and the layer-stacked encoder
+(``encoder/in_proj``, ``encoder/stack_*`` and ``encoder/final_ln_*``, as-is:
+the stacked kernels are explicit [NL, in, out] parameters) follow the same
+rule. A leaf outside both tables raises, in either direction.
+
+``disc_params_from_jax`` / ``disc_params_to_jax`` carry the adversarial
+step's discriminator (``fc1``, ``fc2``, ``out``: Dense layers) the same
+way.
 """
 
 from __future__ import annotations
@@ -80,6 +89,10 @@ ZOO_PATHS = re.compile("|".join([
     r"encoder/(in_proj|(qkv|att_out|intermediate|mlp_out)_\d+)/(kernel|bias)",
     r"encoder/((ln_att|ln_mlp)_\d+|ln_final)/(scale|bias)",
     r"encoder/pos_embedding",
+    r"encoder/moe_\d+/router/(kernel|bias)",
+    r"encoder/moe_\d+/experts_(up|down)(_bias)?",
+    r"encoder/stack_(ln[12]_(scale|bias)|qkv_[wb]|att_out_[wb]|mlp_(up|down)_[wb])",
+    r"encoder/final_ln_(scale|bias)",
     r"(Conv_[012]|Dense_0)/(kernel|bias)",
     r"metric_[wvb]",
     r"adj_(\d+|out)/Dense_[012]/(kernel|bias)",
@@ -158,4 +171,34 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.array(arr, order="C")    # keeps a 0-d leaf 0-d
+    return tree
+
+
+DISC_PATHS = re.compile(r"(fc1|fc2|out)/(kernel|bias)")
+
+
+def disc_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``DomainDiscriminator`` params -> the port's state_dict."""
+    flat = _flatten(tree)
+    unknown = sorted("/".join(p) for p in flat if not DISC_PATHS.fullmatch("/".join(p)))
+    if unknown:
+        raise KeyError(f"discriminator params without a torch counterpart: {unknown}")
+    out = {}
+    for (layer, leaf), arr in flat.items():
+        arr = np.asarray(arr)
+        name = f"{layer}.{'weight' if leaf == 'kernel' else 'bias'}"
+        out[name] = torch.from_numpy(np.array(arr.T if leaf == "kernel" else arr, order="C"))
+    return out
+
+
+def disc_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's discriminator state_dict -> the JAX params tree."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        layer, leaf = name.split(".")
+        if not DISC_PATHS.fullmatch(f"{layer}/{'kernel' if leaf == 'weight' else leaf}"):
+            raise KeyError(f"discriminator param without a JAX counterpart: {name}")
+        arr = t.detach().cpu().numpy()
+        tree.setdefault(layer, {})["kernel" if leaf == "weight" else "bias"] = np.array(
+            arr.T if leaf == "weight" else arr, order="C")
     return tree

@@ -5,9 +5,11 @@ models induction, proto, proto_hatt, siamese, gnn, snail and metanet over
 the cnn, bilstm, transformer and bert encoders, and BERT-PAIR (``--model
 pair``, its own backbone). With ``feature_cache`` the model is the head
 alone over encoded rows (``models/bert.CachedFeatures``); its backbone is
-``build_model(cfg.replace(feature_cache=False))``. The JAX package's MoE
-and layer-stacked transformer come with later slices and are refused by
-name (``LATER_SLICE``).
+``build_model(cfg.replace(feature_cache=False))``. The transformer takes
+the MoE FFN (``moe_experts > 0``, ``models/moe.py``) or the layer-stacked
+layout (``tfm_stacked``, ``models/pipeline_transformer.py``), both on one
+card; their sharded executors (``--ep``/``--pp`` > 1) and ring attention
+(``--sp``) come with ROADMAP item 6d (``LATER_SLICE``).
 
 Device rule: ``device=None`` means "cuda". Without CUDA that raises, unless
 the caller asked for ``device="cpu"`` explicitly: there is no silent CPU
@@ -15,7 +17,8 @@ fall back on the entry points.
 
 ``batch_to_model_inputs`` is the counterpart of the JAX function of the
 same name for an ``EpisodeBatch``: numpy (support, query, label) with the
-same wire dtypes (int16 positions, int8 mask).
+same wire dtypes (int16 positions, int8 mask); ``instance_inputs`` the same
+for the adversarial step's ``InstanceBatch``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ from induction_network_on_fewrel_tpu_torch.models.gnn import GNN
 from induction_network_on_fewrel_tpu_torch.models.induction import InductionNetwork
 from induction_network_on_fewrel_tpu_torch.models.metanet import MetaNet
 from induction_network_on_fewrel_tpu_torch.models.pair import PairModel
+from induction_network_on_fewrel_tpu_torch.models.pipeline_transformer import (
+    PipelinedTransformerEncoder,
+)
 from induction_network_on_fewrel_tpu_torch.models.proto import PROTO_METRICS, PrototypicalNetwork
 from induction_network_on_fewrel_tpu_torch.models.proto_hatt import ProtoHATT
 from induction_network_on_fewrel_tpu_torch.models.siamese import SiameseNetwork
@@ -129,15 +135,13 @@ def check_kernel_widths(cfg: ExperimentConfig, device) -> None:
         )
 
 
-# The JAX package's models and encoders that come with a later slice, and
-# the ROADMAP queue A item that brings them.
+# The JAX package's sharded executors: the ROADMAP queue A item that brings
+# them (the CLI refuses --ep, --pp and --sp above 1 by name with these).
+SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention, pp, ep)"
 LATER_SLICE = {
-    "moe": "--moe_experts (the MoE FFN, sharded over ep) comes with ROADMAP queue A item 6's "
-           "parallel part (tp, pp, sp ring attention and ep/MoE)",
-    "stacked": "tfm_stacked / --pp (the layer-stacked pipeline transformer) comes with ROADMAP "
-               "queue A item 6's parallel part (tp, pp, sp ring attention and ep/MoE)",
-    "sp": "--sp (ring attention over the token axis) comes with ROADMAP queue A item 6's "
-          "parallel part (tp, pp, sp ring attention and ep/MoE)",
+    "ep": SHARDED + "; --ep 1 runs the MoE FFN on one card",
+    "pp": SHARDED + "; --pp 1 with --tfm_stacked runs the layer-stacked transformer on one card",
+    "sp": SHARDED,
 }
 MODELS = ("induction", "proto", "proto_hatt", "siamese", "gnn", "snail", "metanet", "pair")
 ENCODERS = ("cnn", "bilstm", "transformer", "bert")
@@ -146,17 +150,37 @@ N_TIED = tuple(m for m, f in ExperimentConfig.MODEL_GEOMETRY_FIELDS.items() if "
 
 
 def refuse_later_slices(cfg: ExperimentConfig) -> None:
-    """Raise ValueError naming the slice that brings a model, encoder or
-    transformer option of the JAX package that this package lacks, and
-    for any other unknown model or encoder."""
-    if cfg.moe_experts > 0:
-        raise ValueError(f"moe_experts={cfg.moe_experts} is not ported yet: {LATER_SLICE['moe']}")
-    if cfg.tfm_stacked:
-        raise ValueError(f"tfm_stacked is not ported yet: {LATER_SLICE['stacked']}")
+    """Raise ValueError for an unknown model or encoder."""
     if cfg.model not in MODELS:
         raise ValueError(f"unknown model {cfg.model!r} (one of {MODELS})")
     if cfg.encoder not in ENCODERS:
         raise ValueError(f"unknown encoder {cfg.encoder!r} (one of {ENCODERS})")
+
+
+def check_transformer_options(cfg: ExperimentConfig) -> None:
+    """Refuse by name an MoE or stacked configuration the model would
+    silently not honor (the JAX ``build.py:159-182``): experts or the
+    stacked layout off the transformer, MoE without an expert layer (or
+    with no expert chosen per token), and the stacked layout with MoE."""
+    if cfg.moe_experts > 0:
+        if cfg.encoder != "transformer":
+            raise ValueError("--moe_experts requires --encoder transformer (the MoE FFN lives in "
+                             "the transformer blocks; other encoders have no MoE path and would "
+                             "silently train dense)")
+        if cfg.tfm_layers < cfg.moe_every:
+            raise ValueError(
+                f"--moe_experts with --moe_every {cfg.moe_every} > --tfm_layers "
+                f"{cfg.tfm_layers} would create zero expert layers (block i is MoE when "
+                "(i+1) % moe_every == 0): the model would silently train dense")
+        if cfg.moe_top_k < 1:
+            raise ValueError(f"--moe_top_k must be >= 1, got {cfg.moe_top_k}")
+    if cfg.tfm_stacked:
+        if cfg.encoder != "transformer":
+            raise ValueError("--tfm_stacked requires --encoder transformer (the stacked layers "
+                             "are transformer layers)")
+        if cfg.moe_experts > 0:
+            raise ValueError("--tfm_stacked (the layer-stacked transformer) does not compose "
+                             "with MoE; drop --moe_experts or --tfm_stacked")
 
 
 def encoder_output_dim(cfg: ExperimentConfig) -> int:
@@ -207,10 +231,17 @@ def build_encoder(cfg: ExperimentConfig, input_dim: int, device, gen: torch.Gene
     if cfg.encoder == "cnn":
         return CNNEncoder(input_dim, cfg.hidden_size, compute_dtype=compute, device=device,
                           generator=gen)
+    if cfg.encoder == "transformer" and cfg.tfm_stacked:
+        return PipelinedTransformerEncoder(input_dim, cfg.tfm_layers, cfg.tfm_model,
+                                           cfg.tfm_heads, cfg.tfm_ff, cfg.max_length,
+                                           compute_dtype=compute, device=device, generator=gen)
     if cfg.encoder == "transformer":
         return TransformerEncoder(input_dim, cfg.tfm_layers, cfg.tfm_model, cfg.tfm_heads,
                                   cfg.tfm_ff, cfg.max_length, compute_dtype=compute,
-                                  device=device, generator=gen)
+                                  num_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
+                                  moe_capacity=cfg.moe_capacity, moe_every=cfg.moe_every,
+                                  moe_group_size=cfg.moe_group_size, device=device,
+                                  generator=gen)
     backends = resolve_runtime_backends(cfg, device)
     return BiLSTMSelfAttnEncoder(
         input_dim, cfg.lstm_hidden, cfg.att_dim,
@@ -230,13 +261,15 @@ def build_model(
 ) -> FewShotModel:
     """Fresh ``cfg.model`` over ``cfg.encoder`` with f32 parameters drawn
     from a ``torch.Generator`` seeded with ``cfg.seed``; ``glove_init``
-    [vocab, word_dim] replaces the word table's random init. Models of
-    later slices, N-tied models trained at another N than they are
+    [vocab, word_dim] replaces the word table's random init. Unknown
+    models and encoders, MoE or stacked options the model would not honor
+    (``check_transformer_options``), N-tied models trained at another N than they are
     evaluated at, a BiLSTM too wide for its kernels and a feature cache
     off frozen BERT are refused by name before any parameter is made.
     The BERT encoder sits behind ``BertEmbeddingPassthrough`` (it owns its
     token table; ``glove_init`` does not apply)."""
     refuse_later_slices(cfg)
+    check_transformer_options(cfg)
     check_feature_cache(cfg)
     if cfg.model in N_TIED and cfg.train_n != cfg.n:
         raise ValueError(
@@ -301,3 +334,10 @@ def batch_to_model_inputs(batch) -> tuple[dict, dict, np.ndarray]:
         "mask": batch.query_mask.astype(np.int8),
     }
     return support, query, batch.label
+
+
+def instance_inputs(batch) -> dict:
+    """InstanceBatch (numpy) -> the token dict of its rows, with the wire
+    dtypes of ``batch_to_model_inputs``."""
+    return {"word": batch.word, "pos1": batch.pos1.astype(np.int16),
+            "pos2": batch.pos2.astype(np.int16), "mask": batch.mask.astype(np.int8)}

@@ -1,7 +1,7 @@
-"""Transformer sentence encoder, the dense single-device path.
+"""Transformer sentence encoder, the single-device path.
 
 Counterpart of ``induction_network_on_fewrel_tpu/models/transformer.py``
-(``TransformerEncoder`` with ``attn_impl=None`` and no experts): an input
+(``TransformerEncoder`` with ``attn_impl=None``): an input
 projection plus a learned position embedding (``normal(0.02)``, not
 truncated), pre-LN blocks (LayerNorm, fused qkv projection, dense masked
 attention, output projection, residual; LayerNorm, tanh-approximated GELU
@@ -12,9 +12,13 @@ with f32 statistics (``models/layers.LayerNorm``), ``nn.gelu``'s tanh
 approximation, and attention masked with -1e30 in the compute dtype with
 its softmax in f32 (``dense_attention``).
 
-The JAX encoder's ring attention (``--sp``), MoE FFN (``--moe_experts``,
-``--ep``) and layer-stacked layout (``--pp``, ``tfm_stacked``) come with
-the parallel slices; ``models/build.py`` refuses them by name.
+With ``num_experts > 0`` every ``moe_every``-th block (block i with
+(i+1) % moe_every == 0) has the routed expert FFN ``moe_{i}``
+(``models/moe.MoeFfn``, fed the sentence mask) in place of its dense MLP,
+as the JAX encoder at ep=1. The layer-stacked layout is
+``models/pipeline_transformer.py``; ring attention (``--sp``) and the
+sharded executors come with ROADMAP item 6d (``models/build.py`` refuses
+them by name).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from torch import nn
 
 from induction_network_on_fewrel_tpu_torch.models.embedding import normal_param
 from induction_network_on_fewrel_tpu_torch.models.layers import Dense, LayerNorm
+from induction_network_on_fewrel_tpu_torch.models.moe import MoeFfn
 from induction_network_on_fewrel_tpu_torch.ops.core import masked_mean
 
 _NEG = -1e30
@@ -46,8 +51,9 @@ def dense_attention(q, k, v, kv_mask=None):
 class TransformerEncoder(nn.Module):
     def __init__(self, input_dim: int, num_layers: int = 4, d_model: int = 256,
                  num_heads: int = 4, d_ff: int = 1024, max_length: int = 40,
-                 compute_dtype: torch.dtype = torch.float32, *, device,
-                 generator: torch.Generator):
+                 compute_dtype: torch.dtype = torch.float32, num_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity: float = 2.0, moe_every: int = 2,
+                 moe_group_size: int = 512, *, device, generator: torch.Generator):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"tfm_model {d_model} is not a multiple of tfm_heads {num_heads}")
@@ -56,13 +62,20 @@ class TransformerEncoder(nn.Module):
         kw = dict(device=device, generator=generator)
         self.pos_embedding = normal_param(generator, (max_length, d_model), 0.02, device)
         self.in_proj = Dense(input_dim, d_model, cd, **kw)
+        self.moe_blocks = frozenset(i for i in range(num_layers)
+                                    if num_experts > 0 and (i + 1) % moe_every == 0)
         for i in range(num_layers):
             self.add_module(f"ln_att_{i}", LayerNorm(d_model, cd, device=device))
             self.add_module(f"qkv_{i}", Dense(d_model, 3 * d_model, cd, **kw))
             self.add_module(f"att_out_{i}", Dense(d_model, d_model, cd, **kw))
             self.add_module(f"ln_mlp_{i}", LayerNorm(d_model, cd, device=device))
-            self.add_module(f"intermediate_{i}", Dense(d_model, d_ff, cd, **kw))
-            self.add_module(f"mlp_out_{i}", Dense(d_ff, d_model, cd, **kw))
+            if i in self.moe_blocks:
+                self.add_module(f"moe_{i}", MoeFfn(
+                    d_model, num_experts, d_ff, moe_top_k, moe_capacity, moe_group_size, cd,
+                    **kw))
+            else:
+                self.add_module(f"intermediate_{i}", Dense(d_model, d_ff, cd, **kw))
+                self.add_module(f"mlp_out_{i}", Dense(d_ff, d_model, cd, **kw))
         self.ln_final = LayerNorm(d_model, cd, device=device)
 
     def forward(self, emb: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -79,7 +92,12 @@ class TransformerEncoder(nn.Module):
             q, k, v = layer(f"qkv_{i}")(layer(f"ln_att_{i}")(x)).split(d, dim=-1)
             out = dense_attention(split(q), split(k), split(v), mask)
             x = x + layer(f"att_out_{i}")(out.transpose(1, 2).reshape(M, L, d))
-            h = layer(f"intermediate_{i}")(layer(f"ln_mlp_{i}")(x))
+            h = layer(f"ln_mlp_{i}")(x)
+            if i in self.moe_blocks:
+                # The mask keeps pads out of the experts' capacity slots.
+                x = x + layer(f"moe_{i}")(h, mask)
+                continue
+            h = layer(f"intermediate_{i}")(h)
             x = x + layer(f"mlp_out_{i}")(F.gelu(h, approximate="tanh"))
         x = self.ln_final(x)
         return masked_mean(x, mask[..., None], dim=-2).to(cd)

@@ -8,6 +8,9 @@ with the same constants: eps 1e-12 inside the sqrt, -1e30 for masked
 scores, +1e-13 in the softmax normalizer. squash promotes its norm to f32
 because ``||x||^2`` underflows fast in bf16.
 
+``gradient_reversal`` is the DANN op of the adversarial step: identity
+forward, ``-scale * g`` backward in the cotangent's own dtype.
+
 ``resolve_backend`` is the one rule every kernel entry and
 ``models/build.resolve_runtime_backends`` share: "auto" is the CUDA kernel
 for CUDA tensors and the plain PyTorch version for CPU tensors.
@@ -17,6 +20,8 @@ residual-free forward.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -72,3 +77,32 @@ def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:
     valid = mask > 0
     return (x * valid).sum(dim=dim) / (valid.sum(dim=dim) + 1e-13)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``, as a Python float (computed once per pair
+    on the host, so a captured step reads it from the cache)."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
+class _GradientReversal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        # JAX's ``-scale * g`` multiplies in g's dtype (x's): the scale is
+        # rounded to that dtype first.
+        ctx.neg = _rounded(-scale, x.dtype)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.neg, None
+
+
+def gradient_reversal(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Identity forward; the gradient times ``-scale`` on the way back
+    (the JAX ``ops/core.py:46``, Ganin & Lempitsky 2015). A domain
+    discriminator upstream of this op minimizes its loss, while the
+    encoder below receives the negated gradient and so maximizes domain
+    confusion: one backward trains both."""
+    return _GradientReversal.apply(x, float(scale))

@@ -12,6 +12,9 @@ labeled N (none-of-the-above); shuffle the queries within the episode.
 The dataset is tokenized once up front into per-relation array blocks.
 ``feed_state``/``restore_feed_state`` carry the random stream through a
 checkpoint (datapipe/cursor.py).
+
+``InstanceSampler`` (the JAX ``sampling/episodes.py:189``) draws the
+unlabeled source and target instance batches of the adversarial step.
 """
 
 from __future__ import annotations
@@ -144,6 +147,47 @@ class EpisodeSampler:
 
     def feed_state(self) -> dict:
         """The cursor protocol (datapipe/cursor.py): the generator's state."""
+        return rng_feed_state(self.rng)
+
+    def restore_feed_state(self, state: dict) -> None:
+        restore_rng_feed_state(self.rng, state)
+
+
+class InstanceBatch(NamedTuple):
+    """A batch of M unlabeled instances (domain-adaptation side channel)."""
+
+    word: np.ndarray  # [M, L] int32
+    pos1: np.ndarray
+    pos2: np.ndarray
+    mask: np.ndarray  # [M, L] float32
+
+
+class InstanceSampler:
+    """Uniform unlabeled instance batches from a FewRel-schema dataset, a
+    copy of the JAX ``InstanceSampler`` (the same ``default_rng(seed)``
+    draw per batch). Feeds the FewRel 2.0 adversarial step: the dataset is
+    flattened across relations, tokenized once, and each batch is
+    ``batch_size`` rows drawn uniformly with replacement."""
+
+    def __init__(self, dataset: FewRelDataset, tokenizer: GloveTokenizer, batch_size: int,
+                 seed: int = 0):
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed)
+        toks = [tokenizer(inst) for rel in dataset.rel_names for inst in dataset.instances[rel]]
+        self.word = np.stack([t.word for t in toks])
+        self.pos1 = np.stack([t.pos1 for t in toks])
+        self.pos2 = np.stack([t.pos2 for t in toks])
+        self.mask = np.stack([t.mask for t in toks])
+
+    def sample_batch(self) -> InstanceBatch:
+        idx = self.rng.integers(self.word.shape[0], size=self.batch_size)
+        return InstanceBatch(self.word[idx], self.pos1[idx], self.pos2[idx], self.mask[idx])
+
+    def __iter__(self) -> Iterator[InstanceBatch]:
+        while True:
+            yield self.sample_batch()
+
+    def feed_state(self) -> dict:
         return rng_feed_state(self.rng)
 
     def restore_feed_state(self, state: dict) -> None:

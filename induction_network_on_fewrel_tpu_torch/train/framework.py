@@ -38,6 +38,15 @@ Each dispatch's metrics are copies of the graph's static outputs, so the
 window keeps one tensor per dispatch, not a reference to a buffer the next
 replay overwrites.
 
+FewRel 2.0 adversarial adaptation (``adv``, an ``AdvPieces``): each step
+is the DANN step (``train/steps.make_adv_train_step``) on an episode batch
+and one unlabeled source and one target instance batch. A fused call draws
+S episode batches, then S source batches, then S target batches (the JAX
+draw order, framework.py:421-470; never a fused sampler unit). The
+discriminator stays out of every checkpoint and the instance samplers'
+streams out of the saved sampler states: a resumed run starts both fresh
+from their seeds, as the JAX trainer does.
+
 ``evaluate`` scores ``eval_steps_per_call`` batches per dispatch (0 =
 min(steps_per_call, 16)); a short tail repeats its last batch and drops
 the repeated results, and fewer than a width/8 batches run one at a time.
@@ -64,6 +73,7 @@ states; those still restore into numpy samplers.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -75,10 +85,16 @@ from induction_network_on_fewrel_tpu_torch.datapipe.cursor import (
     capture_sampler_state,
     restore_sampler_state,
 )
-from induction_network_on_fewrel_tpu_torch.models.build import batch_to_model_inputs
+from induction_network_on_fewrel_tpu_torch.models.build import (
+    batch_to_model_inputs,
+    instance_inputs,
+)
 from induction_network_on_fewrel_tpu_torch.sampling.episodes import EpisodeBatch
 from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
 from induction_network_on_fewrel_tpu_torch.train.steps import (
+    DiscState,
+    make_adv_multi_train_step,
+    make_adv_train_step,
     make_eval_step,
     make_grad_probe,
     make_multi_eval_step,
@@ -115,10 +131,32 @@ def first_batch(inputs):
                  for x in inputs)
 
 
+@dataclasses.dataclass
+class AdvPieces:
+    """What the adversarial loop needs beyond the plain trainer: the
+    discriminator's state (never checkpointed) and the unlabeled source and
+    target instance samplers (``sampling/episodes.InstanceSampler``)."""
+
+    disc: DiscState
+    src_sampler: object
+    tgt_sampler: object
+
+    def sample(self, S: int | None = None) -> tuple:
+        """(src, tgt) token dicts of one batch each, or with ``S`` S source
+        batches then S target batches, each side stacked [S, M, L]."""
+        if S is None:
+            return (instance_inputs(self.src_sampler.sample_batch()),
+                    instance_inputs(self.tgt_sampler.sample_batch()))
+        srcs = [instance_inputs(self.src_sampler.sample_batch()) for _ in range(S)]
+        tgts = [instance_inputs(self.tgt_sampler.sample_batch()) for _ in range(S)]
+        return tuple({k: np.stack([x[k] for x in xs]) for k in xs[0]} for xs in (srcs, tgts))
+
+
 class FewShotTrainer:
     def __init__(self, model, cfg: ExperimentConfig, train_sampler, val_sampler=None,
                  ckpt_dir: str | None = None, logger: MetricsLogger | None = None,
-                 metric_window: int | None = None, train_table=None, val_table=None):
+                 metric_window: int | None = None, train_table=None, val_table=None,
+                 adv: AdvPieces | None = None):
         spc = cfg.steps_per_call
         if spc < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {spc}")
@@ -157,9 +195,18 @@ class FewShotTrainer:
         floor = 1.0 / (cfg.n + (1 if cfg.na_rate > 0 else 0))
         self.guard_arm = min(2.0 * floor, 0.5 * (1.0 + floor))
         self.metric_window = metric_window or max(50, cfg.metric_window_calls * spc)
-        self.train_step = make_train_step(model, self.opt, cfg, train_table, self.lazy)
-        self.multi_train_step = (make_multi_train_step(model, self.opt, cfg, train_table,
-                                                       self.lazy) if spc > 1 else None)
+        self.adv = adv
+        if adv is not None:
+            if self.lazy is not None or train_table is not None:
+                raise ValueError("the adversarial step trains on live token batches: it does not "
+                                 "combine with the token cache or embed_optimizer=lazy")
+            self.train_step = make_adv_train_step(model, self.opt, adv.disc, cfg)
+            self.multi_train_step = (make_adv_multi_train_step(model, self.opt, adv.disc, cfg)
+                                     if spc > 1 else None)
+        else:
+            self.train_step = make_train_step(model, self.opt, cfg, train_table, self.lazy)
+            self.multi_train_step = (make_multi_train_step(model, self.opt, cfg, train_table,
+                                                           self.lazy) if spc > 1 else None)
         self.eval_spc = cfg.eval_steps_per_call or min(spc, 16)
         self._eval_steps = {}
         self.train_table, self.val_table = train_table, val_table
@@ -197,18 +244,21 @@ class FewShotTrainer:
         window: list[dict] = []
         t0 = time.monotonic()
         while step < end_step:
+            adv = self.adv
             if self.multi_train_step is not None and end_step - step >= spc:
-                if hasattr(self.train_sampler, "sample_fused"):
+                if adv is None and hasattr(self.train_sampler, "sample_fused"):
                     fused = batch_inputs(self.train_sampler.sample_fused(spc))  # [S, B, ...]
                     batches = [first_batch(fused)]
                 else:
                     batches = [batch_inputs(next(it)) for _ in range(spc)]
                     fused = stack_batches(batches)
-                window.append(self.multi_train_step(*fused))
+                extra = adv.sample(spc) if adv is not None else ()
+                window.append(self.multi_train_step(*fused, *extra))
                 prev, step = step, step + spc
             else:
                 batches = [batch_inputs(next(it))]
-                window.append(self.train_step(*batches[0]))
+                extra = adv.sample() if adv is not None else ()
+                window.append(self.train_step(*batches[0], *extra))
                 prev, step = step, step + 1
             if step - last_logged >= self.metric_window or step >= end_step:
                 keys = list(window[0])

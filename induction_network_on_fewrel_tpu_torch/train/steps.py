@@ -39,6 +39,15 @@ program, and ``make_multi_train_step`` scans S steps in one dispatch. Here:
   and a scatter kernel: per step on the live path (after a graph-safe
   dedup of the batch's ids), once per call of S steps on the token cache.
   On the CPU the same step body runs eagerly.
+* ``make_adv_train_step`` / ``make_adv_multi_train_step``: the FewRel 2.0
+  adversarial (DANN) step, one backward of the few-shot loss plus the
+  domain discriminator's cross entropy through ``gradient_reversal`` (three
+  encoder calls: the episode, the source and the target instances), then
+  two ``ClipDecayOptimizer`` updates (the model's and the discriminator's,
+  ``init_disc_state``), each with its own clip and count; on the card one
+  CUDA-graph replay of S captured steps, on the CPU eager.
+* ``loss_and_metrics`` adds the MoE load-balance term (``aux_weight``) to
+  the training objective; eval never computes it.
 * ``make_grad_probe``: the run-config gradient against an all-f32 plain
   backend (lstm_cs_window=0) reference gradient on the same batch and
   weights; norms and cosine through one shared reduction. Eager, off the
@@ -55,17 +64,22 @@ import contextlib
 import functools
 import gc
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+from induction_network_on_fewrel_tpu_torch.models.adversarial import DomainDiscriminator
 from induction_network_on_fewrel_tpu_torch.models.base import QUERY_KEYS, to_device
 from induction_network_on_fewrel_tpu_torch.models.losses import (
     LOSS_FNS,
     accuracy,
+    cross_entropy_loss,
     episode_metrics,
 )
+from induction_network_on_fewrel_tpu_torch.models.moe import collect_aux
+from induction_network_on_fewrel_tpu_torch.ops.core import gradient_reversal
 from induction_network_on_fewrel_tpu_torch.ops.optim import (
     MOMENT_RULES,
     RULES,
@@ -76,6 +90,9 @@ from induction_network_on_fewrel_tpu_torch.ops.optim import (
 )
 
 TRAIN_METRICS = ("loss", "accuracy", "grad_norm")
+ADV_METRICS = TRAIN_METRICS + ("domain_loss", "domain_accuracy")
+# The adversarial step's unlabeled instance batches, in input order.
+INSTANCE_SIDES = ("src", "tgt")
 WORD_TABLE = "embedding.word_embedding"
 OPTIMIZERS = ("adam", "adamw", "sgd")
 EMBED_OPTIMIZERS = ("shared", "sgd", "frozen", "lazy")
@@ -231,11 +248,27 @@ def make_optimizer(cfg: ExperimentConfig, model: torch.nn.Module) -> ClipDecayOp
     )
 
 
-def loss_and_metrics(model, support, query, label, loss_name: str):
-    """(loss, {"loss", "accuracy"}) of one batch; metrics are detached."""
-    logits = model(support, query)
-    loss = LOSS_FNS[loss_name](logits, label)
-    return loss, {"loss": loss.detach(), "accuracy": accuracy(logits.detach(), label)}
+def aux_weight(cfg: ExperimentConfig) -> float:
+    """The weight of the MoE load-balance term in the training objective
+    (0 without experts)."""
+    return cfg.moe_aux_weight if cfg.moe_experts > 0 else 0.0
+
+
+def loss_and_metrics(model, support, query, label, loss_name: str, aux_weight: float = 0.0):
+    """(loss, {"loss", "accuracy"}) of one batch; metrics are detached.
+    ``aux_weight`` > 0 collects the MoE layers' load-balance losses
+    (``models/moe.collect_aux``) and adds them to the objective; the
+    metrics keep reporting the task loss alone (the JAX
+    ``steps.py:131``)."""
+    if aux_weight > 0.0:
+        with collect_aux(model) as sink:
+            logits = model(support, query)
+        task = LOSS_FNS[loss_name](logits, label)
+        loss = task + aux_weight * sum(sink)
+    else:
+        logits = model(support, query)
+        loss = task = LOSS_FNS[loss_name](logits, label)
+    return loss, {"loss": task.detach(), "accuracy": accuracy(logits.detach(), label)}
 
 
 def _inputs_on(model, support, query, label):
@@ -249,7 +282,7 @@ def train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, support, q
     device scalars: loss, accuracy and the pre-clip gradient norm."""
     support, query, label = _inputs_on(model, support, query, label)
     opt.zero_grad()
-    loss, metrics = loss_and_metrics(model, support, query, label, cfg.loss)
+    loss, metrics = loss_and_metrics(model, support, query, label, cfg.loss, aux_weight(cfg))
     loss.backward()
     metrics["grad_norm"] = opt.step()
     opt.zero_grad()
@@ -276,22 +309,32 @@ def eval_metric_keys(cfg: ExperimentConfig) -> tuple:
 # --- CUDA graphs -------------------------------------------------------------------
 
 
-def batch_leaves(support, query, label) -> list:
+def batch_leaves(support, query, label, *instances) -> list:
     """(name, numpy array) of every input leaf of a (stacked) batch: what
     ``CapturedSteps.fill`` copies into a graph's static inputs. A token
-    dict per side, or (token cache) the index arrays ``s_idx``/``q_idx``."""
+    dict per side, or (token cache) the index arrays ``s_idx``/``q_idx``;
+    then the adversarial step's unlabeled instance dicts, if any
+    (``src_*``, ``tgt_*``)."""
+    inst = [(f"{side}_{k}", np.asarray(x[k])) for side, x in zip(INSTANCE_SIDES, instances)
+            for k in QUERY_KEYS]
     if not isinstance(support, dict):
         return [("s_idx", np.asarray(support)), ("q_idx", np.asarray(query)),
-                ("label", np.asarray(label))]
+                ("label", np.asarray(label))] + inst
     return ([("s_" + k, np.asarray(support[k])) for k in QUERY_KEYS]
             + [("q_" + k, np.asarray(query[k])) for k in QUERY_KEYS]
-            + [("label", np.asarray(label))])
+            + [("label", np.asarray(label))] + inst)
 
 
 def _batch(dev: dict, i: int):
     """Batch ``i`` of the stacked static inputs as model inputs."""
     return ({k: dev["s_" + k][i] for k in QUERY_KEYS}, {k: dev["q_" + k][i] for k in QUERY_KEYS},
             dev["label"][i])
+
+
+def _adv_batch(dev: dict, i: int):
+    """Batch ``i`` and its source and target instances."""
+    return _batch(dev, i) + tuple({k: dev[f"{side}_{k}"][i] for k in QUERY_KEYS}
+                                  for side in INSTANCE_SIDES)
 
 
 def batch_source(source=None, compact: bool = False):
@@ -363,8 +406,8 @@ class GraphSteps:
         self.run_of, self.warm, self.keys, self.device = run_of, warm, keys, device
         self.graphs: dict = {}
 
-    def __call__(self, support_s, query_s, label_s) -> dict:
-        leaves = batch_leaves(support_s, query_s, label_s)
+    def __call__(self, support_s, query_s, label_s, *instances_s) -> dict:
+        leaves = batch_leaves(support_s, query_s, label_s, *instances_s)
         out = self.captured(leaves)(leaves)
         return {k: out[:, j] for j, k in enumerate(self.keys)}
 
@@ -373,7 +416,7 @@ class GraphSteps:
         sig = tuple((n, a.shape, a.dtype.str) for n, a in leaves)
         graph = self.graphs.get(sig)
         if graph is None:
-            S = leaves[-1][1].shape[0]
+            S = dict(leaves)["label"].shape[0]
             graph = self.graphs[sig] = CapturedSteps(leaves, self.run_of(S), self.warm,
                                                      self.device)
         return graph
@@ -383,29 +426,31 @@ class GraphSteps:
         return sum(g.pool_bytes for g in self.graphs.values())
 
 
-def stack1(support, query, label):
-    """One batch as a stack of one: leading axis 1 on every leaf."""
+def stack1(*batch):
+    """One batch (support, query, label, and any instance dicts) as a stack
+    of one: leading axis 1 on every leaf."""
     def one(x):
         return ({k: np.asarray(v)[None] for k, v in x.items()} if isinstance(x, dict)
                 else np.asarray(x)[None])
 
-    return one(support), one(query), np.asarray(label)[None]
+    return tuple(one(x) for x in batch)
 
 
 def _single(multi):
     """A one-batch callable over an S-step callable run at S = 1."""
-    def step(support, query, label) -> dict:
-        return {k: v[0] for k, v in multi(*stack1(support, query, label)).items()}
+    def step(*batch) -> dict:
+        return {k: v[0] for k, v in multi(*stack1(*batch)).items()}
 
     step.graphs = multi
     return step
 
 
 def _eager_multi(step):
-    def multi(support_s, query_s, label_s) -> dict:
-        outs = [step({k: v[i] for k, v in support_s.items()},
-                     {k: v[i] for k, v in query_s.items()}, label_s[i])
-                for i in range(len(label_s))]
+    def multi(*batch_s) -> dict:
+        def at(x, i):
+            return {k: v[i] for k, v in x.items()} if isinstance(x, dict) else x[i]
+
+        outs = [step(*(at(x, i) for x in batch_s)) for i in range(len(batch_s[2]))]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     return multi
@@ -418,8 +463,8 @@ class EagerSteps:
     def __init__(self, run_of, keys: tuple, device: torch.device):
         self.run_of, self.keys, self.device = run_of, keys, device
 
-    def __call__(self, support_s, query_s, label_s) -> dict:
-        leaves = batch_leaves(support_s, query_s, label_s)
+    def __call__(self, support_s, query_s, label_s, *instances_s) -> dict:
+        leaves = batch_leaves(support_s, query_s, label_s, *instances_s)
         dev = {n: torch.as_tensor(a).to(self.device) for n, a in leaves}
         out = self.run_of(len(label_s))(dev)
         return {k: out[:, j] for j, k in enumerate(self.keys)}
@@ -440,7 +485,7 @@ def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=
             lazy.prologue(opt.count)
         opt.zero_grad()
         with lazy.compact_forward() if lazy is not None else contextlib.nullcontext():
-            loss, m = loss_and_metrics(model, support, query, label, cfg.loss)
+            loss, m = loss_and_metrics(model, support, query, label, cfg.loss, aux_weight(cfg))
         loss.backward()
         norm = opt.step()
         if lazy is not None and not lazy.cached:
@@ -473,7 +518,7 @@ def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=
                 lazy.prologue(opt.count)
         opt.zero_grad()
         with lazy.compact_forward() if lazy is not None else contextlib.nullcontext():
-            loss, _ = loss_and_metrics(model, support, query, label, cfg.loss)
+            loss, _ = loss_and_metrics(model, support, query, label, cfg.loss, aux_weight(cfg))
         loss.backward()
         opt.zero_grad()
         _warm_optim_kernels(model.device)
@@ -569,6 +614,125 @@ def make_multi_eval_step(model, cfg: ExperimentConfig, source=None):
     return _eval_graphs(model, cfg, source)
 
 
+# --- FewRel 2.0 adversarial domain adaptation (models/adversarial.py) -------------
+
+
+class DiscState(NamedTuple):
+    """The discriminator and its optimizer: a training-time adversary that
+    no checkpoint holds."""
+
+    module: DomainDiscriminator
+    opt: ClipDecayOptimizer
+
+
+def init_disc_state(cfg: ExperimentConfig, feat_dim: int, device) -> DiscState:
+    """A fresh discriminator from its own generator (seed ``cfg.seed + 17``,
+    as the JAX ``init_disc_state`` keys it) with the plain optimizer chain
+    (``embed_optimizer="shared"``: it has no word table), its own clip and
+    its own schedule count."""
+    gen = torch.Generator().manual_seed(cfg.seed + 17)
+    disc = DomainDiscriminator(feat_dim, cfg.adv_dis_hidden, device=device, generator=gen)
+    return DiscState(disc, make_optimizer(cfg.replace(embed_optimizer="shared"), disc))
+
+
+def adv_loss_and_metrics(model, disc, cfg: ExperimentConfig, support, query, label, src, tgt):
+    """(fs_loss + dom_loss, metrics): the few-shot objective (with any MoE
+    term) and the discriminator's cross entropy on the source (label 0) and
+    target (label 1) instance encodings, taken through the gradient
+    reversal in the encoder output's dtype (the JAX ``steps.py:474``)."""
+    fs_loss, metrics = loss_and_metrics(model, support, query, label, cfg.loss, aux_weight(cfg))
+    feat = torch.cat([model.encode(x["word"], x["pos1"], x["pos2"], x["mask"])
+                      for x in (src, tgt)])
+    n_src, n_tgt = src["word"].shape[0], tgt["word"].shape[0]
+    dom_label = torch.cat([torch.zeros(n_src, dtype=torch.long, device=feat.device),
+                           torch.ones(n_tgt, dtype=torch.long, device=feat.device)])
+    dom_logits = disc(gradient_reversal(feat, cfg.adv_lambda))
+    dom_loss = cross_entropy_loss(dom_logits[None], dom_label[None])
+    metrics["domain_loss"] = dom_loss.detach()
+    metrics["domain_accuracy"] = accuracy(dom_logits.detach()[None], dom_label[None])
+    return fs_loss + dom_loss, metrics
+
+
+def _adv_update(model, opt: ClipDecayOptimizer, disc: DiscState, cfg, *batch) -> dict:
+    """One backward of ``fs_loss + dom_loss``, then each optimizer's update
+    from its own gradients."""
+    opt.zero_grad()
+    disc.opt.zero_grad()
+    loss, metrics = adv_loss_and_metrics(model, disc.module, cfg, *batch)
+    loss.backward()
+    metrics["grad_norm"] = opt.step()
+    disc.opt.step()
+    return metrics
+
+
+def adv_train_step(model, opt: ClipDecayOptimizer, disc: DiscState, cfg: ExperimentConfig,
+                   support, query, label, src, tgt) -> dict:
+    """One eager adversarial update on one batch and its instance batches
+    (numpy or tensor leaves). Returns device scalars (``ADV_METRICS``)."""
+    dev = model.device
+    m = _adv_update(model, opt, disc, cfg, *_inputs_on(model, support, query, label),
+                    to_device(src, dev), to_device(tgt, dev))
+    opt.zero_grad()
+    disc.opt.zero_grad()
+    return m
+
+
+def _adv_run_of(model, opt: ClipDecayOptimizer, disc: DiscState, cfg: ExperimentConfig):
+    def run_of(S: int):
+        def run(dev) -> torch.Tensor:
+            rows = []
+            for i in range(S):
+                m = _adv_update(model, opt, disc, cfg, *_adv_batch(dev, i))
+                rows.append(torch.stack([m[k].float() for k in ADV_METRICS]))
+            opt.zero_grad()
+            disc.opt.zero_grad()
+            return torch.stack(rows)
+
+        return run
+
+    def warm(dev) -> None:
+        """One forward and backward without an update, then the update's
+        kernels once on scratch tensors."""
+        opt.zero_grad()
+        disc.opt.zero_grad()
+        loss, _ = adv_loss_and_metrics(model, disc.module, cfg, *_adv_batch(dev, 0))
+        loss.backward()
+        opt.zero_grad()
+        disc.opt.zero_grad()
+        _warm_optim_kernels(model.device)
+
+    return run_of, warm
+
+
+def _adv_graphs(model, opt, disc, cfg):
+    run_of, warm = _adv_run_of(model, opt, disc, cfg)
+    if model.device.type != "cuda":
+        return EagerSteps(run_of, ADV_METRICS, model.device)
+    return GraphSteps(run_of, warm, ADV_METRICS, model.device)
+
+
+def make_adv_train_step(model, opt: ClipDecayOptimizer, disc: DiscState,
+                        cfg: ExperimentConfig):
+    """``(support, query, label, src, tgt) -> ADV_METRICS`` device scalars:
+    the few-shot loss and the domain game in one backward, one update of
+    the model and one of the discriminator. ``src``/``tgt`` are unlabeled
+    instance dicts {word, pos1, pos2, mask} [M, L]. On the card one
+    CUDA-graph replay per call; on the CPU the eager ``adv_train_step``."""
+    if model.device.type != "cuda":
+        return functools.partial(adv_train_step, model, opt, disc, cfg)
+    return _single(_adv_graphs(model, opt, disc, cfg))
+
+
+def make_adv_multi_train_step(model, opt: ClipDecayOptimizer, disc: DiscState,
+                              cfg: ExperimentConfig):
+    """S stacked (episode, src, tgt) batches per call -> metrics [S]: the
+    same updates as S single adversarial steps; one replay of a graph of S
+    captured steps on the card."""
+    if model.device.type != "cuda":
+        return _eager_multi(functools.partial(adv_train_step, model, opt, disc, cfg))
+    return _adv_graphs(model, opt, disc, cfg)
+
+
 # --- grad probe ---------------------------------------------------------------------
 
 
@@ -585,7 +749,7 @@ def _flat_grad(model, cfg, support, query, label) -> torch.Tensor:
     f32 (zeros for a parameter with none, as a frozen table); no ``.grad``
     is touched."""
     params = list(model.parameters())
-    loss, _ = loss_and_metrics(model, support, query, label, cfg.loss)
+    loss, _ = loss_and_metrics(model, support, query, label, cfg.loss, aux_weight(cfg))
     grads = torch.autograd.grad(loss, [p for p in params if p.requires_grad],
                                 allow_unused=True)
     grads = iter(grads)

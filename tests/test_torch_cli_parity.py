@@ -3,7 +3,8 @@
 * One command line, through both packages' ``build_arg_parser`` and
   ``config_from_args``, gives configs whose shared fields are all equal
   (``--routing_iters`` and the ``--fp16`` alias included, the host feed's
-  flags and the ``--bert_*`` / ``--feature_cache`` flags too).
+  flags, the ``--bert_*`` / ``--feature_cache`` flags, and the ``--moe_*``,
+  ``--tfm_stacked`` and ``--adv*`` flags too).
 * Every flag of both JAX parsers is either parsed by the port at the JAX
   default (a ported flag, or an unported one given its default) or, given
   anything else, refused by name with the ROADMAP item that brings it (or
@@ -41,13 +42,22 @@ ARGVS = {
              "--bert_heads", "4", "--bert_intermediate", "64", "--bert_vocab_size", "500",
              "--bert_vocab", "vocab.txt", "--bert_weights", "bert.npz", "--bert_remat",
              "--feature_cache", "--fp16", "--device", "cpu"],
+    "moe": ["--encoder", "transformer", "--moe_experts", "4", "--moe_top_k", "1",
+            "--moe_capacity", "1.5", "--moe_every", "1", "--moe_group_size", "64",
+            "--moe_aux_weight", "0.05", "--fp16", "--device", "cpu"],
+    "stacked": ["--encoder", "transformer", "--tfm_stacked", "--tfm_layers", "3",
+                "--device", "cpu"],
 }
+# Train-only flags of a command line (the test parsers have no --adv*).
+TRAIN_ARGVS = {"moe": ["--adv", "target.json", "--adv_lambda", "0.5", "--adv_dis_hidden", "16",
+                       "--adv_batch", "8"]}
 
 
 @pytest.mark.parametrize("train", [True, False], ids=["train", "test"])
 @pytest.mark.parametrize("name", sorted(ARGVS))
 def test_config_from_args_matches_jax(name, train):
-    argv = ARGVS[name] + (["--feed_fault", "slow:0.1", "--train_iter", "7"] if train else [])
+    argv = ARGVS[name] + (["--feed_fault", "slow:0.1", "--train_iter", "7",
+                           *TRAIN_ARGVS.get(name, [])] if train else [])
     ours = cli.config_from_args(cli.parse_args(train, argv))
     theirs = jax_cli.config_from_args(jax_cli.build_arg_parser(train).parse_args(argv))
     diff = {f: (getattr(ours, f), getattr(theirs, f)) for f in SHARED_FIELDS

@@ -194,14 +194,16 @@ def test_build_model_builds_pair_and_bert(kw):
 
 
 @pytest.mark.parametrize("kw,named", [
-    ({"encoder": "transformer", "moe_experts": 4}, "--moe_experts"),
-    ({"encoder": "transformer", "tfm_stacked": True}, "tfm_stacked"),
+    ({"encoder": "bilstm", "moe_experts": 4}, "--moe_experts requires --encoder transformer"),
+    ({"encoder": "cnn", "tfm_stacked": True}, "--tfm_stacked requires --encoder transformer"),
 ], ids=["moe", "stacked"])
 def test_build_model_refuses_other_models_and_encoders(kw, named):
-    """The JAX package's transformer layouts of later slices are refused by
-    name, with the ROADMAP item that brings them, before any parameter is
-    made (the zoo itself builds: tests/test_torch_zoo_models.py)."""
-    with pytest.raises(ValueError, match=rf"not ported yet: {named}.* ROADMAP queue A item 6"):
+    """The transformer's MoE and stacked layouts, which build since they were
+    ported (tests/test_torch_moe.py, tests/test_torch_stacked.py), are
+    refused by name over another encoder, which would silently train
+    without them (the JAX ``build.py:159-182``), before any parameter is
+    made."""
+    with pytest.raises(ValueError, match=named):
         build_model(ExperimentConfig(vocab_size=12, **kw), device="cpu")
 
 

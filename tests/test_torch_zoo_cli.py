@@ -8,9 +8,11 @@
   the checkpoint, as the JAX ``merge_architecture_from`` does (JAX
   ``tests/test_model_zoo.py:151``), and keeps the runtime's for proto.
 * Refused by name: gnn/snail/metanet with ``--trainN`` other than ``--N``
-  (``build_model`` and the CLI); ``--moe_*``, ``--sp``, ``--pp``, ``--ep``
-  and ``--tfm_stacked`` on the CLI (rc 2), MoE/stacked in ``build_model``;
-  an unknown proto metric. ``--model pair`` and ``--encoder bert`` run:
+  (``build_model`` and the CLI); ``--sp``, ``--pp`` and ``--ep`` above 1,
+  ``--moe_experts`` and ``--tfm_stacked`` off the transformer and
+  ``--moe_top_k 0`` on the CLI (rc 2); an unknown proto metric.
+* The adversarial (``--adv``), MoE and stacked paths: ``cli train`` then
+  ``cli test --load_ckpt``. ``--model pair`` and ``--encoder bert`` run:
   ``train`` one step at a tiny BERT width, ``test`` builds the model.
 * Serving: a proto checkpoint written by ``cli train`` is refused by name
   through ``InferenceEngine.from_checkpoint`` and ``serve_main``, as the
@@ -112,20 +114,58 @@ def test_cli_runs_bert_and_pair(tmp_path, capsys, mode, argv):
 
 
 # The ids are the ones these cases had beside the pair and bert cases
-# (argv0, argv1), which now run (test_cli_runs_bert_and_pair).
-@pytest.mark.parametrize("argv,named", [
-    pytest.param(argv, named, id=f"argv{i}-{named}") for i, (argv, named) in enumerate([
-        (["--moe_experts", "4"], "--moe_experts"), (["--moe_top_k", "1"], "--moe_top_k"),
-        (["--sp", "2"], "--sp"), (["--pp", "2"], "--pp"), (["--ep", "2"], "--ep"),
-        (["--tfm_stacked"], "--tfm_stacked"),
+# (argv0, argv1), which now run (test_cli_runs_bert_and_pair). --moe_experts,
+# --moe_top_k and --tfm_stacked parse since they were ported: their cases now
+# hold the CLI's refusals of an MoE or stacked option the model would not
+# honor; --sp, --pp and --ep above 1 stay unported.
+@pytest.mark.parametrize("argv,named,why", [
+    pytest.param(argv, named, why, id=f"argv{i}-{named}") for i, (argv, named, why) in enumerate([
+        (["--moe_experts", "4"], "--moe_experts", "requires --encoder transformer"),
+        (["--encoder", "transformer", "--moe_experts", "4", "--moe_top_k", "0"], "--moe_top_k",
+         "must be >= 1"),
+        (["--sp", "2"], "--sp", "is not ported yet"), (["--pp", "2"], "--pp", "is not ported yet"),
+        (["--ep", "2"], "--ep", "is not ported yet"),
+        (["--tfm_stacked"], "--tfm_stacked", "requires --encoder transformer"),
     ], start=2)
 ])
 @pytest.mark.parametrize("mode", ["train", "test"])
-def test_cli_refuses_later_slices_by_name(capsys, mode, argv, named):
+def test_cli_refuses_later_slices_by_name(capsys, mode, argv, named, why):
     with pytest.raises(SystemExit) as e:
         cli.main([mode, *TINY, *argv, "--load_ckpt", "unused"])
     assert e.value.code == 2
-    assert f"{named} is not ported yet" in capsys.readouterr().err
+    assert f"{named} {why}" in capsys.readouterr().err
+
+
+TFM_TINY = ["--encoder", "transformer", "--tfm_layers", "2", "--tfm_model", "16", "--tfm_heads",
+            "2", "--tfm_ff", "32", "--model", "induction", "--induction_dim", "8",
+            "--ntn_slices", "4"]
+PATHS = {
+    "adv": ["--encoder", "bilstm", "--lstm_hidden", "8", "--model", "induction",
+            "--induction_dim", "8", "--ntn_slices", "4", "--adv", "--adv_batch", "4",
+            "--adv_dis_hidden", "8"],
+    "moe": TFM_TINY + ["--moe_experts", "4", "--moe_group_size", "32"],
+    "stacked": TFM_TINY + ["--tfm_stacked"],
+}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_cli_train_then_test_slice_paths(tmp_path, capsys, path):
+    """The adversarial, MoE and stacked paths through ``cli train`` (fused
+    steps), then ``cli test --load_ckpt`` and the serving CLI on the
+    checkpoint; its config carries the layout, which both take from it."""
+    ckpt = str(tmp_path / path)
+    assert cli.main(["train", *TINY, *PATHS[path], "--train_iter", "4", "--val_step", "2",
+                     "--val_iter", "4", "--steps_per_call", "2", "--save_ckpt", ckpt]) == 0
+    saved = JaxConfig.from_json((tmp_path / path / "config.json").read_text())
+    assert (saved.moe_experts, saved.tfm_stacked) == (
+        4 if path == "moe" else 0, path == "stacked")
+    capsys.readouterr()
+    assert cli.main(["test", "--synthetic", "--device", "cpu", "--load_ckpt", ckpt, "--N", "3",
+                     "--K", "2", "--Q", "2", "--batch_size", "2", "--max_length", "12",
+                     "--vocab_size", "62", "--test_iter", "4"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert 0.0 <= out["test_accuracy"] <= 1.0
+    assert serve_main(["--load_ckpt", ckpt, "--device", "cpu", "--buckets", "1,4"]) == 0
 
 
 def test_unknown_proto_metric_refused():
