@@ -282,6 +282,40 @@ exits non-zero; no phase catches a failure of its own):
    transformer at the same config in the same call and phase 11's
    proto/transformer. A ``{"slice6c": ...}`` line; the phase must end
    within 120 s.
+15. (run after phase 13) Observability (files under
+   ``build/chip_smoke_obs/``, removed at the end), through the CLI's
+   wiring at the flagship config (bf16, W=8, 4 steps a replay). 15a: 100
+   steps with ``--watchdog --perf --tensorboard --profile --profile_steps
+   8 --chaos ckpt.bitflip@1:ring --ckpt_stage auto``, the wrappers' counts
+   zeroed just before and read just after (the captures' K7, K8, K10,
+   K11, lstm_wgrad, the pair, K1, K2): every record kind in
+   ``KNOWN_KINDS``; each perf window's unrounded tiles sum to its wall
+   time within 1e-9 s; the capture watcher's records hold the train and
+   eval graphs' warm-up captures and no steady-state capture; the
+   TensorBoard file reads back (``utils/metrics.read_events``) as
+   metrics.jsonl's numeric fields; the profile's chrome trace holds the
+   ``train/dispatch`` annotations and K7/K8 rows; the corrupted ring save
+   is quarantined (one ``kind="fault"`` record) and ``restore_latest``
+   lands on the best save bitwise; the staging root is removed. 15b: a
+   saver-thread save at step s while 16 more steps replay restores bitwise
+   equal to a synchronous save at s; ms/step of 32 steps holding a save,
+   staging off and on, beside none. 15c: ``--nan_inject_step`` trips the
+   watchdog and the recorder dumps. 15d: ``--debug_nans`` with a weight
+   poisoned after step 8 raises ``FloatingPointError`` naming step 9.
+   15e: ``serve_main`` on 15a's checkpoint with ``--watchdog
+   --trace_sample 1.0 --slo_latency_ms 1000 --drift --chaos
+   serve.execute_raise@2,publish.nan_params@0`` (K1/K2 counts zeroed just
+   before and read just after): every request's waterfall tiles its
+   latency (rounding), the injected failure is contained, no capture
+   after warmup, ``metrics.prom`` written; then an engine on the
+   checkpoint: ``publish.nan_params`` refused and rolled back, the JAX
+   drift drill (an open-set floor between an out-of-vocabulary point mass
+   and the in-domain pool) trips once-latched, a tenant shed at its share
+   trips its SLO burn. 15f, the tax: the flagship's unprofiled ms/step
+   with ``--watchdog --perf`` against without (in turns), serve/execute's
+   p50 at trace_sample 1.0 against 0 for buckets 1, 4 and 16, and a
+   span's host cost with and without its NVTX range. An ``{"obs": ...}``
+   line; the phase should end within 90 s.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -295,7 +329,7 @@ exits non-zero; no phase catches a failure of its own):
    ``launches_adv``: phase 14a's profiled launches), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
    ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
-   run's seconds, then the last line
+   ``{"obs": ...}`` line of phase 15, the run's seconds, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
@@ -3422,7 +3456,9 @@ def bert_finetune(gen: torch.Generator) -> tuple[dict, object, dict]:
     run["flop_bound_ms"] = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
     ckpt = BERT_DIR / "ckpt"
     m = trainer.evaluate(cfg.val_iter, return_metrics=True)
-    CheckpointManager(ckpt, cfg).save(BERT_STEPS, model, trainer.opt, m["accuracy"])
+    saver = CheckpointManager(ckpt, cfg)
+    saver.save(BERT_STEPS, model, trainer.opt, m["accuracy"])
+    saver.close()
     trainer.close()
     print(f"[{tag}] BERT-base fine-tuned ({n_params} parameters, {len(grads)} tensors, init "
           f"{init_s:.1f} s): S=4 replay vs 4 eager steps: state {fused['state_rel']:.3g}, metrics "
@@ -4555,6 +4591,550 @@ def serve_sweep(engine, pool: list) -> dict:
     return {"capacity_per_s": capacity, "capacity_clients": CAPACITY_CLIENTS, "rates": rates}
 
 
+# --- 15. Observability on the card ------------------------------------------------
+
+OBS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_obs"
+# The flagship at 4 steps a replay; two metric windows of 50 steps, a val
+# pass and ring save at steps 50 and 100 (the second ring save is the one
+# ckpt.bitflip@1:ring corrupts).
+OBS_STEPS = 100
+OBS_ARGV = ["--synthetic", "--bf16", "--steps_per_call", "4", "--val_step", "50",
+            "--val_iter", "40"]
+OBS_TAX_STEPS = 200
+OBS_TAX_BUCKETS = (1, 4, 16)
+OBS_TAX_BATCHES = 210
+OBS_NVTX_SPANS = 20_000
+OBS_SECONDS = 90
+# The perf tiles of each window sum to its wall time exactly (other = window
+# - tracked): the observer's unrounded figures within a float's rounding.
+TILE_TOL_S = 1e-9
+# Each request's waterfall (queue + pack + execute + respond) against its
+# total: the five fields are rounded to 1e-3 ms each (4 x 0.5 + 0.5 us).
+WATERFALL_TOL_MS = 2.5e-3
+
+
+def obs_trainer(extra: list, run: Path):
+    """A flagship trainer built by the CLI's wiring (``cli.make_trainer``)
+    with ``extra`` flags, its files under ``run``."""
+    args = cli.parse_args(True, [*OBS_ARGV, "--save_ckpt", str(run / "ckpt"), "--run_dir",
+                                 str(run), *extra])
+    return cli.make_trainer(args, cli.config_from_args(args))[0]
+
+
+def obs_no_saves(trainer) -> None:
+    """Close and drop the trainer's checkpoint manager: a timed run then
+    holds no save of its own (its end-of-run ring save and wait)."""
+    trainer.ckpt.close()
+    trainer.ckpt = None
+
+
+def obs_close(trainer) -> None:
+    try:
+        trainer.close()
+    finally:
+        cli.close_telemetry(trainer)
+
+
+def obs_records(run: Path) -> list[dict]:
+    return [json.loads(ln) for ln in (run / "metrics.jsonl").read_text().splitlines()]
+
+
+def obs_bitwise(a, b, tag: str) -> None:
+    from induction_network_on_fewrel_tpu_torch.train.checkpoint import _leaves
+
+    la, lb = _leaves(a), _leaves(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        raise AssertionError(f"{tag}: the payloads hold other leaves")
+    for (p, x), (_, y) in zip(la, lb):
+        same = (x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())) \
+            if isinstance(x, torch.Tensor) else x == y
+        if not same:
+            raise AssertionError(f"{tag}: leaf {p} differs")
+
+
+def obs_train(smi: str) -> dict:
+    """15a: the flagship through the CLI's wiring with every telemetry flag,
+    then the checks on its run directory."""
+    from induction_network_on_fewrel_tpu_torch.utils.metrics import KNOWN_KINDS, read_events
+
+    run = OBS_DIR / "train"
+    for k in TRAIN_KERNELS.values():
+        k.launches = 0
+    trainer = obs_trainer(["--train_iter", str(OBS_STEPS), "--watchdog", "--perf",
+                           "--tensorboard", str(run / "tb"), "--profile", str(run / "prof"),
+                           "--profile_steps", "8", "--chaos", "ckpt.bitflip@1:ring",
+                           "--ckpt_stage", "auto"], run)
+    tiles = []
+    observe = trainer._perf.observe_window
+
+    def observe_window(step):
+        rec = observe(step)
+        tiles.append(trainer._perf.last_tiles)
+        return rec
+
+    trainer._perf.observe_window = observe_window
+    stage_root = trainer.ckpt.root
+    t0 = time.monotonic()
+    try:
+        trainer.train(OBS_STEPS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        watcher = trainer._compile_watcher.snapshot()
+    finally:
+        obs_close(trainer)
+    launches = {k: v.launches for k, v in TRAIN_KERNELS.items()
+                if k in ("K7", "K8", "K10", "K11", "wgrad", "optim_sumsq", "optim_update", "K1",
+                         "K2")}
+    recs = obs_records(run)
+    kinds = {r["kind"] for r in recs}
+    print(f"[obs train] {OBS_STEPS} flagship steps (4 a replay) with --watchdog --perf "
+          f"--tensorboard --profile --chaos ckpt.bitflip@1:ring --ckpt_stage auto in {wall:.2f} s "
+          f"(captures, 2 val passes, saves and the profile window included); kinds {sorted(kinds)}; "
+          f"wrapper launches (warm-ups and captures) {launches}", flush=True)
+    if not kinds <= KNOWN_KINDS or min(launches.values()) == 0:
+        raise AssertionError(f"kinds outside KNOWN_KINDS {kinds - KNOWN_KINDS} or a kernel of "
+                             f"the path never launched: {launches}")
+    worst = max(abs(sum(t.values()) - w) for w, t in tiles)
+    perf = [r for r in recs if r["kind"] == "perf"]
+    print(f"[obs train] {len(tiles)} perf windows: tiles vs window worst {worst:.3g} s (tol "
+          f"{TILE_TOL_S}); windows (ms/step: data_wait / host_dispatch / device_sync / "
+          f"checkpoint / eval / other): "
+          + "; ".join(f"{r['step_ms']:.3f}: {r['data_wait_ms']:.1f}/{r['host_dispatch_ms']:.1f}/"
+                      f"{r['device_sync_ms']:.1f}/{r['checkpoint_ms']:.1f}/{r['eval_ms']:.1f}/"
+                      f"{r['other_ms']:.1f}" for r in perf)
+          + f"; floor {perf[-1]['floor_ms']:.4f} ms/step at the H100's rates; {smi}", flush=True)
+    if len(tiles) != 2 or worst > TILE_TOL_S:
+        raise AssertionError(f"perf tiles: {len(tiles)} windows, worst {worst}")
+    comp = [r for r in recs if r["kind"] == "compile"]
+    phases = [(r["fn"], r["phase"], r["trigger"]) for r in comp]
+    print(f"[obs train] capture watcher: {phases}; {watcher['steady_recompiles']} steady-state "
+          f"captures, {watcher['compile_s_total']:.2f} s of captures", flush=True)
+    if watcher["steady_recompiles"] or not any(f == "multi_train_step" and p == "warmup"
+                                               for f, p, _ in phases) \
+            or not any(f.endswith("eval_step") for f, _, _ in phases):
+        raise AssertionError(f"capture records: {phases}, steady {watcher['steady_recompiles']}")
+    (tb,) = (run / "tb").iterdir()
+    want = [(f"{r['kind']}/{k}", r["step"], np.float32(v)) for r in recs for k, v in r.items()
+            if k not in ("step", "kind", "wall_s") and isinstance(v, (int, float))]
+    got = [x for x in read_events(tb) if np.isfinite(x[2])]
+    if got != want:
+        raise AssertionError("the TensorBoard file does not read back as metrics.jsonl")
+    events = json.loads((run / "prof" / "trace.json").read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    prof_counts = {"train/dispatch": names.count("train/dispatch"),
+                   **{k: sum(bool(re.search(PROFILED[k], n)) for n in names)
+                      for k in ("K7", "K8")}}
+    print(f"[obs train] TensorBoard file: {len(got)} scalars equal to metrics.jsonl's; profile "
+          f"trace rows {prof_counts}", flush=True)
+    if min(prof_counts.values()) == 0:
+        raise AssertionError(f"profile trace: {prof_counts}")
+    faults = [(r.get("action"), r.get("point")) for r in recs if r["kind"] == "fault"]
+    mngr = CheckpointManager(run / "ckpt", None, logger=MetricsLogger(run / "restore", quiet=True))
+    cfg = CheckpointManager.load_config(run / "ckpt")
+    model = build_model(cfg)
+    step, _ = mngr.restore_latest(model)
+    best = torch.load(run / "ckpt" / "best.pt", map_location="cpu", weights_only=True)
+    obs_bitwise(model.state_dict(), best["params"], "restore_latest after ckpt.bitflip")
+    quarantined = [(r["action"], r["ckpt_kind"]) for r in obs_records(run / "restore")
+                   if r["kind"] == "fault"]
+    print(f"[obs train] chaos: {faults}; restore_latest quarantined {quarantined} and landed on "
+          f"the best save (step {step}) bitwise; staging root {stage_root} removed: "
+          f"{not stage_root.exists() or stage_root == run / 'ckpt'}", flush=True)
+    if faults != [("inject", "ckpt.bitflip")] or quarantined != [("ckpt_quarantine", "latest")] \
+            or step != best["step"]:
+        raise AssertionError(f"ckpt.bitflip drill: {faults}, {quarantined}, step {step}")
+    steady = [r["step_ms"] for r in perf]
+    return {"seconds": wall, "launches": launches, "perf_windows": perf, "tiles_worst_s": worst,
+            "captures": phases, "steady_recompiles": watcher["steady_recompiles"],
+            "profile_rows": prof_counts, "tb_scalars": len(got), "faults": faults,
+            "quarantined": quarantined, "restored_step": step, "window_step_ms": steady}
+
+
+def obs_async_save() -> dict:
+    """15b: a saver-thread save at step s while replays go on, against a
+    synchronous save at s, bitwise; then the ms/step of a window of 8 calls
+    holding a save, staging on and off (and without a save)."""
+    run = OBS_DIR / "save"
+    trainer = obs_trainer(["--train_iter", "8", "--val_step", "100000"], run)
+    obs_no_saves(trainer)
+    out = {}
+    try:
+        trainer.train(8)
+        cfg, s = trainer.cfg, 8
+        sync = CheckpointManager(run / "sync", cfg)
+        sync.save_latest(s, trainer.model, trainer.opt, samplers=trainer.sampler_states())
+        sync.wait()                             # the synchronous reference
+        saver = CheckpointManager(run / "async", cfg, stage="auto")
+        saver.save_latest(s, trainer.model, trainer.opt, samplers=trainer.sampler_states())
+        trainer.train(16, start_step=s)         # replays overwrite the graph's static state
+        saver.wait()
+        staged = saver.root != saver.dir
+        saver.close()
+        obs_bitwise(torch.load(run / "async" / "latest.pt", weights_only=True),
+                    torch.load(run / "sync" / "latest.pt", weights_only=True), "async save")
+        print(f"[obs save] a saver-thread save at step {s} (staged in /dev/shm: {staged}) with "
+              f"16 steps replayed behind it restores bitwise equal to a synchronous save at "
+              f"step {s}", flush=True)
+        step = 24
+        for label, stage in (("none", None), ("stage off", "off"), ("stage auto", "auto"),
+                             ("stage auto", "auto"), ("stage off", "off"), ("none", None)):
+            mngr = CheckpointManager(run / f"w{step}", cfg, stage=stage or "off")
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            trainer.train(16, start_step=step)
+            if stage is not None:
+                mngr.save_latest(step + 16, trainer.model, trainer.opt)
+            trainer.train(16, start_step=step + 16)
+            torch.cuda.synchronize()
+            ms = (time.monotonic() - t0) * 1e3 / 32
+            mngr.close()
+            out.setdefault(label, []).append(ms)
+            step += 32
+        print(f"[obs save] ms/step of a window of 8 replays (32 steps) holding a ring save "
+              f"(unprofiled, host clock, synced): " + "; ".join(
+                  f"{k} {', '.join(f'{v:.3f}' for v in vs)}" for k, vs in out.items()), flush=True)
+    finally:
+        obs_close(trainer)
+    return {"window_ms_per_step": out, "staged": staged}
+
+
+def obs_nan_and_debug() -> dict:
+    """15c: ``--nan_inject_step`` trips the watchdog and the recorder dumps;
+    15d: ``--debug_nans`` on a weight poisoned after step 8 raises at the
+    call that holds step 9."""
+    run = OBS_DIR / "nan"
+    trainer = obs_trainer(["--train_iter", "52", "--val_step", "1000", "--watchdog",
+                           "--nan_inject_step", "10"], run)
+    try:
+        trainer.train(52)
+    finally:
+        obs_close(trainer)
+    dump = json.loads((run / "flight_recorder.json").read_text())
+    health = [(r["event"], r["severity"]) for r in obs_records(run) if r["kind"] == "health"]
+    print(f"[obs nan] --nan_inject_step 10: health {health}; flight recorder dumped "
+          f"({dump['reason'][:60]}...), {len(dump['spans'])} spans", flush=True)
+    if ("non_finite", "critical") not in health or not dump["reason"].startswith("watchdog"):
+        raise AssertionError(f"nan injection: {health}, {dump['reason']}")
+    trainer = obs_trainer(["--train_iter", "16", "--val_step", "1000", "--debug_nans"],
+                          OBS_DIR / "debug")
+    try:
+        trainer.train(8)
+        with torch.no_grad():
+            trainer.model.encoder.w_hh.view(-1)[0] = float("nan")
+        try:
+            trainer.train(8, start_step=8)
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("--debug_nans: a poisoned weight did not raise")
+    finally:
+        obs_close(trainer)
+    print(f"[obs debug_nans] {raised}", flush=True)
+    if "at step 9 " not in raised:
+        raise AssertionError(f"--debug_nans named another step: {raised}")
+    return {"nan_health": health, "dump_reason": dump["reason"], "debug_nans": raised}
+
+
+def obs_drift_drill(engine, drift, pool: list) -> dict:
+    """The JAX drift drill (``tools/loadgen.py:run_drift_drill``) on the
+    default tenant: the best class logit of an out-of-vocabulary sentence
+    (a point mass) against the in-domain pool's; an open-set floor between
+    the point mass and the pool's larger side (setting it re-arms the
+    detector); a baseline on that clean side (NOTA rate exactly 0, or 1);
+    then the point mass (exactly 1, or 0): a once-latched CRITICAL."""
+    def classify(insts) -> list[dict]:
+        return [v for i in range(0, len(insts), 16) for v in engine.classify_batch(insts[i:i + 16])]
+
+    def best(v) -> float:
+        return max(x for k, x in v["logits"].items() if k != "no_relation")
+
+    oov = {"tokens": ["zqxdrift0"] * 8, "head_pos": [0], "tail_pos": [1]}
+    gaps = [best(v) for v in classify(pool)]
+    v = best(classify([oov])[0])
+    eps = max(1e-9, 1e-6 * max(abs(v), 1.0))
+    above = [i for i, g in enumerate(gaps) if g > v + eps]
+    below = [i for i, g in enumerate(gaps) if g < v - eps]
+    side = above if len(above) >= len(below) else below
+    edge = min(gaps[i] for i in side) if side is above else max(gaps[i] for i in side)
+    engine.set_nota_threshold((v + edge) / 2.0)
+    clean = [pool[i] for i in side]
+    classify([clean[i % len(clean)] for i in range(drift.baseline_n + drift.min_count + 8)])
+    start = len(drift.events)
+    classify([oov] * drift.window)
+    classify([oov] * drift.min_count)                    # the shift goes on: nothing new
+    events = list(drift.events)[start:]
+    crit = [e.data.get("feature") for e in events if e.severity == "critical"]
+    return {"clean": len(clean), "pool": len(pool), "floor": (v + edge) / 2.0,
+            "events": [(e.severity, e.data.get("feature")) for e in events],
+            "tripped": bool(crit), "once_latched": len(crit) == len(set(crit))}
+
+
+def obs_serve(ckpt: Path, smi: str) -> dict:
+    """15e: ``serve_main`` on 15a's checkpoint with the telemetry flags and
+    a chaos plan, then an engine on the same checkpoint for the publish
+    rollback, the drift drill and the shed tenant's SLO."""
+    from induction_network_on_fewrel_tpu_torch.obs import (
+        ChaosRegistry,
+        DriftDetector,
+        SLOEngine,
+        SLOObjective,
+    )
+    from induction_network_on_fewrel_tpu_torch.obs.chaos import install
+    from induction_network_on_fewrel_tpu_torch.serving.batcher import Saturated
+    from induction_network_on_fewrel_tpu_torch.serving.cli import serve_main
+    from induction_network_on_fewrel_tpu_torch.serving.registry import PublishError
+
+    run = OBS_DIR / "serve"
+    bilstm_infer_cuda.launches = attn_fwd_cuda.launches = 0
+    rc = serve_main(["--load_ckpt", str(ckpt), "--run_dir", str(run), "--demo_queries", "64",
+                     "--watchdog", "--trace_sample", "1.0", "--slo_latency_ms", "1000",
+                     "--drift", "--drift_window", "16", "--drift_baseline", "8",
+                     "--chaos", "serve.execute_raise@2,publish.nan_params@0"])
+    torch.cuda.synchronize()
+    launches = {"K1": bilstm_infer_cuda.launches, "K2": attn_fwd_cuda.launches}
+    recs = obs_records(run)
+    traces = [r for r in recs if r["kind"] == "trace" and "total_ms" in r]
+    worst = max(abs(sum(r[s] for s in ("queue_ms", "pack_ms", "execute_ms", "respond_ms"))
+                    - r["total_ms"]) for r in traces)
+    faults = [(r["action"], r.get("point")) for r in recs if r["kind"] == "fault"]
+    serve = [r for r in recs if r["kind"] == "serve" and "tenant" not in r and "event" not in r]
+    prom = (run / "metrics.prom").read_text()
+    print(f"[obs serve] serve_main --watchdog --trace_sample 1.0 --slo_latency_ms 1000 --drift "
+          f"--chaos serve.execute_raise@2,publish.nan_params@0: rc {rc}; {len(traces)} request "
+          f"waterfalls, worst |segments - total| {worst:.4f} ms (tol {WATERFALL_TOL_MS}); faults "
+          f"{faults}; served {serve[-1]['served']:.0f}, steady captures "
+          f"{serve[-1]['steady_recompiles']:.0f}; metrics.prom {len(prom.splitlines())} lines; "
+          f"wrapper launches (distil, warm-ups, captures) {launches}", flush=True)
+    if rc or worst > WATERFALL_TOL_MS or ("execute_error", None) not in faults \
+            or ("inject", "serve.execute_raise") not in faults or min(launches.values()) == 0 \
+            or serve[-1]["steady_recompiles"] or "induction_serve_latency_ms_bucket" not in prom:
+        raise AssertionError(f"serve_main telemetry: rc {rc}, {faults}, {launches}")
+
+    drift = DriftDetector(window=32, baseline_n=24, min_count=16, eval_interval_s=0.0)
+    engine = InferenceEngine.from_checkpoint(
+        str(ckpt), drift=drift, logger=MetricsLogger(OBS_DIR / "engine", quiet=True))
+    ds = serve_dataset(engine.cfg)
+    install(ChaosRegistry.parse("publish.nan_params@0", logger=engine._logger))
+    try:
+        names = engine.register_dataset(ds, max_classes=5)
+        engine.warmup()
+        before = engine.registry.snapshot()
+        try:
+            engine.publish_checkpoint(str(ckpt))
+        except PublishError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("publish.nan_params: the poisoned publish was not refused")
+        rolled_back = engine.registry.snapshot() is before and engine.registry.params_version == 0
+        inst = [i for r in names for i in ds.instances[r][engine.registry.k:]]
+        drill = obs_drift_drill(engine, drift, inst)
+        steady = engine.stats.steady_compiles
+    finally:
+        install(None)
+        engine.close()
+    print(f"[obs serve] publish.nan_params: refused ({refused[:70]}...), every tenant on its "
+          f"old snapshot: {rolled_back}; drift drill (the JAX drill: an open-set floor between "
+          f"an out-of-vocabulary point mass and the in-domain pool, a baseline on the clean "
+          f"pool, then the point mass): {drill}; steady captures {steady}", flush=True)
+    if not rolled_back or not drill["tripped"] or not drill["once_latched"] or steady:
+        raise AssertionError(f"publish rollback {rolled_back}, drift {drill}")
+
+    slo = SLOEngine(SLOObjective(availability=0.99), fast_window_s=60.0)
+    cfg = engine.cfg
+    shed_engine = InferenceEngine(engine.model, cfg, engine.tokenizer, start=False, slo=slo,
+                                  max_queue_depth=8, tenant_share=0.25)
+    shed = 0
+    try:
+        for tenant in ("hog", "other"):
+            shed_engine.register_dataset(ds, max_classes=5, tenant=tenant)
+        shed_engine.submit(inst[0], tenant="other")
+        for q in inst * 2:
+            try:
+                shed_engine.submit(q, tenant="hog")
+            except Saturated:
+                shed += 1
+        while shed_engine.batcher.queue_depth:
+            shed_engine.batcher.drain_once(block_s=0.01)
+    finally:
+        shed_engine.close()
+    slo_events = [(e.event, e.severity, e.data.get("tenant")) for e in slo.events]
+    print(f"[obs serve] a tenant over its share ({shed} of {2 * len(inst)} submits shed): SLO "
+          f"events {slo_events}", flush=True)
+    if ("slo_fast_burn", "critical", "hog") not in slo_events:
+        raise AssertionError(f"the shed tenant's SLO did not trip: {slo_events}")
+    return {"launches": launches, "waterfalls": len(traces), "waterfall_worst_ms": worst,
+            "faults": faults, "publish_refused": refused, "drift": drill,
+            "slo": slo_events, "shed": shed}
+
+
+def obs_tax(smi: str) -> dict:
+    """15f: the flagship's unprofiled ms/step with --watchdog --perf against
+    without (in turns: off, on, on, off); per bucket, serve/execute's p50
+    (and the submits', the drain's and the request latency's) at
+    trace_sample 1.0 against 0; the NVTX cost per span."""
+    from induction_network_on_fewrel_tpu_torch.obs import SpanTracker, get_tracker, set_tracker
+
+    # A long-running process's span ring is full: fill it, so the perf
+    # observer's window reads meet the ring it meets in production.
+    ring = get_tracker()
+    for _ in range(ring.capacity):
+        with ring.span("obs/fill", nvtx=False):
+            pass
+    train = {}
+    for label in ("off", "on", "on", "off"):
+        extra = ["--watchdog", "--perf"] if label == "on" else []
+        trainer = obs_trainer(["--train_iter", str(OBS_TAX_STEPS + 8), "--val_step", "100000",
+                               *extra], OBS_DIR / f"tax_{len(train.get(label, []))}_{label}")
+        obs_no_saves(trainer)
+        try:
+            trainer.train(8)                       # the capture
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            trainer.train(OBS_TAX_STEPS, start_step=8)
+            torch.cuda.synchronize()
+            train.setdefault(label, []).append((time.monotonic() - t0) * 1e3 / OBS_TAX_STEPS)
+        finally:
+            obs_close(trainer)
+    on, off = np.median(train["on"]), np.median(train["off"])
+    print(f"[obs tax] flagship ms/step (unprofiled, {OBS_TAX_STEPS} steps, host clock, synced) "
+          f"with --watchdog --perf {train['on']} vs without {train['off']}: "
+          f"{(on - off) / off:+.2%} (the JAX gate: < 2 %); {smi}", flush=True)
+    # The perf observer's window read against the JAX observer's whole-ring
+    # scan, on the full ring, for the last 50 steps' window.
+    from induction_network_on_fewrel_tpu_torch.obs import PerfObserver
+    from induction_network_on_fewrel_tpu_torch.obs.perf import SEGMENT_OF
+
+    observer = PerfObserver(tracker=ring)
+    observer._thread = threading.current_thread().name
+    ends = sorted(sp.start_s + sp.dur_s for sp in ring._ring
+                  if sp.name == "train/dispatch" and sp.thread == observer._thread)
+    w0, w1 = ends[-13], ends[-1]                # 12 replays of 4 steps
+
+    def whole_ring(w0: float, w1: float) -> dict:
+        sums: dict = {}
+        with ring._lock:
+            spans = list(ring._ring)
+        for sp in spans:
+            if sp.depth == 0 and sp.thread == observer._thread and sp.name in SEGMENT_OF:
+                lo, hi = max(sp.start_s, w0), min(sp.start_s + sp.dur_s, w1)
+                if hi > lo:
+                    sums[SEGMENT_OF[sp.name]] = sums.get(SEGMENT_OF[sp.name], 0.0) + hi - lo
+        return sums
+
+    scan = {}
+    for label, fn in (("window", observer._segment_sums), ("whole ring", whole_ring)) * 2:
+        t0 = time.perf_counter()
+        for _ in range(20):
+            got = fn(w0, w1)
+        scan.setdefault(label, []).append((time.perf_counter() - t0) / 20 * 1e3)
+        scan.setdefault(label + " sums", {k: v for k, v in got.items() if v})
+    observer.close()
+    a, b = scan["window sums"], scan["whole ring sums"]
+    same = a.keys() == b.keys() and all(abs(a[k] - b[k]) <= 1e-12 for k in a)
+    print(f"[obs tax] the perf observer's window read on a full ring of {len(ring)} spans: "
+          f"{scan['window']} ms against a whole-ring scan's {scan['whole ring']} ms, the same "
+          f"tiles {a}; {smi}", flush=True)
+    if not same:
+        raise AssertionError(f"perf window read {a} != whole-ring scan {b}")
+
+    cfg = CheckpointManager.load_config(OBS_DIR / "train" / "ckpt")
+    model = build_model(cfg)
+    CheckpointManager(OBS_DIR / "train" / "ckpt").restore_best(model)
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    tok = GloveTokenizer(vocab, max_length=cfg.max_length)
+    ds = serve_dataset(cfg)
+    pool = [raw_instance(i) for r in ds.rel_names[:5] for i in ds.instances[r][cfg.k:]]
+    # Two engines on the same weights, at trace_sample 0 and 1.0, take the
+    # same batches in alternation (which goes first alternates too): a
+    # batch's submits (tokenization, and at 1.0 the serve/submit span and
+    # the trace context), its serve/execute span, and its drain (execute,
+    # verdicts, and at 1.0 the trace records).
+    tracker = SpanTracker(capacity=1 << 17)
+    prev = set_tracker(tracker)
+    engines = {rate: InferenceEngine(model, cfg, tok, start=False, trace_sample=rate,
+                                     buckets=(1, 2, 4, 8, 16), max_queue_depth=64)
+               for rate in (0.0, 1.0)}
+    cols: dict = {}
+    try:
+        for eng in engines.values():
+            eng.register_dataset(ds, max_classes=5)
+            eng.warmup()
+        for bucket in OBS_TAX_BUCKETS:
+            for i in range(OBS_TAX_BATCHES):
+                qs = [pool[(i * bucket + j) % len(pool)] for j in range(bucket)]
+                for rate in ((0.0, 1.0) if i % 2 else (1.0, 0.0)):
+                    eng = engines[rate]
+                    t0 = time.perf_counter()
+                    futs = [eng.submit(q, deadline_s=60.0) for q in qs]
+                    t1 = time.perf_counter()
+                    eng.batcher.drain_once(block_s=0.01)
+                    t2 = time.perf_counter()
+                    lat = [f.result()["latency_ms"] for f in futs]
+                    if i >= 10:                         # past each key's first replays
+                        c = cols.setdefault((rate, bucket), {"submit_us": [], "drain_ms": [],
+                                                             "latency_ms": []})
+                        c["submit_us"].append((t1 - t0) * 1e6 / bucket)
+                        c["drain_ms"].append((t2 - t1) * 1e3)
+                        c["latency_ms"].extend(lat)
+    finally:
+        for eng in engines.values():
+            eng.close()
+        set_tracker(prev)
+    for sp in tracker.snapshot():
+        if sp["name"] == "serve/execute":
+            rate = 1.0 if sp.get("links") else 0.0
+            cols[rate, sp["attrs"]["bucket"]].setdefault("execute_ms", []).append(
+                sp["dur_s"] * 1e3)
+    rows = {}
+    for bucket in OBS_TAX_BUCKETS:
+        rows[bucket] = {}
+        for key in ("execute_ms", "submit_us", "drain_ms", "latency_ms"):
+            p0 = float(np.percentile(cols[0.0, bucket][key], 50))
+            p1 = float(np.percentile(cols[1.0, bucket][key], 50))
+            rows[bucket][key] = {"rate0": p0, "rate1": p1, "tax": (p1 - p0) / p0}
+    print(f"[obs tax] p50 at trace_sample 0 vs 1.0, {OBS_TAX_BATCHES - 10} batches a bucket in "
+          f"alternation (serve/execute ms; submit us per request; drain ms per batch; request "
+          f"latency ms): " + "; ".join(
+              f"bucket {b}: " + ", ".join(f"{k} {v['rate0']:.4f} vs {v['rate1']:.4f} "
+                                          f"({v['tax']:+.2%})" for k, v in r.items())
+              for b, r in rows.items())
+          + f" (the JAX gate: < 2 % of p50 exec); {smi}", flush=True)
+
+    def per_span(tracker) -> float:
+        t0 = time.perf_counter()
+        for _ in range(OBS_NVTX_SPANS):
+            with tracker.span("obs/bench"):
+                pass
+        return (time.perf_counter() - t0) / OBS_NVTX_SPANS * 1e6
+
+    plain, nvtx = SpanTracker(capacity=1024), SpanTracker(capacity=1024, device="cuda")
+    costs = {"plain": [], "nvtx": []}
+    for _ in range(2):
+        costs["plain"].append(per_span(plain))
+        costs["nvtx"].append(per_span(nvtx))
+    span_us = float(np.median(costs["plain"]))
+    nvtx_us = float(np.median(costs["nvtx"])) - span_us
+    print(f"[obs tax] a span costs {span_us:.2f} us on the host; its NVTX range adds "
+          f"{nvtx_us:.2f} us ({costs}); {smi}", flush=True)
+    return {"train_ms_per_step": train, "train_tax": (on - off) / off, "serve": rows,
+            "perf_read_ms": {k: scan[k] for k in ("window", "whole ring")},
+            "span_us": span_us, "nvtx_us_per_span": nvtx_us}
+
+
+def obs_phase(smi: str) -> dict:
+    """Phase 15: the observability slice on the card."""
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    t0 = time.monotonic()
+    out = {"card": smi, "a_train": obs_train(smi), "b_async_save": obs_async_save(),
+           "cd_nan_debug": obs_nan_and_debug()}
+    out["e_serve"] = obs_serve(OBS_DIR / "train" / "ckpt", smi)
+    out["f_tax"] = obs_tax(smi)
+    out["seconds"] = time.monotonic() - t0
+    print(f"[obs] phase 15: {out['seconds']:.1f} s (aim: {OBS_SECONDS} s)", flush=True)
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    return out
+
+
 def tokenize_rows(tok, instances) -> dict[str, np.ndarray]:
     ts = [tok(i) for i in instances]
     return {k: np.stack([getattr(t, k) for t in ts]).astype(dt)
@@ -4737,6 +5317,9 @@ def main() -> int:
     # BERT-PAIR, served
     bert = bert_phase(real)
     shutil.rmtree(REAL_DIR, ignore_errors=True)
+
+    # 15. Observability: the telemetry of the training and serving paths
+    obs15 = obs_phase(smi)
 
     # 12. Summary lines
     def attn_extra(key: str, M: int) -> dict:
@@ -4936,6 +5519,7 @@ def main() -> int:
                                   "sweep": serve4c}}), flush=True)
     print(json.dumps({"bert": bert}), flush=True)
     print(json.dumps({"slice6c": slice6c}), flush=True)
+    print(json.dumps({"obs": obs15}, default=str), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

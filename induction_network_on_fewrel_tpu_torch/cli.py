@@ -72,6 +72,21 @@ on the card), ``--eval_steps_per_call`` eval batches,
 ``--metric_window_calls`` dispatches per metric record, and
 ``--grad_probe_every`` logs the gradient-health probe.
 
+Telemetry (the JAX ``cli.py:1333-1421``): records go to
+``<--run_dir or --save_ckpt>/metrics.jsonl`` and, with ``--tensorboard
+DIR``, to an event file there. ``--watchdog`` hooks the flight recorder
+and the health watchdog (critical events dump ``flight_recorder.json``;
+SIGTERM dumps too); ``--perf`` adds the per-window step-time
+decomposition and the capture watcher (``kind="perf"``/``"compile"``,
+the floor projected at the H100's rates); ``--profile DIR`` traces the
+calls over steps [start+1, start+1+--profile_steps) with torch.profiler;
+``--nan_inject_step N`` sets the logged loss of the window holding step
+N to NaN; ``--debug_nans`` raises ``FloatingPointError`` at the first
+step whose loss or gradient norm is not finite (a device-side flag read
+after each call); ``--chaos PLAN`` arms the fault points
+(``obs/chaos.py``); ``--ckpt_stage auto|off`` stages checkpoint writes in
+``/dev/shm`` for the saver thread to drain.
+
 Runs on the GPU by default and refuses to start without CUDA unless
 ``--device cpu`` is given.
 """
@@ -84,7 +99,7 @@ import os
 import sys
 import warnings
 
-from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE, SHARDED
+from induction_network_on_fewrel_tpu_torch.models.build import LATER_ITEMS, LATER_SLICE, SHARDED
 
 
 def build_arg_parser(train: bool) -> argparse.ArgumentParser:
@@ -273,6 +288,36 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                        help="every K steps, log grad global-norm + grad-cosine vs an "
                             "all-f32 reference backward on the same batch (0 = off)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--run_dir", default=None, help="metrics/log dir (defaults to --save_ckpt)")
+    p.add_argument("--ckpt_stage", default="auto", choices=["auto", "off"],
+                   help="checkpoint staging: slots are written to /dev/shm and the saver "
+                        "thread drains them to --save_ckpt (auto: when /dev/shm exists)")
+    if train:
+        p.add_argument("--profile", default=None, metavar="DIR",
+                       help="torch.profiler chrome trace of steps start+1..start+1+"
+                            "profile_steps into DIR/trace.json")
+        p.add_argument("--tensorboard", default=None, metavar="DIR",
+                       help="also mirror every numeric record field to a TensorBoard event "
+                            "file in DIR (metrics.jsonl is always written)")
+        p.add_argument("--profile_steps", type=int, default=10)
+        p.add_argument("--debug_nans", action="store_true",
+                       help="raise FloatingPointError at the first step whose loss or "
+                            "gradient norm is not finite (a device-side flag in the step, "
+                            "read after each call)")
+        p.add_argument("--watchdog", action="store_true",
+                       help="run-health watchdog: NaN/Inf scalars, throughput regression, "
+                            "routing collapse -> kind='health' events; critical events dump "
+                            "flight_recorder.json to --run_dir")
+        p.add_argument("--nan_inject_step", type=int, default=0,
+                       help="set the LOGGED loss of the window holding step N to NaN "
+                            "(training unaffected; drills the watchdog and the recorder)")
+        p.add_argument("--perf", action="store_true",
+                       help="per-window step-time decomposition (kind='perf' segments tile "
+                            "the window) and capture forensics (kind='compile': CUDA-graph "
+                            "captures and kernel builds, with the steady-capture gate)")
+        p.add_argument("--chaos", default="",
+                       help="chaos plan: comma-separated POINT@AT[*COUNT][:ARG] over the "
+                            "named fault points (obs/chaos.py), e.g. ckpt.bitflip@1:ring")
     later = p.add_argument_group("JAX flags refused by name unless at their JAX default")
     for flag, (default, kind, why) in {**DEFERRED, **NO_COUNTERPART}.items():
         if flag in TRAIN_ONLY and not train:
@@ -289,10 +334,7 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
 # default, type, the ROADMAP queue A item that brings it). Given with
 # anything but the default (or a value meaning the same here, _NEUTRAL),
 # each is refused by name (rc 2).
-DP = ("ROADMAP queue A item 5 (data parallel: compact demb, ZeRO-1, bucketed gradients, "
-      "async collectives)")
-OBS = "ROADMAP queue A item 7b (observability and the checkpoint manager's leftovers)"
-ADAPT = "ROADMAP queue A item 7b (obs/adapt.py with its train/finetune.py)"
+DP, ADAPT = LATER_ITEMS["dp"], LATER_ITEMS["adapt"]
 DEFERRED = {
     "--ep": (1, int, LATER_SLICE["ep"]), "--pp": (1, int, LATER_SLICE["pp"]),
     "--sp": (1, int, LATER_SLICE["sp"]), "--tp": (1, int, SHARDED),
@@ -300,11 +342,6 @@ DEFERRED = {
     "--dp": (0, int, DP), "--zero_opt": (False, bool, DP), "--compact_demb": ("auto", str, DP),
     "--grad_bucketing": ("auto", str, DP), "--grad_bucket_count": (4, int, DP),
     "--async_collectives": ("auto", str, DP),
-    "--run_dir": (None, str, OBS), "--tensorboard": (None, str, OBS),
-    "--profile": (None, str, OBS), "--profile_steps": (10, int, OBS),
-    "--perf": (False, bool, OBS), "--debug_nans": (False, bool, OBS),
-    "--nan_inject_step": (0, int, OBS), "--watchdog": (False, bool, OBS),
-    "--chaos": ("", str, OBS), "--ckpt_stage": ("auto", str, OBS),
     "--adapt": (False, bool, ADAPT), "--adapt_retries": (None, int, ADAPT),
     "--adapt_backoff_s": (None, float, ADAPT), "--adapt_cooldown_s": (None, float, ADAPT),
     "--adapt_step_budget": (None, int, ADAPT), "--adapt_wall_s": (None, float, ADAPT),
@@ -319,10 +356,9 @@ NO_COUNTERPART = {
                                 "--remat_attn on does"),
 }
 # Values other than the JAX default that mean the same on one card.
-_NEUTRAL = {"--dp": (1,), "--ckpt_stage": ("off",), "--compile_cache": ("off",)}
+_NEUTRAL = {"--dp": (1,), "--compile_cache": ("off",)}
 # The JAX package has these on its train parser only.
-TRAIN_ONLY = {"--tensorboard", "--profile", "--profile_steps", "--perf", "--debug_nans",
-              "--nan_inject_step", "--watchdog", "--chaos"} | {f for f in DEFERRED if f.startswith("--adapt")}
+TRAIN_ONLY = {f for f in DEFERRED if f.startswith("--adapt")}
 
 
 def refuse_deferred(parser: argparse.ArgumentParser, args) -> None:
@@ -445,6 +481,9 @@ def config_from_args(args):
         divergence_guard=args.divergence_guard, sampler=args.sampler, prefetch=args.prefetch,
         sampler_threads=args.sampler_threads, prefetch_depth=args.prefetch_depth,
         mixture=args.mixture, feed_fault=getattr(args, "feed_fault", ""), seed=args.seed,
+        ckpt_stage=args.ckpt_stage, watchdog=getattr(args, "watchdog", False),
+        perf=getattr(args, "perf", False), nan_inject_step=getattr(args, "nan_inject_step", 0),
+        chaos=getattr(args, "chaos", ""),
     )
     if hasattr(args, "train_iter"):
         kw.update(train_iter=args.train_iter, val_iter=args.val_iter, val_step=args.val_step,
@@ -616,10 +655,64 @@ def make_trainer(args, cfg, only_test: bool = False):
                            stream_tag=f"mixture={cfg.mixture};seed={cfg.seed}")
     val_s, val_t = split_of("val", cfg.n, cfg.seed + 1)
     adv = adv_pieces(args, cfg, tok, datasets["train"], model) if cfg.adv else None
+    run_dir = args.run_dir or args.save_ckpt
+    logger = MetricsLogger(run_dir, tensorboard_dir=args.tensorboard)
+    obs = telemetry(cfg, run_dir, logger, train_t if cfg.embed_optimizer == "lazy" else None)
     trainer = FewShotTrainer(model, cfg, train_s, val_s, ckpt_dir=args.save_ckpt,
-                             logger=MetricsLogger(args.save_ckpt), train_table=train_t,
-                             val_table=val_t, adv=adv)
+                             logger=logger, train_table=train_t, val_table=val_t, adv=adv,
+                             profile_dir=args.profile, profile_steps=args.profile_steps,
+                             debug_nans=args.debug_nans, **obs)
     return trainer, None
+
+
+def telemetry(cfg, run_dir, logger, lazy_table=None) -> dict:
+    """The trainer's telemetry (the JAX ``cli.py:1333-1421``): with
+    ``cfg.watchdog`` a FlightRecorder (dumping on SIGTERM) and a
+    HealthWatchdog; with ``cfg.perf`` a CompileWatcher (its bursts on the
+    watchdog) and a PerfObserver (its criticals on the watchdog, a span
+    snapshot captured into ``run_dir``; a BiLSTM run's floor projected at
+    the H100's rates). ``cfg.chaos`` installs its plan (``obs/chaos.py``);
+    ``close_telemetry`` removes it and the SIGTERM handler."""
+    from induction_network_on_fewrel_tpu_torch import obs
+
+    watchdog = recorder = None
+    if cfg.watchdog:
+        recorder = obs.FlightRecorder(out_dir=run_dir)
+        recorder.install_sigterm_handler()
+        watchdog = obs.HealthWatchdog(recorder=recorder)
+    if cfg.chaos:
+        reg = obs.ChaosRegistry.parse(cfg.chaos, logger=logger)
+        if reg is not None:
+            reg.install()
+            print(f"chaos plan armed: {cfg.chaos}", file=sys.stderr)
+    perf = compile_watcher = None
+    if cfg.perf:
+        capture = (obs.DiagnosticsCapture(out_dir=run_dir, recorder=None, profile=False)
+                   if run_dir is not None else None)
+        floor_ms = None
+        if cfg.encoder == "bilstm":
+            from induction_network_on_fewrel_tpu_torch.utils.roofline import projected_floor_ms
+
+            floor_ms = projected_floor_ms(
+                cfg, corpus_rows=len(lazy_table.uids) if lazy_table is not None else None)
+        compile_watcher = obs.CompileWatcher(logger=logger).install()
+        if watchdog is not None:
+            obs.bind_health(compile_watcher, watchdog._emit)
+        perf = obs.PerfObserver(logger=logger, compile_watcher=compile_watcher, capture=capture,
+                                on_event=watchdog._emit if watchdog is not None else None,
+                                floor_ms=floor_ms)
+    return {"watchdog": watchdog, "recorder": recorder, "perf": perf,
+            "compile_watcher": compile_watcher}
+
+
+def close_telemetry(trainer) -> None:
+    """Remove what ``telemetry`` installed process-wide: the chaos plan and
+    the recorder's SIGTERM handler."""
+    from induction_network_on_fewrel_tpu_torch.obs.chaos import install
+
+    install(None)
+    if trainer.recorder is not None:
+        trainer.recorder.uninstall_sigterm_handler()
 
 
 def adv_pieces(args, cfg, tok, train_ds, model):
@@ -758,7 +851,10 @@ def train_main(argv=None) -> int:
         print_result(trainer.evaluate(cfg.val_iter, return_metrics=True), "final_val_accuracy")
         return 0
     finally:
-        trainer.close()
+        try:
+            trainer.close()
+        finally:
+            close_telemetry(trainer)
 
 
 def test_main(argv=None) -> int:

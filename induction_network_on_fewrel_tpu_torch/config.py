@@ -166,6 +166,21 @@ class ExperimentConfig:
     # Failure injection: raise once the step counter reaches this value on
     # a fresh run (a --resume continues past it); 0 = off.
     fault_step: int = 0
+    # Checkpoint staging (train/checkpoint.py): "auto" writes slots to
+    # /dev/shm and the saver thread drains them to the directory; "off"
+    # writes in place.
+    ckpt_stage: str = "auto"
+
+    # --- telemetry (obs/) ---
+    # The flight recorder and the run-health watchdog over the metrics stream.
+    watchdog: bool = False
+    # Set the logged loss of the window holding this step to NaN (the
+    # training state is untouched); 0 = off.
+    nan_inject_step: int = 0
+    # The per-window step-time decomposition and the capture watcher.
+    perf: bool = False
+    # Chaos plan over the named fault points (obs/chaos.py); "" = off.
+    chaos: str = ""
 
     # --- FewRel 2.0 adversarial domain adaptation (training-time only) ---
     adv: bool = False         # train encoder against a domain discriminator

@@ -44,7 +44,6 @@ queue is without a timeout.
 
 from __future__ import annotations
 
-import contextlib
 import queue
 import threading
 import time
@@ -63,14 +62,9 @@ from induction_network_on_fewrel_tpu_torch.datapipe.faults import (
     poison_tree,
     tree_leaves,
 )
+from induction_network_on_fewrel_tpu_torch.obs.spans import span
 
 _POLL_S = 0.2       # the longest a queue wait blocks before it looks around
-
-
-def span(name: str):
-    """The producer's named span; a no-op until the observability slice
-    (ROADMAP queue A item 7b) brings NVTX ranges."""
-    return contextlib.nullcontext()
 
 
 def _batch_type(batch):
@@ -228,7 +222,7 @@ class PipelineFeed:
                         return
                 state = capture_sampler_state(self.base)
                 t0 = time.monotonic()
-                with span("datapipe/produce"):
+                with span("datapipe/produce", unit=self.unit):
                     payload = self._draw_unit()
                 dt = time.monotonic() - t0
                 if self.faults.poisons_unit(start, self.unit):

@@ -19,7 +19,10 @@ time any kernel is needed.
 
 Every launcher takes its pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` after the launch; ``KernelLibrary.launch`` turns a
-non-zero code into an exception. Nothing here runs at import time.
+non-zero code into an exception. Nothing here runs at import time. Each
+source compiled (not one found built) is reported to the capture
+watchers (``obs/compile.notify_capture``, ``fn="build:<stem>"``, the
+build hash as ``shapes``).
 
 The host route (``HostLibrary``) builds a C++ source of ``csrc/`` that runs
 on the CPU, the episode sampler ``csrc/episode_sampler.cpp``, with
@@ -41,6 +44,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from induction_network_on_fewrel_tpu_torch.obs.compile import notify_capture
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -151,6 +156,7 @@ class KernelLibrary:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)
+                notify_capture(f"build:{stem}", out.stem, time.monotonic() - t0)
         if errors:
             raise RuntimeError("\n".join(errors))
         libs = {stem: ctypes.CDLL(str(path)) for stem, path in todo.items()}
@@ -216,6 +222,7 @@ class HostLibrary:
                 out = _host_lib_path(self.stem)
                 if not out.exists():
                     self._compile(out)
+                    notify_capture(f"build:{self.stem}", out.stem, time.monotonic() - t0)
                 self._lib = ctypes.CDLL(str(out))
                 self.build_seconds = time.monotonic() - t0
             return self._lib

@@ -138,6 +138,15 @@ def check_kernel_widths(cfg: ExperimentConfig, device) -> None:
 # The JAX package's sharded executors: the ROADMAP queue A item that brings
 # them (the CLI refuses --ep, --pp and --sp above 1 by name with these).
 SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention, pp, ep)"
+# The ROADMAP queue A items both CLIs name when they refuse a flag of a
+# later slice (``cli.py:DEFERRED``, ``serving/cli.py:DEFERRED``).
+LATER_ITEMS = {
+    "dp": ("ROADMAP queue A item 5 (data parallel: compact demb, ZeRO-1, bucketed "
+           "gradients, async collectives)"),
+    "adapt": "ROADMAP queue A item 7d (obs/adapt.py with its train/finetune.py)",
+    "fleet": ("ROADMAP queue A item 7c (the fleet: router, journal, autoscaler, standby, "
+              "supervisor)"),
+}
 LATER_SLICE = {
     "ep": SHARDED + "; --ep 1 runs the MoE FFN on one card",
     "pp": SHARDED + "; --pp 1 with --tfm_stacked runs the layer-stacked transformer on one card",

@@ -81,6 +81,7 @@ class Request:
     future: Future
     enqueued_at: float
     tenant: str = "default"     # verdict/registry scope
+    trace: object = None        # obs/spans.TraceContext of a sampled request
 
 
 class DynamicBatcher:
@@ -121,7 +122,7 @@ class DynamicBatcher:
         return batches_ahead * max(est, 1e-4)
 
     def submit(
-        self, query: dict, deadline_s: float, tenant: str = "default",
+        self, query: dict, deadline_s: float, tenant: str = "default", trace=None,
     ) -> Future:
         """Enqueue one tokenized query; returns its Future. Raises
         ``Saturated`` (with a retry-after hint) when the queue is full."""
@@ -130,7 +131,7 @@ class DynamicBatcher:
         now = time.monotonic()
         req = Request(
             query=query, deadline=now + deadline_s, future=Future(),
-            enqueued_at=now, tenant=tenant,
+            enqueued_at=now, tenant=tenant, trace=trace,
         )
         try:
             self._q.put_nowait(req)
@@ -366,7 +367,7 @@ class ContinuousBatcher:
         return batches_ahead * max(est, 1e-4)
 
     def submit(
-        self, query: dict, deadline_s: float, tenant: str = "default",
+        self, query: dict, deadline_s: float, tenant: str = "default", trace=None,
     ) -> Future:
         """Admit one tokenized query for ``tenant``; returns its Future.
         Raises ``Saturated`` when the global queue is at bound, or
@@ -376,7 +377,7 @@ class ContinuousBatcher:
         now = time.monotonic()
         req = Request(
             query=query, deadline=now + deadline_s, future=Future(),
-            enqueued_at=now, tenant=tenant,
+            enqueued_at=now, tenant=tenant, trace=trace,
         )
         with self._cv:
             if self._closed:

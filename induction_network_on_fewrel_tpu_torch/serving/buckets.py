@@ -47,6 +47,8 @@ import time
 import numpy as np
 import torch
 
+from induction_network_on_fewrel_tpu_torch.obs.compile import notify_capture
+
 # Powers of two up to 16 (the JAX package's default set).
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16)
 
@@ -221,7 +223,9 @@ class QueryGraphCache:
     matrix itself. ``factory(model, n, c, bucket, L, dtype)`` makes one
     program (``make_program`` by default; the CPU tests pass a fake).
     ``compiles`` counts keys made, ``captures`` CUDA graphs captured (one
-    per key and bank on the card, none on the CPU)."""
+    per key and bank on the card, none on the CPU); each key's captures
+    are reported to the capture watchers (``obs/compile.notify_capture``,
+    ``fn="serve_query"``, shapes "n,bucket,dtype")."""
 
     def __init__(self, banks, stats=None, factory=make_program):
         self.banks = list(banks)
@@ -245,11 +249,16 @@ class QueryGraphCache:
             with self._lock:
                 progs = self._exe.get(key)
                 if progs is None:
+                    t0 = time.monotonic()
                     progs = [self._factory(m, n_classes, class_dim, bucket, max_length, dtype)
                              for m in self.banks]
                     self._exe[key] = progs
                     self.compiles += 1
-                    self.captures += sum(bool(p.captured) for p in progs)
+                    captured = sum(bool(p.captured) for p in progs)
+                    self.captures += captured
+                    if captured:
+                        notify_capture("serve_query", f"{n_classes},{bucket},{dtype}",
+                                       time.monotonic() - t0)
                     if self._stats is not None:
                         self._stats.record_compile(during_warmup=self.in_warmup)
         return progs

@@ -18,10 +18,25 @@ names, plus ``--lstm_backend``/``--attn_backend`` (the kernel backends,
 default the checkpoint's). Runs on the GPU by default and refuses to
 start without CUDA unless ``--device cpu`` is given.
 
-The JAX flags of later slices are parsed and refused by name, with the
-ROADMAP queue A item that brings them, so a JAX command line is never
-half-obeyed (``DEFERRED``); so is ``--compile_cache``, which has no
-counterpart here (``NO_COUNTERPART``). Each is accepted at its JAX default.
+Telemetry (the JAX ``serving/cli.py:591-670``): ``--watchdog`` (the
+health watchdog over the serve stream), ``--trace_sample R`` (per-request
+``kind="trace"`` waterfalls; verdicts carry ``trace_id``),
+``--slo_latency_ms`` with ``--slo_availability``, ``--slo_fast_s``,
+``--slo_slow_s`` (the per-tenant burn-rate engine; ``--slo_profile`` lets
+its captures take a torch.profiler trace), ``--drift`` with
+``--drift_window``, ``--drift_baseline``, ``--drift_band`` (the
+prediction-drift detector) and ``--chaos PLAN`` (``serve.*`` and
+``publish.*`` fault points). Any of the watchdog, SLO or drift arms the
+flight recorder (``flight_recorder.json`` in ``--run_dir``); SLO and drift
+criticals capture diagnostics there. With ``--run_dir`` the shared
+counter registry is written as ``metrics.prom`` at exit.
+
+The JAX flags of later slices (the fleet, ``--dp``, ``--adapt*``) are
+parsed and refused by name, with the ROADMAP queue A item that brings
+them (``models/build.LATER_ITEMS``, shared with the train CLI), so a JAX
+command line is never half-obeyed (``DEFERRED``); so is
+``--compile_cache``, which has no counterpart here (``NO_COUNTERPART``).
+Each is accepted at its JAX default.
 
 ``main`` is the fresh-weight demo: a synthetic vocabulary, fresh-init
 weights from ``--seed``, the first N synthetic relations registered at K
@@ -36,20 +51,17 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from pathlib import Path
 
 import numpy as np
 
+from induction_network_on_fewrel_tpu_torch.models.build import LATER_ITEMS
+
 # JAX serving flags of later slices: flag -> the ROADMAP queue A item that
 # brings it. A flag given with anything but its JAX default is refused.
-OBS = "item 7 (observability)"
-FLEET = "item 7 (fleet)"
-ADAPT = "item 6 (the adaptation controller follows its train/finetune.py)"
+FLEET, ADAPT = LATER_ITEMS["fleet"], LATER_ITEMS["adapt"]
 DEFERRED = {
-    "--dp": "item 5 (data parallel)",
-    "--watchdog": OBS, "--trace_sample": OBS, "--slo_latency_ms": OBS,
-    "--slo_availability": OBS, "--slo_fast_s": OBS, "--slo_slow_s": OBS,
-    "--slo_profile": OBS, "--drift": OBS, "--drift_window": OBS,
-    "--drift_baseline": OBS, "--drift_band": OBS, "--chaos": OBS,
+    "--dp": LATER_ITEMS["dp"],
     "--tier_spread": FLEET, "--replicas": FLEET, "--router": FLEET, "--journal": FLEET,
     "--journal_fsync": FLEET,
     "--journal_compact_every": FLEET, "--autoscale": FLEET, "--autoscale_min": FLEET,
@@ -67,21 +79,13 @@ NO_COUNTERPART = {
 # The JAX defaults of the refused flags (and values that mean the same).
 _NEUTRAL = {
     "--compile_cache": ("auto", "off"), "--tier_spread": (None, 0),
-    "--dp": (None, 1), "--trace_sample": (0.0,), "--slo_latency_ms": (None,),
-    "--slo_availability": (0.99,), "--slo_fast_s": (300.0,), "--slo_slow_s": (3600.0,),
-    "--drift_window": (128,), "--drift_baseline": (64,), "--drift_band": (4.0,),
-    "--chaos": ("",), "--replicas": (1,), "--journal": (None,), "--journal_fsync": ("commit",),
+    "--dp": (None, 1), "--replicas": (1,), "--journal": (None,), "--journal_fsync": ("commit",),
     "--journal_compact_every": (512,), "--autoscale_min": (1,), "--autoscale_max": (4,),
     "--autoscale_interval_s": (5.0,), "--standby_poll_s": (0.5,), "--control_socket": (None,),
     "--send": (None,), "--adapt_mixture": (None,),
 }
-_FLAGS = {"--watchdog", "--slo_profile", "--drift", "--router", "--autoscale", "--standby",
-          "--adapt"}
-_TYPES = {"--dp": int, "--tier_spread": int, "--trace_sample": float,
-          "--slo_latency_ms": float, "--slo_availability": float, "--slo_fast_s": float,
-          "--slo_slow_s": float,
-          "--drift_window": int, "--drift_baseline": int, "--drift_band": float,
-          "--replicas": int, "--journal_compact_every": int, "--autoscale_min": int,
+_FLAGS = {"--router", "--autoscale", "--standby", "--adapt"}
+_TYPES = {"--dp": int, "--tier_spread": int, "--replicas": int, "--journal_compact_every": int, "--autoscale_min": int,
           "--autoscale_max": int, "--autoscale_interval_s": float, "--standby_poll_s": float,
           "--adapt_retries": int, "--adapt_backoff_s": float, "--adapt_cooldown_s": float,
           "--adapt_step_budget": int, "--adapt_wall_s": float, "--adapt_verify_s": float}
@@ -150,6 +154,35 @@ def build_serve_arg_parser() -> argparse.ArgumentParser:
                    help="N-tier ladder the class matrices pad up to ('4,8,16,32,64'), or "
                         "'off' for exact-N (default: the checkpoint config)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--watchdog", action="store_true",
+                   help="run-health watchdog: queue-stall detection + NaN checks over the "
+                        "serve stream; critical events dump flight_recorder.json to --run_dir")
+    p.add_argument("--trace_sample", type=float, default=0.0,
+                   help="request-trace head-sampling rate (0 = off; 0.1 traces every 10th "
+                        "request): kind='trace' segment records to --run_dir")
+    p.add_argument("--slo_latency_ms", type=float, default=None,
+                   help="per-request latency objective; turns on the per-tenant SLO "
+                        "burn-rate engine (a fast-window CRITICAL captures diagnostics)")
+    p.add_argument("--slo_availability", type=float, default=0.99,
+                   help="SLO good-fraction target (error budget = 1 - this)")
+    p.add_argument("--slo_fast_s", type=float, default=300.0, help="fast burn window seconds")
+    p.add_argument("--slo_slow_s", type=float, default=3600.0, help="slow burn window seconds")
+    p.add_argument("--slo_profile", action="store_true",
+                   help="let SLO/drift captures take a torch.profiler trace")
+    p.add_argument("--drift", action="store_true",
+                   help="online prediction-drift detector: per-tenant NOTA rate / top-1 "
+                        "margin / score entropy vs a baseline from the first traffic; every "
+                        "publish re-arms it")
+    p.add_argument("--drift_window", type=int, default=128,
+                   help="drift detection window (verdicts per tenant)")
+    p.add_argument("--drift_baseline", type=int, default=64,
+                   help="verdicts that form the calibration baseline after (re-)arming")
+    p.add_argument("--drift_band", type=float, default=4.0,
+                   help="alert band width in standard errors of the window mean "
+                        "(CRITICAL at 2x)")
+    p.add_argument("--chaos", default="",
+                   help="chaos plan: POINT@AT[*COUNT][:ARG] directives, e.g. "
+                        "'serve.execute_raise@0*3:default' (obs/chaos.py); '' = off")
     later = p.add_argument_group("JAX flags refused by name unless at their JAX default")
     for flag, why in {**DEFERRED, **NO_COUNTERPART}.items():
         why = f"not ported yet: {why}" if flag in DEFERRED else f"no counterpart: {why}"
@@ -170,7 +203,7 @@ def refuse_deferred(parser: argparse.ArgumentParser, args) -> None:
         if value in neutral:
             continue
         if flag in DEFERRED:
-            parser.error(f"{flag} is not ported yet: it comes with ROADMAP queue A {why}")
+            parser.error(f"{flag} is not ported yet: it comes with {why}")
         parser.error(f"{flag} {value} has no counterpart here: {why}")
 
 
@@ -183,17 +216,62 @@ def _build_breaker(args):
                           open_s=args.breaker_open_s)
 
 
-def _engine_kwargs(args, buckets, logger, breaker) -> dict:
+def _engine_kwargs(args, buckets, logger, breaker, obs=None) -> dict:
     return dict(
         k=args.K, buckets=buckets, max_queue_depth=args.queue_depth,
         batch_window_s=args.batch_window_ms / 1e3, default_deadline_s=args.deadline_ms / 1e3,
         scheduler=args.scheduler, tenant_share=args.tenant_share, logger=logger,
         breaker=breaker, resident_dtype=args.resident_dtype,
         quant_probe_every=args.quant_probe_every, geometry_tiers=args.geometry_tiers,
+        trace_sample=getattr(args, "trace_sample", 0.0), **(obs or {}),
     )
 
 
-def _build_engine(args, buckets, logger=None, breaker=None):
+def serve_telemetry(args, logger) -> tuple[dict, object]:
+    """({watchdog, slo, drift} for the engine, the flight recorder or
+    None) from the telemetry flags (the JAX ``serving/cli.py:591-660``);
+    installs a ``--chaos`` plan."""
+    from induction_network_on_fewrel_tpu_torch import obs
+
+    recorder = capture = watchdog = slo = drift = None
+    if args.watchdog or args.slo_latency_ms is not None or args.drift:
+        recorder = obs.FlightRecorder(out_dir=args.run_dir)
+        recorder.install_sigterm_handler()
+        if logger is not None:
+            logger.add_hook(recorder.record_metric)
+    if args.watchdog:
+        watchdog = obs.HealthWatchdog(logger=logger, recorder=recorder)
+    if args.slo_latency_ms is not None or args.drift:
+        capture = obs.DiagnosticsCapture(args.run_dir or ".", recorder=recorder,
+                                         profile=args.slo_profile)
+    if args.slo_latency_ms is not None:
+        slo = obs.SLOEngine(obs.SLOObjective(availability=args.slo_availability,
+                                             latency_ms=args.slo_latency_ms),
+                            fast_window_s=args.slo_fast_s, slow_window_s=args.slo_slow_s,
+                            logger=logger, recorder=recorder, capture=capture)
+    if args.drift:
+        drift = obs.DriftDetector(window=args.drift_window, baseline_n=args.drift_baseline,
+                                  band_sigma=args.drift_band, logger=logger, recorder=recorder,
+                                  capture=capture)
+    if watchdog is not None and capture is not None:
+        watchdog.capture = capture
+    if args.chaos:
+        reg = obs.ChaosRegistry.parse(args.chaos, logger=logger)
+        if reg is not None:
+            reg.install()
+            print(f"chaos plan armed: {args.chaos}", file=sys.stderr)
+    return {"watchdog": watchdog, "slo": slo, "drift": drift}, recorder
+
+
+def write_prometheus(run_dir) -> None:
+    """The shared counter registry's Prometheus text as ``metrics.prom``
+    (before the engine's close unbinds its gauges)."""
+    from induction_network_on_fewrel_tpu_torch.obs import get_registry
+
+    Path(run_dir, "metrics.prom").write_text(get_registry().to_prometheus())
+
+
+def _build_engine(args, buckets, logger=None, breaker=None, obs=None):
     """The one home of the CLI's engine construction: a checkpoint, or
     fresh-init synthetic weights."""
     from induction_network_on_fewrel_tpu_torch.config import resolve_geometry_policy
@@ -204,7 +282,7 @@ def _build_engine(args, buckets, logger=None, breaker=None):
         return InferenceEngine.from_checkpoint(
             args.load_ckpt, device=args.device, glove=args.glove, glove_mat=args.glove_mat,
             lstm_backend=args.lstm_backend, attn_backend=args.attn_backend,
-            **_engine_kwargs(args, buckets, logger, breaker),
+            **_engine_kwargs(args, buckets, logger, breaker, obs),
         )
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
 
@@ -212,7 +290,7 @@ def _build_engine(args, buckets, logger=None, breaker=None):
     cfg = cfg.replace(**{k: v for k, v in (("lstm_backend", args.lstm_backend),
                                            ("attn_backend", args.attn_backend)) if v is not None})
     print("no --load_ckpt: serving FRESH-INIT synthetic weights (demo only)", file=sys.stderr)
-    return _fresh_engine(cfg, args.device, **_engine_kwargs(args, buckets, logger, breaker))
+    return _fresh_engine(cfg, args.device, **_engine_kwargs(args, buckets, logger, breaker, obs))
 
 
 # The fresh-weight demos' vocabulary: 2000 synthetic words + UNK/BLANK.
@@ -285,7 +363,15 @@ def serve_main(argv=None) -> int:
     refuse_deferred(parser, args)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     logger = MetricsLogger(args.run_dir, quiet=True) if args.run_dir else None
-    engine = _build_engine(args, buckets, logger=logger, breaker=_build_breaker(args))
+    if logger is not None:
+        logger.set_identity("serve")
+    obs, recorder = serve_telemetry(args, logger)
+    try:
+        engine = _build_engine(args, buckets, logger=logger, breaker=_build_breaker(args),
+                               obs=obs)
+    except BaseException:
+        _close_telemetry(recorder)
+        raise
     try:
         ds = _support_dataset(args, engine.registry.k, seed=args.seed)
         names = engine.register_dataset(ds, max_classes=args.max_classes)
@@ -313,9 +399,24 @@ def serve_main(argv=None) -> int:
         print("serve stats: " + json.dumps(snap), file=sys.stderr)
         return 0
     finally:
-        engine.close()
-        if logger is not None:
-            logger.close()
+        try:
+            if args.run_dir:
+                write_prometheus(args.run_dir)
+            engine.close()
+            if logger is not None:
+                logger.close()
+        finally:
+            _close_telemetry(recorder)
+
+
+def _close_telemetry(recorder) -> None:
+    """Remove what ``serve_telemetry`` installed process-wide: the chaos
+    plan and the recorder's SIGTERM handler."""
+    from induction_network_on_fewrel_tpu_torch.obs.chaos import install
+
+    install(None)
+    if recorder is not None:
+        recorder.uninstall_sigterm_handler()
 
 
 # --- the fresh-weight demo ---------------------------------------------------

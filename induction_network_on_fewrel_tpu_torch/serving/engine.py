@@ -38,11 +38,32 @@ batches on the caller's thread under the same lock as the worker's, on
 the worker's stream. Each batch also records its host split (pack, copy
 in, replay call, wait, verdicts; tokenization at submit): ``host_split``.
 
+Telemetry (the JAX ``engine.py``): the request path runs under spans
+(``serve/submit`` around tokenization, without an NVTX range;
+``serve/stack`` and ``serve/execute`` per batch, linking the trace ids of
+the sampled requests they served; ``serve/publish`` per publish, under a
+trace of its own; the registry's ``serve/distill``). ``trace_sample=r``
+head-samples 1 in round(1/r) admissions (0: nothing allocated): a
+sampled request's verdict carries its ``trace_id`` and it gets one
+``kind="trace"`` record whose ``queue_ms + pack_ms + execute_ms +
+respond_ms`` equal its ``total_ms`` (the same timestamps the latency is
+taken from), buffered and flushed with the periodic stats emit.
+``slo`` (an SLOEngine) is fed every outcome by the stats and evaluated
+from the submit path (a fully shed tenant too) and the emit path;
+``drift`` (a DriftDetector) observes each verdict's quality features,
+computed from the logits the verdicts are built from (no extra device
+work), after the batch's futures resolve, and is re-armed by every
+publish, registration, threshold or dtype change; ``watchdog`` (a
+HealthWatchdog) hooks the logger and watches the queue from the submit
+and emit paths. ``serve.execute_raise`` (``obs/chaos.py``) raises inside
+a tenant's batch before the replay: contained like any launch failure.
+The counters are bound into the shared counter registry
+(``stats.bind_registry``) until ``close``.
+
 Device rule: ``device=None`` means "cuda" and raises without CUDA; the
 model must already live on that device. Refused as in the JAX package: a
-model other than induction, and feature-cache checkpoints. The tracing,
-SLO, drift, watchdog and chaos hooks come with the observability slice
-(ROADMAP queue A item 7), the dp-sharded query path with item 5.
+model other than induction, and feature-cache checkpoints. The dp-sharded
+query path comes with ROADMAP queue A item 5.
 """
 
 from __future__ import annotations
@@ -58,6 +79,9 @@ import torch
 
 from induction_network_on_fewrel_tpu_torch.data.fewrel import Instance
 from induction_network_on_fewrel_tpu_torch.models.build import resolve_device
+from induction_network_on_fewrel_tpu_torch.obs.chaos import ChaosError, chaos_active, chaos_fire
+from induction_network_on_fewrel_tpu_torch.obs.drift import quality_features
+from induction_network_on_fewrel_tpu_torch.obs.spans import TraceSampler, get_tracker, span
 from induction_network_on_fewrel_tpu_torch.serving.batcher import (
     ContinuousBatcher,
     DynamicBatcher,
@@ -81,25 +105,6 @@ from induction_network_on_fewrel_tpu_torch.serving.stats import ServingStats
 NO_RELATION = "no_relation"
 # Host segments of a batch, in order (``host_split``).
 SPLIT_KEYS = ("tokenize", "pack", "copy", "replay", "wait", "verdict")
-
-
-def quality_features(scores):
-    """(top-1 margin, softmax entropy) of class-score rows: a copy of
-    ``induction_network_on_fewrel_tpu/obs/drift.quality_features``.
-    ``scores``: numpy [..., n] class scores (the NOTA logit excluded).
-    Returns float64 arrays; margin is 0 for n < 2."""
-    s = np.asarray(scores, dtype=np.float64)
-    n = s.shape[-1]
-    if n >= 2:
-        top2 = np.partition(s, -2, axis=-1)[..., -2:]
-        margin = top2[..., 1] - top2[..., 0]
-    else:
-        margin = np.zeros(s.shape[:-1])
-    z = s - s.max(axis=-1, keepdims=True)
-    p = np.exp(z)
-    p /= p.sum(axis=-1, keepdims=True)
-    entropy = -(p * np.log(np.maximum(p, 1e-12))).sum(axis=-1)
-    return margin, entropy
 
 
 def degraded_verdict(tenant: str, *, snapshot_version: int = -1,
@@ -165,6 +170,7 @@ class InferenceEngine:
                  max_queue_depth: int = 64, batch_window_s: float = 0.002,
                  default_deadline_s: float = 1.0, scheduler: str = "continuous",
                  tenant_share: float = 0.5, logger=None, breaker=None,
+                 watchdog=None, slo=None, drift=None, trace_sample: float = 0.0,
                  start: bool = True, resident_dtype: str | None = None,
                  quant_probe_every: int | None = None,
                  geometry_tiers: str | None = None, program_factory=make_program):
@@ -199,6 +205,18 @@ class InferenceEngine:
         self.scheduler = scheduler
         self._logger = logger
         self._emit_step = 0
+        get_tracker().bind_device(self.device)
+        self.watchdog = watchdog
+        if watchdog is not None and logger is not None:
+            logger.add_hook(watchdog.observe_record)
+        self._tracer = TraceSampler(trace_sample)
+        self.slo = slo
+        if slo is not None and slo.logger is None:
+            slo.logger = logger
+        self.drift = drift
+        if drift is not None and drift.logger is None:
+            drift.logger = logger
+        self._pending_traces: list[dict] = []
         self.breaker = breaker
         if breaker is not None and breaker.on_transition is None:
             breaker.on_transition = self._on_breaker_transition
@@ -207,7 +225,8 @@ class InferenceEngine:
         geom = resolve_geometry_policy(_Knobs(geometry_tiers=geometry_tiers), base=cfg)
         self.quant_probe_every = quant["probe_every"]
         self._quant_batches = 0
-        self.stats = ServingStats()
+        self.stats = ServingStats(slo=slo)
+        self.stats.bind_registry()
         self.registry = TenantRegistry(
             model, tokenizer, k=k if k is not None else cfg.k, logger=logger,
             resident_dtype=quant["resident_dtype"], tiers=geom["tiers"],
@@ -284,13 +303,17 @@ class InferenceEngine:
 
     def register_class(self, name: str, instances, tenant: str = DEFAULT_TENANT):
         self._warm_tier_crossing(tenant, (name,))
-        return self.registry.register(name, instances, tenant=tenant)
+        vec = self.registry.register(name, instances, tenant=tenant)
+        self._drift_rearm(tenant, f"register_class {name!r}")
+        return vec
 
     def register_tokens(self, name: str, rows, tenant: str = DEFAULT_TENANT):
         """``register_class`` from already-tokenized rows (the token cache's
         form, ``TenantRegistry.register_tokens``)."""
         self._warm_tier_crossing(tenant, (name,))
-        return self.registry.register_tokens(name, rows, tenant=tenant)
+        vec = self.registry.register_tokens(name, rows, tenant=tenant)
+        self._drift_rearm(tenant, f"register_tokens {name!r}")
+        return vec
 
     def register_dataset(self, dataset, max_classes: int | None = None,
                          tenant: str = DEFAULT_TENANT) -> list[str]:
@@ -298,7 +321,9 @@ class InferenceEngine:
         if max_classes is not None:
             adding = adding[:max_classes]
         self._warm_tier_crossing(tenant, adding)
-        return self.registry.register_dataset(dataset, max_classes=max_classes, tenant=tenant)
+        names = self.registry.register_dataset(dataset, max_classes=max_classes, tenant=tenant)
+        self._drift_rearm(tenant, f"register_dataset ({len(names)} classes)")
+        return names
 
     def _dtypes_for(self, dtype: str) -> tuple[str, ...]:
         """The program dtypes a tenant at ``dtype`` needs: its own, and f32
@@ -322,7 +347,15 @@ class InferenceEngine:
                                     dtypes=self._dtypes_for(snap.resident_dtype))
 
     def set_nota_threshold(self, threshold: float | None, tenant: str = DEFAULT_TENANT):
-        return self.registry.set_nota_threshold(threshold, tenant=tenant)
+        snap = self.registry.set_nota_threshold(threshold, tenant=tenant)
+        self._drift_rearm(tenant, "nota_threshold change")
+        return snap
+
+    def _drift_rearm(self, tenant: str, reason: str) -> None:
+        """A control-plane change moves the tenant's verdict distribution:
+        re-calibrate its drift baseline (quiet for a tenant with none)."""
+        if self.drift is not None:
+            self.drift.rearm(tenant, reason=reason)
 
     @property
     def class_names(self) -> tuple[str, ...]:
@@ -348,31 +381,45 @@ class InferenceEngine:
         n, c = snap.matrix.shape
         self.programs.warmup(n, c, self.batcher.buckets, self.max_length,
                              dtypes=self._dtypes_for(dtype))
-        return self.registry.set_resident_dtype(tenant, dtype)
+        out = self.registry.set_resident_dtype(tenant, dtype)
+        self._drift_rearm(tenant, f"resident_dtype {dtype}")
+        return out
 
     # --- hot-swap publish -------------------------------------------------
+
+    def _traced_publish(self, publish_fn, **span_attrs) -> int:
+        """A publish under a trace of its own and a ``serve/publish`` span
+        (the registry's distils join the trace), then the swap counter, the
+        drift re-arm and a ``kind="trace"`` control record (op="publish")."""
+        tracker = get_tracker()
+        t0 = time.monotonic()
+        with tracker.trace() as ctx, tracker.span("serve/publish", **span_attrs):
+            version = publish_fn()
+        self.stats.record_swap()
+        if self.drift is not None:
+            self.drift.rearm(reason=f"snapshot_swap v{version}")
+        self._emit_trace({"trace_id": ctx.trace_id, "op": "publish",
+                          "publish_ms": round((time.monotonic() - t0) * 1e3, 3),
+                          "params_version": float(version),
+                          "tenants": float(len(self.registry.tenants()))})
+        return version
 
     def publish_params(self, new_params) -> int:
         """Atomic hot-swap to a model state_dict: every tenant re-distils
         on the idle bank and flips to it; batches in flight finish on
         their pinned bank; nothing is captured. Returns params_version."""
-        version = self.registry.publish_params(new_params)
-        self.stats.record_swap()
-        return version
+        return self._traced_publish(lambda: self.registry.publish_params(new_params))
 
     def publish_checkpoint(self, ckpt_dir: str) -> int:
-        version = self.registry.publish_checkpoint(ckpt_dir)
-        self.stats.record_swap()
-        return version
+        return self._traced_publish(lambda: self.registry.publish_checkpoint(ckpt_dir),
+                                    source=ckpt_dir)
 
     def prepare_publish(self, new_params, target_version=None):
         """Phase 1 of a two-phase publish (the registry's transaction)."""
         return self.registry.prepare_publish(new_params, target_version=target_version)
 
     def commit_publish(self, txn) -> int:
-        version = txn.commit()
-        self.stats.record_swap()
-        return version
+        return self._traced_publish(txn.commit)
 
     # --- query path ------------------------------------------------------
 
@@ -386,18 +433,36 @@ class InferenceEngine:
                tenant: str = DEFAULT_TENANT):
         """Tokenize one query and enqueue it for ``tenant``; returns a
         Future of its verdict. Raises ``Saturated`` under backpressure or
-        while the tenant's breaker is open."""
+        while the tenant's breaker is open. The request is head-sampled
+        here at ``trace_sample``."""
         self.registry.snapshot(tenant)   # raises for unknown tenants
         if self.breaker is not None:
             retry = self.breaker.admit(tenant)
             if retry is not None:
                 self.stats.record_breaker_shed(tenant)
+                if self.slo is not None:
+                    self.slo.maybe_evaluate()
                 raise Saturated(retry, tenant=tenant)
-        return self.batcher.submit(
-            self._tokenize(instance),
-            deadline_s if deadline_s is not None else self.default_deadline_s,
-            tenant=tenant,
-        )
+        trace = self._tracer.maybe_trace()   # None when unsampled
+        if trace is None:
+            query = self._tokenize(instance)
+        else:
+            tracker = get_tracker()
+            with tracker.trace(trace), tracker.span("serve/submit", nvtx=False, tenant=tenant):
+                query = self._tokenize(instance)
+        try:
+            fut = self.batcher.submit(
+                query, deadline_s if deadline_s is not None else self.default_deadline_s,
+                tenant=tenant, trace=trace)
+        finally:
+            # A shed or rejected submit raises after the batcher recorded
+            # the bad outcome; a fully shed tenant runs no batch, so its SLO
+            # windows are evaluated here.
+            if self.slo is not None:
+                self.slo.maybe_evaluate()
+        if self.watchdog is not None:
+            self.watchdog.observe_queue(self.batcher.queue_depth, self.stats.served)
+        return fut
 
     def classify(self, instance, deadline_s: float | None = None,
                  tenant: str = DEFAULT_TENANT) -> dict:
@@ -486,11 +551,18 @@ class InferenceEngine:
                 if self.breaker is not None:
                     self.breaker.record_success(tenant)
                 return
+            if chaos_active() and chaos_fire("serve.execute_raise", tenant=tenant,
+                                             step=self.stats.served) is not None:
+                raise ChaosError(f"injected execute failure for tenant {tenant!r} (chaos)")
             bucket = select_bucket(len(batch), self.batcher.buckets)
+            traced = [r for r in batch if r.trace is not None]
+            links = tuple(r.trace.trace_id for r in traced)
             t_stack = time.monotonic()
-            query = stack_queries([r.query for r in batch], bucket)
+            with span("serve/stack", links=links, rows=len(batch), bucket=bucket):
+                query = stack_queries([r.query for r in batch], bucket)
             t0 = time.monotonic()
-            logits = self.programs.run(snap.bank, snap.matrix, query, scale=snap.scale)
+            with span("serve/execute", links=links, rows=len(batch), bucket=bucket):
+                logits = self.programs.run(snap.bank, snap.matrix, query, scale=snap.scale)
             t_exec_end = time.monotonic()
             copy_s, replay_s, wait_s = self.programs.split
             self.stats.record_batch(len(batch), bucket, t_exec_end - t0)
@@ -502,16 +574,38 @@ class InferenceEngine:
             for req, verdict in resolved:
                 verdict["latency_ms"] = round((now - req.enqueued_at) * 1e3, 3)
                 verdict["bucket"] = bucket
-                self.stats.record_done(now - req.enqueued_at, tenant=tenant,
-                                       nota=verdict["nota"], margin=verdict["margin"],
-                                       entropy=verdict["entropy"])
+                if req.trace is not None:
+                    verdict["trace_id"] = req.trace.trace_id
+                self.stats.record_done(
+                    now - req.enqueued_at, tenant=tenant,
+                    trace_id=req.trace.trace_id if req.trace is not None else None,
+                    nota=verdict["nota"], margin=verdict["margin"], entropy=verdict["entropy"])
                 req.future.set_result(verdict)
             self.host_split.add_batch(pack=t0 - t_stack, copy=copy_s, replay=replay_s,
                                       wait=wait_s, verdict=now - t_exec_end)
+            if self.drift is not None:
+                # After the futures resolve: a drift CRITICAL writes its
+                # capture on this thread, and clients must not wait on it.
+                for _, verdict in resolved:
+                    self.drift.observe(tenant, nota=verdict["nota"], margin=verdict["margin"],
+                                       entropy=verdict["entropy"])
             if self.quant_probe_every > 0 and snap.shadow is not None:
                 self._quant_batches += 1
                 if self._quant_batches % self.quant_probe_every == 0:
                     self._parity_probe(tenant, snap, query, logits, len(batch))
+            for req in traced:
+                # The four segments tile [enqueued_at, now] with the
+                # timestamps the latency is taken from.
+                self._emit_trace({
+                    "trace_id": req.trace.trace_id, "tenant": tenant,
+                    "scheduler": self.scheduler, "bucket": float(bucket),
+                    "rows": float(len(batch)),
+                    "queue_ms": round((t_stack - req.enqueued_at) * 1e3, 3),
+                    "pack_ms": round((t0 - t_stack) * 1e3, 3),
+                    "execute_ms": round((t_exec_end - t0) * 1e3, 3),
+                    "respond_ms": round((now - t_exec_end) * 1e3, 3),
+                    "total_ms": round((now - req.enqueued_at) * 1e3, 3),
+                })
         finally:
             self.registry.unpin(snap)
 
@@ -524,7 +618,11 @@ class InferenceEngine:
                 tenant, snapshot_version=snap.version,
                 latency_ms=round((now - req.enqueued_at) * 1e3, 3),
             )
-            self.stats.record_done(now - req.enqueued_at, tenant=tenant)
+            if req.trace is not None:
+                verdict["trace_id"] = req.trace.trace_id
+            self.stats.record_done(
+                now - req.enqueued_at, tenant=tenant,
+                trace_id=req.trace.trace_id if req.trace is not None else None)
             req.future.set_result(verdict)
         self.stats.record_degraded(tenant, len(batch))
         if self._logger is not None:
@@ -545,6 +643,9 @@ class InferenceEngine:
                     agree += 1
                 drift_sum += abs(vq["margin"] - vf["margin"])
             self.stats.record_quant_probe(tenant, agree / rows, drift_sum / rows, rows)
+            if self.drift is not None:
+                self.drift.observe_parity(tenant, agreement=agree / rows,
+                                          margin_drift=drift_sum / rows, rows=rows)
         except Exception as e:  # noqa: BLE001 — the probe must not hurt serving
             if self._logger is not None:
                 self._logger.log(self.stats.served, kind="fault", action="quant_probe_error",
@@ -561,6 +662,22 @@ class InferenceEngine:
 
     def unquarantine_tenant(self, tenant: str, reason: str = "") -> None:
         self.registry.unquarantine_tenant(tenant, reason=reason)
+        self._drift_rearm(tenant, f"unquarantine {reason}".strip())
+
+    def _emit_trace(self, rec: dict) -> None:
+        """Keep one trace record in the stats at once; its ``kind="trace"``
+        line is buffered and written with the periodic stats emit (the
+        logger's per-record write and flush is the costliest part)."""
+        self.stats.record_trace(rec)
+        if self._logger is not None:
+            self._pending_traces.append(rec)
+
+    def _flush_traces(self) -> None:
+        if self._logger is None or not self._pending_traces:
+            return
+        pending, self._pending_traces = self._pending_traces, []
+        for rec in pending:
+            self._logger.log(self.stats.served, kind="trace", **rec)
 
     def _verdict(self, row: np.ndarray, snap) -> dict:
         """One logits row -> verdict under the tenant's NOTA policy. Only
@@ -595,20 +712,37 @@ class InferenceEngine:
     # --- observability / lifecycle ---------------------------------------
 
     def _maybe_emit(self, every: int = 50) -> None:
+        if self.watchdog is not None:
+            self.watchdog.observe_queue(self.batcher.queue_depth, self.stats.served)
+        if self.slo is not None:
+            self.slo.maybe_evaluate()
         if self._logger is None:
             return
         if self.stats.batches - self._emit_step >= every:
             self._emit_step = self.stats.batches
+            self._flush_traces()
             self.stats.emit(self._logger, self._emit_step, queue_depth=self.batcher.queue_depth)
+            if self.drift is not None:
+                self.drift.emit(self._logger, self._emit_step)
 
     def emit_stats(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.observe_queue(self.batcher.queue_depth, self.stats.served)
+        if self.slo is not None:
+            self.slo.evaluate()
+        self._flush_traces()
         if self._logger is not None:
             self.stats.emit(self._logger, self.stats.batches,
                             queue_depth=self.batcher.queue_depth)
+            if self.drift is not None:
+                self.drift.emit(self._logger, self.stats.batches)
 
     def close(self) -> None:
+        """Close the batcher, emit the final stats and release the counter
+        registry's callbacks (write ``metrics.prom`` before this)."""
         self.batcher.close()
         self.emit_stats()
+        self.stats.unbind_registry()
 
     @staticmethod
     def _as_instance(x):

@@ -45,6 +45,13 @@ when more). ``register_tokens`` registers already-tokenized rows (the
 token cache's form: a position leaf may be a per-sentence offset, which is
 expanded to per-token ids, so a class registered either way distils from
 the same rows); ``register`` tokenizes raw instances and goes through it.
+
+Every distil runs under a ``serve/distill`` span. Two fault points
+(``obs/chaos.py``; the JAX ``registry.py:626-697``): ``publish.nan_params``
+NaN-poisons the weights handed to a publish (the validation gate must
+refuse it and roll back), and ``publish.distill_raise`` raises
+``ChaosError`` inside a publish's re-distil (the rollback leaves every
+tenant on its old snapshot).
 """
 
 from __future__ import annotations
@@ -61,6 +68,8 @@ import torch
 
 from induction_network_on_fewrel_tpu_torch.config import RESIDENT_DTYPE_CHOICES
 from induction_network_on_fewrel_tpu_torch.models.base import to_device
+from induction_network_on_fewrel_tpu_torch.obs.chaos import ChaosError, chaos_fire
+from induction_network_on_fewrel_tpu_torch.obs.spans import span
 from induction_network_on_fewrel_tpu_torch.serving.buckets import QUERY_DTYPES, RESIDENT_DTYPES
 from induction_network_on_fewrel_tpu_torch.serving.geometry import (
     pad_class_stack,
@@ -374,7 +383,8 @@ class TenantRegistry:
         """[S][K] row dicts -> [S, C] f32 class vectors with bank ``bank``
         (one device call on the registry's stream)."""
         sup = self._stack_support(per_class)
-        with torch.inference_mode(), self._on_stream():
+        with span("serve/distill", classes=len(per_class)), torch.inference_mode(), \
+                self._on_stream():
             vecs = self.banks[bank].class_vectors(to_device(sup, self._device))
             return vecs[0].float().cpu().numpy()
 
@@ -468,6 +478,8 @@ class TenantRegistry:
                     f"catch-up target_version {target_version} is not ahead of the "
                     f"local params_version {self.params_version}"
                 )
+            if chaos_fire("publish.nan_params", step=self.params_version) is not None:
+                new_params = poison_state(new_params)
             staged = self._prepare_serialized(new_params, target_version)
         except BaseException:
             self._publish_serial.release()
@@ -502,6 +514,8 @@ class TenantRegistry:
                 rows_of = {s: self._pool[s].rows for s in todo}
             if not todo:
                 break
+            if chaos_fire("publish.distill_raise", step=new_version) is not None:
+                raise ChaosError("injected distill failure mid-publish (chaos)")
             vecs = self._distill(idle, [rows_of[s] for s in todo])
             for s, vec in zip(todo, vecs):
                 vec_of[s] = vec.astype(np.float32)
@@ -825,6 +839,19 @@ class PublishTransaction:
             return
         self._done = True
         self._registry._publish_serial.release()
+
+
+def poison_state(state_dict) -> dict:
+    """NaN-poison the floating tensors of a state_dict and negate the
+    integer ones (minus one), shapes and dtypes kept: the
+    ``publish.nan_params`` fault."""
+    def bad(t):
+        t = torch.as_tensor(t)
+        if t.is_floating_point():
+            return torch.full_like(t, float("nan"))
+        return -t - 1 if not t.dtype == torch.bool else t
+
+    return {k: bad(v) for k, v in state_dict.items()}
 
 
 def load_params(ckpt_dir: str) -> dict[str, torch.Tensor]:

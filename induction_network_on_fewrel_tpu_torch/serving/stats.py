@@ -12,14 +12,20 @@ nearest-rank percentile. ``record_compile`` counts query-graph captures:
 during warmup, or after it (``steady_recompiles``, the zero-capture
 acceptance counter).
 
-Left for the observability slice (ROADMAP queue A item 7): the SLO
-burn-rate feed, the request-trace records and their summary, and
-``bind_registry`` (the counter registry and its latency histogram).
+``slo`` (an ``obs/health.SLOEngine``) is fed every request outcome
+(latency, or an error: rejected, shed, breaker-shed, execute error,
+deadline miss); ``record_trace`` keeps a bounded window of sampled
+per-request trace records, ``trace_summary`` their segment medians; and
+``bind_registry`` exposes the counters in the shared counter registry
+(``obs/export.py``) as pull gauges, with a ``serve_latency_ms``
+histogram whose buckets carry exemplar trace ids (the JAX
+``stats.py:430``); ``unbind_registry`` releases them.
 """
 
 from __future__ import annotations
 
 import threading
+from collections import deque
 
 
 def nearest_rank(xs: list[float], q: float) -> float | None:
@@ -125,9 +131,13 @@ class ServingStats:
     # 1024 clears with margin).
     MAX_SAMPLES = 65536
     TENANT_SAMPLES = 1024
+    MAX_TRACES = 512        # retained sampled per-request trace records
 
-    def __init__(self) -> None:
+    def __init__(self, slo=None) -> None:
         self._lock = threading.Lock()
+        self._slo = slo
+        self._traces: deque[dict] = deque(maxlen=self.MAX_TRACES)
+        self._hist = None       # the bound latency histogram (bind_registry)
         self._lat = _Reservoir(self.MAX_SAMPLES)
         self._tenants: dict[str, _TenantStats] = {}
         self.served = 0             # futures resolved with a verdict
@@ -167,6 +177,7 @@ class ServingStats:
 
     def record_done(
         self, latency_s: float, tenant: str | None = None,
+        trace_id: str | None = None,
         nota: bool | None = None,
         margin: float | None = None,
         entropy: float | None = None,
@@ -190,6 +201,13 @@ class ServingStats:
                     ts.margin.add(float(margin))
                 if entropy is not None:
                     ts.entropy.add(float(entropy))
+            hist = self._hist
+        # Outside the counter lock: the histogram and the SLO engine have
+        # their own locks and never call back into this object.
+        if hist is not None:
+            hist.observe(ms, exemplar=trace_id)
+        if self._slo is not None and tenant is not None:
+            self._slo.record(tenant, latency_ms=ms)
 
     def record_rejected(self, tenant: str | None = None) -> None:
         with self._lock:
@@ -197,6 +215,8 @@ class ServingStats:
             ts = self._tenant(tenant)
             if ts is not None:
                 ts.rejected += 1
+        if self._slo is not None and tenant is not None:
+            self._slo.record(tenant, error=True)
 
     def record_shed(self, tenant: str) -> None:
         """A per-tenant share breach: THIS tenant sheds while the queue
@@ -208,6 +228,8 @@ class ServingStats:
             ts = self._tenant(tenant)
             ts.rejected += 1
             ts.shed += 1
+        if self._slo is not None:
+            self._slo.record(tenant, error=True)
 
     def record_swap(self) -> None:
         with self._lock:
@@ -223,6 +245,9 @@ class ServingStats:
             ts = self._tenant(tenant)
             if ts is not None:
                 ts.execute_errors += requests
+        if self._slo is not None and tenant is not None:
+            for _ in range(requests):
+                self._slo.record(tenant, error=True)
 
     def record_breaker_shed(self, tenant: str) -> None:
         """A submit shed by this tenant's OPEN circuit breaker: counted
@@ -235,6 +260,8 @@ class ServingStats:
             ts = self._tenant(tenant)
             ts.rejected += 1
             ts.breaker_shed += 1
+        if self._slo is not None:
+            self._slo.record(tenant, error=True)
 
     def record_degraded(self, tenant: str | None, requests: int) -> None:
         """Degraded-mode NOTA verdicts served for a quarantined tenant.
@@ -253,6 +280,14 @@ class ServingStats:
             ts = self._tenant(tenant)
             if ts is not None:
                 ts.deadline_missed += 1
+        if self._slo is not None and tenant is not None:
+            self._slo.record(tenant, error=True)
+
+    def record_trace(self, rec: dict) -> None:
+        """Retain one sampled per-request trace record (locked: readers
+        iterate the window from other threads)."""
+        with self._lock:
+            self._traces.append(rec)
 
     def record_batch(self, rows: int, bucket: int, exec_s: float) -> None:
         with self._lock:
@@ -320,6 +355,88 @@ class ServingStats:
         import on the submit path; the reservoir is small)."""
         with self._lock:
             return self._lat.percentile(q)
+
+    @property
+    def slo(self):
+        return self._slo
+
+    def trace_summary(self) -> dict | None:
+        """Segment medians (nearest rank) and the newest exemplar trace ids
+        over the retained sampled traces; None with none recorded."""
+        with self._lock:
+            traces = [t for t in self._traces if "total_ms" in t]
+        if not traces:
+            return None
+
+        def med(key: str) -> float | None:
+            p = nearest_rank([float(t[key]) for t in traces
+                              if isinstance(t.get(key), (int, float))], 50)
+            return round(p, 3) if p is not None else None
+
+        return {
+            "sampled": len(traces),
+            "queue_ms_p50": med("queue_ms"),
+            "pack_ms_p50": med("pack_ms"),
+            "execute_ms_p50": med("execute_ms"),
+            "respond_ms_p50": med("respond_ms"),
+            "total_ms_p50": med("total_ms"),
+            "exemplar_trace_ids": [t["trace_id"] for t in traces[-5:] if "trace_id" in t],
+        }
+
+    def bind_registry(self, registry=None, prefix: str = "serve") -> None:
+        """Expose these counters through the shared counter registry
+        (default: the process-global one) as pull gauges, read at render
+        time, and bind the ``{prefix}_latency_ms`` histogram the record
+        path observes into (its buckets carry exemplar trace ids). A fresh
+        histogram per bind: the latest binding wins."""
+        from induction_network_on_fewrel_tpu_torch.obs.export import get_registry
+
+        reg = registry or get_registry()
+        self._bound_registry = reg
+        self._bound_fns: list[tuple[str, object]] = []
+        reg.unregister(f"{prefix}_latency_ms")
+        self._hist = reg.histogram(f"{prefix}_latency_ms",
+                                   help="request latency with exemplar trace_ids")
+        self._hist_name = f"{prefix}_latency_ms"
+
+        def _register(full: str, f, help: str) -> None:
+            self._bound_fns.append((full, f))
+            reg.gauge_fn(full, f, help)
+
+        def attr(name: str, help: str = "") -> None:
+            _register(f"{prefix}_{name}", lambda n=name: getattr(self, n), help)
+
+        attr("served", "futures resolved with a verdict")
+        attr("rejected", "backpressure rejections at submit")
+        attr("shed", "per-tenant share breaches (shed-load)")
+        attr("swaps", "atomic hot-swap publishes applied")
+        attr("deadline_missed", "requests expired before execution")
+        attr("batches", "bucket executions")
+        attr("warmup_compiles", "programs compiled by warmup()")
+        attr("steady_compiles", "programs compiled after warmup")
+
+        def derived(name: str, help: str = "") -> None:
+            _register(f"{prefix}_{name}", lambda k=name: self.snapshot()[k], help)
+
+        derived("batch_occupancy", "real rows / bucket slots executed")
+        derived("p50_ms", "median request latency")
+        derived("p99_ms", "tail request latency")
+        derived("resident_bytes", "chip-resident class-matrix bytes")
+        derived("quant_agreement", "parity-police verdict agreement vs f32")
+
+    def unbind_registry(self) -> None:
+        """Release this object's callbacks and histogram from the registry
+        (engine close), identity-checked so a successor's survive."""
+        reg = getattr(self, "_bound_registry", None)
+        if reg is None:
+            return
+        for name, f in self._bound_fns:
+            reg.unregister(name, fn=f)
+        if self._hist is not None:
+            reg.unregister(self._hist_name, inst=self._hist)
+            self._hist = None
+        self._bound_registry = None
+        self._bound_fns = []
 
     def snapshot(self, queue_depth: int | None = None) -> dict:
         # Provider call BEFORE taking our lock (it holds the registry's).

@@ -45,27 +45,71 @@ A manager made with the run's config saves; its first save writes
 ``config.json`` and drops the slots an earlier run left in the directory,
 and ``written`` names the families ("best", "latest") this run saved.
 ``restore_latest`` takes a directory over for the run that resumes it
-(and re-arms the delta base it holds). Saves are synchronous and atomic
-(temporary files renamed over the slot). A restore copies the tensors in
-place into the model, the optimizer's state and the lazy table (captured
-CUDA graphs hold their addresses). A manager made with a config refuses a
-directory whose ``config.json`` disagrees with it on an architecture
-field, naming the fields.
+(and re-arms the delta base it holds). Saves are atomic (temporary files
+renamed over the slot). A restore copies the tensors in place into the
+model, the optimizer's state and the lazy table (captured CUDA graphs
+hold their addresses). A manager made with a config refuses a directory
+whose ``config.json`` disagrees with it on an architecture field, naming
+the fields.
+
+The saver (every manager; the JAX manager's saver thread,
+``train/checkpoint.py:643-748``): a save snapshots the state and
+returns; a daemon thread copies the snapshot to the host, writes the
+slot and its sidecar, fires the fault points and drains the staging. The
+snapshot is a device-side clone taken on the caller's current stream,
+with a CUDA event recorded after it: the training state lives in a CUDA
+graph's static tensors, which the next replay overwrites, and stream
+order puts the clone before that replay while the host goes on. The
+saver's copy stream waits on the event, copies into pinned host memory
+and synchronizes. ``wait()`` blocks until every queued save is durable in
+the real directory and re-raises a failed save; every restore, ``has``,
+``params``, ``ring_step`` and ``purge_ring_newer_than`` waits first;
+``close()`` flushes and joins the thread, and an ``atexit`` hook flushes
+(bounded) a manager never closed. A caller that needs the slot on disk
+at once (a reference save) calls ``wait()`` after the save.
+
+Staging (``stage="auto"``, ``--ckpt_stage``; the JAX ``_stage_root_for``
+and ``_sync_tree``): when ``/dev/shm`` exists and the directory is not on
+it, slots are written to a per-user, per-directory root there (mode
+0o700, seeded from the directory at construction) and each save is
+drained to the directory: newer or missing files are copied over by
+rename, and slot files the staging no longer holds are deleted (best
+rotation, a base that replaced a delta). ``close()`` removes the root.
+"off", or a root that cannot be owned (a warning), writes in place.
+
+Fault points (``obs/chaos.py``): ``ckpt.bitflip`` and ``ckpt.truncate``
+fire after a ring save is written (ARG filters the ring kind: ``ring``
+for ``latest.pt``, ``ring_base``, ``ring_delta``) and corrupt that slot
+file before the drain; ``ckpt.restore_raise`` fires at each slot restore
+attempt (``best`` too) and is contained as corruption: quarantine, one
+``kind="fault"`` record, and the walk goes on.
 """
 
 from __future__ import annotations
 
+import atexit
 import hashlib
 import json
 import os
+import queue
 import re
+import shutil
+import stat
+import threading
+import time
 import uuid
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+from induction_network_on_fewrel_tpu_torch.obs.chaos import (
+    chaos_active,
+    chaos_fire,
+    corrupt_file,
+)
 
 SLOTS = ("best", "latest")
 WORD_TABLE = "embedding.word_embedding"
@@ -73,6 +117,12 @@ KEEP_BEST = 3
 RING_FILES = {"latest": "latest.pt", "ring_base": "ring_base.pt", "ring_delta": "ring_delta.pt"}
 SIDECAR = ".integrity.json"
 _OLD_BEST = re.compile(r"^best\.(\d{8})\.pt$")
+# Slot kind -> the ring-kind name the chaos plans use (the JAX manager's).
+CHAOS_KIND = {"best": "best", "latest": "ring", "ring_base": "ring_base",
+              "ring_delta": "ring_delta"}
+_SLOT_FILE = re.compile(r"^(best(\.\d{8})?|latest|ring_base|ring_delta)\.pt"
+                        r"(\.integrity\.json)?$")
+STAGE_MODES = ("auto", "off")
 
 
 class CorruptCheckpointError(RuntimeError):
@@ -128,28 +178,108 @@ def payload_manifest(payload: dict) -> dict:
     return {"leaves": d, "manifest_sha": m.hexdigest()}
 
 
-def _to_cpu(payload):
+def _map_tensors(payload, fn):
     if isinstance(payload, dict):
-        return {k: _to_cpu(v) for k, v in payload.items()}
+        return {k: _map_tensors(v, fn) for k, v in payload.items()}
     if isinstance(payload, (list, tuple)):
-        return type(payload)(_to_cpu(v) for v in payload)
+        return type(payload)(_map_tensors(v, fn) for v in payload)
     if isinstance(payload, torch.Tensor):
-        return payload.detach().to("cpu", copy=True)
+        return fn(payload)
     return payload
+
+
+def _tensor_bytes(payload) -> int:
+    """The payload's tensor bytes (the JAX manager's ``_tree_bytes``): what
+    a save's ``bytes`` reports, whatever the file's size on disk."""
+    return sum(x.numel() * x.element_size() for _, x in _leaves(payload)
+               if isinstance(x, torch.Tensor))
 
 
 def _sidecar(path: Path) -> Path:
     return path.with_name(path.name + SIDECAR)
 
 
+def stage_root_for(real_dir: Path, mode: str) -> Path | None:
+    """The staging root of ``real_dir`` under ``/dev/shm``, or None when
+    staging is off: mode "off", no ``/dev/shm``, or ``real_dir`` already on
+    it. A pure function of the user and the real path."""
+    if mode not in STAGE_MODES:
+        raise ValueError(f"unknown ckpt_stage {mode!r} (one of {STAGE_MODES})")
+    shm = Path("/dev/shm")
+    real = str(Path(real_dir).resolve())
+    if mode == "off" or not shm.is_dir() or real.startswith(str(shm)):
+        return None
+    tag = hashlib.md5(f"{os.getuid()}:{real}".encode()).hexdigest()[:16]
+    return shm / f"inftorch_ckpt_stage_u{os.getuid()}_{tag}"
+
+
+def _claim_stage_root(path: Path) -> Path | None:
+    """Create (0o700) or validate the staging root: a symlink, a non-dir or
+    another user's dir disables staging with a warning, never a crash."""
+    try:
+        path.mkdir(mode=0o700, parents=True, exist_ok=True)
+        st = path.lstat()
+    except OSError as e:
+        warnings.warn(f"staging root {path} unusable ({e}); checkpoints write in place",
+                      stacklevel=3)
+        return None
+    if not stat.S_ISDIR(st.st_mode) or st.st_uid != os.getuid():
+        warnings.warn(f"staging root {path} is a symlink, not a directory or another user's; "
+                      "checkpoints write in place", stacklevel=3)
+        return None
+    return path
+
+
+def _slot_names(root: Path) -> set[str]:
+    return {p.name for p in root.iterdir() if p.is_file() and _SLOT_FILE.match(p.name)} \
+        if root.is_dir() else set()
+
+
+def sync_slots(src: Path, dst: Path) -> None:
+    """Copy the slot files of ``src`` that are newer or missing in ``dst``
+    (tmp + rename), then delete the slot files ``dst`` holds and ``src``
+    does not. Nothing else in ``dst`` is touched."""
+    dst.mkdir(parents=True, exist_ok=True)
+    names = _slot_names(src)
+    for name in sorted(names):
+        p, q = src / name, dst / name
+        s = p.stat()
+        if not q.exists() or q.stat().st_size != s.st_size or q.stat().st_mtime < s.st_mtime:
+            tmp = q.with_name(q.name + ".staging_tmp")
+            shutil.copy2(p, tmp)
+            os.replace(tmp, q)
+    for name in _slot_names(dst) - names:
+        (dst / name).unlink(missing_ok=True)
+
+
 class CheckpointManager:
-    def __init__(self, directory: str | Path, cfg: ExperimentConfig | None = None, logger=None):
+    def __init__(self, directory: str | Path, cfg: ExperimentConfig | None = None, logger=None,
+                 stage: str = "off"):
         self.dir = Path(directory)
         self.cfg = cfg
         self.logger = logger
         self.written: set[str] = set()
         self._delta_on = cfg is not None and cfg.ckpt_delta != "off"
         self._base: dict | None = None      # the delta base's step, nonce and leaves
+        self._last_ring: int | None = None  # the ring step last saved or restored
+        self._stage = stage_root_for(self.dir, stage)
+        if self._stage is not None:
+            self._stage = _claim_stage_root(self._stage)
+        if self._stage is not None:
+            for name in _slot_names(self._stage):
+                (self._stage / name).unlink()
+            if self.dir.is_dir():
+                sync_slots(self.dir, self._stage)
+        self._save_error: BaseException | None = None
+        self._closed = False
+        self._copy_stream = None
+        self._q: queue.Queue = queue.Queue()
+        self._worker: threading.Thread | None = None   # started by the first save
+
+    @property
+    def root(self) -> Path:
+        """Where slots are written: the staging root, else the directory."""
+        return self._stage if self._stage is not None else self.dir
 
     @staticmethod
     def load_config(directory: str | Path) -> ExperimentConfig:
@@ -160,15 +290,17 @@ class CheckpointManager:
 
     # --- the slot files -------------------------------------------------
 
-    def _best_files(self) -> list[Path]:
-        files = [p for p in self.dir.glob("best.*.pt") if _OLD_BEST.match(p.name)]
-        top = self.dir / "best.pt"
+    def _best_files(self, root: Path | None = None) -> list[Path]:
+        root = self.dir if root is None else root
+        files = [p for p in root.glob("best.*.pt") if _OLD_BEST.match(p.name)]
+        top = root / "best.pt"
         return files + ([top] if top.exists() else [])
 
-    def _slot_files(self) -> list[tuple[str, Path]]:
-        out = [("best", p) for p in self._best_files()]
-        out += [(kind, self.dir / name) for kind, name in RING_FILES.items()
-                if (self.dir / name).exists()]
+    def _slot_files(self, root: Path | None = None) -> list[tuple[str, Path]]:
+        root = self.dir if root is None else root
+        out = [("best", p) for p in self._best_files(root)]
+        out += [(kind, root / name) for kind, name in RING_FILES.items()
+                if (root / name).exists()]
         return out
 
     def _manifest(self, kind: str, path: Path) -> dict | None:
@@ -192,29 +324,158 @@ class CheckpointManager:
         return {"step": int(payload["step"]),
                 "val_accuracy": float(payload.get("val_accuracy", -1.0))}
 
+    # --- the saver -------------------------------------------------------
+
+    def _submit(self, job) -> None:
+        """Queue ``job`` on the saver thread (started at the first save, so
+        a manager that only restores runs none)."""
+        if self._closed:
+            raise RuntimeError("checkpoint manager is closed")
+        self._check_save_error()
+        if self._worker is None:
+            self._worker = threading.Thread(target=self._drain_queue, daemon=True,
+                                            name="ckpt-saver")
+            self._worker.start()
+            atexit.register(self._flush_at_exit)
+        self._q.put(job)
+
+    def _drain_queue(self) -> None:
+        while True:
+            job = self._q.get()
+            try:
+                if job is None:
+                    return
+                job()
+            except Exception as e:  # noqa: BLE001 — re-raised by wait()
+                self._save_error = e
+            finally:
+                self._q.task_done()
+
+    def _check_save_error(self) -> None:
+        if self._save_error is not None:
+            err, self._save_error = self._save_error, None
+            raise RuntimeError("async checkpoint save failed") from err
+
+    def wait(self) -> None:
+        """Block until every queued save is durable in the directory;
+        re-raise a failed save."""
+        self._q.join()
+        self._check_save_error()
+
+    def _flush_at_exit(self) -> None:
+        # Bounded: a wedged copy must not hang interpreter exit.
+        t0 = time.monotonic()
+        while not self._closed and self._q.unfinished_tasks and time.monotonic() - t0 < 60.0:
+            time.sleep(0.1)
+
+    def close(self) -> None:
+        """Flush queued saves, stop the saver thread, remove the staging
+        root. Idempotent."""
+        if self._closed:
+            return
+        try:
+            self.wait()
+        finally:
+            self._closed = True
+            if self._worker is not None:
+                self._q.put(None)
+                self._worker.join(timeout=30.0)
+                atexit.unregister(self._flush_at_exit)
+            if self._stage is not None:
+                shutil.rmtree(self._stage, ignore_errors=True)
+
+    def _snapshot(self, payload: dict):
+        """A device-side clone of every tensor of ``payload`` on the current
+        stream, and the CUDA event after it (None on the CPU)."""
+        snap = _map_tensors(payload, lambda t: t.detach().clone())
+        cuda = [t for _, t in _leaves(snap) if isinstance(t, torch.Tensor) and t.is_cuda]
+        if not cuda:
+            return snap, None
+        ev = torch.cuda.Event()
+        ev.record()
+        return snap, ev
+
+    def _to_host(self, snap: dict, ev) -> dict:
+        """The snapshot's tensors on the host: pinned copies on the saver's
+        copy stream after ``ev``; a snapshot without a CUDA tensor (``ev``
+        None) is already its own host copy."""
+        if ev is None:
+            return snap
+        dev = next(t.device for _, t in _leaves(snap) if isinstance(t, torch.Tensor) and t.is_cuda)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(dev)
+        stream = self._copy_stream
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            stream.wait_event(ev)
+
+            def pinned(t: torch.Tensor) -> torch.Tensor:
+                if not t.is_cuda:
+                    return t
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                return host
+
+            host = _map_tensors(snap, pinned)
+        stream.synchronize()
+        return host
+
     # --- saving ---------------------------------------------------------
 
-    def _write(self, name: str, payload: dict, family: str, header: dict) -> int:
-        """Write ``payload`` to ``name`` with its sidecar; returns the file's
-        bytes."""
+    def _prepare(self) -> None:
+        """At the first save of a manager: the directory, config.json, and
+        the slots an earlier run left (in the staging too) dropped."""
         if self.cfg is None:
             raise ValueError("a CheckpointManager made without a config only restores")
-        if not self.written:
-            self.dir.mkdir(parents=True, exist_ok=True)
-            for _, old in self._slot_files():
+        if self.written:
+            return
+        self.wait()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        for root in {self.dir, self.root}:
+            for _, old in self._slot_files(root):
                 old.unlink(missing_ok=True)
                 _sidecar(old).unlink(missing_ok=True)
-            (self.dir / "config.json").write_text(self.cfg.to_json())
-        payload = _to_cpu(payload)
-        path = self.dir / name
+        (self.dir / "config.json").write_text(self.cfg.to_json())
+
+    def _write_slot(self, name: str, payload: dict, header: dict, ev=None) -> None:
+        """On the saver: the slot file and its sidecar under the root, and
+        the fault points."""
+        payload = self._to_host(payload, ev)
+        path = self.root / name
         side = _sidecar(path)
         tmp, tmp_side = (p.with_name(f"{p.name}.{os.getpid()}.tmp") for p in (path, side))
         torch.save(payload, tmp)
         tmp_side.write_text(json.dumps({**header, **payload_manifest(payload)}))
         os.replace(tmp, path)
         os.replace(tmp_side, side)
+        kind = header["kind"]
+        if chaos_active() and kind != "best":
+            for point, mode in (("ckpt.bitflip", "bitflip"), ("ckpt.truncate", "truncate")):
+                if chaos_fire(point, kind=CHAOS_KIND[kind], step=int(header["step"])) is not None:
+                    corrupt_file(path, mode)
+
+    def _drain_stage(self) -> None:
+        if self._stage is not None:
+            sync_slots(self._stage, self.dir)
+
+    def _enqueue(self, name: str, payload: dict, family: str, header: dict, before=None,
+                 after=None) -> int:
+        """Snapshot ``payload`` now and queue its write (with
+        ``before``/``after`` file work around it) on the saver. Returns the
+        payload's tensor bytes."""
+        self._prepare()
+        snap, ev = self._snapshot(payload)
         self.written.add(family)
-        return path.stat().st_size
+
+        def job() -> None:
+            if before is not None:
+                before()
+            self._write_slot(name, snap, header, ev)
+            if after is not None:
+                after()
+            self._drain_stage()
+
+        self._submit(job)
+        return _tensor_bytes(snap)
 
     @staticmethod
     def _state(model, opt, lazy) -> dict:
@@ -223,29 +484,38 @@ class CheckpointManager:
             out["lazy"] = lazy.state_dict()
         return out
 
+    def _rotate_best(self) -> None:
+        """The previous best.pt becomes best.<step>.pt; the oldest beyond
+        KEEP_BEST go (under the root)."""
+        root = self.root
+        top = root / "best.pt"
+        if not top.exists():
+            return
+        old = int(self._header("best", top)["step"])
+        kept = root / f"best.{old:08d}.pt"
+        os.replace(top, kept)
+        if _sidecar(top).exists():
+            os.replace(_sidecar(top), _sidecar(kept))
+        older = sorted(p for p in self._best_files(root) if p.name != "best.pt")
+        for p in older[:max(0, len(older) - (KEEP_BEST - 1))]:
+            p.unlink()
+            _sidecar(p).unlink(missing_ok=True)
+
     def save(self, step: int, model, opt, val_accuracy: float, lazy=None,
              samplers: dict | None = None) -> None:
         """A best save (the caller decides that ``val_accuracy`` improved);
         the previous best stays as best.<step>.pt, the oldest beyond
         KEEP_BEST go."""
-        top = self.dir / "best.pt"
-        if top.exists() and "best" in self.written:
-            old = int(self._header("best", top)["step"])
-            kept = self.dir / f"best.{old:08d}.pt"
-            os.replace(top, kept)
-            if _sidecar(top).exists():
-                os.replace(_sidecar(top), _sidecar(kept))
-            older = sorted(p for p in self._best_files() if p.name != "best.pt")
-            for p in older[:max(0, len(older) - (KEEP_BEST - 1))]:
-                p.unlink()
-                _sidecar(p).unlink(missing_ok=True)
+        rotate = "best" in self.written
         header = {"kind": "best", "step": int(step), "val_accuracy": float(val_accuracy)}
-        self._write("best.pt", {"step": int(step), "val_accuracy": float(val_accuracy),
-                                **self._state(model, opt, lazy), "best_val": float(val_accuracy),
-                                "samplers": samplers or {}}, "best", header)
+        self._enqueue("best.pt", {"step": int(step), "val_accuracy": float(val_accuracy),
+                                  **self._state(model, opt, lazy), "best_val": float(val_accuracy),
+                                  "samplers": samplers or {}}, "best", header,
+                      before=self._rotate_best if rotate else None)
 
     def ring_step(self) -> int | None:
         """The newest step the recovery ring holds."""
+        self.wait()
         steps = []
         for kind, path in self._slot_files():
             if kind != "best":
@@ -260,14 +530,15 @@ class CheckpointManager:
         """A recovery-ring save: full, or (a state with the lazy leaves and
         ``ckpt_delta`` "auto") a base or a delta. Returns {"mode": full |
         base | delta, "bytes", "rows" (deltas)}, or None when the ring
-        already holds this step."""
-        if "latest" in self.written and self.ring_step() == int(step):
+        already holds this step. ``bytes`` is the payload's tensor bytes."""
+        if "latest" in self.written and self._last_ring == int(step):
             return None
+        self._last_ring = int(step)
         extra = {"best_val": float(best_val), "samplers": samplers or {}}
         if lazy is None or not self._delta_on:
-            size = self._write("latest.pt", {"step": int(step), **self._state(model, opt, lazy),
-                                             **extra}, "latest",
-                               {"kind": "latest", "step": int(step)})
+            size = self._enqueue("latest.pt", {"step": int(step), **self._state(model, opt, lazy),
+                                               **extra}, "latest",
+                                 {"kind": "latest", "step": int(step)})
             return {"mode": "full", "bytes": size}
         table = model.embedding.word_embedding.detach()
         leaves = {"table": table, "m": lazy.m, "v": lazy.v, "last": lazy.last}
@@ -288,12 +559,16 @@ class CheckpointManager:
                 base = None                                   # past half the table
         if base is None:
             nonce = uuid.uuid4().int & ((1 << 63) - 1)
-            size = self._write("ring_base.pt", {"step": int(step), "nonce": nonce,
-                                                **self._state(model, opt, lazy), **extra},
-                               "latest", {"kind": "ring_base", "step": int(step)})
-            for stale in ("ring_delta.pt", "latest.pt"):
-                (self.dir / stale).unlink(missing_ok=True)
-                _sidecar(self.dir / stale).unlink(missing_ok=True)
+
+            def drop_stale() -> None:
+                for stale in ("ring_delta.pt", "latest.pt"):
+                    (self.root / stale).unlink(missing_ok=True)
+                    _sidecar(self.root / stale).unlink(missing_ok=True)
+
+            size = self._enqueue("ring_base.pt", {"step": int(step), "nonce": nonce,
+                                                  **self._state(model, opt, lazy), **extra},
+                                 "latest", {"kind": "ring_base", "step": int(step)},
+                                 after=drop_stale)
             self._base = {"step": int(step), "nonce": nonce,
                           **{k: x.detach().clone() for k, x in leaves.items()}}
             return {"mode": "base", "bytes": size}
@@ -301,14 +576,15 @@ class CheckpointManager:
         payload = {"step": int(step), "base_step": base["step"], "base_nonce": base["nonce"],
                    "idx": idx.long(), "rows": {k: x.detach()[idx] for k, x in leaves.items()},
                    "params": params, "opt": opt.state_dict(), **extra}
-        size = self._write("ring_delta.pt", payload, "latest",
-                           {"kind": "ring_delta", "step": int(step)})
+        size = self._enqueue("ring_delta.pt", payload, "latest",
+                             {"kind": "ring_delta", "step": int(step)})
         return {"mode": "delta", "bytes": size, "rows": int(idx.numel())}
 
     def purge_ring_newer_than(self, best_step: int) -> None:
         """Delete every ring slot newer than ``best_step`` (the divergence
         guard's restore: a later --resume must not restore the collapse),
         and drop a delta base newer than it."""
+        self.wait()
         for kind, path in self._slot_files():
             if kind == "best":
                 continue
@@ -317,23 +593,26 @@ class CheckpointManager:
             except CorruptCheckpointError:
                 continue
             if step > best_step:
-                path.unlink()
-                _sidecar(path).unlink(missing_ok=True)
+                for root in {self.dir, self.root}:
+                    (root / path.name).unlink(missing_ok=True)
+                    _sidecar(root / path.name).unlink(missing_ok=True)
         if self._base is not None and self._base["step"] > best_step:
             self._base = None
+        self._last_ring = self.ring_step()
 
     # --- integrity ------------------------------------------------------
 
     def _quarantine(self, err: CorruptCheckpointError) -> None:
         """Rename the slot and its sidecar aside (``.quarantined``, numbered
         if taken); one ``fault`` record."""
-        for p in (err.path, _sidecar(err.path)):
-            if not p.exists():
-                continue
-            q, n = p.with_name(p.name + ".quarantined"), 1
-            while q.exists():
-                q, n = p.with_name(f"{p.name}.quarantined{n}"), n + 1
-            p.rename(q)
+        for root in {self.dir, self.root}:
+            for p in (root / err.path.name, _sidecar(root / err.path.name)):
+                if not p.exists():
+                    continue
+                q, n = p.with_name(p.name + ".quarantined"), 1
+                while q.exists():
+                    q, n = p.with_name(f"{p.name}.quarantined{n}"), n + 1
+                p.rename(q)
         if err.kind == "ring_base":
             self._base = None
         if self.logger is not None:
@@ -348,6 +627,9 @@ class CheckpointManager:
             raise FileNotFoundError(f"no {path.name} in {self.dir}")
         man = self._manifest(kind, path)
         step = None if man is None else man.get("step")
+        if chaos_fire("ckpt.restore_raise", kind=CHAOS_KIND[kind],
+                      step=-1 if step is None else int(step)) is not None:
+            raise CorruptCheckpointError(kind, path, step, "injected restore fault (chaos)")
         try:
             payload = torch.load(path, map_location="cpu", weights_only=True)
         except Exception as e:          # noqa: BLE001 - classified by the sidecar
@@ -419,6 +701,7 @@ class CheckpointManager:
     # --- restoring ------------------------------------------------------
 
     def has(self, slot: str) -> bool:
+        self.wait()
         if slot not in SLOTS:
             raise ValueError(f"unknown checkpoint slot {slot!r} ({SLOTS})")
         return any((kind == "best") == (slot == "best") for kind, _ in self._slot_files())
@@ -447,6 +730,7 @@ class CheckpointManager:
         quarantining corrupt ones on the way."""
         if slot not in SLOTS:
             raise ValueError(f"unknown checkpoint slot {slot!r} ({SLOTS})")
+        self.wait()
         self._check_architecture()
         while True:
             cands = self._walk(slot)
@@ -492,5 +776,6 @@ class CheckpointManager:
         "samplers"})."""
         payload = self._load("latest", model, opt, lazy)
         self.written.update(s for s in SLOTS if self.has(s))
+        self._last_ring = self.ring_step()
         return int(payload["step"]), {"best_val": float(payload.get("best_val", -1.0)),
                                       "samplers": payload.get("samplers", {})}

@@ -55,6 +55,30 @@ dict: accuracy, ``acc_ci95`` (±1.96·σ/√n over per-batch accuracies) and,
 with NOTA, its precision and recall aggregated exactly from the per-batch
 fractions.
 
+Telemetry (the JAX ``train/framework.py:106-115, 362-365, 395-580``):
+each loop iteration runs under a fresh trace context, its phases as
+spans (``train/sample``, ``train/dispatch``, ``train/metrics_fetch``,
+``train/grad_probe``, ``train/eval``, ``train/checkpoint``; NVTX ranges on
+the card, ``obs/spans.py``). ``recorder`` (a FlightRecorder) and
+``watchdog`` (a HealthWatchdog) hook the logger in that order, so a
+critical event's dump holds the record that tripped it, and the loop runs
+under ``recorder.armed("train crash")``. ``perf`` (a PerfObserver) closes
+a ``kind="perf"`` window at each metric record; ``compile_watcher`` (a
+CompileWatcher) is stamped with each step and armed after the first
+window. A BiLSTM run logs a ``kind="roofline"`` record per window
+(``utils/roofline.step_bytes``). ``profile_dir`` traces the calls over
+steps [start+1, start+1+profile_steps) with ``torch.profiler`` into
+``profile_dir/trace.json`` and logs a ``kind="profile"`` record.
+``cfg.nan_inject_step`` sets the logged loss of the window holding that
+step to NaN (the training state is untouched). ``debug_nans`` builds the
+steps with the device-side ``finite`` metric and raises
+``FloatingPointError`` after the call that holds the first bad step
+(``utils/debug.py``). The trainer owns the perf observer and the watcher
+once passed (``close()`` releases them). Saves go through the manager's
+saver thread (staging per ``cfg.ckpt_stage``): a save
+snapshots the state on the card and returns, and ``train`` waits for
+every save to be durable before it returns.
+
 ``train(num_iters, start_step)`` numbers steps from ``start_step``;
 ``sampler_states``/``restore_sampler_states`` carry the samplers' streams
 through every checkpoint, so a resumed run continues the episode stream of
@@ -75,6 +99,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,6 +114,7 @@ from induction_network_on_fewrel_tpu_torch.models.build import (
     batch_to_model_inputs,
     instance_inputs,
 )
+from induction_network_on_fewrel_tpu_torch.obs.spans import get_tracker, span
 from induction_network_on_fewrel_tpu_torch.sampling.episodes import EpisodeBatch
 from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
 from induction_network_on_fewrel_tpu_torch.train.steps import (
@@ -102,6 +128,7 @@ from induction_network_on_fewrel_tpu_torch.train.steps import (
     make_optimizer,
     make_train_step,
 )
+from induction_network_on_fewrel_tpu_torch.utils.debug import check_finite_steps
 from induction_network_on_fewrel_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -156,7 +183,9 @@ class FewShotTrainer:
     def __init__(self, model, cfg: ExperimentConfig, train_sampler, val_sampler=None,
                  ckpt_dir: str | None = None, logger: MetricsLogger | None = None,
                  metric_window: int | None = None, train_table=None, val_table=None,
-                 adv: AdvPieces | None = None):
+                 adv: AdvPieces | None = None, *, profile_dir: str | None = None,
+                 profile_steps: int = 10, watchdog=None, recorder=None, perf=None,
+                 compile_watcher=None, debug_nans: bool = False):
         spc = cfg.steps_per_call
         if spc < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {spc}")
@@ -174,6 +203,20 @@ class FewShotTrainer:
         self.train_sampler = train_sampler
         self.val_sampler = val_sampler
         self.logger = logger or MetricsLogger(quiet=True)
+        get_tracker().bind_device(model.device)
+        self.watchdog, self.recorder = watchdog, recorder
+        self._perf, self._compile_watcher = perf, compile_watcher
+        # Hook order: the recorder sees each record before the watchdog,
+        # whose critical events dump the recorder.
+        if recorder is not None:
+            self.logger.add_hook(recorder.record_metric)
+        if watchdog is not None:
+            watchdog.logger = watchdog.logger or self.logger
+            if watchdog.recorder is None:
+                watchdog.recorder = recorder
+            self.logger.add_hook(watchdog.observe_record)
+        self.profile_dir, self.profile_steps = profile_dir, profile_steps
+        self.debug_nans = debug_nans
         self._feed = train_sampler if hasattr(train_sampler, "cursor_state") else None
         if self._feed is not None and self._feed.logger is None:
             self._feed.logger = self.logger
@@ -188,7 +231,8 @@ class FewShotTrainer:
             uids = train_table.uids if train_table is not None else None
             self.lazy = LazyTable(model, self.opt.hyper, live_rows(cfg), uids=uids)
             self.opt.attach_compact(self.lazy.rows, self.lazy.rows_m, self.lazy.rows_v)
-        self.ckpt = CheckpointManager(ckpt_dir, cfg, logger=self.logger) if ckpt_dir else None
+        self.ckpt = (CheckpointManager(ckpt_dir, cfg, logger=self.logger,
+                                       stage=cfg.ckpt_stage) if ckpt_dir else None)
         self.best_val = -1.0
         # Divergence-guard arming threshold (the JAX rule): twice the
         # random-guess floor 1/(N + has_nota), capped at the floor/1.0 midpoint.
@@ -200,13 +244,16 @@ class FewShotTrainer:
             if self.lazy is not None or train_table is not None:
                 raise ValueError("the adversarial step trains on live token batches: it does not "
                                  "combine with the token cache or embed_optimizer=lazy")
-            self.train_step = make_adv_train_step(model, self.opt, adv.disc, cfg)
-            self.multi_train_step = (make_adv_multi_train_step(model, self.opt, adv.disc, cfg)
+            self.train_step = make_adv_train_step(model, self.opt, adv.disc, cfg, debug_nans)
+            self.multi_train_step = (make_adv_multi_train_step(model, self.opt, adv.disc, cfg,
+                                                               debug_nans)
                                      if spc > 1 else None)
         else:
-            self.train_step = make_train_step(model, self.opt, cfg, train_table, self.lazy)
+            self.train_step = make_train_step(model, self.opt, cfg, train_table, self.lazy,
+                                              debug_nans)
             self.multi_train_step = (make_multi_train_step(model, self.opt, cfg, train_table,
-                                                           self.lazy) if spc > 1 else None)
+                                                           self.lazy, debug_nans)
+                                     if spc > 1 else None)
         self.eval_spc = cfg.eval_steps_per_call or min(spc, 16)
         self._eval_steps = {}
         self.train_table, self.val_table = train_table, val_table
@@ -215,6 +262,22 @@ class FewShotTrainer:
             raise ValueError("grad_probe_every probes the dense step on token batches: it does "
                              "not combine with the token cache or embed_optimizer=lazy")
         self.grad_probe = make_grad_probe(model, cfg) if cfg.grad_probe_every > 0 else None
+        self._roofline_record = None
+        if cfg.encoder == "bilstm":
+            from induction_network_on_fewrel_tpu_torch.utils.roofline import (
+                lstm_residual_bytes,
+                step_bytes,
+            )
+
+            rows = len(train_table.uids) if self.lazy is not None and train_table is not None \
+                else None
+            sb = step_bytes(cfg, corpus_rows=rows)
+            self._roofline_record = {
+                "step_bytes": float(sb), "step_mb": round(sb / 1e6, 3),
+                "lstm_residual_bytes": float(lstm_residual_bytes(cfg)),
+                "lstm_cs_window": float(cfg.lstm_cs_window),
+                **({"corpus_rows": float(rows)} if rows else {}),
+            }
 
     def _evals(self, source):
         """(single, fused or None) eval steps bound to ``source`` (a token
@@ -235,64 +298,130 @@ class FewShotTrainer:
     def train(self, num_iters: int | None = None, start_step: int = 0) -> int:
         """Run ``num_iters`` updates (default ``cfg.train_iter``) numbered
         from ``start_step``; returns the last step (the restored best's
-        after a divergence stop)."""
+        after a divergence stop). An exception escaping the loop dumps the
+        flight recorder first."""
+        if self.recorder is not None:
+            with self.recorder.armed("train crash"):
+                return self._train_impl(num_iters, start_step)
+        return self._train_impl(num_iters, start_step)
+
+    def _dispatch(self, fn, prev: int, *args) -> dict:
+        """One step call under ``train/dispatch``; under debug_nans its
+        ``finite`` flags are read and a bad step raises."""
+        with span("train/dispatch"):
+            out = fn(*args)
+            if self.debug_nans:
+                check_finite_steps(out.pop("finite"), prev)
+        return out
+
+    def _profile(self, prof, step: int, start_step: int):
+        """Start torch.profiler at step start+1; close it and
+        write ``trace.json`` once profile_steps steps ran in it."""
+        if self.profile_dir is None or prof is False:
+            return prof
+        if prof is None and step >= start_step + 1:
+            from induction_network_on_fewrel_tpu_torch.utils.profiling import activities
+
+            prof = torch.profiler.profile(activities=activities())
+            prof.__enter__()
+        elif prof is not None and step >= start_step + 1 + self.profile_steps:
+            self._close_profile(prof, step)
+            prof = False
+        return prof
+
+    def _close_profile(self, prof, step: int) -> None:
+        prof.__exit__(None, None, None)
+        out = Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "trace.json"))
+        self.logger.log(step, "profile", written=1.0)
+
+    def _train_impl(self, num_iters: int | None, start_step: int) -> int:
         cfg = self.cfg
         spc = cfg.steps_per_call
         end_step = start_step + (num_iters or cfg.train_iter)
         it = iter(self.train_sampler)
         step = last_logged = start_step
         window: list[dict] = []
+        tracker = get_tracker()
+        tracker.set_trace(None)
+        if self._perf is not None:
+            self._perf.begin(step)
+        prof = None             # None: not yet; a profile: open; False: done
         t0 = time.monotonic()
-        while step < end_step:
-            adv = self.adv
-            if self.multi_train_step is not None and end_step - step >= spc:
-                if adv is None and hasattr(self.train_sampler, "sample_fused"):
-                    fused = batch_inputs(self.train_sampler.sample_fused(spc))  # [S, B, ...]
-                    batches = [first_batch(fused)]
+        try:
+            while step < end_step:
+                tracker.set_trace(tracker.new_context())
+                if self._compile_watcher is not None:
+                    self._compile_watcher.observe_step(step)
+                prof = self._profile(prof, step, start_step)
+                adv = self.adv
+                if self.multi_train_step is not None and end_step - step >= spc:
+                    with span("train/sample", steps=spc):
+                        if adv is None and hasattr(self.train_sampler, "sample_fused"):
+                            fused = batch_inputs(self.train_sampler.sample_fused(spc))
+                            batches = [first_batch(fused)]
+                        else:
+                            batches = [batch_inputs(next(it)) for _ in range(spc)]
+                            fused = stack_batches(batches)
+                        extra = adv.sample(spc) if adv is not None else ()
+                    window.append(self._dispatch(self.multi_train_step, step, *fused, *extra))
+                    prev, step = step, step + spc
                 else:
-                    batches = [batch_inputs(next(it)) for _ in range(spc)]
-                    fused = stack_batches(batches)
-                extra = adv.sample(spc) if adv is not None else ()
-                window.append(self.multi_train_step(*fused, *extra))
-                prev, step = step, step + spc
-            else:
-                batches = [batch_inputs(next(it))]
-                extra = adv.sample() if adv is not None else ()
-                window.append(self.train_step(*batches[0], *extra))
-                prev, step = step, step + 1
-            if step - last_logged >= self.metric_window or step >= end_step:
-                keys = list(window[0])
-                means = torch.stack([torch.cat([m[k].reshape(-1) for m in window]).float().mean()
-                                     for k in keys]).tolist()      # one sync per window
-                dt = max(time.monotonic() - t0, 1e-9)
-                if self._feed is not None:
-                    self.logger.log(step, "data", **self._feed.drain_stats())
-                self.logger.log(step, "train",
-                                episodes_per_s=(step - last_logged) * cfg.batch_size / dt,
-                                **dict(zip(keys, means)))
-                window, last_logged, t0 = [], step, time.monotonic()
-            if self.grad_probe is not None \
-                    and step // cfg.grad_probe_every > prev // cfg.grad_probe_every:
-                t_probe = time.monotonic()
-                out = self.grad_probe(*batches[0])
-                self.logger.log(step, "health", event="grad_probe", severity="info",
-                                **{k: float(v) for k, v in out.items()})
-                t0 += time.monotonic() - t_probe    # the probe stays out of episodes_per_s
-            if cfg.fault_step and start_step == 0 and step >= cfg.fault_step:
-                raise RuntimeError(
-                    f"injected fault at step {step} (--fault_step {cfg.fault_step}); resume "
-                    "with --resume (resumed runs ignore the injection)"
-                )
-            if self.val_sampler is not None and cfg.val_step \
-                    and step // cfg.val_step > prev // cfg.val_step:
-                t_val = time.monotonic()
-                stopped = self._val_boundary(step)
-                t0 += time.monotonic() - t_val    # eval + saves stay out of episodes_per_s
-                if stopped is not None:
-                    return stopped
+                    with span("train/sample", steps=1):
+                        batches = [batch_inputs(next(it))]
+                        extra = adv.sample() if adv is not None else ()
+                    window.append(self._dispatch(self.train_step, step, *batches[0], *extra))
+                    prev, step = step, step + 1
+                if step - last_logged >= self.metric_window or step >= end_step:
+                    keys = list(window[0])
+                    with span("train/metrics_fetch"):
+                        means = torch.stack([
+                            torch.cat([m[k].reshape(-1) for m in window]).float().mean()
+                            for k in keys]).tolist()      # one sync per window
+                    dt = max(time.monotonic() - t0, 1e-9)
+                    scalars = dict(zip(keys, means))
+                    if cfg.nan_inject_step and last_logged < cfg.nan_inject_step <= step:
+                        scalars["loss"] = float("nan")    # the logged loss only
+                    if self._feed is not None:
+                        self.logger.log(step, "data", **self._feed.drain_stats())
+                    self.logger.log(step, "train",
+                                    episodes_per_s=(step - last_logged) * cfg.batch_size / dt,
+                                    **scalars)
+                    if self._roofline_record is not None:
+                        self.logger.log(step, "roofline", **self._roofline_record)
+                    if self._perf is not None:
+                        self._perf.observe_window(step)
+                    if self._compile_watcher is not None:
+                        self._compile_watcher.arm_steady()
+                    window, last_logged, t0 = [], step, time.monotonic()
+                if self.grad_probe is not None \
+                        and step // cfg.grad_probe_every > prev // cfg.grad_probe_every:
+                    t_probe = time.monotonic()
+                    with span("train/grad_probe"):
+                        out = {k: float(v) for k, v in self.grad_probe(*batches[0]).items()}
+                    self.logger.log(step, "health", event="grad_probe", severity="info", **out)
+                    t0 += time.monotonic() - t_probe    # the probe stays out of episodes_per_s
+                if cfg.fault_step and start_step == 0 and step >= cfg.fault_step:
+                    raise RuntimeError(
+                        f"injected fault at step {step} (--fault_step {cfg.fault_step}); resume "
+                        "with --resume (resumed runs ignore the injection)"
+                    )
+                if self.val_sampler is not None and cfg.val_step \
+                        and step // cfg.val_step > prev // cfg.val_step:
+                    t_val = time.monotonic()
+                    stopped = self._val_boundary(step)
+                    t0 += time.monotonic() - t_val    # eval + saves stay out of episodes_per_s
+                    if stopped is not None:
+                        return stopped
+        finally:
+            tracker.set_trace(None)
+            if prof:
+                self._close_profile(prof, step)     # the run ended inside the window
         self.materialize()
         if self.ckpt is not None:
             self.save_latest(step)
+            self.ckpt.wait()            # returning implies durable checkpoints
         return step
 
     def _val_boundary(self, step: int) -> int | None:
@@ -301,16 +430,18 @@ class FewShotTrainer:
         guard stops the run."""
         cfg = self.cfg
         self.materialize()
-        m = self.evaluate(cfg.val_iter, return_metrics=True)
+        with span("train/eval", episodes=cfg.val_iter):
+            m = self.evaluate(cfg.val_iter, return_metrics=True)
         self.logger.log(step, "val", **m)
         improved = m["accuracy"] > self.best_val
         if improved:
             self.best_val = m["accuracy"]
         if self.ckpt is not None:
-            if improved:
-                self.ckpt.save(step, self.model, self.opt, m["accuracy"], lazy=self.lazy,
-                               samplers=self.sampler_states())
-            self.save_latest(step)
+            with span("train/checkpoint"):
+                if improved:
+                    self.ckpt.save(step, self.model, self.opt, m["accuracy"], lazy=self.lazy,
+                                   samplers=self.sampler_states())
+                self.save_latest(step)
         if self.best_val > self.guard_arm and m["accuracy"] < 0.5 * self.best_val:
             self.logger.log(step, "divergence", val_accuracy=m["accuracy"],
                             best_val=self.best_val)
@@ -407,9 +538,18 @@ class FewShotTrainer:
         return metrics
 
     def close(self) -> None:
-        """Close the samplers (the feed joins its producer thread) and the
-        logger."""
-        for s in (self.train_sampler, self.val_sampler):
-            if hasattr(s, "close"):
-                s.close()
-        self.logger.close()
+        """Close the checkpoint manager (flushing its saver), the samplers
+        (the feed joins its producer thread), the perf observer, the
+        capture watcher and the logger."""
+        try:
+            if self.ckpt is not None:
+                self.ckpt.close()
+        finally:
+            for s in (self.train_sampler, self.val_sampler):
+                if hasattr(s, "close"):
+                    s.close()
+            if self._perf is not None:
+                self._perf.close()
+            if self._compile_watcher is not None:
+                self._compile_watcher.uninstall()
+            self.logger.close()

@@ -56,6 +56,14 @@ program, and ``make_multi_train_step`` scans S steps in one dispatch. Here:
 Launch counts under a graph: a kernel wrapper counts the calls that launch
 its kernel, so under a graph it counts the warm-up's and the capture's
 calls, not the replays (count those from the profiler's kernel records).
+
+Each capture (its warm-up included) is reported to the capture watchers
+(``obs/compile.notify_capture``) under the factory's name (``train_step``,
+``multi_train_step``, ``eval_step``, ``multi_eval_step``,
+``adv_train_step``, ``adv_multi_train_step``) with the inputs' signature.
+``debug_nans=True`` (``--debug_nans``) adds the device-side ``finite``
+metric (``utils/debug.finite_flag`` of the loss and the pre-clip gradient
+norm) to every training step; without it the captured graph is unchanged.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ import contextlib
 import functools
 import gc
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -79,6 +88,7 @@ from induction_network_on_fewrel_tpu_torch.models.losses import (
     episode_metrics,
 )
 from induction_network_on_fewrel_tpu_torch.models.moe import collect_aux
+from induction_network_on_fewrel_tpu_torch.obs.compile import notify_capture, signature
 from induction_network_on_fewrel_tpu_torch.ops.core import gradient_reversal
 from induction_network_on_fewrel_tpu_torch.ops.optim import (
     MOMENT_RULES,
@@ -88,9 +98,15 @@ from induction_network_on_fewrel_tpu_torch.ops.optim import (
     optim_sumsq,
     optim_update,
 )
+from induction_network_on_fewrel_tpu_torch.utils.debug import finite_flag
 
 TRAIN_METRICS = ("loss", "accuracy", "grad_norm")
 ADV_METRICS = TRAIN_METRICS + ("domain_loss", "domain_accuracy")
+
+
+def train_keys(keys: tuple, debug_nans: bool) -> tuple:
+    """A training step's metric keys, with ``finite`` under debug_nans."""
+    return keys + (("finite",) if debug_nans else ())
 # The adversarial step's unlabeled instance batches, in input order.
 INSTANCE_SIDES = ("src", "tgt")
 WORD_TABLE = "embedding.word_embedding"
@@ -277,14 +293,17 @@ def _inputs_on(model, support, query, label):
 
 
 def train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, support, query,
-               label) -> dict:
+               label, debug_nans: bool = False) -> dict:
     """One eager update on one batch (numpy or tensor leaves). Returns
-    device scalars: loss, accuracy and the pre-clip gradient norm."""
+    device scalars: loss, accuracy and the pre-clip gradient norm (and
+    ``finite`` under ``debug_nans``)."""
     support, query, label = _inputs_on(model, support, query, label)
     opt.zero_grad()
     loss, metrics = loss_and_metrics(model, support, query, label, cfg.loss, aux_weight(cfg))
     loss.backward()
     metrics["grad_norm"] = opt.step()
+    if debug_nans:
+        metrics["finite"] = finite_flag(metrics["loss"], metrics["grad_norm"])
     opt.zero_grad()
     return metrics
 
@@ -361,7 +380,8 @@ class CapturedSteps:
     ``pool_bytes`` is what the capture added to the caching allocator's
     reserve (the graph's private memory pool)."""
 
-    def __init__(self, leaves: list, run, warm, device: torch.device):
+    def __init__(self, leaves: list, run, warm, device: torch.device, name: str = "graph"):
+        t_capture = time.monotonic()
         self.host = {n: torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, pin_memory=True)
                      for n, a in leaves}
         self.dev = {n: torch.empty_like(h, device=device) for n, h in self.host.items()}
@@ -380,6 +400,7 @@ class CapturedSteps:
         with torch.cuda.graph(self.graph):
             self.out = run(self.dev)
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        notify_capture(name, signature(leaves), time.monotonic() - t_capture)
 
     def fill(self, leaves: list) -> None:
         """Copy a batch into the static inputs: into the pinned buffers once
@@ -402,8 +423,9 @@ class GraphSteps:
     """``(support_s, query_s, label_s) -> {key: [S] tensor}`` through one
     ``CapturedSteps`` per input signature (captured at its first call)."""
 
-    def __init__(self, run_of, warm, keys: tuple, device: torch.device):
+    def __init__(self, run_of, warm, keys: tuple, device: torch.device, name: str = "graph"):
         self.run_of, self.warm, self.keys, self.device = run_of, warm, keys, device
+        self.name = name
         self.graphs: dict = {}
 
     def __call__(self, support_s, query_s, label_s, *instances_s) -> dict:
@@ -418,7 +440,7 @@ class GraphSteps:
         if graph is None:
             S = dict(leaves)["label"].shape[0]
             graph = self.graphs[sig] = CapturedSteps(leaves, self.run_of(S), self.warm,
-                                                     self.device)
+                                                     self.device, self.name)
         return graph
 
     @property
@@ -471,7 +493,7 @@ class EagerSteps:
 
 
 def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
-                  lazy=None):
+                  lazy=None, debug_nans: bool = False):
     """``run_of(S)``: S training steps on the stacked inputs ``dev``, and
     the metrics [S, 3]. The lazy table's prologue and epilogue wrap each
     step (live) or the S steps (token cache)."""
@@ -490,7 +512,10 @@ def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=
         norm = opt.step()
         if lazy is not None and not lazy.cached:
             lazy.epilogue(opt.count)
-        return torch.stack([m["loss"].float(), m["accuracy"].float(), norm])
+        cols = [m["loss"].float(), m["accuracy"].float(), norm]
+        if debug_nans:
+            cols.append(finite_flag(m["loss"], norm))
+        return torch.stack(cols)
 
     def run_of(S: int):
         def run(dev) -> torch.Tensor:
@@ -529,11 +554,12 @@ def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=
 
 
 def _train_graphs(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
-                  lazy=None):
-    run_of, warm = _train_run_of(model, opt, cfg, source, lazy)
+                  lazy=None, debug_nans: bool = False, name: str = "train_step"):
+    run_of, warm = _train_run_of(model, opt, cfg, source, lazy, debug_nans)
+    keys = train_keys(TRAIN_METRICS, debug_nans)
     if model.device.type != "cuda":
-        return EagerSteps(run_of, TRAIN_METRICS, model.device)
-    return GraphSteps(run_of, warm, TRAIN_METRICS, model.device)
+        return EagerSteps(run_of, keys, model.device)
+    return GraphSteps(run_of, warm, keys, model.device, name)
 
 
 def _warm_optim_kernels(device) -> None:
@@ -570,32 +596,32 @@ def _eval_run_of(model, cfg: ExperimentConfig, source=None):
     return run_of, warm, keys
 
 
-def _eval_graphs(model, cfg: ExperimentConfig, source=None):
+def _eval_graphs(model, cfg: ExperimentConfig, source=None, name: str = "eval_step"):
     run_of, warm, keys = _eval_run_of(model, cfg, source)
     if model.device.type != "cuda":
         return EagerSteps(run_of, keys, model.device)
-    return GraphSteps(run_of, warm, keys, model.device)
+    return GraphSteps(run_of, warm, keys, model.device, name)
 
 
 def make_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
-                    lazy=None):
+                    lazy=None, debug_nans: bool = False):
     """``(support, query, label) -> {loss, accuracy, grad_norm}`` device
-    scalars (copies). On the card one CUDA-graph replay per call; on the
-    CPU the eager ``train_step`` (the eager step body with a token-cache
-    ``source`` or a ``lazy`` table)."""
+    scalars (copies; with ``finite`` under ``debug_nans``). On the card one
+    CUDA-graph replay per call; on the CPU the eager ``train_step`` (the
+    eager step body with a token-cache ``source`` or a ``lazy`` table)."""
     if model.device.type != "cuda" and source is None and lazy is None:
-        return functools.partial(train_step, model, opt, cfg)
-    return _single(_train_graphs(model, opt, cfg, source, lazy))
+        return functools.partial(train_step, model, opt, cfg, debug_nans=debug_nans)
+    return _single(_train_graphs(model, opt, cfg, source, lazy, debug_nans))
 
 
 def make_multi_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
-                          lazy=None):
+                          lazy=None, debug_nans: bool = False):
     """``(support_s, query_s, label_s)`` stacked [S, ...] -> metrics [S]:
     S updates per call, the same sequence as S single steps. On the card
     one replay of a graph of S captured steps; on the CPU S eager steps."""
     if model.device.type != "cuda" and source is None and lazy is None:
-        return _eager_multi(functools.partial(train_step, model, opt, cfg))
-    return _train_graphs(model, opt, cfg, source, lazy)
+        return _eager_multi(functools.partial(train_step, model, opt, cfg, debug_nans=debug_nans))
+    return _train_graphs(model, opt, cfg, source, lazy, debug_nans, "multi_train_step")
 
 
 def make_eval_step(model, cfg: ExperimentConfig, source=None):
@@ -611,7 +637,7 @@ def make_multi_eval_step(model, cfg: ExperimentConfig, source=None):
     card); the same values as S calls of the single eval step."""
     if model.device.type != "cuda" and source is None:
         return _eager_multi(functools.partial(eval_step, model, cfg))
-    return _eval_graphs(model, cfg, source)
+    return _eval_graphs(model, cfg, source, "multi_eval_step")
 
 
 # --- FewRel 2.0 adversarial domain adaptation (models/adversarial.py) -------------
@@ -666,24 +692,31 @@ def _adv_update(model, opt: ClipDecayOptimizer, disc: DiscState, cfg, *batch) ->
 
 
 def adv_train_step(model, opt: ClipDecayOptimizer, disc: DiscState, cfg: ExperimentConfig,
-                   support, query, label, src, tgt) -> dict:
+                   support, query, label, src, tgt, debug_nans: bool = False) -> dict:
     """One eager adversarial update on one batch and its instance batches
-    (numpy or tensor leaves). Returns device scalars (``ADV_METRICS``)."""
+    (numpy or tensor leaves). Returns device scalars (``ADV_METRICS``, and
+    ``finite`` under ``debug_nans``)."""
     dev = model.device
     m = _adv_update(model, opt, disc, cfg, *_inputs_on(model, support, query, label),
                     to_device(src, dev), to_device(tgt, dev))
+    if debug_nans:
+        m["finite"] = finite_flag(m["loss"], m["grad_norm"])
     opt.zero_grad()
     disc.opt.zero_grad()
     return m
 
 
-def _adv_run_of(model, opt: ClipDecayOptimizer, disc: DiscState, cfg: ExperimentConfig):
+def _adv_run_of(model, opt: ClipDecayOptimizer, disc: DiscState, cfg: ExperimentConfig,
+                debug_nans: bool = False):
     def run_of(S: int):
         def run(dev) -> torch.Tensor:
             rows = []
             for i in range(S):
                 m = _adv_update(model, opt, disc, cfg, *_adv_batch(dev, i))
-                rows.append(torch.stack([m[k].float() for k in ADV_METRICS]))
+                if debug_nans:
+                    m["finite"] = finite_flag(m["loss"], m["grad_norm"])
+                rows.append(torch.stack([m[k].float()
+                                         for k in train_keys(ADV_METRICS, debug_nans)]))
             opt.zero_grad()
             disc.opt.zero_grad()
             return torch.stack(rows)
@@ -704,33 +737,35 @@ def _adv_run_of(model, opt: ClipDecayOptimizer, disc: DiscState, cfg: Experiment
     return run_of, warm
 
 
-def _adv_graphs(model, opt, disc, cfg):
-    run_of, warm = _adv_run_of(model, opt, disc, cfg)
+def _adv_graphs(model, opt, disc, cfg, debug_nans: bool = False, name: str = "adv_train_step"):
+    run_of, warm = _adv_run_of(model, opt, disc, cfg, debug_nans)
+    keys = train_keys(ADV_METRICS, debug_nans)
     if model.device.type != "cuda":
-        return EagerSteps(run_of, ADV_METRICS, model.device)
-    return GraphSteps(run_of, warm, ADV_METRICS, model.device)
+        return EagerSteps(run_of, keys, model.device)
+    return GraphSteps(run_of, warm, keys, model.device, name)
 
 
 def make_adv_train_step(model, opt: ClipDecayOptimizer, disc: DiscState,
-                        cfg: ExperimentConfig):
+                        cfg: ExperimentConfig, debug_nans: bool = False):
     """``(support, query, label, src, tgt) -> ADV_METRICS`` device scalars:
     the few-shot loss and the domain game in one backward, one update of
     the model and one of the discriminator. ``src``/``tgt`` are unlabeled
     instance dicts {word, pos1, pos2, mask} [M, L]. On the card one
     CUDA-graph replay per call; on the CPU the eager ``adv_train_step``."""
     if model.device.type != "cuda":
-        return functools.partial(adv_train_step, model, opt, disc, cfg)
-    return _single(_adv_graphs(model, opt, disc, cfg))
+        return functools.partial(adv_train_step, model, opt, disc, cfg, debug_nans=debug_nans)
+    return _single(_adv_graphs(model, opt, disc, cfg, debug_nans))
 
 
 def make_adv_multi_train_step(model, opt: ClipDecayOptimizer, disc: DiscState,
-                              cfg: ExperimentConfig):
+                              cfg: ExperimentConfig, debug_nans: bool = False):
     """S stacked (episode, src, tgt) batches per call -> metrics [S]: the
     same updates as S single adversarial steps; one replay of a graph of S
     captured steps on the card."""
     if model.device.type != "cuda":
-        return _eager_multi(functools.partial(adv_train_step, model, opt, disc, cfg))
-    return _adv_graphs(model, opt, disc, cfg)
+        return _eager_multi(functools.partial(adv_train_step, model, opt, disc, cfg,
+                                              debug_nans=debug_nans))
+    return _adv_graphs(model, opt, disc, cfg, debug_nans, "adv_multi_train_step")
 
 
 # --- grad probe ---------------------------------------------------------------------

@@ -82,10 +82,13 @@ class Run:
         return out
 
     def save_latest(self, mgr, step):
-        return mgr.save_latest(step, self.model, self.opt, lazy=self.lazy)
+        info = mgr.save_latest(step, self.model, self.opt, lazy=self.lazy)
+        mgr.wait()                      # the slot on disk before the test reads it
+        return info
 
     def save_best(self, mgr, step, acc=0.5):
         mgr.save(step, self.model, self.opt, acc, lazy=self.lazy)
+        mgr.wait()
 
     def restore(self, mgr):
         return mgr.restore_latest(self.model, self.opt, self.lazy)[0]

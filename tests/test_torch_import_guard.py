@@ -1,7 +1,8 @@
 """The torch port stands alone: no JAX, no JAX package, no GPU at import.
 
 A subprocess blocks ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax``,
-``ml_dtypes`` and ``induction_network_on_fewrel_tpu`` with a
+``ml_dtypes``, ``tensorflow``, ``tensorboard`` (the port writes its
+TensorBoard files itself) and ``induction_network_on_fewrel_tpu`` with a
 ``sys.meta_path`` finder, then imports every module of the port and
 ``chip_smoke.py``; an AST scan of the same files finds no such import
 either. Without CUDA the entry points refuse to run unless asked for the CPU.
@@ -19,7 +20,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "induction_network_on_fewrel_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "tensorflow", "tensorboard",
            "induction_network_on_fewrel_tpu")
 
 GUARDED = textwrap.dedent(f"""

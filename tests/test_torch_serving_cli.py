@@ -112,8 +112,23 @@ def test_serve_main_demo_and_stats(served, capsys):
     assert "demo accuracy" in captured.err and "steady_recompiles\": 0" in captured.err
 
 
-@pytest.mark.parametrize("flag", sorted(serve_cli.DEFERRED))
+# The JAX serving flags the port now serves (the telemetry flags): each
+# parses with a value and is not refused.
+PORTED = ("--chaos", "--drift", "--drift_band", "--drift_baseline", "--drift_window",
+          "--slo_availability", "--slo_fast_s", "--slo_latency_ms", "--slo_profile",
+          "--slo_slow_s", "--trace_sample", "--watchdog")
+
+
+@pytest.mark.parametrize("flag", sorted(set(serve_cli.DEFERRED) | set(PORTED)))
 def test_deferred_flags_are_refused_by_name(flag, capsys):
+    if flag in PORTED:
+        p = serve_cli.build_serve_arg_parser()
+        action = next(a for a in p._actions if flag in a.option_strings)
+        value = "3" if action.type is int else "0.5"
+        args = p.parse_args([flag] if action.nargs == 0 else [flag, value])
+        serve_cli.refuse_deferred(p, args)
+        assert getattr(args, flag[2:]) not in (None, False)
+        return
     value = [] if flag in serve_cli._FLAGS else ["7"]
     with pytest.raises(SystemExit) as ei:
         serve_cli.serve_main([flag, *value, "--device", "cpu"])

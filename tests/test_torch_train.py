@@ -270,7 +270,8 @@ def test_cli_train_then_test_round_trip(tmp_path, capsys):
     recs = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
     assert [(r["step"], r["mode"]) for r in recs if r["kind"] == "ckpt"] == [(3, "full"),
                                                                              (6, "full")]
-    recs = [r for r in recs if r["kind"] != "ckpt"]         # the ring saves' records
+    # The ring saves' records, and the per-window step-byte record.
+    recs = [r for r in recs if r["kind"] not in ("ckpt", "roofline")]
     assert [r["kind"] for r in recs].count("val") == 2
     assert recs[-2]["kind"] == "train" and recs[-2]["step"] == 6 and "loss" in recs[-2]
     assert all("acc_ci95" in r for r in recs if r["kind"] == "val")
