@@ -316,6 +316,38 @@ exits non-zero; no phase catches a failure of its own):
    p50 at trace_sample 1.0 against 0 for buckets 1, 4 and 16, and a
    span's host cost with and without its NVTX range. An ``{"obs": ...}``
    line; the phase should end within 90 s.
+16. (run after phase 15) The serving control plane and the adaptation
+   controller (files under ``build/chip_smoke_fleet/``, removed at the end)
+   at the flagship widths on the JAX drill world: the source artifact
+   (``make_synthetic_fewrel``, 15 relations, NOTA at rate 1, ce) trained
+   300 steps on the card, its shifted twin (``make_domain_shifted_fewrel``,
+   shift 1.0) as the drifting traffic; the canary floors are the
+   artifact's own pre-drift accuracy minus the JAX band; the fine-tune's
+   ms/step alone. 16a: three ``InProcessReplica``s behind ``FleetRouter``
+   and ``FleetControl`` (``obs/adapt_drill.run_adapt_success_arm``): 2 s of
+   8 closed-loop clients on a second tenant before the drift, clean
+   traffic arms the drift baseline, target traffic trips the CRITICAL, the
+   controller fine-tunes (200 steps), canaries and fan-out publishes while
+   the clients keep requests in flight, then verifies; the JAX
+   ``check_adapt_drill`` fields held; the wrappers' counts read at the
+   fleet's set-up and across the attempt (the fine-tune's K7, K8,
+   lstm_wgrad, K10, K11 and the pair, K1 and K2); one train-graph capture,
+   no serving capture after warm-up, no request errored or shed, some
+   completed inside the capture; per-bucket p50/p99 before and during;
+   the candidate's served logits vs the plain backends on its weights.
+   16b: ``adapt.canary_fail`` twice: no publish, the backoff, one
+   ``adapt_exhausted``, degraded NOTA verdicts launching no K1 or K2, no
+   candidate left, device memory back to its level before the first
+   attempt, the latch restored from the journal on a rebuilt router. 16c:
+   ``fleet.replica_kill`` mid-traffic (failover, nothing dropped, the
+   supervisor revives), ``journal.torn_write`` and a cold-start
+   ``recover`` (owners and params_version as before), a hot standby's
+   promotion fencing the old primary, one autoscaler cycle on an injected
+   clock. 16d: a replica in a child process behind a ``SocketReplica``
+   (logits within 1e-6 of an in-process replica's; ``net.drop`` and
+   ``net.slow`` retried), then ``serve_main --replicas 3 --journal
+   --control_socket`` and a second process's ``--send`` drain. A
+   ``{"fleet": ...}`` line.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -326,10 +358,13 @@ exits non-zero; no phase catches a failure of its own):
    phase 9e (``launches_feed_9e`` in the kernels line: its (a) native
    depth-2 run's profiled launches; ``*_bert``: the optimizer pair on
    phase 13a's parameter list and its launches in phase 13;
-   ``launches_adv``: phase 14a's profiled launches), a
+   ``launches_adv``: phase 14a's profiled launches; ``launches_fleet``
+   and ``launches_adapt``: phase 16a's wrapper counts at the fleet's
+   set-up and across the adaptation attempt), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
    ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
-   ``{"obs": ...}`` line of phase 15, the run's seconds, then the last line
+   ``{"obs": ...}`` line of phase 15, the ``{"fleet": ...}`` line of phase
+   16, the run's seconds, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
@@ -343,6 +378,7 @@ import copy
 import gc
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -5135,6 +5171,697 @@ def obs_phase(smi: str) -> dict:
     return out
 
 
+# --- phase 16: the serving control plane and the adaptation controller ------
+
+FLEET_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"
+FLEET_DEVICE = None                     # the card
+FLEET_SEED = 1
+# The JAX drill world (tools/loadgen.py:1327 ADAPT_WORLD: ce, no decay,
+# NOTA queries at rate 1, seed 1) at the flagship widths. With N + 1 = 6
+# relations a 5-way episode's NOTA queries always come from the one
+# relation left, and the source model meets the shifted twin with 12-50 %
+# NOTA (measured on the H100); with 15 relations and lr 2e-3 (the
+# JAX world's 5e-3 gives 14-42 % at every count tried) NOTA generalizes
+# and the shifted traffic collapses into it, as in the JAX drill.
+FLEET_KNOBS = dict(na_rate=1, loss="ce", lr=2e-3, weight_decay=0.0, val_step=0, seed=FLEET_SEED)
+FLEET_PLAN = dict(num_relations=15, instances_per_relation=40, train_iters=300,
+                  finetune_steps=200, canary_episodes=48,
+                  drift=dict(window=32, baseline_n=24, min_count=16))
+FLEET_REPLICAS = 3
+FLEET_BUCKETS = (1, 4, 16)
+FLEET_CLIENTS = 8
+FLEET_LOAD_S = 2.0
+FLEET_SECONDS = 90
+ADAPT_KERNELS = ("K7", "K8", "wgrad", "K10", "K11", "optim_sumsq", "optim_update")
+# The serving graphs' capture name, and the fine-tune's and canary's.
+SERVE_CAPTURE = "serve_query"
+JOB_CAPTURES = ("train_step", "multi_train_step", "eval_step", "multi_eval_step")
+FLEET_MEM_TOL = 1 << 20                 # bytes of device memory across attempts
+SOCKET_LOGIT_TOL = 1e-6
+FLEET_RETRIES = 2
+
+
+def kernel_counts() -> dict:
+    return {k: f.launches for k, f in TRAIN_KERNELS.items()}
+
+
+def zero_kernel_counts() -> None:
+    for f in TRAIN_KERNELS.values():
+        f.launches = 0
+
+
+def count_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+class ClosedLoad:
+    """FLEET_CLIENTS closed-loop clients on one tenant through the fleet
+    router: per-bucket latencies, completion times, sheds and errors."""
+
+    def __init__(self, router, pool: list, tenant: str):
+        self.router, self.pool, self.tenant = router, pool, tenant
+        self.lat: dict[int, list[float]] = {}
+        self.done_at: list[float] = []
+        self.served = self.shed = self.errors = self.degraded = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+
+    def _client(self, i: int) -> None:
+        from induction_network_on_fewrel_tpu_torch.serving.batcher import Saturated
+
+        # A seeded random draw over the whole pool: the tenant's drift
+        # baseline and windows see the same mix of relations.
+        rng = np.random.default_rng(FLEET_SEED + i)
+        while not self._stop.is_set():
+            inst = self.pool[int(rng.integers(len(self.pool)))]
+            try:
+                v = self.router.classify(inst, 30.0, tenant=self.tenant)
+            except Saturated:
+                with self._lock:
+                    self.shed += 1
+                continue
+            except Exception:  # noqa: BLE001 — counted: any failure is an error
+                with self._lock:
+                    self.errors += 1
+                continue
+            with self._lock:
+                self.served += 1
+                self.done_at.append(time.monotonic())
+                self.degraded += bool(v.get("degraded"))
+                self.lat.setdefault(int(v.get("bucket", 0)), []).append(v["latency_ms"])
+
+    def __enter__(self) -> "ClosedLoad":
+        self._threads = [threading.Thread(target=self._client, args=(i,), daemon=True)
+                         for i in range(FLEET_CLIENTS)]
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=60.0)
+
+    def summary(self) -> dict:
+        rows = {b: {"n": len(v), "p50_ms": round(float(np.percentile(v, 50)), 3),
+                    **({"p99_ms": round(float(np.percentile(v, 99)), 3)} if len(v) >= 50 else {})}
+                for b, v in sorted(self.lat.items())}
+        return {"served": self.served, "shed": self.shed, "errors": self.errors,
+                "degraded": self.degraded, "by_bucket": rows}
+
+
+def stamped_watcher():
+    """A capture watcher that keeps each capture's (fn, start, end) on the
+    monotonic clock."""
+    from induction_network_on_fewrel_tpu_torch.obs.compile import CompileWatcher
+
+    class Stamped(CompileWatcher):
+        def __init__(self):
+            super().__init__()
+            self.stamps: list[tuple[str, float, float]] = []
+
+        def _observe_compile(self, pending, duration):
+            end = time.monotonic()
+            self.stamps.append(((pending or ("?",))[0], end - duration, end))
+            super()._observe_compile(pending, duration)
+
+    return Stamped().install()
+
+
+def fleet_cfg() -> ExperimentConfig:
+    return ExperimentConfig(**FLEET_KNOBS)
+
+
+def train_ms_per_step(records: list, batch_size: int) -> float:
+    """The fine-tune's ms/step over its metric windows after the first
+    (the first holds the graph's warm-up and capture)."""
+    eps = [r["episodes_per_s"] for r in records if r.get("kind") == "train"][1:]
+    if not eps:
+        raise AssertionError("the fine-tune logged fewer than two metric windows")
+    return round(float(np.mean([batch_size * 1e3 / e for e in eps])), 4)
+
+
+def fleet_headline(cfg, tok, src, tgt, ckpt: str) -> dict:
+    """The live artifact's own pre-drift accuracy on both corpora (the
+    canary's legs), and its floors: accuracy minus the JAX tier-1 band."""
+    from induction_network_on_fewrel_tpu_torch.obs.canary import floors_from_headline, run_canary
+    from induction_network_on_fewrel_tpu_torch.serving.registry import load_params
+
+    verdict = run_canary(build_model(cfg, device=FLEET_DEVICE), load_params(ckpt), cfg, tok,
+                         {"in_domain": src, "target": tgt}, {},
+                         episodes=FLEET_PLAN["canary_episodes"], seed=cfg.seed + 7)
+    acc = {k: v["accuracy"] for k, v in verdict["legs"].items()}
+    band = floors_from_headline({"in_domain_accuracy": acc["in_domain"],
+                                 "cross_domain_accuracy": acc["target"]})
+    floors = {"in_domain": band["in_domain_accuracy"], "target": band["cross_domain_accuracy"]}
+    print(f"[fleet] the live artifact before the drift: canary accuracy {acc}; floors "
+          f"(accuracy - 0.12, the JAX band) {floors}", flush=True)
+    gc.collect()
+    return {"accuracy": acc, "floors": floors}
+
+
+def fleet_alone(cfg, tok, src, tgt, ckpt: str) -> float:
+    """The fine-tune with no serving beside it: its ms/step."""
+    from induction_network_on_fewrel_tpu_torch.train.finetune import mixture_finetune
+
+    run = FLEET_DIR / "alone"
+    logger = MetricsLogger(run, quiet=True)
+    mixture_finetune(ckpt, str(FLEET_DIR / "alone_ckpt"), src, tgt, tok,
+                     steps=FLEET_PLAN["finetune_steps"], wall_budget_s=300.0,
+                     seed=cfg.seed + 100, logger=logger, device=FLEET_DEVICE)
+    logger.close()
+    shutil.rmtree(FLEET_DIR / "alone_ckpt", ignore_errors=True)
+    ms = train_ms_per_step(obs_records(run), cfg.batch_size)
+    print(f"[fleet] the fine-tune alone ({FLEET_PLAN['finetune_steps']} steps, 4 chunks): "
+          f"{ms} ms/step", flush=True)
+    return ms
+
+
+def fleet_success(cfg, tok, src, tgt, ckpt: str, plan: dict) -> dict:
+    """16a: three replicas behind the router and the fan-out, the drift
+    CRITICAL, the fine-tune with traffic in flight, the canary, the
+    publish, the verification; the candidate's served logits vs the plain
+    backends on its weights."""
+    from induction_network_on_fewrel_tpu_torch.obs.adapt_drill import (
+        TENANT,
+        adapt_pools,
+        run_adapt_success_arm,
+    )
+    from induction_network_on_fewrel_tpu_torch.serving.registry import load_params
+
+    src_pool, tgt_pool = adapt_pools(src, tgt, cfg.k)
+    state: dict = {}
+    post: list = []
+
+    def after_warmup(router, control):
+        control.register_tenant("live", src)
+        router.replicas[router.directory["live"].owner].warmup()
+        torch.cuda.synchronize()
+        state["fleet_counts"] = kernel_counts()
+        state["warm_captures"] = len(watcher.stamps)     # serving graphs end here
+        with ClosedLoad(router, src_pool, "live") as load:
+            time.sleep(FLEET_LOAD_S)
+        state["pre"] = load.summary()
+
+    @contextlib.contextmanager
+    def during_attempt(router, pools):
+        torch.cuda.synchronize()
+        before = kernel_counts()
+        load = ClosedLoad(router, src_pool, "live")
+        with load:
+            yield
+        torch.cuda.synchronize()
+        state["adapt_counts"] = count_delta(kernel_counts(), before)
+        state["during"] = load.summary()
+        state["during_done_at"] = list(load.done_at)
+
+    def on_verdict(stage, v):
+        if stage == "post":
+            post.append(v)
+
+    run = FLEET_DIR / "success"
+    logger = MetricsLogger(run, quiet=True)
+    watcher = stamped_watcher()
+    zero_kernel_counts()
+    try:
+        out = run_adapt_success_arm(cfg, tok, src, tgt, ckpt, str(FLEET_DIR), plan=plan,
+                                    replicas=FLEET_REPLICAS, device=FLEET_DEVICE, logger=logger,
+                                    on_verdict=on_verdict, during_attempt=during_attempt,
+                                    after_warmup=after_warmup, buckets=FLEET_BUCKETS,
+                                    watch=(TENANT,))
+    finally:
+        watcher.uninstall()
+        logger.close()
+    captures = [(fn, t0, t1) for fn, t0, t1 in watcher.stamps]
+    train_caps = [c for c in captures if c[0] == "train_step"]
+    serve_steady = [c for c in captures[state.get("warm_captures", 0):] if c[0] == SERVE_CAPTURE]
+    job = [c[0] for c in captures if c[0] in JOB_CAPTURES]
+    in_capture = sum(1 for t in state.get("during_done_at", ()) for _, a, b in train_caps
+                     if a <= t <= b)
+    ms_during = train_ms_per_step([r for r in obs_records(run)], cfg.batch_size)
+    fields = {k: out.get(k) for k in (
+        "baseline_armed", "tripped", "nota_healthy", "nota_shifted", "trigger_feature",
+        "canary_passed", "canary_first_failure", "published", "versions_uniform",
+        "dropped_during_publish", "inflight_at_publish", "steady_recompiles", "rearmed",
+        "verified", "nota_post", "nota_band", "finetune_s", "publish_s", "fanout_publish_ms",
+        "trigger_to_verified_s", "recover_s", "params_versions_after", "state_after_publish")}
+    print(f"[fleet 16a] the controller's kind=\"adapt\" records: {out.get('records')}", flush=True)
+    print(f"[fleet 16a] {FLEET_REPLICAS} replicas behind the router and the fan-out: {fields}",
+          flush=True)
+    print(f"[fleet 16a] served before the drift ({FLEET_CLIENTS} clients, {FLEET_LOAD_S} s): "
+          f"{state.get('pre')}; during the attempt (fine-tune, canary, publish): "
+          f"{state.get('during')}; completions inside the train-graph capture: {in_capture}",
+          flush=True)
+    print(f"[fleet 16a] wrapper launches, serving set-up (distils, warm-ups, captures): "
+          f"{state.get('fleet_counts')}; the attempt (the fine-tune's warm-up and capture, the "
+          f"canary's eval graphs, the publish's distils): {state.get('adapt_counts')}; "
+          f"captures in the arm: train_step {len(train_caps)}, the job's {job}, serving "
+          f"steady {len(serve_steady)}; fine-tune {ms_during} ms/step beside serving",
+          flush=True)
+
+    # The candidate's served logits vs an engine with the plain backends on
+    # the candidate's weights (the post-publish queries: the first
+    # baseline_n of the target pool).
+    ref_cfg = cfg.replace(lstm_backend="reference", attn_backend="reference")
+    ref_model = build_model(ref_cfg, device=FLEET_DEVICE)
+    ref_model.load_state_dict(load_params(out["candidate"]))
+    ref = InferenceEngine(ref_model, ref_cfg, tok, k=cfg.k, buckets=FLEET_BUCKETS,
+                          device=FLEET_DEVICE)
+    try:
+        ref.register_dataset(src, tenant=TENANT)
+        want = ref.classify_batch(tgt_pool[:len(post)], tenant=TENANT)
+    finally:
+        ref.close()
+    names = list(want[0]["logits"])
+    got_m = np.array([[v["logits"][n] for n in names] for v in post])
+    want_m = np.array([[v["logits"][n] for n in names] for v in want])
+    scale = float(np.abs(want_m).max())
+    err = float(np.abs(got_m - want_m).max())
+    print(f"[fleet 16a] the candidate's served logits ({len(post)} post-publish verdicts) vs "
+          f"the plain backends on its weights: max abs err {err:.3g} at scale {scale:.3g} "
+          f"(rel tol {LOGIT_REL_TOL})", flush=True)
+    bad = []
+    for key in ("baseline_armed", "tripped", "canary_passed", "published", "versions_uniform",
+                "rearmed", "verified"):
+        if not out.get(key):
+            bad.append(key)
+    if out.get("dropped_during_publish") != 0 or out.get("steady_recompiles") != 0:
+        bad.append("dropped/steady")
+    if (out.get("nota_shifted") or 0) < 0.5:
+        bad.append("nota_shifted < 0.5")
+    if out.get("nota_post") is None or out.get("nota_healthy") is None \
+            or abs(out["nota_post"] - out["nota_healthy"]) \
+            > max(out.get("nota_band") or 0.05, 0.05) + 1e-9:
+        bad.append("nota_post out of band")
+    fc, ac = state.get("fleet_counts", {}), state.get("adapt_counts", {})
+    if min(fc.get("K1", 0), fc.get("K2", 0)) == 0:
+        bad.append(f"serving kernels not launched {fc}")
+    if min(ac.get(k, 0) for k in ADAPT_KERNELS + ("K1", "K2")) == 0:
+        bad.append(f"attempt kernels not launched {ac}")
+    if len(train_caps) != 1 or serve_steady:
+        bad.append(f"captures: train_step {len(train_caps)}, serving steady {len(serve_steady)}")
+    during = state.get("during", {})
+    if during.get("errors") or during.get("shed") or not during.get("served") or not in_capture:
+        bad.append(f"traffic during the attempt {during}, {in_capture} inside the capture")
+    if not np.isfinite(got_m).all() or err > LOGIT_REL_TOL * scale:
+        bad.append(f"candidate logits {err} > {LOGIT_REL_TOL}*{scale}")
+    if bad:
+        raise AssertionError(f"16a: {bad}")
+    return {"arm": fields, "pre": state["pre"], "during": during,
+            "completions_in_capture": in_capture, "launches_fleet": fc, "launches_adapt": ac,
+            "train_captures": len(train_caps), "job_captures": job,
+            "serve_steady_captures": len(serve_steady), "finetune_ms_per_step": ms_during,
+            "candidate_logit_err": err, "candidate_logit_scale": scale}
+
+
+def fleet_failure(cfg, tok, src, tgt, ckpt: str, plan: dict) -> dict:
+    """16b: every canary failed (``adapt.canary_fail``): no publish, the
+    backoff, one ``adapt_exhausted``, the quarantine (degraded NOTA, no K1
+    or K2), every candidate removed, device memory back; a router rebuilt
+    from the journal restores the latch."""
+    from induction_network_on_fewrel_tpu_torch.fleet import (
+        FleetJournal,
+        FleetRouter,
+        InProcessReplica,
+    )
+    from induction_network_on_fewrel_tpu_torch.obs.adapt import EXHAUSTED, AdaptationController
+    from induction_network_on_fewrel_tpu_torch.obs.adapt_drill import (
+        TENANT,
+        adapt_pools,
+        run_adapt_failure_arm,
+    )
+
+    _, tgt_pool = adapt_pools(src, tgt, cfg.k)
+    mem: dict = {}
+
+    def on_attempt(i):
+        gc.collect()
+        torch.cuda.synchronize()
+        mem[i] = torch.cuda.memory_allocated()
+
+    jdir = FLEET_DIR / "journal_b"
+    journal = FleetJournal(jdir)
+    out = run_adapt_failure_arm(cfg, tok, src, tgt, ckpt, str(FLEET_DIR), plan=plan,
+                                retries=FLEET_RETRIES, device=FLEET_DEVICE, journal=journal,
+                                on_attempt=on_attempt, buckets=FLEET_BUCKETS)
+    engine = out.pop("engine", None)
+    journal.close()
+    if engine is None:
+        raise AssertionError(f"16b: the drift did not trip: {out}")
+    torch.cuda.synchronize()
+    before = kernel_counts()
+    verdicts = [engine.classify(q, tenant=TENANT) for q in tgt_pool[:8]]
+    torch.cuda.synchronize()
+    quarantine_launches = count_delta(kernel_counts(), before)
+    degraded = sum(bool(v["degraded"]) and bool(v["nota"]) for v in verdicts)
+    j2 = FleetJournal(jdir)
+    try:
+        state = j2.materialize()
+        router = FleetRouter({"r00": InProcessReplica("r00", engine)})
+        try:
+            summary = router.recover(j2, state=state)
+            ctl = AdaptationController(lambda *a: None, None, lambda c: 0, journal=j2)
+            ctl.restore_exhausted(state.adapt_exhausted)
+            restored = ctl.state_of(TENANT) == EXHAUSTED and not ctl.trigger(TENANT)
+        finally:
+            router.close()
+    finally:
+        j2.close()
+    mem_first, mem_last = mem.get(1), mem.get(FLEET_RETRIES + 1)
+    fields = {k: out.get(k) for k in (
+        "tripped", "attempt1_failed", "backoff_honored", "exhausted", "exhausted_criticals",
+        "quarantined", "retrigger_absorbed", "candidates_cleaned", "unexpected_publishes",
+        "canary_fail_records", "injected")}
+    print(f"[fleet 16b] adapt.canary_fail x{FLEET_RETRIES}: {fields}; quarantined verdicts "
+          f"{degraded}/{len(verdicts)} degraded NOTA, wrapper launches across them "
+          f"{ {k: v for k, v in quarantine_launches.items() if v} }; device memory allocated "
+          f"before the first attempt {mem_first} B, after the last {mem_last} B (all "
+          f"readings {mem}); journal latch {dict(state.adapt_exhausted)}, recovered "
+          f"{summary['tenants']} tenant(s), restored on a rebuilt router: {restored}",
+          flush=True)
+    bad = [k for k in ("tripped", "attempt1_failed", "backoff_honored", "exhausted",
+                       "quarantined", "retrigger_absorbed", "candidates_cleaned")
+           if not out.get(k)]
+    if out.get("exhausted_criticals") != 1 or out.get("unexpected_publishes") != 0 \
+            or out.get("canary_fail_records") != FLEET_RETRIES:
+        bad.append("exhaustion counts")
+    if degraded != len(verdicts) or quarantine_launches["K1"] or quarantine_launches["K2"]:
+        bad.append(f"quarantine: {degraded} degraded, launches {quarantine_launches}")
+    if mem_first is None or mem_last is None or abs(mem_last - mem_first) > FLEET_MEM_TOL:
+        bad.append(f"device memory {mem_first} -> {mem_last}")
+    if not restored:
+        bad.append("the journaled latch was not restored")
+    if bad:
+        raise AssertionError(f"16b: {bad}")
+    return {"arm": fields, "degraded_verdicts": degraded,
+            "quarantine_launches": quarantine_launches, "mem_first": mem_first,
+            "mem_last": mem_last, "mem": mem, "latch_restored": restored}
+
+
+def fleet_faults(cfg, tok, src, ckpt: str) -> dict:
+    """16c: ``fleet.replica_kill`` mid-traffic (failover, nothing dropped,
+    the supervisor revives); ``journal.torn_write`` and a cold-start
+    recovery from the WAL; a hot standby's promotion fencing the old
+    primary; one autoscaler cycle on the injected clock."""
+    from induction_network_on_fewrel_tpu_torch.fleet import (
+        DRAINING,
+        UP,
+        FleetAutoscaler,
+        FleetControl,
+        FleetJournal,
+        FleetRouter,
+        HotStandby,
+        InProcessReplica,
+        JournalError,
+        ReplicaSupervisor,
+    )
+    from induction_network_on_fewrel_tpu_torch.obs.adapt_drill import replica_engine
+    from induction_network_on_fewrel_tpu_torch.obs.chaos import ChaosRegistry, install
+    from induction_network_on_fewrel_tpu_torch.serving.breaker import CircuitBreaker
+
+    def replica(rid: str):
+        return InProcessReplica(rid, replica_engine(cfg, tok, ckpt, buckets=FLEET_BUCKETS,
+                                                    device=FLEET_DEVICE))
+
+    pool = [i for r in src.rel_names for i in src.instances[r][cfg.k:]]
+    tenants = [f"t{i}" for i in range(4)]
+    jdir = FLEET_DIR / "journal_c"
+    journal = FleetJournal(jdir)
+    journal.acquire_lease("primary")
+    router = FleetRouter({f"r{i:02d}": replica(f"r{i:02d}") for i in range(FLEET_REPLICAS)},
+                         breaker=CircuitBreaker(failure_threshold=3, open_s=1.0))
+    control = FleetControl(router, journal=journal)
+    out: dict = {}
+    try:
+        for t in tenants:
+            control.register_tenant(t, src)
+        for h in router.replicas.values():
+            h.warmup()
+        victim = router.directory["t0"].owner
+        served = degraded = errors = 0
+        moved = []
+        install(ChaosRegistry.parse(f"fleet.replica_kill@2:{victim}"))
+        try:
+            for i in range(32):
+                if i == 16:
+                    moved = control.replace_tenants()
+                try:
+                    v = router.classify(pool[i % len(pool)], 30.0, tenant=tenants[i % 4])
+                except Exception:  # noqa: BLE001 — any failure is a drop
+                    errors += 1
+                    continue
+                served += 1
+                degraded += bool(v.get("degraded"))
+        finally:
+            install(None)
+        dead = router.placement.state(victim)
+        clock = {"t": 0.0}
+        sup = ReplicaSupervisor(router, replica, journal=journal, backoff_s=1.0,
+                                restart_budget=3, clock=lambda: clock["t"])
+        polled = sup.poll()
+        revived = router.placement.state(victim) == UP
+        moved_back = control.replace_tenants()
+        v = router.classify(pool[0], 30.0, tenant="t0")
+        out["kill"] = {"victim": victim, "state_after_kill": dead, "served": served,
+                       "degraded_failover": degraded, "errors": errors, "moved": moved,
+                       "supervisor": {k: v2 for k, v2 in polled.items() if v2},
+                       "revived": revived, "moved_back": moved_back, "after_revive_degraded": bool(v.get("degraded"))}
+        print(f"[fleet 16c] fleet.replica_kill on {victim} mid-traffic: {out['kill']}",
+              flush=True)
+        if errors or served != 32 or not degraded or dead != "dead" or not revived:
+            raise AssertionError(f"16c replica kill: {out['kill']}")
+
+        # journal.torn_write, then a cold start from the WAL.
+        control.publish_checkpoint(ckpt)
+        view = router.directory_view()
+        versions = {rid: h.params_version for rid, h in router.replicas.items()}
+        install(ChaosRegistry.parse("journal.torn_write@0"))
+        try:
+            control.set_nota_threshold("t1", 0.3)
+        finally:
+            install(None)
+        try:
+            journal.append("tenant_threshold", tenant="t1", threshold=0.4)
+            refused = False
+        except JournalError:
+            refused = True
+        journal.close()
+        router.close()
+        journal = FleetJournal(jdir)
+        journal.acquire_lease("primary")
+        router = FleetRouter({f"r{i:02d}": replica(f"r{i:02d}") for i in range(FLEET_REPLICAS)})
+        control = FleetControl(router, journal=journal)
+        summary = router.recover(journal)
+        same_view = router.directory_view() == view
+        versions2 = {rid: h.params_version for rid, h in router.replicas.items()}
+        out["torn"] = {"append_after_tear_refused": refused, "recovered": summary,
+                       "directory_equal": same_view, "params_version_before": versions,
+                       "params_version_after": versions2}
+        print(f"[fleet 16c] journal.torn_write: {out['torn']}", flush=True)
+        if not refused or not same_view or versions2 != versions:
+            raise AssertionError(f"16c torn write: {out['torn']}")
+
+        # A hot standby tails the WAL and promotes; the old primary is fenced.
+        standby = HotStandby(jdir)
+        applied = standby.poll()
+        promo = standby.promote(dict(router.replicas))
+        try:
+            control.set_nota_threshold("t2", 0.2)
+            fenced = False
+        except JournalError:
+            fenced = True
+        out["standby"] = {"applied": applied, "promote_s": promo["promote_s"],
+                          "lease_epoch": promo["lease_epoch"], "tenants": promo["tenants"],
+                          "old_primary_fenced": fenced,
+                          "directory_equal": standby.router.directory_view() == view}
+        print(f"[fleet 16c] hot standby: {out['standby']}", flush=True)
+        if not fenced or not out["standby"]["directory_equal"]:
+            raise AssertionError(f"16c standby: {out['standby']}")
+        journal.close()
+        router = standby.router
+        journal = standby.journal
+        control = FleetControl(router, journal=journal)
+
+        # One autoscaler cycle on the injected clock.
+        aclock = {"t": 0.0}
+        scaler = FleetAutoscaler(control, replica, min_replicas=FLEET_REPLICAS,
+                                 max_replicas=FLEET_REPLICAS + 1, high_windows=2, low_windows=2,
+                                 cooldown_s=10.0, scale_budget_s=30.0,
+                                 clock=lambda: aclock["t"])
+        actions = []
+        for _ in range(6):
+            actions.append(scaler.tick({"occupancy": 0.9})["action"])
+            aclock["t"] += 1.0
+            if actions[-1] == "scale_out":
+                break
+        grown = sorted(router.replicas)
+        aclock["t"] += 20.0
+        drained = None
+        for _ in range(6):
+            a = scaler.tick({"occupancy": 0.0})["action"]
+            actions.append(a)
+            for rid in router.replicas:
+                if router.placement.state(rid) == DRAINING:
+                    drained = (rid, router.replicas[rid].stats_snapshot()["queue_depth"])
+            aclock["t"] += 1.0
+            if a == "drain_in":
+                break
+        out["autoscale"] = {"actions": actions, "after_scale_out": grown,
+                            "after_drain_in": sorted(router.replicas),
+                            "drained_queue_depth": drained,
+                            "tenants": len(router.directory)}
+        print(f"[fleet 16c] autoscaler: {out['autoscale']}", flush=True)
+        if "scale_out" not in actions or "drain_in" not in actions \
+                or len(grown) != FLEET_REPLICAS + 1 \
+                or len(router.replicas) != FLEET_REPLICAS or len(router.directory) != 4 \
+                or (drained is not None and drained[1] != 0):
+            raise AssertionError(f"16c autoscaler: {out['autoscale']}")
+    finally:
+        router.close()
+        journal.close()
+    return out
+
+
+def fleet_socket(cfg, tok, src, ckpt: str) -> dict:
+    """16d: one replica in a child process on the same card behind a
+    ``SocketReplica`` (logits vs an in-process replica on the same weights,
+    ``net.drop`` and ``net.slow`` retried), then ``serve_main --replicas 3
+    --journal --control_socket`` and a second process's ``--send``."""
+    from induction_network_on_fewrel_tpu_torch.fleet import InProcessReplica
+    from induction_network_on_fewrel_tpu_torch.fleet.transport import SocketReplica
+    from induction_network_on_fewrel_tpu_torch.obs.adapt_drill import TENANT, replica_engine
+    from induction_network_on_fewrel_tpu_torch.obs.chaos import ChaosRegistry, install
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    pool = [i for r in src.rel_names for i in src.instances[r][cfg.k:]][:16]
+    device_flag = ["--device", FLEET_DEVICE] if FLEET_DEVICE else []
+    child = subprocess.Popen(
+        [sys.executable, "-m", "induction_network_on_fewrel_tpu_torch.fleet.transport",
+         "--load_ckpt", ckpt, "--buckets", ",".join(map(str, FLEET_BUCKETS)), *device_flag],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=root, env=env)
+    out: dict = {}
+    local = None
+    sock = None
+    try:
+        line = child.stdout.readline()
+        address = tuple(json.loads(line)["address"])
+        sock = SocketReplica("s0", address, call_deadline_s=30.0, retries=2,
+                             retry_backoff_s=0.01)
+        local = InProcessReplica("l0", replica_engine(cfg, tok, ckpt, buckets=FLEET_BUCKETS,
+                                                      device=FLEET_DEVICE))
+        for h in (sock, local):
+            h.register_dataset(src, TENANT)
+            h.warmup()
+        got = [sock.submit(q, 30.0, tenant=TENANT).result(timeout=60.0) for q in pool]
+        want = [local.submit(q, 30.0, tenant=TENANT).result(timeout=60.0) for q in pool]
+        names = list(want[0]["logits"])
+        err = float(max(abs(g["logits"][n] - w["logits"][n])
+                        for g, w in zip(got, want) for n in names))
+        install(ChaosRegistry.parse("net.drop@0:s0"))
+        try:
+            t0 = time.monotonic()
+            v_drop = sock.params_version
+            drop_s = time.monotonic() - t0
+        finally:
+            install(None)
+        install(ChaosRegistry.parse("net.slow@0:0.05"))
+        try:
+            t0 = time.monotonic()
+            v_slow = sock.params_version
+            slow_s = time.monotonic() - t0
+        finally:
+            install(None)
+        out["socket"] = {"verdicts": len(got), "logit_max_abs_err": err,
+                         "labels_equal": [g["label"] for g in got] == [w["label"] for w in want],
+                         "net_drop_retried": v_drop == local.params_version,
+                         "net_drop_s": round(drop_s, 4), "net_slow_s": round(slow_s, 4),
+                         "net_slow_landed": v_slow == local.params_version and slow_s >= 0.05}
+        print(f"[fleet 16d] a replica in a child process behind a SocketReplica: "
+              f"{out['socket']}", flush=True)
+        if err > SOCKET_LOGIT_TOL or not out["socket"]["labels_equal"] \
+                or not out["socket"]["net_drop_retried"] or not out["socket"]["net_slow_landed"]:
+            raise AssertionError(f"16d socket: {out['socket']}")
+    finally:
+        if sock is not None:
+            sock.close()
+        if local is not None:
+            local.close()
+        child.stdin.close()
+        child.wait(timeout=120)
+
+    # serve_main's fleet and its operator socket, from two processes.
+    jdir, csock = FLEET_DIR / "journal_d", FLEET_DIR / "control.sock"
+    serve = subprocess.Popen(
+        [sys.executable, "-m", "induction_network_on_fewrel_tpu_torch.serving.cli",
+         "--load_ckpt", ckpt, "--replicas", "3", "--journal", str(jdir),
+         "--control_socket", str(csock), "--input", "-", "--buckets",
+         ",".join(map(str, FLEET_BUCKETS)), *device_flag],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=root, env=env)
+    try:
+        deadline = time.monotonic() + 240.0
+        while not csock.exists():
+            if serve.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"serve_main never listened: {serve.stderr.read()[-2000:]}")
+            time.sleep(0.2)
+        sent = subprocess.run(
+            [sys.executable, "-m", "induction_network_on_fewrel_tpu_torch.serving.cli",
+             "--control_socket", str(csock), "--send", '{"op": "drain", "replica": "r01"}'],
+            capture_output=True, text=True, cwd=root, env=env, timeout=120)
+        reply = json.loads(sent.stdout.strip().splitlines()[-1])
+        stdout, stderr = serve.communicate(json.dumps(raw_instance(pool[0])) + "\n",
+                                           timeout=120)
+    finally:
+        if serve.poll() is None:
+            serve.kill()
+            serve.wait()
+    verdict = json.loads(stdout.strip().splitlines()[-1])
+    out["control"] = {"send_rc": sent.returncode, "reply": reply, "serve_rc": serve.returncode,
+                      "verdict_label": verdict.get("label")}
+    print(f"[fleet 16d] serve_main --replicas 3 --journal --control_socket, then --send "
+          f"drain r01 from a second process: {out['control']}", flush=True)
+    if sent.returncode or not reply.get("ok") or serve.returncode \
+            or reply["result"]["replica"] != "r01":
+        raise AssertionError(f"16d control socket: {out['control']}; {stderr[-2000:]}")
+    return out
+
+
+def fleet_phase(smi: str) -> dict:
+    """Phase 16: the serving control plane and the drift-triggered
+    adaptation controller, at the flagship widths on the drill world."""
+    from induction_network_on_fewrel_tpu_torch.obs.adapt_drill import adapt_world
+
+    t0 = time.monotonic()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    FLEET_DIR.mkdir(parents=True)
+    cfg = fleet_cfg()
+    cfg, tok, _, src, tgt, ckpt = adapt_world(FLEET_SEED, str(FLEET_DIR), cfg=cfg,
+                                              plan=FLEET_PLAN, device=FLEET_DEVICE)
+    t_world = time.monotonic() - t0
+    print(f"[fleet] the drill world at the flagship widths ({cfg.vocab_size} x {cfg.word_dim} "
+          f"table, BiLSTM u={cfg.lstm_hidden}, {cfg.n}-way {cfg.k}-shot, NOTA rate "
+          f"{cfg.na_rate}, {cfg.compute_dtype} encoder): {FLEET_PLAN['num_relations']} "
+          f"relations x {FLEET_PLAN['instances_per_relation']}, the source artifact trained "
+          f"{FLEET_PLAN['train_iters']} steps on the card in {t_world:.1f} s; {smi}", flush=True)
+    head = fleet_headline(cfg, tok, src, tgt, ckpt)
+    plan = dict(FLEET_PLAN, canary_floors=head["floors"])
+    alone = fleet_alone(cfg, tok, src, tgt, ckpt)
+    a = fleet_success(cfg, tok, src, tgt, ckpt, plan)
+    b = fleet_failure(cfg, tok, src, tgt, ckpt, plan)
+    c = fleet_faults(cfg, tok, src, ckpt)
+    d = fleet_socket(cfg, tok, src, ckpt)
+    seconds = round(time.monotonic() - t0, 1)
+    out = {"card": smi, "config": {**FLEET_KNOBS, **{k: v for k, v in FLEET_PLAN.items()}},
+           "headline": head, "finetune_ms_per_step_alone": alone,
+           "finetune_ms_per_step_serving": a["finetune_ms_per_step"],
+           "a_success": a, "b_failure": b, "c_faults": c, "d_socket": d, "seconds": seconds}
+    print(f"[fleet] phase 16: {seconds} s (aim {FLEET_SECONDS})", flush=True)
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    return out
+
+
 def tokenize_rows(tok, instances) -> dict[str, np.ndarray]:
     ts = [tok(i) for i in instances]
     return {k: np.stack([getattr(t, k) for t in ts]).astype(dt)
@@ -5321,6 +6048,10 @@ def main() -> int:
     # 15. Observability: the telemetry of the training and serving paths
     obs15 = obs_phase(smi)
 
+    # 16. The serving control plane (the fleet) and the drift-triggered
+    # adaptation controller
+    fleet16 = fleet_phase(smi)
+
     # 12. Summary lines
     def attn_extra(key: str, M: int) -> dict:
         """Phase 6b's figures of an attention kernel: device time and plan
@@ -5491,8 +6222,13 @@ def main() -> int:
     profiled_key = {"bilstm_infer_fwd": "K1", "attn_fwd": "K2", "bilstm_win_fwd": "K7",
                     "bilstm_win_bwd": "K8", "attn_fwd_stats": "K10", "attn_bwd": "K11",
                     "bilstm_full_fwd": "K4", "bilstm_full_bwd": "K6", "lstm_wgrad": "wgrad"}
+    fleet_launches = fleet16["a_success"]["launches_fleet"]
+    adapt_launches = fleet16["a_success"]["launches_adapt"]
     for k in kernels:
-        k["launches_adv"] = adv_launches.get(profiled_key.get(k["name"], k["name"]), 0)
+        key = profiled_key.get(k["name"], k["name"])
+        k["launches_adv"] = adv_launches.get(key, 0)
+        k["launches_fleet"] = fleet_launches.get(key, 0)
+        k["launches_adapt"] = adapt_launches.get(key, 0)
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -5520,6 +6256,7 @@ def main() -> int:
     print(json.dumps({"bert": bert}), flush=True)
     print(json.dumps({"slice6c": slice6c}), flush=True)
     print(json.dumps({"obs": obs15}, default=str), flush=True)
+    print(json.dumps({"fleet": fleet16}, default=str), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -85,7 +85,13 @@ N to NaN; ``--debug_nans`` raises ``FloatingPointError`` at the first
 step whose loss or gradient norm is not finite (a device-side flag read
 after each call); ``--chaos PLAN`` arms the fault points
 (``obs/chaos.py``); ``--ckpt_stage auto|off`` stages checkpoint writes in
-``/dev/shm`` for the saver thread to drain.
+``/dev/shm`` for the saver thread to drain. ``train --adapt`` with
+``--adapt_retries``, ``--adapt_backoff_s``, ``--adapt_cooldown_s``,
+``--adapt_step_budget``, ``--adapt_wall_s``, ``--adapt_verify_s`` and
+``--adapt_canary`` stamps the self-healing adaptation policy into the
+checkpoint's ``config.json`` (validated at start by
+``config.resolve_adapt_policy``); ``serving.cli --adapt`` on that
+artifact inherits it.
 
 Runs on the GPU by default and refuses to start without CUDA unless
 ``--device cpu`` is given.
@@ -318,10 +324,34 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
         p.add_argument("--chaos", default="",
                        help="chaos plan: comma-separated POINT@AT[*COUNT][:ARG] over the "
                             "named fault points (obs/chaos.py), e.g. ckpt.bitflip@1:ring")
+        # The self-healing adaptation policy (obs/adapt.py), resolved in one
+        # home (config.resolve_adapt_policy, shared with the serving CLI). A
+        # train run stamps it into the checkpoint's config.json, so a serving
+        # controller fine-tuning from this artifact inherits it.
+        p.add_argument("--adapt", action="store_true",
+                       help="stamp a self-healing adaptation policy into this run's "
+                            "checkpoints: a serving-side controller (serving.cli --adapt) "
+                            "fine-tuning from the artifact inherits the budgets below")
+        p.add_argument("--adapt_retries", type=int, default=None,
+                       help="failed adaptation loops before the permanent adapt_exhausted "
+                            "CRITICAL + tenant quarantine")
+        p.add_argument("--adapt_backoff_s", type=float, default=None,
+                       help="base retry backoff seconds (doubles per failed attempt)")
+        p.add_argument("--adapt_cooldown_s", type=float, default=None,
+                       help="post-success trigger suppression seconds")
+        p.add_argument("--adapt_step_budget", type=int, default=None,
+                       help="fine-tune optimizer-step budget")
+        p.add_argument("--adapt_wall_s", type=float, default=None,
+                       help="fine-tune wall-clock budget seconds (breach = timeout-kill + "
+                            "candidate cleanup)")
+        p.add_argument("--adapt_verify_s", type=float, default=None,
+                       help="post-publish verification window seconds (a drift re-trip "
+                            "inside it rolls back)")
+        p.add_argument("--adapt_canary", default=None,
+                       help="pre-publish canary plan: 'leg:floor[,leg:floor...]' accuracy "
+                            "bars (obs/canary.run_canary) or 'off'")
     later = p.add_argument_group("JAX flags refused by name unless at their JAX default")
     for flag, (default, kind, why) in {**DEFERRED, **NO_COUNTERPART}.items():
-        if flag in TRAIN_ONLY and not train:
-            continue
         why = f"not ported yet: {why}" if flag in DEFERRED else f"no counterpart: {why}"
         if kind is bool:
             later.add_argument(flag, action="store_true", help=why)
@@ -334,7 +364,7 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
 # default, type, the ROADMAP queue A item that brings it). Given with
 # anything but the default (or a value meaning the same here, _NEUTRAL),
 # each is refused by name (rc 2).
-DP, ADAPT = LATER_ITEMS["dp"], LATER_ITEMS["adapt"]
+DP = LATER_ITEMS["dp"]
 DEFERRED = {
     "--ep": (1, int, LATER_SLICE["ep"]), "--pp": (1, int, LATER_SLICE["pp"]),
     "--sp": (1, int, LATER_SLICE["sp"]), "--tp": (1, int, SHARDED),
@@ -342,10 +372,6 @@ DEFERRED = {
     "--dp": (0, int, DP), "--zero_opt": (False, bool, DP), "--compact_demb": ("auto", str, DP),
     "--grad_bucketing": ("auto", str, DP), "--grad_bucket_count": (4, int, DP),
     "--async_collectives": ("auto", str, DP),
-    "--adapt": (False, bool, ADAPT), "--adapt_retries": (None, int, ADAPT),
-    "--adapt_backoff_s": (None, float, ADAPT), "--adapt_cooldown_s": (None, float, ADAPT),
-    "--adapt_step_budget": (None, int, ADAPT), "--adapt_wall_s": (None, float, ADAPT),
-    "--adapt_verify_s": (None, float, ADAPT), "--adapt_canary": (None, str, ADAPT),
 }
 # JAX flags with no counterpart here: flag -> (its JAX default, type, why).
 NO_COUNTERPART = {
@@ -357,8 +383,6 @@ NO_COUNTERPART = {
 }
 # Values other than the JAX default that mean the same on one card.
 _NEUTRAL = {"--dp": (1,), "--compile_cache": ("off",)}
-# The JAX package has these on its train parser only.
-TRAIN_ONLY = {f for f in DEFERRED if f.startswith("--adapt")}
 
 
 def refuse_deferred(parser: argparse.ArgumentParser, args) -> None:
@@ -438,7 +462,11 @@ def config_from_args(args):
     ``--model pair``, and for training a feature cache off frozen BERT, an
     ``--embed_optimizer`` other than shared on the BERT paths and ``--adv``
     with lazy, the feature cache, the token cache or ``--model pair``."""
-    from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.config import (
+        ADAPT_KNOBS,
+        ExperimentConfig,
+        resolve_adapt_policy,
+    )
     from induction_network_on_fewrel_tpu_torch.models.build import check_feature_cache
     from induction_network_on_fewrel_tpu_torch.sampling.index import check_sampler_backend
     from induction_network_on_fewrel_tpu_torch.train.steps import check_embed_optimizer
@@ -489,10 +517,16 @@ def config_from_args(args):
         kw.update(train_iter=args.train_iter, val_iter=args.val_iter, val_step=args.val_step,
                   grad_probe_every=args.grad_probe_every, fault_step=args.fault_step,
                   adv=args.adv is not None, adv_lambda=args.adv_lambda,
-                  adv_dis_hidden=args.adv_dis_hidden, adv_batch=args.adv_batch)
+                  adv_dis_hidden=args.adv_dis_hidden, adv_batch=args.adv_batch,
+                  adapt=args.adapt,
+                  # Knobs left unset keep the defaults; the whole policy is
+                  # validated below, so a bad knob fails at run start, not
+                  # when the first drift CRITICAL tries to use it.
+                  **{k: v for k in ADAPT_KNOBS if (v := getattr(args, k)) is not None})
     else:                   # the JAX test entry point's config: no training loop
         kw.update(train_iter=0, val_step=0)
     cfg = ExperimentConfig(**kw)
+    resolve_adapt_policy(cfg)       # knob validation (a no-op when off)
     if training:
         check_adv(cfg)
         check_feature_cache(cfg)

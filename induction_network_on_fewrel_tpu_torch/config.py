@@ -11,15 +11,17 @@ lengths, the fused-dispatch and grad-probe knobs, the token cache, the
 checkpoint ring, the divergence guard and fault injection, the transformer's
 MoE FFN and layer-stacked layout, FewRel 2.0 adversarial adaptation
 (``adv*``), the serving runtime knobs (resident dtype, parity probe,
-geometry tiers), the host feed (sampler backend, prefetch, mixture, feed
+geometry tiers and the fleet's tier spread), the adaptation controller's
+``adapt*`` policy, the host feed (sampler backend, prefetch, mixture, feed
 faults) and the seed. Names
 and defaults are the JAX package's, so a config built with the same
 keywords describes the same model in both packages, and the
 ``config.json`` a checkpoint writes loads into the JAX config too. The
-parallel, fleet and observability knobs come with their slices.
+parallel knobs come with their slice.
 
-``resolve_quant_policy`` and ``resolve_geometry_policy`` are copies of the
-JAX package's one-home resolvers of the serving knobs.
+``resolve_quant_policy``, ``resolve_geometry_policy``,
+``resolve_adapt_policy`` and ``parse_canary_plan`` are copies of the JAX
+package's one-home resolvers of the serving and adaptation knobs.
 """
 
 from __future__ import annotations
@@ -199,6 +201,25 @@ class ExperimentConfig:
     # The N-tier ladder resident [N, C] class stacks pad up to (zero rows),
     # bounding the query graphs by tiers x buckets x dtypes; "off" = exact-N.
     geometry_tiers: str = "4,8,16,32,64"
+    # Fleet placement: concentrate each N-tier's tenants onto this many
+    # rendezvous "home" replicas, so no replica captures every tier's
+    # query graphs (0 = tier-blind placement).
+    geometry_tier_spread: int = 0
+
+    # --- self-healing adaptation (obs/adapt.py) ---
+    # A drift CRITICAL starts a supervised mixture-ramp fine-tune from the
+    # live checkpoint, gated by the canary floors before any publish. The
+    # knobs resolve in one home (resolve_adapt_policy) shared by both CLIs;
+    # a train run stamps them into config.json, so a serving controller
+    # fine-tuning from that artifact inherits the policy.
+    adapt: bool = False
+    adapt_retries: int = 3        # failed loops before the permanent adapt_exhausted
+    adapt_backoff_s: float = 2.0  # base retry backoff (doubles per failure)
+    adapt_cooldown_s: float = 60.0   # post-success trigger suppression
+    adapt_step_budget: int = 200     # fine-tune optimizer-step budget
+    adapt_wall_s: float = 300.0      # fine-tune wall-clock budget
+    adapt_verify_s: float = 30.0     # post-publish verification window
+    adapt_canary: str = "in_domain:0.3"  # leg:floor[,leg:floor...] | off
 
     # --- host data pipeline (sampling/native.py, datapipe/) ---
     # "auto" (the C++ sampler for training, numpy for eval) | "native" |
@@ -302,11 +323,91 @@ def resolve_quant_policy(knobs: Any, base: "ExperimentConfig | None" = None) -> 
 
 
 def resolve_geometry_policy(knobs: Any, base: "ExperimentConfig | None" = None) -> dict:
-    """The one home of the geometry knob, resolved like
-    ``resolve_quant_policy``. Returns {"tiers": tuple | None (exact-N)}.
-    The JAX package's fleet placement knob (``geometry_tier_spread``)
-    comes with the fleet slice."""
+    """The one home of the geometry knobs, resolved like
+    ``resolve_quant_policy``. Returns {"tiers": tuple | None (exact-N),
+    "tier_spread": int}."""
     from induction_network_on_fewrel_tpu_torch.serving.geometry import parse_tiers
 
     knob = _knob_reader(knobs, base)
-    return {"tiers": parse_tiers(knob("geometry_tiers"))}
+    tiers = parse_tiers(knob("geometry_tiers"))
+    spread = int(knob("geometry_tier_spread"))
+    if spread < 0:
+        raise ValueError(f"geometry_tier_spread must be >= 0, got {spread}")
+    return {"tiers": tiers, "tier_spread": spread}
+
+
+# The controller-facing knob names, in the order both CLIs expose them;
+# each maps onto an ExperimentConfig ``adapt_*`` field.
+ADAPT_KNOBS = (
+    "adapt_retries", "adapt_backoff_s", "adapt_cooldown_s",
+    "adapt_step_budget", "adapt_wall_s", "adapt_verify_s", "adapt_canary",
+)
+
+
+def parse_canary_plan(spec: str) -> dict[str, float]:
+    """``"leg:floor[,leg:floor...]"`` -> {leg: floor}; "off" -> {} (the
+    canary gate disabled: every candidate publishes). Floors are hard
+    go/no-go accuracy bars for ``obs/canary.run_canary``; legs name the
+    evaluation datasets the CLI wires (``in_domain`` = the serving
+    support corpus, ``target`` = the remediation corpus,
+    ``grid_<N>w<K>s`` = the in-domain corpus at that geometry)."""
+    spec = (spec or "").strip()
+    if not spec or spec == "off":
+        return {}
+    floors: dict[str, float] = {}
+    for part in spec.split(","):
+        leg, sep, floor_s = part.strip().partition(":")
+        if not sep or not leg:
+            raise ValueError(
+                f"canary plan entry {part!r} must be 'leg:floor' "
+                f"(e.g. 'in_domain:0.3,target:0.25') or 'off'"
+            )
+        floor = float(floor_s)
+        if not 0.0 <= floor <= 1.0:
+            raise ValueError(f"canary floor for {leg!r} must be in [0, 1], got {floor}")
+        if leg in floors:
+            raise ValueError(f"canary plan names leg {leg!r} twice")
+        floors[leg] = floor
+    return floors
+
+
+def resolve_adapt_policy(knobs: Any, base: "ExperimentConfig | None" = None) -> dict | None:
+    """The one home of the ``--adapt`` knobs, shared by both CLIs. ``knobs``
+    is any object with ``adapt`` and the ADAPT_KNOBS attributes (a config
+    or an argparse namespace); a missing or None attribute falls back to
+    ``base`` (the served checkpoint's config, where a train run stamped
+    its policy), then to the default. Returns the validated policy dict
+    (the controller's kwargs and the parsed canary plan), or None when
+    adaptation is off."""
+    knob = _knob_reader(knobs, base)
+    enabled = getattr(knobs, "adapt", None)
+    if enabled is None and base is not None:
+        enabled = getattr(base, "adapt", False)
+    if not enabled:
+        return None
+    retries = int(knob("adapt_retries"))
+    backoff_s = float(knob("adapt_backoff_s"))
+    cooldown_s = float(knob("adapt_cooldown_s"))
+    step_budget = int(knob("adapt_step_budget"))
+    wall_s = float(knob("adapt_wall_s"))
+    verify_s = float(knob("adapt_verify_s"))
+    if retries < 1:
+        raise ValueError(f"adapt_retries must be >= 1, got {retries}")
+    if backoff_s <= 0 or wall_s <= 0 or verify_s <= 0:
+        raise ValueError(
+            f"adapt_backoff_s/adapt_wall_s/adapt_verify_s must be > 0 "
+            f"(got {backoff_s}/{wall_s}/{verify_s})"
+        )
+    if cooldown_s < 0:
+        raise ValueError(f"adapt_cooldown_s must be >= 0, got {cooldown_s}")
+    if step_budget < 1:
+        raise ValueError(f"adapt_step_budget must be >= 1, got {step_budget}")
+    return {
+        "retry_budget": retries,
+        "backoff_s": backoff_s,
+        "cooldown_s": cooldown_s,
+        "step_budget": step_budget,
+        "wall_budget_s": wall_s,
+        "verify_window_s": verify_s,
+        "canary_floors": parse_canary_plan(str(knob("adapt_canary"))),
+    }

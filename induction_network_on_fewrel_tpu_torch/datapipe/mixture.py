@@ -81,6 +81,16 @@ class MixtureSchedule:
             raise ValueError(f"mixture spec names a source twice: {seen}")
         return cls(sources=tuple(sources))
 
+    @classmethod
+    def ramp(cls, src: str = "src", tgt: str = "tgt", start_weight: float = 0.2,
+             parity_at: int = 1) -> "MixtureSchedule":
+        """The domain-adaptation ramp (the adaptation fine-tune's
+        curriculum): the source corpus at weight 1.0 while the target ramps
+        linearly from ``start_weight`` to parity by batch ``parity_at``."""
+        if parity_at < 1:
+            raise ValueError(f"parity_at must be >= 1, got {parity_at}")
+        return cls.parse(f"{src}:1.0;{tgt}:{start_weight:g}@0,1.0@{parity_at}")
+
     @property
     def names(self) -> tuple[str, ...]:
         return tuple(n for n, _ in self.sources)

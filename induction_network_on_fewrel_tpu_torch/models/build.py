@@ -143,9 +143,6 @@ SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention
 LATER_ITEMS = {
     "dp": ("ROADMAP queue A item 5 (data parallel: compact demb, ZeRO-1, bucketed "
            "gradients, async collectives)"),
-    "adapt": "ROADMAP queue A item 7d (obs/adapt.py with its train/finetune.py)",
-    "fleet": ("ROADMAP queue A item 7c (the fleet: router, journal, autoscaler, standby, "
-              "supervisor)"),
 }
 LATER_SLICE = {
     "ep": SHARDED + "; --ep 1 runs the MoE FFN on one card",

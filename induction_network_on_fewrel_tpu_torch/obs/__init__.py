@@ -1,8 +1,7 @@
 """obs/ — the telemetry spine of the port.
 
 The counterpart of ``induction_network_on_fewrel_tpu/obs/`` with the same
-module names and exports, except ``AdaptationController`` (``obs/adapt.py``
-comes with its ``train/finetune.py`` in a later slice):
+module names and exports:
 
 * ``spans``    — host-side timed regions in a ring, bridged to NVTX ranges
                  on a CUDA device, with request-scoped trace contexts.
@@ -17,11 +16,15 @@ comes with its ``train/finetune.py`` in a later slice):
 * ``chaos``    — the named fault points driven by one ``--chaos`` plan.
 * ``recorder`` — the flight recorder.
 * ``export``   — counters, gauges, histograms and Prometheus text.
+* ``adapt``    — the drift-triggered adaptation controller (fine-tune,
+                 canary, publish, verify, rollback, exhaustion); ``canary``
+                 its quality floors; ``adapt_drill`` the drill of both arms.
 
 ``tools/obs_report.py`` (the JAX package's tool) renders and checks a run
 directory of either package.
 """
 
+from induction_network_on_fewrel_tpu_torch.obs.adapt import AdaptationController
 from induction_network_on_fewrel_tpu_torch.obs.chaos import (
     ChaosError,
     ChaosRegistry,
@@ -60,6 +63,7 @@ from induction_network_on_fewrel_tpu_torch.obs.spans import (
 )
 
 __all__ = [
+    "AdaptationController",
     "ChaosError",
     "ChaosRegistry",
     "chaos_active",

@@ -26,13 +26,14 @@ Examples::
     ckpt.bitflip@1:ring_delta         # corrupt the 2nd delta ring save
     publish.nan_params@0              # NaN-poison the next publish
 
-The port fires ``ckpt.bitflip``, ``ckpt.truncate``, ``ckpt.restore_raise``
-(``train/checkpoint.py``), ``publish.nan_params``,
-``publish.distill_raise`` (``serving/registry.py``) and
-``serve.execute_raise`` (``serving/engine.py``). A plan naming a point of
-a layer the port does not have yet (``fleet.*``, ``net.*``,
-``journal.*``, ``adapt.*``) is refused by name with the ROADMAP item that
-brings the layer (``UNPORTED_LAYERS``), never accepted as a no-op.
+The port fires every point: ``ckpt.bitflip``, ``ckpt.truncate``,
+``ckpt.restore_raise`` (``train/checkpoint.py``), ``publish.nan_params``,
+``publish.distill_raise`` (``serving/registry.py``),
+``serve.execute_raise`` (``serving/engine.py``), ``fleet.replica_kill``
+(``fleet/router.py``), ``adapt.train_raise``, ``adapt.canary_fail``,
+``adapt.publish_raise`` (``obs/adapt.py``), ``net.partition``,
+``net.drop``, ``net.slow`` (``fleet/transport.py``) and
+``journal.torn_write`` (``fleet/journal.py``).
 
 Determinism: firing is a pure function of the arrival sequence;
 corruption offsets derive from a hash of the corrupted file's name. Off
@@ -141,16 +142,6 @@ KNOWN_POINTS: dict[str, str] = {
 }
 
 
-# Point families of layers the port has not ported: prefix -> the ROADMAP
-# queue A item that brings them. A plan naming one is refused by name.
-UNPORTED_LAYERS = {
-    "fleet.": "ROADMAP queue A item 7c (the fleet: router, supervisor, autoscaler)",
-    "net.": "ROADMAP queue A item 7c (the fleet's socket transport)",
-    "journal.": "ROADMAP queue A item 7c (the fleet journal)",
-    "adapt.": "ROADMAP queue A item 7d (obs/adapt.py with train/finetune.py)",
-}
-
-
 # Points whose ARG is a PAYLOAD the fired site reads (directive.arg),
 # not an arrival filter — every arrival at the point counts.
 PAYLOAD_ARG_POINTS = frozenset({"net.slow"})
@@ -199,12 +190,6 @@ class ChaosRegistry:
                     f"unknown chaos point {point!r} "
                     f"(known: {', '.join(sorted(KNOWN_POINTS))})"
                 )
-            for prefix, item in UNPORTED_LAYERS.items():
-                if point.startswith(prefix):
-                    raise ValueError(
-                        f"chaos point {point!r} belongs to a layer not ported yet: it "
-                        f"comes with {item}"
-                    )
             if not at_sep:
                 raise ValueError(
                     f"chaos directive {part!r} lacks '@AT' (grammar: "

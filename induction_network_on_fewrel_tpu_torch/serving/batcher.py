@@ -54,6 +54,15 @@ class DeadlineExceeded(TimeoutError):
     """The request's deadline expired before it reached the device."""
 
 
+class TransportTimeout(DeadlineExceeded):
+    """A transport-side deadline: the replica never answered a socket call
+    within the per-call deadline (``fleet/transport.SocketReplica``). Typed
+    as ``DeadlineExceeded`` so clients handle both the same way, but told
+    apart on purpose: a server-side deadline miss is load (never fed to the
+    replica breaker), a wedged peer that answers nothing is health (the
+    router's breaker counts it toward replica death)."""
+
+
 class ExecuteError(RuntimeError):
     """A launch failed on the device/host side: the batch's futures fail
     with THIS (typed, retry-after-bearing) error and nothing else — the

@@ -108,9 +108,11 @@ SPLIT_KEYS = ("tokenize", "pack", "copy", "replay", "wait", "verdict")
 
 
 def degraded_verdict(tenant: str, *, snapshot_version: int = -1,
-                     latency_ms: float = 0.0) -> dict:
-    """The degraded-mode NOTA verdict of a quarantined tenant."""
-    return {
+                     latency_ms: float = 0.0, failover: bool = False) -> dict:
+    """The degraded-mode NOTA verdict of a quarantined tenant, shared with
+    the fleet router's failover path; ``failover=True`` marks the
+    router-side variant."""
+    verdict = {
         "label": NO_RELATION,
         "class_index": -1,
         "nota": True,
@@ -122,6 +124,9 @@ def degraded_verdict(tenant: str, *, snapshot_version: int = -1,
         "logits": {},
         "latency_ms": latency_ms,
     }
+    if failover:
+        verdict["failover"] = True
+    return verdict
 
 
 class _Knobs:
@@ -430,11 +435,13 @@ class InferenceEngine:
         return {"word": t.word, "pos1": t.pos1, "pos2": t.pos2, "mask": t.mask}
 
     def submit(self, instance, deadline_s: float | None = None,
-               tenant: str = DEFAULT_TENANT):
+               tenant: str = DEFAULT_TENANT, trace=None):
         """Tokenize one query and enqueue it for ``tenant``; returns a
         Future of its verdict. Raises ``Saturated`` under backpressure or
-        while the tenant's breaker is open. The request is head-sampled
-        here at ``trace_sample``."""
+        while the tenant's breaker is open. ``trace`` adopts a
+        TraceContext the caller already minted (the fleet router's front
+        door), so the request's segments join the router's trace id;
+        otherwise the request is head-sampled here at ``trace_sample``."""
         self.registry.snapshot(tenant)   # raises for unknown tenants
         if self.breaker is not None:
             retry = self.breaker.admit(tenant)
@@ -443,7 +450,8 @@ class InferenceEngine:
                 if self.slo is not None:
                     self.slo.maybe_evaluate()
                 raise Saturated(retry, tenant=tenant)
-        trace = self._tracer.maybe_trace()   # None when unsampled
+        if trace is None:
+            trace = self._tracer.maybe_trace()   # None when unsampled
         if trace is None:
             query = self._tokenize(instance)
         else:

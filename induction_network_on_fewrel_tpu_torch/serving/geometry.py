@@ -130,3 +130,17 @@ def grid_key(n: int, k: int) -> str:
     """(5, 1) -> "5w1s" — the paper's C-way K-shot spelling, used for
     scenario leg names, canary floors ("grid_5w1s"), and artifact keys."""
     return f"{n}w{k}s"
+
+
+def parse_grid_key(name: str) -> tuple[int, int] | None:
+    """Inverse of ``grid_key``; accepts the bare ("10w5s") and floor
+    ("grid_10w5s") spellings. None when ``name`` is not a geometry leg."""
+    s = name[5:] if name.startswith("grid_") else name
+    if "w" not in s or not s.endswith("s"):
+        return None
+    left, right = s.split("w", 1)
+    try:
+        n, k = int(left), int(right[:-1])
+    except ValueError:
+        return None
+    return (n, k) if n >= 1 and k >= 1 else None

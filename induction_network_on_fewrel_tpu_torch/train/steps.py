@@ -370,6 +370,21 @@ def batch_source(source=None, compact: bool = False):
     return gathered
 
 
+_GRAPH_STREAMS: dict = {}
+
+
+def graph_stream(device: torch.device, role: str) -> torch.cuda.Stream:
+    """The one stream of ``role`` ("warmup" or "capture") that the training
+    and eval graphs of ``device`` use: apart from the serving graphs' (
+    another thread may be capturing those), and the same one every time,
+    so that repeated fine-tunes do not each leave a new stream's cuBLAS
+    workspace behind."""
+    key = (torch.device(device).index or 0, role)
+    if key not in _GRAPH_STREAMS:
+        _GRAPH_STREAMS[key] = torch.cuda.Stream(device)
+    return _GRAPH_STREAMS[key]
+
+
 class CapturedSteps:
     """One CUDA graph of ``run`` over S stacked batches, with its static
     inputs (pinned host buffers and their device copies) and output.
@@ -387,7 +402,7 @@ class CapturedSteps:
         self.dev = {n: torch.empty_like(h, device=device) for n, h in self.host.items()}
         self.copied = torch.cuda.Event()
         self.fill(leaves)
-        side = torch.cuda.Stream(device)
+        side = graph_stream(device, "warmup")
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             warm(self.dev)
@@ -397,7 +412,12 @@ class CapturedSteps:
         torch.cuda.empty_cache()        # as the capture does on entry
         reserved = torch.cuda.memory_reserved(device)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # The training captures' own stream, and thread_local mode: a
+        # capture may run in a background thread (the adaptation fine-tune)
+        # while serving threads keep replaying, allocating and syncing on
+        # theirs.
+        with torch.cuda.graph(self.graph, stream=graph_stream(device, "capture"),
+                              capture_error_mode="thread_local"):
             self.out = run(self.dev)
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         notify_capture(name, signature(leaves), time.monotonic() - t_capture)

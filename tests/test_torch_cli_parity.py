@@ -13,6 +13,7 @@
 
 import dataclasses
 import functools
+import json
 
 import pytest
 
@@ -116,3 +117,29 @@ def test_every_jax_flag_is_parsed_or_refused_by_name(train, flag, capsys):
         assert f"{flag} is not ported yet: it comes with ROADMAP queue A item" in err
     else:
         assert f"has no counterpart here: {cli.NO_COUNTERPART[flag][2]}" in err
+
+
+def test_train_adapt_stamps_the_jax_config_fields(tmp_path):
+    """``train --adapt`` with its knobs writes the fields the JAX train CLI
+    puts in its config (``resolve_adapt_policy`` reads them back)."""
+    from induction_network_on_fewrel_tpu_torch.config import resolve_adapt_policy
+
+    flags = ["--adapt", "--adapt_retries", "5", "--adapt_backoff_s", "1.5",
+             "--adapt_step_budget", "40", "--adapt_canary", "target:0.2,in_domain:0.5"]
+    ckpt = tmp_path / "ckpt"
+    assert cli.main(["train", "--synthetic", "--N", "3", "--K", "2", "--Q", "2",
+                     "--batch_size", "2", "--max_length", "12", "--vocab_size", "40",
+                     "--lstm_hidden", "8", "--induction_dim", "10", "--ntn_slices", "4",
+                     "--device", "cpu", "--train_iter", "2", "--val_step", "2", "--val_iter", "2",
+                     "--save_ckpt", str(ckpt), *flags]) == 0
+    stamped = json.loads((ckpt / "config.json").read_text())
+    theirs = jax_cli.config_from_args(jax_cli.build_arg_parser(True).parse_args(flags))
+    fields = [f for f in SHARED_FIELDS if f == "adapt" or f.startswith("adapt_")]
+    assert len(fields) == 8
+    assert {f: stamped[f] for f in fields} == {f: getattr(theirs, f) for f in fields}
+    policy = resolve_adapt_policy(ExperimentConfig.from_json((ckpt / "config.json").read_text()))
+    assert policy["retry_budget"] == 5 and policy["canary_floors"] == {"target": 0.2,
+                                                                       "in_domain": 0.5}
+    with pytest.raises(ValueError, match="adapt_retries"):
+        cli.config_from_args(cli.parse_args(True, ["--adapt", "--adapt_retries", "0",
+                                                   "--device", "cpu"]))

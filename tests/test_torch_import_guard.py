@@ -116,3 +116,40 @@ def test_kernel_modules_of_the_training_step_are_guarded(module, wrappers):
         assert isinstance(getattr(mod, name).launches, int), name
     if not wrappers:
         assert not hasattr(mod.segsum, "launches")
+
+
+# The serving control plane and the adaptation loop: ported from the JAX
+# package and from the repository's tools/, which the port never imports.
+CONTROL_PLANE = ("fleet.placement", "fleet.journal", "fleet.router", "fleet.supervisor",
+                 "fleet.control", "fleet.transport", "fleet.standby", "fleet.autoscaler",
+                 "obs.adapt", "obs.adapt_drill", "obs.canary", "train.finetune")
+TOOLS = ("tools", "loadgen", "scenarios", "fleet_report", "obs_report", "bench_trend")
+
+
+@pytest.mark.parametrize("module", CONTROL_PLANE)
+def test_control_plane_modules_are_guarded(module):
+    path = PORT / (module.replace(".", "/") + ".py")
+    assert path in _sources()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for m in mods:
+            assert not any(m == t or m.startswith(t + ".") for t in TOOLS), (path.name, m)
+
+
+def test_replica_process_refuses_to_run_without_cuda(tmp_path):
+    from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.fleet.transport import serve_replica_main
+    from induction_network_on_fewrel_tpu_torch.models.build import build_model
+    from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
+    from induction_network_on_fewrel_tpu_torch.train.steps import make_optimizer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal path is not reachable")
+    cfg = ExperimentConfig(vocab_size=12, lstm_hidden=8, max_length=8)
+    model = build_model(cfg, device="cpu")
+    mgr = CheckpointManager(tmp_path / "ckpt", cfg, stage="off")
+    mgr.save(0, model, make_optimizer(cfg, model), val_accuracy=0.0)
+    mgr.close()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_replica_main(["--load_ckpt", str(tmp_path / "ckpt")])

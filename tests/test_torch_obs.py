@@ -307,9 +307,15 @@ def test_chaos_plans_parse_and_fire_as_jax():
                                         ("net.slow", "7c"), ("journal.torn_write", "7c"),
                                         ("adapt.train_raise", "7d")])
 def test_chaos_refuses_a_point_of_an_unported_layer_by_name(point, item):
-    assert jchaos.ChaosRegistry.parse(f"{point}@0") is not None
-    with pytest.raises(ValueError, match=f"{point}.*ROADMAP queue A item {item}"):
-        chaos.ChaosRegistry.parse(f"serve.execute_raise@0,{point}@0")
+    """The fleet (item 7c) and adaptation (item 7d) layers are ported: their
+    points parse as in JAX, and no layer is refused any more."""
+    assert not hasattr(chaos, "UNPORTED_LAYERS")
+    spec = f"serve.execute_raise@0,{point}@2*3:r01"
+    fields = [(d.point, d.at, d.count, d.arg)
+              for d in chaos.ChaosRegistry.parse(spec).directives]
+    assert fields == [(d.point, d.at, d.count, d.arg)
+                      for d in jchaos.ChaosRegistry.parse(spec).directives]
+    assert fields[1] == (point, 2, 3, "r01")
 
 
 def test_corruption_helpers_equal_jax(tmp_path):

@@ -112,11 +112,17 @@ def test_serve_main_demo_and_stats(served, capsys):
     assert "demo accuracy" in captured.err and "steady_recompiles\": 0" in captured.err
 
 
-# The JAX serving flags the port now serves (the telemetry flags): each
-# parses with a value and is not refused.
+# The JAX serving flags the port now serves (the telemetry flags; the fleet
+# and adaptation flags): each parses with a value and is not refused.
 PORTED = ("--chaos", "--drift", "--drift_band", "--drift_baseline", "--drift_window",
           "--slo_availability", "--slo_fast_s", "--slo_latency_ms", "--slo_profile",
-          "--slo_slow_s", "--trace_sample", "--watchdog")
+          "--slo_slow_s", "--trace_sample", "--watchdog",
+          "--tier_spread", "--replicas", "--router", "--journal", "--journal_fsync",
+          "--journal_compact_every", "--autoscale", "--autoscale_min", "--autoscale_max",
+          "--autoscale_interval_s", "--standby", "--standby_poll_s", "--control_socket", "--send",
+          "--adapt", "--adapt_mixture", "--adapt_retries", "--adapt_backoff_s",
+          "--adapt_cooldown_s", "--adapt_step_budget", "--adapt_wall_s", "--adapt_verify_s",
+          "--adapt_canary")
 
 
 @pytest.mark.parametrize("flag", sorted(set(serve_cli.DEFERRED) | set(PORTED)))
@@ -124,10 +130,11 @@ def test_deferred_flags_are_refused_by_name(flag, capsys):
     if flag in PORTED:
         p = serve_cli.build_serve_arg_parser()
         action = next(a for a in p._actions if flag in a.option_strings)
-        value = "3" if action.type is int else "0.5"
+        value = (action.choices[-1] if action.choices else
+                 "3" if action.type is int else "0.75")
         args = p.parse_args([flag] if action.nargs == 0 else [flag, value])
         serve_cli.refuse_deferred(p, args)
-        assert getattr(args, flag[2:]) not in (None, False)
+        assert getattr(args, action.dest) not in (None, False, action.default)
         return
     value = [] if flag in serve_cli._FLAGS else ["7"]
     with pytest.raises(SystemExit) as ei:
@@ -154,3 +161,36 @@ def test_serve_main_refuses_a_mismatched_vocabulary(served, tmp_path):
     argv[argv.index("--glove") + 1] = str(glove)
     with pytest.raises(ValueError, match="does not match the checkpoint's embedding table"):
         serve_cli.serve_main(argv)
+
+
+def test_every_jax_serving_flag_is_parsed_and_only_dp_refused():
+    """The port's serving parser holds every flag of the JAX one, with the
+    JAX default (the device's aside); only ``--dp`` is deferred."""
+    from induction_network_on_fewrel_tpu.serving.cli import build_serve_arg_parser as jax_parser
+
+    def actions(p):
+        return {o: a for a in p._actions for o in a.option_strings if o.startswith("--")}
+
+    theirs, ours = actions(jax_parser()), actions(serve_cli.build_serve_arg_parser())
+    assert set(theirs) <= set(ours)
+    for flag, action in theirs.items():
+        if flag not in ("--device", "--help"):
+            assert (ours[flag].dest, ours[flag].default) == (action.dest, action.default), flag
+    assert set(serve_cli.DEFERRED) == {"--dp"}
+
+
+def test_serve_main_fleet_with_journal_and_adapt_runs(tmp_path, capsys):
+    """Three in-process replicas behind the router, the journal (then a
+    second start that recovers from it) and the adaptation controller
+    armed over the fan-out, on fresh-init weights on the CPU."""
+    argv = ["--replicas", "3", "--journal", str(tmp_path / "j"), "--adapt", "--drift",
+            "--adapt_step_budget", "4", "--device", "cpu", "--demo_queries", "4",
+            "--buckets", "1,2,4", "--run_dir", str(tmp_path / "run")]
+    assert serve_cli.serve_main(argv) == 0
+    err = capsys.readouterr().err
+    assert "fleet: 3 replica(s)" in err and "adaptation controller armed over the fleet" in err
+    assert (tmp_path / "run" / "adapt_base_ckpt" / "best.pt").exists()
+    assert serve_cli.serve_main(argv) == 0
+    assert "fleet: recovered 1 tenant(s)" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve_cli.serve_main(["--adapt", "--device", "cpu"])       # --adapt needs --drift

@@ -300,9 +300,8 @@ def test_policy_resolvers_equal_jax():
     for base in (None, ExperimentConfig(resident_dtype="bf16", geometry_tiers="off")):
         jbase = None if base is None else JaxConfig(resident_dtype="bf16", geometry_tiers="off")
         assert resolve_quant_policy(Knobs(), base) == jax_quant_policy(Knobs(), jbase)
-        # The JAX policy's tier_spread is a fleet knob; the port refuses it.
-        assert resolve_geometry_policy(Knobs(), base) == {
-            "tiers": jax_geom_policy(Knobs(), jbase)["tiers"]}
+        # The fleet's tier_spread is ported with the fleet: the whole policy.
+        assert resolve_geometry_policy(Knobs(), base) == jax_geom_policy(Knobs(), jbase)
     bad = Knobs()
     bad.resident_dtype = "fp8"
     with pytest.raises(ValueError, match="resident_dtype"):
