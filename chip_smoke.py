@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port's serving and training paths, at full width.
 
-    python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py                # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py --phases 2,17  # the build, the named phases (and the
+                                         # phases whose results they need,
+                                         # PHASE_NEEDS), the final lines
 
 Phases (each prints its lines; any failed check raises and the process
 exits non-zero; no phase catches a failure of its own):
@@ -309,8 +312,9 @@ exits non-zero; no phase catches a failure of its own):
    latency (rounding), the injected failure is contained, no capture
    after warmup, ``metrics.prom`` written; then an engine on the
    checkpoint: ``publish.nan_params`` refused and rolled back, the JAX
-   drift drill (an open-set floor between an out-of-vocabulary point mass
-   and the in-domain pool) trips once-latched, a tenant shed at its share
+   drift drill (``load/drift.drill_engine``: an open-set floor between an
+   out-of-vocabulary point mass and the in-domain pool) trips
+   once-latched and a publish re-arms it, a tenant shed at its share
    trips its SLO burn. 15f, the tax: the flagship's unprofiled ms/step
    with ``--watchdog --perf`` against without (in turns), serve/execute's
    p50 at trace_sample 1.0 against 0 for buckets 1, 4 and 16, and a
@@ -327,7 +331,7 @@ exits non-zero; no phase catches a failure of its own):
    and ``FleetControl`` (``obs/adapt_drill.run_adapt_success_arm``): 2 s of
    8 closed-loop clients on a second tenant before the drift, clean
    traffic arms the drift baseline, target traffic trips the CRITICAL, the
-   controller fine-tunes (200 steps), canaries and fan-out publishes while
+   controller fine-tunes (300 steps), canaries and fan-out publishes while
    the clients keep requests in flight, then verifies; the JAX
    ``check_adapt_drill`` fields held; the wrappers' counts read at the
    fleet's set-up and across the attempt (the fine-tune's K7, K8,
@@ -340,14 +344,30 @@ exits non-zero; no phase catches a failure of its own):
    candidate left, device memory back to its level before the first
    attempt, the latch restored from the journal on a rebuilt router. 16c:
    ``fleet.replica_kill`` mid-traffic (failover, nothing dropped, the
-   supervisor revives), ``journal.torn_write`` and a cold-start
-   ``recover`` (owners and params_version as before), a hot standby's
+   supervisor revives), ``journal.torn_write`` (``load/recovery.tear_journal``)
+   and a cold-start ``recover`` (owners and params_version as before), a hot standby's
    promotion fencing the old primary, one autoscaler cycle on an injected
    clock. 16d: a replica in a child process behind a ``SocketReplica``
    (logits within 1e-6 of an in-process replica's; ``net.drop`` and
    ``net.slow`` retried), then ``serve_main --replicas 3 --journal
    --control_socket`` and a second process's ``--send`` drain. A
    ``{"fleet": ...}`` line.
+17. (run after phase 16) The load tools (``load/``, files under
+   ``build/chip_smoke_load/``, removed at the end) through their functions
+   at the tool's own configuration (its synthetic checkpoint: the flagship
+   widths, bf16 encoder, f32 head, a 2 002-word table, 5-way 5-shot, two
+   tenants, buckets 1-16), the kernels' wrapper counts zeroed just before
+   and read just after (``launches_load``); the cuts (``LOAD_CUTS``) are
+   printed. 17a: both scheduler arms, closed and open, and the swap drill
+   (``load/harness.drive_one``): the registry-parity gate, p50/p99 per
+   bucket, served/s, nothing shed, no capture after warmup, nothing
+   dropped by the swap. 17b: the burn, drift and chaos drills, each gate
+   true. 17c: the quant A/B on a checkpoint trained 60 steps on the card
+   and the geometry A/B with its scenario grid leg, no gate failure. 17d:
+   a fleet soak at ``--fleet 3``, the tier-1 fleet, recovery, elastic and
+   fleet-obs drills (placement and naming equal to the JAX artifacts'
+   tier-1 values), then ``fleet_report --check`` in a process of its own
+   on the fleet-obs run directory. A ``{"load": ...}`` line.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -360,11 +380,13 @@ exits non-zero; no phase catches a failure of its own):
    phase 13a's parameter list and its launches in phase 13;
    ``launches_adv``: phase 14a's profiled launches; ``launches_fleet``
    and ``launches_adapt``: phase 16a's wrapper counts at the fleet's
-   set-up and across the adaptation attempt), a
+   set-up and across the adaptation attempt; ``launches_load``: phase
+   17's wrapper counts), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
    ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
    ``{"obs": ...}`` line of phase 15, the ``{"fleet": ...}`` line of phase
-   16, the run's seconds, then the last line
+   16, the ``{"load": ...}`` line of phase 17, the run's seconds, then the
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
@@ -4872,37 +4894,23 @@ def obs_nan_and_debug() -> dict:
 
 
 def obs_drift_drill(engine, drift, pool: list) -> dict:
-    """The JAX drift drill (``tools/loadgen.py:run_drift_drill``) on the
-    default tenant: the best class logit of an out-of-vocabulary sentence
-    (a point mass) against the in-domain pool's; an open-set floor between
-    the point mass and the pool's larger side (setting it re-arms the
-    detector); a baseline on that clean side (NOTA rate exactly 0, or 1);
-    then the point mass (exactly 1, or 0): a once-latched CRITICAL."""
-    def classify(insts) -> list[dict]:
-        return [v for i in range(0, len(insts), 16) for v in engine.classify_batch(insts[i:i + 16])]
+    """The JAX drift drill (``load/drift.drill_engine``) on the default
+    tenant: the best class logit of an out-of-vocabulary sentence (a point
+    mass) against the in-domain pool's; an open-set floor between the point
+    mass and the pool's larger side (setting it re-arms the detector); a
+    baseline on that clean side (NOTA rate exactly 0, or 1); then the point
+    mass (exactly 1, or 0): a once-latched CRITICAL; a publish re-arms the
+    detector and clean traffic re-baselines."""
+    from induction_network_on_fewrel_tpu_torch.load.drift import drill_engine
+    from induction_network_on_fewrel_tpu_torch.serving.registry import DEFAULT_TENANT
 
-    def best(v) -> float:
-        return max(x for k, x in v["logits"].items() if k != "no_relation")
-
-    oov = {"tokens": ["zqxdrift0"] * 8, "head_pos": [0], "tail_pos": [1]}
-    gaps = [best(v) for v in classify(pool)]
-    v = best(classify([oov])[0])
-    eps = max(1e-9, 1e-6 * max(abs(v), 1.0))
-    above = [i for i, g in enumerate(gaps) if g > v + eps]
-    below = [i for i, g in enumerate(gaps) if g < v - eps]
-    side = above if len(above) >= len(below) else below
-    edge = min(gaps[i] for i in side) if side is above else max(gaps[i] for i in side)
-    engine.set_nota_threshold((v + edge) / 2.0)
-    clean = [pool[i] for i in side]
-    classify([clean[i % len(clean)] for i in range(drift.baseline_n + drift.min_count + 8)])
     start = len(drift.events)
-    classify([oov] * drift.window)
-    classify([oov] * drift.min_count)                    # the shift goes on: nothing new
-    events = list(drift.events)[start:]
-    crit = [e.data.get("feature") for e in events if e.severity == "critical"]
-    return {"clean": len(clean), "pool": len(pool), "floor": (v + edge) / 2.0,
-            "events": [(e.severity, e.data.get("feature")) for e in events],
-            "tripped": bool(crit), "once_latched": len(crit) == len(set(crit))}
+    d = drill_engine(engine, drift, pool, DEFAULT_TENANT)
+    return {"clean": d["clean_pool"], "pool": len(pool), "floor": d["calibration"]["threshold"],
+            "events": [(e.severity, e.data.get("feature")) for e in list(drift.events)[start:]],
+            "tripped": d["tripped"], "once_latched": d["once_latched"],
+            "rearmed_on_publish": d.get("rearmed_on_publish"),
+            "clean_after_publish": d.get("clean_after_publish")}
 
 
 def obs_serve(ckpt: Path, smi: str) -> dict:
@@ -4972,7 +4980,8 @@ def obs_serve(ckpt: Path, smi: str) -> dict:
           f"old snapshot: {rolled_back}; drift drill (the JAX drill: an open-set floor between "
           f"an out-of-vocabulary point mass and the in-domain pool, a baseline on the clean "
           f"pool, then the point mass): {drill}; steady captures {steady}", flush=True)
-    if not rolled_back or not drill["tripped"] or not drill["once_latched"] or steady:
+    if not rolled_back or not drill["tripped"] or not drill["once_latched"] or steady \
+            or not drill["rearmed_on_publish"] or not drill["clean_after_publish"]:
         raise AssertionError(f"publish rollback {rolled_back}, drift {drill}")
 
     slo = SLOEngine(SLOObjective(availability=0.99), fast_window_s=60.0)
@@ -5184,8 +5193,12 @@ FLEET_SEED = 1
 # JAX world's 5e-3 gives 14-42 % at every count tried) NOTA generalizes
 # and the shifted traffic collapses into it, as in the JAX drill.
 FLEET_KNOBS = dict(na_rate=1, loss="ce", lr=2e-3, weight_decay=0.0, val_step=0, seed=FLEET_SEED)
+# The fine-tune takes 300 steps: at 200 (the default budget) the adapted
+# model answered 0-2 of the 24 post-publish target queries with NOTA (0.0,
+# 0.042, 0.0, 0.0, 0.083 in five runs on the H100), and 2 of 24 is outside
+# the JAX gate's 0.05 band around the healthy rate.
 FLEET_PLAN = dict(num_relations=15, instances_per_relation=40, train_iters=300,
-                  finetune_steps=200, canary_episodes=48,
+                  finetune_steps=300, canary_episodes=48,
                   drift=dict(window=32, baseline_n=24, min_count=16))
 FLEET_REPLICAS = 3
 FLEET_BUCKETS = (1, 4, 16)
@@ -5576,6 +5589,7 @@ def fleet_faults(cfg, tok, src, ckpt: str) -> dict:
         JournalError,
         ReplicaSupervisor,
     )
+    from induction_network_on_fewrel_tpu_torch.load.recovery import tear_journal
     from induction_network_on_fewrel_tpu_torch.obs.adapt_drill import replica_engine
     from induction_network_on_fewrel_tpu_torch.obs.chaos import ChaosRegistry, install
     from induction_network_on_fewrel_tpu_torch.serving.breaker import CircuitBreaker
@@ -5632,20 +5646,14 @@ def fleet_faults(cfg, tok, src, ckpt: str) -> dict:
         if errors or served != 32 or not degraded or dead != "dead" or not revived:
             raise AssertionError(f"16c replica kill: {out['kill']}")
 
-        # journal.torn_write, then a cold start from the WAL.
+        # journal.torn_write (load/recovery.tear_journal: the torn append,
+        # the next one refused, the journal healed), then a cold start from
+        # the WAL.
         control.publish_checkpoint(ckpt)
-        view = router.directory_view()
         versions = {rid: h.params_version for rid, h in router.replicas.items()}
-        install(ChaosRegistry.parse("journal.torn_write@0"))
-        try:
-            control.set_nota_threshold("t1", 0.3)
-        finally:
-            install(None)
-        try:
-            journal.append("tenant_threshold", tenant="t1", threshold=0.4)
-            refused = False
-        except JournalError:
-            refused = True
+        torn = tear_journal(control, jdir, "t1", "t2")
+        refused = torn["append_refused_after_tear"]
+        view = router.directory_view()
         journal.close()
         router.close()
         journal = FleetJournal(jdir)
@@ -5655,11 +5663,13 @@ def fleet_faults(cfg, tok, src, ckpt: str) -> dict:
         summary = router.recover(journal)
         same_view = router.directory_view() == view
         versions2 = {rid: h.params_version for rid, h in router.replicas.items()}
-        out["torn"] = {"append_after_tear_refused": refused, "recovered": summary,
+        out["torn"] = {"append_after_tear_refused": refused,
+                       "prefix_recovered": torn["prefix_recovered"], "recovered": summary,
                        "directory_equal": same_view, "params_version_before": versions,
                        "params_version_after": versions2}
         print(f"[fleet 16c] journal.torn_write: {out['torn']}", flush=True)
-        if not refused or not same_view or versions2 != versions:
+        if not refused or not torn["prefix_recovered"] or not same_view \
+                or versions2 != versions:
             raise AssertionError(f"16c torn write: {out['torn']}")
 
         # A hot standby tails the WAL and promotes; the old primary is fenced.
@@ -5862,43 +5872,284 @@ def fleet_phase(smi: str) -> dict:
     return out
 
 
+# --- phase 17: the load tools on the card -------------------------------------------
+
+LOAD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_load"
+# Cuts of the tool's own configuration (its flagship checkpoint, N=5, K=5,
+# two tenants, buckets 1-16): seconds per load phase (the tool's default
+# 5 s), the burn drill's fast window (3 s), the quant and geometry arms'
+# phases (5 s and 2 s in the JAX artifacts), and the soak's tenants (1 000
+# in the JAX artifact, on 4 replicas).
+LOAD_S = 1.5
+LOAD_AB_S = 1.0
+LOAD_FLEET_TENANTS = 64
+LOAD_SECONDS = 150
+LOAD_SLO_FAST_S = 1.0
+LOAD_CUTS = {"duration_s": f"{LOAD_S} (tool default 5.0)",
+             "burn_slo_fast_s": f"{LOAD_SLO_FAST_S} (tool default 3.0)",
+             "quant_geom_duration_s": f"{LOAD_AB_S} (JAX artifacts 5.0 / 2.0)",
+             "fleet_tenants": f"{LOAD_FLEET_TENANTS} on 3 replicas (JAX artifact 1000 on 4)"}
+
+
+def load_args(*extra):
+    from induction_network_on_fewrel_tpu_torch.load.harness import parse_args
+
+    return parse_args(["--duration", str(LOAD_S), "--run_dir", str(LOAD_DIR / "run"), *extra])
+
+
+def load_sinks(run: Path):
+    """The tool's telemetry sinks on ``run``: logger, recorder, capture."""
+    from induction_network_on_fewrel_tpu_torch.obs import DiagnosticsCapture, FlightRecorder
+
+    logger = MetricsLogger(run, quiet=True)
+    recorder = FlightRecorder(out_dir=run)
+    logger.add_hook(recorder.record_metric)
+    return logger, recorder, DiagnosticsCapture(run, recorder=recorder)
+
+
+def bucket_pcts(by_bucket: dict) -> dict:
+    return {b: {"n": len(v), "p50_ms": round(float(np.percentile(v, 50)) * 1e3, 3),
+                "p99_ms": round(float(np.percentile(v, 99)) * 1e3, 3)}
+            for b, v in sorted(by_bucket.items())}
+
+
+def load_generator(ckpt: str) -> dict:
+    """17a: both scheduler arms, closed and open, and the swap drill,
+    through ``load/harness.drive_one``; each arm's captures counted by a
+    watcher against its warmup's."""
+    from induction_network_on_fewrel_tpu_torch.load.__main__ import arm_verdicts, comparison
+    from induction_network_on_fewrel_tpu_torch.load.harness import (
+        build_engine,
+        drive_one,
+        engine_params,
+    )
+
+    args = load_args("--swap_drill")
+    arms = {}
+    for arm in ("continuous", "microbatch"):
+        watcher = stamped_watcher()
+        by_bucket: dict = {}
+        warm: list = []
+        engine = build_engine(args, ckpt, arm)
+        try:
+            r = drive_one(engine, args, np.random.default_rng(args.seed),
+                          swap_fn=lambda e=engine: e.publish_params(engine_params(e)),
+                          by_bucket=by_bucket, on_warmup=lambda: warm.append(len(watcher.stamps)))
+        finally:
+            engine.close()
+            watcher.uninstall()
+        r["captures_after_warmup"] = sum(1 for fn, _, _ in watcher.stamps[warm[0]:]
+                                         if fn == SERVE_CAPTURE)
+        r["by_bucket"] = bucket_pcts(by_bucket)
+        arms[arm] = r
+        st, sw = r["stats"], r["swap_drill"]
+        print(f"[load 17a/{arm}] registry parity max|delta| {max(r['parity_max_delta'].values()):.3g} "
+              f"(gate 1e-4); closed {r['closed']['qps']} served/s p50 {r['closed']['p50_ms']} "
+              f"p99 {r['closed']['p99_ms']} ms errors {r['closed']['errors']}; open offered "
+              f"{r['open']['offered_qps']} served {r['open']['qps']}/s p50 {r['open']['p50_ms']} "
+              f"p99 {r['open']['p99_ms']} ms rejected {r['open']['rejected']}; per bucket "
+              f"{r['by_bucket']}; shed {st['shed']}, captures after warmup "
+              f"{r['captures_after_warmup']} (steady_recompiles {st['steady_recompiles']}); swap "
+              f"drill v{sw.get('params_version')} in {sw.get('publish_s')} s, dropped "
+              f"{sw['dropped']}", flush=True)
+        if arm_verdicts(arm, r) or r["captures_after_warmup"] or st["shed"] \
+                or r["closed"]["errors"] or r["open"]["dropped"]:
+            raise AssertionError(f"17a {arm}: {json.dumps(r, default=str)[:3000]}")
+    return {"arms": arms, "comparison": comparison(arms)}
+
+
+def load_drills(ckpt: str) -> dict:
+    """17b: the burn, drift and chaos drills (``load/burn.py``,
+    ``load/drift.py``, ``load/chaos.py``), each on an engine of its own."""
+    from induction_network_on_fewrel_tpu_torch.load.burn import burn_ok, run_burn_drill
+    from induction_network_on_fewrel_tpu_torch.load.chaos import check_chaos_drill, run_chaos_drill
+    from induction_network_on_fewrel_tpu_torch.load.drift import drift_ok, run_drift_drill
+    from induction_network_on_fewrel_tpu_torch.load.harness import (
+        _pools,
+        build_engine,
+        build_slo,
+        register_tenants,
+        run_open,
+    )
+
+    args = load_args("--burn_drill", "--slo_fast_s", str(LOAD_SLO_FAST_S))
+    logger, recorder, capture = load_sinks(LOAD_DIR / "run")
+    out: dict = {}
+    try:
+        engine = build_engine(args, ckpt, "continuous", logger=logger,
+                              slo=build_slo(args, logger, recorder, capture))
+        try:
+            pools = _pools(register_tenants(engine, args), args.K)
+            engine.warmup()
+            rng = np.random.default_rng(args.seed)
+            run_open(engine, pools, args.rate, LOAD_S, rng)     # the healthy p50
+            out["burn"] = run_burn_drill(engine, pools, args, rng)
+        finally:
+            engine.close()
+        out["drift"] = run_drift_drill(args, ckpt, logger, recorder, capture)
+        out["chaos"] = run_chaos_drill(args, ckpt, logger, recorder, capture)
+    finally:
+        capture.wait(10.0)
+        logger.close()
+    b, d, c = out["burn"], out["drift"], out["chaos"]
+    print(f"[load 17b] burn: SLO {b['threshold_ms']} ms tripped at x{b['tripped_at_rate_multiplier']} "
+          f"(served {b['served']}, rejected {b['rejected']}, misses {b['deadline_miss']}), "
+          f"once-latched {b['once_latched']}, captures {len(b['captures'])}; drift: floor "
+          f"{d['calibration']['threshold']} (clean {d['calibration']['clean_frac']}), tripped "
+          f"after {d.get('tripped_after')} on {d.get('drift_features')}, re-armed by the "
+          f"publish {d.get('rearmed_on_publish')}, clean after {d.get('clean_after_publish')}; "
+          f"chaos: breaker {c['breaker_opened']}/{c['breaker_recovered']}, rollback "
+          f"{c['rollback']}, ring leg {c['ckpt']['fallback_step']} bitwise "
+          f"{c['ckpt']['bitwise_equal']}", flush=True)
+    bad = [k for k, ok in (("burn", burn_ok(b)), ("drift", drift_ok(d)),
+                           ("chaos", check_chaos_drill(c))) if not ok]
+    if bad:
+        raise AssertionError(f"17b gates failed: {bad}: {json.dumps(out, default=str)[:3000]}")
+    return out
+
+
+def load_ab() -> dict:
+    """17c: the quant A/B on the 60-step trained checkpoint and the
+    geometry A/B with its scenario grid leg."""
+    from induction_network_on_fewrel_tpu_torch.load.geom import run_geom_ab
+    from induction_network_on_fewrel_tpu_torch.load.harness import make_synthetic_checkpoint
+    from induction_network_on_fewrel_tpu_torch.load.quant import run_quant_ab
+
+    args = load_args("--quant_ab", "--duration", str(LOAD_AB_S))
+    t0 = time.monotonic()
+    ckpt = make_synthetic_checkpoint(args, str(LOAD_DIR / "quant"), train_iters=60)
+    train_s = time.monotonic() - t0
+    quant = run_quant_ab(args, ckpt)
+    print(f"[load 17c] quant A/B (checkpoint trained 60 steps on the card in {train_s:.1f} s): "
+          + "; ".join(f"{dt} {a['qps']} served/s p50 {a['p50_ms']} p99 {a['p99_ms']} ms, "
+                      f"{a['resident_bytes_per_tenant']} B/tenant, agreement "
+                      f"{a['quant_agreement']} over {a['quant_probes']} probes, margin drift "
+                      f"{a['quant_margin_drift']}, parity {a['parity_max_delta']:.3g}"
+                      for dt, a in quant["arms"].items())
+          + f"; gate failures {quant['check_failures']}", flush=True)
+    gargs = load_args("--geom_ab", "--duration", str(LOAD_AB_S))
+    geom = run_geom_ab(gargs, make_synthetic_checkpoint(gargs, str(LOAD_DIR / "geom")))
+    print(f"[load 17c] geometry A/B: "
+          + "; ".join(f"{k} programs {a['program_cache_keys']} (captured "
+                      f"{a['programs_compiled']}), {a['qps']} served/s p50 {a['p50_ms']} ms, "
+                      f"parity {a['parity_max_delta']:.3g}, flip {a['dtype_flip']['parity_max_delta']:.3g}, "
+                      f"steady {a['steady_recompiles']}" for k, a in geom["arms"].items())
+          + f"; bound {geom['program_bound_tiered']}; grid "
+          + " ".join(f"{k}={v['accuracy']}" for k, v in geom["grid"].items())
+          + f"; gate failures {geom['check_failures']}", flush=True)
+    if quant["check_failures"] or geom["check_failures"]:
+        raise AssertionError(f"17c gates failed: {quant['check_failures']} "
+                             f"{geom['check_failures']}")
+    return {"quant": quant, "geom": geom, "quant_train_s": train_s}
+
+
+def load_fleet(ckpt: str) -> dict:
+    """17d: the fleet soak at --fleet 3, the tier-1 fleet, recovery,
+    elastic and fleet-obs drills (their placement and naming against the
+    JAX artifacts' tier-1 values), then ``fleet_report --check`` in a
+    process of its own on the fleet-obs run directory."""
+    from induction_network_on_fewrel_tpu_torch.load.elastic import elastic_tier1_drill
+    from induction_network_on_fewrel_tpu_torch.load.fleet import fleet_tier1_drill, run_fleet_soak
+    from induction_network_on_fewrel_tpu_torch.load.fleet_obs import fleet_obs_drill
+    from induction_network_on_fewrel_tpu_torch.load.recovery import recovery_tier1_drill
+
+    root = Path(__file__).resolve().parent
+
+    def artifact(name):
+        return json.loads((root / name).read_text())
+
+    args = load_args("--fleet", "3", "--tenants", str(LOAD_FLEET_TENANTS))
+    logger, recorder, capture = load_sinks(LOAD_DIR / "fleet")
+    try:
+        soak = run_fleet_soak(args, ckpt, logger, recorder, capture)
+        tier1 = fleet_tier1_drill(seed=0, logger=logger)
+        rec = recovery_tier1_drill(seed=0, logger=logger)
+        ela = elastic_tier1_drill(seed=0, logger=logger)
+    finally:
+        capture.wait(10.0)
+        logger.close()
+    obs_dir = LOAD_DIR / "obsfleet"
+    obs = fleet_obs_drill(seed=0, fleet_dir=str(obs_dir))
+    env = {**os.environ, "PYTHONPATH": str(root) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    check = subprocess.run([sys.executable, "-m", "induction_network_on_fewrel_tpu_torch.load."
+                            "fleet_report", str(obs_dir), "--check"], capture_output=True,
+                           text=True, cwd=root, env=env, timeout=120)
+    fa, ra, ea = (artifact("FLEET_r01.json")["tier1"], artifact("RECOVERY_r01.json"),
+                  artifact("ELASTIC_r01.json"))
+    pins = {
+        "fleet_placement": tier1["placement_distribution"] == fa["placement_distribution"],
+        "fleet_kill": tier1["replica_kill"] == fa["replica_kill"],
+        "recovery_placement": rec["placement_distribution"] == ra["placement_distribution"],
+        "recovery_victim": rec["replica_kill"]["victim"] == ra["replica_kill"]["victim"],
+        "elastic_replicas": (ela["scale_out"]["replica"], ela["drain_in"]["replica"])
+        == (ea["scale_out"]["replica"], ea["drain_in"]["replica"]),
+    }
+    tr, fp, rk = soak["traffic"], soak["fanout_publish"], soak["replica_kill"]
+    print(f"[load 17d] fleet soak R=3 T={LOAD_FLEET_TENANTS}: {tr['qps']} served/s p50 "
+          f"{tr['p50_ms']} p99 {tr['p99_ms']} ms shed {tr['shed']} errors {tr['errors']}; "
+          f"fan-out v{fp.get('params_version')} in {fp.get('publish_s')} s uniform "
+          f"{fp['uniform']} steady {fp['steady_recompiles']}; add churn "
+          f"{soak['placement']['add_churn_frac']}; kill {rk['victim']}: degraded "
+          f"{rk['degraded_served']} criticals {rk['criticals']} recovered {rk['recovered']}; "
+          f"tier-1 fleet {tier1['passed']}, recovery {rec['passed']}, elastic {ela['passed']} "
+          f"(promote {ela['promotion']['promote_s']} s), fleet-obs {obs['passed']} "
+          f"(hops {obs['stitching']['hop_records']}, stitched {obs['stitching']['stitched']}, "
+          f"orphans {obs['stitching']['orphan_spans']}, hop p50 {obs['hop']['hop_ms_p50']} ms); "
+          f"the JAX artifacts' tier-1 values {pins}; fleet_report --check rc "
+          f"{check.returncode}: {check.stdout.strip().splitlines()[-1:]}", flush=True)
+    bad = [k for k, ok in (("soak", soak["passed"]), ("tier1", tier1["passed"]),
+                           ("recovery", rec["passed"]), ("elastic", ela["passed"]),
+                           ("fleet_obs", obs["passed"]), ("report", check.returncode == 0),
+                           *pins.items()) if not ok]
+    if bad:
+        raise AssertionError(f"17d gates failed: {bad}; {check.stderr[-2000:]}")
+    return {"soak": {k: soak[k] for k in ("traffic", "per_replica", "fanout_publish",
+                                          "placement", "replica_kill", "zero_bands")},
+            "tier1": tier1, "recovery": rec["zero_bands"], "elastic": ela["zero_bands"],
+            "promote_s": ela["promotion"]["promote_s"], "fleet_obs": {
+                k: obs[k] for k in ("requests", "stitching", "hop", "clock", "timeline")},
+            "report_rc": check.returncode, "pins": pins}
+
+
+def load_phase(smi: str) -> dict:
+    """Phase 17: the port's load tools on the card, at the tool's own
+    configuration, the kernels' wrapper counts zeroed just before and read
+    just after."""
+    from induction_network_on_fewrel_tpu_torch.load.harness import make_synthetic_checkpoint
+
+    t0 = time.monotonic()
+    shutil.rmtree(LOAD_DIR, ignore_errors=True)
+    LOAD_DIR.mkdir(parents=True)
+    ckpt = make_synthetic_checkpoint(load_args(), str(LOAD_DIR))
+    print(f"[load] the tool's checkpoint (flagship widths: u=128, L=40, D=60, A=64, "
+          f"{ExperimentConfig().compute_dtype} encoder, f32 head, 2 002-word table, 5-way "
+          f"5-shot, 2 tenants); cuts {LOAD_CUTS}; {smi}", flush=True)
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    out = {"card": smi, "cuts": LOAD_CUTS, "a_generator": load_generator(ckpt),
+           "b_drills": load_drills(ckpt), "c_ab": load_ab(), "d_fleet": load_fleet(ckpt)}
+    torch.cuda.synchronize()
+    out["launches"] = kernel_counts()
+    out["seconds"] = round(time.monotonic() - t0, 1)
+    print(f"[load] wrapper launches across phase 17 (distils, warm-ups, captures; the quant "
+          f"checkpoint's training): {out['launches']}; {out['seconds']} s (aim "
+          f"{LOAD_SECONDS})", flush=True)
+    if min(out["launches"]["K1"], out["launches"]["K2"]) == 0:
+        raise AssertionError(f"phase 17 launched no K1/K2: {out['launches']}")
+    shutil.rmtree(LOAD_DIR, ignore_errors=True)
+    return out
+
+
 def tokenize_rows(tok, instances) -> dict[str, np.ndarray]:
     ts = [tok(i) for i in instances]
     return {k: np.stack([getattr(t, k) for t in ts]).astype(dt)
             for k, dt in QUERY_DTYPES.items()}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs one CUDA card", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.monotonic()
-
-    # 1. Environment
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}", flush=True)
-    print(smi, flush=True)
-
-    # 2. Build
-    LIBRARY.build()
-    print(f"[build] nvcc sm_90a, all kernels ({len(SOURCES)} sources in parallel): "
-          f"{LIBRARY.build_seconds:.1f} s", flush=True)
-    SAMPLER_LIBRARY.build()
-    print(f"[build] g++ -O3, the C++ episode sampler (csrc/episode_sampler.cpp): "
-          f"{SAMPLER_LIBRARY.build_seconds:.1f} s", flush=True)
-
-    # 3. Kernel vs plain
-    gen = torch.Generator().manual_seed(0)
-    rows = kernel_checks(gen)
-
+def serving_main_path() -> dict:
+    """Phases 4 and 5: the flagship served through ``InferenceEngine``
+    (the main path) and the episode forward, each against the plain
+    backends."""
     # 4. Main path
     cfg = ExperimentConfig()                            # flagship defaults
     vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
@@ -5993,64 +6244,146 @@ def main() -> int:
           f"{ep_err:.3g} at scale {ep_scale:.3g} (rel tol {LOGIT_REL_TOL})", flush=True)
     if ep_err > LOGIT_REL_TOL * ep_scale:
         raise AssertionError(f"episode logits disagree: {ep_err} > {LOGIT_REL_TOL}*{ep_scale}")
+    return {"cfg": cfg, "model": model, "support": support, "query": query,
+            "launches": launches, "main_latency": main_latency}
+
+
+def main(phases: set | None = None) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs one CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.monotonic()
+
+    # 1. Environment
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}", flush=True)
+    print(smi, flush=True)
+
+    # 2. Build
+    LIBRARY.build()
+    print(f"[build] nvcc sm_90a, all kernels ({len(SOURCES)} sources in parallel): "
+          f"{LIBRARY.build_seconds:.1f} s", flush=True)
+    SAMPLER_LIBRARY.build()
+    print(f"[build] g++ -O3, the C++ episode sampler (csrc/episode_sampler.cpp): "
+          f"{SAMPLER_LIBRARY.build_seconds:.1f} s", flush=True)
+
+    def on(phase: str) -> bool:
+        return phases is None or phase in phases
+
+    cfg = ExperimentConfig()                            # flagship defaults
+    gen = torch.Generator().manual_seed(0)
+    done: dict = {}
+
+    # 3. Kernel vs plain
+    if on("3"):
+        rows = kernel_checks(gen)
+
+    # 4, 5. The main path and the episode forward
+    if on("4"):
+        mp = serving_main_path()
+        model, support, query = mp["model"], mp["support"], mp["query"]
+        launches, main_latency = mp["launches"], mp["main_latency"]
 
     # 6. Training kernels vs plain (cuDNN yardsticks by M, shared with phase 7)
-    library: dict = {}
-    train_rows = train_kernel_checks(gen, library)
-    wgrad_rows = wgrad_checks(gen)
+    if on("6"):
+        library: dict = {}
+        train_rows = train_kernel_checks(gen, library)
+        wgrad_rows = wgrad_checks(gen)
 
     # 6b. Attention kernels at every row count and a wide width
-    attn_rows = attn_checks(gen)
+    if on("6b"):
+        attn_rows = attn_checks(gen)
 
     # 6c. The optimizer pair, 6d. the segment sum, on the flagship shapes
-    optim_rows = optim_checks(model, gen)
-    segsum_row = segsum_checks(model, support, query, gen)
+    if on("6"):
+        optim_rows = optim_checks(model, gen)
+        segsum_row = segsum_checks(model, support, query, gen)
 
     # 7. Full-residual kernels vs plain
-    full_rows = full_kernel_checks(gen, library)
+    if on("7"):
+        full_rows = full_kernel_checks(gen, library)
 
     # 8. Split recurrence: the ops API path, then the checks
-    split = split_recurrence(gen)
+    if on("8"):
+        split = split_recurrence(gen)
 
     # 9. Training main path (W=8)
-    tr = train_main_path()
+    if on("9"):
+        tr = train_main_path()
 
     # 10. Training at lstm_cs_window=0
-    tr0 = train_full_residual(tr)
+    if on("10"):
+        tr0 = train_full_residual(tr)
 
     # 9c, 9d. Real-format files; lazy Adam over the token cache
-    shutil.rmtree(REAL_DIR, ignore_errors=True)
-    real = write_real_files(REAL_DIR)
-    tr9c = real_files_phase(real)
-    tr9d = lazy_phase(real, tr9c, gen)
+    if on("9c"):
+        shutil.rmtree(REAL_DIR, ignore_errors=True)
+        real = write_real_files(REAL_DIR)
+        tr9c = real_files_phase(real)
+    if on("9d"):
+        tr9d = lazy_phase(real, tr9c, gen)
 
     # 9e. The host feed on the same files
-    feed = feed_phase(real)
+    if on("9e"):
+        feed = feed_phase(real)
 
     # 4b, 4c, 4a. The serving plane on phase 9's best checkpoint
-    serve4b = serve_traffic(cfg)
-    serve4c = sweep_process()
-    serve4a = serve_checkpoint(cfg)
+    if on("4b"):
+        done["serving"] = {"correctness_load": serve_traffic(cfg)}
+    if on("4c"):
+        done.setdefault("serving", {})["sweep"] = sweep_process()
+    if on("4a"):
+        done.setdefault("serving", {})["serve_main"] = serve_checkpoint(cfg)
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
 
     # 11. The few-shot model zoo (11c on phase 9c's files)
-    zoo = zoo_phase(real)
+    if on("11"):
+        zoo = zoo_phase(real)
 
     # 14. The rest of the single-card zoo: the adversarial step, the MoE and
     # the stacked transformer
-    slice6c = slice_phase(tr, zoo, gen, smi)
+    if on("14"):
+        slice6c = done["slice6c"] = slice_phase(tr, zoo, gen, smi)
 
     # 13. BERT-base: fine-tuned, frozen, the feature cache (13c on 9c's files),
     # BERT-PAIR, served
-    bert = bert_phase(real)
+    if on("13"):
+        bert = done["bert"] = bert_phase(real)
     shutil.rmtree(REAL_DIR, ignore_errors=True)
 
     # 15. Observability: the telemetry of the training and serving paths
-    obs15 = obs_phase(smi)
+    if on("15"):
+        obs15 = done["obs"] = obs_phase(smi)
 
     # 16. The serving control plane (the fleet) and the drift-triggered
     # adaptation controller
-    fleet16 = fleet_phase(smi)
+    if on("16"):
+        fleet16 = done["fleet"] = fleet_phase(smi)
+
+    # 17. The load tools: the generator and its drills, the A/Bs, the fleet
+    # drills and the fleet report
+    if on("17"):
+        load17 = done["load"] = load_phase(smi)
+
+    if phases is not None:
+        # A selected run: each phase's own line, then the final lines.
+        for key, value in done.items():
+            print(json.dumps({key: value}, default=str), flush=True)
+        print(f"[done] phases {sorted(phases)}: {time.monotonic() - t_start:.1f} s",
+              flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
 
     # 12. Summary lines
     def attn_extra(key: str, M: int) -> dict:
@@ -6090,9 +6423,10 @@ def main() -> int:
             "at": "L=40 M=16 bf16 (serving bucket 16)", "launches_val": tr["launches"][key],
             "launches_feed_9e": feed_launches[key],
             "launches_zoo": zoo_launches(key),
-            "launches_serve_wrappers": serve4a["launches"][key] + serve4b["launches"][key],
-            "launches_serve_profiled": serve4b["profiled"][key],
-            "serve_batches_profiled": serve4b["profiled_batches"],
+            "launches_serve_wrappers": (done["serving"]["serve_main"]["launches"][key]
+                                        + done["serving"]["correctness_load"]["launches"][key]),
+            "launches_serve_profiled": done["serving"]["correctness_load"]["profiled"][key],
+            "serve_batches_profiled": done["serving"]["correctness_load"]["profiled_batches"],
             **{f"ms_m{M}": rows[(key, "bf16", M)]["ms"] for M in SERVE_ROWS if M != 16},
             "bound_ms_m200": rows[(key, "bf16", 200)]["bound_ms"],
             **({"train_library_ms": r["train_library_ms"], "plan": r["plan"]}
@@ -6223,12 +6557,14 @@ def main() -> int:
                     "bilstm_win_bwd": "K8", "attn_fwd_stats": "K10", "attn_bwd": "K11",
                     "bilstm_full_fwd": "K4", "bilstm_full_bwd": "K6", "lstm_wgrad": "wgrad"}
     fleet_launches = fleet16["a_success"]["launches_fleet"]
+    load_launches = load17["launches"]
     adapt_launches = fleet16["a_success"]["launches_adapt"]
     for k in kernels:
         key = profiled_key.get(k["name"], k["name"])
         k["launches_adv"] = adv_launches.get(key, 0)
         k["launches_fleet"] = fleet_launches.get(key, 0)
         k["launches_adapt"] = adapt_launches.get(key, 0)
+        k["launches_load"] = load_launches.get(key, 0)
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -6251,12 +6587,12 @@ def main() -> int:
         | {"card_share": zoo[f"{m}/cnn"]["busy_share"]} for m in ("proto", "siamese")})
     print(json.dumps({"feed": feed}), flush=True)
     print(json.dumps({"serving": {"main_path_p50_ms_by_bucket": main_latency,
-                                  "serve_main": serve4a, "correctness_load": serve4b,
-                                  "sweep": serve4c}}), flush=True)
+                                  **done["serving"]}}), flush=True)
     print(json.dumps({"bert": bert}), flush=True)
     print(json.dumps({"slice6c": slice6c}), flush=True)
     print(json.dumps({"obs": obs15}, default=str), flush=True)
     print(json.dumps({"fleet": fleet16}, default=str), flush=True)
+    print(json.dumps({"load": load17}, default=str), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6266,5 +6602,41 @@ def main() -> int:
     return 0
 
 
+# ``--phases``: the phases to run (1, the environment, and 2, the build,
+# always run), each with the phases whose results it needs run first.
+PHASE_NEEDS = {"1": (), "2": (), "3": (), "4": (), "6": ("4",), "6b": (), "7": ("6",), "8": (),
+               "9": (), "10": ("9",), "9c": (), "9d": ("9c",), "9e": ("9c",), "4b": ("9",),
+               "4c": ("9",), "4a": ("9",), "11": ("9c",), "14": ("9", "11"), "13": ("9c",),
+               "15": (), "16": (), "17": ()}
+PHASE_ALIASES = {"5": "4", "6c": "6", "6d": "6"}
+
+
+def parse_phases(argv: list) -> set | None:
+    """None (every phase) without arguments; else the set ``--phases
+    A,B,...`` names, closed over ``PHASE_NEEDS``."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="GPU smoke run of the port (one CUDA card)")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run, e.g. 2,17 (default: all); the "
+                         "build and the final lines always run")
+    spec = ap.parse_args(argv).phases
+    if spec is None:
+        return None
+    want: set = set()
+
+    def add(phase: str) -> None:
+        phase = PHASE_ALIASES.get(phase, phase)
+        if phase not in PHASE_NEEDS:
+            ap.error(f"unknown phase {phase!r}; phases: {', '.join(PHASE_NEEDS)}")
+        for need in PHASE_NEEDS[phase]:
+            add(need)
+        want.add(phase)
+
+    for phase in spec.split(","):
+        add(phase.strip())
+    return want
+
+
 if __name__ == "__main__":
-    sys.exit(sweep_main() if sys.argv[1:] == ["--sweep"] else main())
+    sys.exit(sweep_main() if sys.argv[1:] == ["--sweep"] else main(parse_phases(sys.argv[1:])))

@@ -34,7 +34,9 @@ Capture rule: a graph is captured in ``thread_local`` mode (other threads
 may keep using the card: the batcher's worker replays, registration
 distils), after an eager warm-up on a side stream (the kernels' one-time
 attribute calls, ``kernels/build.py:launch_on``, happen outside the
-capture), and under the cache's lock. Captures happen in ``warmup``, in
+capture), under the cache's lock and a process-wide capture lock (every
+capture shares ``torch.cuda.graph``'s side stream, so two engines'
+captures must not overlap). Captures happen in ``warmup``, in
 the engine's tier-crossing and dtype-roll warm-ups, and, counted as a
 steady-state recompile, on a miss.
 """
@@ -146,6 +148,13 @@ class QueryRunner:
         return logits
 
 
+# One serving capture at a time in the process: ``torch.cuda.graph`` captures
+# on one process-wide side stream, so captures of two engines (a fleet's
+# replicas warming up, or missing on their workers, at the same moment) must
+# not overlap: the second would begin on a stream that is already capturing.
+_CAPTURE_LOCK = threading.Lock()
+
+
 class CapturedQuery:
     """One key's CUDA graph on one bank's model, with its static buffers.
 
@@ -174,7 +183,7 @@ class CapturedQuery:
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
-        with torch.inference_mode():
+        with _CAPTURE_LOCK, torch.inference_mode():
             with torch.cuda.stream(side):
                 score()
             side.synchronize()

@@ -122,7 +122,12 @@ def test_kernel_modules_of_the_training_step_are_guarded(module, wrappers):
 # package and from the repository's tools/, which the port never imports.
 CONTROL_PLANE = ("fleet.placement", "fleet.journal", "fleet.router", "fleet.supervisor",
                  "fleet.control", "fleet.transport", "fleet.standby", "fleet.autoscaler",
-                 "obs.adapt", "obs.adapt_drill", "obs.canary", "train.finetune")
+                 "obs.adapt", "obs.adapt_drill", "obs.canary", "train.finetune",
+                 # The load tools, ported from tools/loadgen.py, scenarios.py
+                 # and fleet_report.py.
+                 "load.harness", "load.burn", "load.drift", "load.chaos", "load.quant",
+                 "load.scenarios", "load.geom", "load.fleet", "load.recovery", "load.elastic",
+                 "load.fleet_report", "load.fleet_obs", "load.__main__")
 TOOLS = ("tools", "loadgen", "scenarios", "fleet_report", "obs_report", "bench_trend")
 
 

@@ -274,3 +274,41 @@ def test_graph_replay_equals_eager_on_the_card():
             want = QueryRunner(model).run(mat.cuda(), query, scale)
             assert np.abs(got - want).max() <= 1e-6 * max(1.0, np.abs(want).max())
     assert cache.captures == 3
+
+
+@pytest.mark.cuda
+def test_two_engines_capture_at_once_on_the_card():
+    """Two caches (two replicas' engines) making programs from two threads at
+    the same moment: the captures take turns (they share the graph
+    context's side stream) and both caches' graphs replay equal to eager."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the capture runs only there")
+    cfg = ExperimentConfig(**SMALL)
+    models = [build_model(cfg.replace(seed=s), device="cuda") for s in (1, 2)]
+    caches = [QueryGraphCache([m]) for m in models]
+    errors: list = []
+    start = threading.Barrier(2)
+
+    def warm(cache):
+        try:
+            start.wait()
+            cache.warmup(8, cfg.induction_dim, (1, 2, 4), L, dtypes=("f32", "bf16"))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=warm, args=(c,)) for c in caches]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    rng = np.random.default_rng(3)
+    query = {"word": rng.integers(0, VOCAB, (4, L)).astype(np.int32),
+             "pos1": rng.integers(0, 2 * L, (4, L)).astype(np.int16),
+             "pos2": rng.integers(0, 2 * L, (4, L)).astype(np.int16),
+             "mask": np.ones((4, L), np.int8)}
+    mat = torch.randn((8, cfg.induction_dim), generator=torch.Generator().manual_seed(4)).cuda()
+    for cache, model in zip(caches, models):
+        assert cache.captures == 6
+        want = QueryRunner(model).run(mat, query)
+        assert np.abs(cache.run(0, mat, query) - want).max() <= 1e-6 * max(1.0, np.abs(want).max())
