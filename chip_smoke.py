@@ -291,10 +291,11 @@ exits non-zero; no phase catches a failure of its own):
    steps with ``--watchdog --perf --tensorboard --profile --profile_steps
    8 --chaos ckpt.bitflip@1:ring --ckpt_stage auto``, the wrappers' counts
    zeroed just before and read just after (the captures' K7, K8, K10,
-   K11, lstm_wgrad, the pair, K1, K2): every record kind in
-   ``KNOWN_KINDS``; each perf window's unrounded tiles sum to its wall
-   time within 1e-9 s; the capture watcher's records hold the train and
-   eval graphs' warm-up captures and no steady-state capture; the
+   K11, lstm_wgrad, the pair, K1, K2): the stream passes the port's
+   schema gate (``tools/obs_report.check_schema``); each perf window's
+   unrounded tiles sum to its wall time within 1e-9 s; the capture
+   watcher's records hold the train and eval graphs' warm-up captures and
+   no steady-state capture; the
    TensorBoard file reads back (``utils/metrics.read_events``) as
    metrics.jsonl's numeric fields; the profile's chrome trace holds the
    ``train/dispatch`` annotations and K7/K8 rows; the corrupted ring save
@@ -368,6 +369,27 @@ exits non-zero; no phase catches a failure of its own):
    fleet-obs drills (placement and naming equal to the JAX artifacts'
    tier-1 values), then ``fleet_report --check`` in a process of its own
    on the fleet-obs run directory. A ``{"load": ...}`` line.
+18. (run after phase 17) The single-card tools (``tools/``, files under
+   ``build/chip_smoke_tools/``, removed at the end). 18a: the flagship on
+   the token cache (the synthetic 400 002 x 50 table, bf16 encoder, 4
+   steps a replay, weight decay 0: the converter's caveat) through
+   ``cli.train_main`` with ``--embed_optimizer lazy`` for 4 steps (a val
+   pass and a best save), ``tools/convert_lazy_ckpt`` on its directory
+   (the materialize: one ``lazy_catchup`` launch), ``cli.train_main
+   --resume`` on the result in shared mode for 4 more, all under the
+   profiler (``lazy_catchup``, K7, K8 and the optimizer pair must launch);
+   then the uninterrupted shared run of 8 steps from the same seed, and
+   the resumed run's ring slot held to it at ``hold_state``'s bars (every
+   parameter and moment within 1e-6 of its scale, the word table's
+   atomics-noise elements aside). 18b: ``tools/zoo_quality.run_model`` on
+   induction and proto at a cut recipe (500 steps, val every 250 over 50
+   episodes), each a child process of the port's CLI: a
+   ``final_val_accuracy`` and a ``train_eps_s_median``, no ``error``.
+   18c: ``tools/obs_report`` ``--check`` (exit 0) and ``--json`` on 18a's
+   and 18b's run directories (a train section; on 18a's lazy run an MFU
+   against the card's peak, with the card's name) and on every run
+   directory phases 15, 16 and 17 kept when they ran in the same call. A
+   ``{"tools": ...}`` line; the phase must end within 120 s.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -381,12 +403,13 @@ exits non-zero; no phase catches a failure of its own):
    ``launches_adv``: phase 14a's profiled launches; ``launches_fleet``
    and ``launches_adapt``: phase 16a's wrapper counts at the fleet's
    set-up and across the adaptation attempt; ``launches_load``: phase
-   17's wrapper counts), a
+   17's wrapper counts; ``launches_tools``: phase 18a's profiled
+   launches), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
    ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
    ``{"obs": ...}`` line of phase 15, the ``{"fleet": ...}`` line of phase
-   16, the ``{"load": ...}`` line of phase 17, the run's seconds, then the
-   last line
+   16, the ``{"load": ...}`` line of phase 17, the ``{"tools": ...}`` line
+   of phase 18, the run's seconds, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
@@ -4713,7 +4736,8 @@ def obs_bitwise(a, b, tag: str) -> None:
 def obs_train(smi: str) -> dict:
     """15a: the flagship through the CLI's wiring with every telemetry flag,
     then the checks on its run directory."""
-    from induction_network_on_fewrel_tpu_torch.utils.metrics import KNOWN_KINDS, read_events
+    from induction_network_on_fewrel_tpu_torch.tools.obs_report import check_schema
+    from induction_network_on_fewrel_tpu_torch.utils.metrics import read_events
 
     run = OBS_DIR / "train"
     for k in TRAIN_KERNELS.values():
@@ -4745,13 +4769,15 @@ def obs_train(smi: str) -> dict:
                          "K2")}
     recs = obs_records(run)
     kinds = {r["kind"] for r in recs}
+    n_recs, schema_errors = check_schema(run / "metrics.jsonl")
     print(f"[obs train] {OBS_STEPS} flagship steps (4 a replay) with --watchdog --perf "
           f"--tensorboard --profile --chaos ckpt.bitflip@1:ring --ckpt_stage auto in {wall:.2f} s "
           f"(captures, 2 val passes, saves and the profile window included); kinds {sorted(kinds)}; "
-          f"wrapper launches (warm-ups and captures) {launches}", flush=True)
-    if not kinds <= KNOWN_KINDS or min(launches.values()) == 0:
-        raise AssertionError(f"kinds outside KNOWN_KINDS {kinds - KNOWN_KINDS} or a kernel of "
-                             f"the path never launched: {launches}")
+          f"schema (tools/obs_report.check_schema): {n_recs} records, {len(schema_errors)} "
+          f"errors; wrapper launches (warm-ups and captures) {launches}", flush=True)
+    if schema_errors or min(launches.values()) == 0:
+        raise AssertionError(f"schema errors {schema_errors} or a kernel of the path never "
+                             f"launched: {launches}")
     worst = max(abs(sum(t.values()) - w) for w, t in tiles)
     perf = [r for r in recs if r["kind"] == "perf"]
     print(f"[obs train] {len(tiles)} perf windows: tiles vs window worst {worst:.3g} s (tol "
@@ -5176,6 +5202,7 @@ def obs_phase(smi: str) -> dict:
     out["f_tax"] = obs_tax(smi)
     out["seconds"] = time.monotonic() - t0
     print(f"[obs] phase 15: {out['seconds']:.1f} s (aim: {OBS_SECONDS} s)", flush=True)
+    out["report_runs"] = keep_runs(OBS_DIR, "obs15")
     shutil.rmtree(OBS_DIR, ignore_errors=True)
     return out
 
@@ -5868,6 +5895,7 @@ def fleet_phase(smi: str) -> dict:
            "finetune_ms_per_step_serving": a["finetune_ms_per_step"],
            "a_success": a, "b_failure": b, "c_faults": c, "d_socket": d, "seconds": seconds}
     print(f"[fleet] phase 16: {seconds} s (aim {FLEET_SECONDS})", flush=True)
+    out["report_runs"] = keep_runs(FLEET_DIR, "fleet16")
     shutil.rmtree(FLEET_DIR, ignore_errors=True)
     return out
 
@@ -6136,7 +6164,176 @@ def load_phase(smi: str) -> dict:
           f"{LOAD_SECONDS})", flush=True)
     if min(out["launches"]["K1"], out["launches"]["K2"]) == 0:
         raise AssertionError(f"phase 17 launched no K1/K2: {out['launches']}")
+    out["report_runs"] = keep_runs(LOAD_DIR, "load17")
     shutil.rmtree(LOAD_DIR, ignore_errors=True)
+    return out
+
+
+# --- phase 18: the single-card tools on the card -------------------------------------
+
+TOOLS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tools"
+# The run directories of phases 15-17, copied before those phases remove
+# their files, for phase 18c's report.
+REPORT_DIR = TOOLS_DIR / "earlier"
+REPORT_FILES = ("metrics.jsonl", "config.json", "flight_recorder.json")
+# 18a: the flagship on the token cache (the synthetic 400 002 x 50 table,
+# bf16 encoder), one replay of 4 steps lazy, then 4 shared; a val pass and
+# a best save (the converter's source) at every replay. Weight decay 0:
+# lazy mode keeps decay off the table, so the shared continuation equals
+# the uninterrupted shared run only at wd = 0 (the converter's caveat).
+TOOLS_STEPS = 4
+TOOLS_ARGV = ["--synthetic", "--bf16", "--token_cache", "--steps_per_call", "4",
+              "--val_step", str(TOOLS_STEPS), "--val_iter", "20", "--weight_decay", "0"]
+TOOLS_ON = ("lazy_catchup", "K7", "K8", "optim_sumsq", "optim_update")
+# 18b: the zoo sweep's recipe cut from 4000 steps (val every 500, 200
+# episodes) to 500 (val every 250, 50 episodes), two of its seven models.
+ZOO_TOOL_MODELS = ("induction", "proto")
+ZOO_TOOL_CUT = ["--train_iter", "500", "--val_step", "250", "--val_iter", "50"]
+TOOLS_SECONDS = 120
+
+
+def keep_runs(phase_dir: Path, tag: str) -> list[str]:
+    """Copy every run directory under ``phase_dir`` (each metrics.jsonl's
+    directory: the stream, its config.json and flight_recorder.json) into
+    ``REPORT_DIR / tag``; returns the copies."""
+    kept = []
+    for metrics in sorted(phase_dir.rglob("metrics.jsonl")):
+        run = metrics.parent
+        dst = REPORT_DIR / tag / run.relative_to(phase_dir)
+        dst.mkdir(parents=True, exist_ok=True)
+        for name in REPORT_FILES:
+            if (run / name).exists():
+                shutil.copy2(run / name, dst / name)
+        kept.append(str(dst))
+    return kept
+
+
+def tools_convert(smi: str) -> dict:
+    """18a: a lazy flagship run through ``cli.train_main``, converted by
+    ``tools/convert_lazy_ckpt``, resumed in shared mode by ``cli.train_main
+    --resume``, held against the uninterrupted shared run from the same
+    seed at ``hold_state``'s bars (1e-6 of scale; the lazy pair's)."""
+    from induction_network_on_fewrel_tpu_torch.tools import convert_lazy_ckpt
+
+    lazy_dir, conv_dir, ref_dir = (TOOLS_DIR / n for n in ("lazy", "converted", "shared"))
+    t0 = time.monotonic()
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    with counted_profile() as prof:
+        rc, out, err = quiet_cli(cli.train_main, [
+            *TOOLS_ARGV, "--embed_optimizer", "lazy", "--train_iter", str(TOOLS_STEPS),
+            "--save_ckpt", str(lazy_dir)])
+        if rc:
+            raise AssertionError(f"18a lazy run: rc {rc}: {err[-2000:]}")
+        before = lazy_catchup.launches
+        rc, conv_out, err = quiet_cli(convert_lazy_ckpt.main, [str(lazy_dir), str(conv_dir)])
+        conv_launches = lazy_catchup.launches - before
+        if rc or conv_launches != 1:
+            raise AssertionError(f"18a convert: rc {rc}, lazy_catchup launches {conv_launches}: "
+                                 f"{err[-2000:]}")
+        rc, out, err = quiet_cli(cli.train_main, [
+            *TOOLS_ARGV, "--train_iter", str(TOOLS_STEPS), "--save_ckpt", str(conv_dir),
+            "--resume"])
+        if rc or f"restored latest checkpoint step={TOOLS_STEPS}" not in err:
+            raise AssertionError(f"18a shared resume: rc {rc}: {err[-2000:]}")
+    rows = profile_rows(prof)
+    launches = profiled_counts(rows)
+    wall = time.monotonic() - t0
+    print(f"[tools 18a] lazy {TOOLS_STEPS} steps (cli train --embed_optimizer lazy), "
+          f"{conv_out.strip()}, shared {TOOLS_STEPS} more (cli train --resume) in {wall:.1f} s; "
+          f"profiled launches {launches} (the converter's materialize: {conv_launches} "
+          f"lazy_catchup); {smi}", flush=True)
+    if min(launches[k] for k in TOOLS_ON) == 0:
+        raise AssertionError(f"18a: a kernel of the path never launched: {launches}")
+    args = cli.parse_args(True, [*TOOLS_ARGV, "--train_iter", str(2 * TOOLS_STEPS),
+                                 "--save_ckpt", str(ref_dir)])
+    ref = cli.make_trainer(args, cli.config_from_args(args))[0]
+    try:
+        table0 = ref.model.embedding.word_embedding.detach().clone()
+        with contextlib.redirect_stderr(io.StringIO()):
+            ref.train(2 * TOOLS_STEPS)
+    finally:
+        ref.close()
+        cli.close_telemetry(ref)
+    cfg = CheckpointManager.load_config(conv_dir)
+    model = build_model(cfg)
+    opt = make_optimizer(cfg, model)
+    step = CheckpointManager(conv_dir).restore("latest", model, opt)
+    if step != 2 * TOOLS_STEPS or cfg.embed_optimizer != "shared":
+        raise AssertionError(f"18a: the resumed run ended at step {step} ({cfg.embed_optimizer})")
+    held = hold_state("tools 18a converted + resumed vs uninterrupted shared",
+                      (model, opt), (ref.model, ref.opt), table0)
+    return {"seconds": wall, "launches": launches, "converter_lazy_catchup": conv_launches,
+            "steps": [TOOLS_STEPS, TOOLS_STEPS], "held": held, "runs": [str(lazy_dir),
+                                                                        str(conv_dir)]}
+
+
+def tools_zoo() -> dict:
+    """18b: ``tools/zoo_quality.run_model`` for ZOO_TOOL_MODELS at the cut
+    recipe, each a child process of the port's CLI on the card."""
+    from induction_network_on_fewrel_tpu_torch.tools.zoo_quality import run_model
+
+    rows = {}
+    for m in ZOO_TOOL_MODELS:
+        t0 = time.monotonic()
+        row = run_model(m, ZOO_TOOL_CUT, ckpt=str(TOOLS_DIR / f"zoo_{m}"))
+        row["seconds"] = round(time.monotonic() - t0, 1)
+        print(f"[tools 18b] zoo_quality {json.dumps(row)} (cut: {' '.join(ZOO_TOOL_CUT)})",
+              flush=True)
+        if "error" in row or not isinstance(row.get("final_val_accuracy"), float) \
+                or not row.get("train_eps_s_median"):
+            raise AssertionError(f"18b: zoo_quality row {row}")
+        rows[m] = row
+    return {"cut": ZOO_TOOL_CUT, "rows": rows}
+
+
+def tools_report(runs: list, mfu_run: str) -> dict:
+    """18c: the port's ``tools/obs_report`` ``--check`` and ``--json`` on each
+    run directory: the check passes, the report renders; a training run's
+    report has a train section, ``mfu_run``'s an MFU against the card."""
+    from induction_network_on_fewrel_tpu_torch.tools import obs_report
+
+    out = {}
+    for run in runs:
+        rc, text, err = quiet_cli(obs_report.main, [run, "--check"])
+        if rc:
+            raise AssertionError(f"18c: obs_report --check {run}: rc {rc}: {text} {err[-2000:]}")
+        rc, text, err = quiet_cli(obs_report.main, [run, "--json"])
+        report = json.loads(text)
+        sections = sorted(k for k, v in report.items() if v and k not in ("run_dir", "schema"))
+        out[run] = {"records": report["schema"]["records"], "sections": sections}
+        if any(r["kind"] == "train" for r in obs_report.load_records(Path(run) / "metrics.jsonl")) \
+                and not report["train"]:
+            raise AssertionError(f"18c: no train section in the report of {run}")
+        if run == mfu_run:
+            mfu = report["mfu"] or {}
+            if not isinstance(mfu.get("mfu"), float) or mfu.get("device_kind") != \
+                    torch.cuda.get_device_name(0):
+                raise AssertionError(f"18c: the mfu section of {run}: {mfu}")
+            out[run]["mfu"] = mfu
+    print(f"[tools 18c] obs_report --check and --json on {len(runs)} run directories: "
+          + "; ".join(f"{Path(r).relative_to(TOOLS_DIR)} {v['records']} records"
+                      for r, v in out.items())
+          + f"; 18a's mfu {out[mfu_run]['mfu']}", flush=True)
+    return out
+
+
+def tools_phase(smi: str, earlier: list) -> dict:
+    """Phase 18: the converter, the zoo sweep and the run report on the
+    card; ``earlier``: phases 15-17's kept run directories."""
+    t0 = time.monotonic()
+    for d in ("lazy", "converted", "shared", *(f"zoo_{m}" for m in ZOO_TOOL_MODELS)):
+        shutil.rmtree(TOOLS_DIR / d, ignore_errors=True)
+    a = tools_convert(smi)
+    b = tools_zoo()
+    runs = [*a["runs"], *(str(TOOLS_DIR / f"zoo_{m}") for m in ZOO_TOOL_MODELS), *earlier]
+    c = tools_report(runs, a["runs"][0])
+    out = {"card": smi, "a_convert": a, "b_zoo": b, "c_report": c,
+           "seconds": round(time.monotonic() - t0, 1)}
+    print(f"[tools] phase 18: {out['seconds']} s (limit {TOOLS_SECONDS} s; {smi})", flush=True)
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    if out["seconds"] > TOOLS_SECONDS:
+        raise AssertionError(f"phase 18 took {out['seconds']} s > {TOOLS_SECONDS} s")
     return out
 
 
@@ -6373,6 +6570,13 @@ def main(phases: set | None = None) -> int:
     if on("17"):
         load17 = done["load"] = load_phase(smi)
 
+    # 18. The single-card tools: the lazy-to-dense converter, the zoo sweep,
+    # the run report (also on the run directories phases 15-17 kept)
+    if on("18"):
+        tools18 = done["tools"] = tools_phase(smi, [
+            r for key in ("obs", "fleet", "load") for r in done.get(key, {}).get("report_runs", [])])
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+
     if phases is not None:
         # A selected run: each phase's own line, then the final lines.
         for key, value in done.items():
@@ -6559,12 +6763,14 @@ def main(phases: set | None = None) -> int:
     fleet_launches = fleet16["a_success"]["launches_fleet"]
     load_launches = load17["launches"]
     adapt_launches = fleet16["a_success"]["launches_adapt"]
+    tools_launches = tools18["a_convert"]["launches"]
     for k in kernels:
         key = profiled_key.get(k["name"], k["name"])
         k["launches_adv"] = adv_launches.get(key, 0)
         k["launches_fleet"] = fleet_launches.get(key, 0)
         k["launches_adapt"] = adapt_launches.get(key, 0)
         k["launches_load"] = load_launches.get(key, 0)
+        k["launches_tools"] = tools_launches.get(key, 0)
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -6593,6 +6799,7 @@ def main(phases: set | None = None) -> int:
     print(json.dumps({"obs": obs15}, default=str), flush=True)
     print(json.dumps({"fleet": fleet16}, default=str), flush=True)
     print(json.dumps({"load": load17}, default=str), flush=True)
+    print(json.dumps({"tools": tools18}, default=str), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6607,7 +6814,7 @@ def main(phases: set | None = None) -> int:
 PHASE_NEEDS = {"1": (), "2": (), "3": (), "4": (), "6": ("4",), "6b": (), "7": ("6",), "8": (),
                "9": (), "10": ("9",), "9c": (), "9d": ("9c",), "9e": ("9c",), "4b": ("9",),
                "4c": ("9",), "4a": ("9",), "11": ("9c",), "14": ("9", "11"), "13": ("9c",),
-               "15": (), "16": (), "17": ()}
+               "15": (), "16": (), "17": (), "18": ()}
 PHASE_ALIASES = {"5": "4", "6c": "6", "6d": "6"}
 
 

@@ -1100,7 +1100,8 @@ class FleetRouter:
     def emit_stats(self, step: int | None = None) -> None:
         """One aggregate ``kind="fleet"`` record + one per-replica record
         (``replica`` field) restating that replica's serving counters —
-        the fleet section of tools/obs_report.py splits on the field.
+        the fleet section of the package's tools/obs_report.py splits on
+        the field.
         The per-replica shape grows into the fleet ROLLUP: qps
         (served delta over the emit interval), shed, deadline_missed,
         and the router's breaker state string; when ``bind_registry``

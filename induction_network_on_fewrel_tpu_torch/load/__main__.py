@@ -43,8 +43,9 @@ def _write(path, report) -> None:
 
 def _telemetry_note(args) -> None:
     if args.run_dir:
-        print(f"telemetry in {args.run_dir} — render with "
-              f"'python tools/obs_report.py {args.run_dir}'", file=sys.stderr)
+        print(f"telemetry in {args.run_dir} — render with 'python -m "
+              f"induction_network_on_fewrel_tpu_torch.tools.obs_report {args.run_dir}'",
+              file=sys.stderr)
 
 
 def fleet_mode(args, ckpt, logger, recorder, capture) -> int:

@@ -53,7 +53,8 @@ REPLICA_SEGMENTS = ("queue", "pack", "execute", "respond")
 
 def load_stream(run_dir: Path) -> list[dict]:
     """metrics.jsonl -> records, silently skipping unparseable lines
-    (tools/obs_report.py --check owns schema enforcement per stream)."""
+    (the package's tools/obs_report.py --check owns schema enforcement per
+    stream)."""
     path = Path(run_dir) / "metrics.jsonl"
     recs: list[dict] = []
     if not path.exists():

@@ -20,8 +20,10 @@ module names and exports:
                  canary, publish, verify, rollback, exhaustion); ``canary``
                  its quality floors; ``adapt_drill`` the drill of both arms.
 
-``tools/obs_report.py`` (the JAX package's tool) renders and checks a run
-directory of either package.
+``tools/obs_report.py`` of this package (``python -m
+induction_network_on_fewrel_tpu_torch.tools.obs_report RUN_DIR``) renders and
+checks a run directory of either package, as the JAX repository's tool of
+the same name does.
 """
 
 from induction_network_on_fewrel_tpu_torch.obs.adapt import AdaptationController

@@ -48,7 +48,7 @@ doing nothing:
   never retrains again without operator intervention.
 
 Every transition emits one ``kind="adapt"`` record (schema documented in
-utils/metrics.KNOWN_KINDS; tools/obs_report.py renders the loop outcome
+utils/metrics.KNOWN_KINDS; the package's tools/obs_report.py renders the loop outcome
 table with a time-to-recover headline). Every failure arm is drillable
 through the chaos registry: ``adapt.train_raise`` / ``adapt.canary_fail``
 / ``adapt.publish_raise`` (obs/chaos.py, RUNBOOK §19), proven end to end

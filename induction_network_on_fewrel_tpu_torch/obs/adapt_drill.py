@@ -25,6 +25,7 @@ is the JAX gate, copied.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import os
 import tempfile
@@ -250,6 +251,7 @@ def run_adapt_success_arm(cfg, tok, src, tgt, ckpt, tmpdir, *, plan: dict | None
     inflight: dict = {"futures": [], "submitted": 0}
 
     def publish_with_inflight_load(candidate):
+        seen0 = drift.observed(TENANT)
         futs = [router.submit(src_pool[i % len(src_pool)], 30.0, tenant=TENANT)
                 for i in range(16)]
         inflight["futures"].extend(futs)
@@ -257,6 +259,17 @@ def run_adapt_success_arm(cfg, tok, src, tgt, ckpt, tmpdir, *, plan: dict | None
         t0 = time.monotonic()
         version = control.publish_checkpoint(candidate)
         out["fanout_publish_ms"] = round((time.monotonic() - t0) * 1e3, 3)
+        # Burst verdicts served or observed after the last commit's re-arm
+        # would enter the post-publish baseline beside the target traffic
+        # (all 16 of them: a window of 16 target verdicts is judged against
+        # a baseline of mostly clean ones, and can re-trip). Drain the
+        # burst, wait until the detector has seen it, then re-arm, so the
+        # baseline holds post-publish traffic only. The JAX drill
+        # (``tools/loadgen.py``) does not.
+        concurrent.futures.wait(futs, timeout=30.0)
+        answered = sum(1 for f in futs if f.done() and f.exception() is None)
+        settle(lambda: drift.observed(TENANT) >= seen0 + answered)
+        drift.rearm(TENANT, reason="in-flight burst drained")
         return version
 
     controller, work = build_adapt_controller(

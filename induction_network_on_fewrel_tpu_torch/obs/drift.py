@@ -240,6 +240,11 @@ class DriftDetector:
             self._win[tenant] = deque(maxlen=self.window)
             self._unlatch(tenant)
 
+    def observed(self, tenant: str) -> int:
+        """Verdicts of ``tenant`` observed so far (across re-arms)."""
+        with self._lock:
+            return self._seen.get(tenant, 0)
+
     def baseline_for(self, tenant: str) -> dict | None:
         with self._lock:
             base = self._baseline.get(tenant)
@@ -438,7 +443,8 @@ class DriftDetector:
     def drift_state(self, tenant: str) -> dict | None:
         """{feature: {base, cur, band, shift}} + window/latch info for a
         calibrated tenant; None otherwise. The ``kind="quality"`` drift
-        record and tools/obs_report.py's quality section read this."""
+        record and the quality section of the package's tools/obs_report.py
+        read this."""
         with self._lock:
             base = self._baseline.get(tenant)
             if base is None:

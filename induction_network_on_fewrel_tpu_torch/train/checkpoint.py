@@ -770,6 +770,12 @@ class CheckpointManager:
     def restore_best(self, model, opt=None, lazy=None) -> int:
         return self.restore("best", model, opt, lazy)
 
+    def restore_best_with_extras(self, model, opt=None, lazy=None) -> tuple[int, dict]:
+        """``restore_best``, and the slot's {"val_accuracy", "samplers"}."""
+        payload = self._load("best", model, opt, lazy)
+        return int(payload["step"]), {"val_accuracy": float(payload.get("val_accuracy", 0.0)),
+                                      "samplers": payload.get("samplers", {})}
+
     def restore_latest(self, model, opt=None, lazy=None) -> tuple[int, dict]:
         """Load the newest intact slot in place, and take the directory over
         for the run that resumes it; returns (step, {"best_val",

@@ -204,6 +204,10 @@ class FewShotTrainer:
         self.val_sampler = val_sampler
         self.logger = logger or MetricsLogger(quiet=True)
         get_tracker().bind_device(model.device)
+        # The card's name on every train record: the run report's MFU
+        # reads the peak of the device the run trained on.
+        self._device_name = (torch.cuda.get_device_name(model.device)
+                             if model.device.type == "cuda" else model.device.type)
         self.watchdog, self.recorder = watchdog, recorder
         self._perf, self._compile_watcher = perf, compile_watcher
         # Hook order: the recorder sees each record before the watchdog,
@@ -387,7 +391,7 @@ class FewShotTrainer:
                         self.logger.log(step, "data", **self._feed.drain_stats())
                     self.logger.log(step, "train",
                                     episodes_per_s=(step - last_logged) * cfg.batch_size / dt,
-                                    **scalars)
+                                    device=self._device_name, **scalars)
                     if self._roofline_record is not None:
                         self.logger.log(step, "roofline", **self._roofline_record)
                     if self._perf is not None:

@@ -34,8 +34,9 @@ import time
 from pathlib import Path
 from typing import Callable
 
-# The kinds the telemetry stream may carry: the contract
-# ``tools/obs_report.py --check`` enforces, the JAX package's list.
+# The kinds the telemetry stream may carry: the contract the run report's
+# ``--check`` enforces (``tools/obs_report.py`` of this package), the JAX
+# package's list.
 KNOWN_KINDS = frozenset({
     "train", "val", "eval", "test", "profile", "serve", "health",
     "divergence", "divergence_stop", "ckpt", "data", "comms", "trace",

@@ -6,7 +6,8 @@ watchdog, the SLO engine and the drift detector, at ``trace_sample`` 1.0
 and 0: the same record kinds, the same health events and the same trace
 records (each request's queue + pack + execute + respond equals its
 total), ``tools/obs_report.py --check`` passes on the port's run
-directory, and at rate 0 the port allocates no span and no trace record.
+directory (and the port's own report equals the JAX tool's on every
+serving run directory, ``mfu`` and ``overhead`` aside), and at rate 0 the port allocates no span and no trace record.
 The same chaos plan drives both: ``serve.execute_raise`` fails only its
 batch with a typed ``ExecuteError`` and the worker serves on;
 ``publish.nan_params`` and ``publish.distill_raise`` roll the publish back
@@ -243,6 +244,21 @@ def test_obs_report_check_passes_on_the_ports_serving_run(serve_runs):
                          text=True, cwd=REPO, env={**os.environ, "JAX_PLATFORMS": "cpu"},
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("port", [True, False], ids=["port", "jax"])
+@pytest.mark.parametrize("rate", [1.0, 0.0])
+def test_port_report_equals_the_jax_report(serve_runs, port, rate, capsys):
+    """The port's ``tools/obs_report.py --json`` equals the JAX tool's on
+    the port's and the JAX package's serving runs, section by section
+    (``mfu`` and ``overhead`` aside), and its ``--check`` passes."""
+    from test_torch_tools_report import assert_reports_equal
+    from induction_network_on_fewrel_tpu_torch.tools import obs_report
+
+    run = serve_runs[port, rate]["run"]
+    report = assert_reports_equal(run, capsys)
+    assert report["serve"] and report["faults"] and report["flight_recorder"]
+    assert obs_report.main([str(run), "--check"]) == 0
 
 
 # --- drift and SLO drills ---------------------------------------------------------

@@ -8,7 +8,9 @@ since the port's CPU steps capture no CUDA graph while the JAX run logs
 its XLA compiles, and ``kind="ckpt"``, since the JAX saver skips a ring
 save while another is in flight), the same health events, the
 same perf tiles, and ``tools/obs_report.py --check`` (the JAX tool, run as
-a program) passes on the port's run directory. The port's run also
+a program) passes on the port's run directory. The port's own report
+(``tools/obs_report.py`` of the port package) equals the JAX tool's on
+both run directories, ``mfu`` and ``overhead`` aside. The port's run also
 carries ``--tensorboard`` (read back equal to its metrics.jsonl) and
 ``--profile`` (a chrome trace with the ``train/dispatch`` spans).
 
@@ -103,6 +105,20 @@ def test_obs_report_check_passes_on_the_ports_run_dir(runs):
                          env={**os.environ, "JAX_PLATFORMS": "cpu"}, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.startswith("OK:")
+
+
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_port_report_equals_the_jax_report(runs, which, capsys):
+    """The port's ``tools/obs_report.py --json`` equals the JAX tool's on
+    both run directories, section by section (``mfu`` and ``overhead``
+    aside), and its ``--check`` passes."""
+    from test_torch_tools_report import assert_reports_equal
+    from induction_network_on_fewrel_tpu_torch.tools import obs_report
+
+    run = runs[0] if which == "port" else runs[1]
+    report = assert_reports_equal(run, capsys)
+    assert report["train"]["records"] >= 1 and report["perf"]["tiles_ok_frac"] == 1.0
+    assert obs_report.main([str(run), "--check"]) == 0
 
 
 def test_nan_injection_trips_the_watchdog_and_dumps_the_recorder(runs):
