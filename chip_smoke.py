@@ -390,6 +390,29 @@ exits non-zero; no phase catches a failure of its own):
    against the card's peak, with the card's name) and on every run
    directory phases 15, 16 and 17 kept when they ran in the same call. A
    ``{"tools": ...}`` line; the phase must end within 120 s.
+19. (run after phase 18) Data parallel (``parallel/``), the ranks in child
+   processes, each launch bounded and killed by process group on overrun
+   (this process never joins a process group). 19a: ``torchrun
+   --nproc_per_node 1 chip_smoke.py --dp19a OUT``: the flagship on the
+   token cache with lazy Adam (400 002 x 50, bf16, W=8, 4 steps a replay)
+   through ``cli.dp_mesh`` and ``cli.make_trainer`` at world size 1 over
+   NCCL with ``--dp 1 --zero_opt --grad_bucketing on --compact_demb on``
+   (every gradient bucket and ZeRO-1 gather captured in the replay) beside
+   the same run without a group, 16 steps each: losses within 1e-6 and the
+   state at ``hold_state``'s bars (and the lazy moments); the collectives
+   each replay issues, counted across the capture and held to the plan;
+   each hand kernel of the path and the NCCL kernels per step under the
+   profiler, no capture after the warm-up, ms/step beside the plain run; then
+   ``cli.test_main`` on its checkpoint under the mesh. 19b: ``torchrun
+   --nproc_per_node 2 chip_smoke.py --dp19b OUT``: two gloo ranks on the
+   one card (NCCL refuses two ranks on one device), eager steps, f32 at the
+   flagship widths, B=4 episodes a global batch: monolithic, compact,
+   bucketed and ZeRO-1 for 3 steps each, held to one process on the global
+   batches (losses and parameters within 1e-5, JAX's bar; gradient norms
+   and moments, the lazy rows' included) and the two ranks' replicas to
+   each other; the collectives each step issued, counted on both ranks
+   and held to the plan; wrapper launches per step. A ``{"dp": ...}``
+   line.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -404,12 +427,14 @@ exits non-zero; no phase catches a failure of its own):
    and ``launches_adapt``: phase 16a's wrapper counts at the fleet's
    set-up and across the adaptation attempt; ``launches_load``: phase
    17's wrapper counts; ``launches_tools``: phase 18a's profiled
-   launches), a
+   launches; ``launches_dp_19a_per_step`` / ``launches_dp_19b_per_step``:
+   phase 19a's profiled and 19b's wrapper launches per rank per step), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
    ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
    ``{"obs": ...}`` line of phase 15, the ``{"fleet": ...}`` line of phase
    16, the ``{"load": ...}`` line of phase 17, the ``{"tools": ...}`` line
-   of phase 18, the run's seconds, then the last line
+   of phase 18, the ``{"dp": ...}`` line of phase 19, the run's seconds,
+   then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without CUDA (rc 2), and when the
@@ -1951,7 +1976,8 @@ def profile_graph_steps(trainer, on: tuple, calls: int = 8, tag: str = "profile 
     return {"step_ms": step_ms, "episodes_per_s": trainer.cfg.batch_size * 1e3 / step_ms,
             "split": split, "busy_ms": busy / steps / 1e3, "launches": launches,
             "busy_share": busy / wall_us, "pool_bytes": graphs.pool_bytes,
-            "feed_stall_frac": stall_frac}
+            "feed_stall_frac": stall_frac, "per_replay": per_replay,
+            "nccl_per_step": sum(n for key, _, n in rows if "nccl" in key.lower()) / steps}
 
 
 def graphs_of(single, multi) -> int:
@@ -6445,6 +6471,281 @@ def serving_main_path() -> dict:
             "launches": launches, "main_latency": main_latency}
 
 
+# --- Phase 19: data parallel over torch.distributed ---------------------------------
+
+DP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+DP_STEPS = 16                           # four replays of steps_per_call 4
+DP_ARGV = ["--synthetic", "--bf16", "--token_cache", "--embed_optimizer", "lazy",
+           "--steps_per_call", "4", "--train_iter", str(DP_STEPS), "--val_step", str(DP_STEPS),
+           "--val_iter", "40"]
+DP_FLAGS = ["--dp", "1", "--zero_opt", "--grad_bucketing", "on", "--compact_demb", "on"]
+DP_TEST_ARGV = ["--synthetic", "--bf16", "--token_cache", "--test_iter", "40", "--dp", "1"]
+DP_ON = ("K7", "K8", "K10", "K11", "wgrad", "optim_sumsq", "optim_update")
+# 19b: two gloo ranks on the one card, eager steps, f32 at the flagship
+# widths, 3 steps each case from the seed's weights, held to one process
+# on the global batch of 4 episodes (JAX's bar, tests/test_comms.py:124-131).
+DP_B_CASES = ("monolithic", "compact", "bucketed", "zero1")
+DP_B_STEPS = 3
+DP_B_TOL = 1e-5
+DP_CHILD_SECONDS = {"19a": 240, "19b": 240}
+DP_SECONDS = 120
+
+
+def dp_child(part: str, nproc: int) -> dict:
+    """``torchrun --nproc_per_node nproc chip_smoke.py --dp<part> OUT`` in a
+    session of its own, killed whole at its bound; its lines, then its
+    JSON result (rank 0's)."""
+    out = DP_DIR / f"{part}.json"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), str(Path(__file__).resolve()), f"--dp{part}", str(out)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=DP_CHILD_SECONDS[part])
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        text, _ = proc.communicate()
+        print(text[-4000:], flush=True)
+        raise AssertionError(f"phase {part}: the ranks overran {DP_CHILD_SECONDS[part]} s")
+    keep = [ln for ln in text.splitlines() if ln.startswith(f"[{part}")]
+    print("\n".join(keep), flush=True)
+    if proc.returncode != 0 or not out.exists():
+        print(text[-6000:], flush=True)
+        raise AssertionError(f"phase {part}: torchrun exited {proc.returncode}")
+    return json.loads(out.read_text())
+
+
+def full_moments(opt):
+    """(model-free) the optimizer as ``hold_state`` reads it, its moments
+    gathered whole (ZeRO-1's chunks)."""
+    import types
+
+    state = opt.state_dict()
+    return types.SimpleNamespace(params=opt.params, mu=state["mu"], nu=state["nu"],
+                                 count=opt.count)
+
+
+def dp19a_main(out_path: str) -> int:
+    """19a, one rank of ``torchrun --nproc_per_node 1``: the flagship (400 002
+    x 50 table, bf16, W=8, token cache, lazy Adam) through ``cli.make_trainer``
+    with a world-size-1 NCCL mesh (``--dp 1 --zero_opt --grad_bucketing on
+    --compact_demb on``; every collective captured in the replay) and the
+    same run without a mesh, DP_STEPS steps each as replays of 4; held at
+    ``hold_state``'s bars; launches per step under the profiler, the
+    collectives each replay issues (``COLLECTIVES`` counted across the
+    capture, held to ``DataParallel.plan``), no capture after the warm-up,
+    ms/step beside the plain run; then ``cli.test_main`` on the dp run's
+    checkpoint under the mesh."""
+    from induction_network_on_fewrel_tpu_torch.parallel.distributed import shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    LIBRARY.build()
+    SAMPLER_LIBRARY.build()
+    t0 = time.monotonic()
+    shutil.rmtree(DP_DIR / "dp", ignore_errors=True)
+    shutil.rmtree(DP_DIR / "plain", ignore_errors=True)
+    args = cli.parse_args(True, DP_ARGV + DP_FLAGS + ["--save_ckpt", str(DP_DIR / "dp")])
+    cfg = cli.config_from_args(args)
+    mesh = cli.dp_mesh(args, cfg)
+    if mesh is None or mesh.backend != "nccl" or mesh.dp != 1:
+        raise AssertionError(f"19a: expected a world-size-1 NCCL mesh, got {mesh}")
+    dp = cli.make_trainer(args, cfg, mesh=mesh)[0]
+    pargs = cli.parse_args(True, DP_ARGV + ["--save_ckpt", str(DP_DIR / "plain")])
+    plain = cli.make_trainer(pargs, cli.config_from_args(pargs))[0]
+    spc = dp.cfg.steps_per_call
+    for t in (dp, plain):
+        t.metric_window = spc                    # a [train] record per replay
+    table0 = dp.model.embedding.word_embedding.detach().clone()
+    if not torch.equal(table0, plain.model.embedding.word_embedding.detach()):
+        raise AssertionError("19a: the two runs start from different weights")
+    watcher = stamped_watcher()
+    runs = {}
+    for tag, t in (("plain", plain), ("dp", dp)):
+        zero_kernel_counts()
+        with contextlib.redirect_stderr(io.StringIO()):
+            t.train(DP_STEPS)
+        torch.cuda.synchronize()
+        runs[tag] = {"wrappers": kernel_counts(), "records": train_records(t.logger.path)}
+    missing = [k for k in DP_ON + LAZY_KERNELS + ("K1", "K2") if not runs["dp"]["wrappers"][k]]
+    if missing:
+        raise AssertionError(f"19a: kernels of the path never launched under dp: {missing}")
+    losses = {tag: np.array([r["loss"] for r in r_["records"]]) for tag, r_ in runs.items()}
+    loss_rel = float(np.max(np.abs(losses["dp"] - losses["plain"]) / np.abs(losses["plain"])))
+    if loss_rel > GRAPH_PARAM_TOL:
+        raise AssertionError(f"19a: losses rel {loss_rel:.3g} > {GRAPH_PARAM_TOL}")
+    held = hold_state("19a NCCL world 1 vs no process group", (dp.model, full_moments(dp.opt)),
+                      (plain.model, plain.opt), table0)
+    lazy_rel = max(rel_err(getattr(dp.lazy, k).float(), getattr(plain.lazy, k).float())[1]
+                   for k in ("m", "v"))
+    if lazy_rel > SEGSUM_TOL or not torch.equal(dp.lazy.last, plain.lazy.last):
+        raise AssertionError(f"19a: the lazy table's moments rel {lazy_rel:.3g}")
+    captures = len(watcher.stamps)
+    prof = {tag: profile_graph_steps(t, DP_ON, calls=8, tag=f"19a profile {tag}",
+                                     per_call=LAZY_KERNELS) for tag, t in (("plain", plain),
+                                                                           ("dp", dp))}
+    if len(watcher.stamps) != captures:
+        raise AssertionError(f"19a: captures after the warm-up: {watcher.stamps[captures:]}")
+    watcher.uninstall()
+    graphs = list(dp.multi_train_step.graphs.values())
+    for g in graphs:
+        S = g.out.shape[0]
+        if g.collectives != dp.dp.plan(S):
+            raise AssertionError(f"19a: a replay of {S} steps issues {g.collectives}, the plan "
+                                 f"is {dp.dp.plan(S)}")
+    issued = {k: n / spc for k, n in graphs[0].collectives.items()}
+    per_step = {k: n / spc for k, n in prof["dp"]["per_replay"].items()}
+    rc, out, err = quiet_cli(cli.test_main, DP_TEST_ARGV + ["--load_ckpt", str(DP_DIR / "dp")])
+    test = json.loads(out.strip().splitlines()[-1]) if rc == 0 else None
+    if rc != 0 or not 0.0 <= test["test_accuracy"] <= 1.0:
+        raise AssertionError(f"19a: cli test under the mesh: rc {rc}: {err[-2000:]}")
+    zero = dp.opt.zero
+    res = {"world": 1, "backend": "nccl", "steps": DP_STEPS, "steps_per_call": spc,
+           "loss_rel": loss_rel, "held": held, "lazy_moments_rel": lazy_rel,
+           "collectives_per_step": issued, "nccl_kernels_per_step": prof["dp"]["nccl_per_step"],
+           "launches_per_step": per_step, "captures_after_warmup": 0,
+           "graph_ms_per_step": prof["dp"]["step_ms"], "plain_ms_per_step": prof["plain"]["step_ms"],
+           "busy_ms": prof["dp"]["busy_ms"], "plain_busy_ms": prof["plain"]["busy_ms"],
+           "launches_graph": prof["dp"]["launches"], "plain_launches_graph": prof["plain"]["launches"],
+           "zero1_sharded_leaves": len(zero.shards), "test": test,
+           "seconds": round(time.monotonic() - t0, 1)}
+    print(f"[19a] world 1 over NCCL (--dp 1 --zero_opt --grad_bucketing on --compact_demb on), "
+          f"{DP_STEPS} steps as replays of {spc}: losses rel {loss_rel:.3g} of the run without a "
+          f"process group; collectives issued per step, counted across the capture {issued} "
+          f"(= the plan; {prof['dp']['nccl_per_step']:.2f} NCCL kernels per step under the "
+          f"profiler); {prof['dp']['step_ms']:.3f} ms/step vs "
+          f"{prof['plain']['step_ms']:.3f} without dp; no capture after the warm-up; test "
+          f"accuracy {test['test_accuracy']} under the mesh; {res['seconds']} s", flush=True)
+    for t in (dp, plain):
+        close_trainer(t)
+    Path(out_path).write_text(json.dumps(res, default=str))
+    shutdown()
+    return 0
+
+
+def dp_b_payload(cfg) -> dict:
+    """19b's world: the synthetic train split at the flagship widths on a
+    400 002-word synthetic vocabulary, DP_B_STEPS global index batches of
+    ``cfg.batch_size`` episodes (the same in every rank: seeds)."""
+    from induction_network_on_fewrel_tpu_torch.sampling.index import IndexEpisodeSampler
+    from induction_network_on_fewrel_tpu_torch.train.token_cache import tokenize_dataset
+
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    table, sizes = tokenize_dataset(cli.load_data(cfg, "train"),
+                                    GloveTokenizer(vocab, max_length=cfg.max_length))
+    idx = IndexEpisodeSampler(sizes, cfg.train_n, cfg.k, cfg.q, batch_size=cfg.batch_size, seed=0)
+    batches = []
+    for _ in range(DP_B_STEPS):
+        si, qi, lab = idx.sample_fused(1)
+        batches.append((si[0], qi[0], lab[0]))
+    return {"cfg": {k: getattr(cfg, k) for k in ("compute_dtype", "token_cache", "embed_optimizer",
+                                                 "batch_size", "ckpt_stage")},
+            "weights": None, "table": table, "sizes": sizes, "batches": batches,
+            "device": "cuda", "cases": list(DP_B_CASES)}
+
+
+def dp19b_main(out_path: str) -> int:
+    """19b, a rank of ``torchrun --nproc_per_node 2``: two gloo ranks on the
+    one card (NCCL puts no two ranks on one device), eager steps; each case
+    of DP_B_CASES trains DP_B_STEPS steps of the flagship token-cache lazy
+    step at f32 from the seed's weights, each rank on its half of every
+    global batch; rank 0 then runs the one-process reference on the global
+    batches and holds every case to it (losses and parameters within
+    DP_B_TOL, gradient norms at rtol DP_B_TOL, the moments, the lazy rows'
+    included, within DP_B_TOL of each leaf's scale), the ranks' replicas to
+    each other, and the collectives each step issued (counted around the
+    steps) to the case's plan."""
+    import torch.distributed as dist
+
+    from induction_network_on_fewrel_tpu_torch.parallel import rig
+    from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+        shutdown,
+    )
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    LIBRARY.build()
+    t0 = time.monotonic()
+    torch.cuda.set_device(0)
+    maybe_initialize_distributed(backend="gloo", timeout_s=120)
+    mesh = make_mesh()
+    cfg = ExperimentConfig(compute_dtype="float32", token_cache=True, embed_optimizer="lazy",
+                           ckpt_stage="off")
+    payload = dp_b_payload(cfg)
+    zero_kernel_counts()
+    got = rig.run_cases(payload, mesh)
+    counts = kernel_counts()
+    mine = {c: {"params": r["params"], "issued": r["issued_per_step"], "plan": r["plan"]}
+            for c, r in got.items()}
+    other = [None, None]
+    dist.gather_object(mine, other if mesh.rank == 0 else None, dst=0)
+    if mesh.rank != 0:
+        shutdown()
+        return 0
+    ref = rig.run_cases({**payload}, None)["monolithic"]
+    res = {"world": 2, "backend": "gloo", "device": torch.cuda.get_device_name(0),
+           "steps": DP_B_STEPS, "global_batch": cfg.batch_size, "cases": {}}
+    for case, r in got.items():
+        loss_err = float(np.abs(np.array(r["losses"]) - ref["losses"]).max())
+        # np.testing.assert_allclose(atol=rtol=DP_B_TOL)'s measure: the
+        # largest |got - want| - DP_B_TOL |want| must stay within DP_B_TOL.
+        param_err = max(float(np.max(np.abs(r["params"][k] - ref["params"][k])
+                                     - DP_B_TOL * np.abs(ref["params"][k])))
+                        for k in ref["params"])
+        norm_rel = float(np.max(np.abs(np.array(r["grad_norms"]) - ref["grad_norms"])
+                                / np.array(ref["grad_norms"])))
+        # Each moment leaf within DP_B_TOL of its scale (the lazy rows' too).
+        moment_rel = max(float(np.max(np.abs(r["moments"][k] - w)) / max(np.abs(w).max(), 1e-30))
+                         for k, w in ref["moments"].items())
+        ranks_equal = all(np.array_equal(r["params"][k], other[1][case]["params"][k])
+                          for k in r["params"])
+        issued_ok = all(o[case]["issued"] == o[case]["plan"] for o in other)
+        if (loss_err > DP_B_TOL or param_err > DP_B_TOL or norm_rel > DP_B_TOL
+                or moment_rel > DP_B_TOL or not ranks_equal or not issued_ok
+                or set(r["moments"]) != set(ref["moments"])):
+            raise AssertionError(
+                f"19b {case}: losses {loss_err:.3g}, params {param_err:.3g}, grad norms rel "
+                f"{norm_rel:.3g}, moments rel {moment_rel:.3g} (tol {DP_B_TOL}), ranks equal "
+                f"{ranks_equal}, collectives issued {[o[case]['issued'] for o in other]} vs "
+                f"plan {r['plan']}")
+        res["cases"][case] = {"loss_abs_err": loss_err, "param_err": param_err,
+                              "grad_norm_rel": norm_rel, "moment_rel": moment_rel,
+                              "collectives_per_step": r["issued_per_step"],
+                              "eager_s": r["seconds"]}
+        print(f"[19b] {case}: two gloo ranks on the card vs one process on the global batch, "
+              f"{DP_B_STEPS} steps: losses within {loss_err:.3g}, parameters within "
+              f"{param_err:.3g}, grad norms rel {norm_rel:.3g}, moments ({len(r['moments'])} "
+              f"leaves, the lazy rows' included) rel {moment_rel:.3g} of scale (tol "
+              f"{DP_B_TOL}); replicas equal; collectives issued per step, counted on both "
+              f"ranks {r['issued_per_step']} (= the plan); {r['seconds']:.2f} s", flush=True)
+    steps = DP_B_STEPS * len(got)
+    res["launches_per_step"] = {k: n / steps for k, n in counts.items()}
+    res["zero1_shards"] = len(got["zero1"]["zero_shards"]) if "zero1" in got else None
+    res["seconds"] = round(time.monotonic() - t0, 1)
+    print(f"[19b] rank 0 wrapper launches per step (eager: every call launches) "
+          f"{res['launches_per_step']}; {res['seconds']} s", flush=True)
+    Path(out_path).write_text(json.dumps(res, default=str))
+    shutdown()
+    return 0
+
+
+def dp_phase(smi: str) -> dict:
+    """Phase 19: 19a and 19b, each in child processes (the ranks) bounded
+    by DP_CHILD_SECONDS; this process never joins a process group."""
+    t0 = time.monotonic()
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    a = dp_child("19a", 1)
+    b = dp_child("19b", 2)
+    out = {"card": smi, "a_nccl_world1": a, "b_gloo_world2": b,
+           "seconds": round(time.monotonic() - t0, 1)}
+    print(f"[dp] phase 19: {out['seconds']} s (target {DP_SECONDS} s; {smi})", flush=True)
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    return out
+
+
 def main(phases: set | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6576,6 +6877,11 @@ def main(phases: set | None = None) -> int:
         tools18 = done["tools"] = tools_phase(smi, [
             r for key in ("obs", "fleet", "load") for r in done.get(key, {}).get("report_runs", [])])
     shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+
+    # 19. Data parallel: world size 1 over NCCL (captured), two gloo ranks on
+    # the card (eager); the ranks are child processes
+    if on("19"):
+        dp19 = done["dp"] = dp_phase(smi)
 
     if phases is not None:
         # A selected run: each phase's own line, then the final lines.
@@ -6771,6 +7077,8 @@ def main(phases: set | None = None) -> int:
         k["launches_adapt"] = adapt_launches.get(key, 0)
         k["launches_load"] = load_launches.get(key, 0)
         k["launches_tools"] = tools_launches.get(key, 0)
+        k["launches_dp_19a_per_step"] = dp19["a_nccl_world1"]["launches_per_step"].get(key, 0.0)
+        k["launches_dp_19b_per_step"] = dp19["b_gloo_world2"]["launches_per_step"].get(key, 0.0)
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -6800,6 +7108,7 @@ def main(phases: set | None = None) -> int:
     print(json.dumps({"fleet": fleet16}, default=str), flush=True)
     print(json.dumps({"load": load17}, default=str), flush=True)
     print(json.dumps({"tools": tools18}, default=str), flush=True)
+    print(json.dumps({"dp": dp19}, default=str), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6814,7 +7123,7 @@ def main(phases: set | None = None) -> int:
 PHASE_NEEDS = {"1": (), "2": (), "3": (), "4": (), "6": ("4",), "6b": (), "7": ("6",), "8": (),
                "9": (), "10": ("9",), "9c": (), "9d": ("9c",), "9e": ("9c",), "4b": ("9",),
                "4c": ("9",), "4a": ("9",), "11": ("9c",), "14": ("9", "11"), "13": ("9c",),
-               "15": (), "16": (), "17": (), "18": ()}
+               "15": (), "16": (), "17": (), "18": (), "19": ()}
 PHASE_ALIASES = {"5": "4", "6c": "6", "6d": "6"}
 
 
@@ -6846,4 +7155,8 @@ def parse_phases(argv: list) -> set | None:
 
 
 if __name__ == "__main__":
-    sys.exit(sweep_main() if sys.argv[1:] == ["--sweep"] else main(parse_phases(sys.argv[1:])))
+    if sys.argv[1:] == ["--sweep"]:
+        sys.exit(sweep_main())
+    if len(sys.argv) == 3 and sys.argv[1] in ("--dp19a", "--dp19b"):
+        sys.exit((dp19a_main if sys.argv[1] == "--dp19a" else dp19b_main)(sys.argv[2]))
+    sys.exit(main(parse_phases(sys.argv[1:])))

@@ -93,6 +93,17 @@ checkpoint's ``config.json`` (validated at start by
 ``config.resolve_adapt_policy``); ``serving.cli --adapt`` on that
 artifact inherits it.
 
+Data parallel (the JAX ``--dp``, ``--zero_opt``, ``--compact_demb``,
+``--grad_bucketing``, ``--grad_bucket_count``, ``--async_collectives``):
+launched as ``torchrun --nproc_per_node N -m
+induction_network_on_fewrel_tpu_torch.cli train --dp N ...`` every rank
+joins the process group (NCCL on ``cuda:LOCAL_RANK``; gloo with
+``--device cpu``), samples its own ``B/N`` episodes and averages the
+gradients with the others (``parallel/``); rank 0 alone logs, writes the
+checkpoints and prints the result. Without a launcher ``--dp`` 0 or 1 is
+the one-process run. ``--adv``, ``--feature_cache``, ``--mixture`` and MoE
+under a mesh are refused by name (``dp_mesh``).
+
 Runs on the GPU by default and refuses to start without CUDA unless
 ``--device cpu`` is given.
 """
@@ -105,7 +116,7 @@ import os
 import sys
 import warnings
 
-from induction_network_on_fewrel_tpu_torch.models.build import LATER_ITEMS, LATER_SLICE, SHARDED
+from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE, SHARDED
 
 
 def build_arg_parser(train: bool) -> argparse.ArgumentParser:
@@ -284,6 +295,42 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                             "'poison:INDEX' (comma-separable)")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="default: the GPU (refuses to start without CUDA)")
+    # Data parallel (parallel/): the JAX flags, names, defaults and help.
+    p.add_argument(
+        "--zero_opt", action="store_true",
+        help="ZeRO-1-style optimizer-state sharding: Adam moments shard "
+             "over the dp mesh axis (1/dp of the optimizer HBM per device; "
+             "identical update trajectory)",
+    )
+    p.add_argument(
+        "--compact_demb", default="auto", choices=["auto", "on", "off"],
+        help="dp-sharded embedding gradient: keep the demb segment-sum "
+             "local per shard and all-reduce only the compact [U, D] "
+             "touched-row gradient, instead of gathering the [L, M, word_dim] "
+             "embedding cotangent on every rank. 'off' restores the dense "
+             "behavior for A/Bs; identical params/checkpoints either way",
+    )
+    p.add_argument(
+        "--grad_bucketing", default="auto", choices=["auto", "on", "off"],
+        help="bucketed gradient collectives on pure-dp meshes: one flat "
+             "all-reduce per reverse-topological bucket (grad/bucket_0 = "
+             "relation head ... last = embedding) so each bucket's reduction "
+             "can fly while earlier layers' backward computes. 'auto' = the "
+             "card with --embed_optimizer lazy; 'on' forces the bucketed arm "
+             "anywhere; 'off' = one all-reduce after the backward. Identical "
+             "params either way",
+    )
+    p.add_argument("--grad_bucket_count", type=int, default=4,
+                   help="bucket count when --grad_bucketing resolves on")
+    p.add_argument(
+        "--async_collectives", default="auto", choices=["auto", "on", "off"],
+        help="start each gradient bucket's all-reduce from the backward as "
+             "soon as its gradients are ready ('on'/'auto'), or every bucket "
+             "after the backward ('off')",
+    )
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel mesh axis (0 = all devices): the ranks of "
+                        "torchrun --nproc_per_node N; without a launcher, one")
     p.add_argument("--save_ckpt", default="./checkpoint", help="checkpoint directory")
     p.add_argument("--load_ckpt", default=None, help="checkpoint directory to restore")
     if train:
@@ -364,14 +411,10 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
 # default, type, the ROADMAP queue A item that brings it). Given with
 # anything but the default (or a value meaning the same here, _NEUTRAL),
 # each is refused by name (rc 2).
-DP = LATER_ITEMS["dp"]
 DEFERRED = {
     "--ep": (1, int, LATER_SLICE["ep"]), "--pp": (1, int, LATER_SLICE["pp"]),
     "--sp": (1, int, LATER_SLICE["sp"]), "--tp": (1, int, SHARDED),
     "--pp_microbatches": (4, int, SHARDED),
-    "--dp": (0, int, DP), "--zero_opt": (False, bool, DP), "--compact_demb": ("auto", str, DP),
-    "--grad_bucketing": ("auto", str, DP), "--grad_bucket_count": (4, int, DP),
-    "--async_collectives": ("auto", str, DP),
 }
 # JAX flags with no counterpart here: flag -> (its JAX default, type, why).
 NO_COUNTERPART = {
@@ -382,7 +425,7 @@ NO_COUNTERPART = {
                                 "--remat_attn on does"),
 }
 # Values other than the JAX default that mean the same on one card.
-_NEUTRAL = {"--dp": (1,), "--compile_cache": ("off",)}
+_NEUTRAL = {"--compile_cache": ("off",)}
 
 
 def refuse_deferred(parser: argparse.ArgumentParser, args) -> None:
@@ -511,7 +554,9 @@ def config_from_args(args):
         mixture=args.mixture, feed_fault=getattr(args, "feed_fault", ""), seed=args.seed,
         ckpt_stage=args.ckpt_stage, watchdog=getattr(args, "watchdog", False),
         perf=getattr(args, "perf", False), nan_inject_step=getattr(args, "nan_inject_step", 0),
-        chaos=getattr(args, "chaos", ""),
+        chaos=getattr(args, "chaos", ""), dp=args.dp, zero_opt=args.zero_opt,
+        compact_demb=args.compact_demb, grad_bucketing=args.grad_bucketing,
+        grad_bucket_count=args.grad_bucket_count, async_collectives=args.async_collectives,
     )
     if hasattr(args, "train_iter"):
         kw.update(train_iter=args.train_iter, val_iter=args.val_iter, val_step=args.val_step,
@@ -603,7 +648,49 @@ def bert_backbone_model(cfg, device):
     return model
 
 
-def make_trainer(args, cfg, only_test: bool = False):
+NEXT_DP_SLICE = "the next slice of ROADMAP queue A item 5"
+
+
+def dp_mesh(args, cfg):
+    """The run's dp mesh, or None for one process (the JAX ``use_mesh``).
+    Launched by torchrun, every rank joins the process group
+    (``parallel.distributed``: NCCL on the card, gloo with ``--device cpu``)
+    and the mesh is the whole world or ``--dp`` ranks of it; without a
+    launcher ``--dp`` 0 or 1 is the single-process run and more raises.
+    Refused by name under a mesh: what comes with the next slice (``--adv``,
+    ``--feature_cache``, ``--mixture``), MoE, the live lazy path, and a
+    batch that does not divide over the ranks (the JAX text)."""
+    from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+    from induction_network_on_fewrel_tpu_torch.parallel.sharding import check_moe
+
+    if not maybe_initialize_distributed(device=args.device) and cfg.dp in (0, 1):
+        return None
+    mesh = make_mesh(dp=cfg.dp or None)
+    for flag, on in (("--adv", cfg.adv), ("--feature_cache", cfg.feature_cache),
+                     ("--mixture", bool(cfg.mixture))):
+        if on:
+            raise ValueError(f"{flag} under data parallel comes with {NEXT_DP_SLICE}")
+    check_moe(cfg)
+    if cfg.embed_optimizer == "lazy" and not cfg.token_cache:
+        raise ValueError(
+            "--embed_optimizer lazy does not combine with a device mesh on the LIVE token path "
+            "(combine --dp/--tp/... with --token_cache instead); use --embed_optimizer shared "
+            "there")
+    dp = mesh.dp
+    if cfg.batch_size % dp != 0:
+        raise ValueError(
+            f"--batch_size {cfg.batch_size} must be divisible by the "
+            f"data-parallel mesh axis dp={dp} (episodes are sharded "
+            f"over dp); try --batch_size {((cfg.batch_size // dp) + 1) * dp} "
+            f"or --dp {cfg.batch_size}"
+        )
+    return mesh
+
+
+def make_trainer(args, cfg, only_test: bool = False, mesh=None):
     """(trainer, test split): vocabulary and data, model (built on
     ``args.device``), samplers (index samplers and device token tables with
     --token_cache, feature tables with --feature_cache) and logger. A GloVe
@@ -623,7 +710,12 @@ def make_trainer(args, cfg, only_test: bool = False):
     a ``PipelineFeed`` of depth ``--prefetch_depth`` (units of
     steps_per_call batches where the sampler fills fused blocks) with the
     ``--feed_fault`` plan. Val and test samplers are synchronous and, under
-    auto, the numpy ones."""
+    auto, the numpy ones.
+
+    Under a dp ``mesh`` each rank samples its own ``B/dp`` episodes a
+    batch from its own stream (``parallel.hostfeed.process_seed``) behind a
+    ``PerRankSampler`` that reports the global batch; only rank 0 logs to
+    the run directory and writes checkpoints."""
     from induction_network_on_fewrel_tpu_torch.datapipe import FeedFaults, PipelineFeed
     from induction_network_on_fewrel_tpu_torch.models.build import build_model
     from induction_network_on_fewrel_tpu_torch.sampling.native import (
@@ -652,10 +744,28 @@ def make_trainer(args, cfg, only_test: bool = False):
     else:
         model = build_model(cfg, glove_init=vectors, device=args.device)
 
+    batch, rank0 = cfg.batch_size, mesh is None or mesh.rank == 0
+
+    def per_rank(sampler):
+        return sampler if mesh is None else PerRankSampler(sampler, cfg.batch_size)
+
+    if mesh is not None:
+        from induction_network_on_fewrel_tpu_torch.parallel.hostfeed import (
+            PerRankSampler,
+            local_episode_range,
+            process_seed,
+        )
+
+        batch = local_episode_range(mesh, cfg.batch_size)[1]
+
+    def seeded(seed):
+        return seed if mesh is None else process_seed(seed, mesh.rank)
+
     def live(ds, n, seed, train=False, prefetch=0):
-        return make_sampler(ds, tok, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
-                            na_rate=cfg.na_rate, seed=seed, backend=cfg.sampler,
-                            prefetch=prefetch, num_threads=cfg.sampler_threads, eval=not train)
+        return per_rank(make_sampler(ds, tok, n, cfg.k, cfg.q, batch_size=batch,
+                                     na_rate=cfg.na_rate, seed=seeded(seed), backend=cfg.sampler,
+                                     prefetch=prefetch, num_threads=cfg.sampler_threads,
+                                     eval=not train))
 
     datasets = {}
 
@@ -670,12 +780,13 @@ def make_trainer(args, cfg, only_test: bool = False):
             return live(ds, n, seed, train, cfg.prefetch if train and not cfg.mixture else 0), None
         else:
             table = build_token_table(ds, tok, model.device, lazy=lazy)
-        return make_index_sampler(table.sizes, n, cfg.k, cfg.q, batch_size=cfg.batch_size,
-                                  na_rate=cfg.na_rate, seed=seed, backend=cfg.sampler,
-                                  eval=not train), table
+        return per_rank(make_index_sampler(table.sizes, n, cfg.k, cfg.q, batch_size=batch,
+                                           na_rate=cfg.na_rate, seed=seeded(seed),
+                                           backend=cfg.sampler, eval=not train)), table
 
     if only_test:
-        trainer = FewShotTrainer(model, cfg, None, logger=MetricsLogger(None))
+        trainer = FewShotTrainer(model, cfg, None, logger=MetricsLogger(None, quiet=not rank0),
+                                 mesh=mesh)
         return trainer, split_of("test", cfg.n, cfg.seed + 2)
     train_s, train_t = split_of("train", cfg.train_n, cfg.seed, train=True,
                                 lazy=cfg.embed_optimizer == "lazy")
@@ -690,12 +801,17 @@ def make_trainer(args, cfg, only_test: bool = False):
     val_s, val_t = split_of("val", cfg.n, cfg.seed + 1)
     adv = adv_pieces(args, cfg, tok, datasets["train"], model) if cfg.adv else None
     run_dir = args.run_dir or args.save_ckpt
-    logger = MetricsLogger(run_dir, tensorboard_dir=args.tensorboard)
-    obs = telemetry(cfg, run_dir, logger, train_t if cfg.embed_optimizer == "lazy" else None)
+    if rank0:
+        logger = MetricsLogger(run_dir, tensorboard_dir=args.tensorboard)
+        obs = telemetry(cfg, run_dir, logger, train_t if cfg.embed_optimizer == "lazy" else None)
+    else:
+        logger = MetricsLogger(None, quiet=True)
+        obs = {}
     trainer = FewShotTrainer(model, cfg, train_s, val_s, ckpt_dir=args.save_ckpt,
                              logger=logger, train_table=train_t, val_table=val_t, adv=adv,
-                             profile_dir=args.profile, profile_steps=args.profile_steps,
-                             debug_nans=args.debug_nans, **obs)
+                             profile_dir=args.profile if rank0 else None,
+                             profile_steps=args.profile_steps, debug_nans=args.debug_nans,
+                             mesh=mesh, **obs)
     return trainer, None
 
 
@@ -807,8 +923,13 @@ def mixture_sampler(cfg, args, train_sampler, live):
 
 
 def print_result(metrics: dict, key: str) -> None:
-    """Human line (stderr, with the ±CI bar) + one JSON line (stdout)."""
+    """Human line (stderr, with the ±CI bar) + one JSON line (stdout); on
+    rank 0 only under data parallel."""
+    from induction_network_on_fewrel_tpu_torch.parallel.distributed import is_main
     from induction_network_on_fewrel_tpu_torch.utils.metrics import json_sanitize
+
+    if not is_main():
+        return
 
     acc, ci = metrics["accuracy"], metrics.get("acc_ci95", 0.0)
     print(f"{key.replace('_', ' ')}: {acc:.4f} ± {ci:.4f} (95% CI)", file=sys.stderr)
@@ -850,7 +971,8 @@ def train_main(argv=None) -> int:
         cfg = _merge_ckpt_architecture(cfg, args.load_ckpt)
         if not args.only_test:      # the checkpoint's config.json may bring back mse
             check_degenerate(cfg.loss, cfg.na_rate, args.force)
-    trainer, test_split = make_trainer(args, cfg, only_test=args.only_test)
+    mesh = dp_mesh(args, cfg)
+    trainer, test_split = make_trainer(args, cfg, only_test=args.only_test, mesh=mesh)
     cfg = trainer.cfg
     try:
         start_step = 0
@@ -879,9 +1001,10 @@ def train_main(argv=None) -> int:
             print_result(metrics, "test_accuracy")
             return 0
         trainer.train(cfg.train_iter, start_step=start_step)
-        if trainer.ckpt.has("best") and "best" in trainer.ckpt.written:
-            step = trainer.ckpt.restore_best(trainer.model)
-            print(f"final eval from best checkpoint (step {step})", file=sys.stderr)
+        if trainer.saved_best:
+            step = trainer.reader().restore_best(trainer.model)
+            if trainer.rank == 0:
+                print(f"final eval from best checkpoint (step {step})", file=sys.stderr)
         print_result(trainer.evaluate(cfg.val_iter, return_metrics=True), "final_val_accuracy")
         return 0
     finally:
@@ -900,7 +1023,7 @@ def test_main(argv=None) -> int:
         print("test needs --load_ckpt (or an existing --save_ckpt dir)", file=sys.stderr)
         return 2
     cfg = _merge_ckpt_architecture(config_from_args(args), src)
-    trainer, (sampler, source) = make_trainer(args, cfg, only_test=True)
+    trainer, (sampler, source) = make_trainer(args, cfg, only_test=True, mesh=dp_mesh(args, cfg))
     trainer.val_sampler = sampler                   # closed with the trainer
     try:
         mngr = CheckpointManager(src, logger=trainer.logger)
@@ -922,7 +1045,13 @@ def main(argv=None) -> int:
         print("usage: python -m induction_network_on_fewrel_tpu_torch.cli {train,test} [flags]",
               file=sys.stderr)
         return 2
-    return (train_main if argv[0] == "train" else test_main)(argv[1:])
+    from induction_network_on_fewrel_tpu_torch.parallel.distributed import launched, shutdown
+
+    try:
+        return (train_main if argv[0] == "train" else test_main)(argv[1:])
+    finally:
+        if launched():
+            shutdown()
 
 
 if __name__ == "__main__":

@@ -13,11 +13,13 @@ MoE FFN and layer-stacked layout, FewRel 2.0 adversarial adaptation
 (``adv*``), the serving runtime knobs (resident dtype, parity probe,
 geometry tiers and the fleet's tier spread), the adaptation controller's
 ``adapt*`` policy, the host feed (sampler backend, prefetch, mixture, feed
-faults) and the seed. Names
-and defaults are the JAX package's, so a config built with the same
-keywords describes the same model in both packages, and the
-``config.json`` a checkpoint writes loads into the JAX config too. The
-parallel knobs come with their slice.
+faults), the data-parallel knobs (``dp``, ``zero_opt``, ``compact_demb``,
+``grad_bucketing``, ``grad_bucket_count``, ``async_collectives``;
+``parallel/``) and the seed. Names and defaults are the JAX package's, so a
+config built with the same keywords describes the same model in both
+packages, and the ``config.json`` a checkpoint writes loads into the JAX
+config too. The sharded executors' knobs (tp, sp, pp, ep) come with their
+slice.
 
 ``resolve_quant_policy``, ``resolve_geometry_policy``,
 ``resolve_adapt_policy`` and ``parse_canary_plan`` are copies of the JAX
@@ -240,6 +242,27 @@ class ExperimentConfig:
     compute_dtype: str = "bfloat16"  # embedding + encoder dtype
     head_dtype: str = "float32"      # induction / NTN / logits dtype
     seed: int = 0
+
+    # --- data parallel (parallel/; none is an architecture field) ---
+    # ZeRO-1: each rank holds a contiguous 1/dp chunk of every Adam moment
+    # whose size divides, updates its chunk of the parameters and
+    # all-gathers them; a checkpoint holds the gathered moments.
+    zero_opt: bool = False
+    # The word table's gradient on dp ranks: "auto"/"on" reduce the
+    # compact [U, D] rows' gradient of each rank's local segment sum in
+    # one all-reduce; "off" all-gathers the embedding cotangent and every
+    # rank sums the whole batch (the dense spelling, for A/Bs).
+    compact_demb: str = "auto"
+    # Bucketed gradient all-reduce (parallel/grad_buckets.py): "on" groups
+    # the gradients into grad_bucket_count reverse-topological buckets,
+    # each one flat all-reduce; "auto" = on for a lazy table on the card;
+    # "off" = one flat all-reduce of every gradient after the backward.
+    grad_bucketing: str = "auto"
+    grad_bucket_count: int = 4
+    # "on"/"auto": each bucket's all-reduce starts from the backward as
+    # soon as its gradients are ready; "off": every bucket after it.
+    async_collectives: str = "auto"
+    dp: int = 1               # data-parallel ranks (episodes sharded)
 
     # Fields whose value shapes the parameters or the optimizer state: a
     # checkpoint restores only into a config that agrees on them.

@@ -48,7 +48,11 @@ rule. A leaf outside both tables raises, in either direction.
 
 ``disc_params_from_jax`` / ``disc_params_to_jax`` carry the adversarial
 step's discriminator (``fc1``, ``fc2``, ``out``: Dense layers) the same
-way.
+way. ``config_from_jax`` carries a JAX ``ExperimentConfig`` (or its
+``config.json`` dict) into the port's by field name, the data-parallel
+knobs (``dp``, ``zero_opt``, ``compact_demb``, ``grad_bucketing``,
+``grad_bucket_count``, ``async_collectives``) among them; the port's
+``config.json`` loads into the JAX config the same way.
 """
 
 from __future__ import annotations
@@ -202,3 +206,17 @@ def disc_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         tree.setdefault(layer, {})["kernel" if leaf == "weight" else "bias"] = np.array(
             arr.T if leaf == "weight" else arr, order="C")
     return tree
+
+
+def config_from_jax(jax_cfg):
+    """The port's ``ExperimentConfig`` holding every field of ``jax_cfg`` (a
+    JAX ``ExperimentConfig`` or its ``config.json`` dict) that the port's
+    config has, by name; the others are dropped."""
+    import dataclasses
+
+    from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+
+    fields = (jax_cfg if isinstance(jax_cfg, Mapping)
+              else {f.name: getattr(jax_cfg, f.name) for f in dataclasses.fields(jax_cfg)})
+    names = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    return ExperimentConfig(**{k: v for k, v in fields.items() if k in names})

@@ -141,8 +141,9 @@ SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention
 # The ROADMAP queue A items both CLIs name when they refuse a flag of a
 # later slice (``cli.py:DEFERRED``, ``serving/cli.py:DEFERRED``).
 LATER_ITEMS = {
-    "dp": ("ROADMAP queue A item 5 (data parallel: compact demb, ZeRO-1, bucketed "
-           "gradients, async collectives)"),
+    "dp": ("ROADMAP queue A item 5, its serving half (the serving engine's dp mesh, "
+           "serving --dp, and the load tool's --serving_dp): the next slice; the train/test "
+           "CLI's data parallel is ported"),
 }
 LATER_SLICE = {
     "ep": SHARDED + "; --ep 1 runs the MoE FFN on one card",

@@ -19,7 +19,9 @@ for the duration of its forward): a [U, word_dim] leaf of caught-up rows
 that the word ids have been remapped into. The forward then gathers from
 it and never reads the dense table, so the step's table gradient is the
 compact [U, word_dim] one (the one-hot product up to
-``MATMUL_GRAD_MAX_ROWS`` rows, else ``lookup_prefix_grad``: no atomics).
+``MATMUL_GRAD_MAX_ROWS`` rows, else ``lookup_prefix_grad``: no atomics;
+``demb_impl`` replaces that lookup under data parallel with
+``compact_demb off``, parallel/sharding.py).
 
 Positions in OFFSET form (``is_offset_form``: one rank below ``word``,
 the token cache's per-sentence start offsets, whose per-token ids are
@@ -120,6 +122,10 @@ class Embedding(nn.Module):
         )
         self.compute_dtype = compute_dtype
         self.compact_rows: torch.Tensor | None = None
+        # Under data parallel with compact_demb off: the compact rows'
+        # lookup whose backward gathers every rank's cotangent
+        # (parallel/sharding.make_compact_demb_lookup).
+        self.demb_impl = None
 
     def forward(self, word, pos1, pos2) -> torch.Tensor:
         """int ids of one shape S -> [*S, word_dim + 2*pos_dim] vectors
@@ -128,7 +134,8 @@ class Embedding(nn.Module):
         word = word.long()
         if self.compact_rows is not None:
             rows = self.compact_rows
-            lookup = (lookup_matmul_grad if rows.shape[0] <= MATMUL_GRAD_MAX_ROWS
+            lookup = (self.demb_impl if self.demb_impl is not None else
+                      lookup_matmul_grad if rows.shape[0] <= MATMUL_GRAD_MAX_ROWS
                       else lookup_prefix_grad)
             word_vecs = lookup(rows, word)
         elif self.freeze_word_table:

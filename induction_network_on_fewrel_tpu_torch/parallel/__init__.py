@@ -1,0 +1,17 @@
+"""Data parallel over ``torch.distributed`` (ROADMAP queue A item 5).
+
+Counterpart of ``induction_network_on_fewrel_tpu/parallel/`` for dp:
+``distributed`` (the process group from the launcher's environment),
+``mesh`` (the dp ranks), ``hostfeed`` (each rank's own episodes),
+``grad_buckets`` (the bucketed gradient all-reduce), ``sharding`` (ZeRO-1,
+the compact table gradient, the trainer's ``DataParallel``) and ``rig``
+(ranks as spawned processes with a bounded wall time, for tests and the
+smoke run). The sharded executors (tp, sp, pp, ep) come with item 6d.
+"""
+
+from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+)
+from induction_network_on_fewrel_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+__all__ = ["Mesh", "make_mesh", "maybe_initialize_distributed"]

@@ -30,13 +30,14 @@ On the CPU a program is the eager ``score_queries`` of the bank's model
 path the CPU tests drive; on the card ``QueryRunner`` is the graphs'
 reference.
 
-Capture rule: a graph is captured in ``thread_local`` mode (other threads
-may keep using the card: the batcher's worker replays, registration
-distils), after an eager warm-up on a side stream (the kernels' one-time
-attribute calls, ``kernels/build.py:launch_on``, happen outside the
-capture), under the cache's lock and a process-wide capture lock (every
-capture shares ``torch.cuda.graph``'s side stream, so two engines'
-captures must not overlap). Captures happen in ``warmup``, in
+Capture rule: a graph is captured through ``utils/capture.capturing``
+(``thread_local`` mode: other threads may keep using the card, the
+batcher's worker replays, registration distils; a stream of its own; the
+collector paused), after an eager warm-up on a side stream (the kernels'
+one-time attribute calls, ``kernels/build.py:launch_on``, happen outside
+the capture), under the cache's lock and a process-wide capture lock
+(every serving capture shares one stream, so two engines' captures must
+not overlap). Captures happen in ``warmup``, in
 the engine's tier-crossing and dtype-roll warm-ups, and, counted as a
 steady-state recompile, on a miss.
 """
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 
 from induction_network_on_fewrel_tpu_torch.obs.compile import notify_capture
+from induction_network_on_fewrel_tpu_torch.utils.capture import capturing, graph_stream
 
 # Powers of two up to 16 (the JAX package's default set).
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16)
@@ -148,8 +150,8 @@ class QueryRunner:
         return logits
 
 
-# One serving capture at a time in the process: ``torch.cuda.graph`` captures
-# on one process-wide side stream, so captures of two engines (a fleet's
+# One serving capture at a time in the process: the serving captures share
+# one stream (utils/capture.py), so captures of two engines (a fleet's
 # replicas warming up, or missing on their workers, at the same moment) must
 # not overlap: the second would begin on a stream that is already capturing.
 _CAPTURE_LOCK = threading.Lock()
@@ -181,14 +183,14 @@ class CapturedQuery:
             return model.score_queries(self.mat[None], q, self.scale)[0]
 
         cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
         with _CAPTURE_LOCK, torch.inference_mode():
+            side = graph_stream(dev, "serve_warmup")
+            side.wait_stream(cur)
             with torch.cuda.stream(side):
                 score()
             side.synchronize()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            with capturing(self.graph, dev, "serve_capture"):
                 self.out = score()
         self.out_host = torch.empty(self.out.shape, dtype=self.out.dtype, pin_memory=True)
 

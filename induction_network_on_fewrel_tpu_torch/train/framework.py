@@ -79,6 +79,17 @@ saver thread (staging per ``cfg.ckpt_stage``): a save
 snapshots the state on the card and returns, and ``train`` waits for
 every save to be durable before it returns.
 
+Data parallel (``mesh``, a ``parallel/mesh.Mesh`` with a live group):
+each rank trains on its own ``B/dp`` episodes (its samplers report the
+global batch, ``parallel/hostfeed.PerRankSampler``), the step averages
+the gradients over the ranks (``parallel/sharding.DataParallel``; ZeRO-1
+under ``zero_opt``), and the eval metrics of each batch are averaged over
+them. Only rank 0 holds a ``CheckpointManager`` and writes; every rank
+takes part in a save (``snapshot``: the full moments and every rank's
+streams gathered) and reads the directory for a restore (``reader``,
+after ``sync_saves``). ``--adv`` and the live lazy path are refused
+there.
+
 ``train(num_iters, start_step)`` numbers steps from ``start_step``;
 ``sampler_states``/``restore_sampler_states`` carry the samplers' streams
 through every checkpoint, so a resumed run continues the episode stream of
@@ -179,13 +190,23 @@ class AdvPieces:
         return tuple({k: np.stack([x[k] for x in xs]) for k in xs[0]} for xs in (srcs, tgts))
 
 
+class SavedOptimizer:
+    """An optimizer's gathered ``state_dict`` standing in for it in a save."""
+
+    def __init__(self, state: dict):
+        self.state = state
+
+    def state_dict(self) -> dict:
+        return self.state
+
+
 class FewShotTrainer:
     def __init__(self, model, cfg: ExperimentConfig, train_sampler, val_sampler=None,
                  ckpt_dir: str | None = None, logger: MetricsLogger | None = None,
                  metric_window: int | None = None, train_table=None, val_table=None,
                  adv: AdvPieces | None = None, *, profile_dir: str | None = None,
                  profile_steps: int = 10, watchdog=None, recorder=None, perf=None,
-                 compile_watcher=None, debug_nans: bool = False):
+                 compile_watcher=None, debug_nans: bool = False, mesh=None):
         spc = cfg.steps_per_call
         if spc < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {spc}")
@@ -235,8 +256,24 @@ class FewShotTrainer:
             uids = train_table.uids if train_table is not None else None
             self.lazy = LazyTable(model, self.opt.hyper, live_rows(cfg), uids=uids)
             self.opt.attach_compact(self.lazy.rows, self.lazy.rows_m, self.lazy.rows_v)
+        self.dp = None
+        if mesh is not None:
+            from induction_network_on_fewrel_tpu_torch.parallel.sharding import DataParallel
+
+            if adv is not None:
+                raise ValueError("--adv under data parallel comes with the next slice of ROADMAP "
+                                 "queue A item 5")
+            if self.lazy is not None and train_table is None and train_sampler is not None:
+                raise ValueError("embed_optimizer=lazy under data parallel needs the token cache: "
+                                 "the live path's per-batch rows differ between the ranks")
+            self.dp = DataParallel(model, self.opt, cfg, mesh, self.lazy)
+        self.rank = 0 if mesh is None else mesh.rank
+        self.ckpt_dir = ckpt_dir
+        # Only rank 0 writes; every rank takes part in a save's collectives.
         self.ckpt = (CheckpointManager(ckpt_dir, cfg, logger=self.logger,
-                                       stage=cfg.ckpt_stage) if ckpt_dir else None)
+                                       stage=cfg.ckpt_stage) if ckpt_dir and self.rank == 0
+                     else None)
+        self.saved_best = False
         self.best_val = -1.0
         # Divergence-guard arming threshold (the JAX rule): twice the
         # random-guess floor 1/(N + has_nota), capped at the floor/1.0 midpoint.
@@ -254,9 +291,9 @@ class FewShotTrainer:
                                      if spc > 1 else None)
         else:
             self.train_step = make_train_step(model, self.opt, cfg, train_table, self.lazy,
-                                              debug_nans)
+                                              debug_nans, dp=self.dp)
             self.multi_train_step = (make_multi_train_step(model, self.opt, cfg, train_table,
-                                                           self.lazy, debug_nans)
+                                                           self.lazy, debug_nans, dp=self.dp)
                                      if spc > 1 else None)
         self.eval_spc = cfg.eval_steps_per_call or min(spc, 16)
         self._eval_steps = {}
@@ -423,10 +460,25 @@ class FewShotTrainer:
             if prof:
                 self._close_profile(prof, step)     # the run ended inside the window
         self.materialize()
-        if self.ckpt is not None:
+        if self.ckpt_dir is not None:
             self.save_latest(step)
-            self.ckpt.wait()            # returning implies durable checkpoints
+            self.sync_saves()           # returning implies durable checkpoints
         return step
+
+    def sync_saves(self) -> None:
+        """Wait until every save is durable (on every rank: rank 0 writes,
+        the others wait for it), so any rank may read the directory."""
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        if self.dp is not None:
+            self.dp.barrier()
+
+    def reader(self) -> CheckpointManager:
+        """A manager over the checkpoint directory for a restore (rank 0's
+        own; a read-only one on the other ranks, after ``sync_saves``)."""
+        if self.ckpt is not None:
+            return self.ckpt
+        return CheckpointManager(self.ckpt_dir, self.cfg)
 
     def _val_boundary(self, step: int) -> int | None:
         """Materialize, evaluate, save (best on improvement, the ring
@@ -440,30 +492,47 @@ class FewShotTrainer:
         improved = m["accuracy"] > self.best_val
         if improved:
             self.best_val = m["accuracy"]
-        if self.ckpt is not None:
+        if self.ckpt_dir is not None:
             with span("train/checkpoint"):
+                snap = self.snapshot()
                 if improved:
-                    self.ckpt.save(step, self.model, self.opt, m["accuracy"], lazy=self.lazy,
-                                   samplers=self.sampler_states())
-                self.save_latest(step)
+                    self.saved_best = True
+                    if self.ckpt is not None:
+                        self.ckpt.save(step, self.model, snap[0], m["accuracy"], lazy=self.lazy,
+                                       samplers=snap[1])
+                self.save_latest(step, snap)
         if self.best_val > self.guard_arm and m["accuracy"] < 0.5 * self.best_val:
             self.logger.log(step, "divergence", val_accuracy=m["accuracy"],
                             best_val=self.best_val)
-            if cfg.divergence_guard == "stop" and self.ckpt is not None:
+            if cfg.divergence_guard == "stop" and self.ckpt_dir is not None:
+                self.sync_saves()
                 try:
-                    best_step = self.ckpt.restore_best(self.model, self.opt, self.lazy)
+                    best_step = self.reader().restore_best(self.model, self.opt, self.lazy)
                 except FileNotFoundError:
                     best_step = None
-                if best_step is not None:
+                if best_step is not None and self.ckpt is not None:
                     self.ckpt.purge_ring_newer_than(best_step)
                 self.logger.log(step, "divergence_stop",
                                 restored_step=float(-1 if best_step is None else best_step))
                 return step if best_step is None else best_step
         return None
 
-    def save_latest(self, step: int) -> None:
-        info = self.ckpt.save_latest(step, self.model, self.opt, best_val=self.best_val,
-                                     samplers=self.sampler_states(), lazy=self.lazy)
+    def snapshot(self) -> tuple:
+        """(optimizer, sampler states) for a save. Under data parallel
+        both are gathered from every rank (collectives: every rank calls
+        this at the same boundary): the optimizer as a ``SavedOptimizer`` of
+        its full moments (ZeRO-1's chunks gathered), the streams as rank 0's
+        with every rank's under "ranks"."""
+        if self.dp is None:
+            return self.opt, self.sampler_states()
+        return SavedOptimizer(self.opt.state_dict()), self.sampler_states()
+
+    def save_latest(self, step: int, snap: tuple | None = None) -> None:
+        opt, samplers = snap if snap is not None else self.snapshot()
+        if self.ckpt is None:
+            return
+        info = self.ckpt.save_latest(step, self.model, opt, best_val=self.best_val,
+                                     samplers=samplers, lazy=self.lazy)
         if info is not None:
             self.logger.log(step, "ckpt", event="ring_save", mode=info["mode"],
                             bytes=float(info["bytes"]),
@@ -480,11 +549,28 @@ class FewShotTrainer:
             out["train"] = capture_sampler_state(self.train_sampler)
         if self.val_sampler is not None:
             out["val"] = capture_sampler_state(self.val_sampler)
+        if self.dp is not None:
+            ranks = self.dp.gather_objects(out)
+            out = {**ranks[0], "ranks": ranks}
         return out
 
     def restore_sampler_states(self, states: dict) -> None:
         """Reposition the streams at ``sampler_states``' output, or at a
-        checkpoint's from before the feed (raw ``bit_generator`` states)."""
+        checkpoint's from before the feed (raw ``bit_generator`` states).
+        Under data parallel each rank takes its own streams from "ranks"
+        when the checkpoint was saved at this world size; at another one
+        the streams restart from their seeds (said on stderr)."""
+        if "ranks" in states or self.dp is not None:
+            ranks = states.get("ranks", [states])
+            world = 1 if self.dp is None else self.dp.world
+            if len(ranks) != world:
+                import sys
+
+                print(f"the checkpoint's episode streams were drawn by {len(ranks)} rank(s), "
+                      f"this run has {world}: each rank's streams restart from its seed",
+                      file=sys.stderr)
+                return
+            states = ranks[self.rank]
         for name, s in (("train", self.train_sampler), ("val", self.val_sampler)):
             if s is None or name not in states:
                 continue
@@ -526,7 +612,11 @@ class FewShotTrainer:
                 out = single(*batch_inputs(next(it)))
                 outs.append({k: v.reshape(1) for k, v in out.items()})
                 remaining -= 1
-        arrays = {k: torch.cat([o[k] for o in outs]).float().cpu().numpy() for k in outs[0]}
+        cols = {k: torch.cat([o[k] for o in outs]).float() for k in outs[0]}
+        if self.dp is not None:     # each batch's mean over the ranks: the global batch's
+            flat = self.dp.mean_(torch.stack(list(cols.values())).contiguous())
+            cols = dict(zip(cols, flat))
+        arrays = {k: v.cpu().numpy() for k, v in cols.items()}
         means = {k: float(np.mean(v)) for k, v in arrays.items()}
         if not return_metrics:
             return means["accuracy"]

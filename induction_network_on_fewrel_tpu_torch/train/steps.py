@@ -48,6 +48,14 @@ program, and ``make_multi_train_step`` scans S steps in one dispatch. Here:
   CUDA-graph replay of S captured steps, on the CPU eager.
 * ``loss_and_metrics`` adds the MoE load-balance term (``aux_weight``) to
   the training objective; eval never computes it.
+* data parallel (``dp``, a ``parallel/sharding.DataParallel``): each rank
+  steps on its own episodes; between the backward and the update the
+  gradients are averaged over the ranks (bucketed all-reduces that may
+  start inside the backward, ``parallel/grad_buckets.py``), ZeRO-1 updates
+  this rank's chunk and all-gathers the parameters, and the loss and
+  accuracy are averaged once per call. Under NCCL all of it is captured in
+  the step's graph (the warm-up issues each collective once first); under
+  gloo the steps run eagerly (``EagerSteps``), on the card too.
 * ``make_grad_probe``: the run-config gradient against an all-f32 plain
   backend (lstm_cs_window=0) reference gradient on the same batch and
   weights; norms and cosine through one shared reduction. Eager, off the
@@ -68,6 +76,7 @@ norm) to every training step; without it the captured graph is unchanged.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import gc
@@ -98,6 +107,8 @@ from induction_network_on_fewrel_tpu_torch.ops.optim import (
     optim_sumsq,
     optim_update,
 )
+from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import COLLECTIVES
+from induction_network_on_fewrel_tpu_torch.utils.capture import capturing, graph_stream
 from induction_network_on_fewrel_tpu_torch.utils.debug import finite_flag
 
 TRAIN_METRICS = ("loss", "accuracy", "grad_norm")
@@ -124,12 +135,20 @@ class ClipDecayOptimizer:
     adam/adamw tensors. ``count`` is an int64 device scalar.
     ``attach_compact`` adds the lazy table's compact rows as one more
     entry (``adam_nodecay``, its moments the compact buffers), outside the
-    parameter list and the state dict."""
+    parameter list and the state dict. ``shard(mesh)`` makes it ZeRO-1
+    (``parallel/sharding.Zero1``): this rank's moments hold its chunk of
+    each divisible leaf, the update runs on those chunks and the
+    parameters are all-gathered; ``state_dict`` gathers the full moments
+    (a collective: every rank calls it) and ``load_state_dict`` takes
+    them and keeps this rank's chunk."""
 
     def __init__(self, params, lr: float, weight_decay: float, lr_step_size: int,
                  lr_gamma: float, grad_clip: float, rules=None, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8, names=None):
         self.params = list(params)
+        self.names = list(names) if names is not None else [str(i) for i in
+                                                            range(len(self.params))]
+        self.zero = None
         self.rules = list(rules) if rules is not None else ["adam"] * len(self.params)
         if len(self.rules) != len(self.params):
             raise ValueError(f"{len(self.rules)} rules for {len(self.params)} parameters")
@@ -167,9 +186,33 @@ class ClipDecayOptimizer:
         if self._compact is not None:
             self._compact[0].grad = None
 
-    def _table(self):
+    def live_named(self) -> list:
+        """(name, parameter) of every parameter the update reads a
+        gradient of (not frozen, not the lazy table; requires grad)."""
+        return [(self.names[k], self.params[k]) for k in self._live
+                if self.params[k].requires_grad]
+
+    def shard(self, mesh, n_buckets: int = 0) -> None:
+        """ZeRO-1 over ``mesh``: keep this rank's chunk of every moment
+        leaf whose size divides the world (the rest stay whole)."""
+        from induction_network_on_fewrel_tpu_torch.parallel.sharding import Zero1
+
+        leaves = [k for k in self._live if self.mu[k] is not None]
+        self.zero = Zero1(self.names, self.params, leaves, mesh, n_buckets)
+        for k in self.zero.shards:
+            self.mu[k] = self.zero.view(k, self.mu[k]).clone()
+            self.nu[k] = self.zero.view(k, self.nu[k]).clone()
+
+    def _table(self, update: bool = False):
+        """(params, grads, mus, nus, rules) of the live entries; with
+        ``update`` under ZeRO-1, this rank's chunks of the sharded ones."""
         i = self._live
-        table = ([self.params[k] for k in i], [self.params[k].grad for k in i],
+        z = self.zero if update else None
+
+        def cut(k, t):
+            return z.view(k, t) if z is not None and k in z.shards else t
+
+        table = ([cut(k, self.params[k]) for k in i], [cut(k, self.params[k].grad) for k in i],
                  [self.mu[k] for k in i], [self.nu[k] for k in i], [self.rules[k] for k in i])
         if self._compact is not None:
             rows, m, v = self._compact
@@ -182,9 +225,12 @@ class ClipDecayOptimizer:
         """Apply one update from the parameters' ``.grad`` (None: zeros);
         returns the global gradient norm before the clip (a fresh f32
         device scalar)."""
-        params, grads, mus, nus, rules = self._table()
+        params, grads, _, _, _ = self._table()
         norm = optim_sumsq(params, grads, self._ws)
+        params, grads, mus, nus, rules = self._table(update=self.zero is not None)
         optim_update(params, grads, mus, nus, rules, norm, self.count, self.hyper, self._ws)
+        if self.zero is not None:
+            self.zero.gather_params(self.params)
         return norm.reshape(())
 
     def state_dict(self) -> dict:
@@ -192,7 +238,12 @@ class ClipDecayOptimizer:
         optimizer, whose state loads here), the rule of every parameter,
         and its moments (None where its rule keeps none)."""
         def copy(xs):
-            return [None if x is None else x.detach().clone() for x in xs]
+            out = []
+            for k, x in enumerate(xs):
+                if x is not None and self.zero is not None and k in self.zero.shards:
+                    x = self.zero.gather_moment(k, x, self.params[k])
+                out.append(None if x is None else x.detach().clone())
+            return out
 
         return {"count": int(self.count), "rules": list(self.rules),
                 "mu": copy(self.mu), "nu": copy(self.nu)}
@@ -209,9 +260,17 @@ class ClipDecayOptimizer:
         if rules != self.rules:
             raise ValueError(f"optimizer state was saved with rules {rules}, this optimizer "
                              f"has {self.rules} (optimizer/embed_optimizer differ)")
-        for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+        n = len(self.params)
+        saved = list(state["mu"]) + list(state["nu"])
+        for j, (dst, src) in enumerate(zip(self.mu + self.nu, saved)):
             if dst is None:
                 continue
+            k = j % n
+            if src is not None and self.zero is not None and k in self.zero.shards:
+                if tuple(src.shape) != tuple(self.params[k].shape):
+                    raise ValueError(f"optimizer moment {tuple(src.shape)} != "
+                                     f"{tuple(self.params[k].shape)}")
+                src = self.zero.view(k, src.to(dst.device).contiguous())
             if src is None or dst.shape != src.shape:
                 raise ValueError(f"optimizer moment {None if src is None else tuple(src.shape)} "
                                  f"!= {tuple(dst.shape)}")
@@ -260,7 +319,7 @@ def make_optimizer(cfg: ExperimentConfig, model: torch.nn.Module) -> ClipDecayOp
     return ClipDecayOptimizer(
         model.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay,
         lr_step_size=cfg.lr_step_size, lr_gamma=cfg.lr_gamma, grad_clip=cfg.grad_clip,
-        rules=[table_rule if n == WORD_TABLE else cfg.optimizer for n in names],
+        rules=[table_rule if n == WORD_TABLE else cfg.optimizer for n in names], names=names,
     )
 
 
@@ -370,21 +429,6 @@ def batch_source(source=None, compact: bool = False):
     return gathered
 
 
-_GRAPH_STREAMS: dict = {}
-
-
-def graph_stream(device: torch.device, role: str) -> torch.cuda.Stream:
-    """The one stream of ``role`` ("warmup" or "capture") that the training
-    and eval graphs of ``device`` use: apart from the serving graphs' (
-    another thread may be capturing those), and the same one every time,
-    so that repeated fine-tunes do not each leave a new stream's cuBLAS
-    workspace behind."""
-    key = (torch.device(device).index or 0, role)
-    if key not in _GRAPH_STREAMS:
-        _GRAPH_STREAMS[key] = torch.cuda.Stream(device)
-    return _GRAPH_STREAMS[key]
-
-
 class CapturedSteps:
     """One CUDA graph of ``run`` over S stacked batches, with its static
     inputs (pinned host buffers and their device copies) and output.
@@ -393,7 +437,9 @@ class CapturedSteps:
     side stream, eagerly, and must leave the training state as it was.
     Each call copies a batch in, replays, and returns a copy of the output.
     ``pool_bytes`` is what the capture added to the caching allocator's
-    reserve (the graph's private memory pool)."""
+    reserve (the graph's private memory pool); ``collectives`` counts the
+    collectives ``run`` issued inside the capture (``parallel.grad_buckets.
+    COLLECTIVES``' labels), which every replay issues again."""
 
     def __init__(self, leaves: list, run, warm, device: torch.device, name: str = "graph"):
         t_capture = time.monotonic()
@@ -411,14 +457,14 @@ class CapturedSteps:
         gc.collect()
         torch.cuda.empty_cache()        # as the capture does on entry
         reserved = torch.cuda.memory_reserved(device)
+        before = collections.Counter(COLLECTIVES)
         self.graph = torch.cuda.CUDAGraph()
-        # The training captures' own stream, and thread_local mode: a
-        # capture may run in a background thread (the adaptation fine-tune)
-        # while serving threads keep replaying, allocating and syncing on
-        # theirs.
-        with torch.cuda.graph(self.graph, stream=graph_stream(device, "capture"),
-                              capture_error_mode="thread_local"):
+        # A capture may run in a background thread (the adaptation
+        # fine-tune) while serving threads keep replaying, allocating and
+        # syncing on theirs (utils/capture.py).
+        with capturing(self.graph, device):
             self.out = run(self.dev)
+        self.collectives = dict(COLLECTIVES - before)
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         notify_capture(name, signature(leaves), time.monotonic() - t_capture)
 
@@ -512,11 +558,26 @@ class EagerSteps:
         return {k: out[:, j] for j, k in enumerate(self.keys)}
 
 
+def _backward(loss, dp) -> None:
+    """``loss.backward()``; under data parallel with the gradients then
+    averaged over the ranks (``dp.reducer``: buckets may start inside the
+    backward)."""
+    if dp is None:
+        loss.backward()
+        return
+    dp.reducer.arm()
+    loss.backward()
+    dp.reducer.finish()
+
+
 def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
-                  lazy=None, debug_nans: bool = False):
+                  lazy=None, debug_nans: bool = False, dp=None):
     """``run_of(S)``: S training steps on the stacked inputs ``dev``, and
     the metrics [S, 3]. The lazy table's prologue and epilogue wrap each
-    step (live) or the S steps (token cache)."""
+    step (live) or the S steps (token cache). ``dp`` (a
+    ``parallel.sharding.DataParallel``): the gradients are averaged over
+    the ranks before each update, and the S steps' loss and accuracy once
+    after them."""
     batch_of = batch_source(source, compact=lazy is not None and lazy.cached)
     hoisted = lazy is not None and lazy.cached
 
@@ -528,7 +589,7 @@ def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=
         opt.zero_grad()
         with lazy.compact_forward() if lazy is not None else contextlib.nullcontext():
             loss, m = loss_and_metrics(model, support, query, label, cfg.loss, aux_weight(cfg))
-        loss.backward()
+        _backward(loss, dp)
         norm = opt.step()
         if lazy is not None and not lazy.cached:
             lazy.epilogue(opt.count)
@@ -545,7 +606,8 @@ def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=
             if hoisted:
                 lazy.epilogue(opt.count)
             opt.zero_grad()
-            return torch.stack(rows)
+            rows = torch.stack(rows)
+            return rows if dp is None else dp.mean_columns(rows, 2)
 
         return run
 
@@ -564,9 +626,13 @@ def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=
         opt.zero_grad()
         with lazy.compact_forward() if lazy is not None else contextlib.nullcontext():
             loss, _ = loss_and_metrics(model, support, query, label, cfg.loss, aux_weight(cfg))
-        loss.backward()
+        # Under dp the gradients' collectives run here eagerly once, so
+        # NCCL's communicator exists before the capture.
+        _backward(loss, dp)
         opt.zero_grad()
         _warm_optim_kernels(model.device)
+        if dp is not None and dp.zero is not None:
+            dp.zero.gather_params(opt.params)       # every rank's chunk is its own: a no-op
         if lazy is not None:
             lazy.warm_kernels()
 
@@ -574,10 +640,14 @@ def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=
 
 
 def _train_graphs(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
-                  lazy=None, debug_nans: bool = False, name: str = "train_step"):
-    run_of, warm = _train_run_of(model, opt, cfg, source, lazy, debug_nans)
+                  lazy=None, debug_nans: bool = False, name: str = "train_step", dp=None):
+    """The training steps: CUDA-graph replays on the card, eager on the
+    CPU and under a gloo ``dp`` (its collectives run on the host and
+    cannot be captured; chosen from the backend, never after a failed
+    capture)."""
+    run_of, warm = _train_run_of(model, opt, cfg, source, lazy, debug_nans, dp)
     keys = train_keys(TRAIN_METRICS, debug_nans)
-    if model.device.type != "cuda":
+    if model.device.type != "cuda" or (dp is not None and dp.eager):
         return EagerSteps(run_of, keys, model.device)
     return GraphSteps(run_of, warm, keys, model.device, name)
 
@@ -624,24 +694,25 @@ def _eval_graphs(model, cfg: ExperimentConfig, source=None, name: str = "eval_st
 
 
 def make_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
-                    lazy=None, debug_nans: bool = False):
+                    lazy=None, debug_nans: bool = False, dp=None):
     """``(support, query, label) -> {loss, accuracy, grad_norm}`` device
     scalars (copies; with ``finite`` under ``debug_nans``). On the card one
     CUDA-graph replay per call; on the CPU the eager ``train_step`` (the
-    eager step body with a token-cache ``source`` or a ``lazy`` table)."""
-    if model.device.type != "cuda" and source is None and lazy is None:
+    eager step body with a token-cache ``source``, a ``lazy`` table or a
+    ``dp``)."""
+    if model.device.type != "cuda" and source is None and lazy is None and dp is None:
         return functools.partial(train_step, model, opt, cfg, debug_nans=debug_nans)
-    return _single(_train_graphs(model, opt, cfg, source, lazy, debug_nans))
+    return _single(_train_graphs(model, opt, cfg, source, lazy, debug_nans, dp=dp))
 
 
 def make_multi_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
-                          lazy=None, debug_nans: bool = False):
+                          lazy=None, debug_nans: bool = False, dp=None):
     """``(support_s, query_s, label_s)`` stacked [S, ...] -> metrics [S]:
     S updates per call, the same sequence as S single steps. On the card
     one replay of a graph of S captured steps; on the CPU S eager steps."""
-    if model.device.type != "cuda" and source is None and lazy is None:
+    if model.device.type != "cuda" and source is None and lazy is None and dp is None:
         return _eager_multi(functools.partial(train_step, model, opt, cfg, debug_nans=debug_nans))
-    return _train_graphs(model, opt, cfg, source, lazy, debug_nans, "multi_train_step")
+    return _train_graphs(model, opt, cfg, source, lazy, debug_nans, "multi_train_step", dp)
 
 
 def make_eval_step(model, cfg: ExperimentConfig, source=None):

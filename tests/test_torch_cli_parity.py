@@ -143,3 +143,44 @@ def test_train_adapt_stamps_the_jax_config_fields(tmp_path):
     with pytest.raises(ValueError, match="adapt_retries"):
         cli.config_from_args(cli.parse_args(True, ["--adapt", "--adapt_retries", "0",
                                                    "--device", "cpu"]))
+
+
+DP_VALUES = {"--dp": ["0", "1", "2", "8"], "--zero_opt": [None],
+             "--compact_demb": ["auto", "on", "off"], "--grad_bucketing": ["auto", "on", "off"],
+             "--grad_bucket_count": ["1", "4", "7"], "--async_collectives": ["auto", "on", "off"]}
+DP_ARGVS = [(train, flag, v) for train in (True, False) for flag, vs in DP_VALUES.items()
+            for v in vs]
+
+
+@pytest.mark.parametrize("train,flag,value", DP_ARGVS,
+                         ids=[f"{'train' if t else 'test'}{f}={v}" for t, f, v in DP_ARGVS])
+def test_dp_flags_parse_at_every_jax_value(train, flag, value):
+    """The six data-parallel flags are ported: every JAX value parses into
+    the JAX config's field (the mesh itself is made at run time)."""
+    assert flag not in cli.DEFERRED and flag not in cli._NEUTRAL
+    argv = ["--device", "cpu", flag] + ([] if value is None else [value])
+    ours = cli.config_from_args(cli.parse_args(train, argv))
+    theirs = jax_cli.config_from_args(jax_cli.build_arg_parser(train).parse_args(argv))
+    field = flag[2:]
+    assert getattr(ours, field) == getattr(theirs, field)
+    assert {f: getattr(ours, f) for f in SHARED_FIELDS} == {f: getattr(theirs, f)
+                                                            for f in SHARED_FIELDS}
+
+
+@pytest.mark.parametrize("argv", [["--dp", "2"], ["--serving_dp", "2"]], ids=["serve", "load"])
+def test_serving_dp_stays_refused_by_name(argv, capsys):
+    """Serving ``--dp`` and the load tool's ``--serving_dp`` wait for the
+    serving half of item 5 (models/build.py:LATER_ITEMS)."""
+    from induction_network_on_fewrel_tpu_torch.load import harness
+    from induction_network_on_fewrel_tpu_torch.models.build import LATER_ITEMS
+    from induction_network_on_fewrel_tpu_torch.serving import cli as serve_cli
+
+    with pytest.raises(SystemExit) as e:
+        if argv[0] == "--dp":
+            serve_cli.serve_main([*argv, "--device", "cpu"])
+        else:
+            harness.parse_args(argv)
+    err = capsys.readouterr().err
+    assert e.value.code == 2
+    assert f"{argv[0]} is not ported yet" in err or argv[0] in err
+    assert "ROADMAP queue A item 5, its serving half" in err and LATER_ITEMS["dp"] in err

@@ -3,7 +3,8 @@
 A subprocess blocks ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax``,
 ``ml_dtypes``, ``tensorflow``, ``tensorboard`` (the port writes its
 TensorBoard files itself) and ``induction_network_on_fewrel_tpu`` with a
-``sys.meta_path`` finder, then imports every module of the port and
+``sys.meta_path`` finder, then imports every module of the port (the data
+parallel package ``parallel/`` among them, checked by name) and
 ``chip_smoke.py``; an AST scan of the same files finds no such import
 either. Without CUDA the entry points refuse to run unless asked for the CPU.
 """
@@ -39,6 +40,9 @@ GUARDED = textwrap.dedent(f"""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
+    parallel = set(["distributed", "mesh", "hostfeed", "grad_buckets", "sharding", "rig"])
+    got = set(n.rsplit(".", 1)[1] for n in names if ".parallel." in n)
+    assert parallel <= got, sorted(parallel - got)
     leaked = sorted(m for m in sys.modules
                     if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked

@@ -279,8 +279,8 @@ def test_graph_replay_equals_eager_on_the_card():
 @pytest.mark.cuda
 def test_two_engines_capture_at_once_on_the_card():
     """Two caches (two replicas' engines) making programs from two threads at
-    the same moment: the captures take turns (they share the graph
-    context's side stream) and both caches' graphs replay equal to eager."""
+    the same moment: the captures take turns (they share the serving
+    capture stream) and both caches' graphs replay equal to eager."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the capture runs only there")
     cfg = ExperimentConfig(**SMALL)
