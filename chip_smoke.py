@@ -197,7 +197,7 @@ exits non-zero; no phase catches a failure of its own):
    9d's. (c) phase 11b's proto/cnn and siamese/cnn through the CLI's
    trainer with the C++ sampler at depth 2, beside their phase-11 rows.
    (d) The JAX bench headline's shape: B=64, the token cache, lazy Adam
-   on the 400 002 x 50 table, one graph of 512 steps, the C++ index
+   on the 400 002 x 50 table, one graph of 128 steps, the C++ index
    sampler behind a feed at depths 0, 2 and 4: episodes/s over
    hard-synced calls, the feed's stall share. (e) ``cli.train_main``
    (token cache, lazy, C++ sampler, depth 2) crashed by ``--fault_step``
@@ -413,6 +413,32 @@ exits non-zero; no phase catches a failure of its own):
    each other; the collectives each step issued, counted on both ranks
    and held to the plan; wrapper launches per step. A ``{"dp": ...}``
    line.
+20. (run with phase 19, sharing its two torchrun children: a child's start
+   costs ~20 s) The rest of data parallel. 20a, in this process:
+   the flagship engine of phase 4 at ``dp=2`` with both shards on the one
+   card (``devices=("cuda:0", "cuda:0")``) beside the same engine at
+   ``dp=None``: 64 requests in buckets 1, 4 and 16 per resident dtype (f32,
+   bf16, int8), logits within 1e-5 of scale at f32 and at phase 4's
+   resident bars at bf16 and int8; one graph per (key, bank, shard) at
+   warmup and none after; K1 and K2 launched twice a graph at warmup; a
+   publish under dp scores as the single engine; p50 per bucket beside
+   dp=None; ``serve_main --dp 2`` in a child process exits 2 with the
+   "exceeds the 1 visible devices" text; a 1 s load-tool arm at
+   ``--serving_dp 1``. 20b: ``torchrun --nproc_per_node 1 chip_smoke.py
+   --dp20a OUT``: ``--adv`` at the flagship config, ``--mixture`` over two
+   FewRel-format files and ``--feature_cache`` at BERT-base, each through
+   ``cli.make_trainer`` at world size 1 over NCCL (collectives captured)
+   beside the run without a group, one replay of 4 steps: losses within
+   1e-6 of scale, the state held, the collectives each replay issues equal
+   to the plan, each path's kernels and the NCCL kernels per step under
+   the profiler, ms/step beside the plain run. 20c: ``torchrun
+   --nproc_per_node 2 chip_smoke.py --dp20b OUT``: two gloo ranks on the
+   card, eager, f32: the adversarial step (monolithic, ZeRO-1) and the
+   feature cache for 3 steps each held to one process on the global batch
+   within 1e-5 (each rank's feature table equal to the one process's),
+   the replicas to each other, the collectives to the plan; the mixture
+   through the CLI picks the same source on both ranks and resumes from
+   its ring slot onto the uninterrupted stream. A ``{"dp20": ...}`` line.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -428,12 +454,16 @@ exits non-zero; no phase catches a failure of its own):
    set-up and across the adaptation attempt; ``launches_load``: phase
    17's wrapper counts; ``launches_tools``: phase 18a's profiled
    launches; ``launches_dp_19a_per_step`` / ``launches_dp_19b_per_step``:
-   phase 19a's profiled and 19b's wrapper launches per rank per step), a
+   phase 19a's profiled and 19b's wrapper launches per rank per step;
+   ``launches_serving_dp``: phase 20a's wrapper counts across the dp
+   engine; ``launches_dp_20``: phase 20b's profiled launches per step of
+   each path and 20c's wrapper counts on rank 0), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
    ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
    ``{"obs": ...}`` line of phase 15, the ``{"fleet": ...}`` line of phase
    16, the ``{"load": ...}`` line of phase 17, the ``{"tools": ...}`` line
-   of phase 18, the ``{"dp": ...}`` line of phase 19, the run's seconds,
+   of phase 18, the ``{"dp": ...}`` line of phase 19, the ``{"dp20":
+   ...}`` line of phase 20, the run's seconds,
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2798,11 +2828,13 @@ FEED_STEPS = 20
 # the shared table's f32 atomics may order a sum differently.
 FEED_LOSS_TOL = GRAPH_PARAM_TOL
 # 9e(d), the JAX bench headline's shape: B=64 episodes a step, the token
-# cache, lazy Adam on the 400 002-row table, steps_per_call as the JAX bench
-# scans (512: the graph captures it in ~10 s, a call takes ~11 s on the
-# card); one hard-synced call per depth after one warm call.
+# cache, lazy Adam on the 400 002-row table, one graph of 128 steps (the
+# JAX bench scans 512: at 512 a call took ~11 s on the card and the three
+# depths 88.7 s of a whole script that, with phase 20, came within 3 s of the
+# 1200 s it must finish in, on a slower card; 128 leaves a quarter); one
+# hard-synced call per depth after one warm call.
 BENCH_B = 64
-BENCH_SPC = 512
+BENCH_SPC = 128
 BENCH_CALLS = 1
 BENCH_DEPTHS = (0, 2, 4)
 FEED_DIR = WORK_DIR.parent / "chip_smoke_feed"
@@ -6491,29 +6523,61 @@ DP_CHILD_SECONDS = {"19a": 240, "19b": 240}
 DP_SECONDS = 120
 
 
-def dp_child(part: str, nproc: int) -> dict:
-    """``torchrun --nproc_per_node nproc chip_smoke.py --dp<part> OUT`` in a
-    session of its own, killed whole at its bound; its lines, then its
-    JSON result (rank 0's)."""
-    out = DP_DIR / f"{part}.json"
-    out.unlink(missing_ok=True)
+# The parts a torchrun child runs (``chip_smoke.py --dp19a OUT [--dp20a OUT2]``),
+# where each writes its result, and the label its lines start with.
+DP_PARTS = {"19a": ("dp19a_main", DP_DIR, "19a"), "19b": ("dp19b_main", DP_DIR, "19b"),
+            "20a": ("dp20a_main", None, "20b"), "20b": ("dp20b_main", None, "20c")}
+
+
+def dp_child_main(argv: list) -> int:
+    """One torchrun rank: the parts ``argv`` names (``--dp19a OUT --dp20a
+    OUT2 ...``) in turn, each writing its JSON result to its OUT; the
+    kernels loaded once, the process group left once, at the end (a
+    child's start costs ~20 s: phases 19 and 20 share their children)."""
+    from induction_network_on_fewrel_tpu_torch.parallel.distributed import shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    LIBRARY.build()
+    SAMPLER_LIBRARY.build()
+    for flag, out in zip(argv[::2], argv[1::2]):
+        globals()[DP_PARTS[flag[len("--dp"):]][0]](out)
+    shutdown()
+    return 0
+
+
+def dp_child(parts: list, nproc: int) -> dict:
+    """``torchrun --nproc_per_node nproc chip_smoke.py --dp<part> OUT ...``
+    (one child for all of ``parts``) in a session of its own, killed whole
+    at the sum of the parts' bounds; each part's lines, then its JSON
+    result (rank 0's), by part."""
+    outs = {}
+    for part in parts:
+        out_dir = DP_PARTS[part][1] or DP20_DIR
+        out_dir.mkdir(parents=True, exist_ok=True)
+        outs[part] = out_dir / f"{part}.json"
+        outs[part].unlink(missing_ok=True)
+    bound_s = sum({**DP_CHILD_SECONDS, **DP20_CHILD_SECONDS}[p] for p in parts)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(nproc), str(Path(__file__).resolve()), f"--dp{part}", str(out)]
+           str(nproc), str(Path(__file__).resolve())]
+    for part in parts:
+        cmd += [f"--dp{part}", str(outs[part])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
     try:
-        text, _ = proc.communicate(timeout=DP_CHILD_SECONDS[part])
+        text, _ = proc.communicate(timeout=bound_s)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         text, _ = proc.communicate()
         print(text[-4000:], flush=True)
-        raise AssertionError(f"phase {part}: the ranks overran {DP_CHILD_SECONDS[part]} s")
-    keep = [ln for ln in text.splitlines() if ln.startswith(f"[{part}")]
+        raise AssertionError(f"phase {parts}: the ranks overran {bound_s} s")
+    labels = tuple(f"[{DP_PARTS[p][2]}" for p in parts)
+    keep = [ln for ln in text.splitlines() if ln.startswith(labels)]
     print("\n".join(keep), flush=True)
-    if proc.returncode != 0 or not out.exists():
+    if proc.returncode != 0 or not all(o.exists() for o in outs.values()):
         print(text[-6000:], flush=True)
-        raise AssertionError(f"phase {part}: torchrun exited {proc.returncode}")
-    return json.loads(out.read_text())
+        raise AssertionError(f"phase {parts}: torchrun exited {proc.returncode}")
+    return {p: json.loads(o.read_text()) for p, o in outs.items()}
 
 
 def full_moments(opt):
@@ -6537,12 +6601,6 @@ def dp19a_main(out_path: str) -> int:
     capture, held to ``DataParallel.plan``), no capture after the warm-up,
     ms/step beside the plain run; then ``cli.test_main`` on the dp run's
     checkpoint under the mesh."""
-    from induction_network_on_fewrel_tpu_torch.parallel.distributed import shutdown
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    LIBRARY.build()
-    SAMPLER_LIBRARY.build()
     t0 = time.monotonic()
     shutil.rmtree(DP_DIR / "dp", ignore_errors=True)
     shutil.rmtree(DP_DIR / "plain", ignore_errors=True)
@@ -6620,7 +6678,6 @@ def dp19a_main(out_path: str) -> int:
     for t in (dp, plain):
         close_trainer(t)
     Path(out_path).write_text(json.dumps(res, default=str))
-    shutdown()
     return 0
 
 
@@ -6661,13 +6718,9 @@ def dp19b_main(out_path: str) -> int:
     from induction_network_on_fewrel_tpu_torch.parallel import rig
     from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
         maybe_initialize_distributed,
-        shutdown,
     )
     from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    LIBRARY.build()
     t0 = time.monotonic()
     torch.cuda.set_device(0)
     maybe_initialize_distributed(backend="gloo", timeout_s=120)
@@ -6683,7 +6736,6 @@ def dp19b_main(out_path: str) -> int:
     other = [None, None]
     dist.gather_object(mine, other if mesh.rank == 0 else None, dst=0)
     if mesh.rank != 0:
-        shutdown()
         return 0
     ref = rig.run_cases({**payload}, None)["monolithic"]
     res = {"world": 2, "backend": "gloo", "device": torch.cuda.get_device_name(0),
@@ -6728,23 +6780,541 @@ def dp19b_main(out_path: str) -> int:
     print(f"[19b] rank 0 wrapper launches per step (eager: every call launches) "
           f"{res['launches_per_step']}; {res['seconds']} s", flush=True)
     Path(out_path).write_text(json.dumps(res, default=str))
-    shutdown()
     return 0
 
 
-def dp_phase(smi: str) -> dict:
-    """Phase 19: 19a and 19b, each in child processes (the ranks) bounded
-    by DP_CHILD_SECONDS; this process never joins a process group."""
+# --- Phase 20: the rest of data parallel -----------------------------------------
+
+DP20_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dp20"
+# 20a: the flagship engine of phase 4 at dp=2, both shards on the one card
+# (the ``devices`` seam of make_serving_mesh), beside the same engine at
+# dp=None: 64 requests in buckets 1, 4 and 16 per resident dtype.
+DP20_DEVICES = ("cuda:0", "cuda:0")
+DP20_BUCKETS = (1, 4, 16)
+DP20_PLAN = [1] * 16 + [4] * 4 + [16] * 2
+DP20_RESIDENT = ("f32", "bf16", "int8")
+# dp against dp=None: the same kernels on row chunks, the same resident
+# matrix: 1e-5 of the logit scale at f32 resident, phase 4's bars at bf16
+# and int8 (RESIDENT_REL_TOL).
+DP20_TOL = 1e-5
+DP20_LOAD_ARGV = ["--duration", "1", "--serving_dp", "1", "--mode", "closed",
+                  "--scheduler", "continuous"]
+# 20b: world size 1 over NCCL against the run without a group, one replay
+# of 4 steps each (held at hold_state's bars: the shared table's gradient is
+# index_add_'s f32 atomics, whose order changes from run to run, and over 8
+# steps the adversarial step's three table gradients a step put held table
+# elements 1.02e-6 of scale apart on the H100): --adv at the flagship config,
+# --mixture over two FewRel-format files, --feature_cache at BERT-base.
+DP20_STEPS = 4
+DP20_B_TOL = 1e-6
+DP20_ADV_ARGV = ["--synthetic", "--bf16", "--adv", "--steps_per_call", "4",
+                 "--train_iter", str(DP20_STEPS), "--val_step", "1000", *TODAY]
+DP20_MIX_ARGV = ["--synthetic", "--bf16", "--steps_per_call", "4", "--train_iter",
+                 str(DP20_STEPS), "--val_step", "1000", *TODAY]
+DP20_CACHE_ARGV = ["--synthetic", "--bf16", "--encoder", "bert", "--bert_frozen",
+                   "--feature_cache", "--batch_size", "2", "--steps_per_call", "4",
+                   "--train_iter", str(DP20_STEPS), "--val_step", "1000", *TODAY]
+DP20_MIX_FILES = {"mix_a": 5, "mix_b": 6}          # file -> generator seed
+# 20c: two gloo ranks on the card, eager, f32 at the flagship widths (BERT-base
+# for the cache), 3 steps of each path held to one process on the global
+# batch; the mixture 2 + 2 steps through the CLI with a resume from its ring
+# slot. The adversarial and the mixture runs keep the word table on plain
+# SGD: two sums of its gradient (index_add_'s f32 atomics; two ranks' partial
+# sums against one) then differ by rounding, where Adam steps an element
+# whose gradient was within rounding of zero at some step by +-lr either way
+# (1.45e-3 apart in 2 of 6 runs on the H100 with Adam on the table).
+DP20_C_STEPS = 3
+DP20_C_TOL = 1e-5
+DP20_C_MIX_ARGV = ["--synthetic", "--embed_optimizer", "sgd", "--sampler", "python",
+                   "--prefetch_depth", "0", "--val_step", "1000", "--mixture",
+                   "train:1;synthetic:1"]
+DP20_CHILD_SECONDS = {"20a": 300, "20b": 300}
+DP20_SECONDS = 90
+
+
+def dp20_logits(verdicts: list, names) -> np.ndarray:
+    return np.array([[v["logits"][n] for n in names] for batch in verdicts for v in batch])
+
+
+def serving_dp_engines(tag: str, smi: str) -> dict:
+    """20a's engines: the flagship engine at dp=2 over two shards on the one
+    card beside dp=None: per resident dtype 64 requests in buckets 1, 4 and
+    16 (a bucket of 1 does not divide: the single-device program), logits
+    held at DP20_TOL of scale (f32) and RESIDENT_REL_TOL (bf16, int8); one
+    graph per (key, bank, shard) at warmup and none after; K1 and K2
+    launched twice per graph (the eager warm-up and the capture); a
+    publish under dp scores as the single engine after the same publish;
+    p50 per bucket."""
+    from induction_network_on_fewrel_tpu_torch.serving.registry import DEFAULT_TENANT
+
     t0 = time.monotonic()
-    DP_DIR.mkdir(parents=True, exist_ok=True)
-    a = dp_child("19a", 1)
-    b = dp_child("19b", 2)
-    out = {"card": smi, "a_nccl_world1": a, "b_gloo_world2": b,
-           "seconds": round(time.monotonic() - t0, 1)}
-    print(f"[dp] phase 19: {out['seconds']} s (target {DP_SECONDS} s; {smi})", flush=True)
-    shutil.rmtree(DP_DIR, ignore_errors=True)
+    cfg = ExperimentConfig()
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    tok = GloveTokenizer(vocab, max_length=cfg.max_length)
+    ds = make_synthetic_fewrel(num_relations=5, instances_per_relation=60,
+                               vocab_size=cfg.vocab_size - 2, sentence_len=(10, 60), seed=0)
+    queries = [i for rel in ds.rel_names for i in ds.instances[rel][cfg.k:cfg.k + 13]]
+    batches, pos = [], 0
+    for size in DP20_PLAN:
+        batches.append(queries[pos:pos + size])
+        pos += size
+    model = build_model(cfg, glove_init=vocab.vectors)
+    t_setup = time.monotonic() - t0
+    single = InferenceEngine(model, cfg, tok, k=cfg.k, buckets=DP20_BUCKETS)
+    single.register_dataset(ds)
+    single.warmup()
+    zero_kernel_counts()
+    dp = InferenceEngine(copy.deepcopy(model), cfg, tok, k=cfg.k, buckets=DP20_BUCKETS, dp=2,
+                         devices=DP20_DEVICES)
+    dp.register_dataset(ds)
+    distil = kernel_counts()
+    made = dp.warmup()
+    torch.cuda.synchronize()
+    warm = count_delta(kernel_counts(), distil)
+    graphs = dp.programs.captures
+    want_graphs = sum(2 * (2 if b % 2 == 0 else 1) for b in DP20_BUCKETS)
+    if graphs != want_graphs or warm["K1"] != 2 * graphs or warm["K2"] != 2 * graphs:
+        raise AssertionError(f"{tag}: {graphs} graphs at warmup (want {want_graphs}), K1/K2 "
+                             f"launches {warm['K1']}/{warm['K2']} (want 2 a graph)")
+    names = dp.class_names
+    out: dict = {"card": smi, "graphs_at_warmup": graphs, "programs": made,
+                 "single_graphs_at_warmup": single.programs.captures, "dtypes": {}}
+    for dtype in DP20_RESIDENT:
+        if dtype != "f32":
+            for e in (single, dp):
+                e.set_resident_dtype(DEFAULT_TENANT, dtype)
+        before = (single.programs.captures, dp.programs.captures)
+        got = [dp.classify_batch(b) for b in batches]
+        want = [single.classify_batch(b) for b in batches]
+        torch.cuda.synchronize()
+        if (single.programs.captures, dp.programs.captures) != before \
+                or dp.stats.steady_compiles or single.stats.steady_compiles:
+            raise AssertionError(f"{tag} {dtype}: captures after warmup: {before} -> "
+                                 f"{(single.programs.captures, dp.programs.captures)}")
+        g, w = dp20_logits(got, names), dp20_logits(want, names)
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        bar = DP20_TOL if dtype == "f32" else RESIDENT_REL_TOL[dtype]
+        labels = sum(a["label"] == b["label"] for x, y in zip(got, want) for a, b in zip(x, y))
+        if not np.isfinite(g).all() or err > bar * scale:
+            raise AssertionError(f"{tag} {dtype}: dp logits {err:.3g} from dp=None at scale "
+                                 f"{scale:.3g} (bar {bar} of scale)")
+        p50 = {}
+        for which, vs in (("dp", got), ("single", want)):
+            by: dict = {}
+            for batch in vs:
+                for v in batch:
+                    by.setdefault(v["bucket"], []).append(v["latency_ms"])
+            p50[which] = {b: round(float(np.percentile(x, 50)), 4) for b, x in sorted(by.items())}
+        out["dtypes"][dtype] = {"max_abs_err": err, "scale": scale, "bar_rel": bar,
+                                "labels_equal": labels, "requests": len(queries[:pos]),
+                                "p50_ms": p50, "graphs": dp.programs.captures}
+        print(f"[{tag}] {dtype} resident: {pos} requests in buckets {DP20_BUCKETS} on dp=2 "
+              f"(two shards on the card) vs dp=None: logits max abs err {err:.3g} at scale "
+              f"{scale:.3g} (bar {bar} of scale), {labels}/{pos} labels equal; request p50 ms "
+              f"by bucket dp {p50['dp']} vs dp=None {p50['single']}; graphs "
+              f"{dp.programs.captures} (none after warmup); {smi}", flush=True)
+    for e in (single, dp):
+        e.set_resident_dtype(DEFAULT_TENANT, "f32")
+    t_traffic = time.monotonic() - t0
+    # New weights: every floating tensor 1 % larger (a publish moves them all).
+    new = {k: v * 1.01 if v.is_floating_point() else v for k, v in model.state_dict().items()}
+    before = dp.programs.captures
+    versions = (single.publish_params(new), dp.publish_params(new))
+    got = [dp.classify_batch(b) for b in batches[-6:]]
+    want = [single.classify_batch(b) for b in batches[-6:]]
+    g, w = dp20_logits(got, names), dp20_logits(want, names)
+    pub_err, pub_scale = float(np.abs(g - w).max()), float(np.abs(w).max())
+    if versions != (1, 1) or dp.programs.captures != before or pub_err > DP20_TOL * pub_scale:
+        raise AssertionError(f"{tag}: publish under dp: versions {versions}, captures "
+                             f"{before} -> {dp.programs.captures}, logits {pub_err:.3g} at "
+                             f"scale {pub_scale:.3g}")
+    launches = kernel_counts()
+    for e in (single, dp):
+        e.close()
+    del single, dp, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] publish_params under dp=2: params_version {versions[1]}, no capture, the "
+          f"next {len(got)} batches within {pub_err:.3g} of dp=None at scale {pub_scale:.3g}; "
+          f"K1/K2 wrapper launches {warm['K1']}/{warm['K2']} at the warmup of {graphs} graphs "
+          f"(2 a graph: its eager warm-up and its capture)", flush=True)
+    out.update(publish={"max_abs_err": pub_err, "scale": pub_scale},
+               launches={k: v for k, v in launches.items() if v}, warm_launches=warm,
+               seconds={"setup": round(t_setup, 1),
+                        "engines_and_traffic": round(t_traffic - t_setup, 1),
+                        "publish": round(time.monotonic() - t0 - t_traffic, 1)})
     return out
 
+
+def serving_dp_phase(smi: str) -> dict:
+    """20a: ``serving_dp_engines``; ``serve_main --dp 2`` in a child process
+    (python, torch and the card's start-up, ~10 s, meanwhile), refused with
+    the "exceeds" text; a 1 s load-tool arm at ``--serving_dp 1``."""
+    tag = "20a"
+    t0 = time.monotonic()
+    child = subprocess.Popen([sys.executable, "-m",
+                              "induction_network_on_fewrel_tpu_torch.serving.cli", "--dp", "2"],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             cwd=str(Path(__file__).resolve().parent))
+    try:
+        out = serving_dp_engines(tag, smi)
+        _, err = child.communicate(timeout=120)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    n = torch.cuda.device_count()
+    if child.returncode != 2 or f"exceeds the {n} visible devices" not in err:
+        raise AssertionError(f"{tag}: serve_main --dp 2 exited {child.returncode}: {err[-2000:]}")
+    refusal = err.strip().splitlines()[-1]
+    print(f"[{tag}] serve_main --dp 2 on {n} card(s): rc 2, {refusal!r}", flush=True)
+    t_load = time.monotonic()
+    out["load"] = dp20_load_arm()
+    out["seconds"].update(serve_main_wait=round(t_load - t0 - sum(out["seconds"].values()), 1),
+                          load_arm=round(time.monotonic() - t_load, 1))
+    out["serve_main_dp2"] = {"rc": child.returncode, "stderr": refusal}
+    print(f"[{tag}] seconds {out['seconds']}", flush=True)
+    return out
+
+
+def dp20_load_arm() -> dict:
+    """A 1 s closed-loop arm of the load tool at ``--serving_dp 1`` on its
+    synthetic checkpoint."""
+    from induction_network_on_fewrel_tpu_torch.load.harness import (
+        build_engine,
+        check_serving_dp,
+        drive_one,
+        make_synthetic_checkpoint,
+        parse_args,
+    )
+
+    args = parse_args(DP20_LOAD_ARGV)
+    check_serving_dp(args)
+    ckpt_dir = DP20_DIR / "load_ckpt"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    with contextlib.redirect_stderr(io.StringIO()):
+        ckpt = make_synthetic_checkpoint(args, str(ckpt_dir))
+        engine = build_engine(args, ckpt, "continuous")
+        try:
+            r = drive_one(engine, args, np.random.default_rng(args.seed))
+        finally:
+            engine.close()
+    st = r["stats"]
+    if r["closed"]["errors"] or st["shed"] or st["steady_recompiles"]:
+        raise AssertionError(f"20a load arm: {json.dumps(r, default=str)[:2000]}")
+    print(f"[20a] load tool --serving_dp 1, 1 s closed: {r['closed']['qps']} served/s, p50 "
+          f"{r['closed']['p50_ms']} ms, p99 {r['closed']['p99_ms']} ms, errors 0, steady "
+          f"recompiles 0", flush=True)
+    return {"closed": r["closed"], "stats": {k: st[k] for k in ("shed", "steady_recompiles")}}
+
+
+def dp20_mix_files() -> str:
+    """Two FewRel-format files of synthetic relations (the flagship corpus
+    words); the ``--mixture`` spec over them."""
+    DP20_DIR.mkdir(parents=True, exist_ok=True)
+    spec = []
+    for name, seed in DP20_MIX_FILES.items():
+        ds = make_synthetic_fewrel(num_relations=20, instances_per_relation=40,
+                                   vocab_size=REAL_CORPUS_WORDS, seed=seed)
+        path = DP20_DIR / f"{name}.json"
+        path.write_text(json.dumps({r: [fewrel_record(i) for i in ds.instances[r]]
+                                    for r in ds.rel_names}))
+        spec.append(f"{path}:1")
+    return ";".join(spec)
+
+
+def hold_head(tag: str, got, want) -> float:
+    """Every parameter and moment of optimizer ``got`` within
+    GRAPH_PARAM_TOL of ``want``'s scale (a state without a word table);
+    the worst relative error."""
+    worst = 0.0
+    for i in range(len(want.params)):
+        for a, b in ((got.params[i], want.params[i]), (got.mu[i], want.mu[i]),
+                     (got.nu[i], want.nu[i])):
+            if b is None:
+                continue
+            worst = max(worst, rel_err(a.detach().float(), b.detach().float())[1])
+    if worst > GRAPH_PARAM_TOL or int(got.count) != int(want.count):
+        raise AssertionError(f"{tag}: state rel {worst:.3g} > {GRAPH_PARAM_TOL}")
+    return worst
+
+
+def dp20_pair(tag: str, argv: list, on: tuple, per_step: dict | None = None) -> dict:
+    """One path at world size 1 over NCCL (``--dp 1``) beside the same run
+    without a group, DP20_STEPS steps each as replays: the path's kernels
+    launched under the mesh, losses within DP20_B_TOL of scale, the state
+    held, the collectives each replay issued (counted across the capture)
+    equal to the plan, kernels and NCCL kernels per step under the profiler,
+    no capture after the warm-up, ms/step beside the plain run."""
+    t0 = time.monotonic()
+    runs = {}
+    trainers = {}
+    for which, flags in (("plain", []), ("dp", ["--dp", "1"])):
+        args = cli.parse_args(True, argv + flags + ["--run_dir", str(DP20_DIR / tag / which)])
+        cfg = cli.config_from_args(args)
+        mesh = cli.dp_mesh(args, cfg) if flags else None
+        if which == "dp" and (mesh is None or mesh.backend != "nccl" or mesh.dp != 1):
+            raise AssertionError(f"{tag}: expected a world-size-1 NCCL mesh, got {mesh}")
+        with contextlib.redirect_stderr(io.StringIO()):
+            trainers[which] = cli.make_trainer(args, cfg, mesh=mesh)[0]
+    plain, dp = trainers["plain"], trainers["dp"]
+    split = {"build": time.monotonic() - t0}
+    spc = dp.cfg.steps_per_call
+    for t in (plain, dp):
+        t.metric_window = spc
+    named = {n: p.detach().clone() for n, p in dp.model.named_parameters()}
+    if any(not torch.equal(p, dict(plain.model.named_parameters())[n]) for n, p in named.items()):
+        raise AssertionError(f"{tag}: the two runs start from different weights")
+    watcher = stamped_watcher()
+    for which, t in (("plain", plain), ("dp", dp)):
+        zero_kernel_counts()
+        with contextlib.redirect_stderr(io.StringIO()):
+            t.train(DP20_STEPS)
+        torch.cuda.synchronize()
+        runs[which] = {"wrappers": kernel_counts(), "records": train_records(t.logger.path)}
+    split["train"] = time.monotonic() - t0 - sum(split.values())
+    missing = [k for k in on if not runs["dp"]["wrappers"][k]]
+    if missing:
+        raise AssertionError(f"{tag}: kernels of the path never launched under dp: {missing}")
+    losses = {w: np.array([r["loss"] for r in r_["records"]]) for w, r_ in runs.items()}
+    loss_rel = float(np.abs(losses["dp"] - losses["plain"]).max() / np.abs(losses["plain"]).max())
+    if loss_rel > DP20_B_TOL or len(losses["dp"]) != DP20_STEPS // spc:
+        raise AssertionError(f"{tag}: losses rel {loss_rel:.3g} > {DP20_B_TOL}")
+    if WORD_TABLE in named:
+        held = hold_state(f"{tag} NCCL world 1 vs no process group",
+                          (dp.model, full_moments(dp.opt)), (plain.model, plain.opt),
+                          named[WORD_TABLE])
+    else:
+        held = {"state_rel": hold_head(tag, full_moments(dp.opt), plain.opt)}
+    if dp.adv is not None:
+        held["disc_rel"] = max(rel_err(a.detach(), b.detach())[1] for a, b in zip(
+            dp.adv.disc.module.parameters(), plain.adv.disc.module.parameters()))
+        if held["disc_rel"] > GRAPH_PARAM_TOL:
+            raise AssertionError(f"{tag}: discriminator rel {held['disc_rel']:.3g}")
+    captures = len(watcher.stamps)
+    split["hold"] = time.monotonic() - t0 - sum(split.values())
+    prof = {w: profile_graph_steps(t, on, calls=2, tag=f"{tag} profile {w}", per_step=per_step)
+            for w, t in (("plain", plain), ("dp", dp))}
+    split["profile"] = time.monotonic() - t0 - sum(split.values())
+    if len(watcher.stamps) != captures:
+        raise AssertionError(f"{tag}: captures after the warm-up: {watcher.stamps[captures:]}")
+    watcher.uninstall()
+    graphs = list(dp.multi_train_step.graphs.values())
+    for g in graphs:
+        S = g.out.shape[0]
+        if g.collectives != dp.dp.plan(S):
+            raise AssertionError(f"{tag}: a replay of {S} steps issues {g.collectives}, the "
+                                 f"plan is {dp.dp.plan(S)}")
+    issued = {k: n / spc for k, n in graphs[0].collectives.items()}
+    res = {"steps": DP20_STEPS, "steps_per_call": spc, "loss_rel": loss_rel, "held": held,
+           "collectives_per_step": issued, "nccl_kernels_per_step": prof["dp"]["nccl_per_step"],
+           "launches_per_step": {k: n / spc for k, n in prof["dp"]["per_replay"].items()},
+           "graph_ms_per_step": prof["dp"]["step_ms"],
+           "plain_ms_per_step": prof["plain"]["step_ms"], "busy_ms": prof["dp"]["busy_ms"],
+           "plain_busy_ms": prof["plain"]["busy_ms"], "captures_after_warmup": 0,
+           "seconds": round(time.monotonic() - t0, 1),
+           "seconds_split": {k: round(v, 1) for k, v in split.items()}}
+    print(f"[{tag}] world 1 over NCCL (--dp 1) vs no process group, {DP20_STEPS} steps as "
+          f"replays of {spc}: losses rel {loss_rel:.3g} of scale (tol {DP20_B_TOL}); state "
+          f"{held}; collectives per step, counted across the capture {issued} (= the plan; "
+          f"{prof['dp']['nccl_per_step']:.2f} NCCL kernels per step under the profiler); "
+          f"{prof['dp']['step_ms']:.3f} ms/step vs {prof['plain']['step_ms']:.3f} without dp; "
+          f"no capture after the warm-up; {res['seconds']} s {res['seconds_split']}", flush=True)
+    for t in (plain, dp):
+        close_trainer(t)
+    return res
+
+
+def dp20a_main(out_path: str) -> int:
+    """20b, one rank of ``torchrun --nproc_per_node 1``: ``--adv`` at the
+    flagship config, ``--mixture`` over two FewRel-format files and
+    ``--feature_cache`` at BERT-base, each through ``cli.make_trainer`` at
+    world size 1 over NCCL beside the same run without a group
+    (``dp20_pair``)."""
+    t0 = time.monotonic()
+    shutil.rmtree(DP20_DIR / "20b", ignore_errors=True)
+    spec = dp20_mix_files()
+    res = {"world": 1, "backend": "nccl"}
+    res["adv"] = dp20_pair("20b adv", DP20_ADV_ARGV, ADV_ON, ADV_PER_STEP)
+    res["mixture"] = dp20_pair("20b mixture", DP20_MIX_ARGV + ["--mixture", spec], DP_ON)
+    res["cache"] = dp20_pair("20b cache", DP20_CACHE_ARGV, OPTIM_ON)
+    res["seconds"] = round(time.monotonic() - t0, 1)
+    print(f"[20b] {res['seconds']} s", flush=True)
+    Path(out_path).write_text(json.dumps(res, default=str))
+    return 0
+
+
+def dp20_payload() -> dict:
+    """20c's world: the flagship adversarial step at f32 (3 global batches
+    of 4 episodes and 32 + 32 instances), the feature cache at BERT-base
+    f32 (a 10-relation split, 3 index batches of 4 episodes), and the
+    mixture through the CLI; weights from the seeds on every rank."""
+    from induction_network_on_fewrel_tpu_torch.models.build import instance_inputs
+    from induction_network_on_fewrel_tpu_torch.sampling.episodes import InstanceSampler
+    from induction_network_on_fewrel_tpu_torch.sampling.index import IndexEpisodeSampler
+
+    cfg = ExperimentConfig(compute_dtype="float32", adv=True)
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    tok = GloveTokenizer(vocab, max_length=cfg.max_length)
+    train_ds = cli.load_data(cfg, "train")
+    tgt_ds = make_synthetic_fewrel(num_relations=max(cfg.train_n, cfg.n) * 2,
+                                   instances_per_relation=max(cfg.k + cfg.q + 5, 20),
+                                   vocab_size=cfg.vocab_size - 2, seed=97)
+    ep = EpisodeSampler(train_ds, tok, cfg.train_n, cfg.k, cfg.q, batch_size=cfg.batch_size,
+                        seed=0)
+    src = InstanceSampler(train_ds, tok, cfg.adv_batch, seed=31)
+    tgt = InstanceSampler(tgt_ds, tok, cfg.adv_batch, seed=32)
+    adv = [batch_to_model_inputs(ep.sample_batch()) + (instance_inputs(src.sample_batch()),
+                                                       instance_inputs(tgt.sample_batch()))
+           for _ in range(DP20_C_STEPS)]
+    data = dict(num_relations=10, instances_per_relation=20, vocab_size=2000, seed=0)
+    sizes = [20] * 10
+    idx = IndexEpisodeSampler(sizes, cfg.train_n, cfg.k, cfg.q, batch_size=cfg.batch_size, seed=9)
+    cache = [tuple(idx.sample_batch()) for _ in range(DP20_C_STEPS)]
+    return {"adv": {"cfg": {"compute_dtype": "float32", "adv": True, "embed_optimizer": "sgd"},
+                    "weights": None, "disc_weights": None, "batches": adv, "device": "cuda",
+                    "cases": ["adv_monolithic", "adv_zero1"]},
+            "cache": {"cfg": {"compute_dtype": "float32", "encoder": "bert", "bert_frozen": True,
+                              "feature_cache": True}, "backbone": None, "head": None,
+                      "data": data, "encode_batch": 64, "batches": cache, "device": "cuda",
+                      "cases": ["cache"]},
+            "mixture": {"argv": DP20_C_MIX_ARGV, "picks": 64, "half": 2,
+                        "ckpt": str(DP20_DIR / "20c_ring")}}
+
+
+def np_err(got: dict, want: dict, tol: float) -> float:
+    """The largest |got - want| - tol |want| over the leaves (the measure of
+    np.testing.assert_allclose(atol=rtol=tol), which holds while it stays
+    within tol)."""
+    return max(np_errs(got, want, tol).values())
+
+
+def np_errs(got: dict, want: dict, tol: float) -> dict:
+    """``np_err``'s measure leaf by leaf."""
+    return {k: float(np.max(np.abs(got[k] - want[k]) - tol * np.abs(want[k]))) for k in want}
+
+
+def dp20b_main(out_path: str) -> int:
+    """20c, a rank of ``torchrun --nproc_per_node 2``: two gloo ranks on the
+    card, eager steps, f32; ``rig.more_cases`` on ``dp20_payload``: the
+    adversarial step (monolithic and ZeRO-1) and the feature cache held to
+    one process on the global batches (losses and parameters within
+    DP20_C_TOL, the discriminator's too; each rank's feature table equal
+    to the one process's), the replicas to each other and the collectives
+    to the plan on both ranks; the mixture's picks equal on both ranks and
+    its resume from the ring slot onto the uninterrupted stream."""
+    import torch.distributed as dist
+
+    from induction_network_on_fewrel_tpu_torch.parallel import rig
+    from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.monotonic()
+    torch.cuda.set_device(0)
+    maybe_initialize_distributed(backend="gloo", timeout_s=120)
+    mesh = make_mesh()
+    if mesh.rank == 0:
+        shutil.rmtree(DP20_DIR / "20c_ring", ignore_errors=True)
+    dist.barrier()
+    payload = dp20_payload()
+    zero_kernel_counts()
+    with contextlib.redirect_stderr(io.StringIO()):
+        got = rig.more_cases(payload, mesh)
+    counts = kernel_counts()
+    other = [None, None]
+    dist.gather_object(got, other if mesh.rank == 0 else None, dst=0)
+    if mesh.rank != 0:
+        return 0
+    ref = rig.more_cases({k: payload[k] for k in ("adv", "cache")}, None)
+    res = {"world": 2, "backend": "gloo", "device": torch.cuda.get_device_name(0),
+           "steps": DP20_C_STEPS, "cases": {}}
+    for part, keys, trees in (("adv", ("loss", "domain_loss"), ("params", "disc_params")),
+                              ("cache", ("loss",), ("params",))):
+        want = next(iter(ref[part].values()))
+        for case, r in got[part].items():
+            loss_err = max(float(np.abs(np.array(r[k]) - want[k]).max()) for k in keys)
+            errs = {f"{t}/{k}": v for t in trees
+                    for k, v in np_errs(r[t], want[t], DP20_C_TOL).items()}
+            worst = max(errs, key=errs.get)
+            param_err = errs[worst]
+            ranks_equal = all(np.array_equal(r[t][k], other[1][part][case][t][k])
+                              for t in trees for k in r[t])
+            issued_ok = all(o[part][case]["issued_per_step"] == o[part][case]["plan"]
+                            for o in other)
+            row = {"loss_abs_err": loss_err, "param_err": param_err, "worst_leaf": worst,
+                   "ranks_equal": ranks_equal,
+                   "collectives_per_step": r["issued_per_step"], "eager_s": r["seconds"]}
+            if part == "cache":
+                row["table_equal"] = all(np.array_equal(o[part][case]["table"], want["table"])
+                                         for o in other)
+            if loss_err > DP20_C_TOL or param_err > DP20_C_TOL or not ranks_equal \
+                    or not issued_ok or not row.get("table_equal", True):
+                raise AssertionError(f"20c {case}: {row}, plan {r['plan']}")
+            res["cases"][case] = row
+            print(f"[20c] {case}: two gloo ranks on the card vs one process on the global "
+                  f"batch, {DP20_C_STEPS} steps: losses within {loss_err:.3g}, parameters "
+                  f"{param_err:.3g} ({worst}; tol {DP20_C_TOL}); replicas equal"
+                  + ("; each rank's feature table equals the one process's" if part == "cache"
+                     else "")
+                  + f"; collectives per step on both ranks {r['issued_per_step']} (= the plan)",
+                  flush=True)
+    mixes = [o["mixture"] for o in other]
+    mix_err = max(np_err(m["resumed"]["params"], m["whole"]["params"], DP20_C_TOL)
+                  for m in mixes)
+    if mixes[0]["picks"] != mixes[1]["picks"] or mixes[0]["seed"] != mixes[1]["seed"] \
+            or any(m["resumed"]["stream"] != m["whole"]["stream"] for m in mixes) \
+            or mix_err > DP20_C_TOL or any(
+                not np.array_equal(mixes[0]["whole"]["params"][k], mixes[1]["whole"]["params"][k])
+                for k in mixes[0]["whole"]["params"]):
+        raise AssertionError(f"20c mixture: picks equal {mixes[0]['picks'] == mixes[1]['picks']}, "
+                             f"streams {[m['resumed']['stream'] == m['whole']['stream'] for m in mixes]}, "
+                             f"resumed params {mix_err:.3g}")
+    res["mixture"] = {"picks_equal": True, "counts": mixes[0]["counts"],
+                      "resumed_param_err": mix_err, "stream_equal": True}
+    print(f"[20c] mixture through cli.make_trainer: both ranks pick the same source for the "
+          f"first 64 batches (served {mixes[0]['counts']}); each rank's run resumed from the "
+          f"ring slot at step 2 ends on the uninterrupted run's stream state, its parameters "
+          f"within {mix_err:.3g} (tol {DP20_C_TOL}); replicas equal", flush=True)
+    res["launches"] = {k: v for k, v in counts.items() if v}
+    res["seconds"] = round(time.monotonic() - t0, 1)
+    print(f"[20c] rank 0 wrapper launches (eager: every call launches) {res['launches']}; "
+          f"{res['seconds']} s", flush=True)
+    Path(out_path).write_text(json.dumps(res, default=str))
+    return 0
+
+
+def dp_phases(smi: str, want19: bool, want20: bool) -> tuple:
+    """Phases 19 and 20 (the ``{"dp": ...}`` and ``{"dp20": ...}`` results,
+    None for a phase not asked for): 20a in this process, then one
+    torchrun child at world size 1 over NCCL for 19a and 20b and one of
+    two gloo ranks for 19b and 20c; this process never joins a process
+    group."""
+    t0 = time.monotonic()
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    DP20_DIR.mkdir(parents=True, exist_ok=True)
+    a20 = serving_dp_phase(smi) if want20 else None
+    t_a = time.monotonic()
+    nccl = dp_child(["19a"] * want19 + ["20a"] * want20, 1)
+    gloo = dp_child(["19b"] * want19 + ["20b"] * want20, 2)
+    seconds = round(time.monotonic() - t0, 1)
+    dp19 = dp20 = None
+    if want19:
+        dp19 = {"card": smi, "a_nccl_world1": nccl["19a"], "b_gloo_world2": gloo["19b"]}
+    if want20:
+        dp20 = {"card": smi, "a_serving_dp": a20, "b_nccl_world1": nccl["20a"],
+                "c_gloo_world2": gloo["20b"], "seconds_20a": round(t_a - t0, 1)}
+    print(f"[dp] phases {'19 ' * want19}{'20' * want20}: {seconds} s (two torchrun "
+          f"children; 20a in process {round(t_a - t0, 1)} s; targets {DP_SECONDS} s and "
+          f"{DP20_SECONDS} s; {smi})", flush=True)
+    for d in (dp19, dp20):
+        if d is not None:
+            d["seconds_with_shared_children"] = seconds
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    shutil.rmtree(DP20_DIR, ignore_errors=True)
+    return dp19, dp20
 
 def main(phases: set | None = None) -> int:
     if not torch.cuda.is_available():
@@ -6879,9 +7449,16 @@ def main(phases: set | None = None) -> int:
     shutil.rmtree(TOOLS_DIR, ignore_errors=True)
 
     # 19. Data parallel: world size 1 over NCCL (captured), two gloo ranks on
-    # the card (eager); the ranks are child processes
-    if on("19"):
-        dp19 = done["dp"] = dp_phase(smi)
+    # the card (eager); the ranks are child processes. 20. The rest of data
+    # parallel: the dp-sharded serving engine (in this process), --adv,
+    # --mixture and --feature_cache at world size 1 over NCCL (captured) and
+    # on two gloo ranks on the card (eager), in the same two children.
+    if on("19") or on("20"):
+        dp19, dp20 = dp_phases(smi, on("19"), on("20"))
+        if on("19"):
+            done["dp"] = dp19
+        if on("20"):
+            done["dp20"] = dp20
 
     if phases is not None:
         # A selected run: each phase's own line, then the final lines.
@@ -7079,6 +7656,11 @@ def main(phases: set | None = None) -> int:
         k["launches_tools"] = tools_launches.get(key, 0)
         k["launches_dp_19a_per_step"] = dp19["a_nccl_world1"]["launches_per_step"].get(key, 0.0)
         k["launches_dp_19b_per_step"] = dp19["b_gloo_world2"]["launches_per_step"].get(key, 0.0)
+        k["launches_serving_dp"] = dp20["a_serving_dp"]["launches"].get(key, 0)
+        k["launches_dp_20"] = {
+            **{f"{p}_per_step": dp20["b_nccl_world1"][p]["launches_per_step"].get(key, 0.0)
+               for p in ("adv", "mixture", "cache")},
+            "gloo_20c": dp20["c_gloo_world2"]["launches"].get(key, 0)}
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -7109,6 +7691,7 @@ def main(phases: set | None = None) -> int:
     print(json.dumps({"load": load17}, default=str), flush=True)
     print(json.dumps({"tools": tools18}, default=str), flush=True)
     print(json.dumps({"dp": dp19}, default=str), flush=True)
+    print(json.dumps({"dp20": dp20}, default=str), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7123,7 +7706,7 @@ def main(phases: set | None = None) -> int:
 PHASE_NEEDS = {"1": (), "2": (), "3": (), "4": (), "6": ("4",), "6b": (), "7": ("6",), "8": (),
                "9": (), "10": ("9",), "9c": (), "9d": ("9c",), "9e": ("9c",), "4b": ("9",),
                "4c": ("9",), "4a": ("9",), "11": ("9c",), "14": ("9", "11"), "13": ("9c",),
-               "15": (), "16": (), "17": (), "18": (), "19": ()}
+               "15": (), "16": (), "17": (), "18": (), "19": (), "20": ()}
 PHASE_ALIASES = {"5": "4", "6c": "6", "6d": "6"}
 
 
@@ -7157,6 +7740,6 @@ def parse_phases(argv: list) -> set | None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--sweep"]:
         sys.exit(sweep_main())
-    if len(sys.argv) == 3 and sys.argv[1] in ("--dp19a", "--dp19b"):
-        sys.exit((dp19a_main if sys.argv[1] == "--dp19a" else dp19b_main)(sys.argv[2]))
+    if len(sys.argv) >= 3 and sys.argv[1][len("--dp"):] in DP_PARTS:
+        sys.exit(dp_child_main(sys.argv[1:]))
     sys.exit(main(parse_phases(sys.argv[1:])))

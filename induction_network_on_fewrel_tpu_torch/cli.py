@@ -101,8 +101,11 @@ joins the process group (NCCL on ``cuda:LOCAL_RANK``; gloo with
 ``--device cpu``), samples its own ``B/N`` episodes and averages the
 gradients with the others (``parallel/``); rank 0 alone logs, writes the
 checkpoints and prints the result. Without a launcher ``--dp`` 0 or 1 is
-the one-process run. ``--adv``, ``--feature_cache``, ``--mixture`` and MoE
-under a mesh are refused by name (``dp_mesh``).
+the one-process run. ``--adv`` (each rank on ``adv_batch/N`` source and
+target instances, the discriminator's gradients averaged too),
+``--feature_cache`` (each rank encodes the whole table) and ``--mixture``
+(every rank picks the same source for batch i; each draws its own rows)
+run under a mesh; MoE there is refused by name (``dp_mesh``; item 6d).
 
 Runs on the GPU by default and refuses to start without CUDA unless
 ``--device cpu`` is given.
@@ -648,18 +651,15 @@ def bert_backbone_model(cfg, device):
     return model
 
 
-NEXT_DP_SLICE = "the next slice of ROADMAP queue A item 5"
-
-
 def dp_mesh(args, cfg):
     """The run's dp mesh, or None for one process (the JAX ``use_mesh``).
     Launched by torchrun, every rank joins the process group
     (``parallel.distributed``: NCCL on the card, gloo with ``--device cpu``)
     and the mesh is the whole world or ``--dp`` ranks of it; without a
     launcher ``--dp`` 0 or 1 is the single-process run and more raises.
-    Refused by name under a mesh: what comes with the next slice (``--adv``,
-    ``--feature_cache``, ``--mixture``), MoE, the live lazy path, and a
-    batch that does not divide over the ranks (the JAX text)."""
+    Refused by name under a mesh: MoE (item 6d), the live lazy path, and an
+    episode batch or an ``--adv`` instance batch that does not divide over
+    the ranks (the JAX text)."""
     from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
         maybe_initialize_distributed,
     )
@@ -669,10 +669,6 @@ def dp_mesh(args, cfg):
     if not maybe_initialize_distributed(device=args.device) and cfg.dp in (0, 1):
         return None
     mesh = make_mesh(dp=cfg.dp or None)
-    for flag, on in (("--adv", cfg.adv), ("--feature_cache", cfg.feature_cache),
-                     ("--mixture", bool(cfg.mixture))):
-        if on:
-            raise ValueError(f"{flag} under data parallel comes with {NEXT_DP_SLICE}")
     check_moe(cfg)
     if cfg.embed_optimizer == "lazy" and not cfg.token_cache:
         raise ValueError(
@@ -687,6 +683,11 @@ def dp_mesh(args, cfg):
             f"over dp); try --batch_size {((cfg.batch_size // dp) + 1) * dp} "
             f"or --dp {cfg.batch_size}"
         )
+    if cfg.adv and cfg.adv_batch % dp != 0:
+        raise ValueError(
+            f"--adv_batch {cfg.adv_batch} must be divisible by the data-parallel mesh axis "
+            f"dp={dp} (the source and target instances are sharded over dp); try "
+            f"--adv_batch {((cfg.adv_batch // dp) + 1) * dp}")
     return mesh
 
 
@@ -706,7 +707,8 @@ def make_trainer(args, cfg, only_test: bool = False, mesh=None):
 
     The train sampler is ``--sampler``'s (auto: the C++ sampler, with its
     ring of ``--prefetch`` batches on the live token path), or a
-    ``MixtureSampler`` of ring-free children under ``--mixture``, wrapped in
+    ``MixtureSampler`` of ring-free children under ``--mixture`` (under a
+    mesh the rank's own children behind one ``PerRankSampler``), wrapped in
     a ``PipelineFeed`` of depth ``--prefetch_depth`` (units of
     steps_per_call batches where the sampler fills fused blocks) with the
     ``--feed_fault`` plan. Val and test samplers are synchronous and, under
@@ -761,11 +763,11 @@ def make_trainer(args, cfg, only_test: bool = False, mesh=None):
     def seeded(seed):
         return seed if mesh is None else process_seed(seed, mesh.rank)
 
-    def live(ds, n, seed, train=False, prefetch=0):
-        return per_rank(make_sampler(ds, tok, n, cfg.k, cfg.q, batch_size=batch,
-                                     na_rate=cfg.na_rate, seed=seeded(seed), backend=cfg.sampler,
-                                     prefetch=prefetch, num_threads=cfg.sampler_threads,
-                                     eval=not train))
+    def live(ds, n, seed, train=False, prefetch=0, local=False):
+        sampler = make_sampler(ds, tok, n, cfg.k, cfg.q, batch_size=batch, na_rate=cfg.na_rate,
+                               seed=seeded(seed), backend=cfg.sampler, prefetch=prefetch,
+                               num_threads=cfg.sampler_threads, eval=not train)
+        return sampler if local else per_rank(sampler)
 
     datasets = {}
 
@@ -791,7 +793,7 @@ def make_trainer(args, cfg, only_test: bool = False, mesh=None):
     train_s, train_t = split_of("train", cfg.train_n, cfg.seed, train=True,
                                 lazy=cfg.embed_optimizer == "lazy")
     if cfg.mixture:
-        train_s = mixture_sampler(cfg, args, train_s, live)
+        train_s = mixture_sampler(cfg, args, train_s, live, mesh)
     # The adversarial loop draws single batches (the JAX draw order).
     unit = cfg.steps_per_call if cfg.steps_per_call > 1 and hasattr(train_s, "sample_fused") \
         and not cfg.adv else 1
@@ -799,7 +801,7 @@ def make_trainer(args, cfg, only_test: bool = False, mesh=None):
                            faults=FeedFaults.parse(cfg.feed_fault),
                            stream_tag=f"mixture={cfg.mixture};seed={cfg.seed}")
     val_s, val_t = split_of("val", cfg.n, cfg.seed + 1)
-    adv = adv_pieces(args, cfg, tok, datasets["train"], model) if cfg.adv else None
+    adv = adv_pieces(args, cfg, tok, datasets["train"], model, mesh) if cfg.adv else None
     run_dir = args.run_dir or args.save_ckpt
     if rank0:
         logger = MetricsLogger(run_dir, tensorboard_dir=args.tensorboard)
@@ -865,11 +867,13 @@ def close_telemetry(trainer) -> None:
         trainer.recorder.uninstall_sigterm_handler()
 
 
-def adv_pieces(args, cfg, tok, train_ds, model):
+def adv_pieces(args, cfg, tok, train_ds, model, mesh=None):
     """The adversarial loop's ``AdvPieces``: the target domain (``--adv``'s
     FewRel-schema file, or for bare ``--adv`` the JAX package's synthetic
     target, seed 97), a fresh discriminator (``init_disc_state``) and the
-    source and target ``InstanceSampler``s (seeds seed+31 and seed+32)."""
+    source and target ``InstanceSampler``s (seeds seed+31 and seed+32).
+    Under a dp ``mesh`` the samplers are this rank's: ``adv_batch/dp``
+    instances a batch, their seeds through ``process_seed``."""
     from induction_network_on_fewrel_tpu_torch.data import load_fewrel_json, make_synthetic_fewrel
     from induction_network_on_fewrel_tpu_torch.models.build import encoder_output_dim
     from induction_network_on_fewrel_tpu_torch.sampling.episodes import InstanceSampler
@@ -887,22 +891,37 @@ def adv_pieces(args, cfg, tok, train_ds, model):
             num_relations=max(cfg.train_n, cfg.n) * 2,
             instances_per_relation=max(cfg.k + cfg.q + 5, 20),
             vocab_size=cfg.vocab_size - 2, seed=97)
+    rows, seeded = cfg.adv_batch, (lambda seed: seed)
+    if mesh is not None:
+        from induction_network_on_fewrel_tpu_torch.parallel.hostfeed import process_seed
+
+        rows, seeded = cfg.adv_batch // mesh.dp, (lambda seed: process_seed(seed, mesh.rank))
     return AdvPieces(
         disc=init_disc_state(cfg, encoder_output_dim(cfg), model.device),
-        src_sampler=InstanceSampler(train_ds, tok, cfg.adv_batch, seed=cfg.seed + 31),
-        tgt_sampler=InstanceSampler(tgt_ds, tok, cfg.adv_batch, seed=cfg.seed + 32))
+        src_sampler=InstanceSampler(train_ds, tok, rows, seed=seeded(cfg.seed + 31)),
+        tgt_sampler=InstanceSampler(tgt_ds, tok, rows, seed=seeded(cfg.seed + 32)))
 
 
-def mixture_sampler(cfg, args, train_sampler, live):
+def mixture_sampler(cfg, args, train_sampler, live, mesh=None):
     """The ``--mixture`` schedule's ``MixtureSampler``: ``train`` is the run's
     train sampler (built without the C++ ring: the feed is the pipeline),
     ``synthetic[:SEED]`` a synthetic split (seed 83 by default) and any
     other source a FewRel-schema JSON file; each other source's stream is
-    seeded by its position (seed + 1000 + i)."""
+    seeded by its position (seed + 1000 + i).
+
+    Under a dp ``mesh`` every rank builds the mixture with the same seed,
+    so all ranks pick the same source for batch i (the meaning of the JAX
+    one-process mesh, where the whole batch comes from one source); each
+    child is the rank's own ``B/dp``-episode sampler from its
+    ``process_seed`` stream, and the mixture sits behind one
+    ``PerRankSampler``, whose ``feed_state`` carries the mixture's index
+    and the children's states."""
     from induction_network_on_fewrel_tpu_torch.data import load_fewrel_json, make_synthetic_fewrel
     from induction_network_on_fewrel_tpu_torch.datapipe import MixtureSampler, MixtureSchedule
 
     schedule = MixtureSchedule.parse(cfg.mixture)
+    if mesh is not None:
+        train_sampler = train_sampler.local
     if "train" not in schedule.names and hasattr(train_sampler, "close"):
         train_sampler.close()
     children = []
@@ -918,8 +937,14 @@ def mixture_sampler(cfg, args, train_sampler, live):
                 vocab_size=cfg.vocab_size - 2, seed=int(sseed or 83))
         else:
             ds = load_fewrel_json(name)
-        children.append((name, live(ds, cfg.train_n, cfg.seed + 1000 + i, train=True)))
-    return MixtureSampler(children, schedule, seed=cfg.seed)
+        children.append((name, live(ds, cfg.train_n, cfg.seed + 1000 + i, train=True,
+                                    local=True)))
+    mixture = MixtureSampler(children, schedule, seed=cfg.seed)
+    if mesh is None:
+        return mixture
+    from induction_network_on_fewrel_tpu_torch.parallel.hostfeed import PerRankSampler
+
+    return PerRankSampler(mixture, cfg.batch_size)
 
 
 def print_result(metrics: dict, key: str) -> None:

@@ -59,8 +59,8 @@ def restore_sampler_state(sampler, state: dict, skip: int = 0) -> None:
 
 
 def current_layout(batch: int) -> dict:
-    """The layout fingerprint of this process (one process holds the whole
-    batch until the multi-card modes, ROADMAP queue A item 5)."""
+    """The layout fingerprint of this process: its rank and the world size
+    under data parallel (each rank's stream is its own), else 0 and 1."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():

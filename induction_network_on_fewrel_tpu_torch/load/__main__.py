@@ -24,6 +24,7 @@ import numpy as np
 from induction_network_on_fewrel_tpu_torch.load.harness import (
     build_engine,
     build_slo,
+    check_serving_dp,
     drive_one,
     engine_params,
     make_synthetic_checkpoint,
@@ -412,6 +413,7 @@ def generator_mode(args, ckpt, logger, recorder, capture) -> int:
 def main(argv=None) -> int:
     args = parse_args(argv)
     require_device(args.device)
+    check_serving_dp(args)
     tmp = None
     ckpt = args.ckpt
     if ckpt is None and not (args.adapt_drill or args.recovery_drill or args.elastic_drill

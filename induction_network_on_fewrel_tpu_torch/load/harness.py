@@ -11,8 +11,9 @@ Deltas from the JAX tool:
 
 * ``--device`` takes ``cuda | cpu`` (JAX: ``cpu | tpu``), default
   ``cuda``; without CUDA an entry point refuses to start
-  (``require_device``). ``--serving_dp`` is refused by name with its
-  ROADMAP item (``models/build.py:LATER_ITEMS["dp"]``).
+  (``require_device``). ``--serving_dp N`` reaches the engine's ``dp``
+  (``build_engine``); more than the visible cards exits 2 with the JAX
+  "exceeds the visible devices" text (``check_serving_dp``).
 * The port's engine holds its weights in its model (the registry's
   parameter banks), not beside it: ``engine_params`` reads the active
   bank's state_dict where the JAX tool passes ``engine.params``.
@@ -35,14 +36,10 @@ import time
 
 import numpy as np
 
-from induction_network_on_fewrel_tpu_torch.models.build import LATER_ITEMS
-
 DESCRIPTION = ("Serving load generator: multi-tenant closed/open-loop traffic against the "
                "port's inference engine, with a continuous-vs-microbatch scheduler A/B, a "
                "hot-swap-under-load drill and the burn, drift, chaos, fleet, recovery, "
                "elastic, fleet-obs, adapt, quant and geometry drills")
-# Flags refused by name (rc 2) unless left at their JAX default.
-DEFERRED = {"--serving_dp": LATER_ITEMS["dp"]}
 
 
 def parse_args(argv=None):
@@ -75,7 +72,7 @@ def parse_args(argv=None):
     p.add_argument("--deadline_ms", type=float, default=1000.0)
     p.add_argument("--batch_window_ms", type=float, default=2.0)
     p.add_argument("--serving_dp", type=int, default=None,
-                   help="not ported: refused with its ROADMAP item")
+                   help="dp-shard query scoring over this many cards")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="default: the GPU (refuses to start without CUDA)")
     p.add_argument("--run_dir", default=None,
@@ -126,9 +123,6 @@ def parse_args(argv=None):
                    help="also take a torch.profiler trace in the SLO auto-capture")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    for flag, why in DEFERRED.items():
-        if getattr(args, flag.lstrip("-")) is not None:
-            p.error(f"{flag} is not ported yet: it comes with {why}")
     for flag in ("burn_drill", "drift_drill", "chaos_drill", "adapt_drill"):
         if getattr(args, flag) and not args.run_dir:
             p.error(f"--{flag} needs --run_dir (captures land there)")
@@ -136,6 +130,19 @@ def parse_args(argv=None):
         p.error("--fleet_obs_drill needs --run_dir (the fleet's multi-stream layout "
                 "lands there)")
     return args
+
+
+def check_serving_dp(args) -> None:
+    """Exit 2 when ``--serving_dp`` asks for more cards than are visible
+    (the engine's own error, before any checkpoint is built)."""
+    if args.serving_dp is not None and args.serving_dp > 1:
+        from induction_network_on_fewrel_tpu_torch.serving.buckets import make_serving_mesh
+
+        try:
+            make_serving_mesh(args.serving_dp)
+        except ValueError as e:
+            print(f"error: --serving_dp {args.serving_dp}: {e}", file=sys.stderr)
+            raise SystemExit(2) from None
 
 
 def require_device(device: str | None):
@@ -206,9 +213,10 @@ def build_engine(args, ckpt: str, scheduler: str, logger=None, slo=None, drift=N
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         max_queue_depth=args.queue_depth, batch_window_s=args.batch_window_ms / 1e3,
         default_deadline_s=args.deadline_ms / 1e3, scheduler=scheduler,
-        tenant_share=args.tenant_share, logger=logger, slo=slo, drift=drift,
-        breaker=breaker, trace_sample=args.trace_sample, resident_dtype=resident_dtype,
-        quant_probe_every=quant_probe_every, geometry_tiers=geometry_tiers,
+        tenant_share=args.tenant_share, dp=args.serving_dp, logger=logger, slo=slo,
+        drift=drift, breaker=breaker, trace_sample=args.trace_sample,
+        resident_dtype=resident_dtype, quant_probe_every=quant_probe_every,
+        geometry_tiers=geometry_tiers,
     )
 
 

@@ -138,13 +138,6 @@ def check_kernel_widths(cfg: ExperimentConfig, device) -> None:
 # The JAX package's sharded executors: the ROADMAP queue A item that brings
 # them (the CLI refuses --ep, --pp and --sp above 1 by name with these).
 SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention, pp, ep)"
-# The ROADMAP queue A items both CLIs name when they refuse a flag of a
-# later slice (``cli.py:DEFERRED``, ``serving/cli.py:DEFERRED``).
-LATER_ITEMS = {
-    "dp": ("ROADMAP queue A item 5, its serving half (the serving engine's dp mesh, "
-           "serving --dp, and the load tool's --serving_dp): the next slice; the train/test "
-           "CLI's data parallel is ported"),
-}
 LATER_SLICE = {
     "ep": SHARDED + "; --ep 1 runs the MoE FFN on one card",
     "pp": SHARDED + "; --pp 1 with --tfm_stacked runs the layer-stacked transformer on one card",

@@ -1,4 +1,4 @@
-"""Data parallel over ``torch.distributed`` (ROADMAP queue A item 5).
+"""Data parallel over ``torch.distributed``.
 
 Counterpart of ``induction_network_on_fewrel_tpu/parallel/`` for dp:
 ``distributed`` (the process group from the launcher's environment),

@@ -102,9 +102,11 @@ class GradReducer:
     """The mean over ``mesh``'s ranks of the gradients of ``named`` ((name,
     leaf) pairs), in buckets. ``rows``: the compact rows leaf (name, leaf)
     or None; it joins the last bucket when bucketed, else is reduced on
-    its own. ``arm()`` before the backward, ``finish()`` after it."""
+    its own. ``prefix`` heads every label (the discriminator's reducer:
+    "disc/"). ``arm()`` before the backward, ``finish()`` after it."""
 
-    def __init__(self, named: list, mesh, n_buckets: int, overlap: bool, rows=None):
+    def __init__(self, named: list, mesh, n_buckets: int, overlap: bool, rows=None,
+                 prefix: str = ""):
         self.group, self.world = mesh.group, mesh.dp
         self.overlap = bool(overlap and n_buckets > 0)
         plan: dict = {}
@@ -115,8 +117,9 @@ class GradReducer:
         if rows is not None:
             b = bucket_index(ROWS_PATH, n) if n_buckets else n      # its own, after all
             plan.setdefault(b, []).append(rows[1])
-        self.labels = [(f"grad/bucket_{b}" if n_buckets else
-                        "demb/compact_allreduce" if b == n else "grad/all") for b in sorted(plan)]
+        self.labels = [prefix + (f"grad/bucket_{b}" if n_buckets else
+                                 "demb/compact_allreduce" if b == n else "grad/all")
+                       for b in sorted(plan)]
         self.members = [plan[b] for b in sorted(plan)]
         self.bufs = []
         self.slots: dict = {}

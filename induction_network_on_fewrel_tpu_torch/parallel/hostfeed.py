@@ -14,9 +14,11 @@ averaged over the ranks (``parallel/grad_buckets.py``).
 * ``process_seed``: rank 0 keeps the seed (a one-rank run draws the
   single-process stream), rank p > 0 a splitmix64 avalanche of (seed, p).
 * ``PerRankSampler``: wraps the rank-local sampler (the C++ sampler of
-  ``sampling/native.py``, an index sampler, or a numpy one) and reports the
-  GLOBAL batch size, which the trainer counts episodes by; its position
-  lives in the local sampler and rides in every checkpoint slot.
+  ``sampling/native.py``, an index sampler, a numpy one, or a
+  ``MixtureSampler`` of the rank's children, ``cli.mixture_sampler``) and
+  reports the GLOBAL batch size, which the trainer counts episodes by;
+  its position lives in the local sampler and rides in every checkpoint
+  slot.
 """
 
 from __future__ import annotations

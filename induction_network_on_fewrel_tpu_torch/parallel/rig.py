@@ -8,6 +8,16 @@ that fails fails the call with its traceback; ranks still running at the
 deadline are killed, and the call raises. Nothing waits unbounded: the
 rendezvous and every collective get the same timeout.
 
+``dp_more_cases`` runs, under the world's dp mesh, the adversarial step
+(``ADV_CASES``: monolithic, bucketed, ZeRO-1) from given model and
+discriminator weights on given global (episode, source, target) batches,
+each rank on its rows of each; the feature cache (``CACHE_CASES``), each
+rank encoding the whole table with the given backbone and training the
+head on its rows of given index batches; and ``--mixture`` through
+``cli.make_trainer`` (the picks, the children's seeds, and a resume from
+the ring slot against the uninterrupted run). ``more_cases(payload,
+None)`` is the one-process reference of the first two.
+
 ``dp_cases`` runs the token-cache lazy training step under several dp
 spellings from the same weights on the same global batches (each rank
 steps on its own rows of every batch) and returns each case's losses,
@@ -246,3 +256,198 @@ def dp_cases(rank: int, world: int, payload: dict) -> dict:
     from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
 
     return run_cases(payload, make_mesh(dp=world))
+
+
+# --- the adversarial, feature-cache and mixture cases ---------------------------
+
+# The adversarial step's dp spellings (config keywords of each case).
+ADV_CASES = {
+    "adv_monolithic": dict(grad_bucketing="off"),
+    "adv_bucketed": dict(grad_bucketing="on"),
+    "adv_zero1": dict(grad_bucketing="off", zero_opt=True),
+}
+# The feature cache's: the head-only state reduced whole, and under ZeRO-1.
+CACHE_CASES = {
+    "cache": dict(grad_bucketing="off"),
+    "cache_zero1": dict(grad_bucketing="off", zero_opt=True),
+}
+
+
+def _rows_of(x, lo: int, n: int):
+    if isinstance(x, dict):
+        return {k: np.asarray(v)[lo:lo + n] for k, v in x.items()}
+    return np.asarray(x)[lo:lo + n]
+
+
+def local_adv_rows(batch, mesh) -> tuple:
+    """This rank's rows of a global (support, query, label, src, tgt)
+    batch: its episodes, and its rows of each instance batch."""
+    if mesh is None:
+        return batch
+    from induction_network_on_fewrel_tpu_torch.parallel.hostfeed import local_episode_range
+
+    lo, n = local_episode_range(mesh, len(batch[2]))
+    ilo, m = local_episode_range(mesh, len(batch[3]["word"]))
+    return tuple(_rows_of(x, lo, n) for x in batch[:3]) + tuple(
+        _rows_of(x, ilo, m) for x in batch[3:])
+
+
+def _dp_metrics(step, batches, rows_of, mesh, keys: tuple, dp) -> dict:
+    """Run ``step`` on this rank's rows of every batch: each key's values
+    per step and, under a mesh, the collectives each step issued beside the
+    plan."""
+    from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import COLLECTIVES
+
+    out = {k: [] for k in keys}
+    issued: collections.Counter = collections.Counter()
+    t0 = time.monotonic()
+    for batch in batches:
+        before = collections.Counter(COLLECTIVES)
+        m = step(*rows_of(batch, mesh))
+        issued += COLLECTIVES - before
+        for k in keys:
+            out[k].append(float(m[k]))
+    out["seconds"] = time.monotonic() - t0
+    if dp is not None:
+        out["plan"] = dp.plan()
+        out["issued_per_step"] = {k: n / len(batches) for k, n in issued.items()}
+    return out
+
+
+def run_adv_case(payload: dict, overrides: dict, mesh) -> dict:
+    """The adversarial step (``train/steps.make_adv_train_step``) on
+    ``payload["batches"]`` from the payload's model and discriminator
+    weights: losses, domain losses, gradient norms, the final model and
+    discriminator parameters and, under a mesh, the collectives."""
+    from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.models.build import build_model, encoder_output_dim
+    from induction_network_on_fewrel_tpu_torch.parallel.sharding import DataParallel
+    from induction_network_on_fewrel_tpu_torch.train.steps import (
+        init_disc_state,
+        make_adv_train_step,
+        make_optimizer,
+    )
+
+    device = torch.device(payload.get("device", "cpu"))
+    cfg = ExperimentConfig(**{**payload["cfg"], **overrides})
+    model = build_model(cfg, device=device)
+    if payload.get("weights") is not None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in payload["weights"].items()})
+    disc = init_disc_state(cfg, encoder_output_dim(cfg), device)
+    if payload.get("disc_weights") is not None:
+        disc.module.load_state_dict({k: torch.as_tensor(v)
+                                     for k, v in payload["disc_weights"].items()})
+    opt = make_optimizer(cfg, model)
+    dp = DataParallel(model, opt, cfg, mesh, disc=disc.opt) if mesh is not None else None
+    step = make_adv_train_step(model, opt, disc, cfg, dp=dp)
+    out = _dp_metrics(step, payload["batches"], local_adv_rows, mesh,
+                      ("loss", "domain_loss", "accuracy", "domain_accuracy", "grad_norm"), dp)
+    out.update(params=numpy_state(model), disc_params=numpy_state(disc.module))
+    if opt.zero is not None:
+        out["zero_shards"] = len(opt.zero.shards)
+    return out
+
+
+def run_cache_case(payload: dict, overrides: dict, mesh) -> dict:
+    """The feature cache: this process encodes the whole table with the
+    payload's backbone weights (``build_feature_table``; None: the seed's),
+    then trains the head from its weights (None: the seed's) on
+    ``payload["batches"]`` (index batches) through
+    ``make_train_step`` over the table: losses, the final head parameters,
+    the table and, under a mesh, the collectives."""
+    from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.data import BertTokenizer, make_synthetic_fewrel
+    from induction_network_on_fewrel_tpu_torch.models.build import build_model
+    from induction_network_on_fewrel_tpu_torch.parallel.sharding import DataParallel
+    from induction_network_on_fewrel_tpu_torch.train.feature_cache import build_feature_table
+    from induction_network_on_fewrel_tpu_torch.train.steps import make_optimizer, make_train_step
+
+    device = torch.device(payload.get("device", "cpu"))
+    cfg = ExperimentConfig(**{**payload["cfg"], **overrides})
+    backbone = build_model(cfg.replace(feature_cache=False), device=device)
+    if payload.get("backbone") is not None:
+        backbone.load_state_dict({k: torch.as_tensor(v) for k, v in payload["backbone"].items()})
+    tok = BertTokenizer(cfg.max_length, vocab_size=cfg.bert_vocab_size)
+    table = build_feature_table(backbone, make_synthetic_fewrel(**payload["data"]), tok,
+                                batch_size=payload.get("encode_batch", 256))
+    head = build_model(cfg, device=device)
+    if payload.get("head") is not None:
+        head.load_state_dict({k: torch.as_tensor(v) for k, v in payload["head"].items()})
+    opt = make_optimizer(cfg, head)
+    dp = DataParallel(head, opt, cfg, mesh) if mesh is not None else None
+    step = make_train_step(head, opt, cfg, source=table, dp=dp)
+    out = _dp_metrics(step, payload["batches"], local_rows, mesh, ("loss", "grad_norm"), dp)
+    out.update(params=numpy_state(head), table=table.table.cpu().numpy(), sizes=table.sizes)
+    return out
+
+
+def mixture_case(payload: dict, mesh) -> dict:
+    """``--mixture`` through ``cli.make_trainer`` under ``mesh``: the
+    mixture's seed and its picks for the first ``picks`` batches, each
+    child's stream state before its first draw, then an uninterrupted run
+    of ``2 * half`` steps beside a run of ``half`` steps that saves its ring
+    slot and a fresh trainer that resumes from it for ``half`` more: each
+    one's final parameters and train-stream state, and the batches each
+    child served."""
+    from induction_network_on_fewrel_tpu_torch import cli
+
+    half = payload["half"]
+
+    def trainer(save=None):
+        argv = payload["argv"] + ["--dp", str(mesh.dp if mesh is not None else 0)]
+        args = cli.parse_args(True, argv + (["--save_ckpt", save] if save else []))
+        cfg = cli.config_from_args(args)
+        return cli.make_trainer(args, cfg, mesh=cli.dp_mesh(args, cfg) if mesh else None)[0]
+
+    def mixture_of(t):
+        base = t.train_sampler.base
+        return base.local if mesh is not None else base
+
+    out: dict = {}
+    whole = trainer()
+    mix = mixture_of(whole)
+    out["seed"] = mix.seed
+    out["picks"] = [mix.schedule.pick(mix.seed, i) for i in range(payload["picks"])]
+    out["child_states"] = {name: ch.feed_state() for name, ch in mix._children}
+    whole.train(2 * half)
+    out["counts"] = dict(mix.counts)
+    out["whole"] = {"params": numpy_state(whole.model),
+                    "stream": whole.sampler_states()["train"]}
+    first = trainer(payload["ckpt"])
+    first.train(half)
+    first.close()
+    resumed = trainer(payload["ckpt"])
+    step, extra = resumed.reader().restore_latest(resumed.model, resumed.opt, resumed.lazy)
+    resumed.restore_sampler_states(extra["samplers"])
+    resumed.train(half, start_step=step)
+    out["resumed"] = {"step": step, "params": numpy_state(resumed.model),
+                      "stream": resumed.sampler_states()["train"]}
+    for t in (whole, resumed):
+        t.close()
+    return out
+
+
+def more_cases(payload: dict, mesh=None) -> dict:
+    """The adversarial cases (``payload["adv"]``), the feature-cache cases
+    (``payload["cache"]``) and the mixture (``payload["mixture"]``), each
+    part only when its payload is given (a part's "cases" picks its
+    spellings, default all); without a mesh one process on the global
+    batches (each part's default spelling: the reference)."""
+    out: dict = {}
+    for part, fn, cases in (("adv", run_adv_case, ADV_CASES),
+                            ("cache", run_cache_case, CACHE_CASES)):
+        if payload.get(part) is None:
+            continue
+        names = payload[part].get("cases", list(cases)) if mesh is not None else [next(iter(cases))]
+        out[part] = {n: fn(payload[part], cases[n], mesh) for n in names}
+    if payload.get("mixture") is not None:
+        out["mixture"] = mixture_case(payload["mixture"], mesh)
+    return out
+
+
+def dp_more_cases(rank: int, world: int, payload: dict) -> dict:
+    """A rank's ``more_cases`` over the world's dp mesh (the mixture's
+    checkpoint directory is shared: rank 0 writes it)."""
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+
+    return more_cases(payload, make_mesh(dp=world))

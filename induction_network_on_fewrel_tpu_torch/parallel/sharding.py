@@ -10,7 +10,13 @@ own ``B/dp`` episodes and these pieces make the ranks one optimizer:
   between the backward and the update; ``mean_`` averages the step's loss
   and accuracy (GSPMD's global mean) and the eval metrics. Under NCCL the
   collectives run inside the captured step; under gloo (CPU ranks, or two
-  ranks on one card) the steps stay eager (``eager``).
+  ranks on one card) the steps stay eager (``eager``). The adversarial
+  step (``disc``, the JAX ``make_sharded_adv_train_step``, ``:514``)
+  adds a second reducer for the discriminator's gradients ("disc/"
+  labels; bucketed and started from the backward as the model's are),
+  and its metric mean covers ``domain_loss`` and ``domain_accuracy``
+  too; ZeRO-1 shards the model's moments only (the JAX
+  ``state_shardings(..., zero_opt)`` of ``state``, not ``disc_state``).
 * ``Zero1`` (``state_shardings(zero_opt)`` and the zero1 update, JAX
   ``sharding.py:89``, ``:343``, ``train/steps.py:226-260``): each rank
   holds a contiguous 1/dp chunk of every Adam moment whose size divides
@@ -193,9 +199,11 @@ class DataParallel:
     """One trainer's data parallelism over ``mesh``: the gradient reducer
     (buckets per ``grad_buckets_for``, overlap per ``async_collectives``,
     the lazy rows leaf per ``demb_impl_for``), ZeRO-1 on ``opt`` under
-    ``cfg.zero_opt``, and the metric mean."""
+    ``cfg.zero_opt``, and the metric mean. ``disc``: the adversarial
+    step's discriminator optimizer, whose gradients get a reducer of their
+    own (``disc_reducer``); its moments stay whole."""
 
-    def __init__(self, model, opt, cfg, mesh, lazy=None):
+    def __init__(self, model, opt, cfg, mesh, lazy=None, disc=None):
         check_moe(cfg)
         self.mesh, self.cfg = mesh, cfg
         self.group, self.world, self.rank = mesh.group, mesh.dp, mesh.rank
@@ -211,6 +219,10 @@ class DataParallel:
                 self.gathered_cotangent = True
                 model.embedding.demb_impl = make_compact_demb_lookup(mesh)
         self.reducer = GradReducer(opt.live_named(), mesh, self.n_buckets, overlap_for(cfg), rows)
+        self.disc_reducer = (GradReducer(disc.live_named(), mesh, self.n_buckets,
+                                         overlap_for(cfg), prefix="disc/")
+                             if disc is not None else None)
+        self.reducers = [r for r in (self.reducer, self.disc_reducer) if r is not None]
         if cfg.zero_opt:
             opt.shard(mesh, self.n_buckets)
         self.zero = opt.zero
@@ -221,7 +233,7 @@ class DataParallel:
         """The collectives one call of ``steps`` training steps should
         issue, by kind (``COLLECTIVES``' labels): each step's reductions and
         gathers, and the loss and accuracy mean once a call."""
-        out = {label: steps for label in self.reducer.labels}
+        out = {label: steps for r in self.reducers for label in r.labels}
         if self.gathered_cotangent:
             out.update({"demb/cotangent_allgather": steps, "demb/ids_allgather": steps})
         if self.zero is not None:
@@ -235,11 +247,26 @@ class DataParallel:
         COLLECTIVES["metrics/mean"] += 1
         return t.div_(self.world)
 
-    def mean_columns(self, rows: torch.Tensor, k: int) -> torch.Tensor:
-        """[S, c] metric rows with their first ``k`` columns averaged over
-        the ranks (loss and accuracy; the norm is already global)."""
-        head = self.mean_(rows[:, :k].contiguous())
-        return torch.cat([head, rows[:, k:]], dim=1)
+    def arm(self) -> None:
+        """Before a backward: every reducer's buckets start as they fill."""
+        for r in self.reducers:
+            r.arm()
+
+    def finish(self) -> None:
+        """After a backward: every gradient holds its mean over the ranks."""
+        for r in self.reducers:
+            r.finish()
+
+    def mean_columns(self, rows: torch.Tensor, cols: tuple) -> torch.Tensor:
+        """[S, c] metric rows with the columns ``cols`` averaged over the
+        ranks in one all-reduce (loss, accuracy and the domain game's; the
+        gradient norm is already global)."""
+        # Column slices only: an index tensor would copy from the host
+        # inside a capture.
+        idx = list(cols)
+        mean = self.mean_(torch.cat([rows[:, j:j + 1] for j in idx], dim=1).contiguous())
+        return torch.cat([mean[:, idx.index(j):idx.index(j) + 1] if j in idx else
+                          rows[:, j:j + 1] for j in range(rows.shape[1])], dim=1)
 
     def gather_objects(self, obj) -> list:
         """Every rank's ``obj`` (picklable), in rank order."""

@@ -30,6 +30,18 @@ On the CPU a program is the eager ``score_queries`` of the bank's model
 path the CPU tests drive; on the card ``QueryRunner`` is the graphs'
 reference.
 
+dp-sharded scoring (``make_serving_mesh``; the JAX ``QueryProgramCache``
+with a mesh, ``buckets.py:194-208``): with ``shards`` (per bank, one
+replica of the bank's model on each of the dp shard devices) a bucket
+divisible by dp holds, per bank, one program per shard device
+(``ShardedQuery``): the bucket's rows split into dp contiguous chunks of
+bucket/dp rows, each scored by its shard's program against the class
+matrix copied to that device, and the logits gathered in row order (the
+JAX ``P("dp", None)`` in, replicated out). The shards are launched in
+turn and then waited for, so shards on different cards run at once. A
+smaller bucket runs its single-device program on the bank's own model.
+The key set is the same, so warmup still makes each key once.
+
 Capture rule: a graph is captured through ``utils/capture.capturing``
 (``thread_local`` mode: other threads may keep using the card, the
 batcher's worker replays, registration distils; a stream of its own; the
@@ -44,6 +56,7 @@ steady-state recompile, on a miss.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -119,6 +132,20 @@ def stack_queries(
     return out
 
 
+def make_serving_mesh(dp: int, devices=None) -> list[torch.device]:
+    """The first ``dp`` visible CUDA devices, the shard devices of dp-sharded
+    query scoring (the JAX ``make_serving_mesh``, ``buckets.py:118``).
+    ``devices`` replaces the visible devices (a test seam: e.g. ("cpu",
+    "cpu"), or ("cuda:0", "cuda:0") for two shards on one card)."""
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [torch.device("cuda", i) for i in range(n)]
+    visible = [torch.device(d) for d in devices]
+    if dp > len(visible):
+        raise ValueError(f"serving dp={dp} exceeds the {len(visible)} visible devices")
+    return visible[:dp]
+
+
 def _as_matrix(class_mat, device) -> torch.Tensor:
     """A resident matrix (device tensor) or a host f32 stack (the parity
     probe's shadow) as a tensor on ``device``."""
@@ -149,6 +176,12 @@ class QueryRunner:
         self.split = (0.0, time.perf_counter() - t0, 0.0)
         return logits
 
+    def launch(self, class_mat, query: dict[str, np.ndarray], scale=None) -> None:
+        self._out = self.run(class_mat, query, scale)
+
+    def collect(self) -> np.ndarray:
+        return self._out
+
 
 # One serving capture at a time in the process: the serving captures share
 # one stream (utils/capture.py), so captures of two engines (a fleet's
@@ -169,7 +202,7 @@ class CapturedQuery:
     captured = True
 
     def __init__(self, model, n: int, c: int, bucket: int, max_length: int, dtype: str):
-        dev = model.device
+        dev = self.device = model.device
         self.host = {k: torch.empty((bucket, max_length), dtype=torch.from_numpy(
             np.zeros(0, dt)).dtype, pin_memory=True) for k, dt in QUERY_DTYPES.items()}
         self.dev = {k: torch.zeros_like(h, device=dev) for k, h in self.host.items()}
@@ -195,6 +228,12 @@ class CapturedQuery:
         self.out_host = torch.empty(self.out.shape, dtype=self.out.dtype, pin_memory=True)
 
     def run(self, class_mat, query: dict[str, np.ndarray], scale=None) -> np.ndarray:
+        self.launch(class_mat, query, scale)
+        return self.collect()
+
+    def launch(self, class_mat, query: dict[str, np.ndarray], scale=None) -> None:
+        """Enqueue the copies in, the replay and the copy out on the current
+        stream of the graph's device, without a host wait."""
         t0 = time.perf_counter()
         for k, h in self.host.items():
             h.numpy()[...] = query[k]
@@ -210,9 +249,42 @@ class CapturedQuery:
         t2 = time.perf_counter()
         self.out_host.copy_(self.out, non_blocking=True)
         self.done.record()
+        self._t = (t1 - t0, t2 - t1, time.perf_counter())
+
+    def collect(self) -> np.ndarray:
+        """Wait for the launched logits; their host copy."""
         self.done.synchronize()
         out = self.out_host.numpy().copy()
-        self.split = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        copy_s, replay_s, t2 = self._t
+        self.split = (copy_s, replay_s, time.perf_counter() - t2)
+        return out
+
+
+class ShardedQuery:
+    """One key's programs of one bank across the dp shard devices: rows
+    [s*r, (s+1)*r) of the bucket go to shard ``s`` (r = bucket/dp), each
+    shard is launched on its device in turn, then every one is waited for
+    and the logits are concatenated in row order. ``captured`` counts the
+    shards' graphs; ``split`` sums their (copy in, replay call) host times
+    beside the wait for the last."""
+
+    def __init__(self, progs: list):
+        self.progs = progs
+        self.captured = sum(int(bool(p.captured)) for p in progs)
+        self.split = (0.0, 0.0, 0.0)
+
+    def run(self, class_mat, query: dict[str, np.ndarray], scale=None) -> np.ndarray:
+        r = query["word"].shape[0] // len(self.progs)
+        for s, p in enumerate(self.progs):
+            part = {k: v[s * r:(s + 1) * r] for k, v in query.items()}
+            dev = getattr(p, "device", None)
+            with (torch.cuda.device(dev) if dev is not None and dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                p.launch(class_mat, part, scale)
+        t0 = time.perf_counter()
+        out = np.concatenate([p.collect() for p in self.progs])
+        self.split = (sum(p.split[0] for p in self.progs), sum(p.split[1] for p in self.progs),
+                      time.perf_counter() - t0)
         return out
 
 
@@ -226,7 +298,7 @@ def make_program(model, n: int, c: int, bucket: int, max_length: int, dtype: str
 
 class QueryGraphCache:
     """Query programs keyed by (n_classes, bucket, resident dtype), one
-    program per parameter bank.
+    program per parameter bank (per bank and shard device under dp).
 
     ``banks`` are the registry's models (the same architecture, each with
     its own parameter tensors); ``run(bank, class_mat, query, scale)``
@@ -236,10 +308,16 @@ class QueryGraphCache:
     ``compiles`` counts keys made, ``captures`` CUDA graphs captured (one
     per key and bank on the card, none on the CPU); each key's captures
     are reported to the capture watchers (``obs/compile.notify_capture``,
-    ``fn="serve_query"``, shapes "n,bucket,dtype")."""
+    ``fn="serve_query"``, shapes "n,bucket,dtype"). ``shards`` (dp-sharded
+    scoring): per bank, the bank's replicas on the dp shard devices; a
+    bucket divisible by dp then makes one program per (bank, shard), each
+    at bucket/dp rows (``ShardedQuery``), so a key captures
+    banks x dp graphs on the card."""
 
-    def __init__(self, banks, stats=None, factory=make_program):
+    def __init__(self, banks, stats=None, factory=make_program, shards=None):
         self.banks = list(banks)
+        self.shards = [list(s) for s in shards] if shards else None
+        self.dp = len(self.shards[0]) if self.shards else 1
         self._stats = stats
         self._factory = factory
         self._exe: dict[tuple[int, int, str], list] = {}
@@ -261,11 +339,17 @@ class QueryGraphCache:
                 progs = self._exe.get(key)
                 if progs is None:
                     t0 = time.monotonic()
-                    progs = [self._factory(m, n_classes, class_dim, bucket, max_length, dtype)
-                             for m in self.banks]
+                    if self.dp > 1 and bucket % self.dp == 0:
+                        r = bucket // self.dp
+                        progs = [ShardedQuery([self._factory(m, n_classes, class_dim, r,
+                                                             max_length, dtype) for m in ms])
+                                 for ms in self.shards]
+                    else:
+                        progs = [self._factory(m, n_classes, class_dim, bucket, max_length,
+                                               dtype) for m in self.banks]
                     self._exe[key] = progs
                     self.compiles += 1
-                    captured = sum(bool(p.captured) for p in progs)
+                    captured = sum(int(p.captured) for p in progs)
                     self.captures += captured
                     if captured:
                         notify_capture("serve_query", f"{n_classes},{bucket},{dtype}",

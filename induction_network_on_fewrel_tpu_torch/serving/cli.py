@@ -50,9 +50,11 @@ holds the candidate to the ``--adapt_canary`` floors (``obs/canary.py``),
 publishes it (through the fan-out in fleet mode) and verifies; the
 ``--adapt_*`` budgets default to the checkpoint's stamped policy.
 
-``--dp`` (ROADMAP queue A item 5) is parsed and refused by name unless at
-its JAX default (``DEFERRED``); so is ``--compile_cache``, which has no
-counterpart here (``NO_COUNTERPART``).
+``--dp N`` shards query scoring over the first N visible cards (the
+engine's ``dp``, one engine and each in-process fleet replica); more than
+there are exits 2 with the JAX "exceeds the visible devices" text.
+``--compile_cache`` has no counterpart here (``NO_COUNTERPART``): it is
+parsed and refused by name unless at its JAX default.
 
 ``main`` is the fresh-weight demo: a synthetic vocabulary, fresh-init
 weights from ``--seed``, the first N synthetic relations registered at K
@@ -71,20 +73,18 @@ from pathlib import Path
 
 import numpy as np
 
-from induction_network_on_fewrel_tpu_torch.models.build import LATER_ITEMS
-
 # JAX serving flags of later slices: flag -> the ROADMAP queue A item that
 # brings it. A flag given with anything but its JAX default is refused.
-DEFERRED = {"--dp": LATER_ITEMS["dp"]}
+DEFERRED: dict = {}
 # JAX serving flags the port has no counterpart for: flag -> why.
 NO_COUNTERPART = {
     "--compile_cache": "the port keeps no XLA compile cache (its kernels build once into "
                        "build/torch_kernels)",
 }
 # The JAX defaults of the refused flags (and values that mean the same).
-_NEUTRAL = {"--compile_cache": ("auto", "off"), "--dp": (None, 1)}
+_NEUTRAL = {"--compile_cache": ("auto", "off")}
 _FLAGS: set = set()
-_TYPES = {"--dp": int}
+_TYPES: dict = {}
 
 
 def build_serve_arg_parser() -> argparse.ArgumentParser:
@@ -119,6 +119,9 @@ def build_serve_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--scheduler", default="continuous", choices=["continuous", "microbatch"],
                    help="continuous = cross-bucket launch-on-free scheduler; microbatch = "
                         "the per-bucket coalescing batcher (A/B baseline)")
+    p.add_argument("--dp", type=int, default=None,
+                   help="shard query scoring over this many local cards (buckets divisible "
+                        "by dp score dp-sharded)")
     p.add_argument("--tenant_share", type=float, default=0.5,
                    help="per-tenant fraction of --queue_depth before that tenant sheds")
     p.add_argument("--nota_threshold", type=float, default=None,
@@ -296,7 +299,7 @@ def _engine_kwargs(args, buckets, logger, breaker, obs=None, trace_sample=None) 
         scheduler=args.scheduler, tenant_share=args.tenant_share, logger=logger,
         breaker=breaker, resident_dtype=args.resident_dtype,
         quant_probe_every=args.quant_probe_every, geometry_tiers=args.geometry_tiers,
-        trace_sample=trace_sample, **(obs or {}),
+        trace_sample=trace_sample, dp=getattr(args, "dp", None), **(obs or {}),
     )
 
 
@@ -605,6 +608,13 @@ def serve_main(argv=None) -> int:
     parser = build_serve_arg_parser()
     args = parser.parse_args(argv)
     refuse_deferred(parser, args)
+    if args.dp is not None and args.dp > 1:
+        from induction_network_on_fewrel_tpu_torch.serving.buckets import make_serving_mesh
+
+        try:
+            make_serving_mesh(args.dp)
+        except ValueError as e:
+            parser.error(f"--dp {args.dp}: {e}")
     if args.adapt and not args.drift:
         parser.error("--adapt needs --drift (the controller subscribes to the drift "
                      "detector's CRITICALs)")

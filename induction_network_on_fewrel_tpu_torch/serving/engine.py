@@ -62,8 +62,15 @@ The counters are bound into the shared counter registry
 
 Device rule: ``device=None`` means "cuda" and raises without CUDA; the
 model must already live on that device. Refused as in the JAX package: a
-model other than induction, and feature-cache checkpoints. The dp-sharded
-query path comes with ROADMAP queue A item 5.
+model other than induction, and feature-cache checkpoints.
+
+dp-sharded scoring (the JAX ``dp``, ``engine.py:284``): ``dp`` above 1
+makes a serving mesh of the first ``dp`` visible CUDA devices
+(``serving/buckets.make_serving_mesh``; ``devices`` replaces them, a test
+seam), gives each parameter bank a replica on every shard device
+(``TenantRegistry(shard_devices=...)``) and scores every bucket divisible
+by dp across them (``QueryGraphCache(shards=...)``); ``dp`` None or 1 is
+the single-device engine.
 """
 
 from __future__ import annotations
@@ -93,6 +100,7 @@ from induction_network_on_fewrel_tpu_torch.serving.buckets import (
     DEFAULT_BUCKETS,
     QueryGraphCache,
     make_program,
+    make_serving_mesh,
     select_bucket,
     stack_queries,
 )
@@ -178,7 +186,8 @@ class InferenceEngine:
                  watchdog=None, slo=None, drift=None, trace_sample: float = 0.0,
                  start: bool = True, resident_dtype: str | None = None,
                  quant_probe_every: int | None = None,
-                 geometry_tiers: str | None = None, program_factory=make_program):
+                 geometry_tiers: str | None = None, program_factory=make_program,
+                 dp: int | None = None, devices=None):
         from induction_network_on_fewrel_tpu_torch.config import (
             resolve_geometry_policy,
             resolve_quant_policy,
@@ -230,16 +239,18 @@ class InferenceEngine:
         geom = resolve_geometry_policy(_Knobs(geometry_tiers=geometry_tiers), base=cfg)
         self.quant_probe_every = quant["probe_every"]
         self._quant_batches = 0
+        self.mesh = make_serving_mesh(dp, devices) if dp and dp > 1 else None
         self.stats = ServingStats(slo=slo)
         self.stats.bind_registry()
         self.registry = TenantRegistry(
             model, tokenizer, k=k if k is not None else cfg.k, logger=logger,
             resident_dtype=quant["resident_dtype"], tiers=geom["tiers"],
+            shard_devices=self.mesh,
         )
         self.tiers = self.registry.tiers
         self.stats.bind_resident(self.registry.resident_bytes)
         self.programs = QueryGraphCache(self.registry.banks, stats=self.stats,
-                                        factory=program_factory)
+                                        factory=program_factory, shards=self.registry.shards)
         self.host_split = HostSplit()
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._exec_lock = threading.Lock()
@@ -259,7 +270,8 @@ class InferenceEngine:
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, device=None, glove: str | None = None,
                         glove_mat: str | None = None, lstm_backend: str | None = None,
-                        attn_backend: str | None = None, **kw) -> "InferenceEngine":
+                        attn_backend: str | None = None, dp: int | None = None,
+                        **kw) -> "InferenceEngine":
         """An engine on a port checkpoint directory: its ``config.json``
         decides the architecture, its best slot (else its latest) the
         weights. ``lstm_backend``/``attn_backend`` override the stored
@@ -267,7 +279,8 @@ class InferenceEngine:
         model was trained with (the synthetic one of its size otherwise). A
         BERT checkpoint owns its embedding: it is served with the
         ``BertTokenizer`` of its config (``bert_vocab_path``, else the hash
-        fallback) and loads no GloVe."""
+        fallback) and loads no GloVe. ``dp`` shards query scoring over that
+        many devices (see the module doc)."""
         from induction_network_on_fewrel_tpu_torch.data import (
             BertTokenizer,
             GloveTokenizer,
@@ -302,7 +315,7 @@ class InferenceEngine:
             (step, _), which = mngr.restore_latest(model), "latest"
         print(f"serving {which} checkpoint step={step} from {ckpt_dir} on {model.device}",
               file=sys.stderr)
-        return cls(model, cfg, tok, device=device, **kw)
+        return cls(model, cfg, tok, device=device, dp=dp, **kw)
 
     # --- registration / tenant lifecycle ----------------------------------
 

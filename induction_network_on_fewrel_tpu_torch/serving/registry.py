@@ -31,7 +31,11 @@ vector per class; steady-state serving then never re-encodes supports.
   it in place, and re-distils every live slot with it; ``commit`` flips
   every snapshot to that bank in one block of plain assignments. In-flight
   batches finish on their pinned bank and the next batch scores on the new
-  weights; nothing is captured. Non-finite weights, non-finite distilled
+  weights; nothing is captured. Under dp-sharded scoring
+  (``shard_devices``) every bank also has a replica on each shard device
+  (``shards[bank]``; shard 0 is the bank itself when it lives on the
+  bank's device): a publish loads the idle bank's replicas too before the
+  flip, and a pinned snapshot scores on one bank across all its shards. Non-finite weights, non-finite distilled
   vectors, a degenerate int8 artifact or a ``publish_canary`` veto refuse
   the publish (``PublishError``) and leave every snapshot as it was.
 
@@ -168,12 +172,14 @@ class TenantRegistry:
     model's device, versioned per tenant (see the module doc).
 
     ``model`` becomes bank 0, and a copy of it with its own parameter
-    tensors bank 1. The control plane mutates under one
+    tensors bank 1; ``shard_devices`` gives each bank a replica per dp
+    shard device (``shards``). The control plane mutates under one
     lock with the distils outside it; publishes serialize on
     ``_publish_serial``; ``snapshot`` is a lock-free read."""
 
     def __init__(self, model, tokenizer, k: int = 5, logger=None,
-                 resident_dtype: str = "f32", tiers: tuple[int, ...] | None = None):
+                 resident_dtype: str = "f32", tiers: tuple[int, ...] | None = None,
+                 shard_devices=None):
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         if resident_dtype not in RESIDENT_DTYPE_CHOICES:
@@ -182,6 +188,11 @@ class TenantRegistry:
                 f"got {resident_dtype!r}"
             )
         self.banks = [model, copy.deepcopy(model)]
+        self.shards = None
+        if shard_devices:
+            self.shards = [[bank if s == 0 and torch.device(d) == bank.device
+                            else copy.deepcopy(bank).to(d) for s, d in enumerate(shard_devices)]
+                           for bank in self.banks]
         self.active = 0
         self._tok, self.k = tokenizer, k
         self._logger = logger
@@ -218,6 +229,12 @@ class TenantRegistry:
     def model(self):
         """The bank the current snapshots score on."""
         return self.banks[self.active]
+
+    def _replicas(self, bank: int) -> list:
+        """Bank ``bank``'s shard replicas other than the bank itself."""
+        if self.shards is None:
+            return []
+        return [m for m in self.shards[bank] if m is not self.banks[bank]]
 
     def _on_stream(self):
         """The registry's device work runs on its own stream on the card."""
@@ -505,7 +522,12 @@ class TenantRegistry:
                 )
         with torch.no_grad(), self._on_stream():
             self.banks[idle].load_state_dict(new_params)
+            for replica in self._replicas(idle):
+                replica.load_state_dict(new_params)
         self._sync()
+        for replica in self._replicas(idle):
+            if replica.device.type == "cuda" and replica.device != self._device:
+                torch.cuda.synchronize(replica.device)
         vec_of: dict[int, np.ndarray] = {}
         for _pass in range(self._INTERN_RETRIES):
             with self._lock:

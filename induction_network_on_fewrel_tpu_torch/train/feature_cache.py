@@ -26,6 +26,15 @@ training steps run the episode head alone:
    ``build_model(cfg.replace(feature_cache=False))`` from the same seed
    (and ``bert_weights``), rebuilt by the run that tests the checkpoint.
 
+Under a dp mesh (the JAX ``make_cached_train_step(..., mesh)``, which
+replicates the table and shards the episode axis) each rank builds the
+whole table itself, once, from the same backbone (the same seed and
+weights): the plain choice, with no collective and the same bits on
+every rank, as one process builds it. Each rank then draws its own
+``B/dp`` index episodes a batch (``parallel/hostfeed.py``), and the
+head-only state's gradients are averaged by ``parallel/sharding.
+DataParallel`` like any other step's.
+
 ``FeatureEpisodeSampler`` is the JAX sampler's feature mode: the index
 sampler's episodes gathered from a host table into ``FeatureEpisodeBatch``
 arrays. Token-level models (``pair``) cannot train on sentence features.

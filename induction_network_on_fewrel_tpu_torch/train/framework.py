@@ -87,8 +87,9 @@ under ``zero_opt``), and the eval metrics of each batch are averaged over
 them. Only rank 0 holds a ``CheckpointManager`` and writes; every rank
 takes part in a save (``snapshot``: the full moments and every rank's
 streams gathered) and reads the directory for a restore (``reader``,
-after ``sync_saves``). ``--adv`` and the live lazy path are refused
-there.
+after ``sync_saves``). Under ``adv`` the discriminator's gradients are
+averaged too, and each rank's instance samplers draw its ``M/dp`` rows
+(``cli.adv_pieces``). The live lazy path is refused there.
 
 ``train(num_iters, start_step)`` numbers steps from ``start_step``;
 ``sampler_states``/``restore_sampler_states`` carry the samplers' streams
@@ -173,7 +174,9 @@ def first_batch(inputs):
 class AdvPieces:
     """What the adversarial loop needs beyond the plain trainer: the
     discriminator's state (never checkpointed) and the unlabeled source and
-    target instance samplers (``sampling/episodes.InstanceSampler``)."""
+    target instance samplers (``sampling/episodes.InstanceSampler``). Under
+    a dp mesh the samplers are this rank's: ``M/dp`` instances a batch each,
+    seeded by ``parallel.hostfeed.process_seed`` (``cli.adv_pieces``)."""
 
     disc: DiscState
     src_sampler: object
@@ -260,13 +263,11 @@ class FewShotTrainer:
         if mesh is not None:
             from induction_network_on_fewrel_tpu_torch.parallel.sharding import DataParallel
 
-            if adv is not None:
-                raise ValueError("--adv under data parallel comes with the next slice of ROADMAP "
-                                 "queue A item 5")
             if self.lazy is not None and train_table is None and train_sampler is not None:
                 raise ValueError("embed_optimizer=lazy under data parallel needs the token cache: "
                                  "the live path's per-batch rows differ between the ranks")
-            self.dp = DataParallel(model, self.opt, cfg, mesh, self.lazy)
+            self.dp = DataParallel(model, self.opt, cfg, mesh, self.lazy,
+                                   disc=adv.disc.opt if adv is not None else None)
         self.rank = 0 if mesh is None else mesh.rank
         self.ckpt_dir = ckpt_dir
         # Only rank 0 writes; every rank takes part in a save's collectives.
@@ -285,9 +286,10 @@ class FewShotTrainer:
             if self.lazy is not None or train_table is not None:
                 raise ValueError("the adversarial step trains on live token batches: it does not "
                                  "combine with the token cache or embed_optimizer=lazy")
-            self.train_step = make_adv_train_step(model, self.opt, adv.disc, cfg, debug_nans)
+            self.train_step = make_adv_train_step(model, self.opt, adv.disc, cfg, debug_nans,
+                                                  dp=self.dp)
             self.multi_train_step = (make_adv_multi_train_step(model, self.opt, adv.disc, cfg,
-                                                               debug_nans)
+                                                               debug_nans, dp=self.dp)
                                      if spc > 1 else None)
         else:
             self.train_step = make_train_step(model, self.opt, cfg, train_table, self.lazy,

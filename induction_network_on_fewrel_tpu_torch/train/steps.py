@@ -120,6 +120,10 @@ def train_keys(keys: tuple, debug_nans: bool) -> tuple:
     return keys + (("finite",) if debug_nans else ())
 # The adversarial step's unlabeled instance batches, in input order.
 INSTANCE_SIDES = ("src", "tgt")
+# The metric columns averaged over the dp ranks once a call (loss, accuracy
+# and the domain game's; the gradient norm is global already).
+MEAN_COLUMNS = (0, 1)
+ADV_MEAN_COLUMNS = (0, 1, 3, 4)
 WORD_TABLE = "embedding.word_embedding"
 OPTIMIZERS = ("adam", "adamw", "sgd")
 EMBED_OPTIMIZERS = ("shared", "sgd", "frozen", "lazy")
@@ -565,9 +569,9 @@ def _backward(loss, dp) -> None:
     if dp is None:
         loss.backward()
         return
-    dp.reducer.arm()
+    dp.arm()
     loss.backward()
-    dp.reducer.finish()
+    dp.finish()
 
 
 def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=None,
@@ -607,7 +611,7 @@ def _train_run_of(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig, source=
                 lazy.epilogue(opt.count)
             opt.zero_grad()
             rows = torch.stack(rows)
-            return rows if dp is None else dp.mean_columns(rows, 2)
+            return rows if dp is None else dp.mean_columns(rows, MEAN_COLUMNS)
 
         return run
 
@@ -770,13 +774,14 @@ def adv_loss_and_metrics(model, disc, cfg: ExperimentConfig, support, query, lab
     return fs_loss + dom_loss, metrics
 
 
-def _adv_update(model, opt: ClipDecayOptimizer, disc: DiscState, cfg, *batch) -> dict:
-    """One backward of ``fs_loss + dom_loss``, then each optimizer's update
-    from its own gradients."""
+def _adv_update(model, opt: ClipDecayOptimizer, disc: DiscState, cfg, *batch, dp=None) -> dict:
+    """One backward of ``fs_loss + dom_loss`` (under ``dp`` with both the
+    model's and the discriminator's gradients averaged over the ranks),
+    then each optimizer's update from its own gradients."""
     opt.zero_grad()
     disc.opt.zero_grad()
     loss, metrics = adv_loss_and_metrics(model, disc.module, cfg, *batch)
-    loss.backward()
+    _backward(loss, dp)
     metrics["grad_norm"] = opt.step()
     disc.opt.step()
     return metrics
@@ -798,19 +803,23 @@ def adv_train_step(model, opt: ClipDecayOptimizer, disc: DiscState, cfg: Experim
 
 
 def _adv_run_of(model, opt: ClipDecayOptimizer, disc: DiscState, cfg: ExperimentConfig,
-                debug_nans: bool = False):
+                debug_nans: bool = False, dp=None):
+    """``run_of(S)`` of the adversarial step (under ``dp``: both gradients
+    averaged over the ranks each step, the metrics once a call) and its
+    warm-up."""
     def run_of(S: int):
         def run(dev) -> torch.Tensor:
             rows = []
             for i in range(S):
-                m = _adv_update(model, opt, disc, cfg, *_adv_batch(dev, i))
+                m = _adv_update(model, opt, disc, cfg, *_adv_batch(dev, i), dp=dp)
                 if debug_nans:
                     m["finite"] = finite_flag(m["loss"], m["grad_norm"])
                 rows.append(torch.stack([m[k].float()
                                          for k in train_keys(ADV_METRICS, debug_nans)]))
             opt.zero_grad()
             disc.opt.zero_grad()
-            return torch.stack(rows)
+            rows = torch.stack(rows)
+            return rows if dp is None else dp.mean_columns(rows, ADV_MEAN_COLUMNS)
 
         return run
 
@@ -820,43 +829,51 @@ def _adv_run_of(model, opt: ClipDecayOptimizer, disc: DiscState, cfg: Experiment
         opt.zero_grad()
         disc.opt.zero_grad()
         loss, _ = adv_loss_and_metrics(model, disc.module, cfg, *_adv_batch(dev, 0))
-        loss.backward()
+        # Under dp the collectives run here eagerly once, so NCCL's
+        # communicator exists before the capture.
+        _backward(loss, dp)
         opt.zero_grad()
         disc.opt.zero_grad()
         _warm_optim_kernels(model.device)
+        if dp is not None and dp.zero is not None:
+            dp.zero.gather_params(opt.params)       # every rank's chunk is its own: a no-op
 
     return run_of, warm
 
 
-def _adv_graphs(model, opt, disc, cfg, debug_nans: bool = False, name: str = "adv_train_step"):
-    run_of, warm = _adv_run_of(model, opt, disc, cfg, debug_nans)
+def _adv_graphs(model, opt, disc, cfg, debug_nans: bool = False, name: str = "adv_train_step",
+                dp=None):
+    run_of, warm = _adv_run_of(model, opt, disc, cfg, debug_nans, dp)
     keys = train_keys(ADV_METRICS, debug_nans)
-    if model.device.type != "cuda":
+    if model.device.type != "cuda" or (dp is not None and dp.eager):
         return EagerSteps(run_of, keys, model.device)
     return GraphSteps(run_of, warm, keys, model.device, name)
 
 
 def make_adv_train_step(model, opt: ClipDecayOptimizer, disc: DiscState,
-                        cfg: ExperimentConfig, debug_nans: bool = False):
+                        cfg: ExperimentConfig, debug_nans: bool = False, dp=None):
     """``(support, query, label, src, tgt) -> ADV_METRICS`` device scalars:
     the few-shot loss and the domain game in one backward, one update of
     the model and one of the discriminator. ``src``/``tgt`` are unlabeled
     instance dicts {word, pos1, pos2, mask} [M, L]. On the card one
-    CUDA-graph replay per call; on the CPU the eager ``adv_train_step``."""
-    if model.device.type != "cuda":
+    CUDA-graph replay per call; on the CPU the eager ``adv_train_step``.
+    ``dp`` (a ``parallel.sharding.DataParallel`` built with the
+    discriminator): this rank's rows of the episode and instance batches,
+    the collectives captured in the graph under NCCL, eager under gloo."""
+    if model.device.type != "cuda" and dp is None:
         return functools.partial(adv_train_step, model, opt, disc, cfg, debug_nans=debug_nans)
-    return _single(_adv_graphs(model, opt, disc, cfg, debug_nans))
+    return _single(_adv_graphs(model, opt, disc, cfg, debug_nans, dp=dp))
 
 
 def make_adv_multi_train_step(model, opt: ClipDecayOptimizer, disc: DiscState,
-                              cfg: ExperimentConfig, debug_nans: bool = False):
+                              cfg: ExperimentConfig, debug_nans: bool = False, dp=None):
     """S stacked (episode, src, tgt) batches per call -> metrics [S]: the
     same updates as S single adversarial steps; one replay of a graph of S
     captured steps on the card."""
-    if model.device.type != "cuda":
+    if model.device.type != "cuda" and dp is None:
         return _eager_multi(functools.partial(adv_train_step, model, opt, disc, cfg,
                                               debug_nans=debug_nans))
-    return _adv_graphs(model, opt, disc, cfg, debug_nans, "adv_multi_train_step")
+    return _adv_graphs(model, opt, disc, cfg, debug_nans, "adv_multi_train_step", dp)
 
 
 # --- grad probe ---------------------------------------------------------------------

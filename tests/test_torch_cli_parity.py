@@ -16,6 +16,7 @@ import functools
 import json
 
 import pytest
+import torch
 
 from induction_network_on_fewrel_tpu import cli as jax_cli
 from induction_network_on_fewrel_tpu.config import ExperimentConfig as JaxConfig
@@ -169,18 +170,25 @@ def test_dp_flags_parse_at_every_jax_value(train, flag, value):
 
 @pytest.mark.parametrize("argv", [["--dp", "2"], ["--serving_dp", "2"]], ids=["serve", "load"])
 def test_serving_dp_stays_refused_by_name(argv, capsys):
-    """Serving ``--dp`` and the load tool's ``--serving_dp`` wait for the
-    serving half of item 5 (models/build.py:LATER_ITEMS)."""
+    """Serving ``--dp`` and the load tool's ``--serving_dp`` are ported: each
+    parses to its JAX value and is no longer refused by name; more shard
+    devices than are visible exit 2 with the JAX "exceeds" text."""
+    from induction_network_on_fewrel_tpu_torch.load import __main__ as load_main
     from induction_network_on_fewrel_tpu_torch.load import harness
-    from induction_network_on_fewrel_tpu_torch.models.build import LATER_ITEMS
     from induction_network_on_fewrel_tpu_torch.serving import cli as serve_cli
 
+    if argv[0] == "--dp":
+        assert serve_cli.build_serve_arg_parser().parse_args(argv).dp == 2
+    else:
+        assert harness.parse_args(argv).serving_dp == 2
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    too_many = [argv[0], str(max(2, visible + 1)), "--device", "cpu"]
     with pytest.raises(SystemExit) as e:
         if argv[0] == "--dp":
-            serve_cli.serve_main([*argv, "--device", "cpu"])
+            serve_cli.serve_main(too_many)
         else:
-            harness.parse_args(argv)
+            load_main.main(too_many)
     err = capsys.readouterr().err
     assert e.value.code == 2
-    assert f"{argv[0]} is not ported yet" in err or argv[0] in err
-    assert "ROADMAP queue A item 5, its serving half" in err and LATER_ITEMS["dp"] in err
+    assert f"exceeds the {visible} visible devices" in err
+    assert "not ported" not in err and "item 5" not in err

@@ -4,11 +4,13 @@
   train --dp 2 --device cpu`` (two gloo ranks) trains a few steps of the
   token-cache lazy path with ZeRO-1 and bucketed gradients, rank 0 alone
   writing the checkpoint and the result line; ``test`` on that checkpoint
-  under two ranks evaluates it. Each launch is bounded; an overrun kills
+  under two ranks evaluates it. The same launch trains ``--adv``,
+  ``--mixture`` and ``--feature_cache`` (a narrow BERT) a few steps each. Each launch is bounded; an overrun kills
   the launcher's process group.
-* The refusals under a mesh: the JAX batch-divisibility text, ``--dp``
-  above the world without a launcher (the JAX mesh text), and ``--adv``,
-  ``--feature_cache``, ``--mixture``, MoE and the live lazy path by name.
+* The refusals under a mesh: the JAX batch-divisibility text (also with
+  ``--mixture`` and with ``--feature_cache``, which run under a mesh), an
+  ``--adv_batch`` that does not divide, ``--dp`` above the world without a
+  launcher (the JAX mesh text), and MoE and the live lazy path by name.
 """
 
 import json
@@ -68,6 +70,26 @@ def test_torchrun_two_ranks_train_then_test(tmp_path):
     assert len(lines) == 1 and 0.0 <= lines[0]["test_accuracy"] <= 1.0
 
 
+PATHS = {
+    "adv": ["--adv", "--adv_batch", "4", "--adv_dis_hidden", "8"],
+    "mixture": ["--mixture", "train:1;synthetic:1"],
+    "feature_cache": ["--encoder", "bert", "--bert_frozen", "--feature_cache", "--bert_layers",
+                      "2", "--bert_hidden", "32", "--bert_heads", "4", "--bert_intermediate",
+                      "64", "--bert_vocab_size", "500"],
+}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_torchrun_two_ranks_train_the_other_paths(path, tmp_path):
+    """``--adv``, ``--mixture`` and ``--feature_cache`` under two gloo ranks:
+    a few steps and a val pass, rank 0 alone printing the result."""
+    run = torchrun(["train", *TINY, "--dp", "2", *PATHS[path], "--train_iter", "4",
+                    "--val_step", "2", "--val_iter", "8"], tmp_path)
+    assert run.returncode == 0, run.stderr[-3000:]
+    lines = [json.loads(x) for x in run.stdout.splitlines() if x.startswith("{")]
+    assert len(lines) == 1 and 0.0 <= lines[0]["final_val_accuracy"] <= 1.0
+
+
 def test_dp_above_the_world_without_a_launcher_is_the_jax_error(monkeypatch):
     for v in distributed.LAUNCHER_ENV:
         monkeypatch.delenv(v, raising=False)
@@ -82,10 +104,10 @@ def test_dp_above_the_world_without_a_launcher_is_the_jax_error(monkeypatch):
 REFUSED = {
     "batch": (["--batch_size", "3"], "--batch_size 3 must be divisible by the data-parallel "
                                      "mesh axis dp=2 .* try --batch_size 4 or --dp 3"),
-    "adv": (["--adv"], "--adv under data parallel comes with the next slice of ROADMAP queue A "
-                       "item 5"),
-    "mixture": (["--mixture", "train:1;synthetic:1"], "--mixture under data parallel comes with "
-                                                      "the next slice"),
+    "adv": (["--adv", "--adv_batch", "5"], "--adv_batch 5 must be divisible by the "
+                                           "data-parallel mesh axis dp=2 .* try --adv_batch 6"),
+    "mixture": (["--mixture", "train:1;synthetic:1", "--batch_size", "5"],
+                "--batch_size 5 must be divisible by the data-parallel mesh axis dp=2"),
     "lazy_live": (["--embed_optimizer", "lazy"], "does not combine with a device mesh on the LIVE "
                                                  "token path"),
     "moe": (["--encoder", "transformer", "--moe_experts", "2"],
@@ -104,9 +126,14 @@ def test_refused_by_name_under_a_mesh(name, monkeypatch):
 
 
 def test_feature_cache_refused_under_a_mesh(monkeypatch):
+    """The feature cache runs under a mesh; a batch that does not divide
+    over the ranks is still refused with it."""
     monkeypatch.setattr(distributed, "maybe_initialize_distributed", lambda **kw: True)
     monkeypatch.setattr(mesh_mod, "make_mesh", lambda dp=None, **kw: mesh_mod.Mesh(dp=2))
-    args = cli.parse_args(True, [*TINY, "--encoder", "bert", "--bert_frozen", "--feature_cache"])
-    with pytest.raises(ValueError, match="--feature_cache under data parallel comes with the next "
-                                         "slice"):
+    cache = [*TINY, "--encoder", "bert", "--bert_frozen", "--feature_cache"]
+    args = cli.parse_args(True, cache)
+    assert cli.dp_mesh(args, cli.config_from_args(args)) == mesh_mod.Mesh(dp=2)
+    args = cli.parse_args(True, [*cache, "--batch_size", "3"])
+    with pytest.raises(ValueError, match="--batch_size 3 must be divisible by the data-parallel "
+                                         "mesh axis dp=2"):
         cli.dp_mesh(args, cli.config_from_args(args))

@@ -4,9 +4,9 @@ pure functions, ``load/__main__.py``) against the JAX tool
 
 * CLI parity: every flag of the JAX ``loadgen.parse_args`` parses to the
   JAX value in the port, except the documented delta (``--device``:
-  ``cuda | cpu``, default ``cuda``, against ``cpu | tpu``) and
-  ``--serving_dp``, refused by name with its ROADMAP item; the same for the
-  scenario harness's and the fleet report's parsers.
+  ``cuda | cpu``, default ``cuda``, against ``cpu | tpu``); ``--serving_dp``
+  above the visible cards exits 2 with the engine's "exceeds" text; the
+  same for the scenario harness's and the fleet report's parsers.
 * ``pct``, ``calibrate_drift_floor`` and ``_nota_gap`` equal the JAX
   functions on the same inputs.
 * The registry-parity gate: on the same weights (``interop.py``) the
@@ -44,7 +44,7 @@ from induction_network_on_fewrel_tpu_torch.load import drift as tdrift
 from induction_network_on_fewrel_tpu_torch.load import fleet_report as treport
 from induction_network_on_fewrel_tpu_torch.load import harness
 from induction_network_on_fewrel_tpu_torch.load import scenarios as tscen
-from induction_network_on_fewrel_tpu_torch.models.build import LATER_ITEMS, build_model
+from induction_network_on_fewrel_tpu_torch.models.build import build_model
 from induction_network_on_fewrel_tpu_torch.serving.buckets import zero_batch
 from induction_network_on_fewrel_tpu_torch.serving.engine import NO_RELATION, InferenceEngine
 
@@ -100,12 +100,6 @@ def _argv_for(dest):
 def test_loadgen_flag_parses_as_in_jax(dest, capsys):
     argv = _argv_for(dest) + (["--run_dir", "r"] if dest != "run_dir" else [])
     want = vars(loadgen.parse_args(argv))
-    if dest == "serving_dp":
-        with pytest.raises(SystemExit) as e:
-            harness.parse_args(argv)
-        assert e.value.code == 2
-        assert "--serving_dp" in capsys.readouterr().err
-        return
     got = vars(harness.parse_args(argv))
     assert set(got) == set(want)
     assert {k: v for k, v in got.items() if k not in DELTAS} == \
@@ -120,9 +114,13 @@ def test_loadgen_defaults_and_the_device_delta(capsys):
     assert harness.parse_args(["--device", "cpu"]).device == "cpu"
     with pytest.raises(SystemExit):
         harness.parse_args(["--device", "tpu"])
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    args = harness.parse_args(["--serving_dp", str(max(2, visible + 1))])
+    assert args.serving_dp == max(2, visible + 1)
     with pytest.raises(SystemExit) as e:
-        harness.parse_args(["--serving_dp", "4"])
-    assert e.value.code == 2 and LATER_ITEMS["dp"] in capsys.readouterr().err
+        harness.check_serving_dp(args)
+    assert e.value.code == 2 and f"exceeds the {visible} visible devices" in \
+        capsys.readouterr().err
     for flag in ("--burn_drill", "--drift_drill", "--chaos_drill", "--adapt_drill",
                  "--fleet_obs_drill"):
         with pytest.raises(SystemExit):

@@ -113,8 +113,9 @@ def test_serve_main_demo_and_stats(served, capsys):
 
 
 # The JAX serving flags the port now serves (the telemetry flags; the fleet
-# and adaptation flags): each parses with a value and is not refused.
-PORTED = ("--chaos", "--drift", "--drift_band", "--drift_baseline", "--drift_window",
+# and adaptation flags; dp-sharded scoring): each parses with a value and is
+# not refused.
+PORTED = ("--dp", "--chaos", "--drift", "--drift_band", "--drift_baseline", "--drift_window",
           "--slo_availability", "--slo_fast_s", "--slo_latency_ms", "--slo_profile",
           "--slo_slow_s", "--trace_sample", "--watchdog",
           "--tier_spread", "--replicas", "--router", "--journal", "--journal_fsync",
@@ -165,7 +166,8 @@ def test_serve_main_refuses_a_mismatched_vocabulary(served, tmp_path):
 
 def test_every_jax_serving_flag_is_parsed_and_only_dp_refused():
     """The port's serving parser holds every flag of the JAX one, with the
-    JAX default (the device's aside); only ``--dp`` is deferred."""
+    JAX default (the device's aside); ``--dp`` is ported, so nothing is
+    deferred."""
     from induction_network_on_fewrel_tpu.serving.cli import build_serve_arg_parser as jax_parser
 
     def actions(p):
@@ -176,7 +178,8 @@ def test_every_jax_serving_flag_is_parsed_and_only_dp_refused():
     for flag, action in theirs.items():
         if flag not in ("--device", "--help"):
             assert (ours[flag].dest, ours[flag].default) == (action.dest, action.default), flag
-    assert set(serve_cli.DEFERRED) == {"--dp"}
+    assert serve_cli.DEFERRED == {}
+    assert "--dp" not in serve_cli.NO_COUNTERPART and ours["--dp"].type is int
 
 
 def test_serve_main_fleet_with_journal_and_adapt_runs(tmp_path, capsys):
