@@ -439,6 +439,27 @@ exits non-zero; no phase catches a failure of its own):
    the replicas to each other, the collectives to the plan; the mixture
    through the CLI picks the same source on both ranks and resumes from
    its ring slot onto the uninterrupted stream. A ``{"dp20": ...}`` line.
+21. (run with phases 19-20, sharing their two torchrun children, plus one
+   of four ranks) MoE across ranks: routing and the load-balance term over
+   the global batch, and the expert-parallel executor. 21a (in the NCCL
+   child, ``--dp21a OUT``): phase 14c's MoE transformer (``--moe_experts
+   8`` at the JAX defaults) on the token cache with lazy Adam at ``--dp 1
+   --zero_opt``, world size 1 over NCCL (the routing all-gathers captured
+   in the replay) beside the run without a group, 2 replays of 4 steps:
+   held at 19a's bars (and whether every parameter is equal to the bit),
+   the dropped shares equal, the collectives each replay issues equal to
+   the plan, ms/step and peak GiB beside the plain run, then ``cli
+   test_main`` under the mesh. 21b/21c (``--dp21b OUT`` in the two-rank
+   gloo child: (dp=2, ep=1) and (dp=1, ep=2); ``--dp21c OUT``, four gloo
+   ranks: (dp=2, ep=2)): f32 at 14c's widths, SGD at lr 0.1, with
+   ``--moe_capacity 0.5``
+   (the drops above 0, the routing groups of 512 straddling the ranks'
+   edges at global tokens 2000 and 6000), 3 eager steps from the seed's
+   weights, held to one process on the global batch within 1e-5 (the first
+   forward's logits and every gradient leaf of scale, losses, parameters,
+   gradient norms) with the dropped shares equal, every rank's replica
+   equal, the collectives to the plan; eager ms/step and peak GiB, printed
+   beside 14c's ep=1 run. A ``{"dp21": ...}`` line.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -457,13 +478,16 @@ exits non-zero; no phase catches a failure of its own):
    phase 19a's profiled and 19b's wrapper launches per rank per step;
    ``launches_serving_dp``: phase 20a's wrapper counts across the dp
    engine; ``launches_dp_20``: phase 20b's profiled launches per step of
-   each path and 20c's wrapper counts on rank 0), a
+   each path and 20c's wrapper counts on rank 0; ``launches_moe_dp_21``:
+   phase 21a's profiled launches per step and 21b/21c's wrapper launches
+   per step on rank 0, by layout), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
    ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
    ``{"obs": ...}`` line of phase 15, the ``{"fleet": ...}`` line of phase
    16, the ``{"load": ...}`` line of phase 17, the ``{"tools": ...}`` line
    of phase 18, the ``{"dp": ...}`` line of phase 19, the ``{"dp20":
-   ...}`` line of phase 20, the run's seconds,
+   ...}`` line of phase 20, the ``{"dp21": ...}`` line of phase 21, the
+   run's seconds,
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -6526,7 +6550,9 @@ DP_SECONDS = 120
 # The parts a torchrun child runs (``chip_smoke.py --dp19a OUT [--dp20a OUT2]``),
 # where each writes its result, and the label its lines start with.
 DP_PARTS = {"19a": ("dp19a_main", DP_DIR, "19a"), "19b": ("dp19b_main", DP_DIR, "19b"),
-            "20a": ("dp20a_main", None, "20b"), "20b": ("dp20b_main", None, "20c")}
+            "20a": ("dp20a_main", None, "20b"), "20b": ("dp20b_main", None, "20c"),
+            "21a": ("dp21a_main", None, "21a"), "21b": ("dp21_gloo_main", None, "21"),
+            "21c": ("dp21_gloo_main", None, "21")}
 
 
 def dp_child_main(argv: list) -> int:
@@ -6553,11 +6579,12 @@ def dp_child(parts: list, nproc: int) -> dict:
     result (rank 0's), by part."""
     outs = {}
     for part in parts:
-        out_dir = DP_PARTS[part][1] or DP20_DIR
+        out_dir = DP_PARTS[part][1] or (DP20_DIR if part.startswith("20") else DP21_DIR)
         out_dir.mkdir(parents=True, exist_ok=True)
         outs[part] = out_dir / f"{part}.json"
         outs[part].unlink(missing_ok=True)
-    bound_s = sum({**DP_CHILD_SECONDS, **DP20_CHILD_SECONDS}[p] for p in parts)
+    bound_s = sum({**DP_CHILD_SECONDS, **DP20_CHILD_SECONDS, **DP21_CHILD_SECONDS}[p]
+                  for p in parts)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            str(nproc), str(Path(__file__).resolve())]
     for part in parts:
@@ -7286,35 +7313,314 @@ def dp20b_main(out_path: str) -> int:
     return 0
 
 
-def dp_phases(smi: str, want19: bool, want20: bool) -> tuple:
-    """Phases 19 and 20 (the ``{"dp": ...}`` and ``{"dp20": ...}`` results,
-    None for a phase not asked for): 20a in this process, then one
-    torchrun child at world size 1 over NCCL for 19a and 20b and one of
-    two gloo ranks for 19b and 20c; this process never joins a process
-    group."""
+# --- Phase 21: MoE across ranks: global routing under dp, the ep executor --------------
+
+DP21_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dp21"
+DP21_STEPS = 8                          # two replays of steps_per_call 4
+# 21a: 14c's MoE transformer (--moe_experts 8, every other --moe_* at its
+# JAX default) on the token cache with lazy Adam (the table's gradient
+# without atomics), --dp 1 --zero_opt at world size 1 over NCCL beside the
+# same run without a group: every collective in the replay, the MoE
+# layers' routing all-gathers among them.
+DP21_ARGV = ["--synthetic", "--bf16", "--encoder", "transformer", "--moe_experts", "8",
+             "--token_cache", "--embed_optimizer", "lazy", "--steps_per_call", "4",
+             "--train_iter", str(DP21_STEPS), "--val_step", str(DP21_STEPS), "--val_iter", "40"]
+DP21_FLAGS = ["--dp", "1", "--zero_opt"]
+DP21_TEST_ARGV = ["--synthetic", "--bf16", "--encoder", "transformer", "--moe_experts", "8",
+                  "--token_cache", "--test_iter", "40", "--dp", "1"]
+# 21b/21c: gloo ranks on the one card, eager steps, f32 at 14c's widths (4 x
+# 256, FFN 1024, 8 experts, top-2, groups of 512; the flagship episode, 8000
+# tokens a step) on a 2 002-word table, with --moe_capacity 0.5: 64 slots
+# an expert in a group of 512, 512 in all for two choices of each real
+# token, so every step drops (at 1.0 the router, trained at SGD's rate,
+# balanced its experts to no drop by step 2, call 4); at dp=2 a rank's support
+# ends at global token 2000 and its query starts at 4000, neither a
+# multiple of 512. DP21_B_STEPS steps from the seed's weights, held to one
+# process on the global batch at DP21_TOL with the dropped shares equal.
+# The update is SGD at lr 0.1: Adam divides each gradient by its own
+# scale, so an element whose gradient is a near-cancelling sum (1e-6 of
+# the largest, on the card's f32 GEMMs) moves by its rounding (1.44e-5
+# apart after 3 steps, call 3), as 20c keeps its table on SGD.
+DP21_CAPACITY = 0.5
+DP21_VOCAB = 2002
+DP21_B_STEPS = 3
+DP21_TOL = 1e-5
+DP21_CHILD_SECONDS = {"21a": 240, "21b": 240, "21c": 240}
+DP21_SECONDS = 100
+
+
+def dp21a_main(out_path: str) -> int:
+    """21a, one rank of ``torchrun --nproc_per_node 1``: ``DP21_ARGV`` under
+    a world-size-1 NCCL mesh (``DP21_FLAGS``) and without a group,
+    DP21_STEPS steps each as replays of 4: held at ``hold_state``'s bars
+    (and whether every parameter is equal to the bit), the lazy moments,
+    the dropped shares equal, the path's kernels launched, the collectives
+    each replay issues equal to the plan, no capture after the warm-up,
+    ms/step and peak GiB beside the plain run; then ``cli.test_main`` on the
+    dp run's checkpoint under the mesh."""
+    from induction_network_on_fewrel_tpu_torch.models.moe import moe_layers
+
     t0 = time.monotonic()
-    DP_DIR.mkdir(parents=True, exist_ok=True)
-    DP20_DIR.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(DP21_DIR / "a", ignore_errors=True)
+    trainers, runs = {}, {}
+    for which, flags in (("plain", []), ("dp", DP21_FLAGS)):
+        args = cli.parse_args(True, DP21_ARGV + flags + ["--save_ckpt",
+                                                         str(DP21_DIR / "a" / which)])
+        cfg = cli.config_from_args(args)
+        mesh = cli.dp_mesh(args, cfg) if flags else None
+        if flags and (mesh is None or mesh.backend != "nccl" or mesh.dp != 1):
+            raise AssertionError(f"21a: expected a world-size-1 NCCL mesh, got {mesh}")
+        with contextlib.redirect_stderr(io.StringIO()):
+            trainers[which] = cli.make_trainer(args, cfg, mesh=mesh)[0]
+    plain, dp = trainers["plain"], trainers["dp"]
+    spc = dp.cfg.steps_per_call
+    for t in (plain, dp):
+        t.metric_window = spc
+    table0 = dp.model.embedding.word_embedding.detach().clone()
+    if any(not torch.equal(a, b) for a, b in zip(dp.model.parameters(),
+                                                  plain.model.parameters())):
+        raise AssertionError("21a: the two runs start from different weights")
+    watcher = stamped_watcher()
+    for which, t in (("plain", plain), ("dp", dp)):
+        zero_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stderr(io.StringIO()):
+            t.train(DP21_STEPS)
+        torch.cuda.synchronize()
+        runs[which] = {"wrappers": kernel_counts(), "records": train_records(t.logger.path),
+                       "drops": [float(m.drop_share) for m in moe_layers(t.model)],
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    missing = [k for k in OPTIM_ON + LAZY_KERNELS if not runs["dp"]["wrappers"][k]]
+    if missing:
+        raise AssertionError(f"21a: kernels of the path never launched under dp: {missing}")
+    losses = {w: np.array([r["loss"] for r in r_["records"]]) for w, r_ in runs.items()}
+    loss_rel = float(np.max(np.abs(losses["dp"] - losses["plain"]) / np.abs(losses["plain"])))
+    if loss_rel > GRAPH_PARAM_TOL or runs["dp"]["drops"] != runs["plain"]["drops"]:
+        raise AssertionError(f"21a: losses rel {loss_rel:.3g}, dropped shares "
+                             f"{runs['dp']['drops']} vs {runs['plain']['drops']}")
+    held = hold_state("21a NCCL world 1 vs no process group", (dp.model, full_moments(dp.opt)),
+                      (plain.model, plain.opt), table0)
+    bitwise = all(torch.equal(a, b) for a, b in zip(dp.model.parameters(),
+                                                     plain.model.parameters()))
+    lazy_rel = max(rel_err(getattr(dp.lazy, k).float(), getattr(plain.lazy, k).float())[1]
+                   for k in ("m", "v"))
+    if lazy_rel > SEGSUM_TOL or not torch.equal(dp.lazy.last, plain.lazy.last):
+        raise AssertionError(f"21a: the lazy table's moments rel {lazy_rel:.3g}")
+    captures = len(watcher.stamps)
+    prof = {w: profile_graph_steps(t, OPTIM_ON, calls=4, tag=f"21a profile {w}",
+                                   per_call=LAZY_KERNELS) for w, t in (("plain", plain),
+                                                                       ("dp", dp))}
+    if len(watcher.stamps) != captures:
+        raise AssertionError(f"21a: captures after the warm-up: {watcher.stamps[captures:]}")
+    watcher.uninstall()
+    for g in dp.multi_train_step.graphs.values():
+        S = g.out.shape[0]
+        if g.collectives != dp.dp.plan(S):
+            raise AssertionError(f"21a: a replay of {S} steps issues {g.collectives}, the "
+                                 f"plan is {dp.dp.plan(S)}")
+    issued = {k: n / spc for k, n in next(iter(dp.multi_train_step.graphs.values()))
+              .collectives.items()}
+    rc, out, err = quiet_cli(cli.test_main, DP21_TEST_ARGV + ["--load_ckpt",
+                                                              str(DP21_DIR / "a" / "dp")])
+    test = json.loads(out.strip().splitlines()[-1]) if rc == 0 else None
+    if rc != 0 or not 0.0 <= test["test_accuracy"] <= 1.0:
+        raise AssertionError(f"21a: cli test under the mesh: rc {rc}: {err[-2000:]}")
+    res = {"world": 1, "backend": "nccl", "steps": DP21_STEPS, "steps_per_call": spc,
+           "loss_rel": loss_rel, "held": held, "bitwise_params": bitwise,
+           "lazy_moments_rel": lazy_rel, "drop_share": runs["dp"]["drops"],
+           "collectives_per_step": issued, "nccl_kernels_per_step": prof["dp"]["nccl_per_step"],
+           "launches_per_step": {k: n / spc for k, n in prof["dp"]["per_replay"].items()},
+           "graph_ms_per_step": prof["dp"]["step_ms"],
+           "plain_ms_per_step": prof["plain"]["step_ms"], "busy_ms": prof["dp"]["busy_ms"],
+           "plain_busy_ms": prof["plain"]["busy_ms"], "peak_gib": runs["dp"]["peak_gib"],
+           "plain_peak_gib": runs["plain"]["peak_gib"], "captures_after_warmup": 0,
+           "test": test, "seconds": round(time.monotonic() - t0, 1)}
+    print(f"[21a] MoE (--moe_experts 8) at world 1 over NCCL ({' '.join(DP21_FLAGS)}), "
+          f"{DP21_STEPS} steps as replays of {spc}: losses rel {loss_rel:.3g} of the run "
+          f"without a process group, parameters equal to the bit: {bitwise}, state "
+          f"{held['state_rel']:.3g}; dropped shares {runs['dp']['drops']} (equal); "
+          f"collectives per step, counted across the capture {issued} (= the plan; "
+          f"{prof['dp']['nccl_per_step']:.2f} NCCL kernels per step); "
+          f"{prof['dp']['step_ms']:.3f} ms/step vs {prof['plain']['step_ms']:.3f} without dp, "
+          f"peak {res['peak_gib']:.2f} vs {res['plain_peak_gib']:.2f} GiB; no capture after "
+          f"the warm-up; test accuracy {test['test_accuracy']} under the mesh; "
+          f"{res['seconds']} s", flush=True)
+    for t in (plain, dp):
+        close_trainer(t)
+    Path(out_path).write_text(json.dumps(res, default=str))
+    return 0
+
+
+def dp21_payload() -> dict:
+    """21b/21c's world (the same in every rank: seeds): the MoE config at
+    f32 on a DP21_VOCAB-word table, DP21_B_STEPS global token batches of
+    the flagship episode from the synthetic train split."""
+    cfg = ExperimentConfig(encoder="transformer", moe_experts=8, moe_capacity=DP21_CAPACITY,
+                           compute_dtype="float32", vocab_size=DP21_VOCAB, optimizer="sgd",
+                           lr=0.1)
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    s = EpisodeSampler(cli.load_data(cfg, "train"), GloveTokenizer(vocab, cfg.max_length),
+                       cfg.n, cfg.k, cfg.q, batch_size=cfg.batch_size, seed=0)
+    keys = ("encoder", "moe_experts", "moe_capacity", "compute_dtype", "vocab_size",
+            "optimizer", "lr")
+    return {"cfg": {k: getattr(cfg, k) for k in keys}, "variants": {"bind": {}},
+            "weights": None, "device": "cuda",
+            "batches": [batch_to_model_inputs(s.sample_batch()) for _ in range(DP21_B_STEPS)]}
+
+
+def leaf_rel(got: dict, want: dict) -> float:
+    """The worst |got - want| over each leaf's scale."""
+    return max(float(np.abs(got[k] - w).max()) / max(float(np.abs(w).max()), 1e-30)
+               for k, w in want.items())
+
+
+def dp21_gloo_main(out_path: str) -> int:
+    """21b/21c, a rank of ``torchrun --nproc_per_node 2`` or ``4``: gloo
+    ranks on the one card (NCCL puts no two ranks on one device), eager
+    steps; the MoE layouts of the world size (``rig.MOE_LAYOUTS``: (dp=2,
+    ep=1) and (dp=1, ep=2) on two ranks, (dp=2, ep=2) on four) each train
+    ``dp21_payload``'s batches; rank 0 runs the one-process reference on the
+    global batches and holds each layout to it: the first forward's logits
+    (its rows) and every gradient leaf within DP21_TOL of scale, the losses
+    within DP21_TOL, the parameters after ``rig.MOE_DP_AT`` steps at
+    ``np.testing.assert_allclose(atol=rtol=DP21_TOL)``'s measure, the
+    gradient norms at rtol DP21_TOL, the dropped shares equal and above 0,
+    every rank's replica equal, the collectives each step issued equal to
+    the plan on every rank."""
+    import torch.distributed as dist
+
+    from induction_network_on_fewrel_tpu_torch.parallel import rig
+    from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.monotonic()
+    torch.cuda.set_device(0)
+    maybe_initialize_distributed(backend="gloo", timeout_s=120)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    payload = dp21_payload()
+    torch.cuda.reset_peak_memory_stats()
+    got, counts = {}, {}
+    for dp, ep in rig.MOE_LAYOUTS[world]:
+        zero_kernel_counts()
+        got.update(rig.moe_cases({**payload, "layouts": ((dp, ep),)},
+                                 lambda dp, ep: make_mesh(dp=dp, ep=ep)))
+        counts[rig.layout_name(dp, ep)] = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mine = {lay: {"params": r["bind"]["params"], "issued": r["bind"]["issued_per_step"],
+                  "plan": r["bind"]["plan"]} for lay, r in got.items()}
+    other = [None] * world
+    dist.gather_object(mine, other if rank == 0 else None, dst=0)
+    if rank != 0:
+        return 0
+    ref = rig.run_moe_case(payload, "bind", None)
+    res = {"world": world, "backend": "gloo", "device": torch.cuda.get_device_name(0),
+           "steps": DP21_B_STEPS, "capacity": DP21_CAPACITY, "layouts": {},
+           "peak_gib_rank0": peak}
+    for lay, r in got.items():
+        r = r["bind"]
+        B = len(ref["logits"])
+        dp, ep = (int(x[2:]) for x in lay.split("_"))
+        logit_rel = float(np.abs(r["logits"] - ref["logits"][:B // dp]).max()
+                          / np.abs(ref["logits"]).max())
+        grad_rel = leaf_rel(r["grads"], ref["grads"])
+        loss_err = float(np.abs(np.array(r["losses"]) - ref["losses"]).max())
+        excess = {k: float(np.max(np.abs(r["params_at"][k] - w) - DP21_TOL * np.abs(w)))
+                  for k, w in ref["params_at"].items()}
+        param_err = max(excess.values())
+        worst = sorted(excess.items(), key=lambda kv: -kv[1])[:3]
+        norm_rel = float(np.max(np.abs(np.array(r["grad_norms"]) - ref["grad_norms"])
+                                / np.array(ref["grad_norms"])))
+        drops_equal = r["drops"] == ref["drops"] and r["drops0"] == ref["drops0"]
+        dropped = min(min(d) for d in ref["drops"]) > 0
+        replicas = all(np.array_equal(o[lay]["params"][k], r["params"][k])
+                       for o in other for k in r["params"])
+        issued_ok = all(o[lay]["issued"] == o[lay]["plan"] for o in other)
+        if (logit_rel > DP21_TOL or grad_rel > DP21_TOL or loss_err > DP21_TOL
+                or param_err > DP21_TOL or norm_rel > DP21_TOL or not drops_equal
+                or not dropped or not replicas or not issued_ok):
+            raise AssertionError(
+                f"21 {lay}: logits {logit_rel:.3g}, gradients {grad_rel:.3g}, losses "
+                f"{loss_err:.3g}, params {param_err:.3g}, grad norms {norm_rel:.3g} (tol "
+                f"{DP21_TOL}; worst parameter leaves {worst}); dropped shares {r['drops']} vs "
+                f"{ref['drops']}; "
+                f"replicas equal "
+                f"{replicas}; collectives {[o[lay]['issued'] for o in other]} vs {r['plan']}")
+        ms = r["seconds"] / DP21_B_STEPS * 1e3
+        res["layouts"][lay] = {"logit_rel": logit_rel, "grad_rel": grad_rel,
+                               "loss_abs_err": loss_err, "param_err": param_err,
+                               "grad_norm_rel": norm_rel, "drop_share": r["drops"],
+                               "worst_param_leaves": worst,
+                               "collectives_per_step": r["issued_per_step"],
+                               "eager_ms_per_step": ms,
+                               "launches_per_step": {k: n / DP21_B_STEPS
+                                                     for k, n in counts[lay].items() if n}}
+        label = "21b" if ep == 1 else "21c"
+        print(f"[{label}] {lay} ({world} gloo ranks on the card, eager) vs one process on the "
+              f"global batch, {DP21_B_STEPS} steps at --moe_capacity {DP21_CAPACITY}: logits "
+              f"{logit_rel:.3g}, gradients {grad_rel:.3g} of scale, losses within "
+              f"{loss_err:.3g}, parameters within {param_err:.3g}, grad norms rel "
+              f"{norm_rel:.3g} (tol {DP21_TOL}); dropped shares per step and layer "
+              f"{r['drops']} (equal); replicas equal; collectives per step {r['issued_per_step']} "
+              f"(= the plan on every rank); {ms:.1f} ms/step eager", flush=True)
+    res["seconds"] = round(time.monotonic() - t0, 1)
+    print(f"[21{'b' if world == 2 else 'c'}] rank 0 wrapper launches per step (eager) by "
+          f"layout {dict((k, v['launches_per_step']) for k, v in res['layouts'].items())}; "
+          f"peak {peak:.2f} GiB on rank 0; {res['seconds']} s", flush=True)
+    Path(out_path).write_text(json.dumps(res, default=str))
+    return 0
+
+
+def dp_phases(smi: str, want19: bool, want20: bool, want21: bool = False,
+              moe14: dict | None = None) -> tuple:
+    """Phases 19, 20 and 21 (the ``{"dp": ...}``, ``{"dp20": ...}`` and
+    ``{"dp21": ...}`` results, None for a phase not asked for): 20a in this
+    process, then one torchrun child at world size 1 over NCCL for 19a, 20b
+    and 21a, one of two gloo ranks for 19b, 20c and 21b-c (dp=2, ep=2) and
+    one of four for 21c (dp=2, ep=2); this process never joins a process
+    group. ``moe14``: phase 14c's MoE result, printed beside 21's."""
+    t0 = time.monotonic()
+    for d in (DP_DIR, DP20_DIR, DP21_DIR):
+        d.mkdir(parents=True, exist_ok=True)
     a20 = serving_dp_phase(smi) if want20 else None
     t_a = time.monotonic()
-    nccl = dp_child(["19a"] * want19 + ["20a"] * want20, 1)
-    gloo = dp_child(["19b"] * want19 + ["20b"] * want20, 2)
+    nccl = dp_child(["19a"] * want19 + ["20a"] * want20 + ["21a"] * want21, 1)
+    gloo = dp_child(["19b"] * want19 + ["20b"] * want20 + ["21b"] * want21, 2)
+    t_c = time.monotonic()
+    gloo4 = dp_child(["21c"], 4) if want21 else {}
     seconds = round(time.monotonic() - t0, 1)
-    dp19 = dp20 = None
+    dp19 = dp20 = dp21 = None
     if want19:
         dp19 = {"card": smi, "a_nccl_world1": nccl["19a"], "b_gloo_world2": gloo["19b"]}
     if want20:
         dp20 = {"card": smi, "a_serving_dp": a20, "b_nccl_world1": nccl["20a"],
                 "c_gloo_world2": gloo["20b"], "seconds_20a": round(t_a - t0, 1)}
-    print(f"[dp] phases {'19 ' * want19}{'20' * want20}: {seconds} s (two torchrun "
-          f"children; 20a in process {round(t_a - t0, 1)} s; targets {DP_SECONDS} s and "
-          f"{DP20_SECONDS} s; {smi})", flush=True)
-    for d in (dp19, dp20):
+    if want21:
+        dp21 = {"card": smi, "a_nccl_world1": nccl["21a"], "bc_gloo_world2": gloo["21b"],
+                "c_gloo_world4": gloo4["21c"], "seconds_world4_child": round(time.monotonic()
+                                                                             - t_c, 1)}
+        a = nccl["21a"]
+        eager = {lay: v["eager_ms_per_step"] for w in (gloo["21b"], gloo4["21c"])
+                 for lay, v in w["layouts"].items()}
+        dp21["beside_14c"] = ({k: moe14[k] for k in ("step_ms", "peak_gib")}
+                              if moe14 is not None else None)
+        print(f"[21] MoE ms/step: 21a graph {a['graph_ms_per_step']:.3f} (world 1 over NCCL) "
+              f"vs {a['plain_ms_per_step']:.3f} without a group, peak {a['peak_gib']:.2f} vs "
+              f"{a['plain_peak_gib']:.2f} GiB; 21b/21c eager f32 on gloo ranks {eager}, peak "
+              f"{gloo['21b']['peak_gib_rank0']:.2f} / {gloo4['21c']['peak_gib_rank0']:.2f} GiB "
+              f"on rank 0 (2 / 4 ranks on one card: one card, not a speed-up); 14c at ep=1 "
+              + (f"{moe14['step_ms']:.3f} ms/step, peak {moe14['peak_gib']:.2f} GiB"
+                 if moe14 is not None else "not run in this call") + f"; {smi}", flush=True)
+    print(f"[dp] phases {'19 ' * want19}{'20 ' * want20}{'21' * want21}: {seconds} s "
+          f"(torchrun children; 20a in process {round(t_a - t0, 1)} s; targets {DP_SECONDS} s, "
+          f"{DP20_SECONDS} s and {DP21_SECONDS} s; {smi})", flush=True)
+    for d in (dp19, dp20, dp21):
         if d is not None:
             d["seconds_with_shared_children"] = seconds
-    shutil.rmtree(DP_DIR, ignore_errors=True)
-    shutil.rmtree(DP20_DIR, ignore_errors=True)
-    return dp19, dp20
+    for d in (DP_DIR, DP20_DIR, DP21_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    return dp19, dp20, dp21
 
 def main(phases: set | None = None) -> int:
     if not torch.cuda.is_available():
@@ -7453,12 +7759,16 @@ def main(phases: set | None = None) -> int:
     # parallel: the dp-sharded serving engine (in this process), --adv,
     # --mixture and --feature_cache at world size 1 over NCCL (captured) and
     # on two gloo ranks on the card (eager), in the same two children.
-    if on("19") or on("20"):
-        dp19, dp20 = dp_phases(smi, on("19"), on("20"))
-        if on("19"):
-            done["dp"] = dp19
-        if on("20"):
-            done["dp20"] = dp20
+    # 21. MoE across ranks: the routing and the load-balance term over the
+    # global batch at world size 1 over NCCL (captured, in 19's child) and on
+    # gloo ranks on the card (eager: dp=2, ep=2 and both, 2 and 4 ranks).
+    if on("19") or on("20") or on("21"):
+        dp19, dp20, dp21 = dp_phases(smi, on("19"), on("20"), on("21"),
+                                     done.get("slice6c", {}).get("c_moe"))
+        for phase, key, value in (("19", "dp", dp19), ("20", "dp20", dp20),
+                                  ("21", "dp21", dp21)):
+            if on(phase):
+                done[key] = value
 
     if phases is not None:
         # A selected run: each phase's own line, then the final lines.
@@ -7661,6 +7971,11 @@ def main(phases: set | None = None) -> int:
             **{f"{p}_per_step": dp20["b_nccl_world1"][p]["launches_per_step"].get(key, 0.0)
                for p in ("adv", "mixture", "cache")},
             "gloo_20c": dp20["c_gloo_world2"]["launches"].get(key, 0)}
+        k["launches_moe_dp_21"] = {
+            "21a_per_step": dp21["a_nccl_world1"]["launches_per_step"].get(key, 0.0),
+            **{f"gloo_{lay}_per_step": v["launches_per_step"].get(key, 0.0)
+               for w in ("bc_gloo_world2", "c_gloo_world4")
+               for lay, v in dp21[w]["layouts"].items()}}
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -7692,6 +8007,7 @@ def main(phases: set | None = None) -> int:
     print(json.dumps({"tools": tools18}, default=str), flush=True)
     print(json.dumps({"dp": dp19}, default=str), flush=True)
     print(json.dumps({"dp20": dp20}, default=str), flush=True)
+    print(json.dumps({"dp21": dp21}, default=str), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7706,7 +8022,7 @@ def main(phases: set | None = None) -> int:
 PHASE_NEEDS = {"1": (), "2": (), "3": (), "4": (), "6": ("4",), "6b": (), "7": ("6",), "8": (),
                "9": (), "10": ("9",), "9c": (), "9d": ("9c",), "9e": ("9c",), "4b": ("9",),
                "4c": ("9",), "4a": ("9",), "11": ("9c",), "14": ("9", "11"), "13": ("9c",),
-               "15": (), "16": (), "17": (), "18": (), "19": (), "20": ()}
+               "15": (), "16": (), "17": (), "18": (), "19": (), "20": (), "21": ()}
 PHASE_ALIASES = {"5": "4", "6c": "6", "6d": "6"}
 
 

@@ -62,7 +62,7 @@ stop`` restores the best checkpoint on a val collapse and ends the run;
 ``--fault_step`` injects a crash on a fresh run. ``--moe_*`` (the MoE FFN in
 every ``--moe_every``-th transformer block, its load-balance term in the
 objective) and ``--tfm_stacked`` (the layer-stacked transformer) run on one
-card (``--ep``/``--pp`` 1); ``train --adv [TARGET_FILE]`` is FewRel 2.0
+card (``--pp`` 1; ``--ep`` under a launcher, below); ``train --adv [TARGET_FILE]`` is FewRel 2.0
 adversarial adaptation (the DANN step against a domain discriminator over
 ``--adv_batch`` source and target instances a step; bare ``--adv`` is the
 synthetic target domain), with ``--adv_lambda`` and ``--adv_dis_hidden``.
@@ -105,7 +105,15 @@ the one-process run. ``--adv`` (each rank on ``adv_batch/N`` source and
 target instances, the discriminator's gradients averaged too),
 ``--feature_cache`` (each rank encodes the whole table) and ``--mixture``
 (every rank picks the same source for batch i; each draws its own rows)
-run under a mesh; MoE there is refused by name (``dp_mesh``; item 6d).
+run under a mesh, and so does MoE: each layer routes over the global batch
+and takes its load-balance term from global statistics
+(``models/moe.py``). ``--ep M`` (the JAX expert-parallel axis; it needs
+``--encoder transformer --moe_experts E`` with E divisible by M) shards
+each MoE layer's experts over M ranks that hold the same episodes
+(``torchrun --nproc_per_node dp*M``; ``parallel/expert.py``); a checkpoint
+holds every expert, so it restores at any ``--ep``. ``--tp``, ``--sp``,
+``--pp`` and ``--pp_microbatches`` stay refused by name (``DEFERRED``;
+item 6d).
 
 Runs on the GPU by default and refuses to start without CUDA unless
 ``--device cpu`` is given.
@@ -334,6 +342,8 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=0,
                    help="data-parallel mesh axis (0 = all devices): the ranks of "
                         "torchrun --nproc_per_node N; without a launcher, one")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel mesh axis (requires --moe_experts)")
     p.add_argument("--save_ckpt", default="./checkpoint", help="checkpoint directory")
     p.add_argument("--load_ckpt", default=None, help="checkpoint directory to restore")
     if train:
@@ -415,7 +425,7 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
 # anything but the default (or a value meaning the same here, _NEUTRAL),
 # each is refused by name (rc 2).
 DEFERRED = {
-    "--ep": (1, int, LATER_SLICE["ep"]), "--pp": (1, int, LATER_SLICE["pp"]),
+    "--pp": (1, int, LATER_SLICE["pp"]),
     "--sp": (1, int, LATER_SLICE["sp"]), "--tp": (1, int, SHARDED),
     "--pp_microbatches": (4, int, SHARDED),
 }
@@ -445,8 +455,8 @@ def refuse_deferred(parser: argparse.ArgumentParser, args) -> None:
 
 def parse_args(train: bool, argv=None):
     """Parse ``argv``; exit (rc 2) naming the slice that brings an unported
-    JAX flag given with anything but its default, naming an MoE or stacked
-    option the model would not honor (``check_transformer_options``), and
+    JAX flag given with anything but its default, naming an MoE, stacked or
+    ``--ep`` option the model would not honor (``check_transformer_options``), and
     on ``train --bert_weights`` without ``--encoder bert``."""
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
     from induction_network_on_fewrel_tpu_torch.models.build import (
@@ -459,7 +469,8 @@ def parse_args(train: bool, argv=None):
     try:
         cfg = ExperimentConfig(model=args.model, encoder=args.encoder, tfm_layers=args.tfm_layers,
                                moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
-                               moe_every=args.moe_every, tfm_stacked=args.tfm_stacked)
+                               moe_every=args.moe_every, tfm_stacked=args.tfm_stacked,
+                               ep=args.ep)
         refuse_later_slices(cfg)
         check_transformer_options(cfg)
     except ValueError as e:
@@ -557,7 +568,7 @@ def config_from_args(args):
         mixture=args.mixture, feed_fault=getattr(args, "feed_fault", ""), seed=args.seed,
         ckpt_stage=args.ckpt_stage, watchdog=getattr(args, "watchdog", False),
         perf=getattr(args, "perf", False), nan_inject_step=getattr(args, "nan_inject_step", 0),
-        chaos=getattr(args, "chaos", ""), dp=args.dp, zero_opt=args.zero_opt,
+        chaos=getattr(args, "chaos", ""), dp=args.dp, ep=args.ep, zero_opt=args.zero_opt,
         compact_demb=args.compact_demb, grad_bucketing=args.grad_bucketing,
         grad_bucket_count=args.grad_bucket_count, async_collectives=args.async_collectives,
     )
@@ -655,21 +666,21 @@ def dp_mesh(args, cfg):
     """The run's dp mesh, or None for one process (the JAX ``use_mesh``).
     Launched by torchrun, every rank joins the process group
     (``parallel.distributed``: NCCL on the card, gloo with ``--device cpu``)
-    and the mesh is the whole world or ``--dp`` ranks of it; without a
-    launcher ``--dp`` 0 or 1 is the single-process run and more raises.
-    Refused by name under a mesh: MoE (item 6d), the live lazy path, and an
-    episode batch or an ``--adv`` instance batch that does not divide over
-    the ranks (the JAX text)."""
+    and the mesh is the whole world or ``--dp`` ranks of it by ``--ep``
+    (the JAX axis order); without a launcher ``--dp`` 0 or 1 at ``--ep`` 1
+    is the single-process run and more raises. Refused by name under a
+    mesh: the live lazy path, and an episode batch or an ``--adv`` instance
+    batch that does not divide over the dp ranks (the JAX text); ``--tp``,
+    ``--sp`` and ``--pp`` stay refused by name before it (item 6d)."""
     from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
         maybe_initialize_distributed,
     )
     from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
-    from induction_network_on_fewrel_tpu_torch.parallel.sharding import check_moe
 
-    if not maybe_initialize_distributed(device=args.device) and cfg.dp in (0, 1):
+    if not maybe_initialize_distributed(device=args.device) and cfg.dp in (0, 1) \
+            and cfg.ep == 1:
         return None
-    mesh = make_mesh(dp=cfg.dp or None)
-    check_moe(cfg)
+    mesh = make_mesh(dp=cfg.dp or None, ep=cfg.ep)
     if cfg.embed_optimizer == "lazy" and not cfg.token_cache:
         raise ValueError(
             "--embed_optimizer lazy does not combine with a device mesh on the LIVE token path "
@@ -746,7 +757,7 @@ def make_trainer(args, cfg, only_test: bool = False, mesh=None):
     else:
         model = build_model(cfg, glove_init=vectors, device=args.device)
 
-    batch, rank0 = cfg.batch_size, mesh is None or mesh.rank == 0
+    batch, rank0 = cfg.batch_size, mesh is None or mesh.main
 
     def per_rank(sampler):
         return sampler if mesh is None else PerRankSampler(sampler, cfg.batch_size)
@@ -1028,7 +1039,7 @@ def train_main(argv=None) -> int:
         trainer.train(cfg.train_iter, start_step=start_step)
         if trainer.saved_best:
             step = trainer.reader().restore_best(trainer.model)
-            if trainer.rank == 0:
+            if trainer.main:
                 print(f"final eval from best checkpoint (step {step})", file=sys.stderr)
         print_result(trainer.evaluate(cfg.val_iter, return_metrics=True), "final_val_accuracy")
         return 0

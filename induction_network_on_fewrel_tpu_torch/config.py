@@ -15,11 +15,11 @@ geometry tiers and the fleet's tier spread), the adaptation controller's
 ``adapt*`` policy, the host feed (sampler backend, prefetch, mixture, feed
 faults), the data-parallel knobs (``dp``, ``zero_opt``, ``compact_demb``,
 ``grad_bucketing``, ``grad_bucket_count``, ``async_collectives``;
-``parallel/``) and the seed. Names and defaults are the JAX package's, so a
+``parallel/``), the expert-parallel axis (``ep``) and the seed. Names and defaults are the JAX package's, so a
 config built with the same keywords describes the same model in both
 packages, and the ``config.json`` a checkpoint writes loads into the JAX
-config too. The sharded executors' knobs (tp, sp, pp, ep) come with their
-slice.
+config too. The other sharded executors' knobs (tp, sp, pp) come with
+their slice.
 
 ``resolve_quant_policy``, ``resolve_geometry_policy``,
 ``resolve_adapt_policy`` and ``parse_canary_plan`` are copies of the JAX
@@ -243,7 +243,7 @@ class ExperimentConfig:
     head_dtype: str = "float32"      # induction / NTN / logits dtype
     seed: int = 0
 
-    # --- data parallel (parallel/; none is an architecture field) ---
+    # --- data and expert parallel (parallel/; none is an architecture field) ---
     # ZeRO-1: each rank holds a contiguous 1/dp chunk of every Adam moment
     # whose size divides, updates its chunk of the parameters and
     # all-gathers them; a checkpoint holds the gathered moments.
@@ -263,6 +263,9 @@ class ExperimentConfig:
     # soon as its gradients are ready; "off": every bucket after it.
     async_collectives: str = "auto"
     dp: int = 1               # data-parallel ranks (episodes sharded)
+    # Expert-parallel ranks (parallel/expert.py): each MoE layer's experts
+    # shard over them; the ranks of one ep group hold the same episodes.
+    ep: int = 1
 
     # Fields whose value shapes the parameters or the optimizer state: a
     # checkpoint restores only into a config that agrees on them.

@@ -19,11 +19,14 @@ scores (max, mean and the POPULATION std, ``correction=0``, as jnp's std).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
 
 from induction_network_on_fewrel_tpu_torch.models.embedding import expand_positions
+from induction_network_on_fewrel_tpu_torch.models.moe import moe_layers, token_parts
 
 QUERY_KEYS = ("word", "pos1", "pos2", "mask")
 
@@ -72,8 +75,10 @@ class FewShotModel(nn.Module):
         """(support [B, N, K, L] dict, query [B, TQ, L] dict) ->
         ([B, N, K, H], [B, TQ, H]): ONE encoder call over support ⧺ query
         rows (the encoder is row-independent, so concat-encode-split is
-        exact). Encoded rows (the feature cache's [B, N, K, H] and [B, TQ,
-        H] tensors) pass straight through."""
+        exact; MoE layers, which route groups of tokens, learn the two parts,
+        ``models/moe.token_parts``, which under data parallel are two slices
+        of the global order). Encoded rows (the feature cache's [B, N, K, H]
+        and [B, TQ, H] tensors) pass straight through."""
         if not isinstance(support, dict):
             return support, query
         L = support["word"].shape[-1]
@@ -89,8 +94,11 @@ class FewShotModel(nn.Module):
                           expand_positions(query[k], query["word"]).reshape(-1, L)])
             for k in QUERY_KEYS
         }
-        enc = self.encode(cat["word"], cat["pos1"], cat["pos2"], cat["mask"])
         ns = int(np.prod(sup_lead))
+        layers = moe_layers(self.encoder)
+        with token_parts(layers, (ns, int(np.prod(qry_lead)))) if layers else \
+                contextlib.nullcontext():
+            enc = self.encode(cat["word"], cat["pos1"], cat["pos2"], cat["mask"])
         return enc[:ns].reshape(*sup_lead, -1), enc[ns:].reshape(*qry_lead, -1)
 
     def append_nota(self, logits: torch.Tensor) -> torch.Tensor:

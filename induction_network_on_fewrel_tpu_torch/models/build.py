@@ -6,10 +6,11 @@ the cnn, bilstm, transformer and bert encoders, and BERT-PAIR (``--model
 pair``, its own backbone). With ``feature_cache`` the model is the head
 alone over encoded rows (``models/bert.CachedFeatures``); its backbone is
 ``build_model(cfg.replace(feature_cache=False))``. The transformer takes
-the MoE FFN (``moe_experts > 0``, ``models/moe.py``) or the layer-stacked
-layout (``tfm_stacked``, ``models/pipeline_transformer.py``), both on one
-card; their sharded executors (``--ep``/``--pp`` > 1) and ring attention
-(``--sp``) come with ROADMAP item 6d (``LATER_SLICE``).
+the MoE FFN (``moe_experts > 0``, ``models/moe.py``; its experts shard
+over ``--ep`` ranks, ``parallel/expert.py``) or the layer-stacked layout
+(``tfm_stacked``, ``models/pipeline_transformer.py``) on one card; its
+pipeline executor (``--pp`` > 1) and ring attention (``--sp``) come with
+ROADMAP item 6d (``LATER_SLICE``).
 
 Device rule: ``device=None`` means "cuda". Without CUDA that raises, unless
 the caller asked for ``device="cpu"`` explicitly: there is no silent CPU
@@ -135,11 +136,11 @@ def check_kernel_widths(cfg: ExperimentConfig, device) -> None:
         )
 
 
-# The JAX package's sharded executors: the ROADMAP queue A item that brings
-# them (the CLI refuses --ep, --pp and --sp above 1 by name with these).
-SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention, pp, ep)"
+# The JAX package's sharded executors still to port: the ROADMAP queue A
+# item that brings them (the CLI refuses --tp, --pp and --sp above 1 by name
+# with these).
+SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention, pp)"
 LATER_SLICE = {
-    "ep": SHARDED + "; --ep 1 runs the MoE FFN on one card",
     "pp": SHARDED + "; --pp 1 with --tfm_stacked runs the layer-stacked transformer on one card",
     "sp": SHARDED,
 }
@@ -161,7 +162,16 @@ def check_transformer_options(cfg: ExperimentConfig) -> None:
     """Refuse by name an MoE or stacked configuration the model would
     silently not honor (the JAX ``build.py:159-182``): experts or the
     stacked layout off the transformer, MoE without an expert layer (or
-    with no expert chosen per token), and the stacked layout with MoE."""
+    with no expert chosen per token), the stacked layout with MoE, and
+    ``--ep`` above 1 without MoE on the transformer or with experts that do
+    not divide over it (the JAX ``cli.py:862-871``)."""
+    if cfg.ep > 1:
+        if cfg.moe_experts <= 0 or cfg.encoder != "transformer":
+            raise ValueError("--ep (expert parallelism) requires --encoder transformer with "
+                             "--moe_experts > 0")
+        if cfg.moe_experts % cfg.ep != 0:
+            raise ValueError(f"--moe_experts ({cfg.moe_experts}) must be divisible by --ep "
+                             f"({cfg.ep})")
     if cfg.moe_experts > 0:
         if cfg.encoder != "transformer":
             raise ValueError("--moe_experts requires --encoder transformer (the MoE FFN lives in "

@@ -1,12 +1,14 @@
-"""Data parallel over ``torch.distributed``.
+"""Data and expert parallel over ``torch.distributed``.
 
-Counterpart of ``induction_network_on_fewrel_tpu/parallel/`` for dp:
-``distributed`` (the process group from the launcher's environment),
-``mesh`` (the dp ranks), ``hostfeed`` (each rank's own episodes),
+Counterpart of ``induction_network_on_fewrel_tpu/parallel/`` for dp and
+ep: ``distributed`` (the process group from the launcher's environment),
+``mesh`` (the (dp, ep) ranks), ``hostfeed`` (each rank's own episodes),
 ``grad_buckets`` (the bucketed gradient all-reduce), ``sharding`` (ZeRO-1,
-the compact table gradient, the trainer's ``DataParallel``) and ``rig``
-(ranks as spawned processes with a bounded wall time, for tests and the
-smoke run). The sharded executors (tp, sp, pp, ep) come with item 6d.
+the compact table gradient, the trainer's ``DataParallel``), ``expert``
+(the MoE layers on a mesh: global routing, the experts sharded over ep)
+and ``rig`` (ranks as spawned processes with a bounded wall time, for
+tests and the smoke run). The other sharded executors (tp, sp, pp) come
+with item 6d.
 """
 
 from induction_network_on_fewrel_tpu_torch.parallel.distributed import (

@@ -28,7 +28,7 @@ all-reduces run inside the captured step (one replay issues them all);
 gloo's run on the host, so its steps stay eager (train/steps.py).
 
 ``COLLECTIVES`` counts the collectives the port issues, by kind, where
-they are issued (under a CUDA graph: the warm-up's and the capture's, not
+they are issued (the MoE layers' too, ``parallel/expert.py``) (under a CUDA graph: the warm-up's and the capture's, not
 the replays', as the kernel wrappers count launches).
 """
 
@@ -71,19 +71,18 @@ def bucket_index(path: str, n_buckets: int) -> int:
 def grad_buckets_for(cfg, mesh, device=None) -> int:
     """Resolve ``cfg.grad_bucketing`` against the mesh: the bucket count,
     or 0 (monolithic). The JAX rule: off without a dp axis above 1, on
-    meshes with another axis above 1 and under MoE; "auto" resolves on
-    only on the accelerator (here the card: ``device``, default whether
-    CUDA is present) and only for the lazy word table; "on" forces it.
-    (JAX's rule for meshes with tp/sp/pp/ep above 1 comes with those axes,
-    ROADMAP queue A item 6d: ``make_mesh`` refuses them.)
-    One difference: a mesh with a live process group resolves at dp=1
-    too, so world size 1 issues the collectives world size N does."""
+    meshes with another axis above 1 (here ep; ``make_mesh`` refuses tp,
+    sp and pp) and under MoE; "auto" resolves on only on the accelerator
+    (here the card: ``device``, default whether CUDA is present) and only
+    for the lazy word table; "on" forces it. One difference: a mesh with
+    a live process group resolves at dp=1 too, so world size 1 issues the
+    collectives world size N does."""
     knob = getattr(cfg, "grad_bucketing", "off")
     if knob == "off" or mesh is None:
         return 0
     if mesh.dp <= 1 and not mesh.live:
         return 0
-    if getattr(cfg, "moe_experts", 0) > 0:
+    if getattr(mesh, "ep", 1) > 1 or getattr(cfg, "moe_experts", 0) > 0:
         return 0
     on_card = (torch.device(device).type == "cuda" if device is not None
                else torch.cuda.is_available())

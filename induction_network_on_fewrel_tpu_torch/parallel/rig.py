@@ -29,11 +29,23 @@ body on one process over the global batch (the reference). The payload
 is plain data: the config's keywords, the weights (a state dict of numpy
 arrays, or None for the seed's), the token table's arrays and rows per
 relation, and the global index batches.
+
+``dp_moe_cases`` runs the MoE transformer on the (dp, ep) layouts of its
+world size (``MOE_LAYOUTS``: (2, 1) and (1, 2) on two ranks, (2, 2) on
+four) from given full weights on given global token batches, each rank on
+its dp index's rows: the first batch's forward and gradient, then a
+training step a batch (``run_moe_case``; with the mesh None, the
+one-process reference), saving and restoring ring slots across ep
+(``restore_moe``) and the train and test CLI under the layout
+(``moe_cli``); ``moe_test_reference`` is one process's ``test`` of the
+episodes the dp ranks draw. The sharded executors still to port (tp, sp,
+pp) come with ROADMAP queue A item 6d.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import os
 import pickle
 import tempfile
@@ -451,3 +463,254 @@ def dp_more_cases(rank: int, world: int, payload: dict) -> dict:
     from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
 
     return more_cases(payload, make_mesh(dp=world))
+
+
+# --- MoE across ranks: routing over the global batch, and the ep executor ----------
+
+# The (dp, ep) layouts a world of each size runs, in turn.
+MOE_LAYOUTS = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+# The step after which the parameters are held to one process at the dp bar.
+MOE_DP_AT = 3
+
+
+def layout_name(dp: int, ep: int) -> str:
+    return f"dp{dp}_ep{ep}"
+
+
+def local_token_rows(batch, mesh) -> tuple:
+    """This dp rank's episodes of a global (support, query, label) token
+    batch (the ranks of one ep group hold the same ones)."""
+    if mesh is None:
+        return batch
+    from induction_network_on_fewrel_tpu_torch.parallel.hostfeed import local_episode_range
+
+    lo, n = local_episode_range(mesh, len(batch[2]))
+    return tuple(_rows_of(x, lo, n) for x in batch)
+
+
+def moe_parts(cfg, weights, mesh, device):
+    """(model, opt, dp) of an MoE case: the given full weights (None: the
+    seed's), the MoE layers on ``mesh`` (its experts sliced at ep > 1)
+    before the optimizer, and its ``DataParallel``."""
+    from induction_network_on_fewrel_tpu_torch.models.build import build_model
+    from induction_network_on_fewrel_tpu_torch.parallel.expert import attach_experts
+    from induction_network_on_fewrel_tpu_torch.parallel.sharding import DataParallel
+    from induction_network_on_fewrel_tpu_torch.train.steps import make_optimizer
+
+    model = build_model(cfg, device=device)
+    if weights is not None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()})
+    if mesh is not None:
+        attach_experts(model, mesh)
+    opt = make_optimizer(cfg, model)
+    return model, opt, (DataParallel(model, opt, cfg, mesh) if mesh is not None else None)
+
+
+def full_numpy(model, opt) -> tuple[dict, dict]:
+    """(parameters, moments) in the JAX layout (the experts gathered over
+    ep: a collective), as numpy copies."""
+    from induction_network_on_fewrel_tpu_torch.parallel.expert import full_state_dict
+
+    params = {k: np.array(v.detach().float().cpu()) for k, v in full_state_dict(model).items()}
+    state = opt.state_dict()
+    moments = {f"{kind}/{n}": np.array(x.float().cpu()) for kind in ("mu", "nu")
+               for n, x in zip(opt.names, state[kind]) if x is not None}
+    return params, moments
+
+
+def run_moe_case(payload: dict, variant: str, mesh, save_dir: str | None = None) -> dict:
+    """One MoE variant (``payload["variants"][variant]``, config keywords)
+    under ``mesh`` (None: one process on the global batches) from the
+    payload's weights: at the first batch the forward's logits (this rank's
+    rows), the load-balance terms' sum and each layer's dropped share, and
+    the objective's gradients (averaged over dp, the experts gathered);
+    then one training step a batch: losses, gradient norms and dropped
+    shares per step, the parameters after ``MOE_DP_AT`` steps and at the
+    end, the moments, and under a mesh the collectives each step issued
+    beside the plan. ``save_dir``: the end state saved there as a ring slot
+    (the trainer's save: every expert, gathered)."""
+    from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.models.moe import collect_aux, moe_layers
+    from induction_network_on_fewrel_tpu_torch.parallel.expert import FullModel, is_expert_leaf
+    from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import COLLECTIVES
+    from induction_network_on_fewrel_tpu_torch.train.framework import SavedOptimizer
+    from induction_network_on_fewrel_tpu_torch.models.losses import LOSS_FNS
+    from induction_network_on_fewrel_tpu_torch.train.steps import (
+        _backward,
+        _inputs_on,
+        aux_weight,
+        make_train_step,
+        train_step,
+    )
+
+    device = torch.device(payload.get("device", "cpu"))
+    cfg = ExperimentConfig(**{**payload["cfg"], **payload["variants"][variant]})
+    model, opt, dp = moe_parts(cfg, payload.get("weights"), mesh, device)
+    layers = moe_layers(model)
+    out: dict = {}
+    sup, qry, lab = _inputs_on(model, *local_token_rows(payload["batches"][0], mesh))
+    opt.zero_grad()
+    with collect_aux(model) as sink:
+        logits = model(sup, qry)
+    aux = sum(sink)
+    loss = LOSS_FNS[cfg.loss](logits, lab) + aux_weight(cfg) * aux
+    _backward(loss, dp)
+    em = layers[0].dist if layers else None
+    grads = {}
+    for n, p in model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if em is not None and em.ep > 1 and is_expert_leaf(n):
+            g = em.gather_experts(g, "ep/experts_allgather")
+        grads[n] = np.array(g.float().cpu())
+    opt.zero_grad()
+    out.update(logits=logits.detach().float().cpu().numpy(), aux=float(aux.detach()),
+               drops0=[float(m.drop_share) for m in layers], grads=grads)
+    # Eager on every device, as the gloo ranks step (the card's graph
+    # steps are held to eager ones elsewhere).
+    step = (make_train_step(model, opt, cfg, dp=dp) if dp is not None else
+            functools.partial(train_step, model, opt, cfg))
+    losses, norms, drops = [], [], []
+    issued: collections.Counter = collections.Counter()
+    t0 = time.monotonic()
+    for i, batch in enumerate(payload["batches"]):
+        before = collections.Counter(COLLECTIVES)
+        m = step(*local_token_rows(batch, mesh))
+        issued += COLLECTIVES - before
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        drops.append([float(layer.drop_share) for layer in layers])
+        if i + 1 == MOE_DP_AT:
+            out["params_at"] = full_numpy(model, opt)[0]
+    out["seconds"] = time.monotonic() - t0
+    out["params"], out["moments"] = full_numpy(model, opt)
+    out.update(losses=losses, grad_norms=norms, drops=drops)
+    if dp is not None:
+        out["plan"] = dp.plan()
+        out["issued_per_step"] = {k: n / len(losses) for k, n in issued.items()}
+    if save_dir is not None:
+        from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
+
+        saved = (FullModel(model), SavedOptimizer(opt.state_dict()))
+        if mesh is None or mesh.main:
+            mgr = CheckpointManager(save_dir, cfg.replace(ckpt_delta="off"))
+            mgr.save_latest(len(losses), *saved)
+            mgr.close()
+        if dp is not None:
+            dp.barrier()
+    return out
+
+
+def restore_moe(payload: dict, variant: str, mesh, src: str) -> dict:
+    """A ring slot of ``src`` restored under ``mesh`` (None: one process):
+    the parameters and moments, gathered whole again."""
+    from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
+
+    device = torch.device(payload.get("device", "cpu"))
+    cfg = ExperimentConfig(**{**payload["cfg"], **payload["variants"][variant]})
+    model, opt, _ = moe_parts(cfg, None, mesh, device)
+    step, _ = CheckpointManager(src, cfg).restore_latest(model, opt)
+    params, moments = full_numpy(model, opt)
+    return {"step": step, "params": params, "moments": moments}
+
+
+def moe_cli(argv: list, train_argv: list, mesh, save_dir: str) -> dict:
+    """``cli.main train`` (``argv`` and ``train_argv``) then ``test``
+    (``argv``) under ``mesh``'s layout (``--dp``/``--ep``): each one's exit
+    code and, on rank 0, its result line."""
+    import contextlib
+    import io
+    import json as json_mod
+
+    from induction_network_on_fewrel_tpu_torch import cli
+
+    flags = ["--dp", str(mesh.dp), "--ep", str(mesh.ep)]
+    out = {}
+    for mode, extra in (("train", [*train_argv, "--save_ckpt", save_dir]),
+                        ("test", ["--load_ckpt", save_dir])):
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = cli.main([mode, *argv, *flags, *extra])
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+        out[mode] = {"rc": rc, "result": json_mod.loads(lines[-1]) if lines else None,
+                     "stderr": err.getvalue()[-2000:]}
+    return out
+
+
+def moe_test_reference(argv: list, ckpt: str, dp: int) -> dict:
+    """One process's ``test`` of ``ckpt`` on the episodes ``dp`` ranks draw
+    under ``cli.test_main`` (each rank's stream from its ``process_seed``,
+    its ``B/dp`` episodes a batch), each global batch their rows in rank
+    order: the metrics ``evaluate`` reports."""
+    from induction_network_on_fewrel_tpu_torch import cli
+    from induction_network_on_fewrel_tpu_torch.models.build import (
+        batch_to_model_inputs,
+        build_model,
+    )
+    from induction_network_on_fewrel_tpu_torch.parallel.hostfeed import process_seed
+    from induction_network_on_fewrel_tpu_torch.sampling.native import make_sampler
+    from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
+    from induction_network_on_fewrel_tpu_torch.train.framework import FewShotTrainer
+
+    args = cli.parse_args(False, [*argv, "--load_ckpt", ckpt])
+    cfg = cli._merge_ckpt_architecture(cli.config_from_args(args), ckpt)
+    tok, cfg, vectors = cli.make_tokenizer(args, cfg)
+    model = build_model(cfg, glove_init=vectors, device=args.device)
+    mngr = CheckpointManager(ckpt)
+    mngr.restore("best" if mngr.has("best") else "latest", model)
+    ds = cli.load_data(cfg, "test", args)
+    samplers = [make_sampler(ds, tok, cfg.n, cfg.k, cfg.q, batch_size=cfg.batch_size // dp,
+                             na_rate=cfg.na_rate, seed=process_seed(cfg.seed + 2, r),
+                             backend=cfg.sampler, eval=True) for r in range(dp)]
+    batches = []
+    for _ in range(max(1, cfg.test_iter // cfg.batch_size)):
+        parts = [batch_to_model_inputs(s.sample_batch()) for s in samplers]
+        batches.append(tuple(
+            {k: np.concatenate([p[j][k] for p in parts]) for k in parts[0][j]} if j < 2
+            else np.concatenate([p[j] for p in parts]) for j in range(3)))
+    trainer = FewShotTrainer(model, cfg, None)
+    return trainer.evaluate(cfg.test_iter, sampler=FixedBatches(batches, cfg.batch_size),
+                            return_metrics=True)
+
+
+class FixedBatches:
+    """Given (support, query, label) batches as a sampler of ``batch_size``
+    episodes."""
+
+    def __init__(self, batches: list, batch_size: int):
+        self.batches, self.batch_size = batches, batch_size
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def moe_cases(payload: dict, mesh_of, restores: tuple = ()) -> dict:
+    """Every layout of ``payload["layouts"]`` ((dp, ep) pairs; a mesh each
+    from ``mesh_of``) on every variant, in turn; ``payload["saves"]``
+    {layout: directory} saves that layout's end state of the first
+    variant; ``payload["cli"]`` {layout: (argv, train argv, directory)}
+    runs the train and test CLI under it. Then each (dp, ep, directory) of ``restores``
+    restores that ring slot under its own layout ("restored/<layout>")."""
+    out: dict = {}
+    first = next(iter(payload["variants"]))
+    for dp, ep in payload["layouts"]:
+        name = layout_name(dp, ep)
+        mesh = mesh_of(dp, ep)
+        res = out[name] = {v: run_moe_case(payload, v, mesh,
+                                           payload.get("saves", {}).get(name) if v == first
+                                           else None)
+                           for v in payload["variants"]}
+        if name in payload.get("cli", {}):
+            res["cli"] = moe_cli(*payload["cli"][name][:2], mesh, payload["cli"][name][2])
+    for dp, ep, src in restores:
+        out[f"restored/{layout_name(dp, ep)}"] = restore_moe(payload, first, mesh_of(dp, ep), src)
+    return out
+
+
+def dp_moe_cases(rank: int, world: int, payload: dict) -> dict:
+    """A rank's ``moe_cases`` over the layouts of its world size."""
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+
+    return moe_cases({**payload, "layouts": MOE_LAYOUTS[world]},
+                     lambda dp, ep: make_mesh(dp=dp, ep=ep),
+                     payload.get("restores", {}).get(world, ()))

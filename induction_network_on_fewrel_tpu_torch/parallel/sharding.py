@@ -1,9 +1,11 @@
 """The dp parts of sharding: ZeRO-1, the compact table gradient, the dp step.
 
 Counterpart of ``induction_network_on_fewrel_tpu/parallel/sharding.py``
-for ``dp`` (tp/sp/pp/ep come with ROADMAP queue A item 6d). There GSPMD
-partitions one program over the mesh; here each rank runs the step on its
-own ``B/dp`` episodes and these pieces make the ranks one optimizer:
+for ``dp`` and ``ep`` (tp/sp/pp come with ROADMAP queue A item 6d; the
+ep rules and the MoE layers on a mesh are ``parallel/expert.py``). There
+GSPMD partitions one program over the mesh; here each rank runs the step
+on its own ``B/dp`` episodes and these pieces make the ranks one
+optimizer:
 
 * ``DataParallel``: the dp state of one trainer. Its ``GradReducer``
   (``parallel/grad_buckets.py``) averages the gradients over the ranks
@@ -36,9 +38,10 @@ own ``B/dp`` episodes and these pieces make the ranks one optimizer:
   whole batch itself (``GatheredCotangentLookup``), no rows all-reduce.
   A shared (dense) table's gradient is reduced with the other parameters,
   as the JAX large-table path keeps its native lookup.
-
-The MoE load-balance term is a product of global-batch statistics, so MoE
-under dp is refused by name (the JAX explicit shard_map step's refusal).
+* MoE (``cfg.moe_experts``): the model's MoE layers run on the mesh
+  (``parallel/expert.attach_experts``: global routing and load-balance
+  term, the experts sharded over ep), their collectives in the plan; the
+  gradients stay monolithic (the JAX bucket rule under MoE).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from induction_network_on_fewrel_tpu_torch.models.build import SHARDED
+from induction_network_on_fewrel_tpu_torch.models.moe import moe_layers
 from induction_network_on_fewrel_tpu_torch.ops.segsum import (
     MATMUL_GRAD_MAX_ROWS,
     segment_sum_matmul,
@@ -61,18 +64,11 @@ from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import (
     overlap_for,
 )
 
+
 def all_gather(out: torch.Tensor, inp: torch.Tensor, group, label: str) -> None:
     """``out`` [W*n] <- every rank's ``inp`` [n], in rank order."""
     dist.all_gather_into_tensor(out, inp, group=group)
     COLLECTIVES[label] += 1
-
-
-def check_moe(cfg) -> None:
-    if getattr(cfg, "moe_experts", 0) > 0:
-        raise ValueError(
-            "--moe_experts under data parallel is refused: the load-balance term is a product "
-            "of global-batch statistics and per-rank terms would train another objective; "
-            f"expert parallelism comes with {SHARDED}")
 
 
 # --- the compact table gradient -------------------------------------------
@@ -201,11 +197,26 @@ class DataParallel:
     the lazy rows leaf per ``demb_impl_for``), ZeRO-1 on ``opt`` under
     ``cfg.zero_opt``, and the metric mean. ``disc``: the adversarial
     step's discriminator optimizer, whose gradients get a reducer of their
-    own (``disc_reducer``); its moments stay whole."""
+    own (``disc_reducer``); its moments stay whole. An MoE model's layers
+    run on the mesh (``attach_experts``, called before ``opt`` was made:
+    at ep > 1 it keeps a slice of each expert leaf), and ``opt`` adds its
+    expert leaves' norm over the ep group
+    (``ClipDecayOptimizer.shard_experts``)."""
 
     def __init__(self, model, opt, cfg, mesh, lazy=None, disc=None):
-        check_moe(cfg)
+        from induction_network_on_fewrel_tpu_torch.parallel.expert import expert_mesh
+
         self.mesh, self.cfg = mesh, cfg
+        self.moe_layers = len(moe_layers(model))
+        if self.moe_layers and mesh.live:
+            em = expert_mesh(model)
+            if em is None:
+                raise ValueError("the model's MoE layers are put on the mesh "
+                                 "(parallel/expert.attach_experts) before its optimizer is made")
+            if em.ep > 1:
+                opt.shard_experts(em)
+        self.ep = mesh.ep
+        self.encoder_calls = 3 if disc is not None else 1
         self.group, self.world, self.rank = mesh.group, mesh.dp, mesh.rank
         device = model.device
         self.n_buckets = grad_buckets_for(cfg, mesh, device)
@@ -232,8 +243,17 @@ class DataParallel:
     def plan(self, steps: int = 1) -> dict:
         """The collectives one call of ``steps`` training steps should
         issue, by kind (``COLLECTIVES``' labels): each step's reductions and
-        gathers, and the loss and accuracy mean once a call."""
+        gathers (an MoE layer's per encoder call: one routing all-gather,
+        and at ep > 1 the combine's all-reduce and the two backward
+        all-reduces; the expert norm's once a step), and the loss and
+        accuracy mean once a call."""
         out = {label: steps for r in self.reducers for label in r.labels}
+        if self.moe_layers and self.mesh.live:
+            calls = steps * self.moe_layers * self.encoder_calls
+            out["moe/route_allgather"] = calls
+            if self.ep > 1:
+                out.update({"ep/combine_allreduce": calls, "ep/input_grad_allreduce": calls,
+                            "ep/gate_grad_allreduce": calls, "ep/norm_allreduce": steps})
         if self.gathered_cotangent:
             out.update({"demb/cotangent_allgather": steps, "demb/ids_allgather": steps})
         if self.zero is not None:
@@ -275,4 +295,6 @@ class DataParallel:
         return out
 
     def barrier(self) -> None:
-        dist.barrier(group=self.group)
+        """Every rank of the world (the writer, rank 0, is in one dp group
+        only at ep > 1)."""
+        dist.barrier()

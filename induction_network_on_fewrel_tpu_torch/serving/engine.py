@@ -70,7 +70,10 @@ makes a serving mesh of the first ``dp`` visible CUDA devices
 seam), gives each parameter bank a replica on every shard device
 (``TenantRegistry(shard_devices=...)``) and scores every bucket divisible
 by dp across them (``QueryGraphCache(shards=...)``); ``dp`` None or 1 is
-the single-device engine.
+the single-device engine. An MoE model is refused at ``dp`` above 1
+(``MOE_DP_REFUSAL``): its capacity routing couples the rows of a routing
+group, so a bucket scored in row chunks could drop other tokens than the
+whole bucket, which the JAX engine routes as one program.
 """
 
 from __future__ import annotations
@@ -113,6 +116,10 @@ from induction_network_on_fewrel_tpu_torch.serving.stats import ServingStats
 NO_RELATION = "no_relation"
 # Host segments of a batch, in order (``host_split``).
 SPLIT_KEYS = ("tokenize", "pack", "copy", "replay", "wait", "verdict")
+MOE_DP_REFUSAL = (
+    "serving dp above 1 is refused for an MoE checkpoint (--moe_experts): capacity routing "
+    "couples the rows of a routing group, so scoring a bucket in dp row chunks could drop "
+    "other tokens than the JAX engine's one program over the whole bucket; serve it at --dp 1")
 
 
 def degraded_verdict(tenant: str, *, snapshot_version: int = -1,
@@ -239,6 +246,8 @@ class InferenceEngine:
         geom = resolve_geometry_policy(_Knobs(geometry_tiers=geometry_tiers), base=cfg)
         self.quant_probe_every = quant["probe_every"]
         self._quant_batches = 0
+        if dp and dp > 1 and getattr(cfg, "moe_experts", 0) > 0:
+            raise ValueError(MOE_DP_REFUSAL)
         self.mesh = make_serving_mesh(dp, devices) if dp and dp > 1 else None
         self.stats = ServingStats(slo=slo)
         self.stats.bind_registry()

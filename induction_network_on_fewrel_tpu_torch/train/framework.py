@@ -248,6 +248,10 @@ class FewShotTrainer:
         self._feed = train_sampler if hasattr(train_sampler, "cursor_state") else None
         if self._feed is not None and self._feed.logger is None:
             self._feed.logger = self.logger
+        if mesh is not None and cfg.moe_experts > 0:
+            from induction_network_on_fewrel_tpu_torch.parallel.expert import attach_experts
+
+            attach_experts(model, mesh)     # before the optimizer: ep keeps a slice
         self.opt = make_optimizer(cfg, model)
         self.lazy = None
         if cfg.embed_optimizer == "lazy":
@@ -268,11 +272,13 @@ class FewShotTrainer:
                                  "the live path's per-batch rows differ between the ranks")
             self.dp = DataParallel(model, self.opt, cfg, mesh, self.lazy,
                                    disc=adv.disc.opt if adv is not None else None)
+        # The dp index (this rank's episode streams); rank 0 of the world writes.
         self.rank = 0 if mesh is None else mesh.rank
+        self.main = mesh is None or mesh.main
         self.ckpt_dir = ckpt_dir
         # Only rank 0 writes; every rank takes part in a save's collectives.
         self.ckpt = (CheckpointManager(ckpt_dir, cfg, logger=self.logger,
-                                       stage=cfg.ckpt_stage) if ckpt_dir and self.rank == 0
+                                       stage=cfg.ckpt_stage) if ckpt_dir and self.main
                      else None)
         self.saved_best = False
         self.best_val = -1.0
@@ -327,9 +333,11 @@ class FewShotTrainer:
         table, or None for token batches), made once per source."""
         key = id(source)
         if key not in self._eval_steps:
+            eager = self.dp is not None and self.dp.eager
             self._eval_steps[key] = (
-                make_eval_step(self.model, self.cfg, source),
-                make_multi_eval_step(self.model, self.cfg, source) if self.eval_spc > 1 else None,
+                make_eval_step(self.model, self.cfg, source, eager),
+                make_multi_eval_step(self.model, self.cfg, source, eager)
+                if self.eval_spc > 1 else None,
                 source)
         return self._eval_steps[key][:2]
 
@@ -500,8 +508,8 @@ class FewShotTrainer:
                 if improved:
                     self.saved_best = True
                     if self.ckpt is not None:
-                        self.ckpt.save(step, self.model, snap[0], m["accuracy"], lazy=self.lazy,
-                                       samplers=snap[1])
+                        self.ckpt.save(step, snap[0], snap[1], m["accuracy"], lazy=self.lazy,
+                                       samplers=snap[2])
                 self.save_latest(step, snap)
         if self.best_val > self.guard_arm and m["accuracy"] < 0.5 * self.best_val:
             self.logger.log(step, "divergence", val_accuracy=m["accuracy"],
@@ -520,20 +528,25 @@ class FewShotTrainer:
         return None
 
     def snapshot(self) -> tuple:
-        """(optimizer, sampler states) for a save. Under data parallel
-        both are gathered from every rank (collectives: every rank calls
-        this at the same boundary): the optimizer as a ``SavedOptimizer`` of
-        its full moments (ZeRO-1's chunks gathered), the streams as rank 0's
-        with every rank's under "ranks"."""
+        """(model, optimizer, sampler states) for a save. Under data
+        parallel all three are gathered from every rank (collectives: every
+        rank calls this at the same boundary): the model whole
+        (``parallel/expert.FullModel``: the expert leaves gathered over ep),
+        the optimizer as a ``SavedOptimizer`` of its full moments (ZeRO-1's
+        chunks and the experts' gathered), the streams as rank 0's with
+        every dp rank's under "ranks"."""
         if self.dp is None:
-            return self.opt, self.sampler_states()
-        return SavedOptimizer(self.opt.state_dict()), self.sampler_states()
+            return self.model, self.opt, self.sampler_states()
+        from induction_network_on_fewrel_tpu_torch.parallel.expert import FullModel
+
+        model = FullModel(self.model) if self.dp.ep > 1 else self.model
+        return model, SavedOptimizer(self.opt.state_dict()), self.sampler_states()
 
     def save_latest(self, step: int, snap: tuple | None = None) -> None:
-        opt, samplers = snap if snap is not None else self.snapshot()
+        model, opt, samplers = snap if snap is not None else self.snapshot()
         if self.ckpt is None:
             return
-        info = self.ckpt.save_latest(step, self.model, opt, best_val=self.best_val,
+        info = self.ckpt.save_latest(step, model, opt, best_val=self.best_val,
                                      samplers=samplers, lazy=self.lazy)
         if info is not None:
             self.logger.log(step, "ckpt", event="ring_save", mode=info["mode"],

@@ -144,7 +144,11 @@ class ClipDecayOptimizer:
     each divisible leaf, the update runs on those chunks and the
     parameters are all-gathered; ``state_dict`` gathers the full moments
     (a collective: every rank calls it) and ``load_state_dict`` takes
-    them and keeps this rank's chunk."""
+    them and keeps this rank's chunk. ``shard_experts`` (expert parallel,
+    ``parallel/expert.py``): the MoE expert leaves are this rank's slices,
+    the global norm adds their squares over the ep group, ZeRO-1 leaves
+    them whole, ``state_dict`` gathers their moments and
+    ``load_state_dict`` slices full ones."""
 
     def __init__(self, params, lr: float, weight_decay: float, lr_step_size: int,
                  lr_gamma: float, grad_clip: float, rules=None, b1: float = 0.9,
@@ -153,6 +157,8 @@ class ClipDecayOptimizer:
         self.names = list(names) if names is not None else [str(i) for i in
                                                             range(len(self.params))]
         self.zero = None
+        self.ep = None
+        self.ep_leaves: frozenset = frozenset()
         self.rules = list(rules) if rules is not None else ["adam"] * len(self.params)
         if len(self.rules) != len(self.params):
             raise ValueError(f"{len(self.rules)} rules for {len(self.params)} parameters")
@@ -196,12 +202,21 @@ class ClipDecayOptimizer:
         return [(self.names[k], self.params[k]) for k in self._live
                 if self.params[k].requires_grad]
 
+    def shard_experts(self, em) -> None:
+        """The expert leaves are this rank's slices over ``em``'s ep group
+        (a ``parallel/expert.ExpertMesh``)."""
+        from induction_network_on_fewrel_tpu_torch.parallel.expert import is_expert_leaf
+
+        self.ep = em
+        self.ep_leaves = frozenset(k for k, n in enumerate(self.names) if is_expert_leaf(n))
+
     def shard(self, mesh, n_buckets: int = 0) -> None:
         """ZeRO-1 over ``mesh``: keep this rank's chunk of every moment
-        leaf whose size divides the world (the rest stay whole)."""
+        leaf whose size divides the world (the rest stay whole; so do the
+        expert leaves, sharded over ep already)."""
         from induction_network_on_fewrel_tpu_torch.parallel.sharding import Zero1
 
-        leaves = [k for k in self._live if self.mu[k] is not None]
+        leaves = [k for k in self._live if self.mu[k] is not None and k not in self.ep_leaves]
         self.zero = Zero1(self.names, self.params, leaves, mesh, n_buckets)
         for k in self.zero.shards:
             self.mu[k] = self.zero.view(k, self.mu[k]).clone()
@@ -230,12 +245,28 @@ class ClipDecayOptimizer:
         returns the global gradient norm before the clip (a fresh f32
         device scalar)."""
         params, grads, _, _, _ = self._table()
-        norm = optim_sumsq(params, grads, self._ws)
+        norm = optim_sumsq(params, grads, self._ws) if self.ep is None else \
+            self._ep_norm(params, grads)
         params, grads, mus, nus, rules = self._table(update=self.zero is not None)
         optim_update(params, grads, mus, nus, rules, norm, self.count, self.hyper, self._ws)
         if self.zero is not None:
             self.zero.gather_params(self.params)
         return norm.reshape(())
+
+    def _ep_norm(self, params, grads) -> torch.Tensor:
+        """The global norm [1] under expert parallelism: the replicated
+        leaves' squares (the same on every ep rank) plus the expert leaves'
+        summed over the ep group."""
+        import torch.distributed as dist
+
+        mine = [k in self.ep_leaves for k in self._live] + [False] * (len(params) - len(self._live))
+        rep = optim_sumsq([p for p, e in zip(params, mine) if not e],
+                          [g for g, e in zip(grads, mine) if not e], self._ws)
+        sq = optim_sumsq([p for p, e in zip(params, mine) if e],
+                         [g for g, e in zip(grads, mine) if e], self._ws).square()
+        dist.all_reduce(sq, group=self.ep.ep_group)
+        COLLECTIVES["ep/norm_allreduce"] += 1
+        return torch.sqrt(rep.square() + sq)
 
     def state_dict(self) -> dict:
         """``count`` as an int (the format of the earlier Adam-only
@@ -246,6 +277,8 @@ class ClipDecayOptimizer:
             for k, x in enumerate(xs):
                 if x is not None and self.zero is not None and k in self.zero.shards:
                     x = self.zero.gather_moment(k, x, self.params[k])
+                if x is not None and k in self.ep_leaves:
+                    x = self.ep.gather_experts(x, "ep/moments_allgather")
                 out.append(None if x is None else x.detach().clone())
             return out
 
@@ -270,6 +303,9 @@ class ClipDecayOptimizer:
             if dst is None:
                 continue
             k = j % n
+            if src is not None and k in self.ep_leaves and src.shape[0] == dst.shape[0] * self.ep.ep:
+                e = dst.shape[0]        # a full moment (the JAX layout): this rank's experts
+                src = src[self.ep.ep_rank * e:(self.ep.ep_rank + 1) * e]
             if src is not None and self.zero is not None and k in self.zero.shards:
                 if tuple(src.shape) != tuple(self.params[k].shape):
                     raise ValueError(f"optimizer moment {tuple(src.shape)} != "
@@ -690,9 +726,10 @@ def _eval_run_of(model, cfg: ExperimentConfig, source=None):
     return run_of, warm, keys
 
 
-def _eval_graphs(model, cfg: ExperimentConfig, source=None, name: str = "eval_step"):
+def _eval_graphs(model, cfg: ExperimentConfig, source=None, name: str = "eval_step",
+                 eager: bool = False):
     run_of, warm, keys = _eval_run_of(model, cfg, source)
-    if model.device.type != "cuda":
+    if model.device.type != "cuda" or eager:
         return EagerSteps(run_of, keys, model.device)
     return GraphSteps(run_of, warm, keys, model.device, name)
 
@@ -719,20 +756,22 @@ def make_multi_train_step(model, opt: ClipDecayOptimizer, cfg: ExperimentConfig,
     return _train_graphs(model, opt, cfg, source, lazy, debug_nans, "multi_train_step", dp)
 
 
-def make_eval_step(model, cfg: ExperimentConfig, source=None):
+def make_eval_step(model, cfg: ExperimentConfig, source=None, eager: bool = False):
     """``(support, query, label) -> eval metrics`` (K1/K2, no autograd);
-    one graph replay per call on the card, ``eval_step`` on the CPU."""
+    one graph replay per call on the card, ``eval_step`` on the CPU;
+    ``eager`` keeps the card's steps eager too (a gloo mesh, whose MoE
+    routing collectives run on the host)."""
     if model.device.type != "cuda" and source is None:
         return functools.partial(eval_step, model, cfg)
-    return _single(_eval_graphs(model, cfg, source))
+    return _single(_eval_graphs(model, cfg, source, eager=eager))
 
 
-def make_multi_eval_step(model, cfg: ExperimentConfig, source=None):
+def make_multi_eval_step(model, cfg: ExperimentConfig, source=None, eager: bool = False):
     """Eval metrics [S] of S stacked batches per call (one replay on the
     card); the same values as S calls of the single eval step."""
     if model.device.type != "cuda" and source is None:
         return _eager_multi(functools.partial(eval_step, model, cfg))
-    return _eval_graphs(model, cfg, source, "multi_eval_step")
+    return _eval_graphs(model, cfg, source, "multi_eval_step", eager)
 
 
 # --- FewRel 2.0 adversarial domain adaptation (models/adversarial.py) -------------

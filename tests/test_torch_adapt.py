@@ -17,6 +17,7 @@
   ``check_adapt_drill``.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import sys

@@ -27,6 +27,7 @@
   the feature cache or the token cache is refused by name.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

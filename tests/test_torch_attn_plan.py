@@ -16,6 +16,7 @@ row, and with L not a multiple of the 8-way split.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -19,6 +19,7 @@ carried by ``interop.py`` (``encoder/backbone/...``):
   draws): each leaf's std against the JAX init's, truncation or not.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import math
 
 import jax

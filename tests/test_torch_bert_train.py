@@ -20,6 +20,7 @@ At the tiny BERT width of ``tests/test_torch_bert.py`` (2 layers, hidden
   checkpoint's weights.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 
 import jax

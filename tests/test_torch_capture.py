@@ -8,6 +8,7 @@
   registries and savers take) is it.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import gc
 import threading
 

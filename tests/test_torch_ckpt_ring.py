@@ -14,6 +14,7 @@ written without sidecars keep raising; verified data whose load fails
 of 3.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 
 import numpy as np

@@ -11,6 +11,7 @@
   why it has no counterpart here), with rc 2.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import dataclasses
 import functools
 import json

@@ -18,6 +18,7 @@ written to a temporary directory (no corpus is needed):
   checkpoint, purges the newer ring slots and ends the run.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 
 import numpy as np

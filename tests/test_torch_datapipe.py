@@ -12,6 +12,7 @@ ticks until ``close()`` ends it. Every feed is closed, and no producer
 thread outlives its test.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import threading
 import time

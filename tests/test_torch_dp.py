@@ -26,6 +26,7 @@ compact-demb resolution equal the JAX functions; a failed rendezvous
 raises the clean error within its bound.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import socket
@@ -258,17 +259,18 @@ def test_bucket_index_matches_jax_on_the_mapped_paths(n_buckets):
         assert grad_buckets.bucket_index(jpath, n_buckets) == jax_gb.bucket_index(jpath, n_buckets)
 
 
-GRID = [(knob, dp, moe, emb) for knob in ("auto", "on", "off") for dp in (1, 2, 4, 8)
-        for moe in (0, 4) for emb in ("shared", "lazy")]
+GRID = [(knob, dp, ep, moe, emb) for knob in ("auto", "on", "off") for dp in (1, 2, 4, 8)
+        for ep in (1, 2) if dp * ep <= 8 for moe in (0, 4) for emb in ("shared", "lazy")]
 
 
-@pytest.mark.parametrize("knob,dp,moe,emb", GRID,
-                         ids=[f"{k}-dp{d}-moe{m}-{e}" for k, d, m, e in GRID])
-def test_resolutions_match_jax(knob, dp, moe, emb):
+@pytest.mark.parametrize("knob,dp,ep,moe,emb", GRID,
+                         ids=[f"{k}-dp{d}-{f'ep{p}-' if p > 1 else ''}moe{m}-{e}"
+                              for k, d, p, m, e in GRID])
+def test_resolutions_match_jax(knob, dp, ep, moe, emb):
     kw = dict(grad_bucketing=knob, grad_bucket_count=3, moe_experts=moe, embed_optimizer=emb,
               encoder="transformer" if moe else "bilstm")
     jcfg, cfg = JaxConfig(**kw), ExperimentConfig(**kw)
-    jmesh, mesh = jax_make_mesh(dp=dp), make_mesh(dp=dp, world_size=dp)
+    jmesh, mesh = jax_make_mesh(dp=dp, ep=ep), make_mesh(dp=dp, ep=ep, world_size=dp * ep)
     assert grad_buckets.grad_buckets_for(cfg, mesh) == jax_gb.grad_buckets_for(jcfg, jmesh)
     assert grad_buckets.grad_buckets_for(cfg, None) == jax_gb.grad_buckets_for(jcfg, None) == 0
     for compact in ("auto", "on", "off"):
@@ -284,10 +286,17 @@ def test_mesh_validation_matches_jax():
         jax_make_mesh(dp=16)
     assert make_mesh(world_size=4) == Mesh(dp=4)
     assert make_mesh() == Mesh(dp=1)
-    for flag in ("tp", "sp", "pp", "ep"):
+    for flag in ("tp", "sp", "pp"):
         with pytest.raises(ValueError, match=f"--{flag} 2 is not ported yet: it comes with "
                                              "ROADMAP queue A item 6d"):
             make_mesh(**{flag: 2})
+    # ep is ported: the JAX axis arithmetic, then (dp, ep) over the ranks.
+    with pytest.raises(ValueError, match=r"1 devices not divisible by pp\*ep\*tp\*sp=2"):
+        make_mesh(ep=2)
+    with pytest.raises(ValueError, match=r"8 devices not divisible by pp\*ep\*tp\*sp=3"):
+        jax_make_mesh(ep=3)
+    assert make_mesh(ep=2, world_size=4) == Mesh(dp=2, ep=2)
+    assert dict(jax_make_mesh(ep=2).shape)["dp"] == 4
 
 
 # --- the rendezvous ------------------------------------------------------------------

@@ -10,9 +10,12 @@
 * The refusals under a mesh: the JAX batch-divisibility text (also with
   ``--mixture`` and with ``--feature_cache``, which run under a mesh), an
   ``--adv_batch`` that does not divide, ``--dp`` above the world without a
-  launcher (the JAX mesh text), and MoE and the live lazy path by name.
+  launcher (the JAX mesh text), and the live lazy path by name; MoE runs
+  under the mesh (ported since), and the ``--ep`` refusals that stay (off
+  the MoE transformer, experts that do not divide) keep the JAX texts.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import signal
@@ -110,8 +113,8 @@ REFUSED = {
                 "--batch_size 5 must be divisible by the data-parallel mesh axis dp=2"),
     "lazy_live": (["--embed_optimizer", "lazy"], "does not combine with a device mesh on the LIVE "
                                                  "token path"),
-    "moe": (["--encoder", "transformer", "--moe_experts", "2"],
-            "--moe_experts under data parallel is refused"),
+    # MoE under a mesh is ported: no refusal, the mesh comes back.
+    "moe": (["--encoder", "transformer", "--moe_experts", "2"], None),
 }
 
 
@@ -121,8 +124,26 @@ def test_refused_by_name_under_a_mesh(name, monkeypatch):
     monkeypatch.setattr(distributed, "maybe_initialize_distributed", lambda **kw: True)
     monkeypatch.setattr(mesh_mod, "make_mesh", lambda dp=None, **kw: mesh_mod.Mesh(dp=2))
     args = cli.parse_args(True, [*TINY, "--dp", "2", *flags])
+    if msg is None:
+        assert cli.dp_mesh(args, cli.config_from_args(args)) == mesh_mod.Mesh(dp=2)
+        return
     with pytest.raises(ValueError, match=msg):
         cli.dp_mesh(args, cli.config_from_args(args))
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--ep", "2"], "--ep (expert parallelism) requires --encoder transformer with "
+                    "--moe_experts > 0"),
+    (["--ep", "2", "--encoder", "transformer"], "--ep (expert parallelism) requires"),
+    (["--ep", "2", "--encoder", "transformer", "--moe_experts", "3"],
+     "--moe_experts (3) must be divisible by --ep (2)"),
+], ids=["bilstm", "dense", "indivisible"])
+def test_ep_refusals_keep_the_jax_texts(flags, msg, capsys):
+    for train in (True, False):
+        with pytest.raises(SystemExit) as e:
+            cli.parse_args(train, [*TINY, *flags])
+        assert e.value.code == 2
+        assert msg in capsys.readouterr().err
 
 
 def test_feature_cache_refused_under_a_mesh(monkeypatch):

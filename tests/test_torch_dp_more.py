@@ -27,10 +27,12 @@ module, ``rig.dp_more_cases``) while this process runs the JAX steps:
   slot at step 4 ends on the uninterrupted run's parameters and stream
   state, bitwise.
 
-The CLI refuses an ``--adv_batch`` that does not divide over the ranks and
-MoE under dp by name.
+The CLI refuses an ``--adv_batch`` that does not divide over the ranks by
+name; MoE under dp runs (ported since), and no port text refuses it or
+``--ep``.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import threading
 
 import jax
@@ -345,13 +347,16 @@ def test_mixture_resume_from_the_ring_slot_continues_each_rank_bitwise(world):
 @pytest.mark.parametrize("flags,msg", [
     (["--adv", "--adv_batch", "3"], "--adv_batch 3 must be divisible by the data-parallel "
                                     "mesh axis dp=2 .* try --adv_batch 4"),
-    (["--encoder", "transformer", "--moe_experts", "8"],
-     "--moe_experts under data parallel is refused: .* ROADMAP queue A item 6d"),
+    # MoE under a mesh is ported: no refusal, the mesh comes back.
+    (["--encoder", "transformer", "--moe_experts", "8"], None),
 ], ids=["adv_batch", "moe"])
 def test_still_refused_by_name_under_a_mesh(flags, msg, monkeypatch):
     monkeypatch.setattr(distributed, "maybe_initialize_distributed", lambda **kw: True)
     monkeypatch.setattr(mesh_mod, "make_mesh", lambda dp=None, **kw: mesh_mod.Mesh(dp=2))
     args = cli.parse_args(True, [*MIX_ARGV[:-2], "--dp", "2", *flags])
+    if msg is None:
+        assert cli.dp_mesh(args, cli.config_from_args(args)) == mesh_mod.Mesh(dp=2)
+        return
     with pytest.raises(ValueError, match=msg):
         cli.dp_mesh(args, cli.config_from_args(args))
 
@@ -366,3 +371,20 @@ def test_no_port_text_names_item_5():
     hits = [str(p) for p in files if "item 5" in p.read_text() or "LATER_ITEMS" in p.read_text()]
     assert hits == []
     assert "item 6d" in rig.__doc__ + cli.dp_mesh.__doc__ + mesh_mod.__doc__
+
+
+def test_no_port_text_refuses_ep_or_moe_under_dp():
+    """MoE under dp and the expert-parallel executor are ported: no port
+    text refuses either, and item 6d's remaining list names tp, sp and pp
+    only."""
+    import pathlib
+
+    from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE, SHARDED
+
+    root = pathlib.Path(cli.__file__).parent
+    files = list(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    gone = ("--moe_experts under data parallel is refused", "--ep is not ported yet",
+            "check_moe", "sp ring attention, pp, ep)")
+    assert [(str(p), g) for p in files for g in gone if g in p.read_text()] == []
+    assert "--ep" not in cli.DEFERRED and "ep" not in LATER_SLICE
+    assert SHARDED.endswith("(the sharded executors: tp, sp ring attention, pp)")

@@ -21,6 +21,7 @@ induction head (N=3, K=2, Q=2, B=2, L=16), f32:
   cached checkpoint.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 
 import jax

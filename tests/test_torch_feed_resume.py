@@ -12,6 +12,7 @@ the uninterrupted run's state, and is refused by name over the C++
 sampler.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import hashlib
 import json
 

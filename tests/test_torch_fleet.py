@@ -10,6 +10,7 @@ request's spans carry the router's trace id across the hop into the
 replica's engine.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 from concurrent.futures import Future
 from types import SimpleNamespace

@@ -7,6 +7,7 @@ for an empty queue), and both packages' standbys tail the same WAL,
 promote into the same directory and fence the old primary.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 from concurrent.futures import Future
 from types import SimpleNamespace

@@ -11,6 +11,7 @@
   behave as the JAX ones do.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import socketserver
 import threading

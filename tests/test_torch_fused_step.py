@@ -23,6 +23,7 @@
   an uninterrupted run; ``--only_test`` reports the test accuracy.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 
 import jax

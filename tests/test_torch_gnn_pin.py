@@ -14,6 +14,7 @@ not from the step: ``tests/gnn_pin_witness.py`` runs the full recipe's 200
 steps from either init (ROADMAP queue C has its figures).
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import numpy as np
 import pytest

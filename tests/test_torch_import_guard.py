@@ -9,6 +9,7 @@ parallel package ``parallel/`` among them, checked by name) and
 either. Without CUDA the entry points refuse to run unless asked for the CPU.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import ast
 import os
 import subprocess

@@ -29,6 +29,7 @@
 * ``--optimizer adamw`` with lazy is refused by name.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

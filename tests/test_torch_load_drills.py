@@ -14,6 +14,7 @@ a 2 002-word table) on the CPU, held to the JAX tool's gates
   diagnostics captured (the JAX tool's acceptance).
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import sys

@@ -16,6 +16,7 @@ committed JAX artifacts' tier-1 blocks.
   held to the artifact the JAX tier-1 test holds the JAX drill to.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import sys

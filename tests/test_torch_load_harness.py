@@ -17,6 +17,7 @@ pure functions, ``load/__main__.py``) against the JAX tool
   capture after warmup; without CUDA the entry point refuses to start.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import argparse
 import json
 import os

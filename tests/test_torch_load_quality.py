@@ -12,6 +12,7 @@ scenario harness); the quant A/B is ``tests/test_torch_load_quant.py``.
   own bars) and writes schema-clean ``kind="scenario"`` records.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import sys

@@ -15,6 +15,7 @@ trains its checkpoint 60 steps at the flagship widths first (one thread:
 the suite's workers share the host).
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import sys

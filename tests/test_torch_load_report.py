@@ -12,6 +12,7 @@ and ``tools/loadgen.py``, on the CPU.
   trace is lost.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import shutil

@@ -22,6 +22,7 @@ The kernels run only on the card (``chip_smoke.py``); here, on the CPU:
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import re
 
 import jax

@@ -23,6 +23,7 @@ trajectory at the tests/test_torch_train.py bars (losses rtol 2e-4,
 parameters atol 1e-3).
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

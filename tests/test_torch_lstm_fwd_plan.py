@@ -11,6 +11,7 @@ before anything is launched. The phase profiler of the body
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import re
 
 import pytest

@@ -8,6 +8,7 @@ heads); bf16 agrees within the kernel band against the JAX kernels in
 interpret mode. The interop round trip is bitwise in both directions.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@
   built from it.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import math
 
 import jax

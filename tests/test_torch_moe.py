@@ -13,9 +13,11 @@
 * A 20-step trajectory of induction over the MoE transformer with the
   load-balance term in the objective against JAX ``make_train_step``:
   losses rtol 2e-4, the final parameters atol 1e-3.
-* ``--ep 2`` is still refused by name.
+* ``--ep 2`` with MoE is ported: it parses and asks the mesh for two ranks
+  (``tests/test_torch_moe_dp.py`` runs it on spawned ranks).
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -198,10 +200,14 @@ def test_moe_aux_term_moves_the_objective_not_the_metric():
 
 
 @pytest.mark.parametrize("mode", ["train", "test"])
-def test_ep_above_one_still_refused_by_name(capsys, mode):
-    with pytest.raises(SystemExit) as e:
-        cli.main([mode, "--synthetic", "--device", "cpu", "--encoder", "transformer",
-                  "--moe_experts", "4", "--ep", "2", "--load_ckpt", "unused"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "--ep is not ported yet: it comes with ROADMAP queue A item 6d" in err
+def test_ep_above_one_still_refused_by_name(tmp_path, mode):
+    """``--ep`` left the refusals when the expert-parallel executor came:
+    ``--ep 2`` with MoE parses into the config and reaches the mesh, which
+    asks for two ranks (without a launcher, the JAX mesh text, as ``--dp 2``
+    gets)."""
+    argv = ["--synthetic", "--device", "cpu", "--encoder", "transformer", "--moe_experts", "4",
+            "--ep", "2"]
+    assert cli.config_from_args(cli.parse_args(mode == "train", argv)).ep == 2
+    assert "--ep" not in cli.DEFERRED
+    with pytest.raises(ValueError, match=r"1 devices not divisible by pp\*ep\*tp\*sp=2"):
+        cli.main([mode, *argv, "--load_ckpt", str(tmp_path)])

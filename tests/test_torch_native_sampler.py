@@ -11,6 +11,7 @@ not build under ``auto`` raises naming ``--sampler python``), and a failed
 g++ build raising with the compiler's output. Every sampler is closed.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import numpy as np
 import pytest
 

@@ -17,6 +17,7 @@ profiler annotations of spans, the diagnostics capture's torch.profiler
 trace, the debug finite check.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import dataclasses
 import json
 import math

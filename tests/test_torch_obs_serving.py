@@ -18,6 +18,7 @@ SLO burn in both. ``serve_main`` with the telemetry flags writes
 ``metrics.prom`` and a run directory ``--check`` accepts.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import subprocess

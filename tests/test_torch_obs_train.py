@@ -25,6 +25,7 @@ error re-raises at ``wait()``; ``--debug_nans`` raises
 trips the watchdog and the recorder dumps.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import os
 import subprocess

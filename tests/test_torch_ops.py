@@ -9,6 +9,7 @@ CUDA kernels themselves are held against those plain versions on the card
 by ``chip_smoke.py``.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax.numpy as jnp
 import numpy as np
 import pytest

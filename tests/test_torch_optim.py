@@ -19,6 +19,7 @@
   ``csrc/optim.cu``.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import re
 from pathlib import Path
 

@@ -15,6 +15,7 @@ token episode through both, and ``Σ logits ⊙ R`` through
   ``--nota_head stats``, pair with ``--feature_cache`` or ``--token_cache``.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ gradient's largest magnitude (the padding id's row sums thousands of
 terms, and the rounding of a sum grows with it).
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ JAX model, registers a corpus and answers queries with the logits the JAX
 model's ``class_vectors`` / ``score_queries`` give on the same rows.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ by name; the fresh-weight demo keeps its own test in
 ``tests/test_torch_serving.py``.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 
 import jax

@@ -10,9 +10,12 @@ compile on either. Then the port's own rules: a bucket that does not
 divide runs the single-device program, every dtype scores as the dp=None
 engine does, a publish loads every shard replica and scores as the
 dp=None engine after the same publish, and the mesh refuses more devices
-than there are.
+than there are. An MoE checkpoint is refused at dp > 1 by name: with
+capacity binding, a bucket scored in row chunks routes each chunk in groups
+of its own and scores other logits than the whole bucket (shown first).
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import numpy as np
 import pytest
@@ -176,3 +179,37 @@ def test_serving_mesh_guards(world):
         make_serving_mesh(3, devices=CPU2)
     with pytest.raises(ValueError, match="exceeds"):
         _engine(world, dp=max(2, visible + 1))
+
+
+# An MoE transformer whose routing groups (36 tokens: a half bucket of 4
+# rows, 48 tokens, ends inside one) and capacity (0.5) bind on a bucket of 8.
+MOE = dict(SMALL, encoder="transformer", tfm_layers=2, tfm_model=16, tfm_heads=2, tfm_ff=32,
+           moe_experts=4, moe_every=1, moe_group_size=36, moe_capacity=0.5)
+
+
+def test_moe_checkpoint_refused_under_serving_dp(world):
+    from induction_network_on_fewrel_tpu_torch.serving.engine import MOE_DP_REFUSAL
+
+    cfg = ExperimentConfig(**MOE)
+    model = build_model(cfg, device="cpu")
+    tok, ds = world["tok"], world["ds"]
+
+    def stack(insts, lead):
+        rows = [tok(i) for i in insts]
+        return {k: torch.as_tensor(np.stack([getattr(r, k) for r in rows]).reshape(*lead, L))
+                for k in ("word", "pos1", "pos2", "mask")}
+
+    support = stack([i for r in ds.rel_names for i in ds.instances[r][:K]], (1, 5, K))
+    query = stack(world["queries"], (1, 8))
+    with torch.no_grad():
+        cv = model.class_vectors(support)
+        whole = model.score_queries(cv, query)
+        chunks = torch.cat([model.score_queries(cv, {k: v[:, h:h + 4] for k, v in query.items()})
+                            for h in (0, 4)], dim=1)
+    scale = float(whole.abs().max())
+    assert float((whole - chunks).abs().max()) > 1e-3 * scale
+    with pytest.raises(ValueError, match="serving dp above 1 is refused for an MoE checkpoint"):
+        InferenceEngine(model, cfg, tok, device="cpu", start=False, buckets=(8,), dp=2,
+                        devices=CPU2)
+    assert "--dp 1" in MOE_DP_REFUSAL
+    InferenceEngine(model, cfg, tok, device="cpu", start=False, buckets=(8,)).close()

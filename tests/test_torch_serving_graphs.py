@@ -9,6 +9,7 @@ after warmup across registration, thresholds, dtype rolls and publishes,
 and the bank flip of a publish with a batch in flight on the old bank.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import threading
 
 import numpy as np

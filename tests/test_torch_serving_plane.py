@@ -11,6 +11,7 @@ shed-load, the breaker, containment, quarantine, and a publish under
 in-flight traffic.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import threading
 import time
 

@@ -14,6 +14,7 @@
   CLI) and ``--pp 2``.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,7 @@
   same vectors as ``register`` on the raw sentences, bitwise.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import numpy as np
 import pytest

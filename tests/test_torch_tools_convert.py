@@ -16,6 +16,7 @@ of the port package) on the CPU.
   moment is within 1e-5 of its leaf's largest value of the JAX tool's.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import sys
 from pathlib import Path

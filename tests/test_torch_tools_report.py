@@ -17,6 +17,7 @@ the JAX repository's ``tools/obs_report.py`` (CPU).
   the port's and the JAX package's training and serving runs.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import math
 import os

@@ -3,6 +3,7 @@ package) on the CPU: the JAX tool's model list and recipe, and one row
 at a tiny recipe with ``--device cpu`` carrying the JAX tool's keys.
 Without CUDA and without ``--device cpu`` the sweep refuses to start."""
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 import sys
 from pathlib import Path

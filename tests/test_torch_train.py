@@ -15,6 +15,7 @@
   file that does not exist.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import dataclasses
 import json
 

@@ -18,6 +18,7 @@ the full-residual kernels K4/K6. (The full-residual and split routes are
 held against JAX in tests/test_torch_lstm_full_split.py.)
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

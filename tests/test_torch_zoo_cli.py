@@ -19,6 +19,7 @@
   JAX engine refuses it.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import json
 
 import pytest
@@ -117,14 +118,15 @@ def test_cli_runs_bert_and_pair(tmp_path, capsys, mode, argv):
 # (argv0, argv1), which now run (test_cli_runs_bert_and_pair). --moe_experts,
 # --moe_top_k and --tfm_stacked parse since they were ported: their cases now
 # hold the CLI's refusals of an MoE or stacked option the model would not
-# honor; --sp, --pp and --ep above 1 stay unported.
+# honor; --sp and --pp above 1 stay unported, and --ep above 1 (ported
+# since) is refused off the MoE transformer with the JAX text.
 @pytest.mark.parametrize("argv,named,why", [
     pytest.param(argv, named, why, id=f"argv{i}-{named}") for i, (argv, named, why) in enumerate([
         (["--moe_experts", "4"], "--moe_experts", "requires --encoder transformer"),
         (["--encoder", "transformer", "--moe_experts", "4", "--moe_top_k", "0"], "--moe_top_k",
          "must be >= 1"),
         (["--sp", "2"], "--sp", "is not ported yet"), (["--pp", "2"], "--pp", "is not ported yet"),
-        (["--ep", "2"], "--ep", "is not ported yet"),
+        (["--ep", "2"], "--ep", "(expert parallelism) requires --encoder transformer"),
         (["--tfm_stacked"], "--tfm_stacked", "requires --encoder transformer"),
     ], start=2)
 ])

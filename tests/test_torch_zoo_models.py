@@ -26,6 +26,7 @@ Interop, fresh weights and the shared ops are in
 ``tests/test_torch_zoo_parts.py``.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

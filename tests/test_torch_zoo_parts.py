@@ -19,6 +19,7 @@
   route (CNN, transformer) as on the time-major one.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import math
 
 import jax

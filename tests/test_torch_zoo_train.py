@@ -27,6 +27,7 @@ the two runs beyond the bar. Adam itself is held against optax in
 ``tests/test_torch_optim.py``.
 """
 
+import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
 import jax
 import numpy as np
 import pytest
