@@ -45,7 +45,7 @@ exits non-zero; no phase catches a failure of its own):
    the serving plane), an engine on the checkpoint with tenants of 9 and 6
    relations: its capacity on single-query requests from one client
    thread (served/s with 64 closed-loop clients), then Poisson arrivals at
-   30, 60 and 90 % of it, 3 s each: offered and served/s, queue depth,
+   30, 60 and 90 % of it, 2 s each: offered and served/s, queue depth,
    shed, latency p50/p99 overall and per bucket (p99 only from 50 requests
    up), the host split per batch, the longest gap between completions and
    the garbage collector's pauses.
@@ -186,19 +186,18 @@ exits non-zero; no phase catches a failure of its own):
 9e. The host feed (``datapipe/``, ``sampling/native.py``), on 9c's files,
    full width; files under ``build/chip_smoke_feed/``, removed at the end.
    (a) The flagship at phase 9's config through ``cli.make_trainer`` with
-   ``--sampler python --prefetch_depth 0`` and with the C++ sampler at
-   depths 0 and 2: 20 steps as graph replays with a val pass, the
-   wrappers' counts zeroed just before and read just after, launches by
+   the C++ sampler at depths 0 and 2: 20 steps as graph replays with a val
+   pass, the wrappers' counts zeroed just before and read just after, launches by
    the profiler (the main path's kernels once a step, K1/K2 once a val
    batch), then the graph's profile: ms/step, episodes/s, host sampling
    ms, device busy, the card's share and the feed's stall share; the
    native runs' losses at depths 0 and 2 within 1e-6. (b) 9c and 9d with
-   the C++ sampler at depths 0 and 2, the same columns, beside 9c's and
-   9d's. (c) phase 11b's proto/cnn and siamese/cnn through the CLI's
-   trainer with the C++ sampler at depth 2, beside their phase-11 rows.
+   the C++ sampler at depth 2, the same columns, beside 9c's and 9d's.
+   (c) phase 11b's proto/cnn through the CLI's trainer with the C++
+   sampler at depth 2, beside its phase-11 row.
    (d) The JAX bench headline's shape: B=64, the token cache, lazy Adam
    on the 400 002 x 50 table, one graph of 128 steps, the C++ index
-   sampler behind a feed at depths 0, 2 and 4: episodes/s over
+   sampler behind a feed at depths 0 and 2: episodes/s over
    hard-synced calls, the feed's stall share. (e) ``cli.train_main``
    (token cache, lazy, C++ sampler, depth 2) crashed by ``--fault_step``
    and resumed: its index batches equal the uninterrupted run's bitwise,
@@ -207,21 +206,20 @@ exits non-zero; no phase catches a failure of its own):
    and step (bf16 encoder, f32 head, mse, W=8, Adam, shared table, 4 steps
    a replay), full width: 11a proto, proto_hatt, siamese, gnn, snail and
    metanet over the BiLSTM (u=128, A=64), 11b each over the CNN (230
-   filters) and proto and gnn over the transformer (4 x 256, 4 heads, ff
+   filters) and proto and gnn over the transformer (2 x 256, 4 heads, ff
    1024). Each: one S=4 replay vs four eager steps from the same weights
    (``hold_state``'s bars, cuDNN deterministic); the optimizer pair on
    the model's parameter list vs its plain twin; on the BiLSTM, each
    leaf's step-0 gradient within 5e-2 of its own scale (the leaves whose
-   f32 gradient is rounding noise left out and printed) and 8 steps'
-   losses within 2e-2 of the plain backends; 8 steps and a val pass (40 episodes)
+   f32 gradient is rounding noise left out and printed) and 4 steps'
+   losses within 2e-2 of the plain backends; 4 steps and a val pass (40 episodes)
    as graph replays with the wrappers' counts zeroed just before and read
    just after, launches by the profiler (K7, K8, K10, K11, lstm_wgrad and
    the optimizer pair once a step, K1 and K2 once a val batch; only the
    optimizer pair off the BiLSTM); ms/step, episodes/s, device busy and
    launches a step of the graph. 11c: ``cli.train_main`` for ``--model
-   proto --encoder cnn --loss ce`` on phase 9c's files, 200 steps in runs
-   of 20, 160 and 20 joined by ``--resume`` (the last 20 steps' mean loss
-   below the first 20's), then ``cli.test_main`` on the test file (its
+   proto --encoder cnn --loss ce`` on phase 9c's files, 200 steps (the
+   last metric window's mean loss below the first's), then ``cli.test_main`` on the test file (its
    accuracy printed, no bar: the data is synthetic). The phase's seconds.
 13. (run after phase 11) BERT-base (12 layers x 768, 12 heads, FFN 3072,
    30 522 ids through the hash-fallback tokenizer, random weights from the
@@ -382,8 +380,8 @@ exits non-zero; no phase catches a failure of its own):
    the resumed run's ring slot held to it at ``hold_state``'s bars (every
    parameter and moment within 1e-6 of its scale, the word table's
    atomics-noise elements aside). 18b: ``tools/zoo_quality.run_model`` on
-   induction and proto at a cut recipe (500 steps, val every 250 over 50
-   episodes), each a child process of the port's CLI: a
+   induction at a cut recipe (500 steps, val every 250 over 50
+   episodes), a child process of the port's CLI: a
    ``final_val_accuracy`` and a ``train_eps_s_median``, no ``error``.
    18c: ``tools/obs_report`` ``--check`` (exit 0) and ``--json`` on 18a's
    and 18b's run directories (a train section; on 18a's lazy run an MFU
@@ -460,6 +458,20 @@ exits non-zero; no phase catches a failure of its own):
    gradient norms) with the dropped shares equal, every rank's replica
    equal, the collectives to the plan; eager ms/step and peak GiB, printed
    beside 14c's ep=1 run. A ``{"dp21": ...}`` line.
+22. (run with phases 19-21, in their two- and four-rank gloo children)
+   Tensor and sequence parallel on gloo ranks on the card, eager, each
+   held to one process on the global batch within 1e-5. 22a: the flagship
+   (``--encoder bilstm`` at the ExperimentConfig widths, the token cache
+   with lazy Adam, f32 as 19b) at (dp, tp) = (1, 2) on two ranks and (2, 2)
+   on four: losses, parameters, gradient norms and moments; K7, K8,
+   ``lstm_wgrad``, K10, K11 and the optimizer pair launched on every rank
+   every step (wrapper counts per rank per step). 22b: the transformer at
+   the JAX defaults (4 layers, width 256, FFN 1024, L=40; f32, SGD) at
+   sp=2, ring attention: the first forward's logits, every gradient leaf,
+   losses, parameters, gradient norms. 22c: a BERT-base eval batch (the
+   seed's weights) at tp=2: logits and eval metrics. Replicas equal, the
+   collectives to the plan, ms/step and peak GiB per rank beside the
+   one-process run. A ``{"dp22": ...}`` line.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -480,14 +492,15 @@ exits non-zero; no phase catches a failure of its own):
    engine; ``launches_dp_20``: phase 20b's profiled launches per step of
    each path and 20c's wrapper counts on rank 0; ``launches_moe_dp_21``:
    phase 21a's profiled launches per step and 21b/21c's wrapper launches
-   per step on rank 0, by layout), a
+   per step on rank 0, by layout; ``launches_tp_sp_22``: phase 22's
+   wrapper launches per step on every rank, by part and layout), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
    ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
    ``{"obs": ...}`` line of phase 15, the ``{"fleet": ...}`` line of phase
    16, the ``{"load": ...}`` line of phase 17, the ``{"tools": ...}`` line
    of phase 18, the ``{"dp": ...}`` line of phase 19, the ``{"dp20":
    ...}`` line of phase 20, the ``{"dp21": ...}`` line of phase 21, the
-   run's seconds,
+   ``{"dp22": ...}`` line of phase 22, the run's seconds,
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2856,12 +2869,14 @@ FEED_LOSS_TOL = GRAPH_PARAM_TOL
 # JAX bench scans 512: at 512 a call took ~11 s on the card and the three
 # depths 88.7 s of a whole script that, with phase 20, came within 3 s of the
 # 1200 s it must finish in, on a slower card; 128 leaves a quarter); one
-# hard-synced call per depth after one warm call.
+# hard-synced call per depth after one warm call, at depths 0 and 2.
 BENCH_B = 64
 BENCH_SPC = 128
 BENCH_CALLS = 1
-BENCH_DEPTHS = (0, 2, 4)
+BENCH_DEPTHS = (0, 2)
 FEED_DIR = WORK_DIR.parent / "chip_smoke_feed"
+# 9e(c)'s zoo models through the C++ feed.
+FEED_ZOO_MODELS = ("proto",)
 
 
 def feed_argv(sampler: str, depth: int) -> list:
@@ -2895,8 +2910,8 @@ def close_trainer(trainer) -> None:
 
 def feed_flagship() -> dict:
     """9e(a): the flagship at phase 9's config through ``cli.make_trainer``
-    with today's input path (``--sampler python --prefetch_depth 0``) and
-    the C++ sampler at depths 0 and 2: FEED_STEPS steps as graph replays
+    with the C++ sampler at depths 0 and 2 (today's input path, ``--sampler
+    python --prefetch_depth 0``, is 9c's): FEED_STEPS steps as graph replays
     with a val pass, the wrappers' counts zeroed just before and read just
     after, launches by the profiler; then the graph's profile. The two
     native runs start from the same weights and draw the same batches, so
@@ -2905,7 +2920,7 @@ def feed_flagship() -> dict:
             str(FEED_STEPS), "--val_iter", "40"]
     on = ("K7", "K8", "K1", "K2") + STEP_KERNELS
     rows, losses = {}, {}
-    for sampler, depth in (("python", 0), ("native", 0), ("native", 2)):
+    for sampler, depth in (("native", 0), ("native", 2)):
         tag = f"{sampler} d{depth}"
         trainer = feed_trainer(base + feed_argv(sampler, depth)
                                + ["--save_ckpt", str(FEED_DIR / f"flagship_{sampler}_{depth}")])
@@ -2930,15 +2945,16 @@ def feed_flagship() -> dict:
 
 def feed_real(real: dict) -> dict:
     """9e(b): 9c (shared table) and 9d (token cache, lazy) on 9c's files
-    with the C++ sampler at depths 0 and 2: the graph's profile of each
+    with the C++ sampler at depth 2: the graph's profile of each
     (``profile_graph_steps``: each hand kernel once a step, the lazy pair
-    once a replay)."""
+    once a replay), beside phases 9c's and 9d's own (today's input path;
+    9e(a) holds depth 0 against depth 2)."""
     files = real_argv(real["paths"], "train", "val")
     rows = {}
     for phase, extra, per_call in (("9c", [], ()),
                                    ("9d", ["--token_cache", "--embed_optimizer", "lazy"],
                                     LAZY_KERNELS)):
-        for depth in (0, 2):
+        for depth in (2,):
             tag = f"{phase} native d{depth}"
             trainer = feed_trainer(REAL_ARGV + files + extra + feed_argv("native", depth)
                                    + ["--save_ckpt", str(FEED_DIR / f"{phase}_{depth}")])
@@ -2950,11 +2966,11 @@ def feed_real(real: dict) -> dict:
 
 
 def feed_zoo() -> dict:
-    """9e(c): phase 11b's proto/cnn and siamese/cnn through ``cli.make_trainer``
-    with the C++ sampler at depth 2: the graph's profile of each (only the
-    optimizer pair is a hand kernel off the BiLSTM)."""
+    """9e(c): phase 11b's proto/cnn through ``cli.make_trainer`` with the
+    C++ sampler at depth 2: the graph's profile (only the optimizer pair is
+    a hand kernel off the BiLSTM)."""
     rows = {}
-    for model_name in ("proto", "siamese"):
+    for model_name in FEED_ZOO_MODELS:
         tag = f"{model_name}/cnn native d2"
         trainer = feed_trainer(ZOO_ARGV + ["--model", model_name, "--encoder", "cnn",
                                            "--save_ckpt", str(FEED_DIR / model_name)]
@@ -3124,20 +3140,22 @@ def feed_phase(real: dict) -> dict:
 # --- Phase 11: the few-shot model zoo ------------------------------------------
 
 ZOO_MODELS = ("proto", "proto_hatt", "siamese", "gnn", "snail", "metanet")
-ZOO_STEPS = 8
+ZOO_STEPS = 4
 ZOO_DIR = WORK_DIR.parent / "chip_smoke_zoo"
 # The flagship episode and step (bf16 encoder, f32 head, mse, W=8, Adam,
 # shared table), 4 steps a replay, one val pass of 40 episodes at step 8.
 ZOO_ARGV = ["--synthetic", "--bf16", "--steps_per_call", "4", "--val_step", str(ZOO_STEPS),
             "--val_iter", "40", "--train_iter", str(ZOO_STEPS)]
+# The transformer cases at 2 of the JAX default's 4 layers (phase 14 runs
+# the 4-layer transformer, and phase 22 its ring).
+ZOO_TFM_DEPTH = ["--tfm_layers", "2"]
 # 11c: proto over the CNN through cli.train_main on phase 9c's files, 200
-# steps in three runs (20, --resume 160, --resume 20), so that the first
-# and the last run each log one [train] record: the mean loss of steps
-# 1-20 and of steps 181-200. ce: proto's -||q - p||^2 logits start deep in
-# the sigmoid's flat tail, where the mse objective barely moves them.
+# steps in one run: the mean loss of its first metric window against its
+# last. ce: proto's -||q - p||^2 logits start deep in the sigmoid's flat
+# tail, where the mse objective barely moves them.
 ZOO_CLI_ARGV = ["--bf16", "--model", "proto", "--encoder", "cnn", "--loss", "ce",
                 "--steps_per_call", "4", "--val_step", "20", "--val_iter", "40"]
-ZOO_CLI_RUNS = (20, 160, 20)
+ZOO_CLI_STEPS = 200
 
 
 @contextlib.contextmanager
@@ -3253,7 +3271,8 @@ def zoo_case(model_name: str, encoder: str, vocab, tok, gen: torch.Generator) ->
     tag = f"zoo {model_name}/{encoder}"
     t0 = time.monotonic()
     cfg = cli.config_from_args(cli.parse_args(
-        train=True, argv=ZOO_ARGV + ["--model", model_name, "--encoder", encoder]))
+        train=True, argv=ZOO_ARGV + ["--model", model_name, "--encoder", encoder]
+        + (ZOO_TFM_DEPTH if encoder == "transformer" else [])))
 
     def sampler(split="train", seed=0):
         return EpisodeSampler(cli.load_data(cfg, split), tok, cfg.n, cfg.k, cfg.q,
@@ -3318,25 +3337,22 @@ def zoo_case(model_name: str, encoder: str, vocab, tok, gen: torch.Generator) ->
 
 def zoo_cli(real: dict) -> dict:
     """11c: ``cli.train_main`` for proto over the CNN on phase 9c's files,
-    200 steps in three runs joined by ``--resume``: the mean loss of steps
-    181-200 must be below that of steps 1-20; then ``cli.test_main`` on
-    the test file."""
+    ZOO_CLI_STEPS steps: the mean loss of the last [train] record (the last
+    metric window) must be below that of the first; then ``cli.test_main``
+    on the test file. (The CLI's resume is held by 9c and 9e(e).)"""
     ckpt = ZOO_DIR / "cli"
     argv = ZOO_CLI_ARGV + real_argv(real["paths"], "train", "val") + ["--save_ckpt", str(ckpt)]
-    for i, n in enumerate(ZOO_CLI_RUNS):
-        rc, _, err = quiet_cli(cli.train_main, argv + ["--train_iter", str(n)]
-                               + (["--resume"] if i else []))
-        if rc != 0:
-            raise AssertionError(f"zoo train_main run {i}: rc {rc}, {err[-2000:]!r}")
+    rc, _, err = quiet_cli(cli.train_main, argv + ["--train_iter", str(ZOO_CLI_STEPS)])
+    if rc != 0:
+        raise AssertionError(f"zoo train_main: rc {rc}, {err[-2000:]!r}")
     recs = train_records(ckpt / "metrics.jsonl")
     steps = [r["step"] for r in recs]
-    total = sum(ZOO_CLI_RUNS)
-    if steps[0] != ZOO_CLI_RUNS[0] or steps[-2:] != [total - ZOO_CLI_RUNS[-1], total]:
+    if len(steps) < 2 or steps[-1] != ZOO_CLI_STEPS or steps != sorted(set(steps)):
         raise AssertionError(f"zoo train_main: [train] records at steps {steps}")
     first, last = recs[0]["loss"], recs[-1]["loss"]
     if not last < first:
-        raise AssertionError(f"zoo train_main: mean loss of the last {ZOO_CLI_RUNS[-1]} steps "
-                             f"{last} not below the first {ZOO_CLI_RUNS[0]}'s {first}")
+        raise AssertionError(f"zoo train_main: mean loss of steps {steps[-2] + 1}-{steps[-1]} "
+                             f"{last} not below steps 1-{steps[0]}'s {first}")
     rc, out, err = quiet_cli(cli.test_main, ["--bf16", "--model", "proto", "--encoder", "cnn",
                                              "--loss", "ce", "--load_ckpt", str(ckpt),
                                              "--test_iter", "40", "--steps_per_call", "4"]
@@ -3344,11 +3360,9 @@ def zoo_cli(real: dict) -> dict:
     result = json.loads(out.strip().splitlines()[-1])
     if rc != 0 or not 0.0 <= result["test_accuracy"] <= 1.0:
         raise AssertionError(f"zoo test_main: rc {rc}, {result}, {err[-2000:]!r}")
-    print(f"[zoo cli] train_main --model proto --encoder cnn on 9c's files, "
-          f"{sum(ZOO_CLI_RUNS)} steps in runs of {ZOO_CLI_RUNS} joined by --resume: mean loss "
-          f"steps 1-{ZOO_CLI_RUNS[0]} {first:.5f} -> steps "
-          f"{sum(ZOO_CLI_RUNS) - ZOO_CLI_RUNS[-1] + 1}-{sum(ZOO_CLI_RUNS)} {last:.5f}; "
-          f"test_main on the test file: {result}", flush=True)
+    print(f"[zoo cli] train_main --model proto --encoder cnn on 9c's files, {ZOO_CLI_STEPS} "
+          f"steps: mean loss steps 1-{steps[0]} {first:.5f} -> steps {steps[-2] + 1}-"
+          f"{steps[-1]} {last:.5f}; test_main on the test file: {result}", flush=True)
     return {"loss_first": first, "loss_last": last, "test": result}
 
 
@@ -4220,7 +4234,8 @@ def slice_phase(tr: dict, zoo: dict, gen: torch.Generator, card: str) -> dict:
           f"{stacked['busy_ms']:.3f}, {stacked['launches_per_step']:.1f} launches/step; the unstacked "
           f"transformer at the same config in this call {prof['step_ms']:.3f} ms/step, busy "
           f"{prof['busy_ms']:.3f}, {prof['launches']:.1f} launches/step; phase 11's "
-          f"proto/transformer {stacked['phase11_proto_transformer_step_ms']:.3f} ms/step; "
+          f"proto/transformer (2 layers) {stacked['phase11_proto_transformer_step_ms']:.3f} "
+          f"ms/step; "
           f"{card}", flush=True)
     out.update(c_moe=moe, d_stacked=stacked)
     shutil.rmtree(SLICE_DIR, ignore_errors=True)
@@ -4262,7 +4277,7 @@ OPEN_LOOP_GAP_S = 0.008
 CAPACITY_CLIENTS = 64
 CAPACITY_S = 2.0
 SWEEP_FRACTIONS = (0.3, 0.6, 0.9)
-SWEEP_HOLD_S = 3.0
+SWEEP_HOLD_S = 2.0
 MIN_P99_N = 50
 
 
@@ -6269,7 +6284,7 @@ TOOLS_ARGV = ["--synthetic", "--bf16", "--token_cache", "--steps_per_call", "4",
 TOOLS_ON = ("lazy_catchup", "K7", "K8", "optim_sumsq", "optim_update")
 # 18b: the zoo sweep's recipe cut from 4000 steps (val every 500, 200
 # episodes) to 500 (val every 250, 50 episodes), two of its seven models.
-ZOO_TOOL_MODELS = ("induction", "proto")
+ZOO_TOOL_MODELS = ("induction",)
 ZOO_TOOL_CUT = ["--train_iter", "500", "--val_step", "250", "--val_iter", "50"]
 TOOLS_SECONDS = 120
 
@@ -6552,7 +6567,8 @@ DP_SECONDS = 120
 DP_PARTS = {"19a": ("dp19a_main", DP_DIR, "19a"), "19b": ("dp19b_main", DP_DIR, "19b"),
             "20a": ("dp20a_main", None, "20b"), "20b": ("dp20b_main", None, "20c"),
             "21a": ("dp21a_main", None, "21a"), "21b": ("dp21_gloo_main", None, "21"),
-            "21c": ("dp21_gloo_main", None, "21")}
+            "21c": ("dp21_gloo_main", None, "21"), "22b": ("dp22_gloo_main", None, "22"),
+            "22c": ("dp22_gloo_main", None, "22")}
 
 
 def dp_child_main(argv: list) -> int:
@@ -6579,12 +6595,12 @@ def dp_child(parts: list, nproc: int) -> dict:
     result (rank 0's), by part."""
     outs = {}
     for part in parts:
-        out_dir = DP_PARTS[part][1] or (DP20_DIR if part.startswith("20") else DP21_DIR)
+        out_dir = DP_PARTS[part][1] or {"20": DP20_DIR, "21": DP21_DIR, "22": DP22_DIR}[part[:2]]
         out_dir.mkdir(parents=True, exist_ok=True)
         outs[part] = out_dir / f"{part}.json"
         outs[part].unlink(missing_ok=True)
-    bound_s = sum({**DP_CHILD_SECONDS, **DP20_CHILD_SECONDS, **DP21_CHILD_SECONDS}[p]
-                  for p in parts)
+    bound_s = sum({**DP_CHILD_SECONDS, **DP20_CHILD_SECONDS, **DP21_CHILD_SECONDS,
+                   **DP22_CHILD_SECONDS}[p] for p in parts)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            str(nproc), str(Path(__file__).resolve())]
     for part in parts:
@@ -7572,25 +7588,250 @@ def dp21_gloo_main(out_path: str) -> int:
     return 0
 
 
-def dp_phases(smi: str, want19: bool, want20: bool, want21: bool = False,
-              moe14: dict | None = None) -> tuple:
-    """Phases 19, 20 and 21 (the ``{"dp": ...}``, ``{"dp20": ...}`` and
-    ``{"dp21": ...}`` results, None for a phase not asked for): 20a in this
-    process, then one torchrun child at world size 1 over NCCL for 19a, 20b
-    and 21a, one of two gloo ranks for 19b, 20c and 21b-c (dp=2, ep=2) and
-    one of four for 21c (dp=2, ep=2); this process never joins a process
-    group. ``moe14``: phase 14c's MoE result, printed beside 21's."""
+# --- Phase 22: tensor and sequence parallel ------------------------------------
+
+DP22_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dp22"
+DP22_TOL = 1e-5
+DP22_CHILD_SECONDS = {"22b": 240, "22c": 240}
+DP22_SECONDS = 100
+# The flagship's kernels that every tp rank launches in a training step.
+DP22_ON = ("K7", "K8", "wgrad", "K10", "K11", "optim_sumsq", "optim_update")
+# 22a's layouts (dp, tp) by world size; 22b's (sp) and 22c's (tp) run on two.
+DP22_TP = {2: (1, 2), 4: (2, 2)}
+
+
+def dp22_tfm_payload() -> dict:
+    """22b's world: the transformer at the JAX defaults (4 layers, width
+    256, 4 heads, FFN 1024) under the induction head on the flagship episode
+    (5-way 5-shot, Q=5, B=4, L=40), f32, SGD at lr 0.1, a DP21_VOCAB-word
+    table, DP21_B_STEPS global token batches; 22c's: BERT-base (the seed's
+    weights, the hash-fallback tokenizer) at f32, one eval batch of B=2."""
+    from induction_network_on_fewrel_tpu_torch.data import BertTokenizer
+
+    cfg = ExperimentConfig(encoder="transformer", compute_dtype="float32", vocab_size=DP21_VOCAB,
+                           optimizer="sgd", lr=0.1)
+    vocab = make_synthetic_glove(vocab_size=cfg.vocab_size - 2, word_dim=cfg.word_dim)
+    s = EpisodeSampler(cli.load_data(cfg, "train"), GloveTokenizer(vocab, cfg.max_length),
+                       cfg.n, cfg.k, cfg.q, batch_size=cfg.batch_size, seed=0)
+    bert = ExperimentConfig(encoder="bert", compute_dtype="float32", batch_size=2)
+    sb = EpisodeSampler(cli.load_data(bert, "train"),
+                        BertTokenizer(bert.max_length, vocab_size=bert.bert_vocab_size),
+                        bert.n, bert.k, bert.q, batch_size=bert.batch_size, seed=0)
+    return {"cfg": {}, "device": "cuda", "weights": None,
+            "variants": {"tfm": {k: getattr(cfg, k) for k in (
+                "encoder", "compute_dtype", "vocab_size", "optimizer", "lr")},
+                         "bert": {"encoder": "bert", "compute_dtype": "float32",
+                                  "batch_size": 2}},
+            "variant_batches": {
+                "tfm": [batch_to_model_inputs(s.sample_batch()) for _ in range(DP21_B_STEPS)],
+                "bert": [batch_to_model_inputs(sb.sample_batch())]}}
+
+
+def state_digest(params: dict) -> str:
+    """A digest of a replica's parameters (the ranks compare replicas by it)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(params[k]).tobytes())
+    return h.hexdigest()
+
+
+def param_excess(got: dict, want: dict) -> tuple[float, list]:
+    """The worst ``|got - want| - tol·|want|`` over every element (within
+    ``np.testing.assert_allclose(atol=rtol=DP22_TOL)`` when at most
+    DP22_TOL), and the three worst leaves."""
+    excess = {k: float(np.max(np.abs(got[k] - w) - DP22_TOL * np.abs(w))) for k, w in want.items()}
+    return max(excess.values()), sorted(excess.items(), key=lambda kv: -kv[1])[:3]
+
+
+def dp22_flagship(mesh, smi: str) -> dict:
+    """22a on this rank: the flagship token-cache lazy step at f32 (19b's
+    payload, its compact spelling) under ``mesh``; with the wrappers' counts
+    zeroed just before and read just after."""
+    from induction_network_on_fewrel_tpu_torch.parallel import rig
+
+    cfg = ExperimentConfig(compute_dtype="float32", token_cache=True, embed_optimizer="lazy",
+                           ckpt_stage="off")
+    payload = {**dp_b_payload(cfg), "cases": ["compact"]}
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    got = rig.run_cases(payload, mesh)["compact"]
+    counts = kernel_counts()
+    return {"payload": payload, "got": got, "counts": counts,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def dp22_gloo_main(out_path: str) -> int:
+    """22, a rank of ``torchrun --nproc_per_node 2`` or ``4``: gloo ranks on
+    the one card, eager steps. 22a: the flagship (``--encoder bilstm`` at the
+    ExperimentConfig widths, the token cache with lazy Adam, f32 as 19b) at
+    (dp, tp) = (1, 2) on two ranks and (2, 2) on four, DP_B_STEPS steps held
+    to one process on the global batch within DP22_TOL (losses, parameters,
+    gradient norms, the moments of scale), every rank launching the
+    BiLSTM, attention and optimizer kernels a step (wrapper counts per rank
+    per step), every replica equal, the collectives to the plan. On two
+    ranks also 22b, the transformer at the JAX defaults at sp=2 (the ring),
+    and 22c, a BERT-base eval batch at tp=2, each held to one process
+    (``dp22_tfm_payload``): the first forward's logits and every gradient
+    leaf within DP22_TOL of scale, the losses, the parameters after
+    ``rig.MOE_DP_AT`` steps, the gradient norms; 22c's logits and eval
+    metrics. ms/step and peak GiB per rank beside the one-process run."""
+    import torch.distributed as dist
+
+    from induction_network_on_fewrel_tpu_torch.parallel import rig
+    from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+
     t0 = time.monotonic()
-    for d in (DP_DIR, DP20_DIR, DP21_DIR):
+    torch.cuda.set_device(0)
+    maybe_initialize_distributed(backend="gloo", timeout_s=120)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    res = {"world": world, "backend": "gloo", "card": smi, "layouts": {}}
+    dp, tp = DP22_TP[world]
+    a = dp22_flagship(make_mesh(dp=dp, tp=tp), smi)
+    mine = {"a": {"digest": state_digest(a["got"]["params"]), "counts": a["counts"],
+                  "issued": a["got"]["issued_per_step"], "plan": a["got"]["plan"],
+                  "peak": a["peak_gib"]}}
+    if world == 2:
+        tp_payload = dp22_tfm_payload()
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counts()
+        b = rig.run_moe_case(tp_payload, "tfm", make_mesh(dp=1, sp=2))
+        mine["b"] = {"digest": state_digest(b["params"]), "counts": kernel_counts(),
+                     "issued": b["issued_per_step"], "plan": b["plan"],
+                     "peak": torch.cuda.max_memory_allocated() / 2**30}
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counts()
+        c = rig.run_moe_case({**tp_payload, "eval_only": True}, "bert", make_mesh(dp=1, tp=2))
+        mine["c"] = {"counts": kernel_counts(), "peak": torch.cuda.max_memory_allocated() / 2**30}
+    other = [None] * world
+    dist.gather_object(mine, other if rank == 0 else None, dst=0)
+    if rank != 0:
+        return 0
+    for part in mine:
+        for key in ("digest", "issued"):
+            if key in mine[part] and not all(o[part][key] == (mine[part][key] if key == "digest"
+                                                               else o[part]["plan"])
+                                             for o in other):
+                raise AssertionError(f"22{part}: the ranks' {key} differ: "
+                                     f"{[o[part].get(key) for o in other]}")
+    # 22a: the one-process reference on the global batches.
+    torch.cuda.reset_peak_memory_stats()
+    ref = rig.run_cases(a["payload"], None)["compact"]
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    got = a["got"]
+    loss_err = float(np.abs(np.array(got["losses"]) - ref["losses"]).max())
+    param_err, worst = param_excess(got["params"], ref["params"])
+    norm_rel = float(np.max(np.abs(np.array(got["grad_norms"]) - ref["grad_norms"])
+                            / np.array(ref["grad_norms"])))
+    moment_rel = leaf_rel(got["moments"], ref["moments"])
+    per_step = [{k: n / DP_B_STEPS for k, n in o["a"]["counts"].items() if n} for o in other]
+    missing = [(r, k) for r, c in enumerate(per_step) for k in DP22_ON if not c.get(k)]
+    if (loss_err > DP22_TOL or param_err > DP22_TOL or norm_rel > DP22_TOL
+            or moment_rel > DP22_TOL or missing):
+        raise AssertionError(f"22a (dp={dp}, tp={tp}): losses {loss_err:.3g}, parameters "
+                             f"{param_err:.3g} (worst {worst}), grad norms {norm_rel:.3g}, "
+                             f"moments {moment_rel:.3g} (tol {DP22_TOL}); kernels not launched "
+                             f"(rank, kernel) {missing}")
+    ms, ref_ms = got["seconds"] / DP_B_STEPS * 1e3, ref["seconds"] / DP_B_STEPS * 1e3
+    lay = f"dp{dp}_tp{tp}"
+    res["layouts"][lay] = {
+        "part": "22a", "loss_abs_err": loss_err, "param_err": param_err, "worst_leaves": worst,
+        "grad_norm_rel": norm_rel, "moment_rel": moment_rel,
+        "collectives_per_step": got["issued_per_step"], "launches_per_step_by_rank": per_step,
+        "eager_ms_per_step": ms, "one_process_ms_per_step": ref_ms,
+        "peak_gib_by_rank": [o["a"]["peak"] for o in other], "one_process_peak_gib": ref_peak}
+    print(f"[22a] the flagship (bilstm, token cache + lazy Adam, f32) at (dp, tp) = ({dp}, {tp}) "
+          f"({world} gloo ranks on the card, eager) vs one process on the global batch, "
+          f"{DP_B_STEPS} steps: losses within {loss_err:.3g}, parameters {param_err:.3g}, grad "
+          f"norms rel {norm_rel:.3g}, moments {moment_rel:.3g} of scale (tol {DP22_TOL}); "
+          f"replicas equal; collectives per step {got['issued_per_step']} (= the plan on every "
+          f"rank); wrapper launches per rank per step {per_step}; {ms:.1f} ms/step eager vs "
+          f"{ref_ms:.1f} one process; peak {[round(o['a']['peak'], 2) for o in other]} vs "
+          f"{ref_peak:.2f} GiB; {smi}", flush=True)
+    if world == 2:
+        ref_b = rig.run_moe_case(tp_payload, "tfm", None)
+        logit_rel = float(np.abs(b["logits"] - ref_b["logits"]).max()
+                          / np.abs(ref_b["logits"]).max())
+        grad_rel = leaf_rel(b["grads"], ref_b["grads"])
+        loss_b = float(np.abs(np.array(b["losses"]) - ref_b["losses"]).max())
+        param_b, worst_b = param_excess(b["params_at"], ref_b["params_at"])
+        norm_b = float(np.max(np.abs(np.array(b["grad_norms"]) - ref_b["grad_norms"])
+                              / np.array(ref_b["grad_norms"])))
+        if max(logit_rel, grad_rel, loss_b, param_b, norm_b) > DP22_TOL:
+            raise AssertionError(f"22b (sp=2): logits {logit_rel:.3g}, gradients {grad_rel:.3g}, "
+                                 f"losses {loss_b:.3g}, parameters {param_b:.3g} (worst "
+                                 f"{worst_b}), grad norms {norm_b:.3g} (tol {DP22_TOL})")
+        ms_b = b["seconds"] / DP21_B_STEPS * 1e3
+        ref_ms_b = ref_b["seconds"] / DP21_B_STEPS * 1e3
+        per_b = [{k: n / DP21_B_STEPS for k, n in o["b"]["counts"].items() if n} for o in other]
+        res["layouts"]["dp1_sp2"] = {
+            "part": "22b", "logit_rel": logit_rel, "grad_rel": grad_rel, "loss_abs_err": loss_b,
+            "param_err": param_b, "worst_leaves": worst_b, "grad_norm_rel": norm_b,
+            "collectives_per_step": b["issued_per_step"], "launches_per_step_by_rank": per_b,
+            "eager_ms_per_step": ms_b, "one_process_ms_per_step": ref_ms_b,
+            "peak_gib_by_rank": [o["b"]["peak"] for o in other]}
+        print(f"[22b] the transformer (4 layers x 256, FFN 1024, L=40, f32, SGD) at sp=2 (ring "
+              f"attention over gloo's all_to_all_single: gloo refuses send/recv on CUDA tensors) "
+              f"vs one process, {DP21_B_STEPS} steps: logits {logit_rel:.3g}, gradients "
+              f"{grad_rel:.3g} of scale, losses within {loss_b:.3g}, parameters {param_b:.3g}, "
+              f"grad norms rel {norm_b:.3g} (tol {DP22_TOL}); replicas equal; collectives per "
+              f"step {b['issued_per_step']} (= the plan); wrapper launches per rank per step "
+              f"{per_b}; {ms_b:.1f} ms/step eager vs {ref_ms_b:.1f} one process; peak "
+              f"{[round(o['b']['peak'], 2) for o in other]} GiB; {smi}", flush=True)
+        t_c = time.monotonic()
+        ref_c = rig.run_moe_case({**tp_payload, "eval_only": True}, "bert", None)
+        logit_c = float(np.abs(c["logits"] - ref_c["logits"]).max()
+                        / np.abs(ref_c["logits"]).max())
+        eval_c = max(abs(c["eval"][k] - v) for k, v in ref_c["eval"].items())
+        if logit_c > DP22_TOL or eval_c > DP22_TOL:
+            raise AssertionError(f"22c (BERT-base eval at tp=2): logits {logit_c:.3g} of scale, "
+                                 f"eval metrics {eval_c:.3g} (tol {DP22_TOL})")
+        res["layouts"]["dp1_tp2_bert_eval"] = {
+            "part": "22c", "logit_rel": logit_c, "eval_abs_err": eval_c,
+            "eval_ms": c["seconds"] * 1e3, "one_process_eval_ms": ref_c["seconds"] * 1e3,
+            "peak_gib_by_rank": [o["c"]["peak"] for o in other],
+            "launches_by_rank": [{k: n for k, n in o["c"]["counts"].items() if n}
+                                 for o in other], "reference_seconds": time.monotonic() - t_c}
+        print(f"[22c] a BERT-base eval batch (f32, the seed's weights, B=2: 100 sequences of 40) "
+              f"at tp=2 vs one process: logits {logit_c:.3g} of scale, eval metrics within "
+              f"{eval_c:.3g} (tol {DP22_TOL}); {c['seconds'] * 1e3:.1f} ms vs "
+              f"{ref_c['seconds'] * 1e3:.1f} ms one process (the first call); peak "
+              f"{[round(o['c']['peak'], 2) for o in other]} GiB; {smi}", flush=True)
+    res["seconds"] = round(time.monotonic() - t0, 1)
+    print(f"[22{'b' if world == 2 else 'c'}] {world} ranks: {res['seconds']} s", flush=True)
+    Path(out_path).write_text(json.dumps(res, default=str))
+    return 0
+
+
+def dp_phases(smi: str, want19: bool, want20: bool, want21: bool = False,
+              moe14: dict | None = None, want22: bool = False) -> tuple:
+    """Phases 19, 20, 21 and 22 (the ``{"dp": ...}``, ``{"dp20": ...}``,
+    ``{"dp21": ...}`` and ``{"dp22": ...}`` results, None for a phase not
+    asked for): 20a in this process, then one torchrun child at world size 1
+    over NCCL for 19a, 20b and 21a, one of two gloo ranks for 19b, 20c,
+    21b-c and 22's two-rank layouts, and one of four for 21c (dp=2, ep=2)
+    and 22a at (dp=2, tp=2); this process never joins a process group.
+    ``moe14``: phase 14c's MoE result, printed beside 21's."""
+    t0 = time.monotonic()
+    for d in (DP_DIR, DP20_DIR, DP21_DIR, DP22_DIR):
         d.mkdir(parents=True, exist_ok=True)
     a20 = serving_dp_phase(smi) if want20 else None
     t_a = time.monotonic()
-    nccl = dp_child(["19a"] * want19 + ["20a"] * want20 + ["21a"] * want21, 1)
-    gloo = dp_child(["19b"] * want19 + ["20b"] * want20 + ["21b"] * want21, 2)
+    nccl_parts = ["19a"] * want19 + ["20a"] * want20 + ["21a"] * want21
+    nccl = dp_child(nccl_parts, 1) if nccl_parts else {}
+    gloo = dp_child(["19b"] * want19 + ["20b"] * want20 + ["21b"] * want21 + ["22b"] * want22, 2)
     t_c = time.monotonic()
-    gloo4 = dp_child(["21c"], 4) if want21 else {}
+    four = ["21c"] * want21 + ["22c"] * want22
+    gloo4 = dp_child(four, 4) if four else {}
     seconds = round(time.monotonic() - t0, 1)
-    dp19 = dp20 = dp21 = None
+    dp19 = dp20 = dp21 = dp22 = None
     if want19:
         dp19 = {"card": smi, "a_nccl_world1": nccl["19a"], "b_gloo_world2": gloo["19b"]}
     if want20:
@@ -7612,15 +7853,27 @@ def dp_phases(smi: str, want19: bool, want20: bool, want21: bool = False,
               f"on rank 0 (2 / 4 ranks on one card: one card, not a speed-up); 14c at ep=1 "
               + (f"{moe14['step_ms']:.3f} ms/step, peak {moe14['peak_gib']:.2f} GiB"
                  if moe14 is not None else "not run in this call") + f"; {smi}", flush=True)
-    print(f"[dp] phases {'19 ' * want19}{'20 ' * want20}{'21' * want21}: {seconds} s "
-          f"(torchrun children; 20a in process {round(t_a - t0, 1)} s; targets {DP_SECONDS} s, "
-          f"{DP20_SECONDS} s and {DP21_SECONDS} s; {smi})", flush=True)
-    for d in (dp19, dp20, dp21):
+    if want22:
+        dp22 = {"card": smi, "world2": gloo["22b"], "world4": gloo4["22c"],
+                "seconds_parts": {"world2": gloo["22b"]["seconds"],
+                                  "world4": gloo4["22c"]["seconds"]}}
+        print(f"[22] tp and sp on gloo ranks (one card: not a speed-up), eager ms/step vs one "
+              f"process: " + "; ".join(
+                  f"{lay} {v.get('eager_ms_per_step', v.get('eval_ms')):.1f} vs "
+                  f"{v.get('one_process_ms_per_step', v.get('one_process_eval_ms')):.1f}"
+                  for w in ("world2", "world4") for lay, v in dp22[w]["layouts"].items())
+              + f"; in-rank seconds {dp22['seconds_parts']} (target {DP22_SECONDS} s); {smi}",
+              flush=True)
+    print(f"[dp] phases {'19 ' * want19}{'20 ' * want20}{'21 ' * want21}{'22' * want22}: "
+          f"{seconds} s (torchrun children; 20a in process {round(t_a - t0, 1)} s; targets "
+          f"{DP_SECONDS} s, {DP20_SECONDS} s, {DP21_SECONDS} s and {DP22_SECONDS} s; {smi})",
+          flush=True)
+    for d in (dp19, dp20, dp21, dp22):
         if d is not None:
             d["seconds_with_shared_children"] = seconds
-    for d in (DP_DIR, DP20_DIR, DP21_DIR):
+    for d in (DP_DIR, DP20_DIR, DP21_DIR, DP22_DIR):
         shutil.rmtree(d, ignore_errors=True)
-    return dp19, dp20, dp21
+    return dp19, dp20, dp21, dp22
 
 def main(phases: set | None = None) -> int:
     if not torch.cuda.is_available():
@@ -7762,11 +8015,13 @@ def main(phases: set | None = None) -> int:
     # 21. MoE across ranks: the routing and the load-balance term over the
     # global batch at world size 1 over NCCL (captured, in 19's child) and on
     # gloo ranks on the card (eager: dp=2, ep=2 and both, 2 and 4 ranks).
-    if on("19") or on("20") or on("21"):
-        dp19, dp20, dp21 = dp_phases(smi, on("19"), on("20"), on("21"),
-                                     done.get("slice6c", {}).get("c_moe"))
+    # 22. Tensor and sequence parallel: gloo ranks on the card (eager) in
+    # the two- and four-rank children of phases 19-21.
+    if on("19") or on("20") or on("21") or on("22"):
+        dp19, dp20, dp21, dp22 = dp_phases(smi, on("19"), on("20"), on("21"),
+                                           done.get("slice6c", {}).get("c_moe"), on("22"))
         for phase, key, value in (("19", "dp", dp19), ("20", "dp20", dp20),
-                                  ("21", "dp21", dp21)):
+                                  ("21", "dp21", dp21), ("22", "dp22", dp22)):
             if on(phase):
                 done[key] = value
 
@@ -7976,6 +8231,11 @@ def main(phases: set | None = None) -> int:
             **{f"gloo_{lay}_per_step": v["launches_per_step"].get(key, 0.0)
                for w in ("bc_gloo_world2", "c_gloo_world4")
                for lay, v in dp21[w]["layouts"].items()}}
+        k["launches_tp_sp_22"] = {
+            f"{v['part']}_{lay}_per_rank_per_step": [c.get(key, 0.0) for c in
+                                                     v["launches_per_step_by_rank"]]
+            for w in ("world2", "world4") for lay, v in dp22[w]["layouts"].items()
+            if "launches_per_step_by_rank" in v}
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -7995,7 +8255,7 @@ def main(phases: set | None = None) -> int:
                                  "9d today": feed_columns(tr9d["prof"])})
     feed["c_zoo"].update({f"{m}/cnn phase 11": {
         k: zoo[f"{m}/cnn"][k] for k in ("step_ms", "episodes_per_s", "sample_ms", "busy_ms")}
-        | {"card_share": zoo[f"{m}/cnn"]["busy_share"]} for m in ("proto", "siamese")})
+        | {"card_share": zoo[f"{m}/cnn"]["busy_share"]} for m in FEED_ZOO_MODELS})
     print(json.dumps({"feed": feed}), flush=True)
     print(json.dumps({"serving": {"main_path_p50_ms_by_bucket": main_latency,
                                   **done["serving"]}}), flush=True)
@@ -8008,6 +8268,7 @@ def main(phases: set | None = None) -> int:
     print(json.dumps({"dp": dp19}, default=str), flush=True)
     print(json.dumps({"dp20": dp20}, default=str), flush=True)
     print(json.dumps({"dp21": dp21}, default=str), flush=True)
+    print(json.dumps({"dp22": dp22}, default=str), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -8022,7 +8283,7 @@ def main(phases: set | None = None) -> int:
 PHASE_NEEDS = {"1": (), "2": (), "3": (), "4": (), "6": ("4",), "6b": (), "7": ("6",), "8": (),
                "9": (), "10": ("9",), "9c": (), "9d": ("9c",), "9e": ("9c",), "4b": ("9",),
                "4c": ("9",), "4a": ("9",), "11": ("9c",), "14": ("9", "11"), "13": ("9c",),
-               "15": (), "16": (), "17": (), "18": (), "19": (), "20": (), "21": ()}
+               "15": (), "16": (), "17": (), "18": (), "19": (), "20": (), "21": (), "22": ()}
 PHASE_ALIASES = {"5": "4", "6c": "6", "6d": "6"}
 
 

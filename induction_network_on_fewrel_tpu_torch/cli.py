@@ -111,9 +111,13 @@ and takes its load-balance term from global statistics
 ``--encoder transformer --moe_experts E`` with E divisible by M) shards
 each MoE layer's experts over M ranks that hold the same episodes
 (``torchrun --nproc_per_node dp*M``; ``parallel/expert.py``); a checkpoint
-holds every expert, so it restores at any ``--ep``. ``--tp``, ``--sp``,
-``--pp`` and ``--pp_microbatches`` stay refused by name (``DEFERRED``;
-item 6d).
+holds every expert, so it restores at any ``--ep``. ``--tp T`` shards the
+NTN's slices and the transformer's and BERT's MLP blocks over T ranks that
+hold the same episodes (``parallel/tensor.py``; a checkpoint holds every
+slice, so it restores at any ``--tp``), and ``--sp S`` (``--encoder
+transformer``) the token axis, attention running as a ring
+(``parallel/ring.py``): ``torchrun --nproc_per_node dp*ep*tp*sp``. ``--pp``
+and ``--pp_microbatches`` stay refused by name (``DEFERRED``; item 6d).
 
 Runs on the GPU by default and refuses to start without CUDA unless
 ``--device cpu`` is given.
@@ -344,6 +348,11 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
                         "torchrun --nproc_per_node N; without a launcher, one")
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel mesh axis (requires --moe_experts)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh axis (NTN slices, MLP column/row splits)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel mesh axis (ring attention; requires --encoder "
+                        "transformer)")
     p.add_argument("--save_ckpt", default="./checkpoint", help="checkpoint directory")
     p.add_argument("--load_ckpt", default=None, help="checkpoint directory to restore")
     if train:
@@ -426,7 +435,6 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
 # each is refused by name (rc 2).
 DEFERRED = {
     "--pp": (1, int, LATER_SLICE["pp"]),
-    "--sp": (1, int, LATER_SLICE["sp"]), "--tp": (1, int, SHARDED),
     "--pp_microbatches": (4, int, SHARDED),
 }
 # JAX flags with no counterpart here: flag -> (its JAX default, type, why).
@@ -470,7 +478,7 @@ def parse_args(train: bool, argv=None):
         cfg = ExperimentConfig(model=args.model, encoder=args.encoder, tfm_layers=args.tfm_layers,
                                moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
                                moe_every=args.moe_every, tfm_stacked=args.tfm_stacked,
-                               ep=args.ep)
+                               ep=args.ep, tp=args.tp, sp=args.sp)
         refuse_later_slices(cfg)
         check_transformer_options(cfg)
     except ValueError as e:
@@ -568,7 +576,8 @@ def config_from_args(args):
         mixture=args.mixture, feed_fault=getattr(args, "feed_fault", ""), seed=args.seed,
         ckpt_stage=args.ckpt_stage, watchdog=getattr(args, "watchdog", False),
         perf=getattr(args, "perf", False), nan_inject_step=getattr(args, "nan_inject_step", 0),
-        chaos=getattr(args, "chaos", ""), dp=args.dp, ep=args.ep, zero_opt=args.zero_opt,
+        chaos=getattr(args, "chaos", ""), dp=args.dp, ep=args.ep, tp=args.tp, sp=args.sp,
+        zero_opt=args.zero_opt,
         compact_demb=args.compact_demb, grad_bucketing=args.grad_bucketing,
         grad_bucket_count=args.grad_bucket_count, async_collectives=args.async_collectives,
     )
@@ -663,24 +672,27 @@ def bert_backbone_model(cfg, device):
 
 
 def dp_mesh(args, cfg):
-    """The run's dp mesh, or None for one process (the JAX ``use_mesh``).
+    """The run's mesh, or None for one process (the JAX ``use_mesh``).
     Launched by torchrun, every rank joins the process group
     (``parallel.distributed``: NCCL on the card, gloo with ``--device cpu``)
-    and the mesh is the whole world or ``--dp`` ranks of it by ``--ep``
-    (the JAX axis order); without a launcher ``--dp`` 0 or 1 at ``--ep`` 1
-    is the single-process run and more raises. Refused by name under a
-    mesh: the live lazy path, and an episode batch or an ``--adv`` instance
-    batch that does not divide over the dp ranks (the JAX text); ``--tp``,
-    ``--sp`` and ``--pp`` stay refused by name before it (item 6d)."""
+    and the mesh is the whole world or ``--dp`` ranks of it by ``--ep``,
+    ``--tp`` and ``--sp`` (the JAX axis order); without a launcher ``--dp``
+    0 or 1 with every other axis at 1 is the single-process run and more
+    raises. Refused by name under a mesh: the live lazy path, an episode
+    batch or an ``--adv`` instance batch that does not divide over the dp
+    ranks (the JAX text), a sharded axis that does not divide over tp or sp
+    (where JAX raises), and ``--adv`` under sp (``ADV_SP``); ``--pp``
+    stays refused by name before it (item 6d)."""
     from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
         maybe_initialize_distributed,
     )
     from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+    from induction_network_on_fewrel_tpu_torch.parallel.tensor import check_tp_sizes
 
     if not maybe_initialize_distributed(device=args.device) and cfg.dp in (0, 1) \
-            and cfg.ep == 1:
+            and cfg.ep == cfg.tp == cfg.sp == 1:
         return None
-    mesh = make_mesh(dp=cfg.dp or None, ep=cfg.ep)
+    mesh = make_mesh(dp=cfg.dp or None, ep=cfg.ep, tp=cfg.tp, sp=cfg.sp)
     if cfg.embed_optimizer == "lazy" and not cfg.token_cache:
         raise ValueError(
             "--embed_optimizer lazy does not combine with a device mesh on the LIVE token path "
@@ -699,7 +711,20 @@ def dp_mesh(args, cfg):
             f"--adv_batch {cfg.adv_batch} must be divisible by the data-parallel mesh axis "
             f"dp={dp} (the source and target instances are sharded over dp); try "
             f"--adv_batch {((cfg.adv_batch // dp) + 1) * dp}")
+    check_tp_sizes(cfg, mesh.tp)
+    if mesh.sp > 1:
+        if cfg.max_length % mesh.sp:
+            raise ValueError(f"--max_length ({cfg.max_length}) must be divisible by --sp "
+                             f"({mesh.sp}): the token axis shards over sp")
+        if cfg.adv:
+            raise ValueError(ADV_SP)
     return mesh
+
+
+# The port's refusal of --adv under sp (ROADMAP queue A lists it).
+ADV_SP = ("--adv with --sp above 1 is not ported: the domain game's instance batches would need "
+          "their token columns split and their discriminator fed the pooled rows (ROADMAP queue "
+          "A item 4, sp x adv)")
 
 
 def make_trainer(args, cfg, only_test: bool = False, mesh=None):

@@ -15,11 +15,11 @@ geometry tiers and the fleet's tier spread), the adaptation controller's
 ``adapt*`` policy, the host feed (sampler backend, prefetch, mixture, feed
 faults), the data-parallel knobs (``dp``, ``zero_opt``, ``compact_demb``,
 ``grad_bucketing``, ``grad_bucket_count``, ``async_collectives``;
-``parallel/``), the expert-parallel axis (``ep``) and the seed. Names and defaults are the JAX package's, so a
+``parallel/``), the expert-, tensor- and sequence-parallel axes (``ep``,
+``tp``, ``sp``) and the seed. Names and defaults are the JAX package's, so a
 config built with the same keywords describes the same model in both
 packages, and the ``config.json`` a checkpoint writes loads into the JAX
-config too. The other sharded executors' knobs (tp, sp, pp) come with
-their slice.
+config too. The pipeline executor's knobs (pp) come with its slice.
 
 ``resolve_quant_policy``, ``resolve_geometry_policy``,
 ``resolve_adapt_policy`` and ``parse_canary_plan`` are copies of the JAX
@@ -266,6 +266,11 @@ class ExperimentConfig:
     # Expert-parallel ranks (parallel/expert.py): each MoE layer's experts
     # shard over them; the ranks of one ep group hold the same episodes.
     ep: int = 1
+    # Tensor-parallel ranks (parallel/tensor.py): the NTN's slices and the
+    # MLP blocks shard over them. Sequence-parallel ranks (parallel/ring.py):
+    # the token axis shards over them, attention runs as a ring.
+    tp: int = 1
+    sp: int = 1
 
     # Fields whose value shapes the parameters or the optimizer state: a
     # checkpoint restores only into a config that agrees on them.

@@ -46,6 +46,12 @@ the JAX [E, in, out] layout) and the layer-stacked encoder
 the stacked kernels are explicit [NL, in, out] parameters) follow the same
 rule. A leaf outside both tables raises, in either direction.
 
+Under tensor parallel a rank holds a share of each tp-sharded leaf
+(``parallel/tensor.TP_RULES``): ``tp_slice(state_dict, tp, rank)`` cuts
+a whole state dict (``params_from_jax``'s) to rank ``rank``'s of ``tp``
+ranks, ``tp_join`` puts every rank's back together; the other leaves pass
+whole.
+
 ``disc_params_from_jax`` / ``disc_params_to_jax`` carry the adversarial
 step's discriminator (``fc1``, ``fc2``, ``out``: Dense layers) the same
 way. ``config_from_jax`` carries a JAX ``ExperimentConfig`` (or its
@@ -176,6 +182,33 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = np.array(arr, order="C")    # keeps a 0-d leaf 0-d
     return tree
+
+
+def tp_slice(state_dict: Mapping[str, torch.Tensor], tp: int, rank: int) -> dict:
+    """Rank ``rank``'s share of a whole port state_dict under ``tp`` ranks:
+    each tp-sharded leaf cut to its 1/tp along its axis (the JAX
+    ``NamedSharding`` of ``_TP_RULES``), the rest as-is."""
+    from induction_network_on_fewrel_tpu_torch.parallel.tensor import tp_axis
+
+    out = {}
+    for name, t in state_dict.items():
+        axis = tp_axis(name, t.ndim)
+        if axis is not None:
+            n = t.shape[axis] // tp
+            t = t.narrow(axis, rank * n, n)
+        out[name] = t
+    return out
+
+
+def tp_join(slices: list) -> dict:
+    """Every tp rank's state_dict (in rank order) -> the whole one."""
+    from induction_network_on_fewrel_tpu_torch.parallel.tensor import tp_axis
+
+    out = {}
+    for name, t in slices[0].items():
+        axis = tp_axis(name, t.ndim)
+        out[name] = t if axis is None else torch.cat([s[name] for s in slices], dim=axis)
+    return out
 
 
 DISC_PATHS = re.compile(r"(fc1|fc2|out)/(kernel|bias)")

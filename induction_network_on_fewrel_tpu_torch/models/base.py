@@ -62,8 +62,12 @@ class FewShotModel(nn.Module):
 
     def encode(self, word, pos1, pos2, mask) -> torch.Tensor:
         """[..., L] token features -> [..., H] sentence vectors (position
-        leaves per token or per-sentence offsets)."""
+        leaves per token or per-sentence offsets). An encoder on an sp axis
+        (``parallel/ring.SequenceShard``) gets this rank's token columns."""
         pos1, pos2 = expand_positions(pos1, word), expand_positions(pos2, word)
+        seq = getattr(self.encoder, "seq", None)
+        if seq is not None:     # sequence parallel: this rank's token columns
+            word, pos1, pos2, mask = (seq.columns(x) for x in (word, pos1, pos2, mask))
         lead, L = word.shape[:-1], word.shape[-1]
         ids = [x.reshape(-1, L) for x in (word, pos1, pos2)]        # [M, L]
         if getattr(self.encoder, "wants_time_major", False):

@@ -9,8 +9,8 @@ alone over encoded rows (``models/bert.CachedFeatures``); its backbone is
 the MoE FFN (``moe_experts > 0``, ``models/moe.py``; its experts shard
 over ``--ep`` ranks, ``parallel/expert.py``) or the layer-stacked layout
 (``tfm_stacked``, ``models/pipeline_transformer.py``) on one card; its
-pipeline executor (``--pp`` > 1) and ring attention (``--sp``) come with
-ROADMAP item 6d (``LATER_SLICE``).
+pipeline executor (``--pp`` > 1) comes with ROADMAP item 6d
+(``LATER_SLICE``).
 
 Device rule: ``device=None`` means "cuda". Without CUDA that raises, unless
 the caller asked for ``device="cpu"`` explicitly: there is no silent CPU
@@ -136,14 +136,19 @@ def check_kernel_widths(cfg: ExperimentConfig, device) -> None:
         )
 
 
-# The JAX package's sharded executors still to port: the ROADMAP queue A
-# item that brings them (the CLI refuses --tp, --pp and --sp above 1 by name
-# with these).
-SHARDED = "ROADMAP queue A item 6d (the sharded executors: tp, sp ring attention, pp)"
+# The JAX package's sharded executor still to port: the ROADMAP queue A
+# item that brings it (the CLI refuses --pp above 1 and --pp_microbatches
+# by name with these).
+SHARDED = "ROADMAP queue A item 6d (the last sharded executor: pp, the GPipe schedule)"
 LATER_SLICE = {
     "pp": SHARDED + "; --pp 1 with --tfm_stacked runs the layer-stacked transformer on one card",
-    "sp": SHARDED,
 }
+# Combinations of the sharded axes the port refuses by name (ROADMAP queue
+# A lists each), where the JAX package runs them under GSPMD.
+SP_MOE = ("--sp with --moe_experts > 0 is not ported: under sp a rank's token columns straddle "
+          "the MoE routing groups (ROADMAP queue A item 4, sp x MoE)")
+AXES_WITH_EP = ("--ep with --tp or --sp above 1 is not ported: the expert layers' mesh is (dp, "
+                "ep) (ROADMAP queue A item 4, ep x tp/sp)")
 MODELS = ("induction", "proto", "proto_hatt", "siamese", "gnn", "snail", "metanet", "pair")
 ENCODERS = ("cnn", "bilstm", "transformer", "bert")
 # Models whose parameter shapes hold the N-way width.
@@ -164,7 +169,19 @@ def check_transformer_options(cfg: ExperimentConfig) -> None:
     stacked layout off the transformer, MoE without an expert layer (or
     with no expert chosen per token), the stacked layout with MoE, and
     ``--ep`` above 1 without MoE on the transformer or with experts that do
-    not divide over it (the JAX ``cli.py:862-871``)."""
+    not divide over it (the JAX ``cli.py:862-871``), and ``--sp`` above 1
+    off the transformer (the JAX ``cli.py:849-854``), with the stacked
+    layout (the JAX ``build.py:179-183``), or, by the port's refusals
+    (``SP_MOE``, ``AXES_WITH_EP``), with MoE or ``--ep``."""
+    if cfg.sp > 1:
+        if cfg.encoder != "transformer":
+            raise ValueError("--sp (ring attention) requires --encoder transformer; the "
+                             f"{cfg.encoder} encoder has no sequence-parallel path")
+        if cfg.tfm_stacked:
+            raise ValueError("the layer-stacked (pipeline) transformer does not compose with MoE "
+                             "or ring attention yet; drop --moe_experts/--sp")
+        if cfg.moe_experts > 0:
+            raise ValueError(SP_MOE)
     if cfg.ep > 1:
         if cfg.moe_experts <= 0 or cfg.encoder != "transformer":
             raise ValueError("--ep (expert parallelism) requires --encoder transformer with "
@@ -172,6 +189,8 @@ def check_transformer_options(cfg: ExperimentConfig) -> None:
         if cfg.moe_experts % cfg.ep != 0:
             raise ValueError(f"--moe_experts ({cfg.moe_experts}) must be divisible by --ep "
                              f"({cfg.ep})")
+        if cfg.tp > 1 or cfg.sp > 1:
+            raise ValueError(AXES_WITH_EP)
     if cfg.moe_experts > 0:
         if cfg.encoder != "transformer":
             raise ValueError("--moe_experts requires --encoder transformer (the MoE FFN lives in "

@@ -16,14 +16,13 @@ With ``num_experts > 0`` every ``moe_every``-th block (block i with
 (i+1) % moe_every == 0) has the routed expert FFN ``moe_{i}``
 (``models/moe.MoeFfn``, fed the sentence mask) in place of its dense MLP,
 as the JAX encoder at ep=1. The layer-stacked layout is
-``models/pipeline_transformer.py``; ring attention (``--sp``) and the
-sharded executors come with ROADMAP item 6d (``models/build.py`` refuses
-them by name).
+``models/pipeline_transformer.py``. On an sp axis (``seq``, a
+``parallel/ring.SequenceShard``: the JAX ``attn_impl`` of a ring) the
+encoder gets the rank's token columns, takes the position rows of their
+offset, attends over the ring and pools over every rank's tokens.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
@@ -33,19 +32,7 @@ from induction_network_on_fewrel_tpu_torch.models.embedding import normal_param
 from induction_network_on_fewrel_tpu_torch.models.layers import Dense, LayerNorm
 from induction_network_on_fewrel_tpu_torch.models.moe import MoeFfn
 from induction_network_on_fewrel_tpu_torch.ops.core import masked_mean
-
-_NEG = -1e30
-
-
-def dense_attention(q, k, v, kv_mask=None):
-    """O(L²) attention, a copy of the JAX ``parallel/ring.py:42``. q, k, v:
-    [M, H, L, hd]; kv_mask: [M, L]. Scores in q's dtype, masked keys set
-    to -1e30, softmax in f32, the weighted sum in q's dtype."""
-    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
-    if kv_mask is not None:
-        s = torch.where(kv_mask[:, None, None, :] > 0, s, torch.full_like(s, _NEG))
-    p = torch.softmax(s.float(), dim=-1)
-    return torch.matmul(p.to(q.dtype), v)
+from induction_network_on_fewrel_tpu_torch.parallel.ring import dense_attention
 
 
 class TransformerEncoder(nn.Module):
@@ -77,20 +64,25 @@ class TransformerEncoder(nn.Module):
                 self.add_module(f"intermediate_{i}", Dense(d_model, d_ff, cd, **kw))
                 self.add_module(f"mlp_out_{i}", Dense(d_ff, d_model, cd, **kw))
         self.ln_final = LayerNorm(d_model, cd, device=device)
+        self.seq = None         # parallel/ring.attach_sequence
 
     def forward(self, emb: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """emb [M, L, D], mask [M, L] -> [M, d_model]."""
+        """emb [M, L, D], mask [M, L] -> [M, d_model] (on an sp axis: this
+        rank's L/sp token columns in, the whole sequence's mean out)."""
         M, L, _ = emb.shape
         cd, d, H = self.compute_dtype, self.d_model, self.num_heads
         layer = self.get_submodule
-        x = self.in_proj(emb) + self.pos_embedding[None, :L].to(cd)
+        seq = self.seq
+        off = 0 if seq is None else seq.offset
+        attn = dense_attention if seq is None else seq.attention
+        x = self.in_proj(emb) + self.pos_embedding[None, off:off + L].to(cd)
 
         def split(t):
             return t.reshape(M, L, H, d // H).transpose(1, 2)
 
         for i in range(self.num_layers):
             q, k, v = layer(f"qkv_{i}")(layer(f"ln_att_{i}")(x)).split(d, dim=-1)
-            out = dense_attention(split(q), split(k), split(v), mask)
+            out = attn(split(q), split(k), split(v), mask)
             x = x + layer(f"att_out_{i}")(out.transpose(1, 2).reshape(M, L, d))
             h = layer(f"ln_mlp_{i}")(x)
             if i in self.moe_blocks:
@@ -100,6 +92,8 @@ class TransformerEncoder(nn.Module):
             h = layer(f"intermediate_{i}")(h)
             x = x + layer(f"mlp_out_{i}")(F.gelu(h, approximate="tanh"))
         x = self.ln_final(x)
+        if seq is not None:
+            return seq.pool(x, mask).to(cd)
         return masked_mean(x, mask[..., None], dim=-2).to(cd)
 
     @property

@@ -1,13 +1,15 @@
-"""Data and expert parallel over ``torch.distributed``.
+"""Data, expert, tensor and sequence parallel over ``torch.distributed``.
 
-Counterpart of ``induction_network_on_fewrel_tpu/parallel/`` for dp and
-ep: ``distributed`` (the process group from the launcher's environment),
-``mesh`` (the (dp, ep) ranks), ``hostfeed`` (each rank's own episodes),
-``grad_buckets`` (the bucketed gradient all-reduce), ``sharding`` (ZeRO-1,
-the compact table gradient, the trainer's ``DataParallel``), ``expert``
-(the MoE layers on a mesh: global routing, the experts sharded over ep)
-and ``rig`` (ranks as spawned processes with a bounded wall time, for
-tests and the smoke run). The other sharded executors (tp, sp, pp) come
+Counterpart of ``induction_network_on_fewrel_tpu/parallel/`` for dp, ep,
+tp and sp: ``distributed`` (the process group from the launcher's
+environment), ``mesh`` (the (dp, ep, tp, sp) ranks), ``hostfeed`` (each
+rank's own episodes), ``grad_buckets`` (the bucketed gradient
+all-reduce), ``sharding`` (ZeRO-1, the compact table gradient, the
+trainer's ``DataParallel``), ``expert`` (the MoE layers on a mesh: global
+routing, the experts sharded over ep), ``tensor`` (the tp executor: the
+NTN slices and the MLP blocks, Megatron-style), ``ring`` (the sp executor:
+ring attention) and ``rig`` (ranks as spawned processes with a bounded
+wall time, for tests and the smoke run). The pipeline executor (pp) comes
 with item 6d.
 """
 

@@ -45,43 +45,16 @@ import torch
 import torch.distributed as dist
 
 from induction_network_on_fewrel_tpu_torch.models.moe import EXPERT_LEAVES, moe_layers
-from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import COLLECTIVES
+from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import (
+    COLLECTIVES,
+    CopyIn,
+    SumOut,
+)
 
 
 def is_expert_leaf(name: str) -> bool:
     """True for a parameter name of an MoE layer's expert leaves."""
     return name.rsplit(".", 1)[-1] in EXPERT_LEAVES
-
-
-class _CopyIn(torch.autograd.Function):
-    """Identity forward; the gradient summed over ``group`` in backward."""
-
-    @staticmethod
-    def forward(ctx, t, group, label):
-        ctx.group, ctx.label = group, label
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        COLLECTIVES[ctx.label] += 1
-        return g, None, None
-
-
-class _SumOut(torch.autograd.Function):
-    """The sum over ``group`` forward; identity backward."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        out = t.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        COLLECTIVES["ep/combine_allreduce"] += 1
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 class ExpertMesh:
@@ -103,10 +76,10 @@ class ExpertMesh:
         return out.view(self.dp, *local.shape)
 
     def copy_in(self, t: torch.Tensor, label: str) -> torch.Tensor:
-        return _CopyIn.apply(t, self.ep_group, label)
+        return CopyIn.apply(t, self.ep_group, label)
 
     def sum_out(self, t: torch.Tensor) -> torch.Tensor:
-        return _SumOut.apply(t, self.ep_group)
+        return SumOut.apply(t, self.ep_group, "ep/combine_allreduce")
 
     def gather_experts(self, t: torch.Tensor, label: str) -> torch.Tensor:
         """This rank's slice [E/ep, ...] -> every rank's, [E, ...]."""
@@ -151,14 +124,20 @@ def expert_mesh(model):
 
 
 def full_state_dict(model) -> dict:
-    """``model.state_dict()`` with every expert leaf whole (the JAX layout),
-    gathered over the ep group: a collective at ep > 1 (every rank calls it)."""
+    """``model.state_dict()`` in the JAX layout: every expert leaf whole,
+    gathered over the ep group, and every tp-sharded leaf whole, gathered
+    over the tp group (``parallel/tensor.py``): collectives at ep or tp > 1
+    (every rank calls it)."""
+    from induction_network_on_fewrel_tpu_torch.parallel.tensor import tp_leaves
+
     state = model.state_dict()
     em = expert_mesh(model)
-    if em is None or em.ep == 1:
-        return state
-    return {k: em.gather_experts(v, "ep/experts_allgather") if is_expert_leaf(k) else v
-            for k, v in state.items()}
+    if em is not None and em.ep > 1:
+        state = {k: em.gather_experts(v, "ep/experts_allgather") if is_expert_leaf(k) else v
+                 for k, v in state.items()}
+    for name, axis, tpm in tp_leaves(model):
+        state[name] = tpm.gather(state[name], axis, "tp/params_allgather")
+    return state
 
 
 class FullModel:

@@ -28,8 +28,10 @@ all-reduces run inside the captured step (one replay issues them all);
 gloo's run on the host, so its steps stay eager (train/steps.py).
 
 ``COLLECTIVES`` counts the collectives the port issues, by kind, where
-they are issued (the MoE layers' too, ``parallel/expert.py``) (under a CUDA graph: the warm-up's and the capture's, not
-the replays', as the kernel wrappers count launches).
+they are issued (the MoE layers' too, ``parallel/expert.py``, and the tp
+and sp executors', ``parallel/tensor.py``, ``parallel/ring.py``; under a
+CUDA graph: the warm-up's and the capture's, not the replays', as the
+kernel wrappers count launches).
 """
 
 from __future__ import annotations
@@ -58,6 +60,40 @@ ROWS_PATH = "lazy_embed"
 COLLECTIVES: collections.Counter = collections.Counter()
 
 
+class CopyIn(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``group`` in backward
+    (the input of a part split over ``group``, whose ranks each hold a
+    partial of its gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, group, label):
+        ctx.group, ctx.label = group, label
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        COLLECTIVES[ctx.label] += 1
+        return g, None, None
+
+
+class SumOut(torch.autograd.Function):
+    """The sum over ``group`` forward; identity backward (every rank of the
+    group consumes the sum alike)."""
+
+    @staticmethod
+    def forward(ctx, t, group, label):
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        COLLECTIVES[label] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 def bucket_index(path: str, n_buckets: int) -> int:
     """Bucket for a param-leaf path: stage scaled into [0, n_buckets)."""
     stage = _DEFAULT_STAGE
@@ -71,8 +107,8 @@ def bucket_index(path: str, n_buckets: int) -> int:
 def grad_buckets_for(cfg, mesh, device=None) -> int:
     """Resolve ``cfg.grad_bucketing`` against the mesh: the bucket count,
     or 0 (monolithic). The JAX rule: off without a dp axis above 1, on
-    meshes with another axis above 1 (here ep; ``make_mesh`` refuses tp,
-    sp and pp) and under MoE; "auto" resolves on only on the accelerator
+    meshes with another axis above 1 (ep, tp, sp; ``make_mesh`` refuses
+    pp) and under MoE; "auto" resolves on only on the accelerator
     (here the card: ``device``, default whether CUDA is present) and only
     for the lazy word table; "on" forces it. One difference: a mesh with
     a live process group resolves at dp=1 too, so world size 1 issues the
@@ -82,7 +118,8 @@ def grad_buckets_for(cfg, mesh, device=None) -> int:
         return 0
     if mesh.dp <= 1 and not mesh.live:
         return 0
-    if getattr(mesh, "ep", 1) > 1 or getattr(cfg, "moe_experts", 0) > 0:
+    if any(getattr(mesh, ax, 1) > 1 for ax in ("tp", "sp", "ep")) or \
+            getattr(cfg, "moe_experts", 0) > 0:
         return 0
     on_card = (torch.device(device).type == "cuda" if device is not None
                else torch.cuda.is_available())

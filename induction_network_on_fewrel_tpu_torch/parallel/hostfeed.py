@@ -10,7 +10,11 @@ averaged over the ranks (``parallel/grad_buckets.py``).
 
 * ``episode_ranges_by_process`` / ``local_episode_range``: which
   contiguous rows of the global episode batch each rank owns (the JAX
-  partition arithmetic at one device a process, the port's only layout).
+  partition arithmetic at one device a process, the port's only layout),
+  by the rank's dp index: the ep, tp and sp ranks of a dp slice hold the
+  same episodes, drawn from the same stream (``process_seed`` of the dp
+  index); an sp rank keeps its ``L/sp`` token columns of them
+  (``local_token_columns``).
 * ``process_seed``: rank 0 keeps the seed (a one-rank run draws the
   single-process stream), rank p > 0 a splitmix64 avalanche of (seed, p).
 * ``PerRankSampler``: wraps the rank-local sampler (the C++ sampler of
@@ -44,6 +48,17 @@ def episode_ranges_by_process(mesh, global_batch: int) -> dict:
 def local_episode_range(mesh, global_batch: int) -> tuple[int, int]:
     """(start_row, num_rows) of the global episode batch THIS rank owns."""
     return episode_ranges_by_process(mesh, global_batch)[mesh.rank]
+
+
+def local_token_columns(mesh, length: int) -> tuple[int, int]:
+    """(start, num) of the token columns THIS rank keeps of a [.., length]
+    leaf: its sp index's share (the JAX ``episode_batch_shardings`` shards
+    the token axis over sp; ``parallel/ring.SequenceShard.columns``)."""
+    sp = getattr(mesh, "sp", 1)
+    if length % sp:
+        raise ValueError(f"the sequence length {length} must be divisible by --sp ({sp})")
+    n = length // sp
+    return getattr(mesh, "sp_rank", 0) * n, n
 
 
 def process_seed(seed: int, rank: int | None = None) -> int:

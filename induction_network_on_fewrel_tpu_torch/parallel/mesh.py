@@ -1,21 +1,25 @@
-"""The (dp, ep) layout of the ranks.
+"""The (dp, ep, tp, sp) layout of the ranks.
 
 Counterpart of ``induction_network_on_fewrel_tpu/parallel/mesh.py``
-(``make_mesh``) for the dp and ep axes. There a ``jax.sharding.Mesh``
-names the axes (dp, pp, ep, tp, sp) over the devices. Here one rank is
-one process on one device, numbered in the JAX axis order: rank ``d·ep +
-e`` is index ``d`` on the dp axis and ``e`` on the ep axis.
+(``make_mesh``). There a ``jax.sharding.Mesh`` names the axes (dp, pp, ep,
+tp, sp) over the devices. Here one rank is one process on one device,
+numbered in the JAX axis order at pp=1: rank ``((d·ep + e)·tp + t)·sp + s``
+is index ``d`` on the dp axis, ``e`` on ep, ``t`` on tp and ``s`` on sp.
 
 * ``dp``: episodes shard over the dp axis; gradients are averaged over it.
-  ``Mesh.group`` is this rank's dp group, the ranks that share its ep index
-  (the whole world at ep=1): every gradient, ZeRO-1 chunk, metric mean and
-  MoE routing exchange runs over it.
+  ``Mesh.group`` is this rank's dp group, the ranks that share its ep, tp
+  and sp indices (the whole world at ep = tp = sp = 1): every gradient,
+  ZeRO-1 chunk, metric mean and MoE routing exchange runs over it.
 * ``ep``: the experts of each MoE layer shard over the ep axis
-  (``parallel/expert.py``); the ranks of one ep group hold the same
-  episodes. ``Mesh.ep_group`` is this rank's ep group (None at ep=1).
+  (``parallel/expert.py``); ``Mesh.ep_group`` (None at ep=1).
+* ``tp``: the NTN's slices and the transformer's and BERT's MLP blocks
+  shard over the tp axis (``parallel/tensor.py``); ``Mesh.tp_group``.
+* ``sp``: the token axis shards over the sp axis and attention runs as a
+  ring (``parallel/ring.py``); ``Mesh.sp_group``.
 
-The other axes (``--tp``, ``--sp``, ``--pp`` above 1) are refused by name;
-they come with ROADMAP queue A item 6d.
+The ranks of one dp index hold the same episodes (``Mesh.rank`` is the dp
+index; ``parallel/hostfeed.py`` keys the feed by it). ``--pp`` above 1 is
+refused by name; it comes with ROADMAP queue A item 6d.
 
 ``Mesh.group`` is the live process group, or None for a pure layout (the
 partition arithmetic of ``parallel/hostfeed.py``, tested without ranks).
@@ -27,15 +31,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch.distributed as dist
-
-from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE, SHARDED
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``dp`` x ``ep`` ranks; this process is index ``rank`` on the dp axis
-    and ``ep_rank`` on the ep axis."""
+    """``dp`` x ``ep`` x ``tp`` x ``sp`` ranks; this process is index
+    ``rank`` on the dp axis, ``ep_rank`` on ep, ``tp_rank`` on tp and
+    ``sp_rank`` on sp (each axis's group None at size 1)."""
 
     dp: int
     rank: int = 0
@@ -43,6 +47,12 @@ class Mesh:
     ep: int = 1
     ep_rank: int = 0
     ep_group: object = None
+    tp: int = 1
+    tp_rank: int = 0
+    tp_group: object = None
+    sp: int = 1
+    sp_rank: int = 0
+    sp_group: object = None
 
     @property
     def live(self) -> bool:
@@ -52,33 +62,47 @@ class Mesh:
     @property
     def main(self) -> bool:
         """True on the one rank that writes (rank 0 of the world)."""
-        return self.rank == 0 and self.ep_rank == 0
+        return self.rank == 0 and self.ep_rank == 0 and self.tp_rank == 0 and self.sp_rank == 0
 
     @property
     def backend(self) -> str | None:
         return dist.get_backend(self.group) if self.group is not None else None
 
 
-def axis_groups(dp: int, ep: int) -> tuple[list, list]:
-    """(dp groups, ep groups) over ``dp * ep`` ranks in the JAX axis order:
-    dp group ``e`` holds ranks ``d·ep + e`` for every d, ep group ``d`` the
-    ranks ``d·ep + e`` for every e. Every rank makes every group, in this
-    order (``new_group`` is collective)."""
-    dp_groups = [dist.new_group([d * ep + e for d in range(dp)]) for e in range(ep)]
-    ep_groups = [dist.new_group([d * ep + e for e in range(ep)]) for d in range(dp)]
-    return dp_groups, ep_groups
+def axis_groups(dp: int, ep: int, tp: int = 1, sp: int = 1) -> dict:
+    """{axis: [(ranks, group), ...]} over ``dp·ep·tp·sp`` ranks in the JAX
+    axis order: the groups of an axis hold the ranks that differ in that
+    index alone, one group per setting of the other indices, in rank order.
+    Only dp and the axes above 1 get groups. Every rank makes every group,
+    in this order (``new_group`` is collective): dp, ep, tp, sp."""
+    sizes = {"dp": dp, "ep": ep, "tp": tp, "sp": sp}
+    grid = np.arange(dp * ep * tp * sp).reshape(dp, ep, tp, sp)
+    out = {}
+    for i, (ax, n) in enumerate(sizes.items()):
+        if ax == "dp" or n > 1:
+            rows = np.moveaxis(grid, i, -1).reshape(-1, n).tolist()
+            out[ax] = [(row, dist.new_group(row)) for row in rows]
+    return out
+
+
+def mesh_index(rank: int, ep: int, tp: int, sp: int) -> tuple[int, int, int, int]:
+    """(d, e, t, s) of world ``rank``: rank = ((d·ep + e)·tp + t)·sp + s."""
+    rest, s = divmod(rank, sp)
+    rest, t = divmod(rest, tp)
+    d, e = divmod(rest, ep)
+    return d, e, t, s
 
 
 def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1,
               world_size: int | None = None) -> Mesh:
-    """The (dp, ep) mesh over this process's group (``dp=None`` -> the rest
-    of the world). ``world_size`` makes a pure layout of that many ranks (no
-    group, rank 0). The JAX validation: more ranks asked for than there are
-    raises; so do tp, sp and pp above 1, by name."""
-    for flag, n in (("--tp", tp), ("--sp", sp), ("--pp", pp)):
-        if n > 1:
-            raise ValueError(f"{flag} {n} is not ported yet: it comes with "
-                             f"{LATER_SLICE.get(flag[2:], SHARDED)}")
+    """The (dp, ep, tp, sp) mesh over this process's group (``dp=None`` ->
+    the rest of the world). ``world_size`` makes a pure layout of that many
+    ranks (no group, rank 0). The JAX validation: more ranks asked for than
+    there are raises; so does pp above 1, by name."""
+    if pp > 1:
+        from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE
+
+        raise ValueError(f"--pp {pp} is not ported yet: it comes with {LATER_SLICE['pp']}")
     group = None
     rank = 0
     if world_size is None:
@@ -100,9 +124,12 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1, ep: 
             f"dp*pp*ep*tp*sp={dp * other} leaves {n - dp * other} of the {n} ranks without "
             f"a shard: launch {dp * other} ranks (torchrun --nproc_per_node {dp * other}) or "
             "pass --dp 0 (the whole world)")
-    if group is None or ep == 1:
-        return Mesh(dp=int(dp), rank=rank, group=group, ep=int(ep))
-    dp_groups, ep_groups = axis_groups(int(dp), int(ep))
-    d, e = divmod(rank, ep)
-    return Mesh(dp=int(dp), rank=d, group=dp_groups[e], ep=int(ep), ep_rank=e,
-                ep_group=ep_groups[d])
+    dp, ep, tp, sp = int(dp), int(ep), int(tp), int(sp)
+    if group is None or ep == tp == sp == 1:
+        return Mesh(dp=dp, rank=rank, group=group, ep=ep, tp=tp, sp=sp)
+    of = {ax: next(g for ranks, g in groups if rank in ranks)
+          for ax, groups in axis_groups(dp, ep, tp, sp).items()}
+    d, e, t, s = mesh_index(rank, ep, tp, sp)
+    return Mesh(dp=dp, rank=d, group=of["dp"], ep=ep, ep_rank=e, ep_group=of.get("ep"),
+                tp=tp, tp_rank=t, tp_group=of.get("tp"), sp=sp, sp_rank=s,
+                sp_group=of.get("sp"))

@@ -134,16 +134,24 @@ def run_ranks(fn, world_size: int, payload=None, timeout_s: float = 60.0,
 
 
 def numpy_state(model) -> dict:
-    return {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    """The model's parameters in the JAX layout (every sharded leaf whole:
+    a collective under ep or tp), as numpy copies."""
+    from induction_network_on_fewrel_tpu_torch.parallel.expert import full_state_dict
+
+    return {k: v.detach().float().cpu().numpy() for k, v in full_state_dict(model).items()}
 
 
 def build_case(payload: dict, overrides: dict, mesh, device):
     """(cfg, model, opt, lazy, table, dp) of one case: the payload's weights
-    (or the seed's), the lazy table over the token cache, and the case's
-    ``DataParallel`` under a mesh."""
+    (or the seed's), the model's sharded parts on the mesh
+    (``attach_parallel``), the lazy table over the token cache, and the
+    case's ``DataParallel`` under a mesh."""
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
     from induction_network_on_fewrel_tpu_torch.models.build import build_model
-    from induction_network_on_fewrel_tpu_torch.parallel.sharding import DataParallel
+    from induction_network_on_fewrel_tpu_torch.parallel.sharding import (
+        DataParallel,
+        attach_parallel,
+    )
     from induction_network_on_fewrel_tpu_torch.train.lazy_embed import (
         LazyTable,
         augment_token_table,
@@ -156,6 +164,8 @@ def build_case(payload: dict, overrides: dict, mesh, device):
     model = build_model(cfg, device=device)
     if payload.get("weights") is not None:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in payload["weights"].items()})
+    if mesh is not None:
+        attach_parallel(model, mesh)
     opt = make_optimizer(cfg, model)
     arrays, uids = augment_token_table(payload["table"])
     table = TokenTable(arrays, payload["sizes"], device, uids)
@@ -489,19 +499,22 @@ def local_token_rows(batch, mesh) -> tuple:
 
 
 def moe_parts(cfg, weights, mesh, device):
-    """(model, opt, dp) of an MoE case: the given full weights (None: the
-    seed's), the MoE layers on ``mesh`` (its experts sliced at ep > 1)
-    before the optimizer, and its ``DataParallel``."""
+    """(model, opt, dp) of a case: the given full weights (None: the
+    seed's), the model's sharded parts on ``mesh`` (experts sliced at ep >
+    1, tp's slices, the sp encoder: ``attach_parallel``) before the
+    optimizer, and its ``DataParallel``."""
     from induction_network_on_fewrel_tpu_torch.models.build import build_model
-    from induction_network_on_fewrel_tpu_torch.parallel.expert import attach_experts
-    from induction_network_on_fewrel_tpu_torch.parallel.sharding import DataParallel
+    from induction_network_on_fewrel_tpu_torch.parallel.sharding import (
+        DataParallel,
+        attach_parallel,
+    )
     from induction_network_on_fewrel_tpu_torch.train.steps import make_optimizer
 
     model = build_model(cfg, device=device)
     if weights is not None:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()})
     if mesh is not None:
-        attach_experts(model, mesh)
+        attach_parallel(model, mesh)
     opt = make_optimizer(cfg, model)
     return model, opt, (DataParallel(model, opt, cfg, mesh) if mesh is not None else None)
 
@@ -518,53 +531,76 @@ def full_numpy(model, opt) -> tuple[dict, dict]:
     return params, moments
 
 
+def _variant(payload: dict, variant: str, key: str):
+    """The payload's ``key`` for ``variant`` ("variant_<key>" maps one per
+    variant), else the shared one."""
+    return payload.get(f"variant_{key}", {}).get(variant, payload.get(key))
+
+
 def run_moe_case(payload: dict, variant: str, mesh, save_dir: str | None = None) -> dict:
-    """One MoE variant (``payload["variants"][variant]``, config keywords)
-    under ``mesh`` (None: one process on the global batches) from the
-    payload's weights: at the first batch the forward's logits (this rank's
-    rows), the load-balance terms' sum and each layer's dropped share, and
-    the objective's gradients (averaged over dp, the experts gathered);
+    """One variant (``payload["variants"][variant]``, config keywords: MoE
+    or any other model) under ``mesh`` (None: one process on the global
+    batches) from the payload's weights: at the first batch the forward's
+    logits (this rank's rows), the load-balance terms' sum and each MoE
+    layer's dropped share, the objective's gradients (averaged over dp, the
+    experts and the tp slices gathered) and the eval metrics;
     then one training step a batch: losses, gradient norms and dropped
     shares per step, the parameters after ``MOE_DP_AT`` steps and at the
     end, the moments, and under a mesh the collectives each step issued
-    beside the plan. ``save_dir``: the end state saved there as a ring slot
-    (the trainer's save: every expert, gathered)."""
+    beside the plan. ``payload["eval_only"]``: the first batch's logits
+    and eval metrics alone, without a gradient. ``save_dir``: the end state
+    saved there as a ring slot (the trainer's save: every sharded leaf,
+    gathered)."""
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
     from induction_network_on_fewrel_tpu_torch.models.moe import collect_aux, moe_layers
     from induction_network_on_fewrel_tpu_torch.parallel.expert import FullModel, is_expert_leaf
     from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import COLLECTIVES
     from induction_network_on_fewrel_tpu_torch.train.framework import SavedOptimizer
     from induction_network_on_fewrel_tpu_torch.models.losses import LOSS_FNS
+    from induction_network_on_fewrel_tpu_torch.parallel.tensor import tp_leaves
     from induction_network_on_fewrel_tpu_torch.train.steps import (
         _backward,
         _inputs_on,
         aux_weight,
+        eval_step,
         make_train_step,
         train_step,
     )
 
     device = torch.device(payload.get("device", "cpu"))
     cfg = ExperimentConfig(**{**payload["cfg"], **payload["variants"][variant]})
-    model, opt, dp = moe_parts(cfg, payload.get("weights"), mesh, device)
+    model, opt, dp = moe_parts(cfg, _variant(payload, variant, "weights"), mesh, device)
+    batches = _variant(payload, variant, "batches")
     layers = moe_layers(model)
     out: dict = {}
-    sup, qry, lab = _inputs_on(model, *local_token_rows(payload["batches"][0], mesh))
+    sup, qry, lab = _inputs_on(model, *local_token_rows(batches[0], mesh))
+    if payload.get("eval_only"):
+        t0 = time.monotonic()
+        with torch.inference_mode():
+            logits = model(sup, qry)
+            out["eval"] = {k: float(v) for k, v in eval_step(model, cfg, sup, qry, lab).items()}
+        out.update(logits=logits.float().cpu().numpy(), seconds=time.monotonic() - t0)
+        return out
     opt.zero_grad()
     with collect_aux(model) as sink:
         logits = model(sup, qry)
-    aux = sum(sink)
+    aux = sum(sink) if sink else torch.zeros(())
     loss = LOSS_FNS[cfg.loss](logits, lab) + aux_weight(cfg) * aux
     _backward(loss, dp)
     em = layers[0].dist if layers else None
+    split = {n: (axis, tpm) for n, axis, tpm in tp_leaves(model)}
     grads = {}
     for n, p in model.named_parameters():
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         if em is not None and em.ep > 1 and is_expert_leaf(n):
             g = em.gather_experts(g, "ep/experts_allgather")
+        if n in split:
+            g = split[n][1].gather(g, split[n][0], "tp/params_allgather")
         grads[n] = np.array(g.float().cpu())
     opt.zero_grad()
     out.update(logits=logits.detach().float().cpu().numpy(), aux=float(aux.detach()),
-               drops0=[float(m.drop_share) for m in layers], grads=grads)
+               drops0=[float(m.drop_share) for m in layers], grads=grads,
+               eval={k: float(v) for k, v in eval_step(model, cfg, sup, qry, lab).items()})
     # Eager on every device, as the gloo ranks step (the card's graph
     # steps are held to eager ones elsewhere).
     step = (make_train_step(model, opt, cfg, dp=dp) if dp is not None else
@@ -572,7 +608,7 @@ def run_moe_case(payload: dict, variant: str, mesh, save_dir: str | None = None)
     losses, norms, drops = [], [], []
     issued: collections.Counter = collections.Counter()
     t0 = time.monotonic()
-    for i, batch in enumerate(payload["batches"]):
+    for i, batch in enumerate(batches):
         before = collections.Counter(COLLECTIVES)
         m = step(*local_token_rows(batch, mesh))
         issued += COLLECTIVES - before
@@ -604,37 +640,44 @@ def restore_moe(payload: dict, variant: str, mesh, src: str) -> dict:
     """A ring slot of ``src`` restored under ``mesh`` (None: one process):
     the parameters and moments, gathered whole again."""
     from induction_network_on_fewrel_tpu_torch.config import ExperimentConfig
+    from induction_network_on_fewrel_tpu_torch.parallel.sharding import DataParallel
     from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
 
     device = torch.device(payload.get("device", "cpu"))
     cfg = ExperimentConfig(**{**payload["cfg"], **payload["variants"][variant]})
     model, opt, _ = moe_parts(cfg, None, mesh, device)
+    if mesh is not None:
+        DataParallel(model, opt, cfg, mesh)        # the optimizer's sharded leaves
     step, _ = CheckpointManager(src, cfg).restore_latest(model, opt)
     params, moments = full_numpy(model, opt)
     return {"step": step, "params": params, "moments": moments}
 
 
-def moe_cli(argv: list, train_argv: list, mesh, save_dir: str) -> dict:
-    """``cli.main train`` (``argv`` and ``train_argv``) then ``test``
-    (``argv``) under ``mesh``'s layout (``--dp``/``--ep``): each one's exit
-    code and, on rank 0, its result line."""
+def cli_under(mode: str, argv: list, mesh) -> dict:
+    """``cli.main([mode, *argv])`` under ``mesh``'s layout (``--dp``,
+    ``--ep``, ``--tp``, ``--sp``): its exit code, on rank 0 its result line,
+    and the end of its stderr."""
     import contextlib
     import io
     import json as json_mod
 
     from induction_network_on_fewrel_tpu_torch import cli
 
-    flags = ["--dp", str(mesh.dp), "--ep", str(mesh.ep)]
-    out = {}
-    for mode, extra in (("train", [*train_argv, "--save_ckpt", save_dir]),
-                        ("test", ["--load_ckpt", save_dir])):
-        buf, err = io.StringIO(), io.StringIO()
-        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-            rc = cli.main([mode, *argv, *flags, *extra])
-        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
-        out[mode] = {"rc": rc, "result": json_mod.loads(lines[-1]) if lines else None,
-                     "stderr": err.getvalue()[-2000:]}
-    return out
+    flags = ["--dp", str(mesh.dp), "--ep", str(mesh.ep), "--tp", str(mesh.tp), "--sp",
+             str(mesh.sp)]
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = cli.main([mode, *argv, *flags])
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    return {"rc": rc, "result": json_mod.loads(lines[-1]) if lines else None,
+            "stderr": err.getvalue()[-2000:]}
+
+
+def moe_cli(argv: list, train_argv: list, mesh, save_dir: str) -> dict:
+    """``cli.main train`` (``argv`` and ``train_argv``) then ``test``
+    (``argv``) under ``mesh``'s layout (``cli_under``)."""
+    return {"train": cli_under("train", [*argv, *train_argv, "--save_ckpt", save_dir], mesh),
+            "test": cli_under("test", [*argv, "--load_ckpt", save_dir], mesh)}
 
 
 def moe_test_reference(argv: list, ckpt: str, dp: int) -> dict:
@@ -714,3 +757,85 @@ def dp_moe_cases(rank: int, world: int, payload: dict) -> dict:
     return moe_cases({**payload, "layouts": MOE_LAYOUTS[world]},
                      lambda dp, ep: make_mesh(dp=dp, ep=ep),
                      payload.get("restores", {}).get(world, ()))
+
+
+# --- tensor and sequence parallel ------------------------------------------------
+
+# The (dp, tp, sp) layouts a world of each size runs, in turn.
+TS_LAYOUTS = {2: ((1, 2, 1), (1, 1, 2)), 4: ((2, 2, 1), (2, 1, 2), (1, 2, 2), (1, 1, 4))}
+
+
+def ts_name(dp: int, tp: int, sp: int) -> str:
+    return f"dp{dp}_tp{tp}_sp{sp}"
+
+
+def ts_cases(payload: dict, mesh_of, restores: tuple = ()) -> dict:
+    """Every (variant, (dp, tp, sp)) of ``payload["cases"]`` under a mesh
+    from ``mesh_of``, in turn (``run_moe_case``: forward, gradients, eval
+    metrics, steps); ``payload["saves"]`` {(variant, layout): directory}
+    saves that case's end state; ``payload["cli"]`` {layout: (argv, train
+    argv, directory)} runs the train and test CLI under it;
+    ``payload["cli_paths"]`` [(name, (dp, tp, sp), argv)] runs ``cli train``
+    under that layout ("cli_path/<name>/<layout>");
+    ``payload["lazy_cases"]`` [(name, (dp, tp, sp)[, spelling])] runs the
+    token-cache lazy step (``run_cases`` on ``payload["lazy"][name]``, in
+    that ``CASES`` spelling, default "compact") under that layout
+    ("lazy/<name>/<layout>"). Then each
+    (variant, dp, tp, sp, directory) of ``restores`` restores that ring slot
+    under its layout ("restored/<variant>/<layout>")."""
+    out: dict = {}
+    meshes: dict = {}
+    for name, lay, *spelling in payload.get("lazy_cases", ()):
+        case = spelling[0] if spelling else "compact"
+        if lay not in meshes:
+            meshes[lay] = mesh_of(*lay)
+        out[f"lazy/{name}/{ts_name(*lay)}"] = run_cases(
+            {**payload["lazy"][name], "cases": [case]}, meshes[lay])[case]
+    for variant, lay in payload["cases"]:
+        if lay not in meshes:
+            meshes[lay] = mesh_of(*lay)
+        name = ts_name(*lay)
+        out.setdefault(name, {})[variant] = run_moe_case(
+            payload, variant, meshes[lay], payload.get("saves", {}).get((variant, name)))
+    for name, (argv, train_argv, d) in payload.get("cli", {}).items():
+        lay = tuple(int(x[2:]) for x in name.split("_"))
+        if lay not in meshes:
+            meshes[lay] = mesh_of(*lay)
+        out.setdefault(name, {})["cli"] = moe_cli(argv, train_argv, meshes[lay], d)
+    for path, lay, argv in payload.get("cli_paths", ()):
+        if lay not in meshes:
+            meshes[lay] = mesh_of(*lay)
+        out[f"cli_path/{path}/{ts_name(*lay)}"] = cli_under("train", argv, meshes[lay])
+    for variant, dp, tp, sp, src in restores:
+        if (dp, tp, sp) not in meshes:
+            meshes[(dp, tp, sp)] = mesh_of(dp, tp, sp)
+        out[f"restored/{variant}/{ts_name(dp, tp, sp)}"] = restore_moe(
+            payload, variant, meshes[(dp, tp, sp)], src)
+    return out
+
+
+def dp_ts_cases(rank: int, world: int, payload: dict) -> dict:
+    """A rank's ``ts_cases`` over the cases of its world size
+    (``payload["worlds"][world]``: that world's payload keys)."""
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+
+    mine = {**payload, **payload["worlds"][world]}
+    return ts_cases(mine, lambda dp, tp, sp: make_mesh(dp=dp, tp=tp, sp=sp),
+                    mine.get("restores", ()))
+
+
+def ring_ranks(rank: int, world: int, payload: dict) -> dict:
+    """A rank of an sp ring of ``world`` ranks: ``RingAttention`` on its
+    token block of ``payload``'s q, k, v [B, H, L, hd] and key mask [B, L],
+    and the gradients of the output's sum weighted by ``payload["w"]``:
+    the output block and the q, k, v gradient blocks."""
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+    from induction_network_on_fewrel_tpu_torch.parallel.ring import RingAttention, SequenceShard
+
+    shard = SequenceShard(make_mesh(dp=1, sp=world))
+    mask = torch.as_tensor(shard.columns(payload["mask"]))
+    lo, n = shard.offset, mask.shape[-1]
+    q, k, v = (torch.tensor(x[:, :, lo:lo + n]).requires_grad_() for x in payload["qkv"])
+    out = RingAttention.apply(q, k, v, mask, shard)
+    (out * torch.as_tensor(payload["w"][:, :, lo:lo + n])).sum().backward()
+    return {"out": out.detach().numpy(), "grads": [x.grad.numpy() for x in (q, k, v)]}

@@ -1,8 +1,9 @@
 """The dp parts of sharding: ZeRO-1, the compact table gradient, the dp step.
 
 Counterpart of ``induction_network_on_fewrel_tpu/parallel/sharding.py``
-for ``dp`` and ``ep`` (tp/sp/pp come with ROADMAP queue A item 6d; the
-ep rules and the MoE layers on a mesh are ``parallel/expert.py``). There
+for ``dp`` (pp comes with ROADMAP queue A item 6d; the ep rules and the
+MoE layers on a mesh are ``parallel/expert.py``, the tp rules
+``parallel/tensor.py``, the sp executor ``parallel/ring.py``). There
 GSPMD partitions one program over the mesh; here each rank runs the step
 on its own ``B/dp`` episodes and these pieces make the ranks one
 optimizer:
@@ -42,6 +43,11 @@ optimizer:
   (``parallel/expert.attach_experts``: global routing and load-balance
   term, the experts sharded over ep), their collectives in the plan; the
   gradients stay monolithic (the JAX bucket rule under MoE).
+* tp and sp (``parallel/tensor.py``, ``parallel/ring.py``, attached
+  before the optimizer by ``attach_parallel``): after the dp reduction the
+  column-split blocks' biases are assembled over tp and the token-partial
+  leaves summed over sp (``finish``); the gradients stay monolithic (the
+  JAX bucket rule on a mesh with another axis above 1).
 """
 
 from __future__ import annotations
@@ -116,8 +122,11 @@ def demb_impl_for(cfg, mesh, device=None) -> str | None:
     """Resolve ``cfg.compact_demb`` (the JAX rule): "compact" when the
     mesh has dp ranks (a live group counts at dp=1) and the knob is not
     "off", else None. Bucketed runs resolve None: the rows leaf is then
-    reduced in the last bucket."""
+    reduced in the last bucket. So do meshes with an sp axis above 1 (the
+    token axis is sharded: the JAX generic path)."""
     if mesh is None or getattr(cfg, "compact_demb", "auto") == "off":
+        return None
+    if getattr(mesh, "sp", 1) > 1:
         return None
     if mesh.dp <= 1 and not mesh.live:
         return None
@@ -191,6 +200,21 @@ class Zero1:
 # --- the dp state of a trainer ---------------------------------------------------
 
 
+def attach_parallel(model, mesh) -> None:
+    """Put ``model``'s sharded parts on the live ``mesh``, before its
+    optimizer is made (each makes new parameters or hooks): the MoE layers
+    (``parallel/expert.attach_experts``), the tp-sharded modules
+    (``parallel/tensor.attach_tensor``) and the sp encoder
+    (``parallel/ring.attach_sequence``)."""
+    from induction_network_on_fewrel_tpu_torch.parallel.expert import attach_experts
+    from induction_network_on_fewrel_tpu_torch.parallel.ring import attach_sequence
+    from induction_network_on_fewrel_tpu_torch.parallel.tensor import attach_tensor
+
+    attach_experts(model, mesh)
+    attach_tensor(model, mesh)
+    attach_sequence(model, mesh)
+
+
 class DataParallel:
     """One trainer's data parallelism over ``mesh``: the gradient reducer
     (buckets per ``grad_buckets_for``, overlap per ``async_collectives``,
@@ -217,6 +241,7 @@ class DataParallel:
                 opt.shard_experts(em)
         self.ep = mesh.ep
         self.encoder_calls = 3 if disc is not None else 1
+        self._tensor_and_sequence(model, opt, mesh, lazy)
         self.group, self.world, self.rank = mesh.group, mesh.dp, mesh.rank
         device = model.device
         self.n_buckets = grad_buckets_for(cfg, mesh, device)
@@ -240,6 +265,66 @@ class DataParallel:
         # gloo's collectives run on the host: its steps stay eager.
         self.eager = device.type != "cuda" or mesh.backend != "nccl"
 
+    def _tensor_and_sequence(self, model, opt, mesh, lazy) -> None:
+        """The tp and sp parts of the step: the tp-sharded leaves on the
+        optimizer, the biases to assemble over tp, the token-partial leaves
+        to sum over sp, and the counts the plan reads."""
+        from induction_network_on_fewrel_tpu_torch.parallel.ring import (
+            is_token_partial,
+            sequence_shard,
+        )
+        from induction_network_on_fewrel_tpu_torch.parallel.tensor import (
+            TpColumnDense,
+            TpRelationNTN,
+            tensor_mesh,
+            tp_assembled,
+        )
+
+        self.tp, self.sp = mesh.tp, mesh.sp
+        self.tpm = tensor_mesh(model)
+        self.assembled = []
+        self.ntn = self.mlp_blocks = self.mlp_backward = self.attn_layers = 0
+        if mesh.live and mesh.tp > 1:
+            if self.tpm is None:
+                raise ValueError("the model's tp-sharded parts are put on the mesh "
+                                 "(parallel/tensor.attach_tensor) before its optimizer is made")
+            opt.shard_tensor(model)
+            self.assembled = tp_assembled(model)
+            mods = [m for _, m in model.named_modules()]
+            self.ntn = sum(isinstance(m, TpRelationNTN) for m in mods)
+            self.mlp_blocks = sum(isinstance(m, TpColumnDense) for m in mods)
+            # A frozen BERT backbone's output is detached: no backward
+            # through its blocks.
+            frozen = getattr(getattr(model, "encoder", None), "frozen", False)
+            self.mlp_backward = 0 if frozen else self.mlp_blocks
+        self.seq = sequence_shard(model)
+        self.partial = []
+        if mesh.live and mesh.sp > 1:
+            if self.seq is None:
+                raise ValueError("the model's encoder is put on the mesh "
+                                 "(parallel/ring.attach_sequence) before its optimizer is made")
+            self.partial = [p for n, p in opt.live_named() if is_token_partial(n)]
+            if lazy is not None:
+                self.partial.append(lazy.rows)
+            self.attn_layers = model.encoder.num_layers
+
+    def _sum_over(self, leaves: list, group, label: str) -> None:
+        """Every leaf's gradient <- its sum over ``group``, in one flat
+        all-reduce."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        dist.all_reduce(flat, group=group)
+        COLLECTIVES[label] += 1
+        off = 0
+        for p, g in zip(leaves, grads):
+            n = g.numel()
+            total = flat[off:off + n].view_as(p).to(p.dtype)
+            if p.grad is None:
+                p.grad = total
+            else:
+                p.grad.copy_(total)
+            off += n
+
     def plan(self, steps: int = 1) -> dict:
         """The collectives one call of ``steps`` training steps should
         issue, by kind (``COLLECTIVES``' labels): each step's reductions and
@@ -254,6 +339,19 @@ class DataParallel:
             if self.ep > 1:
                 out.update({"ep/combine_allreduce": calls, "ep/input_grad_allreduce": calls,
                             "ep/gate_grad_allreduce": calls, "ep/norm_allreduce": steps})
+        calls = steps * self.encoder_calls
+        if self.tp > 1:
+            out.update({"tp/norm_allreduce": steps,
+                        "tp/input_grad_allreduce": steps * 2 * self.ntn
+                        + calls * self.mlp_backward})
+            if self.ntn:
+                out["tp/ntn_allgather"] = steps * self.ntn
+            if self.mlp_blocks:
+                out.update({"tp/mlp_out_allreduce": calls * self.mlp_blocks,
+                            "tp/bias_grad_allreduce": steps})
+        if self.sp > 1:
+            out.update({"sp/ring_hop": calls * self.attn_layers * (2 * self.sp - 1),
+                        "sp/pool_allreduce": calls, "sp/grad_allreduce": steps})
         if self.gathered_cotangent:
             out.update({"demb/cotangent_allgather": steps, "demb/ids_allgather": steps})
         if self.zero is not None:
@@ -273,9 +371,16 @@ class DataParallel:
             r.arm()
 
     def finish(self) -> None:
-        """After a backward: every gradient holds its mean over the ranks."""
+        """After a backward: every gradient holds its mean over the ranks
+        (the dp reducers'; then, at tp > 1, the column-split biases
+        assembled over tp, and at sp > 1 the token-partial leaves summed
+        over sp: sums and means commute)."""
         for r in self.reducers:
             r.finish()
+        if self.assembled:
+            self._sum_over(self.assembled, self.tpm.group, "tp/bias_grad_allreduce")
+        if self.partial:
+            self._sum_over(self.partial, self.seq.group, "sp/grad_allreduce")
 
     def mean_columns(self, rows: torch.Tensor, cols: tuple) -> torch.Tensor:
         """[S, c] metric rows with the columns ``cols`` averaged over the

@@ -248,10 +248,10 @@ class FewShotTrainer:
         self._feed = train_sampler if hasattr(train_sampler, "cursor_state") else None
         if self._feed is not None and self._feed.logger is None:
             self._feed.logger = self.logger
-        if mesh is not None and cfg.moe_experts > 0:
-            from induction_network_on_fewrel_tpu_torch.parallel.expert import attach_experts
+        if mesh is not None:
+            from induction_network_on_fewrel_tpu_torch.parallel.sharding import attach_parallel
 
-            attach_experts(model, mesh)     # before the optimizer: ep keeps a slice
+            attach_parallel(model, mesh)    # before the optimizer: ep and tp keep a slice
         self.opt = make_optimizer(cfg, model)
         self.lazy = None
         if cfg.embed_optimizer == "lazy":
@@ -531,7 +531,8 @@ class FewShotTrainer:
         """(model, optimizer, sampler states) for a save. Under data
         parallel all three are gathered from every rank (collectives: every
         rank calls this at the same boundary): the model whole
-        (``parallel/expert.FullModel``: the expert leaves gathered over ep),
+        (``parallel/expert.FullModel``: the expert leaves gathered over ep,
+        the tp-sharded leaves over tp),
         the optimizer as a ``SavedOptimizer`` of its full moments (ZeRO-1's
         chunks and the experts' gathered), the streams as rank 0's with
         every dp rank's under "ranks"."""
@@ -539,7 +540,7 @@ class FewShotTrainer:
             return self.model, self.opt, self.sampler_states()
         from induction_network_on_fewrel_tpu_torch.parallel.expert import FullModel
 
-        model = FullModel(self.model) if self.dp.ep > 1 else self.model
+        model = FullModel(self.model) if self.dp.ep > 1 or self.dp.tp > 1 else self.model
         return model, SavedOptimizer(self.opt.state_dict()), self.sampler_states()
 
     def save_latest(self, step: int, snap: tuple | None = None) -> None:

@@ -148,7 +148,9 @@ class ClipDecayOptimizer:
     ``parallel/expert.py``): the MoE expert leaves are this rank's slices,
     the global norm adds their squares over the ep group, ZeRO-1 leaves
     them whole, ``state_dict`` gathers their moments and
-    ``load_state_dict`` slices full ones."""
+    ``load_state_dict`` slices full ones. ``shard_tensor`` (tensor
+    parallel, ``parallel/tensor.py``): the same for the tp-sharded leaves
+    over the tp group, each along its axis."""
 
     def __init__(self, params, lr: float, weight_decay: float, lr_step_size: int,
                  lr_gamma: float, grad_clip: float, rules=None, b1: float = 0.9,
@@ -159,6 +161,7 @@ class ClipDecayOptimizer:
         self.zero = None
         self.ep = None
         self.ep_leaves: frozenset = frozenset()
+        self.tp_leaves: dict = {}
         self.rules = list(rules) if rules is not None else ["adam"] * len(self.params)
         if len(self.rules) != len(self.params):
             raise ValueError(f"{len(self.rules)} rules for {len(self.params)} parameters")
@@ -210,13 +213,22 @@ class ClipDecayOptimizer:
         self.ep = em
         self.ep_leaves = frozenset(k for k, n in enumerate(self.names) if is_expert_leaf(n))
 
+    def shard_tensor(self, model) -> None:
+        """The tp-sharded leaves of ``model`` (``parallel/tensor.tp_leaves``)
+        are this rank's slices over their tp group."""
+        from induction_network_on_fewrel_tpu_torch.parallel.tensor import tp_leaves
+
+        index = {n: k for k, n in enumerate(self.names)}
+        self.tp_leaves = {index[n]: (axis, tpm) for n, axis, tpm in tp_leaves(model)}
+
     def shard(self, mesh, n_buckets: int = 0) -> None:
         """ZeRO-1 over ``mesh``: keep this rank's chunk of every moment
         leaf whose size divides the world (the rest stay whole; so do the
-        expert leaves, sharded over ep already)."""
+        expert and tp-sharded leaves, sharded over ep or tp already)."""
         from induction_network_on_fewrel_tpu_torch.parallel.sharding import Zero1
 
-        leaves = [k for k in self._live if self.mu[k] is not None and k not in self.ep_leaves]
+        leaves = [k for k in self._live if self.mu[k] is not None and k not in self.ep_leaves
+                  and k not in self.tp_leaves]
         self.zero = Zero1(self.names, self.params, leaves, mesh, n_buckets)
         for k in self.zero.shards:
             self.mu[k] = self.zero.view(k, self.mu[k]).clone()
@@ -245,28 +257,40 @@ class ClipDecayOptimizer:
         returns the global gradient norm before the clip (a fresh f32
         device scalar)."""
         params, grads, _, _, _ = self._table()
-        norm = optim_sumsq(params, grads, self._ws) if self.ep is None else \
-            self._ep_norm(params, grads)
+        norm = optim_sumsq(params, grads, self._ws) if self.ep is None and not self.tp_leaves \
+            else self._sharded_norm(params, grads)
         params, grads, mus, nus, rules = self._table(update=self.zero is not None)
         optim_update(params, grads, mus, nus, rules, norm, self.count, self.hyper, self._ws)
         if self.zero is not None:
             self.zero.gather_params(self.params)
         return norm.reshape(())
 
-    def _ep_norm(self, params, grads) -> torch.Tensor:
-        """The global norm [1] under expert parallelism: the replicated
-        leaves' squares (the same on every ep rank) plus the expert leaves'
-        summed over the ep group."""
+    def _sharded_norm(self, params, grads) -> torch.Tensor:
+        """The global norm [1] under expert or tensor parallelism: the
+        replicated leaves' squares (the same on every ep and tp rank) plus
+        the expert leaves' summed over the ep group and the tp-sharded
+        leaves' over the tp group."""
         import torch.distributed as dist
 
-        mine = [k in self.ep_leaves for k in self._live] + [False] * (len(params) - len(self._live))
-        rep = optim_sumsq([p for p, e in zip(params, mine) if not e],
-                          [g for g, e in zip(grads, mine) if not e], self._ws)
-        sq = optim_sumsq([p for p, e in zip(params, mine) if e],
-                         [g for g, e in zip(grads, mine) if e], self._ws).square()
-        dist.all_reduce(sq, group=self.ep.ep_group)
-        COLLECTIVES["ep/norm_allreduce"] += 1
-        return torch.sqrt(rep.square() + sq)
+        n = len(self._live)
+        kinds = [("ep" if k in self.ep_leaves else "tp" if k in self.tp_leaves else None)
+                 for k in self._live] + [None] * (len(params) - n)
+
+        def sumsq(kind):
+            return optim_sumsq([p for p, x in zip(params, kinds) if x == kind],
+                               [g for g, x in zip(grads, kinds) if x == kind], self._ws)
+
+        total = sumsq(None).square()
+        for kind, group in (("ep", self.ep.ep_group if self.ep is not None else None),
+                            ("tp", next(iter(self.tp_leaves.values()))[1].group
+                             if self.tp_leaves else None)):
+            if kind not in kinds:
+                continue
+            sq = sumsq(kind).square()
+            dist.all_reduce(sq, group=group)
+            COLLECTIVES[f"{kind}/norm_allreduce"] += 1
+            total = total + sq
+        return torch.sqrt(total)
 
     def state_dict(self) -> dict:
         """``count`` as an int (the format of the earlier Adam-only
@@ -279,6 +303,9 @@ class ClipDecayOptimizer:
                     x = self.zero.gather_moment(k, x, self.params[k])
                 if x is not None and k in self.ep_leaves:
                     x = self.ep.gather_experts(x, "ep/moments_allgather")
+                if x is not None and k in self.tp_leaves:
+                    axis, tpm = self.tp_leaves[k]
+                    x = tpm.gather(x, axis, "tp/moments_allgather")
                 out.append(None if x is None else x.detach().clone())
             return out
 
@@ -306,6 +333,10 @@ class ClipDecayOptimizer:
             if src is not None and k in self.ep_leaves and src.shape[0] == dst.shape[0] * self.ep.ep:
                 e = dst.shape[0]        # a full moment (the JAX layout): this rank's experts
                 src = src[self.ep.ep_rank * e:(self.ep.ep_rank + 1) * e]
+            if src is not None and k in self.tp_leaves:
+                axis, tpm = self.tp_leaves[k]
+                if src.shape[axis] == dst.shape[axis] * tpm.tp:     # a full moment: this rank's
+                    src = tpm.cut(src, axis)
             if src is not None and self.zero is not None and k in self.zero.shards:
                 if tuple(src.shape) != tuple(self.params[k].shape):
                     raise ValueError(f"optimizer moment {tuple(src.shape)} != "

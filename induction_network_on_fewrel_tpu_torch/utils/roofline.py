@@ -6,7 +6,7 @@ A copy of ``induction_network_on_fewrel_tpu/utils/roofline.py``
 for formula: the arithmetic models the fused-kernel flagship step at a
 config's residual knobs, whichever backend a process runs. The comms
 terms of data parallel come with the comms ledger (ROADMAP queue A item
-6d).
+2).
 
 Shapes: rows M = B*(N*K + N*Q); L tokens; D = word+2*pos; u LSTM
 hidden/direction; A att_dim; C induction_dim; H ntn_slices; bf16

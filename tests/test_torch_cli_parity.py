@@ -147,7 +147,8 @@ def test_train_adapt_stamps_the_jax_config_fields(tmp_path):
                                                    "--device", "cpu"]))
 
 
-DP_VALUES = {"--dp": ["0", "1", "2", "8"], "--zero_opt": [None],
+DP_VALUES = {"--dp": ["0", "1", "2", "8"], "--tp": ["1", "2", "4"], "--sp": ["1"],
+             "--zero_opt": [None],
              "--compact_demb": ["auto", "on", "off"], "--grad_bucketing": ["auto", "on", "off"],
              "--grad_bucket_count": ["1", "4", "7"], "--async_collectives": ["auto", "on", "off"]}
 DP_ARGVS = [(train, flag, v) for train in (True, False) for flag, vs in DP_VALUES.items()
@@ -157,8 +158,10 @@ DP_ARGVS = [(train, flag, v) for train in (True, False) for flag, vs in DP_VALUE
 @pytest.mark.parametrize("train,flag,value", DP_ARGVS,
                          ids=[f"{'train' if t else 'test'}{f}={v}" for t, f, v in DP_ARGVS])
 def test_dp_flags_parse_at_every_jax_value(train, flag, value):
-    """The six data-parallel flags are ported: every JAX value parses into
-    the JAX config's field (the mesh itself is made at run time)."""
+    """The six data-parallel flags and the tp and sp axes are ported: every
+    JAX value parses into the JAX config's field (the mesh itself is made
+    at run time; ``--sp`` above 1 needs the transformer,
+    ``tests/test_torch_tp_sp.py``)."""
     assert flag not in cli.DEFERRED and flag not in cli._NEUTRAL
     argv = ["--device", "cpu", flag] + ([] if value is None else [value])
     ours = cli.config_from_args(cli.parse_args(train, argv))

@@ -375,8 +375,8 @@ def test_no_port_text_names_item_5():
 
 def test_no_port_text_refuses_ep_or_moe_under_dp():
     """MoE under dp and the expert-parallel executor are ported: no port
-    text refuses either, and item 6d's remaining list names tp, sp and pp
-    only."""
+    text refuses either, and item 6d's remaining list names pp only (tp
+    and sp are ported since)."""
     import pathlib
 
     from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE, SHARDED
@@ -387,4 +387,4 @@ def test_no_port_text_refuses_ep_or_moe_under_dp():
             "check_moe", "sp ring attention, pp, ep)")
     assert [(str(p), g) for p in files for g in gone if g in p.read_text()] == []
     assert "--ep" not in cli.DEFERRED and "ep" not in LATER_SLICE
-    assert SHARDED.endswith("(the sharded executors: tp, sp ring attention, pp)")
+    assert SHARDED.endswith("(the last sharded executor: pp, the GPipe schedule)")

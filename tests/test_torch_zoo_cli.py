@@ -8,7 +8,8 @@
   the checkpoint, as the JAX ``merge_architecture_from`` does (JAX
   ``tests/test_model_zoo.py:151``), and keeps the runtime's for proto.
 * Refused by name: gnn/snail/metanet with ``--trainN`` other than ``--N``
-  (``build_model`` and the CLI); ``--sp``, ``--pp`` and ``--ep`` above 1,
+  (``build_model`` and the CLI); ``--sp`` above 1 off the transformer (the
+  JAX text), ``--pp`` and ``--ep`` above 1,
   ``--moe_experts`` and ``--tfm_stacked`` off the transformer and
   ``--moe_top_k 0`` on the CLI (rc 2); an unknown proto metric.
 * The adversarial (``--adv``), MoE and stacked paths: ``cli train`` then
@@ -118,14 +119,16 @@ def test_cli_runs_bert_and_pair(tmp_path, capsys, mode, argv):
 # (argv0, argv1), which now run (test_cli_runs_bert_and_pair). --moe_experts,
 # --moe_top_k and --tfm_stacked parse since they were ported: their cases now
 # hold the CLI's refusals of an MoE or stacked option the model would not
-# honor; --sp and --pp above 1 stay unported, and --ep above 1 (ported
-# since) is refused off the MoE transformer with the JAX text.
+# honor; --pp above 1 stays unported, and --ep and --sp above 1 (ported
+# since) are refused off the MoE transformer and off the transformer with
+# the JAX texts.
 @pytest.mark.parametrize("argv,named,why", [
     pytest.param(argv, named, why, id=f"argv{i}-{named}") for i, (argv, named, why) in enumerate([
         (["--moe_experts", "4"], "--moe_experts", "requires --encoder transformer"),
         (["--encoder", "transformer", "--moe_experts", "4", "--moe_top_k", "0"], "--moe_top_k",
          "must be >= 1"),
-        (["--sp", "2"], "--sp", "is not ported yet"), (["--pp", "2"], "--pp", "is not ported yet"),
+        (["--sp", "2"], "--sp", "(ring attention) requires --encoder transformer"),
+        (["--pp", "2"], "--pp", "is not ported yet"),
         (["--ep", "2"], "--ep", "(expert parallelism) requires --encoder transformer"),
         (["--tfm_stacked"], "--tfm_stacked", "requires --encoder transformer"),
     ], start=2)
