@@ -472,6 +472,24 @@ exits non-zero; no phase catches a failure of its own):
    seed's weights) at tp=2: logits and eval metrics. Replicas equal, the
    collectives to the plan, ms/step and peak GiB per rank beside the
    one-process run. A ``{"dp22": ...}`` line.
+23. (``--phases 23`` runs 22: the same two- and four-rank gloo children,
+   after 22) Pipeline parallel: the stacked transformer at the JAX
+   defaults (4 layers, width 256, FFN 1024, L=40; the induction head, f32,
+   the token cache with lazy Adam on 22a's 400 002 x 50 table and
+   batches) at (dp, pp) = (1, 2) on two ranks and (2, 2) on four, 5 GPipe
+   microbatches, 3 eager steps held to one process on the global batch
+   within 1e-5 (every step's loss and gradient norm; the parameters and
+   the moments of scale after step 1, the elements whose first gradient
+   is at the rounding level of their leaf aside: ``adam_noise``); the pp
+   run's ring slot after 2 steps restored at pp=1 on the card and trained
+   on, held to the pp run's end (each pp step is one process's step from
+   the same state); the end state after 3 steps reported; each rank's
+   stack and its moments half the one process's bytes; replicas equal,
+   the collectives
+   (``pp/hop`` 10 a step) to the plan, ``optim_sumsq`` 2 and
+   ``optim_update`` 1 and the lazy pair on every rank every step; ms/step
+   and peak GiB per rank beside the one-process run. A ``{"dp23": ...}``
+   line.
 12. A ``{"kernels": [...]}`` line for the sixteen hand kernels (one per
    Pallas body, the weight-gradient kernel of the backwards, the
    optimizer pair and the lazy table's two; K1 and K2 with the serving
@@ -493,14 +511,16 @@ exits non-zero; no phase catches a failure of its own):
    each path and 20c's wrapper counts on rank 0; ``launches_moe_dp_21``:
    phase 21a's profiled launches per step and 21b/21c's wrapper launches
    per step on rank 0, by layout; ``launches_tp_sp_22``: phase 22's
-   wrapper launches per step on every rank, by part and layout), a
+   wrapper launches per step on every rank, by part and layout;
+   ``launches_pp_23``: phase 23's, by layout), a
    ``{"serving": ...}`` line of phases 4, 4a, 4b and 4c, a ``{"bert":
    ...}`` line of phase 13, the ``{"slice6c": ...}`` line of phase 14, the
    ``{"obs": ...}`` line of phase 15, the ``{"fleet": ...}`` line of phase
    16, the ``{"load": ...}`` line of phase 17, the ``{"tools": ...}`` line
    of phase 18, the ``{"dp": ...}`` line of phase 19, the ``{"dp20":
    ...}`` line of phase 20, the ``{"dp21": ...}`` line of phase 21, the
-   ``{"dp22": ...}`` line of phase 22, the run's seconds,
+   ``{"dp22": ...}`` line of phase 22, the ``{"dp23": ...}`` line of
+   phase 23, the run's seconds,
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -6563,12 +6583,12 @@ DP_SECONDS = 120
 
 
 # The parts a torchrun child runs (``chip_smoke.py --dp19a OUT [--dp20a OUT2]``),
-# where each writes its result, and the label its lines start with.
+# where each writes its result, and the labels its lines start with.
 DP_PARTS = {"19a": ("dp19a_main", DP_DIR, "19a"), "19b": ("dp19b_main", DP_DIR, "19b"),
             "20a": ("dp20a_main", None, "20b"), "20b": ("dp20b_main", None, "20c"),
             "21a": ("dp21a_main", None, "21a"), "21b": ("dp21_gloo_main", None, "21"),
-            "21c": ("dp21_gloo_main", None, "21"), "22b": ("dp22_gloo_main", None, "22"),
-            "22c": ("dp22_gloo_main", None, "22")}
+            "21c": ("dp21_gloo_main", None, "21"), "22b": ("dp22_gloo_main", None, "22 23"),
+            "22c": ("dp22_gloo_main", None, "22 23")}
 
 
 def dp_child_main(argv: list) -> int:
@@ -6614,7 +6634,7 @@ def dp_child(parts: list, nproc: int) -> dict:
         text, _ = proc.communicate()
         print(text[-4000:], flush=True)
         raise AssertionError(f"phase {parts}: the ranks overran {bound_s} s")
-    labels = tuple(f"[{DP_PARTS[p][2]}" for p in parts)
+    labels = tuple(f"[{lab}" for p in parts for lab in DP_PARTS[p][2].split())
     keep = [ln for ln in text.splitlines() if ln.startswith(labels)]
     print("\n".join(keep), flush=True)
     if proc.returncode != 0 or not all(o.exists() for o in outs.values()):
@@ -7638,6 +7658,25 @@ def state_digest(params: dict) -> str:
     return h.hexdigest()
 
 
+def one_process_reference(part: str, payload: dict, run) -> tuple[dict, float]:
+    """(``run()``, its peak GiB): the one-process reference of ``part`` on
+    ``payload``'s global batches. The two- and four-rank children hold their
+    runs to the same reference (the same payload, drawn from seeds): the
+    first computes it and leaves it in DP22_DIR, keyed by a digest of the
+    payload's batches, and the second reads it back."""
+    import hashlib
+    import pickle
+
+    h = hashlib.sha256(pickle.dumps((payload["cfg"], payload["batches"])))
+    path = DP22_DIR / f"reference_{part}_{h.hexdigest()[:16]}.pkl"
+    if path.exists():
+        return pickle.loads(path.read_bytes())
+    torch.cuda.reset_peak_memory_stats()
+    out = (run(), torch.cuda.max_memory_allocated() / 2**30)
+    path.write_bytes(pickle.dumps(out))
+    return out
+
+
 def param_excess(got: dict, want: dict) -> tuple[float, list]:
     """The worst ``|got - want| - tol·|want|`` over every element (within
     ``np.testing.assert_allclose(atol=rtol=DP22_TOL)`` when at most
@@ -7663,6 +7702,223 @@ def dp22_flagship(mesh, smi: str) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+# --- Phase 23: pipeline parallel -------------------------------------------------
+
+# The (dp, pp) layout by world size, the GPipe microbatches, and the step
+# after which the pp run saves the ring slot that one process restores.
+DP23_PP = {2: (1, 2), 4: (2, 2)}
+DP23_M = 5
+DP23_SAVE_AT = DP_B_STEPS - 1
+DP23_SECONDS = 40
+# ``adam_noise``: an element whose first gradient is below this share of
+# its leaf's largest is at the rounding level of the leaf's f32 sums on the
+# card (cuBLAS sums of up to 1 024 terms a product, in another order for
+# each microbatch count).
+DP23_NOISE = 1e-5
+# The optimizer and lazy-table kernels every rank launches a step (the
+# transformer path runs no LSTM or attention kernel).
+DP23_ON = ("optim_sumsq", "optim_update", "lazy_catchup", "lazy_scatter")
+
+
+def dp23_payload(payload22a: dict) -> dict:
+    """23's run: 22a's token table and global index batches (drawn once in
+    the child), the stacked transformer at the JAX defaults (4 layers,
+    width 256, 4 heads, FFN 1024, L=40) under the induction head, f32, the
+    token cache with lazy Adam on the 400 002 x 50 table, DP23_M
+    microbatches."""
+    return {**payload22a, "cfg": {**payload22a["cfg"], "encoder": "transformer",
+                                  "tfm_stacked": True, "pp_microbatches": DP23_M},
+            "state_at": 1}
+
+
+def adam_noise(first: dict, uids: np.ndarray) -> dict:
+    """{leaf: mask} of the elements whose first-step gradient sits at the
+    rounding level of its leaf: nonzero and below DP23_NOISE of the leaf's
+    largest, read from the Adam first moment of one process's first step
+    (``first``; it is 0.1 times the gradient the update saw; the lazy rows'
+    for the word table's corpus rows ``uids``). Adam's first step moves
+    every element by about lr times the sign of its gradient, so where that
+    gradient is rounding noise two summation orders (the GPipe microbatches'
+    and one process's whole batch) move it apart, and the steps after keep
+    the difference. ``tests/test_torch_pp.py`` leaves out the same elements
+    at 1e-6."""
+    from induction_network_on_fewrel_tpu_torch.train.steps import WORD_TABLE
+
+    def small(v):
+        a = np.abs(v)
+        return (a > 0) & (a < DP23_NOISE * a.max())
+
+    masks = {k[3:]: small(v) for k, v in first["moments"].items() if k.startswith("mu/")}
+    table = np.zeros(first["params"][WORD_TABLE].shape, bool)
+    table[uids] = small(first["moments"]["lazy/rows_m"])
+    masks[WORD_TABLE] = table
+    masks["lazy/rows"] = table[uids]
+    return masks
+
+
+def mask_of(name: str, masks: dict):
+    """The ``adam_noise`` mask of a parameter or a moment ("mu/<leaf>",
+    "nu/<leaf>", "lazy/rows_m", "lazy/rows_v"), or None."""
+    leaf = "lazy/rows" if name.startswith("lazy/rows") else name.split("/", 1)[-1]
+    return masks.get(leaf)
+
+
+def held(got: dict, want: dict, masks: dict) -> tuple[float, float, list]:
+    """Over the elements ``masks`` keeps: the worst ``|got - want| -
+    DP22_TOL·|want|`` (``param_excess``'s bar), the worst |got - want| over
+    each leaf's scale (``leaf_rel``'s), and the three worst leaves by the
+    first."""
+    excess, rel = {}, {}
+    for k, w in want.items():
+        m = mask_of(k, masks)
+        keep = np.ones(w.shape, bool) if m is None else ~m
+        g, w = got[k][keep], w[keep]
+        if w.size == 0:
+            continue
+        excess[k] = float(np.max(np.abs(g - w) - DP22_TOL * np.abs(w)))
+        rel[k] = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
+    worst = sorted(excess.items(), key=lambda kv: -kv[1])[:3]
+    return max(excess.values()), max(rel.values()), worst
+
+
+def dp23_rank(payload22a: dict, world: int) -> dict:
+    """23 on this rank: ``dp23_payload``'s DP_B_STEPS token-cache lazy steps
+    at (dp, pp) = DP23_PP[world], the state saved as a ring slot after
+    DP23_SAVE_AT steps; the wrappers' counts zeroed just before and read
+    just after; this rank's stack and moment bytes."""
+    import torch.distributed as dist
+
+    from induction_network_on_fewrel_tpu_torch.parallel import rig
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+
+    dp, pp = DP23_PP[world]
+    payload = dp23_payload(payload22a)
+    ckpt = DP22_DIR / f"pp23_world{world}"
+    if dist.get_rank() == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    mesh = make_mesh(dp=dp, pp=pp)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    got = rig.run_case(payload, rig.CASES["compact"], mesh, resume_at=DP23_SAVE_AT,
+                       ckpt_dir=str(ckpt))
+    counts = kernel_counts()
+
+    def stack_bytes(shapes: dict) -> int:
+        return 4 * sum(int(np.prod(v)) for k, v in shapes.items() if ".stack_" in k)
+
+    mine = {"digest": state_digest(got["params"]), "counts": counts,
+            "issued": got["issued_per_step"], "plan": got["plan"],
+            "peak": torch.cuda.max_memory_allocated() / 2**30,
+            "stack_bytes": stack_bytes(got["local_shapes"]),
+            "stack_moment_bytes": 2 * stack_bytes(got["local_moment_shapes"])}
+    return {"payload": payload, "got": got, "mine": mine, "ckpt": str(ckpt), "dp": dp, "pp": pp}
+
+
+def dp23_hold(p23: dict, other: list, world: int, smi: str) -> dict:
+    """23 on rank 0: the one-process reference on the global batches (the
+    card, no group), held to within DP22_TOL on every step's loss and
+    gradient norm, and after the first step on the parameters and the
+    moments of scale, the elements whose first gradient is at the rounding
+    level of their leaf aside (``adam_noise``: fewer than 1 in 100); the pp
+    run's slot after DP23_SAVE_AT steps restored at pp=1 on the card and
+    trained on to the end, held to the pp run's end the same way (each step
+    of pp is one process's step to rounding); every rank's stack and moment
+    bytes half the one process's (pp=2); the optimizer and lazy kernels
+    launched on every rank every step, the optimizer's norm kernel twice
+    (the replicated leaves, then the stack's, whose square is all-reduced
+    over pp); the hops a step as planned."""
+    from induction_network_on_fewrel_tpu_torch.parallel import rig
+    from induction_network_on_fewrel_tpu_torch.train.lazy_embed import augment_token_table
+
+    got, payload, dp, pp = p23["got"], p23["payload"], p23["dp"], p23["pp"]
+    ref, ref_peak = one_process_reference(
+        "23", payload, lambda: rig.run_case(payload, rig.CASES["compact"], None))
+    one = {**payload, "batches": payload["batches"][:1]}
+    first, _ = one_process_reference(
+        "23_first", one, lambda: rig.run_case(one, rig.CASES["compact"], None))
+    cont = rig.restore_and_continue(payload, rig.CASES["compact"], p23["ckpt"], DP23_SAVE_AT)
+    masks = adam_noise(first, augment_token_table(payload["table"])[1])
+    d = ExperimentConfig(**payload["cfg"]).tfm_model
+    left = sum(int(mask_of(k, masks).sum()) for k in ref["params"] if k in masks)
+    share = left / sum(v.size for v in ref["params"].values())
+    key_bias = int(masks["encoder.stack_qkv_b"][:, d:2 * d].sum())
+    loss_err = float(np.abs(np.array(got["losses"]) - ref["losses"]).max())
+    param_err, _, worst = held(got["params_at"], first["params"], masks)
+    norm_rel = float(np.max(np.abs(np.array(got["grad_norms"]) - ref["grad_norms"])
+                            / np.array(ref["grad_norms"])))
+    _, moment_rel, _ = held(got["moments_at"], first["moments"], masks)
+    # Reported, not held: the end states after DP_B_STEPS steps. The
+    # left-out elements' first steps (about +-lr each, drawn apart by the
+    # two summation orders) feed the later steps' forwards, so every later
+    # gradient carries more than rounding.
+    end_err, end_moment_rel, end_worst = held(got["params"], ref["params"], masks)
+    _, end_moment_rel, _ = held(got["moments"], ref["moments"], masks)
+    cont_loss = float(np.abs(np.array(cont["losses"]) - got["losses"][DP23_SAVE_AT:]).max())
+    cont_err, _, cont_worst = held(cont["params"], got["params"], masks)
+    # Where the bar is missed: per leaf, the kept elements over it and the
+    # least of their first-step gradients over the leaf's largest.
+    over = {}
+    for k, w in first["params"].items():
+        mu = first["moments"].get(f"mu/{k}")
+        m = mask_of(k, masks)
+        bad = np.abs(got["params_at"][k] - w) - DP22_TOL * np.abs(w) > DP22_TOL
+        if m is not None:
+            bad &= ~m
+        if bad.any() and mu is not None:
+            a = np.abs(mu)
+            over[k] = (int(bad.sum()), float(a[bad].min() / a.max()))
+    per_step = [{k: n / DP_B_STEPS for k, n in o["pp"]["counts"].items() if n} for o in other]
+    missing = [(r, k) for r, c in enumerate(per_step) for k in DP23_ON if not c.get(k)]
+    optim = [(c.get("optim_sumsq"), c.get("optim_update")) for c in per_step]
+    hops = got["plan"].get("pp/hop")
+    whole = 4 * sum(int(np.prod(v)) for k, v in ref["local_shapes"].items() if ".stack_" in k)
+    half = [(o["pp"]["stack_bytes"], o["pp"]["stack_moment_bytes"]) for o in other]
+    if (max(loss_err, param_err, norm_rel, moment_rel, cont_loss, cont_err) > DP22_TOL or missing
+            or any(x != (2.0, 1.0) for x in optim) or hops != 2 * (DP23_M + pp - 2)
+            or any(h != (whole // pp, 2 * whole // pp) for h in half) or share >= 1e-2):
+        raise AssertionError(
+            f"23 (dp={dp}, pp={pp}): losses {loss_err:.3g}, parameters {param_err:.3g} (worst "
+            f"{worst}), grad norms {norm_rel:.3g}, moments {moment_rel:.3g}, with {left} "
+            f"elements ({share:.3g}) at the rounding level left out ({key_bias} key biases "
+            f"among them; elements over the bar and the least of their first-step gradients "
+            f"of the leaf's largest: {over}); restored at pp=1: "
+            f"losses {cont_loss:.3g}, parameters {cont_err:.3g} (worst {cont_worst}) (tol "
+            f"{DP22_TOL}); kernels not launched (rank, kernel) {missing}; optim_sumsq / "
+            f"optim_update per step {optim}; pp/hop per step {hops}; stack and moment bytes "
+            f"per rank {half} of {whole}")
+    ms, ref_ms = got["seconds"] / DP_B_STEPS * 1e3, ref["seconds"] / DP_B_STEPS * 1e3
+    tag = "a" if world == 2 else "b"
+    out = {"part": f"23{tag}", "loss_abs_err": loss_err, "param_err": param_err,
+           "noise_elements_left_out": left, "noise_share": share, "key_biases_left_out": key_bias,
+           "end_param_excess_reported": end_err, "end_worst_leaves": end_worst,
+           "end_moment_rel_reported": end_moment_rel,
+           "worst_leaves": worst, "grad_norm_rel": norm_rel, "moment_rel": moment_rel,
+           "restored_pp1_loss_abs_err": cont_loss, "restored_pp1_param_err": cont_err,
+           "collectives_per_step": got["issued_per_step"], "launches_per_step_by_rank": per_step,
+           "stack_bytes_by_rank": [h[0] for h in half], "stack_moment_bytes_by_rank":
+           [h[1] for h in half], "one_process_stack_bytes": whole,
+           "eager_ms_per_step": ms, "one_process_ms_per_step": ref_ms,
+           "peak_gib_by_rank": [o["pp"]["peak"] for o in other], "one_process_peak_gib": ref_peak}
+    print(f"[23{tag}] the stacked transformer (4 layers x 256, FFN 1024, L=40, f32, token cache + "
+          f"lazy Adam on the 400 002 x 50 table) at (dp, pp) = ({dp}, {pp}), {DP23_M} "
+          f"microbatches ({world} gloo ranks on the card, eager) vs one process on the global "
+          f"batch, {DP_B_STEPS} steps: losses within {loss_err:.3g}, grad norms rel "
+          f"{norm_rel:.3g}; after step 1 parameters {param_err:.3g}, moments {moment_rel:.3g} "
+          f"of scale (tol {DP22_TOL}; {left} elements, {share:.3g} of all, whose first gradient "
+          f"is at the rounding level of their leaf aside, {key_bias} key biases among them); "
+          f"after step {DP_B_STEPS} (reported, not held) parameters {end_err:.3g}, moments "
+          f"{end_moment_rel:.3g}; "
+          f"the pp slot after {DP23_SAVE_AT} steps "
+          f"restored at pp=1 and trained on: losses {cont_loss:.3g}, parameters {cont_err:.3g}; "
+          f"replicas equal; collectives per step {got['issued_per_step']} (= the plan on every "
+          f"rank); wrapper launches per rank per step {per_step}; stack bytes per rank "
+          f"{[h[0] for h in half]} and its moments' {[h[1] for h in half]} of {whole} and "
+          f"{2 * whole} in one process; {ms:.1f} ms/step eager vs {ref_ms:.1f} one process "
+          f"(graph capture included); peak {[round(o['pp']['peak'], 2) for o in other]} vs "
+          f"{ref_peak:.2f} GiB; {smi}", flush=True)
+    return out
+
+
 def dp22_gloo_main(out_path: str) -> int:
     """22, a rank of ``torchrun --nproc_per_node 2`` or ``4``: gloo ranks on
     the one card, eager steps. 22a: the flagship (``--encoder bilstm`` at the
@@ -7677,7 +7933,9 @@ def dp22_gloo_main(out_path: str) -> int:
     (``dp22_tfm_payload``): the first forward's logits and every gradient
     leaf within DP22_TOL of scale, the losses, the parameters after
     ``rig.MOE_DP_AT`` steps, the gradient norms; 22c's logits and eval
-    metrics. ms/step and peak GiB per rank beside the one-process run."""
+    metrics. ms/step and peak GiB per rank beside the one-process run. Then
+    phase 23 on every rank (``dp23_rank``) and, on rank 0, its holds
+    (``dp23_hold``)."""
     import torch.distributed as dist
 
     from induction_network_on_fewrel_tpu_torch.parallel import rig
@@ -7710,6 +7968,10 @@ def dp22_gloo_main(out_path: str) -> int:
         zero_kernel_counts()
         c = rig.run_moe_case({**tp_payload, "eval_only": True}, "bert", make_mesh(dp=1, tp=2))
         mine["c"] = {"counts": kernel_counts(), "peak": torch.cuda.max_memory_allocated() / 2**30}
+    t23 = time.monotonic()
+    p23 = dp23_rank(a["payload"], world)
+    mine["pp"] = p23["mine"]
+    t23 = time.monotonic() - t23
     other = [None] * world
     dist.gather_object(mine, other if rank == 0 else None, dst=0)
     if rank != 0:
@@ -7722,9 +7984,8 @@ def dp22_gloo_main(out_path: str) -> int:
                 raise AssertionError(f"22{part}: the ranks' {key} differ: "
                                      f"{[o[part].get(key) for o in other]}")
     # 22a: the one-process reference on the global batches.
-    torch.cuda.reset_peak_memory_stats()
-    ref = rig.run_cases(a["payload"], None)["compact"]
-    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    ref, ref_peak = one_process_reference(
+        "22a", a["payload"], lambda: rig.run_cases(a["payload"], None)["compact"])
     got = a["got"]
     loss_err = float(np.abs(np.array(got["losses"]) - ref["losses"]).max())
     param_err, worst = param_excess(got["params"], ref["params"])
@@ -7804,21 +8065,26 @@ def dp22_gloo_main(out_path: str) -> int:
               f"{eval_c:.3g} (tol {DP22_TOL}); {c['seconds'] * 1e3:.1f} ms vs "
               f"{ref_c['seconds'] * 1e3:.1f} ms one process (the first call); peak "
               f"{[round(o['c']['peak'], 2) for o in other]} GiB; {smi}", flush=True)
+    t_hold = time.monotonic()
+    res["pp23"] = dp23_hold(p23, other, world, smi)
+    res["pp23"]["seconds"] = round(t23 + time.monotonic() - t_hold, 1)
     res["seconds"] = round(time.monotonic() - t0, 1)
-    print(f"[22{'b' if world == 2 else 'c'}] {world} ranks: {res['seconds']} s", flush=True)
+    print(f"[22{'b' if world == 2 else 'c'}] {world} ranks: {res['seconds']} s (phase 23's part "
+          f"{res['pp23']['seconds']} s)", flush=True)
     Path(out_path).write_text(json.dumps(res, default=str))
     return 0
 
 
 def dp_phases(smi: str, want19: bool, want20: bool, want21: bool = False,
               moe14: dict | None = None, want22: bool = False) -> tuple:
-    """Phases 19, 20, 21 and 22 (the ``{"dp": ...}``, ``{"dp20": ...}``,
-    ``{"dp21": ...}`` and ``{"dp22": ...}`` results, None for a phase not
-    asked for): 20a in this process, then one torchrun child at world size 1
-    over NCCL for 19a, 20b and 21a, one of two gloo ranks for 19b, 20c,
-    21b-c and 22's two-rank layouts, and one of four for 21c (dp=2, ep=2)
-    and 22a at (dp=2, tp=2); this process never joins a process group.
-    ``moe14``: phase 14c's MoE result, printed beside 21's."""
+    """Phases 19, 20, 21, 22 and 23 (the ``{"dp": ...}``, ``{"dp20":
+    ...}``, ``{"dp21": ...}``, ``{"dp22": ...}`` and ``{"dp23": ...}``
+    results, None for a phase not asked for; 23 runs with 22): 20a in this
+    process, then one torchrun child at world size 1 over NCCL for 19a, 20b
+    and 21a, one of two gloo ranks for 19b, 20c, 21b-c, 22's two-rank
+    layouts and 23 at (dp=1, pp=2), and one of four for 21c (dp=2, ep=2),
+    22a at (dp=2, tp=2) and 23 at (dp=2, pp=2); this process never joins a
+    process group. ``moe14``: phase 14c's MoE result, printed beside 21's."""
     t0 = time.monotonic()
     for d in (DP_DIR, DP20_DIR, DP21_DIR, DP22_DIR):
         d.mkdir(parents=True, exist_ok=True)
@@ -7831,7 +8097,7 @@ def dp_phases(smi: str, want19: bool, want20: bool, want21: bool = False,
     four = ["21c"] * want21 + ["22c"] * want22
     gloo4 = dp_child(four, 4) if four else {}
     seconds = round(time.monotonic() - t0, 1)
-    dp19 = dp20 = dp21 = dp22 = None
+    dp19 = dp20 = dp21 = dp22 = dp23 = None
     if want19:
         dp19 = {"card": smi, "a_nccl_world1": nccl["19a"], "b_gloo_world2": gloo["19b"]}
     if want20:
@@ -7854,9 +8120,18 @@ def dp_phases(smi: str, want19: bool, want20: bool, want21: bool = False,
               + (f"{moe14['step_ms']:.3f} ms/step, peak {moe14['peak_gib']:.2f} GiB"
                  if moe14 is not None else "not run in this call") + f"; {smi}", flush=True)
     if want22:
+        dp23 = {"card": smi, "world2": gloo["22b"].pop("pp23"), "world4": gloo4["22c"].pop("pp23")}
         dp22 = {"card": smi, "world2": gloo["22b"], "world4": gloo4["22c"],
                 "seconds_parts": {"world2": gloo["22b"]["seconds"],
                                   "world4": gloo4["22c"]["seconds"]}}
+        print(f"[23] pp on gloo ranks (one card: not a speed-up), eager ms/step vs one process: "
+              + "; ".join(f"(dp, pp) = {DP23_PP[n]} {dp23[w]['eager_ms_per_step']:.1f} vs "
+                          f"{dp23[w]['one_process_ms_per_step']:.1f}, peak "
+                          f"{[round(x, 2) for x in dp23[w]['peak_gib_by_rank']]} vs "
+                          f"{dp23[w]['one_process_peak_gib']:.2f} GiB"
+                          for n, w in ((2, "world2"), (4, "world4")))
+              + f"; in-rank seconds {[dp23[w]['seconds'] for w in ('world2', 'world4')]} "
+              f"(target {DP23_SECONDS} s); {smi}", flush=True)
         print(f"[22] tp and sp on gloo ranks (one card: not a speed-up), eager ms/step vs one "
               f"process: " + "; ".join(
                   f"{lay} {v.get('eager_ms_per_step', v.get('eval_ms')):.1f} vs "
@@ -7864,16 +8139,16 @@ def dp_phases(smi: str, want19: bool, want20: bool, want21: bool = False,
                   for w in ("world2", "world4") for lay, v in dp22[w]["layouts"].items())
               + f"; in-rank seconds {dp22['seconds_parts']} (target {DP22_SECONDS} s); {smi}",
               flush=True)
-    print(f"[dp] phases {'19 ' * want19}{'20 ' * want20}{'21 ' * want21}{'22' * want22}: "
+    print(f"[dp] phases {'19 ' * want19}{'20 ' * want20}{'21 ' * want21}{'22 23' * want22}: "
           f"{seconds} s (torchrun children; 20a in process {round(t_a - t0, 1)} s; targets "
           f"{DP_SECONDS} s, {DP20_SECONDS} s, {DP21_SECONDS} s and {DP22_SECONDS} s; {smi})",
           flush=True)
-    for d in (dp19, dp20, dp21, dp22):
+    for d in (dp19, dp20, dp21, dp22, dp23):
         if d is not None:
             d["seconds_with_shared_children"] = seconds
     for d in (DP_DIR, DP20_DIR, DP21_DIR, DP22_DIR):
         shutil.rmtree(d, ignore_errors=True)
-    return dp19, dp20, dp21, dp22
+    return dp19, dp20, dp21, dp22, dp23
 
 def main(phases: set | None = None) -> int:
     if not torch.cuda.is_available():
@@ -8016,12 +8291,14 @@ def main(phases: set | None = None) -> int:
     # global batch at world size 1 over NCCL (captured, in 19's child) and on
     # gloo ranks on the card (eager: dp=2, ep=2 and both, 2 and 4 ranks).
     # 22. Tensor and sequence parallel: gloo ranks on the card (eager) in
-    # the two- and four-rank children of phases 19-21.
+    # the two- and four-rank children of phases 19-21. 23. Pipeline
+    # parallel: the GPipe executor in the same children, after 22.
     if on("19") or on("20") or on("21") or on("22"):
-        dp19, dp20, dp21, dp22 = dp_phases(smi, on("19"), on("20"), on("21"),
-                                           done.get("slice6c", {}).get("c_moe"), on("22"))
+        dp19, dp20, dp21, dp22, dp23 = dp_phases(smi, on("19"), on("20"), on("21"),
+                                                 done.get("slice6c", {}).get("c_moe"), on("22"))
         for phase, key, value in (("19", "dp", dp19), ("20", "dp20", dp20),
-                                  ("21", "dp21", dp21), ("22", "dp22", dp22)):
+                                  ("21", "dp21", dp21), ("22", "dp22", dp22),
+                                  ("22", "dp23", dp23)):
             if on(phase):
                 done[key] = value
 
@@ -8236,6 +8513,10 @@ def main(phases: set | None = None) -> int:
                                                      v["launches_per_step_by_rank"]]
             for w in ("world2", "world4") for lay, v in dp22[w]["layouts"].items()
             if "launches_per_step_by_rank" in v}
+        k["launches_pp_23"] = {
+            f"{dp23[w]['part']}_per_rank_per_step": [c.get(key, 0.0) for c in
+                                                     dp23[w]["launches_per_step_by_rank"]]
+            for w in ("world2", "world4")}
     steps_summary = {
         tag: {"graph_ms_per_step": r["prof1"]["step_ms"],
               "graph_spc4_ms_per_step": r["prof4"]["step_ms"],
@@ -8269,6 +8550,7 @@ def main(phases: set | None = None) -> int:
     print(json.dumps({"dp20": dp20}, default=str), flush=True)
     print(json.dumps({"dp21": dp21}, default=str), flush=True)
     print(json.dumps({"dp22": dp22}, default=str), flush=True)
+    print(json.dumps({"dp23": dp23}, default=str), flush=True)
     print(f"[done] {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -8283,7 +8565,8 @@ def main(phases: set | None = None) -> int:
 PHASE_NEEDS = {"1": (), "2": (), "3": (), "4": (), "6": ("4",), "6b": (), "7": ("6",), "8": (),
                "9": (), "10": ("9",), "9c": (), "9d": ("9c",), "9e": ("9c",), "4b": ("9",),
                "4c": ("9",), "4a": ("9",), "11": ("9c",), "14": ("9", "11"), "13": ("9c",),
-               "15": (), "16": (), "17": (), "18": (), "19": (), "20": (), "21": (), "22": ()}
+               "15": (), "16": (), "17": (), "18": (), "19": (), "20": (), "21": (), "22": (),
+               "23": ("22",)}
 PHASE_ALIASES = {"5": "4", "6c": "6", "6d": "6"}
 
 

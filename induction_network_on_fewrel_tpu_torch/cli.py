@@ -62,7 +62,7 @@ stop`` restores the best checkpoint on a val collapse and ends the run;
 ``--fault_step`` injects a crash on a fresh run. ``--moe_*`` (the MoE FFN in
 every ``--moe_every``-th transformer block, its load-balance term in the
 objective) and ``--tfm_stacked`` (the layer-stacked transformer) run on one
-card (``--pp`` 1; ``--ep`` under a launcher, below); ``train --adv [TARGET_FILE]`` is FewRel 2.0
+card (``--ep`` and ``--pp`` under a launcher, below); ``train --adv [TARGET_FILE]`` is FewRel 2.0
 adversarial adaptation (the DANN step against a domain discriminator over
 ``--adv_batch`` source and target instances a step; bare ``--adv`` is the
 synthetic target domain), with ``--adv_lambda`` and ``--adv_dis_hidden``.
@@ -116,8 +116,14 @@ NTN's slices and the transformer's and BERT's MLP blocks over T ranks that
 hold the same episodes (``parallel/tensor.py``; a checkpoint holds every
 slice, so it restores at any ``--tp``), and ``--sp S`` (``--encoder
 transformer``) the token axis, attention running as a ring
-(``parallel/ring.py``): ``torchrun --nproc_per_node dp*ep*tp*sp``. ``--pp``
-and ``--pp_microbatches`` stay refused by name (``DEFERRED``; item 6d).
+(``parallel/ring.py``). ``--pp P`` (``--encoder transformer``, layers
+divisible by P; it implies ``--tfm_stacked``) shards the layer-stacked
+transformer's layers over P stages that hold the same episodes and runs
+each encoder call as ``--pp_microbatches`` microbatches in the GPipe
+schedule (``parallel/pipeline.py``): every encoder call's rows per dp shard
+must split into them (the JAX row check); a checkpoint holds every layer,
+so it restores at any ``--pp``. Launch ``torchrun --nproc_per_node
+dp*pp*ep*tp*sp``.
 
 Runs on the GPU by default and refuses to start without CUDA unless
 ``--device cpu`` is given.
@@ -130,8 +136,6 @@ import json
 import os
 import sys
 import warnings
-
-from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE, SHARDED
 
 
 def build_arg_parser(train: bool) -> argparse.ArgumentParser:
@@ -353,6 +357,11 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel mesh axis (ring attention; requires --encoder "
                         "transformer)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel mesh axis: transformer layer stages with the "
+                        "microbatched GPipe schedule (implies --tfm_stacked)")
+    p.add_argument("--pp_microbatches", type=int, default=4,
+                   help="GPipe microbatches per encoder call (bubble = (pp-1)/(m+pp-1))")
     p.add_argument("--save_ckpt", default="./checkpoint", help="checkpoint directory")
     p.add_argument("--load_ckpt", default=None, help="checkpoint directory to restore")
     if train:
@@ -432,11 +441,8 @@ def build_arg_parser(train: bool) -> argparse.ArgumentParser:
 # JAX train/test flags this package has not ported: flag -> (its JAX
 # default, type, the ROADMAP queue A item that brings it). Given with
 # anything but the default (or a value meaning the same here, _NEUTRAL),
-# each is refused by name (rc 2).
-DEFERRED = {
-    "--pp": (1, int, LATER_SLICE["pp"]),
-    "--pp_microbatches": (4, int, SHARDED),
-}
+# each is refused by name (rc 2). Every JAX flag is ported: none is left.
+DEFERRED: dict = {}
 # JAX flags with no counterpart here: flag -> (its JAX default, type, why).
 NO_COUNTERPART = {
     "--compile_cache": ("auto", str, "the port keeps no XLA compile cache (its kernels build "
@@ -477,8 +483,9 @@ def parse_args(train: bool, argv=None):
     try:
         cfg = ExperimentConfig(model=args.model, encoder=args.encoder, tfm_layers=args.tfm_layers,
                                moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
-                               moe_every=args.moe_every, tfm_stacked=args.tfm_stacked,
-                               ep=args.ep, tp=args.tp, sp=args.sp)
+                               moe_every=args.moe_every,
+                               tfm_stacked=args.tfm_stacked or args.pp > 1,
+                               ep=args.ep, tp=args.tp, sp=args.sp, pp=args.pp)
         refuse_later_slices(cfg)
         check_transformer_options(cfg)
     except ValueError as e:
@@ -559,7 +566,8 @@ def config_from_args(args):
         tfm_model=args.tfm_model, tfm_heads=args.tfm_heads, tfm_ff=args.tfm_ff,
         moe_experts=args.moe_experts, moe_top_k=args.moe_top_k, moe_capacity=args.moe_capacity,
         moe_every=args.moe_every, moe_group_size=args.moe_group_size,
-        moe_aux_weight=args.moe_aux_weight, tfm_stacked=args.tfm_stacked,
+        moe_aux_weight=args.moe_aux_weight, tfm_stacked=args.tfm_stacked or args.pp > 1,
+        pp=args.pp, pp_microbatches=args.pp_microbatches,
         lstm_hidden=args.lstm_hidden, induction_dim=args.induction_dim,
         routing_iters=args.routing_iters, ntn_slices=args.ntn_slices, lstm_cs_window=args.lstm_cs_window,
         lstm_residuals=args.lstm_residuals, lstm_backend=args.lstm_backend,
@@ -675,14 +683,16 @@ def dp_mesh(args, cfg):
     """The run's mesh, or None for one process (the JAX ``use_mesh``).
     Launched by torchrun, every rank joins the process group
     (``parallel.distributed``: NCCL on the card, gloo with ``--device cpu``)
-    and the mesh is the whole world or ``--dp`` ranks of it by ``--ep``,
-    ``--tp`` and ``--sp`` (the JAX axis order); without a launcher ``--dp``
-    0 or 1 with every other axis at 1 is the single-process run and more
-    raises. Refused by name under a mesh: the live lazy path, an episode
-    batch or an ``--adv`` instance batch that does not divide over the dp
-    ranks (the JAX text), a sharded axis that does not divide over tp or sp
-    (where JAX raises), and ``--adv`` under sp (``ADV_SP``); ``--pp``
-    stays refused by name before it (item 6d)."""
+    and the mesh is the whole world or ``--dp`` ranks of it by ``--pp``,
+    ``--ep``, ``--tp`` and ``--sp`` (the JAX axis order); without a
+    launcher ``--dp`` 0 or 1 with every other axis at 1 is the
+    single-process run and more raises. Refused by name under a mesh: the
+    live lazy path, an episode batch or an ``--adv`` instance batch that
+    does not divide over the dp ranks (the JAX text), a sharded axis that
+    does not divide over tp or sp (where JAX raises), under pp an encoder
+    call's rows per dp shard that do not split into ``--pp_microbatches``
+    (the JAX row check; an ``--adv`` instance batch with the JAX
+    ``gpipe_local`` text), and ``--adv`` under sp (``ADV_SP``)."""
     from induction_network_on_fewrel_tpu_torch.parallel.distributed import (
         maybe_initialize_distributed,
     )
@@ -690,9 +700,9 @@ def dp_mesh(args, cfg):
     from induction_network_on_fewrel_tpu_torch.parallel.tensor import check_tp_sizes
 
     if not maybe_initialize_distributed(device=args.device) and cfg.dp in (0, 1) \
-            and cfg.ep == cfg.tp == cfg.sp == 1:
+            and cfg.pp == cfg.ep == cfg.tp == cfg.sp == 1:
         return None
-    mesh = make_mesh(dp=cfg.dp or None, ep=cfg.ep, tp=cfg.tp, sp=cfg.sp)
+    mesh = make_mesh(dp=cfg.dp or None, pp=cfg.pp, ep=cfg.ep, tp=cfg.tp, sp=cfg.sp)
     if cfg.embed_optimizer == "lazy" and not cfg.token_cache:
         raise ValueError(
             "--embed_optimizer lazy does not combine with a device mesh on the LIVE token path "
@@ -718,6 +728,14 @@ def dp_mesh(args, cfg):
                              f"({mesh.sp}): the token axis shards over sp")
         if cfg.adv:
             raise ValueError(ADV_SP)
+    if mesh.pp > 1:
+        from induction_network_on_fewrel_tpu_torch.parallel.hostfeed import check_pipeline_rows
+        from induction_network_on_fewrel_tpu_torch.parallel.pipeline import microbatch_refusal
+
+        check_pipeline_rows(cfg, dp)
+        why = microbatch_refusal(cfg.adv_batch // dp, cfg.pp_microbatches) if cfg.adv else None
+        if why:
+            raise ValueError(f"--adv instance batches: {why}")
     return mesh
 
 
@@ -835,7 +853,8 @@ def make_trainer(args, cfg, only_test: bool = False, mesh=None):
         and not cfg.adv else 1
     train_s = PipelineFeed(train_s, prefetch_depth=cfg.prefetch_depth, unit=unit,
                            faults=FeedFaults.parse(cfg.feed_fault),
-                           stream_tag=f"mixture={cfg.mixture};seed={cfg.seed}")
+                           stream_tag=f"mixture={cfg.mixture};seed={cfg.seed}",
+                           process=(mesh.rank, mesh.dp) if mesh is not None else None)
     val_s, val_t = split_of("val", cfg.n, cfg.seed + 1)
     adv = adv_pieces(args, cfg, tok, datasets["train"], model, mesh) if cfg.adv else None
     run_dir = args.run_dir or args.save_ckpt

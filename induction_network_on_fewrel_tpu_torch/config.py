@@ -15,11 +15,11 @@ geometry tiers and the fleet's tier spread), the adaptation controller's
 ``adapt*`` policy, the host feed (sampler backend, prefetch, mixture, feed
 faults), the data-parallel knobs (``dp``, ``zero_opt``, ``compact_demb``,
 ``grad_bucketing``, ``grad_bucket_count``, ``async_collectives``;
-``parallel/``), the expert-, tensor- and sequence-parallel axes (``ep``,
-``tp``, ``sp``) and the seed. Names and defaults are the JAX package's, so a
-config built with the same keywords describes the same model in both
-packages, and the ``config.json`` a checkpoint writes loads into the JAX
-config too. The pipeline executor's knobs (pp) come with its slice.
+``parallel/``), the expert-, tensor-, sequence- and pipeline-parallel axes
+(``ep``, ``tp``, ``sp``, ``pp`` with ``pp_microbatches``) and the seed.
+Names and defaults are the JAX package's, so a config built with the same
+keywords describes the same model in both packages, and the
+``config.json`` a checkpoint writes loads into the JAX config too.
 
 ``resolve_quant_policy``, ``resolve_geometry_policy``,
 ``resolve_adapt_policy`` and ``parse_canary_plan`` are copies of the JAX
@@ -94,9 +94,10 @@ class ExperimentConfig:
     moe_group_size: int = 512  # tokens per routing group (memory knob)
     moe_aux_weight: float = 1e-2  # load-balance aux loss weight
     # Layer-stacked transformer (models/pipeline_transformer.py): the
-    # pipeline-parallel parameter layout, run as a loop over the layer axis
-    # on one card (the JAX package's pp=1).
+    # pipeline-parallel parameter layout. Forced on when pp > 1; alone it
+    # runs as a loop over the layer axis on one card (the JAX package's pp=1).
     tfm_stacked: bool = False
+    pp_microbatches: int = 4  # GPipe microbatches per step (pp > 1)
     # BERT (models/bert.py; random init unless --bert_weights names a
     # .npz of bert-base-uncased weights):
     bert_layers: int = 12
@@ -271,6 +272,9 @@ class ExperimentConfig:
     # the token axis shards over them, attention runs as a ring.
     tp: int = 1
     sp: int = 1
+    # Pipeline-parallel ranks (parallel/pipeline.py): the layer-stacked
+    # transformer's layer axis shards over them, the GPipe schedule.
+    pp: int = 1
 
     # Fields whose value shapes the parameters or the optimizer state: a
     # checkpoint restores only into a config that agrees on them.

@@ -58,12 +58,16 @@ def restore_sampler_state(sampler, state: dict, skip: int = 0) -> None:
         sampler.sample_batch()
 
 
-def current_layout(batch: int) -> dict:
-    """The layout fingerprint of this process: its rank and the world size
-    under data parallel (each rank's stream is its own), else 0 and 1."""
+def current_layout(batch: int, process: tuple[int, int] | None = None) -> dict:
+    """The layout fingerprint of this process's stream: ``process`` (its
+    index and count; under a mesh the dp index and size, which key the
+    streams: the pp, ep, tp and sp ranks of a dp index draw the same one),
+    else its rank and the world size under a process group, else 0 and 1."""
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
+    if process is not None:
+        pi, pc = process
+    elif dist.is_available() and dist.is_initialized():
         pc, pi = dist.get_world_size(), dist.get_rank()
     else:
         pc, pi = 1, 0

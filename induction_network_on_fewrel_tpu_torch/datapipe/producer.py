@@ -115,11 +115,13 @@ class PipelineFeed:
     1) behind a producer thread, a bounded queue and a serializable cursor.
     The trainer-facing surface is the base sampler's: ``sample_batch``,
     ``sample_fused`` (in fused mode), ``batch_size``, ``total_q``,
-    iteration and ``close``."""
+    iteration and ``close``. ``process`` (the stream's index and count:
+    under a mesh the dp index and size) goes into the cursor's layout
+    fingerprint (``cursor.current_layout``)."""
 
     def __init__(self, base, prefetch_depth: int = 2, unit: int = 1,
                  faults: FeedFaults | None = None, logger=None, stream_tag: str = "",
-                 stall_tick_s: float = 2.0):
+                 stall_tick_s: float = 2.0, process: tuple[int, int] | None = None):
         if prefetch_depth < 0:
             raise ValueError(f"prefetch_depth must be >= 0, got {prefetch_depth}")
         if unit < 1:
@@ -135,7 +137,7 @@ class PipelineFeed:
         self.logger = logger            # the trainer attaches its logger
         self.stream_tag = stream_tag
         self._stall_tick_s = stall_tick_s
-        self._layout = current_layout(base.batch_size)
+        self._layout = current_layout(base.batch_size, process)
 
         # Stream position, guarded by _lock.
         self._lock = threading.Lock()

@@ -8,9 +8,8 @@ alone over encoded rows (``models/bert.CachedFeatures``); its backbone is
 ``build_model(cfg.replace(feature_cache=False))``. The transformer takes
 the MoE FFN (``moe_experts > 0``, ``models/moe.py``; its experts shard
 over ``--ep`` ranks, ``parallel/expert.py``) or the layer-stacked layout
-(``tfm_stacked``, ``models/pipeline_transformer.py``) on one card; its
-pipeline executor (``--pp`` > 1) comes with ROADMAP item 6d
-(``LATER_SLICE``).
+(``tfm_stacked``, ``models/pipeline_transformer.py``), which ``--pp`` above
+1 implies (its layers then shard over the pp ranks, ``parallel/pipeline.py``).
 
 Device rule: ``device=None`` means "cuda". Without CUDA that raises, unless
 the caller asked for ``device="cpu"`` explicitly: there is no silent CPU
@@ -136,13 +135,6 @@ def check_kernel_widths(cfg: ExperimentConfig, device) -> None:
         )
 
 
-# The JAX package's sharded executor still to port: the ROADMAP queue A
-# item that brings it (the CLI refuses --pp above 1 and --pp_microbatches
-# by name with these).
-SHARDED = "ROADMAP queue A item 6d (the last sharded executor: pp, the GPipe schedule)"
-LATER_SLICE = {
-    "pp": SHARDED + "; --pp 1 with --tfm_stacked runs the layer-stacked transformer on one card",
-}
 # Combinations of the sharded axes the port refuses by name (ROADMAP queue
 # A lists each), where the JAX package runs them under GSPMD.
 SP_MOE = ("--sp with --moe_experts > 0 is not ported: under sp a rank's token columns straddle "
@@ -163,23 +155,46 @@ def refuse_later_slices(cfg: ExperimentConfig) -> None:
         raise ValueError(f"unknown encoder {cfg.encoder!r} (one of {ENCODERS})")
 
 
+# The JAX refusal of the stacked layout with MoE or ring attention
+# (build.py:179-183).
+STACKED_WITH = ("the layer-stacked (pipeline) transformer does not compose with MoE or ring "
+                "attention yet; drop --moe_experts/--sp")
+
+
+def is_stacked(cfg: ExperimentConfig) -> bool:
+    """The layer-stacked layout: ``--tfm_stacked``, or ``--pp`` above 1 (the
+    JAX ``cli.py:528``)."""
+    return cfg.tfm_stacked or cfg.pp > 1
+
+
 def check_transformer_options(cfg: ExperimentConfig) -> None:
     """Refuse by name an MoE or stacked configuration the model would
     silently not honor (the JAX ``build.py:159-182``): experts or the
     stacked layout off the transformer, MoE without an expert layer (or
     with no expert chosen per token), the stacked layout with MoE, and
     ``--ep`` above 1 without MoE on the transformer or with experts that do
-    not divide over it (the JAX ``cli.py:862-871``), and ``--sp`` above 1
-    off the transformer (the JAX ``cli.py:849-854``), with the stacked
-    layout (the JAX ``build.py:179-183``), or, by the port's refusals
-    (``SP_MOE``, ``AXES_WITH_EP``), with MoE or ``--ep``."""
+    not divide over it (the JAX ``cli.py:862-871``), ``--pp`` above 1 off
+    the transformer or with layers that do not divide over it (the JAX
+    ``cli.py:873-883``; pp implies the stacked layout, so pp with MoE or sp
+    is the stacked layout's refusal), and ``--sp`` above 1 off the
+    transformer (the JAX ``cli.py:849-854``), with the stacked layout (the
+    JAX ``build.py:179-183``), or, by the port's refusals (``SP_MOE``,
+    ``AXES_WITH_EP``), with MoE or ``--ep``."""
+    if cfg.pp > 1:
+        if cfg.encoder != "transformer":
+            raise ValueError("--pp (pipeline parallelism) requires --encoder transformer (stages "
+                             "are transformer layers)")
+        if cfg.tfm_layers % cfg.pp != 0:
+            raise ValueError(f"--tfm_layers ({cfg.tfm_layers}) must be divisible by --pp "
+                             f"({cfg.pp}) pipeline stages")
+        if cfg.moe_experts > 0:
+            raise ValueError(STACKED_WITH)
     if cfg.sp > 1:
         if cfg.encoder != "transformer":
             raise ValueError("--sp (ring attention) requires --encoder transformer; the "
                              f"{cfg.encoder} encoder has no sequence-parallel path")
-        if cfg.tfm_stacked:
-            raise ValueError("the layer-stacked (pipeline) transformer does not compose with MoE "
-                             "or ring attention yet; drop --moe_experts/--sp")
+        if is_stacked(cfg):
+            raise ValueError(STACKED_WITH)
         if cfg.moe_experts > 0:
             raise ValueError(SP_MOE)
     if cfg.ep > 1:
@@ -260,10 +275,12 @@ def build_encoder(cfg: ExperimentConfig, input_dim: int, device, gen: torch.Gene
     if cfg.encoder == "cnn":
         return CNNEncoder(input_dim, cfg.hidden_size, compute_dtype=compute, device=device,
                           generator=gen)
-    if cfg.encoder == "transformer" and cfg.tfm_stacked:
+    if cfg.encoder == "transformer" and is_stacked(cfg):
         return PipelinedTransformerEncoder(input_dim, cfg.tfm_layers, cfg.tfm_model,
                                            cfg.tfm_heads, cfg.tfm_ff, cfg.max_length,
-                                           compute_dtype=compute, device=device, generator=gen)
+                                           compute_dtype=compute,
+                                           microbatches=cfg.pp_microbatches, device=device,
+                                           generator=gen)
     if cfg.encoder == "transformer":
         return TransformerEncoder(input_dim, cfg.tfm_layers, cfg.tfm_model, cfg.tfm_heads,
                                   cfg.tfm_ff, cfg.max_length, compute_dtype=compute,

@@ -1,13 +1,21 @@
-"""Layer-stacked transformer encoder, the single-card path (the JAX package's pp=1).
+"""Layer-stacked transformer encoder, on one card or as pipeline stages.
 
 Counterpart of ``induction_network_on_fewrel_tpu/models/pipeline_transformer.py``
-(``block_apply``, ``sequential_blocks``, ``PipelinedTransformerEncoder``
-with ``pipeline_impl=None``): the math of ``models/transformer.py``
-(pre-LN blocks, learned positions, masked-mean pooling) with every
-per-layer parameter stacked along a leading layer axis ``[NL, ...]``
-(``stack_*`` leaves) instead of living in per-layer modules. That layout
-is what lets the JAX package shard the layer axis over a ``pp`` mesh axis;
-on one card the executor is a loop over the layer axis, the JAX scan.
+(``block_apply``, ``sequential_blocks``, ``PipelinedTransformerEncoder``):
+the math of ``models/transformer.py`` (pre-LN blocks, learned positions,
+masked-mean pooling) with every per-layer parameter stacked along a leading
+layer axis ``[NL, ...]`` (``stack_*`` leaves) instead of living in
+per-layer modules. That layout is what lets the layer axis shard over the
+``pp`` mesh axis.
+
+The executor is injectable, as the JAX ``pipeline_impl``:
+``pipeline_impl(block_fn, stacked, x, mask) -> x``. None is
+``sequential_blocks``, a loop over the layer axis (the JAX scan);
+``parallel/pipeline.attach_pipeline`` sets a ``PipeStage`` (the GPipe
+schedule) and keeps this rank's ``[NL/pp, ...]`` slice of every ``stack_*``
+leaf. A whole leaf (the one JAX-named tree a checkpoint holds) loading into
+a stage is sliced to the stage's layers, and ``parallel/expert.full_state_dict``
+gathers the slices back, so a checkpoint restores at any pp.
 
 JAX's op order where it differs from ``models/transformer.py``: its own
 ``_layer_norm`` (f32 statistics, the two-pass variance, epsilon 1e-6,
@@ -65,6 +73,15 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale + bias).to(x.dtype)
 
 
+def sequential_blocks(block_fn, stacked: dict, x: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """The reference executor: ``block_fn`` over the stacked layer axis, in
+    order (the JAX scan)."""
+    for i in range(next(iter(stacked.values())).shape[0]):
+        x = block_fn({name: leaf[i] for name, leaf in stacked.items()}, x, mask)
+    return x
+
+
 def block_apply(layer: dict, x: torch.Tensor, mask: torch.Tensor,
                 num_heads: int) -> torch.Tensor:
     """One pre-LN block with one layer's slice of the stack. x: [M, L, d];
@@ -93,13 +110,16 @@ class PipelinedTransformerEncoder(nn.Module):
 
     def __init__(self, input_dim: int, num_layers: int = 4, d_model: int = 256,
                  num_heads: int = 4, d_ff: int = 1024, max_length: int = 40,
-                 compute_dtype: torch.dtype = torch.float32, *, device,
+                 compute_dtype: torch.dtype = torch.float32, microbatches: int = 4, *, device,
                  generator: torch.Generator):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"tfm_model {d_model} is not a multiple of tfm_heads {num_heads}")
         self.num_layers, self.d_model, self.num_heads = num_layers, d_model, num_heads
         self.compute_dtype = compute_dtype
+        # The GPipe microbatches per encoder call under pp (--pp_microbatches).
+        self.microbatches = microbatches
+        self.pipeline_impl = None
         self.in_proj = Dense(input_dim, d_model, compute_dtype, device=device,
                              generator=generator)
         self.pos_embedding = normal_param(generator, (max_length, d_model), 0.02, device)
@@ -114,16 +134,33 @@ class PipelinedTransformerEncoder(nn.Module):
         self.final_ln_scale = nn.Parameter(torch.ones(d_model, device=device))
         self.final_ln_bias = nn.Parameter(torch.zeros(d_model, device=device))
 
+    def stacked(self) -> dict:
+        """{name: this module's ``stack_<name>`` leaf}, in ``STACK`` order."""
+        return {name: getattr(self, f"stack_{name}") for name, *_ in STACK}
+
+    def block_fn(self, layer: dict, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        return block_apply(layer, x, mask, self.num_heads)
+
     def forward(self, emb: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """emb [M, L, D], mask [M, L] -> [M, d_model]."""
         L = emb.shape[1]
         cd = self.compute_dtype
         x = self.in_proj(emb) + self.pos_embedding[None, :L].to(cd)
-        for i in range(self.num_layers):          # the JAX scan over the layer axis
-            layer = {name: getattr(self, f"stack_{name}")[i] for name, *_ in STACK}
-            x = block_apply(layer, x, mask, self.num_heads)
+        run = self.pipeline_impl or sequential_blocks
+        x = run(self.block_fn, self.stacked(), x, mask)
         x = layer_norm(x, self.final_ln_scale, self.final_ln_bias)
         return masked_mean(x, mask[..., None], dim=-2).to(cd)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # A whole stack leaf (the JAX layout) loading into a pipeline stage:
+        # this stage's layers.
+        stage = self.pipeline_impl
+        if stage is not None:
+            for name, *_ in STACK:
+                key, mine = prefix + f"stack_{name}", getattr(self, f"stack_{name}")
+                if key in state_dict and state_dict[key].shape[0] == mine.shape[0] * stage.pp:
+                    state_dict[key] = stage.cut(state_dict[key], 0)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     @property
     def output_dim(self) -> int:

@@ -125,9 +125,11 @@ def expert_mesh(model):
 
 def full_state_dict(model) -> dict:
     """``model.state_dict()`` in the JAX layout: every expert leaf whole,
-    gathered over the ep group, and every tp-sharded leaf whole, gathered
-    over the tp group (``parallel/tensor.py``): collectives at ep or tp > 1
-    (every rank calls it)."""
+    gathered over the ep group, every tp-sharded leaf whole, gathered over
+    the tp group (``parallel/tensor.py``), and every stack leaf whole,
+    gathered over the pp group (``parallel/pipeline.py``): collectives at
+    ep, tp or pp > 1 (every rank calls it)."""
+    from induction_network_on_fewrel_tpu_torch.parallel.pipeline import pp_leaves
     from induction_network_on_fewrel_tpu_torch.parallel.tensor import tp_leaves
 
     state = model.state_dict()
@@ -137,6 +139,8 @@ def full_state_dict(model) -> dict:
                  for k, v in state.items()}
     for name, axis, tpm in tp_leaves(model):
         state[name] = tpm.gather(state[name], axis, "tp/params_allgather")
+    for name, axis, stage in pp_leaves(model):
+        state[name] = stage.gather(state[name], axis, "pp/params_allgather")
     return state
 
 

@@ -94,6 +94,25 @@ class SumOut(torch.autograd.Function):
         return g, None, None
 
 
+def neighbour_hop(buf: torch.Tensor, group, size: int, to: int, frm: int,
+                  label: str) -> torch.Tensor:
+    """``buf`` (1-D) to index ``to`` of ``group`` (``size`` ranks); the
+    block from index ``frm``, back: the JAX ``ppermute`` of one hop, as ONE
+    ``all_to_all_single`` whose only non-empty splits are those two (a
+    neighbour exchange, never an all-gather). gloo refuses ``send``/``recv``
+    on CUDA tensors ("writev ... Bad address") and takes this one; NCCL
+    runs it as grouped send/recv. The sp ring (``parallel/ring.py``) and the
+    GPipe schedule (``parallel/pipeline.py``) hop through it."""
+    out = torch.empty_like(buf)
+    n = buf.numel()
+    send = [n if j == to else 0 for j in range(size)]
+    recv = [n if j == frm else 0 for j in range(size)]
+    dist.all_to_all_single(out, buf, output_split_sizes=recv, input_split_sizes=send,
+                           group=group)
+    COLLECTIVES[label] += 1
+    return out
+
+
 def bucket_index(path: str, n_buckets: int) -> int:
     """Bucket for a param-leaf path: stage scaled into [0, n_buckets)."""
     stage = _DEFAULT_STAGE
@@ -118,7 +137,7 @@ def grad_buckets_for(cfg, mesh, device=None) -> int:
         return 0
     if mesh.dp <= 1 and not mesh.live:
         return 0
-    if any(getattr(mesh, ax, 1) > 1 for ax in ("tp", "sp", "ep")) or \
+    if any(getattr(mesh, ax, 1) > 1 for ax in ("tp", "sp", "pp", "ep")) or \
             getattr(cfg, "moe_experts", 0) > 0:
         return 0
     on_card = (torch.device(device).type == "cuda" if device is not None

@@ -15,6 +15,8 @@ averaged over the ranks (``parallel/grad_buckets.py``).
   same episodes, drawn from the same stream (``process_seed`` of the dp
   index); an sp rank keeps its ``L/sp`` token columns of them
   (``local_token_columns``).
+* ``check_pipeline_rows``: under pp every encoder call's rows, per dp
+  shard, split into ``--pp_microbatches`` (the JAX ``cli.py:886-907``).
 * ``process_seed``: rank 0 keeps the seed (a one-rank run draws the
   single-process stream), rank p > 0 a splitmix64 avalanche of (seed, p).
 * ``PerRankSampler``: wraps the rank-local sampler (the C++ sampler of
@@ -59,6 +61,32 @@ def local_token_columns(mesh, length: int) -> tuple[int, int]:
         raise ValueError(f"the sequence length {length} must be divisible by --sp ({sp})")
     n = length // sp
     return getattr(mesh, "sp_rank", 0) * n, n
+
+
+def pipeline_row_counts(cfg) -> dict:
+    """The global rows of each encoder call a run makes (the JAX
+    ``row_counts``): train support and query, eval support and query."""
+    return {
+        "train support": cfg.batch_size * cfg.train_n * cfg.k,
+        "train query": cfg.batch_size * (cfg.train_n * cfg.q + cfg.na_rate * cfg.q),
+        "eval support": cfg.batch_size * cfg.n * cfg.k,
+        "eval query": cfg.batch_size * (cfg.n * cfg.q + cfg.na_rate * cfg.q),
+    }
+
+
+def check_pipeline_rows(cfg, dp: int) -> None:
+    """Raise (the JAX text) unless every encoder call's rows divide evenly
+    over ``dp`` shards and then into ``cfg.pp_microbatches``. Train shapes
+    are checked under ``--only_test`` too, as JAX does."""
+    mb = cfg.pp_microbatches
+    for what, rows in pipeline_row_counts(cfg).items():
+        if rows % dp != 0 or (rows // dp) % mb != 0:
+            raise ValueError(
+                f"{what} rows ({rows}) must divide evenly across "
+                f"dp={dp} shards and then into "
+                f"--pp_microbatches ({mb}); adjust --batch_size, "
+                f"--pp_microbatches, or the episode shape flags"
+            )
 
 
 def process_seed(seed: int, rank: int | None = None) -> int:

@@ -1,15 +1,18 @@
-"""The (dp, ep, tp, sp) layout of the ranks.
+"""The (dp, pp, ep, tp, sp) layout of the ranks.
 
 Counterpart of ``induction_network_on_fewrel_tpu/parallel/mesh.py``
 (``make_mesh``). There a ``jax.sharding.Mesh`` names the axes (dp, pp, ep,
 tp, sp) over the devices. Here one rank is one process on one device,
-numbered in the JAX axis order at pp=1: rank ``((d·ep + e)·tp + t)·sp + s``
-is index ``d`` on the dp axis, ``e`` on ep, ``t`` on tp and ``s`` on sp.
+numbered in the JAX axis order: rank ``(((d·pp + p)·ep + e)·tp + t)·sp + s``
+is index ``d`` on the dp axis, ``p`` on pp, ``e`` on ep, ``t`` on tp and
+``s`` on sp.
 
 * ``dp``: episodes shard over the dp axis; gradients are averaged over it.
-  ``Mesh.group`` is this rank's dp group, the ranks that share its ep, tp
-  and sp indices (the whole world at ep = tp = sp = 1): every gradient,
-  ZeRO-1 chunk, metric mean and MoE routing exchange runs over it.
+  ``Mesh.group`` is this rank's dp group, the ranks that share its pp, ep,
+  tp and sp indices (the whole world when every other axis is 1): every
+  gradient, ZeRO-1 chunk, metric mean and MoE routing exchange runs over it.
+* ``pp``: the layer-stacked transformer's layers shard over the pp axis and
+  run as the GPipe schedule (``parallel/pipeline.py``); ``Mesh.pp_group``.
 * ``ep``: the experts of each MoE layer shard over the ep axis
   (``parallel/expert.py``); ``Mesh.ep_group`` (None at ep=1).
 * ``tp``: the NTN's slices and the transformer's and BERT's MLP blocks
@@ -18,8 +21,7 @@ is index ``d`` on the dp axis, ``e`` on ep, ``t`` on tp and ``s`` on sp.
   ring (``parallel/ring.py``); ``Mesh.sp_group``.
 
 The ranks of one dp index hold the same episodes (``Mesh.rank`` is the dp
-index; ``parallel/hostfeed.py`` keys the feed by it). ``--pp`` above 1 is
-refused by name; it comes with ROADMAP queue A item 6d.
+index; ``parallel/hostfeed.py`` keys the feed by it).
 
 ``Mesh.group`` is the live process group, or None for a pure layout (the
 partition arithmetic of ``parallel/hostfeed.py``, tested without ranks).
@@ -37,9 +39,10 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``dp`` x ``ep`` x ``tp`` x ``sp`` ranks; this process is index
-    ``rank`` on the dp axis, ``ep_rank`` on ep, ``tp_rank`` on tp and
-    ``sp_rank`` on sp (each axis's group None at size 1)."""
+    """``dp`` x ``pp`` x ``ep`` x ``tp`` x ``sp`` ranks; this process is
+    index ``rank`` on the dp axis, ``pp_rank`` on pp, ``ep_rank`` on ep,
+    ``tp_rank`` on tp and ``sp_rank`` on sp (each axis's group None at size
+    1)."""
 
     dp: int
     rank: int = 0
@@ -53,6 +56,9 @@ class Mesh:
     sp: int = 1
     sp_rank: int = 0
     sp_group: object = None
+    pp: int = 1
+    pp_rank: int = 0
+    pp_group: object = None
 
     @property
     def live(self) -> bool:
@@ -62,21 +68,22 @@ class Mesh:
     @property
     def main(self) -> bool:
         """True on the one rank that writes (rank 0 of the world)."""
-        return self.rank == 0 and self.ep_rank == 0 and self.tp_rank == 0 and self.sp_rank == 0
+        return (self.rank == 0 and self.pp_rank == 0 and self.ep_rank == 0 and self.tp_rank == 0
+                and self.sp_rank == 0)
 
     @property
     def backend(self) -> str | None:
         return dist.get_backend(self.group) if self.group is not None else None
 
 
-def axis_groups(dp: int, ep: int, tp: int = 1, sp: int = 1) -> dict:
-    """{axis: [(ranks, group), ...]} over ``dp·ep·tp·sp`` ranks in the JAX
-    axis order: the groups of an axis hold the ranks that differ in that
-    index alone, one group per setting of the other indices, in rank order.
-    Only dp and the axes above 1 get groups. Every rank makes every group,
-    in this order (``new_group`` is collective): dp, ep, tp, sp."""
-    sizes = {"dp": dp, "ep": ep, "tp": tp, "sp": sp}
-    grid = np.arange(dp * ep * tp * sp).reshape(dp, ep, tp, sp)
+def axis_groups(dp: int, ep: int, tp: int = 1, sp: int = 1, pp: int = 1) -> dict:
+    """{axis: [(ranks, group), ...]} over ``dp·pp·ep·tp·sp`` ranks in the
+    JAX axis order: the groups of an axis hold the ranks that differ in
+    that index alone, one group per setting of the other indices, in rank
+    order. Only dp and the axes above 1 get groups. Every rank makes every
+    group, in this order (``new_group`` is collective): dp, pp, ep, tp, sp."""
+    sizes = {"dp": dp, "pp": pp, "ep": ep, "tp": tp, "sp": sp}
+    grid = np.arange(dp * pp * ep * tp * sp).reshape(dp, pp, ep, tp, sp)
     out = {}
     for i, (ax, n) in enumerate(sizes.items()):
         if ax == "dp" or n > 1:
@@ -85,24 +92,21 @@ def axis_groups(dp: int, ep: int, tp: int = 1, sp: int = 1) -> dict:
     return out
 
 
-def mesh_index(rank: int, ep: int, tp: int, sp: int) -> tuple[int, int, int, int]:
-    """(d, e, t, s) of world ``rank``: rank = ((d·ep + e)·tp + t)·sp + s."""
+def mesh_index(rank: int, ep: int, tp: int, sp: int, pp: int = 1) -> tuple:
+    """(d, p, e, t, s) of world ``rank``: rank = (((d·pp + p)·ep + e)·tp + t)·sp + s."""
     rest, s = divmod(rank, sp)
     rest, t = divmod(rest, tp)
-    d, e = divmod(rest, ep)
-    return d, e, t, s
+    rest, e = divmod(rest, ep)
+    d, p = divmod(rest, pp)
+    return d, p, e, t, s
 
 
 def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1,
               world_size: int | None = None) -> Mesh:
-    """The (dp, ep, tp, sp) mesh over this process's group (``dp=None`` ->
-    the rest of the world). ``world_size`` makes a pure layout of that many
-    ranks (no group, rank 0). The JAX validation: more ranks asked for than
-    there are raises; so does pp above 1, by name."""
-    if pp > 1:
-        from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE
-
-        raise ValueError(f"--pp {pp} is not ported yet: it comes with {LATER_SLICE['pp']}")
+    """The (dp, pp, ep, tp, sp) mesh over this process's group (``dp=None``
+    -> the rest of the world). ``world_size`` makes a pure layout of that
+    many ranks (no group, rank 0). The JAX validation: more ranks asked for
+    than there are raises."""
     group = None
     rank = 0
     if world_size is None:
@@ -124,12 +128,12 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1, ep: 
             f"dp*pp*ep*tp*sp={dp * other} leaves {n - dp * other} of the {n} ranks without "
             f"a shard: launch {dp * other} ranks (torchrun --nproc_per_node {dp * other}) or "
             "pass --dp 0 (the whole world)")
-    dp, ep, tp, sp = int(dp), int(ep), int(tp), int(sp)
-    if group is None or ep == tp == sp == 1:
-        return Mesh(dp=dp, rank=rank, group=group, ep=ep, tp=tp, sp=sp)
+    dp, pp, ep, tp, sp = int(dp), int(pp), int(ep), int(tp), int(sp)
+    if group is None or pp == ep == tp == sp == 1:
+        return Mesh(dp=dp, rank=rank, group=group, ep=ep, tp=tp, sp=sp, pp=pp)
     of = {ax: next(g for ranks, g in groups if rank in ranks)
-          for ax, groups in axis_groups(dp, ep, tp, sp).items()}
-    d, e, t, s = mesh_index(rank, ep, tp, sp)
+          for ax, groups in axis_groups(dp, ep, tp, sp, pp).items()}
+    d, p, e, t, s = mesh_index(rank, ep, tp, sp, pp)
     return Mesh(dp=dp, rank=d, group=of["dp"], ep=ep, ep_rank=e, ep_group=of.get("ep"),
                 tp=tp, tp_rank=t, tp_group=of.get("tp"), sp=sp, sp_rank=s,
-                sp_group=of.get("sp"))
+                sp_group=of.get("sp"), pp=pp, pp_rank=p, pp_group=of.get("pp"))

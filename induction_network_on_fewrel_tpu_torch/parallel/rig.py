@@ -38,8 +38,14 @@ training step a batch (``run_moe_case``; with the mesh None, the
 one-process reference), saving and restoring ring slots across ep
 (``restore_moe``) and the train and test CLI under the layout
 (``moe_cli``); ``moe_test_reference`` is one process's ``test`` of the
-episodes the dp ranks draw. The sharded executors still to port (tp, sp,
-pp) come with ROADMAP queue A item 6d.
+episodes the dp ranks draw.
+
+``dp_ts_cases`` runs the same cases under (dp, tp, sp) layouts
+(``TS_LAYOUTS``) and ``dp_pp_cases`` under (dp, pp, tp) layouts
+(``PP_LAYOUTS``): the GPipe executor over the layer-stacked transformer,
+its encoder alone against the sequential loop (``pipe_encoder``), the
+token-cache lazy step, the train and test CLI (``--resume`` too) and
+checkpoints across pp.
 """
 
 from __future__ import annotations
@@ -192,9 +198,12 @@ def run_case(payload: dict, overrides: dict, mesh, resume_at: int | None = None,
     materialized), the full moments ("mu/<name>", "nu/<name>", and the
     compact rows' "lazy/rows_m", "lazy/rows_v") and, under a mesh, the
     collectives issued per step beside the plan. With ``resume_at`` the
-    state is materialized after that many steps and, on rank 0, saved to
-    ``ckpt_dir`` as a recovery-ring slot (the trainer's save: gathered
-    moments)."""
+    state is materialized after that many steps and, on the world's rank
+    0, saved to ``ckpt_dir`` as a recovery-ring slot (the trainer's save:
+    every sharded leaf and moment gathered); with ``payload["state_at"]``
+    the parameters and moments after that many steps are kept too
+    ("params_at", "moments_at"); "seconds" leaves both out."""
+    from induction_network_on_fewrel_tpu_torch.parallel.expert import FullModel
     from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import COLLECTIVES
     from induction_network_on_fewrel_tpu_torch.train.checkpoint import CheckpointManager
     from induction_network_on_fewrel_tpu_torch.train.framework import SavedOptimizer
@@ -206,30 +215,48 @@ def run_case(payload: dict, overrides: dict, mesh, resume_at: int | None = None,
     losses, norms = [], []
     issued: collections.Counter = collections.Counter()
     out: dict = {}
+
+    def state() -> tuple[dict, dict]:
+        """(parameters, moments) as numpy copies, the lazy table
+        materialized, every sharded leaf gathered (collectives under a
+        mesh)."""
+        lazy.materialize(opt.count)
+        full = opt.state_dict()
+        moments = {f"{kind}/{n}": x.float().cpu().numpy() for kind in ("mu", "nu")
+                   for n, x in zip(opt.names, full[kind]) if x is not None}
+        moments["lazy/rows_m"] = lazy.rows_m.cpu().numpy().copy()
+        moments["lazy/rows_v"] = lazy.rows_v.cpu().numpy().copy()
+        return {k: v.copy() for k, v in numpy_state(model).items()}, moments
+
     t0 = time.monotonic()
     for i, batch in enumerate(payload["batches"]):
+        if i == payload.get("state_at"):
+            t_state = time.monotonic()
+            out["params_at"], out["moments_at"] = state()
+            t0 += time.monotonic() - t_state
         if resume_at is not None and i == resume_at:
+            t_save = time.monotonic()
             lazy.materialize(opt.count)
             saved = SavedOptimizer(opt.state_dict())
-            if mesh is None or mesh.rank == 0:
+            whole = FullModel(model) if mesh is not None else model     # every rank gathers
+            if mesh is None or mesh.main:
                 mgr = CheckpointManager(ckpt_dir, cfg.replace(ckpt_delta="off"))
-                mgr.save_latest(i, model, saved, lazy=lazy)
+                mgr.save_latest(i, whole, saved, lazy=lazy)
                 mgr.close()
             if dp is not None:
                 dp.barrier()
+            t0 += time.monotonic() - t_save
         before = collections.Counter(COLLECTIVES)
         m = step(*local_rows(batch, mesh))
         issued += COLLECTIVES - before
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     out["seconds"] = time.monotonic() - t0
-    lazy.materialize(opt.count)
-    full = opt.state_dict()
-    moments = {f"{kind}/{n}": x.float().cpu().numpy() for kind in ("mu", "nu")
-               for n, x in zip(opt.names, full[kind]) if x is not None}
-    moments["lazy/rows_m"] = lazy.rows_m.cpu().numpy()
-    moments["lazy/rows_v"] = lazy.rows_v.cpu().numpy()
-    out.update(losses=losses, grad_norms=norms, params=numpy_state(model), moments=moments)
+    params, moments = state()
+    out.update(losses=losses, grad_norms=norms, params=params, moments=moments,
+               local_shapes={n: tuple(p.shape) for n, p in model.named_parameters()},
+               local_moment_shapes={n: tuple(x.shape) for n, x in zip(opt.names, opt.mu)
+                                    if x is not None})
     if opt.zero is not None:
         out["zero_shards"] = {opt.names[i]: (int(n), int(opt.params[i].numel()))
                               for i, (_, n) in opt.zero.shards.items()}
@@ -557,6 +584,7 @@ def run_moe_case(payload: dict, variant: str, mesh, save_dir: str | None = None)
     from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import COLLECTIVES
     from induction_network_on_fewrel_tpu_torch.train.framework import SavedOptimizer
     from induction_network_on_fewrel_tpu_torch.models.losses import LOSS_FNS
+    from induction_network_on_fewrel_tpu_torch.parallel.pipeline import pp_leaves
     from induction_network_on_fewrel_tpu_torch.parallel.tensor import tp_leaves
     from induction_network_on_fewrel_tpu_torch.train.steps import (
         _backward,
@@ -588,14 +616,17 @@ def run_moe_case(payload: dict, variant: str, mesh, save_dir: str | None = None)
     loss = LOSS_FNS[cfg.loss](logits, lab) + aux_weight(cfg) * aux
     _backward(loss, dp)
     em = layers[0].dist if layers else None
-    split = {n: (axis, tpm) for n, axis, tpm in tp_leaves(model)}
+    split = {n: (axis, m, kind) for kind, leaves in (("tp", tp_leaves(model)),
+                                                     ("pp", pp_leaves(model)))
+             for n, axis, m in leaves}
     grads = {}
     for n, p in model.named_parameters():
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         if em is not None and em.ep > 1 and is_expert_leaf(n):
             g = em.gather_experts(g, "ep/experts_allgather")
         if n in split:
-            g = split[n][1].gather(g, split[n][0], "tp/params_allgather")
+            axis, m, kind = split[n]
+            g = m.gather(g, axis, f"{kind}/params_allgather")
         grads[n] = np.array(g.float().cpu())
     opt.zero_grad()
     out.update(logits=logits.detach().float().cpu().numpy(), aux=float(aux.detach()),
@@ -605,7 +636,7 @@ def run_moe_case(payload: dict, variant: str, mesh, save_dir: str | None = None)
     # steps are held to eager ones elsewhere).
     step = (make_train_step(model, opt, cfg, dp=dp) if dp is not None else
             functools.partial(train_step, model, opt, cfg))
-    losses, norms, drops = [], [], []
+    losses, norms, drops, digests = [], [], [], []
     issued: collections.Counter = collections.Counter()
     t0 = time.monotonic()
     for i, batch in enumerate(batches):
@@ -615,9 +646,15 @@ def run_moe_case(payload: dict, variant: str, mesh, save_dir: str | None = None)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         drops.append([float(layer.drop_share) for layer in layers])
+        if payload.get("step_digests"):
+            digests.append(replicated_digest(model))
         if i + 1 == MOE_DP_AT:
             out["params_at"] = full_numpy(model, opt)[0]
     out["seconds"] = time.monotonic() - t0
+    out["step_digests"] = digests
+    out["local_shapes"] = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    out["local_moment_shapes"] = {n: tuple(x.shape) for n, x in zip(opt.names, opt.mu)
+                                  if x is not None}
     out["params"], out["moments"] = full_numpy(model, opt)
     out.update(losses=losses, grad_norms=norms, drops=drops)
     if dp is not None:
@@ -634,6 +671,24 @@ def run_moe_case(payload: dict, variant: str, mesh, save_dir: str | None = None)
         if dp is not None:
             dp.barrier()
     return out
+
+
+def replicated_digest(model) -> str:
+    """A digest of this rank's replicated leaves (every leaf but the ep-,
+    tp- and pp-sharded ones): equal on every rank of a world."""
+    import hashlib
+
+    from induction_network_on_fewrel_tpu_torch.parallel.expert import is_expert_leaf
+    from induction_network_on_fewrel_tpu_torch.parallel.pipeline import pp_leaves
+    from induction_network_on_fewrel_tpu_torch.parallel.tensor import tp_leaves
+
+    sharded = {n for n, *_ in tp_leaves(model)} | {n for n, *_ in pp_leaves(model)}
+    h = hashlib.sha256()
+    for n, p in model.named_parameters():
+        if n not in sharded and not is_expert_leaf(n):
+            h.update(n.encode())
+            h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def restore_moe(payload: dict, variant: str, mesh, src: str) -> dict:
@@ -655,7 +710,7 @@ def restore_moe(payload: dict, variant: str, mesh, src: str) -> dict:
 
 def cli_under(mode: str, argv: list, mesh) -> dict:
     """``cli.main([mode, *argv])`` under ``mesh``'s layout (``--dp``,
-    ``--ep``, ``--tp``, ``--sp``): its exit code, on rank 0 its result line,
+    ``--ep``, ``--tp``, ``--sp``, ``--pp``): its exit code, on rank 0 its result line,
     and the end of its stderr."""
     import contextlib
     import io
@@ -664,7 +719,7 @@ def cli_under(mode: str, argv: list, mesh) -> dict:
     from induction_network_on_fewrel_tpu_torch import cli
 
     flags = ["--dp", str(mesh.dp), "--ep", str(mesh.ep), "--tp", str(mesh.tp), "--sp",
-             str(mesh.sp)]
+             str(mesh.sp), "--pp", str(mesh.pp)]
     buf, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         rc = cli.main([mode, *argv, *flags])
@@ -769,32 +824,34 @@ def ts_name(dp: int, tp: int, sp: int) -> str:
     return f"dp{dp}_tp{tp}_sp{sp}"
 
 
-def ts_cases(payload: dict, mesh_of, restores: tuple = ()) -> dict:
+def ts_cases(payload: dict, mesh_of, restores: tuple = (), name_of=ts_name) -> dict:
     """Every (variant, (dp, tp, sp)) of ``payload["cases"]`` under a mesh
     from ``mesh_of``, in turn (``run_moe_case``: forward, gradients, eval
     metrics, steps); ``payload["saves"]`` {(variant, layout): directory}
     saves that case's end state; ``payload["cli"]`` {layout: (argv, train
     argv, directory)} runs the train and test CLI under it;
     ``payload["cli_paths"]`` [(name, (dp, tp, sp), argv)] runs ``cli train``
-    under that layout ("cli_path/<name>/<layout>");
+    under that layout, in order ("cli_path/<name>/<layout>"), then
+    ``payload["cli_tests"]`` the same way ``cli test`` ("cli_test/...");
     ``payload["lazy_cases"]`` [(name, (dp, tp, sp)[, spelling])] runs the
     token-cache lazy step (``run_cases`` on ``payload["lazy"][name]``, in
     that ``CASES`` spelling, default "compact") under that layout
     ("lazy/<name>/<layout>"). Then each
     (variant, dp, tp, sp, directory) of ``restores`` restores that ring slot
-    under its layout ("restored/<variant>/<layout>")."""
+    under its layout ("restored/<variant>/<layout>"). ``name_of`` names a
+    layout (``pp_name`` for the (dp, pp, tp) layouts of ``pp_cases``)."""
     out: dict = {}
     meshes: dict = {}
     for name, lay, *spelling in payload.get("lazy_cases", ()):
         case = spelling[0] if spelling else "compact"
         if lay not in meshes:
             meshes[lay] = mesh_of(*lay)
-        out[f"lazy/{name}/{ts_name(*lay)}"] = run_cases(
+        out[f"lazy/{name}/{name_of(*lay)}"] = run_cases(
             {**payload["lazy"][name], "cases": [case]}, meshes[lay])[case]
     for variant, lay in payload["cases"]:
         if lay not in meshes:
             meshes[lay] = mesh_of(*lay)
-        name = ts_name(*lay)
+        name = name_of(*lay)
         out.setdefault(name, {})[variant] = run_moe_case(
             payload, variant, meshes[lay], payload.get("saves", {}).get((variant, name)))
     for name, (argv, train_argv, d) in payload.get("cli", {}).items():
@@ -802,15 +859,18 @@ def ts_cases(payload: dict, mesh_of, restores: tuple = ()) -> dict:
         if lay not in meshes:
             meshes[lay] = mesh_of(*lay)
         out.setdefault(name, {})["cli"] = moe_cli(argv, train_argv, meshes[lay], d)
-    for path, lay, argv in payload.get("cli_paths", ()):
+    for mode in ("train", "test"):
+        for path, lay, argv in payload.get("cli_paths" if mode == "train" else "cli_tests", ()):
+            if lay not in meshes:
+                meshes[lay] = mesh_of(*lay)
+            out[f"cli_{'path' if mode == 'train' else 'test'}/{path}/{name_of(*lay)}"] = \
+                cli_under(mode, argv, meshes[lay])
+    for variant, *lay, src in restores:
+        lay = tuple(lay)
         if lay not in meshes:
             meshes[lay] = mesh_of(*lay)
-        out[f"cli_path/{path}/{ts_name(*lay)}"] = cli_under("train", argv, meshes[lay])
-    for variant, dp, tp, sp, src in restores:
-        if (dp, tp, sp) not in meshes:
-            meshes[(dp, tp, sp)] = mesh_of(dp, tp, sp)
-        out[f"restored/{variant}/{ts_name(dp, tp, sp)}"] = restore_moe(
-            payload, variant, meshes[(dp, tp, sp)], src)
+        out[f"restored/{variant}/{name_of(*lay)}"] = restore_moe(payload, variant, meshes[lay],
+                                                                 src)
     return out
 
 
@@ -821,6 +881,78 @@ def dp_ts_cases(rank: int, world: int, payload: dict) -> dict:
 
     mine = {**payload, **payload["worlds"][world]}
     return ts_cases(mine, lambda dp, tp, sp: make_mesh(dp=dp, tp=tp, sp=sp),
+                    mine.get("restores", ()))
+
+
+# --- pipeline parallel ------------------------------------------------------------
+
+# The (dp, pp, tp) layouts a world of each size runs, in turn.
+PP_LAYOUTS = {2: ((1, 2, 1),), 4: ((2, 2, 1), (1, 2, 2), (1, 4, 1))}
+
+
+def pp_name(dp: int, pp: int, tp: int) -> str:
+    return f"dp{dp}_pp{pp}_tp{tp}"
+
+
+def pipe_encoder(payload: dict, mesh) -> dict:
+    """The layer-stacked encoder alone (``payload["encoder"]``'s widths,
+    ``payload["weights"]`` loaded whole) on ``mesh``'s pp axis (None: the
+    loop), at each microbatch count of ``payload["microbatches"]``: the
+    forward of ``payload["emb"]`` and ``payload["mask"]``, the same forward
+    without a gradient, and the gradients of ``Σ out ⊙ R`` for the input and
+    every leaf (the stack leaves gathered whole)."""
+    from induction_network_on_fewrel_tpu_torch.models.pipeline_transformer import (
+        PipelinedTransformerEncoder,
+    )
+    from induction_network_on_fewrel_tpu_torch.parallel.pipeline import (
+        attach_pipeline,
+        pp_leaves,
+    )
+
+    out = {}
+    mask = torch.as_tensor(payload["mask"])
+    for m in payload["microbatches"]:
+        holder = torch.nn.Module()
+        holder.encoder = PipelinedTransformerEncoder(
+            **payload["encoder"], microbatches=m, device="cpu",
+            generator=torch.Generator().manual_seed(0))
+        if mesh is not None:
+            attach_pipeline(holder, mesh)
+        holder.load_state_dict({f"encoder.{k}": torch.as_tensor(v)
+                                for k, v in payload["weights"].items()})
+        x = torch.tensor(payload["emb"], requires_grad=True)
+        y = holder.encoder(x, mask)
+        (y * torch.as_tensor(payload["R"])).sum().backward()
+        grads = {n: p.grad for n, p in holder.named_parameters()}
+        for n, axis, stage in pp_leaves(holder):
+            grads[n] = stage.gather(grads[n], axis, "pp/params_allgather")
+        with torch.no_grad():
+            y_eval = holder.encoder(x.detach(), mask)
+        out[m] = {"out": y.detach().numpy(), "eval": y_eval.numpy(), "x_grad": x.grad.numpy(),
+                  "grads": {n.removeprefix("encoder."): g.numpy() for n, g in grads.items()},
+                  "local_shapes": {n: tuple(p.shape) for n, p in holder.named_parameters()}}
+    return out
+
+
+def pp_cases(payload: dict, mesh_of, restores: tuple = ()) -> dict:
+    """``ts_cases`` over (dp, pp, tp) layouts (``pp_name``), and, when
+    ``payload["encoder_pp"]`` is this world's pp, the encoder alone
+    (``pipe_encoder``, "encoder") on a (dp=1, pp) mesh."""
+    out = {}
+    if payload.get("encoder_pp"):
+        out["encoder"] = pipe_encoder(payload["encoder_case"],
+                                      mesh_of(1, payload["encoder_pp"], 1))
+    out.update(ts_cases(payload, mesh_of, restores, name_of=pp_name))
+    return out
+
+
+def dp_pp_cases(rank: int, world: int, payload: dict) -> dict:
+    """A rank's ``pp_cases`` over the cases of its world size
+    (``payload["worlds"][world]``: that world's payload keys)."""
+    from induction_network_on_fewrel_tpu_torch.parallel.mesh import make_mesh
+
+    mine = {**payload, **payload["worlds"][world]}
+    return pp_cases(mine, lambda dp, pp, tp: make_mesh(dp=dp, pp=pp, tp=tp),
                     mine.get("restores", ()))
 
 

@@ -16,12 +16,9 @@ same episodes (``parallel/hostfeed.py``), and the encoder runs on the rank's
   (``offset``): its gradient lands on those rows alone;
 * attention is the ring (``RingAttention``, the JAX ``ring_attention_local``):
   each rank keeps its query block; k, v and the key mask travel one hop a
-  step around the sp group (``ring_hop``: the JAX ``ppermute``, one
-  ``all_to_all_single`` whose only non-empty splits are the block to the
-  next rank and the one from the previous: a neighbour exchange, O(L/sp)
-  a hop, never an all-gather. gloo refuses ``send``/``recv`` on CUDA
-  tensors, "writev ... Bad address", and takes this one; NCCL runs it as
-  grouped send/recv); the online max
+  step around the sp group (``ring_hop``: the JAX ``ppermute``, the
+  neighbour exchange ``grad_buckets.neighbour_hop`` that the GPipe schedule
+  shares, O(L/sp) a hop, never an all-gather); the online max
   and denominator run in f32 and a masked score is -1e30. The forward makes
   ``sp - 1`` hops (the JAX scan's last hop only brings the blocks home).
   Its backward is the mirrored ring, spelled by hand: it recomputes each
@@ -47,9 +44,8 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 
-from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import COLLECTIVES, SumOut
+from induction_network_on_fewrel_tpu_torch.parallel.grad_buckets import SumOut, neighbour_hop
 
 _NEG = -1e30
 
@@ -67,15 +63,9 @@ def dense_attention(q, k, v, kv_mask=None):
 
 def ring_hop(buf: torch.Tensor, shard: "SequenceShard") -> torch.Tensor:
     """``buf`` (1-D) to the next rank of the sp ring; the previous rank's,
-    back."""
-    out = torch.empty_like(buf)
-    n, sp = buf.numel(), shard.sp
-    send = [n if j == shard.next_index else 0 for j in range(sp)]
-    recv = [n if j == shard.prev_index else 0 for j in range(sp)]
-    dist.all_to_all_single(out, buf, output_split_sizes=recv, input_split_sizes=send,
-                           group=shard.group)
-    COLLECTIVES["sp/ring_hop"] += 1
-    return out
+    back (``grad_buckets.neighbour_hop``)."""
+    return neighbour_hop(buf, shard.group, shard.sp, shard.next_index, shard.prev_index,
+                         "sp/ring_hop")
 
 
 def _pack(*ts: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """The dp parts of sharding: ZeRO-1, the compact table gradient, the dp step.
 
 Counterpart of ``induction_network_on_fewrel_tpu/parallel/sharding.py``
-for ``dp`` (pp comes with ROADMAP queue A item 6d; the ep rules and the
-MoE layers on a mesh are ``parallel/expert.py``, the tp rules
-``parallel/tensor.py``, the sp executor ``parallel/ring.py``). There
+for ``dp`` (the ep rules and the MoE layers on a mesh are
+``parallel/expert.py``, the tp rules ``parallel/tensor.py``, the sp
+executor ``parallel/ring.py``, the pp rules and executor
+``parallel/pipeline.py``). There
 GSPMD partitions one program over the mesh; here each rank runs the step
 on its own ``B/dp`` episodes and these pieces make the ranks one
 optimizer:
@@ -48,6 +49,13 @@ optimizer:
   column-split blocks' biases are assembled over tp and the token-partial
   leaves summed over sp (``finish``); the gradients stay monolithic (the
   JAX bucket rule on a mesh with another axis above 1).
+* pp (``parallel/pipeline.py``, attached by ``attach_parallel``): each
+  stage's optimizer holds its own stack slices and their moments
+  (``ClipDecayOptimizer.shard_pipeline``); the replicated leaves come out
+  of the backward equal on every stage, so every gradient is averaged over
+  the stage's dp group alone; ZeRO-1 chunks the stage's replicated leaves
+  over that group and leaves the stack slices whole (the JAX
+  ``state_shardings``); the gradients stay monolithic.
 """
 
 from __future__ import annotations
@@ -204,15 +212,18 @@ def attach_parallel(model, mesh) -> None:
     """Put ``model``'s sharded parts on the live ``mesh``, before its
     optimizer is made (each makes new parameters or hooks): the MoE layers
     (``parallel/expert.attach_experts``), the tp-sharded modules
-    (``parallel/tensor.attach_tensor``) and the sp encoder
-    (``parallel/ring.attach_sequence``)."""
+    (``parallel/tensor.attach_tensor``), the sp encoder
+    (``parallel/ring.attach_sequence``) and the pipeline stage
+    (``parallel/pipeline.attach_pipeline``)."""
     from induction_network_on_fewrel_tpu_torch.parallel.expert import attach_experts
+    from induction_network_on_fewrel_tpu_torch.parallel.pipeline import attach_pipeline
     from induction_network_on_fewrel_tpu_torch.parallel.ring import attach_sequence
     from induction_network_on_fewrel_tpu_torch.parallel.tensor import attach_tensor
 
     attach_experts(model, mesh)
     attach_tensor(model, mesh)
     attach_sequence(model, mesh)
+    attach_pipeline(model, mesh)
 
 
 class DataParallel:
@@ -242,6 +253,7 @@ class DataParallel:
         self.ep = mesh.ep
         self.encoder_calls = 3 if disc is not None else 1
         self._tensor_and_sequence(model, opt, mesh, lazy)
+        self._pipeline(model, opt, mesh)
         self.group, self.world, self.rank = mesh.group, mesh.dp, mesh.rank
         device = model.device
         self.n_buckets = grad_buckets_for(cfg, mesh, device)
@@ -308,6 +320,17 @@ class DataParallel:
                 self.partial.append(lazy.rows)
             self.attn_layers = model.encoder.num_layers
 
+    def _pipeline(self, model, opt, mesh) -> None:
+        """The pp part: this stage's stack slices on the optimizer."""
+        from induction_network_on_fewrel_tpu_torch.parallel.pipeline import pipe_stage
+
+        self.pp, self.stage = mesh.pp, pipe_stage(model)
+        if mesh.live and mesh.pp > 1:
+            if self.stage is None:
+                raise ValueError("the model's pipeline stage is put on the mesh "
+                                 "(parallel/pipeline.attach_pipeline) before its optimizer is made")
+            opt.shard_pipeline(model)
+
     def _sum_over(self, leaves: list, group, label: str) -> None:
         """Every leaf's gradient <- its sum over ``group``, in one flat
         all-reduce."""
@@ -330,8 +353,9 @@ class DataParallel:
         issue, by kind (``COLLECTIVES``' labels): each step's reductions and
         gathers (an MoE layer's per encoder call: one routing all-gather,
         and at ep > 1 the combine's all-reduce and the two backward
-        all-reduces; the expert norm's once a step), and the loss and
-        accuracy mean once a call."""
+        all-reduces; the expert norm's once a step; at pp > 1 an encoder
+        call's m + S - 2 hops each way and its two sums over pp, the stack
+        norm's once a step), and the loss and accuracy mean once a call."""
         out = {label: steps for r in self.reducers for label in r.labels}
         if self.moe_layers and self.mesh.live:
             calls = steps * self.moe_layers * self.encoder_calls
@@ -352,6 +376,10 @@ class DataParallel:
         if self.sp > 1:
             out.update({"sp/ring_hop": calls * self.attn_layers * (2 * self.sp - 1),
                         "sp/pool_allreduce": calls, "sp/grad_allreduce": steps})
+        if self.pp > 1:
+            out.update({"pp/hop": calls * 2 * self.stage.hops_per_call(),
+                        "pp/out_allreduce": calls, "pp/input_grad_allreduce": calls,
+                        "pp/norm_allreduce": steps})
         if self.gathered_cotangent:
             out.update({"demb/cotangent_allgather": steps, "demb/ids_allgather": steps})
         if self.zero is not None:

@@ -251,7 +251,7 @@ class FewShotTrainer:
         if mesh is not None:
             from induction_network_on_fewrel_tpu_torch.parallel.sharding import attach_parallel
 
-            attach_parallel(model, mesh)    # before the optimizer: ep and tp keep a slice
+            attach_parallel(model, mesh)    # before the optimizer: ep, tp and pp keep a slice
         self.opt = make_optimizer(cfg, model)
         self.lazy = None
         if cfg.embed_optimizer == "lazy":
@@ -532,7 +532,7 @@ class FewShotTrainer:
         parallel all three are gathered from every rank (collectives: every
         rank calls this at the same boundary): the model whole
         (``parallel/expert.FullModel``: the expert leaves gathered over ep,
-        the tp-sharded leaves over tp),
+        the tp-sharded leaves over tp, the stack leaves over pp),
         the optimizer as a ``SavedOptimizer`` of its full moments (ZeRO-1's
         chunks and the experts' gathered), the streams as rank 0's with
         every dp rank's under "ranks"."""
@@ -540,7 +540,8 @@ class FewShotTrainer:
             return self.model, self.opt, self.sampler_states()
         from induction_network_on_fewrel_tpu_torch.parallel.expert import FullModel
 
-        model = FullModel(self.model) if self.dp.ep > 1 or self.dp.tp > 1 else self.model
+        sharded = self.dp.ep > 1 or self.dp.tp > 1 or self.dp.pp > 1
+        model = FullModel(self.model) if sharded else self.model
         return model, SavedOptimizer(self.opt.state_dict()), self.sampler_states()
 
     def save_latest(self, step: int, snap: tuple | None = None) -> None:

@@ -150,7 +150,9 @@ class ClipDecayOptimizer:
     them whole, ``state_dict`` gathers their moments and
     ``load_state_dict`` slices full ones. ``shard_tensor`` (tensor
     parallel, ``parallel/tensor.py``): the same for the tp-sharded leaves
-    over the tp group, each along its axis."""
+    over the tp group, each along its axis; ``shard_pipeline`` (pipeline
+    parallel, ``parallel/pipeline.py``): for the stack leaves over the pp
+    group, along their layer axis."""
 
     def __init__(self, params, lr: float, weight_decay: float, lr_step_size: int,
                  lr_gamma: float, grad_clip: float, rules=None, b1: float = 0.9,
@@ -162,6 +164,7 @@ class ClipDecayOptimizer:
         self.ep = None
         self.ep_leaves: frozenset = frozenset()
         self.tp_leaves: dict = {}
+        self.pp_leaves: dict = {}
         self.rules = list(rules) if rules is not None else ["adam"] * len(self.params)
         if len(self.rules) != len(self.params):
             raise ValueError(f"{len(self.rules)} rules for {len(self.params)} parameters")
@@ -221,14 +224,39 @@ class ClipDecayOptimizer:
         index = {n: k for k, n in enumerate(self.names)}
         self.tp_leaves = {index[n]: (axis, tpm) for n, axis, tpm in tp_leaves(model)}
 
+    def shard_pipeline(self, model) -> None:
+        """The stack leaves of ``model`` (``parallel/pipeline.pp_leaves``)
+        are this stage's slices over its pp group."""
+        from induction_network_on_fewrel_tpu_torch.parallel.pipeline import pp_leaves
+
+        index = {n: k for k, n in enumerate(self.names)}
+        self.pp_leaves = {index[n]: (axis, stage) for n, axis, stage in pp_leaves(model)}
+
+    def _split(self, k: int):
+        """(axis, mesh, size, label) of a tp- or pp-sharded leaf ``k``, else None."""
+        if k in self.tp_leaves:
+            axis, tpm = self.tp_leaves[k]
+            return axis, tpm, tpm.tp, "tp"
+        if k in self.pp_leaves:
+            axis, stage = self.pp_leaves[k]
+            return axis, stage, stage.pp, "pp"
+        return None
+
+    def _kind(self, k: int) -> str | None:
+        """The axis leaf ``k`` shards over ("ep", "tp", "pp"), else None."""
+        if k in self.ep_leaves:
+            return "ep"
+        split = self._split(k)
+        return split[3] if split is not None else None
+
     def shard(self, mesh, n_buckets: int = 0) -> None:
         """ZeRO-1 over ``mesh``: keep this rank's chunk of every moment
         leaf whose size divides the world (the rest stay whole; so do the
-        expert and tp-sharded leaves, sharded over ep or tp already)."""
+        expert, tp- and pp-sharded leaves, sharded over ep, tp or pp
+        already)."""
         from induction_network_on_fewrel_tpu_torch.parallel.sharding import Zero1
 
-        leaves = [k for k in self._live if self.mu[k] is not None and k not in self.ep_leaves
-                  and k not in self.tp_leaves]
+        leaves = [k for k in self._live if self.mu[k] is not None and self._kind(k) is None]
         self.zero = Zero1(self.names, self.params, leaves, mesh, n_buckets)
         for k in self.zero.shards:
             self.mu[k] = self.zero.view(k, self.mu[k]).clone()
@@ -257,8 +285,9 @@ class ClipDecayOptimizer:
         returns the global gradient norm before the clip (a fresh f32
         device scalar)."""
         params, grads, _, _, _ = self._table()
-        norm = optim_sumsq(params, grads, self._ws) if self.ep is None and not self.tp_leaves \
-            else self._sharded_norm(params, grads)
+        norm = (optim_sumsq(params, grads, self._ws)
+                if self.ep is None and not self.tp_leaves and not self.pp_leaves
+                else self._sharded_norm(params, grads))
         params, grads, mus, nus, rules = self._table(update=self.zero is not None)
         optim_update(params, grads, mus, nus, rules, norm, self.count, self.hyper, self._ws)
         if self.zero is not None:
@@ -266,15 +295,14 @@ class ClipDecayOptimizer:
         return norm.reshape(())
 
     def _sharded_norm(self, params, grads) -> torch.Tensor:
-        """The global norm [1] under expert or tensor parallelism: the
-        replicated leaves' squares (the same on every ep and tp rank) plus
-        the expert leaves' summed over the ep group and the tp-sharded
-        leaves' over the tp group."""
+        """The global norm [1] under expert, tensor or pipeline parallelism:
+        the replicated leaves' squares (the same on every ep, tp and pp rank)
+        plus the expert leaves' summed over the ep group, the tp-sharded
+        leaves' over the tp group and the stack leaves' over the pp group."""
         import torch.distributed as dist
 
         n = len(self._live)
-        kinds = [("ep" if k in self.ep_leaves else "tp" if k in self.tp_leaves else None)
-                 for k in self._live] + [None] * (len(params) - n)
+        kinds = [self._kind(k) for k in self._live] + [None] * (len(params) - n)
 
         def sumsq(kind):
             return optim_sumsq([p for p, x in zip(params, kinds) if x == kind],
@@ -283,7 +311,9 @@ class ClipDecayOptimizer:
         total = sumsq(None).square()
         for kind, group in (("ep", self.ep.ep_group if self.ep is not None else None),
                             ("tp", next(iter(self.tp_leaves.values()))[1].group
-                             if self.tp_leaves else None)):
+                             if self.tp_leaves else None),
+                            ("pp", next(iter(self.pp_leaves.values()))[1].group
+                             if self.pp_leaves else None)):
             if kind not in kinds:
                 continue
             sq = sumsq(kind).square()
@@ -303,9 +333,10 @@ class ClipDecayOptimizer:
                     x = self.zero.gather_moment(k, x, self.params[k])
                 if x is not None and k in self.ep_leaves:
                     x = self.ep.gather_experts(x, "ep/moments_allgather")
-                if x is not None and k in self.tp_leaves:
-                    axis, tpm = self.tp_leaves[k]
-                    x = tpm.gather(x, axis, "tp/moments_allgather")
+                split = self._split(k)
+                if x is not None and split is not None:
+                    axis, m, _, kind = split
+                    x = m.gather(x, axis, f"{kind}/moments_allgather")
                 out.append(None if x is None else x.detach().clone())
             return out
 
@@ -333,10 +364,11 @@ class ClipDecayOptimizer:
             if src is not None and k in self.ep_leaves and src.shape[0] == dst.shape[0] * self.ep.ep:
                 e = dst.shape[0]        # a full moment (the JAX layout): this rank's experts
                 src = src[self.ep.ep_rank * e:(self.ep.ep_rank + 1) * e]
-            if src is not None and k in self.tp_leaves:
-                axis, tpm = self.tp_leaves[k]
-                if src.shape[axis] == dst.shape[axis] * tpm.tp:     # a full moment: this rank's
-                    src = tpm.cut(src, axis)
+            split = self._split(k)
+            if src is not None and split is not None:
+                axis, m, size, _ = split
+                if src.shape[axis] == dst.shape[axis] * size:       # a full moment: this rank's
+                    src = m.cut(src, axis)
             if src is not None and self.zero is not None and k in self.zero.shards:
                 if tuple(src.shape) != tuple(self.params[k].shape):
                     raise ValueError(f"optimizer moment {tuple(src.shape)} != "

@@ -289,11 +289,9 @@ def test_mesh_validation_matches_jax():
         jax_make_mesh(dp=16)
     assert make_mesh(world_size=4) == Mesh(dp=4)
     assert make_mesh() == Mesh(dp=1)
-    with pytest.raises(ValueError, match="--pp 2 is not ported yet: it comes with "
-                                         "ROADMAP queue A item 6d"):
-        make_mesh(pp=2)
-    # tp and sp are ported: the JAX axis arithmetic, then (dp, tp, sp) over the ranks.
-    for flag in ("tp", "sp"):
+    # tp, sp and pp are ported: the JAX axis arithmetic, then (dp, pp, tp, sp)
+    # over the ranks.
+    for flag in ("tp", "sp", "pp"):
         with pytest.raises(ValueError, match=r"1 devices not divisible by pp\*ep\*tp\*sp=2"):
             make_mesh(**{flag: 2})
         assert make_mesh(world_size=8, **{flag: 2}) == Mesh(dp=4, **{flag: 2})

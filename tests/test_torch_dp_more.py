@@ -362,29 +362,31 @@ def test_still_refused_by_name_under_a_mesh(flags, msg, monkeypatch):
 
 
 def test_no_port_text_names_item_5():
-    """Data parallel is ported whole: the refusal texts name only what is
-    still deferred (item 6d), and no text of the port names item 5."""
+    """Data parallel is ported whole: no text of the port names item 5, and
+    the docs of the mesh, the rig and ``dp_mesh`` name the pp axis (the
+    last sharded executor, ported since) beside the others."""
     import pathlib
 
     root = pathlib.Path(cli.__file__).parent
     files = list(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
     hits = [str(p) for p in files if "item 5" in p.read_text() or "LATER_ITEMS" in p.read_text()]
     assert hits == []
-    assert "item 6d" in rig.__doc__ + cli.dp_mesh.__doc__ + mesh_mod.__doc__
+    for doc in (rig.__doc__, cli.dp_mesh.__doc__, mesh_mod.__doc__):
+        assert "pp" in doc and "item 6d" not in doc
 
 
 def test_no_port_text_refuses_ep_or_moe_under_dp():
     """MoE under dp and the expert-parallel executor are ported: no port
-    text refuses either, and item 6d's remaining list names pp only (tp
-    and sp are ported since)."""
+    text refuses either, and no flag is left deferred (tp, sp and pp are
+    ported since)."""
     import pathlib
 
-    from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE, SHARDED
+    from induction_network_on_fewrel_tpu_torch.models import build
 
     root = pathlib.Path(cli.__file__).parent
     files = list(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
     gone = ("--moe_experts under data parallel is refused", "--ep is not ported yet",
             "check_moe", "sp ring attention, pp, ep)")
     assert [(str(p), g) for p in files for g in gone if g in p.read_text()] == []
-    assert "--ep" not in cli.DEFERRED and "ep" not in LATER_SLICE
-    assert SHARDED.endswith("(the last sharded executor: pp, the GPipe schedule)")
+    assert "--ep" not in cli.DEFERRED and cli.DEFERRED == {}
+    assert not hasattr(build, "SHARDED")

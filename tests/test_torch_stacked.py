@@ -11,7 +11,8 @@
   JAX ``make_train_step``: losses rtol 2e-4, the final parameters atol
   1e-3.
 * Refused by name: the stacked layout with MoE (``build_model`` and the
-  CLI) and ``--pp 2``.
+  CLI) and ``--pp 2`` over layers that do not divide into its stages (the
+  JAX text; ``--pp`` runs since, ``tests/test_torch_pp.py``).
 """
 
 import torch_threads  # noqa: F401  (one CPU thread: tests/torch_threads.py)
@@ -164,9 +165,11 @@ def test_stacked_with_moe_refused_by_name(capsys):
 
 @pytest.mark.parametrize("mode", ["train", "test"])
 def test_pp_above_one_still_refused_by_name(capsys, mode):
+    """``--pp`` runs (``tests/test_torch_pp.py``); over layers that do not
+    divide into its stages it is refused with the JAX text."""
     with pytest.raises(SystemExit) as e:
         cli.main([mode, "--synthetic", "--device", "cpu", "--encoder", "transformer",
-                  "--tfm_stacked", "--pp", "2", "--load_ckpt", "unused"])
+                  "--tfm_stacked", "--tfm_layers", "3", "--pp", "2", "--load_ckpt", "unused"])
     assert e.value.code == 2
-    assert "--pp is not ported yet: it comes with ROADMAP queue A item 6d" in \
+    assert "--tfm_layers (3) must be divisible by --pp (2) pipeline stages" in \
         capsys.readouterr().err

@@ -557,7 +557,7 @@ def test_mesh_numbers_ranks_in_the_jax_axis_order():
     for d in range(2):
         for t in range(2):
             for s in range(2):
-                assert mesh_mod.mesh_index(int(grid[d, 0, 0, t, s]), 1, 2, 2) == (d, 0, t, s)
+                assert mesh_mod.mesh_index(int(grid[d, 0, 0, t, s]), 1, 2, 2) == (d, 0, 0, t, s)
 
 
 def test_sp_ranks_keep_their_token_columns_and_dp_keys_the_feed():
@@ -565,7 +565,7 @@ def test_sp_ranks_keep_their_token_columns_and_dp_keys_the_feed():
 
     jmesh = jax_make_mesh(dp=2, tp=2, sp=2)
     for r in range(8):
-        d, _, t, s = mesh_mod.mesh_index(r, 1, 2, 2)
+        d, _, _, t, s = mesh_mod.mesh_index(r, 1, 2, 2)
         m = mesh_mod.Mesh(dp=2, rank=d, tp=2, tp_rank=t, sp=2, sp_rank=s)
         assert hostfeed.local_episode_range(m, 8) == (4 * d, 4)
         assert hostfeed.local_token_columns(m, L) == (s * L // 2, L // 2)
@@ -594,8 +594,10 @@ def test_moe_routing_groups_straddle_the_sp_columns():
      "the layer-stacked (pipeline) transformer does not compose with MoE or ring attention"),
     (["--encoder", "transformer", "--moe_experts", "4", "--sp", "2"], SP_MOE),
     (["--encoder", "transformer", "--moe_experts", "4", "--ep", "2", "--tp", "2"], AXES_WITH_EP),
-    (["--pp", "2"], "--pp is not ported yet: it comes with ROADMAP queue A item 6d"),
-    (["--pp_microbatches", "2"], "--pp_microbatches is not ported yet"),
+    (["--pp", "2"], "--pp (pipeline parallelism) requires --encoder transformer (stages are "
+                    "transformer layers)"),
+    (["--encoder", "transformer", "--pp", "2", "--sp", "2"],
+     "the layer-stacked (pipeline) transformer does not compose with MoE or ring attention"),
 ])
 def test_refusals_that_remain_keep_their_texts(capsys, argv, text):
     with pytest.raises(SystemExit) as e:
@@ -647,13 +649,13 @@ def test_jax_raises_on_the_same_sizes():
 
 def test_no_port_text_refuses_tp_or_sp():
     """tp and sp are ported: no port text refuses either flag as unported,
-    and item 6d's remaining list names pp only."""
-    from induction_network_on_fewrel_tpu_torch.models.build import LATER_SLICE, SHARDED
+    and no flag is left deferred (pp is ported since)."""
+    from induction_network_on_fewrel_tpu_torch.models import build
 
     root = pathlib.Path(cli.__file__).parent
     files = list(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
     gone = ("--tp is not ported yet", "--sp is not ported yet", "tp, sp ring attention, pp",
             "--tp 2 is not ported", "--sp 2 is not ported")
     assert [(str(p), g) for p in files for g in gone if g in p.read_text()] == []
-    assert set(cli.DEFERRED) == {"--pp", "--pp_microbatches"}
-    assert set(LATER_SLICE) == {"pp"} and "pp" in SHARDED and "tp" not in SHARDED
+    assert cli.DEFERRED == {}
+    assert not hasattr(build, "LATER_SLICE") and not hasattr(build, "SHARDED")

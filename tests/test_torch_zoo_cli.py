@@ -119,16 +119,15 @@ def test_cli_runs_bert_and_pair(tmp_path, capsys, mode, argv):
 # (argv0, argv1), which now run (test_cli_runs_bert_and_pair). --moe_experts,
 # --moe_top_k and --tfm_stacked parse since they were ported: their cases now
 # hold the CLI's refusals of an MoE or stacked option the model would not
-# honor; --pp above 1 stays unported, and --ep and --sp above 1 (ported
-# since) are refused off the MoE transformer and off the transformer with
-# the JAX texts.
+# honor; --pp, --ep and --sp above 1 (ported since) are refused off the
+# transformer (--ep off the MoE transformer) with the JAX texts.
 @pytest.mark.parametrize("argv,named,why", [
     pytest.param(argv, named, why, id=f"argv{i}-{named}") for i, (argv, named, why) in enumerate([
         (["--moe_experts", "4"], "--moe_experts", "requires --encoder transformer"),
         (["--encoder", "transformer", "--moe_experts", "4", "--moe_top_k", "0"], "--moe_top_k",
          "must be >= 1"),
         (["--sp", "2"], "--sp", "(ring attention) requires --encoder transformer"),
-        (["--pp", "2"], "--pp", "is not ported yet"),
+        (["--pp", "2"], "--pp", "(pipeline parallelism) requires --encoder transformer"),
         (["--ep", "2"], "--ep", "(expert parallelism) requires --encoder transformer"),
         (["--tfm_stacked"], "--tfm_stacked", "requires --encoder transformer"),
     ], start=2)
